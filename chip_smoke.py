@@ -7,21 +7,37 @@ Run from the root of the repository, on a machine with a CUDA card:
 
 Phases (each prints a line; any failure raises and exits non-zero):
   1. device: the card's name and power limit (nvidia-smi) and torch's view;
-  2. build: nvcc builds csrc/*.cu for sm_90a; build time and ptxas report;
+  2. build: nvcc builds csrc/*.cu for sm_90a, one process per source, all
+     at once; build time and ptxas report;
   3. exact: each kernel against its plain PyTorch version on the card, on
-     seeded adversarial inputs (hashes >= 2^63, in-chunk duplicates, 7- and
-     101-block tables driven past 255, zero-padded tails, chunk sequences);
-  4. config 1: the port's CLI (load-into-counting, blocked layout, k=20,
-     4 x 5e7 bytes) on data/25k.fq.gz, then the abundance histogram;
-     the results must equal the JAX package's, and both kernels must have
-     launched on this path;
-  5. scale: the 25k stream replayed 50 times through kernel and plain
-     version, on the config-1 table and the largest the layout allows
-     (2.1 GB); tables compared exactly, k-mers/s of each.
-It prints a JSON line of per-kernel results, then, last, the contract line
-{"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
+     seeded adversarial inputs (hashes >= 2^63, in-chunk duplicates,
+     cross-hash bin collisions on tiny tables, counts driven past 255 and
+     into bigcount, zero-padded tails with real zeros inside nvalid, chunk
+     sequences, out-of-range histogram indices, the pallas_proto script's
+     correctness case);
+  4. config 1, blocked: the port's load-into-counting (--tpu-layout
+     blocked, k=20, 4 x 5e7 bytes) on data/25k.fq.gz, then the abundance
+     histogram; results must equal the JAX package's and the blocked
+     kernels must have launched on this path;
+  4b. config 1, exact (the default layout): load-into-counting, then
+     abundance-dist on the .ct; every known JAX answer is asserted and the
+     byte update, byte gather and histogram kernels must have launched on
+     this path; consume k-mers/s on the record and native-parser paths;
+  5. scale, blocked: the 25k stream replayed 50 times through kernel and
+     plain version on the config-1 table and the largest the layout
+     allows (2.1 GB); tables compared exactly, k-mers/s of each;
+  5b. scale, exact: the same replay through the byte update and its plain
+     version on the config-1 tables and on -x 1e9 -N 4 (4 GB of tables);
+  6. microbenchmarks: the ports of scripts/pallas_proto.py (the decoded-
+     event update against its plain version and against the blocked
+     update) and scripts/profile_scatter2.py (the histogram against its
+     plain version and torch.bincount).
+It prints the card's name and power limit, a JSON line of per-kernel
+results, then, last, the contract line {"ok": true, "device": {...}}.
+Without a CUDA device it exits 1 at once.
 """
 
+import csv
 import hashlib
 import json
 import os
@@ -34,6 +50,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(REPO, "data", "25k.fq.gz")
 K = 20
 REPLAY = 50
+
+# H100 SXM peaks (on-chip-measurement guide): HBM3 bytes/s, and the
+# float32 rate outside the tensor cores, used here for the kernels'
+# 32-bit integer work (one operation per counter touched).
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
 
 # Config 1 through the JAX package (khmer_tpu, CPU):
 # BlockedCountgraph(20, 5e7, 4) over data/25k.fq.gz, and its histogram
@@ -53,6 +75,31 @@ EXPECT = {
                   (8, 3), (9, 3)],
 }
 
+# Config 1 in the exact layout through the JAX package (khmer_tpu, CPU):
+# load-into-counting -k 20 -x 5e7 -N 4 (the default layout, bigcount on)
+# on data/25k.fq.gz, then abundance-dist on that .ct.
+EXPECT_EXACT = {
+    "primes": [49999991, 49999921, 49999903, 49999897],
+    "n_reads": 25000,
+    "n_kmers": 1248896,
+    "n_unique": 1246182,
+    "n_occupied": 1230788,
+    "n_bigcounts": 0,
+    "ct_bytes": 199999772,
+    "ct_sha256": "b91ca4331fe04c323944fe3106ae8a0c"
+                 "13ff0917dc435aeab156f0fb72313cb5",
+    "info_lines": ["Total number of unique k-mers: 1246182",
+                   "fp rate estimated to be 0.000"],
+    "hist_sum": 1246182,
+    "hist_nonzero": 22,
+    "hist_head": [(1, 1244118), (2, 1992), (3, 28), (4, 5), (5, 1), (6, 2),
+                  (8, 3), (9, 3), (11, 1), (12, 2), (14, 1), (15, 1)],
+    "csv_bytes": 530,
+    "csv_sha256": "198e0429f6b78b9b12cf9751e196c593"
+                  "6097fbba9947fb04e8166a5fb32fea3d",
+}
+SCALE_X = 1e9  # phase 5b's large tables: -x 1e9 -N 4
+
 
 class SmokeFailure(AssertionError):
     pass
@@ -67,6 +114,17 @@ def say(*parts):
     print(*parts, flush=True)
 
 
+def bound(nbytes, nops):
+    """(least ms the card could take, "bytes" or "operations"): the
+    larger of the bytes over the memory rate and the operations over the
+    peak rate."""
+    by_bytes = nbytes / PEAK_BYTES_S * 1e3
+    by_ops = nops / PEAK_OPS_S * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes"
+    return by_ops, "operations"
+
+
 def main():
     import torch
 
@@ -78,6 +136,7 @@ def main():
     import numpy as np
 
     from khmer_tpu_torch.core import blocked as B
+    from khmer_tpu_torch.core import sketch_kernels as SK
     from khmer_tpu_torch.ops import cuda
 
     dev = torch.device("cuda", 0)
@@ -106,38 +165,78 @@ def main():
         % (seconds, os.path.relpath(cuda.LIB_PATH, REPO)))
 
     # -- phase 3: kernels vs plain versions, exact -------------------------
-    errs = {"blocked_update": 0, "blocked_gather": 0}
+    errs = {name: 0 for name in ("blocked_update", "blocked_gather",
+                                 "byte_update", "byte_gather",
+                                 "histogram_add", "proto_rmw")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
         run_exact_case(torch, np, B, dev, name, nb, chunks, errs)
-    say("phase 3 exact: kernel == plain on %d cases (table bytes, flags, "
-        "n_unique, counts)" % len(cases))
+    byte_cases = byte_adversarial_cases(np)
+    for name, primes, chunks in byte_cases:
+        run_byte_case(torch, np, SK, dev, name, primes, chunks, errs)
+    n_hist = run_histogram_cases(torch, np, SK, dev, errs)
+    n_proto = run_proto_cases(torch, np, B, dev, errs)
+    say("phase 3 exact: kernel == plain on %d blocked, %d byte, %d "
+        "histogram and %d decoded-event cases (tables, flags, n_unique, "
+        "bigcount reports, counts)"
+        % (len(cases), len(byte_cases), n_hist, n_proto))
 
-    # -- phase 4: config 1 through the port's entry points -----------------
+    # -- phase 4: config 1, blocked, through the port's entry points -------
     launches = run_config1(torch, B, dev)
 
-    # -- phase 5: scale ----------------------------------------------------
-    timings = run_scale(torch, np, B, dev, card, errs)
+    # -- phase 4b: config 1, exact layout, through the CLIs ---------------
+    exact_launches, exact_timings = run_config1_exact(torch, np, SK, dev,
+                                                      card, errs)
+    launches.update(exact_launches)
 
-    kernels = [
-        {"name": "blocked_update", "route": "cuda",
-         "source": "khmer_tpu_torch/csrc/blocked_update.cu",
-         "replaces": "khmer_tpu/ops/pallas_blocked.py:63",
-         "launches": launches["blocked_update"],
-         "max_abs_err": errs["blocked_update"],
-         "ms": timings["update_ms"], "plain_ms": timings["update_plain_ms"]},
-        {"name": "blocked_gather", "route": "cuda",
-         "source": "khmer_tpu_torch/csrc/blocked_gather.cu",
-         "replaces": "khmer_tpu/core/blocked.py:158",
-         "launches": launches["blocked_gather"],
-         "max_abs_err": errs["blocked_gather"],
-         "ms": timings["gather_ms"], "plain_ms": timings["gather_plain_ms"]},
-    ]
+    # -- phase 5: scale, blocked -------------------------------------------
+    one = stream_hashes(np)
+    timings = run_scale(torch, np, B, dev, card, errs, one)
+
+    # -- phase 5b: scale, exact layout -------------------------------------
+    timings.update(exact_timings)
+    timings.update(run_scale_exact(torch, np, SK, dev, card, errs, one))
+
+    # -- phase 6: microbenchmarks -------------------------------------------
+    timings.update(run_microbench(B, card, launches, errs))
+
+    kernels = []
+    for name, source, replaces in (
+            ("blocked_update", "blocked_update.cu",
+             "khmer_tpu/ops/pallas_blocked.py:63"),
+            ("blocked_gather", "blocked_gather.cu",
+             "khmer_tpu/core/blocked.py:158"),
+            ("byte_update", "byte_update.cu",
+             "khmer_tpu/core/sketch_kernels.py:496"),
+            ("byte_gather", "byte_gather.cu",
+             "khmer_tpu/core/sketch_kernels.py:649"),
+            ("histogram_add", "histogram.cu",
+             "scripts/profile_scatter2.py:59"),
+            ("proto_rmw", "proto_rmw.cu", "scripts/pallas_proto.py:44")):
+        t = timings[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "khmer_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms")})
+    for k in kernels:
+        expect(k["max_abs_err"] == 0, "%s differs from its plain version"
+               % k["name"])
+        expect(k["launches"] > 0, "%s never launched on its path"
+               % k["name"])
+    say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 3: adversarial cases
+# ---------------------------------------------------------------------------
 
 
 def adversarial_cases(np):
@@ -209,9 +308,177 @@ def run_exact_case(torch, np, B, dev, name, nb, chunks, errs):
         % (name, nb, len(chunks), int(nu_k), int(tab_k.max())))
 
 
+def byte_adversarial_cases(np):
+    """(name, primes, [(hashes u64 [M], nvalid), ...]) from fixed seeds."""
+    rng = np.random.default_rng(20261017)
+    M = 4096
+
+    def full(n):
+        return rng.integers(0, 2**64, n, dtype=np.uint64)
+
+    four = (1009, 1013, 1019, 1021)
+    high = full(M) | np.uint64(1 << 63)
+    pool = full(300)
+    dup = pool[rng.integers(0, 300, M)]
+    tiny = [(full(30000), 30000) for _ in range(3)]
+    pool50 = full(50)
+    big = [(pool50[rng.integers(0, 50, 20000)], 20000) for _ in range(4)]
+    pad = full(M)
+    pad[:7] = 0  # hash 0 is the all-A k-mer: a real event inside nvalid
+    pad[3000:] = 0
+    seq = [(full(65536), 65536 - 1000 * i) for i in range(4)]
+    for h, nvalid in seq:
+        h[nvalid:] = 0
+    return [
+        ("hashes>=2^63", four, [(high, M)]),
+        ("duplicates", four, [(dup, M), (dup[::-1].copy(), M)]),
+        ("bin-collisions-7-11-13", (7, 11, 13), tiny),
+        ("bigcount-triggers", (10007, 10009, 10037, 10039), big),
+        ("zero-padded-tail", four, [(pad, 3000)]),
+        ("chunk-sequence", (999983, 999979, 999961, 999959), seq),
+    ]
+
+
+def _fold(bigcounts, triggers, max_kcount=255, max_bigcount=65535):
+    """Sketch._bigcount_add over a {hash: triggers} dict."""
+    for h, t in triggers.items():
+        b = bigcounts.get(h, 0)
+        bigcounts[h] = min(max(b, max_kcount) + t, max_bigcount)
+
+
+def _report_triggers(np, SK, report):
+    """{hash: triggers} of an update's bigcount report (kernel or plain:
+    its first n_cand entries)."""
+    cand_hash, cand_old, n_cand = report
+    n = int(n_cand[0])
+    return SK.bigcount_triggers(cand_hash[:n].cpu().numpy().view(np.uint64),
+                                cand_old[:n].cpu().numpy())
+
+
+def run_byte_case(torch, np, SK, dev, name, primes, chunks, errs):
+    flat_k = torch.zeros(SK.byte_flat_size(primes), dtype=torch.uint8,
+                         device=dev)
+    flat_p = flat_k.clone()
+    nu_k = torch.zeros(1, dtype=torch.int64, device=dev)
+    nu_p = nu_k.clone()
+    winner = torch.full(flat_k.shape, SK.IDX_FILL, dtype=torch.int32,
+                        device=dev)
+    big_k, big_p = {}, {}
+    seen = []
+    for h, nvalid in chunks:
+        hd = _dev_hashes(torch, np, h, dev)
+        rk = SK.byte_update_cuda(primes, flat_k, nu_k, hd, nvalid, winner,
+                                 with_bigcount=True)
+        rp = SK.byte_update_plain(primes, flat_p, nu_p, hd, nvalid,
+                                  with_bigcount=True)
+        _fold(big_k, _report_triggers(np, SK, rk))
+        _fold(big_p, _report_triggers(np, SK, rp))
+        diff = int((flat_k.int() - flat_p.int()).abs().max())
+        errs["byte_update"] = max(errs["byte_update"], diff,
+                                  abs(int(nu_k) - int(nu_p)),
+                                  0 if big_k == big_p else 1)
+        expect(diff == 0 and int(nu_k) == int(nu_p) and big_k == big_p,
+               "byte_update != plain on case %s" % name)
+        expect(bool((winner == SK.IDX_FILL).all()),
+               "winner image not reset on case %s" % name)
+        seen.append(h[:nvalid])
+    q = _dev_hashes(torch, np, np.concatenate(
+        seen + [np.random.default_rng(len(primes)).integers(
+            0, 2**64, 1000, dtype=np.uint64)]), dev)
+    d = int((SK.byte_gather_cuda(primes, flat_k, q)
+             - SK.byte_gather_plain(primes, flat_p, q)).abs().max())
+    errs["byte_gather"] = max(errs["byte_gather"], d)
+    expect(d == 0, "byte_gather != plain on case %s" % name)
+    say("  byte case %-22s primes %s, %d chunk(s): n_unique %d, max count "
+        "%d, bigcount entries %d"
+        % (name, list(primes), len(chunks), int(nu_k), int(flat_k.max()),
+           len(big_k)))
+
+
+def run_histogram_cases(torch, np, SK, dev, errs):
+    rng = np.random.default_rng(20261018)
+    shapes = [(1 << 21, 1 << 17), (600000, SK.MAX_BIGCOUNT + 2), (5000, 3)]
+    for m, nbins in shapes:
+        idx = rng.integers(-5, nbins + 5, m)    # out-of-range both sides
+        idx[: m // 2] = rng.integers(0, 4, m // 2)        # hot bins
+        idx[m // 2: m // 2 + 1000] = nbins - 1  # the top bin, in global
+        idx_d = torch.from_numpy(idx).to(dev)
+        start = torch.from_numpy(rng.integers(0, 9, nbins)).to(dev)
+        got = SK.histogram_add_cuda(start.clone(), idx_d)
+        want = SK.histogram_add_plain(start.clone(), idx_d)
+        d = int((got - want).abs().max())
+        errs["histogram_add"] = max(errs["histogram_add"], d)
+        expect(d == 0, "histogram_add != plain at %d x %d" % (m, nbins))
+    return len(shapes)
+
+
+def run_proto_cases(torch, np, B, dev, errs):
+    from khmer_tpu_torch.scripts import pallas_proto
+
+    rng = np.random.default_rng(20261019)
+    bids, offs, table = pallas_proto.correctness_case(
+        np.random.default_rng(0))
+    cases = [("script-correctness", bids, pallas_proto.pack_offs(offs),
+              table, 3)]
+    # repeated lanes (a set), invalid and out-of-table ids, saturation
+    nb = 5
+    bids, offs = pallas_proto.timing_events(rng, nb, 4000)
+    bids[::7] = -1
+    bids[::11] = nb + 3
+    offs[::13] = pallas_proto.pack_offs(np.asarray([[5, 5, 40, 40]],
+                                                   np.int32))[0]
+    cases.append(("repeats-invalid-saturate", bids, offs,
+                  np.zeros((nb, B.LANES), np.uint8), 2))
+    for name, bids, offs, table, passes in cases:
+        bids_d = torch.from_numpy(bids).to(dev)
+        offs_d = torch.from_numpy(offs).to(dev)
+        tab_k = torch.from_numpy(table).to(dev)
+        tab_p = tab_k.clone()
+        winner = torch.full((tab_k.numel(),), B.IDX_FILL, dtype=torch.int32,
+                            device=dev)
+        for _ in range(passes):
+            nk = int(B.proto_rmw_cuda(bids_d, offs_d, tab_k, winner))
+            np_ = int(B.proto_rmw_plain(bids_d, offs_d, tab_p))
+            d = max(int((tab_k.int() - tab_p.int()).abs().max()),
+                    abs(nk - np_))
+            errs["proto_rmw"] = max(errs["proto_rmw"], d)
+            expect(d == 0 and bool((winner == B.IDX_FILL).all()),
+                   "proto_rmw != plain on case %s" % name)
+        say("  proto case %-26s %d events x %d passes: nnew (last) %d, "
+            "max count %d" % (name, len(bids), passes, nk,
+                              int(tab_k.max())))
+    return len(cases)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: config 1 through the CLIs
+# ---------------------------------------------------------------------------
+
+
+def _consume_rates(torch, make, expect_counts, label):
+    """Time consume_seqfile of the 25k file on the record path (the CLI's)
+    and the native-parser path, in turns."""
+    from khmer_tpu_torch.io.fastx import FastxParser
+
+    for path in ("record", "native", "native", "record"):
+        g = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_reads, n_kmers = g.consume_seqfile(
+            FastxParser(DATA) if path == "record" else DATA)
+        n_unique = g.n_unique_kmers()  # the one host sync of the stream
+        s = time.perf_counter() - t0
+        expect((n_reads, n_kmers, n_unique) == expect_counts,
+               "%s consume_seqfile on the %s path" % (label, path))
+        say("  config 1 %s consume, %s path: %.6f s = %.6g k-mers/s"
+            % (label, path, s, n_kmers / s))
+        del g
+        torch.cuda.empty_cache()
+
+
 def run_config1(torch, B, dev):
-    """Config 1 through the CLI and the histogram API, in this process so
-    the kernels' launch counters see it. Returns the counts."""
+    """Config 1 (blocked) through the CLI and the histogram API, in this
+    process so the kernels' launch counters see it. Returns the counts."""
     from khmer_tpu_torch import Nodegraph
     from khmer_tpu_torch.cli import load_into_counting
 
@@ -241,9 +508,9 @@ def run_config1(torch, B, dev):
     n_unique = int(info.split("Total number of unique k-mers:")[1].split()[0])
     sha = hashlib.sha256(blob).hexdigest()
     nonzero = [(i, c) for i, c in enumerate(hist) if c]
-    say("phase 4 config 1: CLI %.2f s, histogram %.2f s; nblocks %d, "
-        "n_unique %d, n_occupied %d, .ct %d B sha256 %s; histogram sum %d, "
-        "%d bins, head %s; launches %s"
+    say("phase 4 config 1, blocked: CLI %.2f s, histogram %.2f s; nblocks "
+        "%d, n_unique %d, n_occupied %d, .ct %d B sha256 %s; histogram sum "
+        "%d, %d bins, head %s; launches %s"
         % (cli_s, hist_s, cg.nblocks, n_unique, cg.n_occupied(), len(blob),
            sha, sum(hist), len(nonzero), nonzero[:8], launches))
     expect(cg.nblocks == EXPECT["nblocks"], "nblocks")
@@ -257,25 +524,176 @@ def run_config1(torch, B, dev):
     for name, n in launches.items():
         expect(n > 0, "%s never launched on the config-1 path" % name)
 
-    # end-to-end consume rate (parse + host hash + upload + update), on
-    # the CLI's record path and the native-parser path, in turns
-    from khmer_tpu_torch.io.fastx import FastxParser
-
-    for path in ("record", "native", "native", "record"):
-        g = B.BlockedCountgraph(K, 5e7, 4, device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n_reads, n_kmers = g.consume_seqfile(
-            FastxParser(DATA) if path == "record" else DATA)
-        n_unique = g.n_unique_kmers()  # the one host sync of the stream
-        s = time.perf_counter() - t0
-        expect((n_reads, n_kmers, n_unique) == (
-            EXPECT["n_reads"], EXPECT["n_kmers"], EXPECT["n_unique"]),
-            "consume_seqfile on the %s path" % path)
-        say("  config 1 consume, %s path: %.6f s = %.6g k-mers/s"
-            % (path, s, n_kmers / s))
-        del g
+    _consume_rates(torch, lambda: B.BlockedCountgraph(K, 5e7, 4, device=dev),
+                   (EXPECT["n_reads"], EXPECT["n_kmers"], EXPECT["n_unique"]),
+                   "blocked")
     return launches
+
+
+def run_config1_exact(torch, np, SK, dev, card, errs):
+    """Config 1 in the exact layout through the port's load-into-counting
+    and abundance-dist, in this process so the kernels' launch counters
+    see it; the known JAX answers asserted. Then the byte gather and the
+    histogram kernels timed on one real abundance batch. Returns the
+    launch counts and those times."""
+    from khmer_tpu_torch import Countgraph, load_countgraph
+    from khmer_tpu_torch.cli import abundance_dist, load_into_counting
+
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        ct = os.path.join(tmp, "out.ct")
+        hist_csv = os.path.join(tmp, "out.hist")
+        SK.byte_update_cuda.launches = 0
+        SK.byte_gather_cuda.launches = 0
+        SK.histogram_add_cuda.launches = 0
+        t0 = time.perf_counter()
+        load_into_counting.main(
+            ["-q", "-k", str(K), "-x", "5e7", "-N", "4", "--device", "cuda",
+             ct, DATA])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        abundance_dist.main(["-q", "--device", "cuda", ct, DATA, hist_csv])
+        torch.cuda.synchronize()
+        hist_s = time.perf_counter() - t0
+        launches = {"byte_update": SK.byte_update_cuda.launches,
+                    "byte_gather": SK.byte_gather_cuda.launches,
+                    "histogram_add": SK.histogram_add_cuda.launches}
+        with open(ct, "rb") as f:
+            blob = f.read()
+        with open(ct + ".info") as f:
+            info = f.read()
+        with open(hist_csv, "rb") as f:
+            csv_blob = f.read()
+        cg = load_countgraph(ct, device=dev)
+
+    rows = list(csv.reader(csv_blob.decode().splitlines()))[1:]
+    hist = [int(r[1]) for r in rows]
+    nonzero = [(i, c) for i, c in enumerate(hist) if c]
+    n_unique = int(info.split("Total number of unique k-mers:")[1].split()[0])
+    sha = hashlib.sha256(blob).hexdigest()
+    csv_sha = hashlib.sha256(csv_blob).hexdigest()
+    say("phase 4b config 1, exact: load-into-counting %.2f s, abundance-dist "
+        "%.2f s; primes %s, n_unique %d, n_occupied %d, bigcount entries %d, "
+        ".ct %d B sha256 %s; histogram sum %d, %d bins, head %s; CSV %d B "
+        "sha256 %s; launches %s"
+        % (cli_s, hist_s, cg.hashsizes(), n_unique, cg.n_occupied(),
+           len(cg._bigcounts), len(blob), sha, sum(hist), len(nonzero),
+           nonzero[:12], len(csv_blob), csv_sha, launches))
+    E = EXPECT_EXACT
+    expect(cg.hashsizes() == E["primes"], "exact primes")
+    expect(n_unique == E["n_unique"], "exact n_unique")
+    expect(cg.n_occupied() == E["n_occupied"], "exact n_occupied")
+    expect(len(cg._bigcounts) == E["n_bigcounts"], "exact bigcount entries")
+    expect(cg.get_use_bigcount(), "exact .ct has bigcount on")
+    expect(len(blob) == E["ct_bytes"], "exact .ct size")
+    expect(sha == E["ct_sha256"], "exact .ct sha256")
+    for line in E["info_lines"]:
+        expect(line in info.splitlines(), "exact .info: %s" % line)
+    expect(sum(hist) == E["hist_sum"], "exact histogram sum")
+    expect(len(nonzero) == E["hist_nonzero"], "exact histogram bins")
+    expect(nonzero[:12] == E["hist_head"], "exact histogram head")
+    expect(len(csv_blob) == E["csv_bytes"], "histogram CSV size")
+    expect(csv_sha == E["csv_sha256"], "histogram CSV sha256")
+    for name, n in launches.items():
+        expect(n > 0, "%s never launched on the exact config-1 path" % name)
+
+    def make():
+        g = Countgraph(K, 5e7, 4, device=dev)
+        g.set_use_bigcount(True)
+        return g
+
+    _consume_rates(torch, make,
+                   (E["n_reads"], E["n_kmers"], E["n_unique"]), "exact")
+    timings = time_abundance_batch(torch, np, SK, dev, cg, card, errs)
+    del cg
+    torch.cuda.empty_cache()
+    return launches, timings
+
+
+def time_abundance_batch(torch, np, SK, dev, cg, card, errs):
+    """The first batch of abundance-dist's histogram step on the config-1
+    .ct, rebuilt from the port's pieces (sketch_kernels.make_abund_dist):
+    the byte gather over its unique hashes and the histogram of its
+    indices, each kernel against its plain version (and the histogram
+    against torch.bincount), at the shapes the main path gives them."""
+    from khmer_tpu_torch import Nodegraph
+    from khmer_tpu_torch.core.pipeline import Batcher, hash_batch
+    from khmer_tpu_torch.io.fastx import FastxParser
+    from khmer_tpu_torch.ops.u64 import umod
+    from khmer_tpu_torch.scripts import cuda_ms
+
+    batcher = Batcher(K)
+    batch = None
+    for rec in FastxParser(DATA):
+        batch = batcher.add(rec.cleaned_seq)
+        if batch is not None:
+            break
+    codes, lengths = batch
+    hashes, valid = hash_batch(torch.from_numpy(codes).to(dev),
+                               torch.from_numpy(lengths).to(dev), K)
+    tracking = Nodegraph(K, 1, 1, primes=cg.hashsizes(), device=dev)
+    d = SK._dedup_batch(hashes.reshape(-1), valid.reshape(-1))
+    counted = d["uvalid"] & SK._apply_update("bit", tracking._primes,
+                                             tracking.tables, d)
+    uh = d["uh"]
+    primes, flat = cg._primes, cg.tables.flat
+    counts = SK.byte_gather_cuda(primes, flat, uh)
+    d_b = int((counts - SK.byte_gather_plain(primes, flat, uh)).abs().max())
+    errs["byte_gather"] = max(errs["byte_gather"], d_b)
+    expect(d_b == 0, "byte_gather != plain on the abundance batch")
+    counts = counts.to(torch.int64)
+    is_sat = counted & (counts == SK.MAX_KCOUNT)
+    idx = torch.where(counted & ~is_sat, counts, SK.MAX_BIGCOUNT + 1)
+    nbins = SK.MAX_BIGCOUNT + 2
+    got = SK.histogram_add_cuda(
+        torch.zeros(nbins, dtype=torch.int64, device=dev), idx)
+    lib = torch.bincount(idx, minlength=nbins)
+    d_c = max(int((got - SK.histogram_add_plain(
+        torch.zeros(nbins, dtype=torch.int64, device=dev), idx)).abs().max()),
+        int((got - lib).abs().max()))
+    errs["histogram_add"] = max(errs["histogram_add"], d_c)
+    expect(d_c == 0, "histogram_add != plain on the abundance batch")
+
+    # the histogram timings accumulate into one output each
+    reps = 50
+    acc_k, acc_p = got.clone(), got.clone()
+    t = {
+        "gather": cuda_ms(lambda: SK.byte_gather_cuda(primes, flat, uh),
+                          reps),
+        "gather_plain": cuda_ms(lambda: SK.byte_gather_plain(primes, flat,
+                                                             uh), reps),
+        "hist": cuda_ms(lambda: SK.histogram_add_cuda(acc_k, idx), reps),
+        "hist_plain": cuda_ms(lambda: SK.histogram_add_plain(acc_p, idx),
+                              reps),
+        "hist_library": cuda_ms(lambda: torch.bincount(idx, minlength=nbins),
+                                reps),
+    }
+    expect(torch.equal(acc_k, acc_p), "histogram_add != plain, accumulated")
+    n = uh.shape[0]
+    touched = sum(int(torch.unique(umod(uh, p)).numel()) for p in primes)
+    g_bound = bound(8 * n + 4 * n + touched, n * len(primes))
+    h_bound = bound(8 * n + 16 * int((lib != 0).sum()), n)
+    say("  abundance batch: %d x %d windows, %d unique-hash slots, %d "
+        "counted; byte_gather kernel %.4f ms, plain %.4f ms, bound %.4f ms "
+        "(%s); histogram_add into %d bins kernel %.4f ms, plain %.4f ms, "
+        "torch.bincount %.4f ms, bound %.4f ms (%s); on %s"
+        % (codes.shape[0], hashes.shape[1], n, int(counted.sum()),
+           t["gather"], t["gather_plain"], g_bound[0], g_bound[1], nbins,
+           t["hist"], t["hist_plain"], t["hist_library"], h_bound[0],
+           h_bound[1], card))
+    return {
+        "byte_gather": {"ms": t["gather"], "plain_ms": t["gather_plain"],
+                        "bound_ms": g_bound[0], "bound_by": g_bound[1]},
+        "histogram_add": {"ms": t["hist"], "plain_ms": t["hist_plain"],
+                          "library_ms": t["hist_library"],
+                          "bound_ms": h_bound[0], "bound_by": h_bound[1]},
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 5: scale
+# ---------------------------------------------------------------------------
 
 
 def stream_hashes(np):
@@ -283,6 +701,7 @@ def stream_hashes(np):
     from khmer_tpu_torch.core.pipeline import DenseHasher
     from khmer_tpu_torch.io.fastx import FastxParser
 
+    t0 = time.perf_counter()
     hasher = DenseHasher(K, "twobit")
     parts = []
     for rec in FastxParser(DATA):
@@ -290,7 +709,26 @@ def stream_hashes(np):
         if len(seq) >= K:
             parts.extend(h[:n].copy() for h, n in hasher.add(seq))
     parts.extend(h[:n].copy() for h, n in hasher.flush())
-    return np.concatenate(parts)
+    one = np.concatenate(parts)
+    say("  host parse + hash of the 25k stream (record path): %.6f s"
+        % (time.perf_counter() - t0))
+    expect(len(one) == EXPECT["n_kmers"], "k-mers in the 25k stream")
+    return one
+
+
+def replay_chunks(torch, np, dev, one):
+    """The stream REPLAY times over, as DENSE_CHUNK-hash chunks on the
+    card: [(hashes, nvalid)], the tail zero-padded."""
+    from khmer_tpu_torch.core.pipeline import DENSE_CHUNK
+
+    total = len(one) * REPLAY
+    nchunks = -(-total // DENSE_CHUNK)
+    stream = torch.zeros(nchunks * DENSE_CHUNK, dtype=torch.int64,
+                         device=dev)
+    stream[:total] = _dev_hashes(torch, np, one, dev).repeat(REPLAY)
+    return [(stream[i * DENSE_CHUNK:(i + 1) * DENSE_CHUNK],
+             min(DENSE_CHUNK, total - i * DENSE_CHUNK))
+            for i in range(nchunks)], total
 
 
 def _timed(torch, fn):
@@ -304,26 +742,15 @@ def _timed(torch, fn):
     return start.elapsed_time(stop)
 
 
-def run_scale(torch, np, B, dev, card, errs):
+def run_scale(torch, np, B, dev, card, errs, one):
     """Replay the stream REPLAY times in 2^20-hash chunks through the
     kernel and the plain version, on the config-1 and the largest table;
     compare the final states exactly. Returns the config-1 kernel times."""
-    from khmer_tpu_torch.core.pipeline import DENSE_CHUNK
     from khmer_tpu_torch.core.sketch_kernels import get_n_primes_near_x
+    from khmer_tpu_torch.ops.u64 import umod
 
-    t0 = time.perf_counter()
-    one = stream_hashes(np)
-    say("  host parse + hash of the 25k stream (record path): %.6f s"
-        % (time.perf_counter() - t0))
-    expect(len(one) == EXPECT["n_kmers"], "k-mers in the 25k stream")
-    total = len(one) * REPLAY
-    nchunks = -(-total // DENSE_CHUNK)
-    stream = torch.zeros(nchunks * DENSE_CHUNK, dtype=torch.int64,
-                         device=dev)
-    stream[:total] = _dev_hashes(torch, np, one, dev).repeat(REPLAY)
-    chunks = [(stream[i * DENSE_CHUNK:(i + 1) * DENSE_CHUNK],
-               min(DENSE_CHUNK, total - i * DENSE_CHUNK))
-              for i in range(nchunks)]
+    chunks, total = replay_chunks(torch, np, dev, one)
+    nchunks = len(chunks)
     max_nb = get_n_primes_near_x(1, B.MAX_BLOCKS + 1)[0]
     out = {}
     for label, nb in (("config-1", EXPECT["nblocks"]), ("max", max_nb)):
@@ -379,17 +806,151 @@ def run_scale(torch, np, B, dev, card, errs):
             "%d; n_unique %d; update kernel %.3f ms/chunk = %.4g k-mers/s, "
             "plain %.3f ms/chunk = %.4g k-mers/s; gather of %d hashes "
             "kernel %.4f ms, plain %.4f ms; on %s"
-            % (label, nb, nb * B.LANES / 1e9, total, nchunks, DENSE_CHUNK,
-               nuk, ms["kernel"] / nchunks, total / ms["kernel"] * 1e3,
-               ms["plain"] / nchunks, total / ms["plain"] * 1e3,
-               DENSE_CHUNK, g_ms, gp_ms, card))
+            % (label, nb, nb * B.LANES / 1e9, total, nchunks,
+               gq.shape[0], nuk, ms["kernel"] / nchunks,
+               total / ms["kernel"] * 1e3, ms["plain"] / nchunks,
+               total / ms["plain"] * 1e3, gq.shape[0], g_ms, gp_ms, card))
         if label == "config-1":
-            out = {"update_ms": ms["kernel"] / nchunks,
-                   "update_plain_ms": ms["plain"] / nchunks,
-                   "gather_ms": g_ms, "gather_plain_ms": gp_ms}
+            # least traffic: 8 B per hash, one read and one write of each
+            # distinct counter a chunk touches (reads only for the gather)
+            def lanes(h):
+                return torch.unique(B._lane_index(umod(h, nb),
+                                                  B._offsets(h))).numel()
+            u_bytes = sum(8 * n + 2 * lanes(h[:n]) for h, n in chunks)
+            u_bound = bound(u_bytes / nchunks, total * B.SUB / nchunks)
+            n = gq.shape[0]
+            g_bound = bound(12 * n + lanes(gq), n * B.SUB)
+            out = {"blocked_update": {
+                "ms": ms["kernel"] / nchunks,
+                "plain_ms": ms["plain"] / nchunks,
+                "bound_ms": u_bound[0], "bound_by": u_bound[1]},
+                "blocked_gather": {
+                "ms": g_ms, "plain_ms": gp_ms,
+                "bound_ms": g_bound[0], "bound_by": g_bound[1]}}
         del tabs, tk, tp
         torch.cuda.empty_cache()
     return out
+
+
+def run_scale_exact(torch, np, SK, dev, card, errs, one):
+    """Replay the stream REPLAY times through the byte update (bigcount
+    on, as the CLI runs it) and its plain version, on the config-1 tables
+    and on -x 1e9 -N 4; compare tables, n_unique and bigcount maps
+    exactly. The kernel's timed run keeps its reports on the card and
+    folds them afterwards. Returns the config-1 times."""
+    from khmer_tpu_torch.ops.u64 import umod
+
+    chunks, total = replay_chunks(torch, np, dev, one)
+    nchunks = len(chunks)
+    out = {}
+    for label, primes in (
+            ("config-1", tuple(EXPECT_EXACT["primes"])),
+            ("-x 1e9 -N 4", tuple(SK.get_n_primes_near_x(4, SCALE_X)))):
+        size = SK.byte_flat_size(primes)
+        state = {}
+        ms = {}
+        for which in ("kernel", "plain"):
+            flat = torch.zeros(size, dtype=torch.uint8, device=dev)
+            nu = torch.zeros(1, dtype=torch.int64, device=dev)
+            winner = (torch.full((size,), SK.IDX_FILL, dtype=torch.int32,
+                                 device=dev) if which == "kernel" else None)
+            reports = []
+
+            def step(h, n):
+                if which == "kernel":
+                    return SK.byte_update_cuda(primes, flat, nu, h, n,
+                                               winner, with_bigcount=True)
+                return SK.byte_update_plain(primes, flat, nu, h, n,
+                                            with_bigcount=True)
+            # warm-up on a throwaway copy: allocator and first launch
+            saved = flat.clone()
+            step(*chunks[0])
+            flat.copy_(saved)
+            nu.zero_()
+            del saved
+
+            def run():
+                for h, n in chunks:
+                    reports.append(step(h, n))
+            ms[which] = _timed(torch, run)
+            big = {}
+            for r in reports:
+                _fold(big, _report_triggers(np, SK, r))
+            del reports, winner
+            torch.cuda.empty_cache()
+            state[which] = (flat, int(nu), big)
+        (fk, nuk, bk), (fp, nup, bp) = state["kernel"], state["plain"]
+        same = torch.equal(fk, fp)
+        errs["byte_update"] = max(errs["byte_update"], 0 if same else 1,
+                                  abs(nuk - nup), 0 if bk == bp else 1)
+        expect(same and nuk == nup and bk == bp,
+               "byte_update != plain at %s scale" % label)
+        say("phase 5b %s: primes %s (%.2f GB of tables, %.2f GB winner "
+            "image), %d k-mers in %d chunks of %d; n_unique %d, bigcount "
+            "entries %d; update kernel %.3f ms/chunk = %.4g k-mers/s, plain "
+            "%.3f ms/chunk = %.4g k-mers/s; on %s"
+            % (label, list(primes), size / 1e9, 4 * size / 1e9, total,
+               nchunks, chunks[0][0].shape[0], nuk, len(bk),
+               ms["kernel"] / nchunks, total / ms["kernel"] * 1e3,
+               ms["plain"] / nchunks, total / ms["plain"] * 1e3, card))
+        if label == "config-1":
+            # least traffic: 8 B per hash, one read and one write of each
+            # distinct counter a chunk touches
+            def touched(h):
+                return sum(int(torch.unique(umod(h, p)).numel())
+                           for p in primes)
+            u_bytes = sum(8 * n + 2 * touched(h[:n]) for h, n in chunks)
+            u_bound = bound(u_bytes / nchunks,
+                            total * len(primes) / nchunks)
+            out["byte_update"] = {
+                "ms": ms["kernel"] / nchunks,
+                "plain_ms": ms["plain"] / nchunks,
+                "bound_ms": u_bound[0], "bound_by": u_bound[1]}
+        del state, fk, fp
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: microbenchmarks
+# ---------------------------------------------------------------------------
+
+
+def run_microbench(B, card, launches, errs):
+    """The ports of scripts/pallas_proto.py and scripts/profile_scatter2.py.
+    The decoded-event update's path is its script: its launches are
+    counted there."""
+    from khmer_tpu_torch.scripts import pallas_proto, profile_scatter2
+
+    B.proto_rmw_cuda.launches = 0
+    proto = pallas_proto.main()
+    launches["proto_rmw"] = B.proto_rmw_cuda.launches
+    scatter = profile_scatter2.main()
+    c, t = proto["correct"], proto["timing"]
+    say("phase 6 pallas_proto: correctness %d blocks x %d events, nnew %d, "
+        "max_abs_err %d; %d blocks x %d events, %d calls: kernel %.4f ms "
+        "(%.3f ns/event), plain %.4f ms, blocked_update on as many hashes "
+        "into as many blocks %.4f ms, nnew %d, max_abs_err %d; on %s"
+        % (c["nblocks"], c["events"], c["nnew"], c["max_abs_err"],
+           t["nblocks"], t["events"], t["calls"], t["ms"], t["ns_per_event"],
+           t["plain_ms"], t["blocked_update_ms"], t["nnew"],
+           t["max_abs_err"], card))
+    say("phase 6 profile_scatter2: %d indices into %d bins: kernel %.4f ms, "
+        "plain %.4f ms, torch.bincount %.4f ms, max_abs_err %d; on %s"
+        % (scatter["events"], scatter["nbins"], scatter["ms"],
+           scatter["plain_ms"], scatter["library_ms"],
+           scatter["max_abs_err"], card))
+    errs["proto_rmw"] = max(errs["proto_rmw"], c["max_abs_err"],
+                            t["max_abs_err"])
+    errs["histogram_add"] = max(errs["histogram_add"],
+                                scatter["max_abs_err"])
+    expect(c["max_abs_err"] == 0 and t["max_abs_err"] == 0,
+           "proto_rmw != plain in its script")
+    expect(scatter["max_abs_err"] == 0,
+           "histogram_add != plain or bincount in its script")
+    p_bound = bound(t["bytes"], t["ops"])
+    return {"proto_rmw": {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                          "bound_ms": p_bound[0], "bound_by": p_bound[1]}}
 
 
 if __name__ == "__main__":

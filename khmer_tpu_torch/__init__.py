@@ -3,14 +3,18 @@
 The JAX package ``khmer_tpu`` is the reference; this package computes
 the same tables, counts and files with PyTorch, and runs the hot
 kernels as hand-written CUDA for Hopper (csrc/). It imports no JAX.
-This slice ports the blocked-layout counting path: parse, host hash,
-blocked Count-Min update, OXLI save/load, and the abundance histogram.
+Ported so far: the counting path in the exact byte layout (Countgraph,
+bigcount, OXLI type-1 files, the default of load-into-counting) and in
+the blocked layout, and the abundance histogram (abundance-dist,
+abundance-dist-single). Sketches are made on the card ("cuda") unless
+the caller names another device.
 """
 
 __version__ = "0.1.0"
 
 from khmer_tpu_torch.core.blocked import BlockedCountgraph  # noqa: E402
-from khmer_tpu_torch.core.sketch import Nodegraph  # noqa: E402
+from khmer_tpu_torch.core.oxli_io import load_countgraph  # noqa: E402
+from khmer_tpu_torch.core.sketch import Countgraph, Nodegraph  # noqa: E402
 
 
 def calc_expected_collisions(graph, force=False, max_false_pos=0.2):
@@ -47,6 +51,8 @@ def calc_expected_collisions(graph, force=False, max_false_pos=0.2):
 
 __all__ = [
     "BlockedCountgraph",
+    "Countgraph",
     "Nodegraph",
     "calc_expected_collisions",
+    "load_countgraph",
 ]

@@ -1,16 +1,19 @@
 """Argument parsing mirroring khmer_args (reference: khmer/khmer_args.py).
 
-A copy of the parts of khmer_tpu/cli/args.py that load-into-counting
-needs: the same flags, memory model and sizing math, so the port's CLI
-accepts the same command lines.
+A copy of the parts of khmer_tpu/cli/args.py that load-into-counting,
+abundance-dist and abundance-dist-single need: the same flags, memory
+model and sizing math, so the port's CLIs accept the same command lines,
+plus the device a sketch is made on.
 """
 
 import argparse
+import math
 import sys
 import textwrap
+from collections import namedtuple
 
 import khmer_tpu_torch
-from khmer_tpu_torch.utils.logger import log_info, log_warn
+from khmer_tpu_torch.utils.logger import log_info, log_warn, print_error
 
 DEFAULT_K = 32
 DEFAULT_N_TABLES = 4
@@ -127,6 +130,81 @@ def memory_setting(label):
                 label))
 
 
+def estimate_optimal_with_K_and_M(num_kmers, mem_cap):
+    n_tables = math.log(2) * (mem_cap / float(num_kmers))
+    int_n_tables = int(n_tables)
+    if int_n_tables == 0:
+        int_n_tables = 1
+    ht_size = int(mem_cap / int_n_tables)
+    mem_cap = ht_size * int_n_tables
+    fp_rate = (1 - math.exp(-num_kmers / float(ht_size))) ** int_n_tables
+    res = namedtuple("result", ["num_htables", "htable_size", "mem_use",
+                                "fp_rate"])
+    return res(int_n_tables, ht_size, mem_cap, fp_rate)
+
+
+def estimate_optimal_with_K_and_f(num_kmers, des_fp_rate):
+    n_tables = math.log(des_fp_rate, 0.5)
+    int_n_tables = int(n_tables)
+    if int_n_tables == 0:
+        int_n_tables = 1
+    ht_size = int(-num_kmers / (
+        math.log(1 - des_fp_rate ** (1 / float(int_n_tables)))))
+    mem_cap = ht_size * int_n_tables
+    fp_rate = (1 - math.exp(-num_kmers / float(ht_size))) ** int_n_tables
+    res = namedtuple("result", ["num_htables", "htable_size", "mem_use",
+                                "fp_rate"])
+    return res(int_n_tables, ht_size, mem_cap, fp_rate)
+
+
+def _check_fp_rate(args, desired_max_fp):
+    if not args.unique_kmers:
+        return args
+
+    if args.fp_rate:
+        log_info("*** INFO: Overriding default fp {def_fp} with new fp:"
+                 " {new_fp}", def_fp=desired_max_fp, new_fp=args.fp_rate)
+        desired_max_fp = args.fp_rate
+
+    if args.max_memory_usage:
+        res = estimate_optimal_with_K_and_M(args.unique_kmers,
+                                            args.max_memory_usage)
+        if res.fp_rate > desired_max_fp:
+            print("""
+*** ERROR: The given restrictions yield an estimate false positive rate of {0},
+*** which is above the recommended false positive ceiling of {1}!"""
+                  .format(res.fp_rate, desired_max_fp), file=sys.stderr)
+            if not args.force:
+                print("NOTE: This can be overridden using the --force"
+                      " argument", file=sys.stderr)
+                print("*** Aborting...!", file=sys.stderr)
+                sys.exit(1)
+    else:
+        res = estimate_optimal_with_K_and_f(args.unique_kmers,
+                                            desired_max_fp)
+        if args.max_tablesize and args.max_tablesize < res.htable_size:
+            log_warn("\n*** Warning: The given tablesize is too small!")
+            log_warn("*** Recommended tablesize is: {tsize:5g} bytes",
+                     tsize=res.htable_size)
+            log_warn("*** Current is: {tsize:5g} bytes",
+                     tsize=args.max_tablesize)
+            res = estimate_optimal_with_K_and_M(args.unique_kmers,
+                                                args.max_tablesize)
+            log_warn("*** Estimated FP rate with current config is: "
+                     "{fp}\n", fp=res.fp_rate)
+        else:
+            if res.mem_use < 1e6:
+                args.max_memory_usage = 1e6
+            else:
+                args.max_memory_usage = res.mem_use
+            log_info("*** INFO: set memory ceiling automatically.")
+            log_info("*** Ceiling is: {ceil:3g} bytes\n",
+                     ceil=float(args.max_memory_usage))
+            args.max_mem = res.mem_use
+
+    return args
+
+
 def build_graph_args(descr=None, epilog=None, citations=None):
     expert_help = '--help-expert' in sys.argv
     if expert_help:
@@ -171,18 +249,65 @@ def build_counting_args(descr=None, epilog=None, citations=None):
     return parser
 
 
-def calculate_graphsize(args, graphtype):
+def calculate_graphsize(args, graphtype, multiplier=1.0):
     """Target size (in buckets) of each individual table."""
     if graphtype not in _buckets_per_byte:
         raise ValueError('unknown graph type: ' + graphtype)
 
     if args.max_memory_usage:
-        tablesize = (_buckets_per_byte[graphtype] * args.max_memory_usage
-                     / args.n_tables)
+        tablesize = float(multiplier) * (
+            _buckets_per_byte[graphtype] * args.max_memory_usage
+            / args.n_tables)
     else:
         tablesize = args.max_tablesize
 
     return tablesize
+
+
+def create_countgraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,
+                      device="cuda"):
+    """The Countgraph the arguments ask for, on `device`, with bigcount
+    set from --no-bigcount where the script has it."""
+    from khmer_tpu_torch.core.sketch import Countgraph
+
+    args = _check_fp_rate(args, fp_rate)
+
+    if hasattr(args, 'force'):
+        if args.n_tables > 20:
+            if not args.force:
+                print_error("\n** ERROR: khmer only supports number "
+                            "of tables <= 20.\n")
+                sys.exit(1)
+            else:
+                log_warn("\n*** Warning: Maximum recommended number of "
+                         "tables is 20, discarded by force nonetheless!\n")
+
+    if ksize is None:
+        ksize = args.ksize
+    if ksize > 32:
+        print_error("\n** ERROR: khmer only supports k-mer sizes <= 32.\n")
+        sys.exit(1)
+
+    if args.small_count:
+        print_error("** ERROR: --small-count (the nibble SmallCountgraph) "
+                    "is not yet ported to khmer_tpu_torch.")
+        sys.exit(1)
+    tablesize = calculate_graphsize(args, 'countgraph',
+                                    multiplier=multiplier)
+    cg = Countgraph(ksize, tablesize, args.n_tables, device=device)
+    if hasattr(args, 'bigcount'):
+        cg.set_use_bigcount(args.bigcount)
+    return cg
+
+
+def create_matching_nodegraph(countgraph):
+    """A one-table-per-prime Nodegraph matching `countgraph`, on its
+    device (the abundance histogram's tracking table)."""
+    from khmer_tpu_torch.core.sketch import Nodegraph
+
+    return Nodegraph(countgraph.ksize(), 1, 1,
+                     primes=countgraph.hashsizes(),
+                     device=countgraph.device)
 
 
 def report_on_config(args, graphtype='countgraph'):

@@ -4,21 +4,21 @@
 PyTorch port of khmer_tpu/cli/load_into_counting.py (reference
 scripts/load-into-counting.py:107-217): the same flags and outputs
 (.ct OXLI file, .info, optional .info.json/.info.tsv), plus --device.
-This slice ports the blocked layout only: --tpu-layout blocked writes
-the same .ct bytes as the JAX package; --tpu-layout exact is not yet
-ported and exits with an error.
+Both layouts write the same .ct bytes as the JAX package: the default
+--tpu-layout exact (OXLI type 1, with bigcount, loadable by khmer) and
+--tpu-layout blocked.
 
-% python -m khmer_tpu_torch.cli.load_into_counting --tpu-layout blocked \\
-      <output.ct> <data1> [ <data2> <...> ]
+% python -m khmer_tpu_torch.cli.load_into_counting <output.ct> <data1> \\
+      [ <data2> <...> ]
 """
 
 import json
 import os
-import sys
 import textwrap
 
 import khmer_tpu_torch
 from khmer_tpu_torch import calc_expected_collisions
+from khmer_tpu_torch.cli import args as khmer_args
 from khmer_tpu_torch.cli.args import (add_threading_args,
                                       build_counting_args,
                                       calculate_graphsize, report_on_config,
@@ -28,8 +28,7 @@ from khmer_tpu_torch.io.fastx import FastxParser
 from khmer_tpu_torch.utils.kfile import (check_file_writable,
                                          check_input_files,
                                          check_space_for_graph)
-from khmer_tpu_torch.utils.logger import (configure_logging, log_info,
-                                          print_error)
+from khmer_tpu_torch.utils.logger import configure_logging, log_info
 
 
 def get_parser():
@@ -42,7 +41,7 @@ def get_parser():
 
     Example::
 
-        load-into-counting.py -k 20 -x 5e7 --tpu-layout blocked out in.fa
+        load-into-counting.py -k 20 -x 5e7 out data/100k-filtered.fa
     """
     parser = build_counting_args(
         "Build a k-mer countgraph from the given sequences.",
@@ -70,9 +69,9 @@ def get_parser():
     parser.add_argument('--tpu-layout', dest='tpu_layout',
                         choices=['exact', 'blocked'], default='exact',
                         help="Sketch layout: 'exact' is bit-compatible "
-                        "with khmer's OXLI countgraphs (not yet ported to "
-                        "khmer_tpu_torch); 'blocked' is the 128-byte-block "
-                        "layout (khmer_tpu-only file format, no bigcount).")
+                        "with khmer's OXLI countgraphs; 'blocked' is the "
+                        "128-byte-block layout (khmer_tpu-only file "
+                        "format, no bigcount).")
     parser.add_argument('--device', default='cuda',
                         help="PyTorch device that holds the countgraph, "
                         "e.g. 'cuda', 'cuda:1' or 'cpu'.")
@@ -81,12 +80,6 @@ def get_parser():
 
 def main(argv=None):
     args = sanitize_help(get_parser()).parse_args(argv)
-
-    if args.tpu_layout != 'blocked':
-        print_error("** ERROR: --tpu-layout %s is not yet ported to "
-                    "khmer_tpu_torch; use --tpu-layout blocked (or "
-                    "khmer_tpu's load-into-counting)." % args.tpu_layout)
-        sys.exit(1)
 
     configure_logging(args.quiet)
     report_on_config(args)
@@ -112,9 +105,14 @@ def main(argv=None):
     with open(info_filename, 'w') as info_fp:
         print('khmer version:', khmer_tpu_torch.__version__, file=info_fp)
 
-    log_info('making blocked countgraph on {device}', device=args.device)
-    countgraph = BlockedCountgraph(args.ksize, tablesize, args.n_tables,
-                                   device=args.device)
+    if args.tpu_layout == 'blocked':
+        log_info('making blocked countgraph on {device}',
+                 device=args.device)
+        countgraph = BlockedCountgraph(args.ksize, tablesize, args.n_tables,
+                                       device=args.device)
+    else:
+        log_info('making countgraph on {device}', device=args.device)
+        countgraph = khmer_args.create_countgraph(args, device=args.device)
 
     total_num_reads = 0
 

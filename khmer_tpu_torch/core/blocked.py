@@ -34,7 +34,7 @@ SAVED_BLOCKED = 127  # private OXLI type byte (reference uses 1..8)
 
 MAX_BLOCKS = (2**31 - 1) // LANES  # counter ids must stay i32
 
-IDX_FILL = 1 << 30  # winner sentinel; events per batch must stay below
+IDX_FILL = K.IDX_FILL  # winner sentinel; events per batch must stay below
 
 
 def _offsets(h):
@@ -233,6 +233,103 @@ def gather_counts(nblocks, tables, hashes):
     return gather_counts_plain(nblocks, tables, hashes)
 
 
+def _proto_lanes(bids, offs, nblocks):
+    """Decoded events of the prototype (scripts/pallas_proto.py): the
+    valid events' indices, their flat lane indices [SUB, n] and a mask of
+    the lanes that repeat an earlier lane of the same event."""
+    valid = (bids >= 0) & (bids < int(nblocks))
+    ev = torch.nonzero(valid).squeeze(1)
+    offs_v = offs[ev].to(torch.int64)
+    o = torch.stack([(offs_v >> (8 * j)) & (LANES - 1) for j in range(SUB)])
+    repeated = torch.zeros_like(o, dtype=torch.bool)
+    for j in range(1, SUB):
+        for k in range(j):
+            repeated[j] |= o[j] == o[k]
+    return ev, bids[ev].to(torch.int64)[None, :] * LANES + o, repeated
+
+
+def proto_rmw_plain(bids, offs, table):
+    """The fused blocked read-modify-write of scripts/pallas_proto.py:44
+    (make_kernel) over decoded events, in place (plain PyTorch, any
+    device).
+
+    Event i (int32 bids[i], its block, < 0 or >= nblocks invalid; int32
+    offs[i], four lane offsets of 8 bits each, & 127) increments each lane
+    of its SET of lanes by one, capped at 255, in stream order; returns
+    nnew (i64 [1]), the valid events that found one of their lanes at 0.
+    Set semantics follow the Pallas kernel, which ORs the one-hots
+    (:87-93): a repeated offset is incremented once. The script's numpy
+    oracle (:160-162) would increment it twice; the two agree on the
+    script's inputs, which put one lane in each quarter.
+    """
+    nb = table.shape[0]
+    dev = table.device
+    ev, lanes, repeated = _proto_lanes(bids, offs, nb)
+    winner = torch.full((nb * LANES,), IDX_FILL, dtype=torch.int64,
+                        device=dev)
+    winner.scatter_reduce_(0, lanes.reshape(-1),
+                           ev.repeat(SUB), "amin")
+    old = table.reshape(-1)
+    fresh = ((old[lanes] == 0) & (winner[lanes] == ev[None, :])).any(dim=0)
+    once = lanes[~repeated]
+    delta = torch.zeros(nb * LANES, dtype=torch.int32, device=dev)
+    delta.index_add_(0, once, torch.ones_like(once, dtype=torch.int32))
+    table.copy_(delta.add_(old).clamp_(max=K.MAX_KCOUNT).to(
+        torch.uint8).view_as(table))
+    return fresh.sum().reshape(1)
+
+
+def proto_rmw_cuda(bids, offs, table, winner):
+    """Kernel D (csrc/proto_rmw.cu): proto_rmw_plain on the card. `winner`
+    is a persistent int32 image of one entry per counter, holding IDX_FILL
+    between calls. Returns nnew (i64 [1], on the card). Counts its
+    launches in ``proto_rmw_cuda.launches``."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError("the CUDA kernels take CUDA tensors, not %s" % dev)
+    if (table.dtype != torch.uint8 or table.dim() != 2
+            or table.shape[1] != LANES or not table.is_contiguous()):
+        raise ValueError("table must be a contiguous [nblocks, %d] uint8 "
+                         "tensor" % LANES)
+    for name, t in (("bids", bids), ("offs", offs)):
+        if (t.device != dev or t.dtype != torch.int32 or t.dim() != 1
+                or not t.is_contiguous() or t.shape != bids.shape):
+            raise ValueError("%s must be a contiguous 1-D int32 tensor of "
+                             "one entry per event on %s" % (name, dev))
+    M = bids.shape[0]
+    if M >= IDX_FILL:
+        raise ValueError("batch too large: %d events (max %d)"
+                         % (M, IDX_FILL - 1))
+    if (winner.device != dev or winner.dtype != torch.int32
+            or winner.numel() != table.numel()
+            or not winner.is_contiguous()):
+        raise ValueError("winner must be a contiguous int32 tensor of one "
+                         "entry per counter on %s" % dev)
+    nnew = torch.zeros(1, dtype=torch.int64, device=dev)
+    if M == 0:
+        return nnew
+    err = cuda.library().khmer_proto_rmw(
+        bids.data_ptr(), offs.data_ptr(), M, table.data_ptr(),
+        table.shape[0], winner.data_ptr(), nnew.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda.check(err, "proto_rmw")
+    proto_rmw_cuda.launches += 1
+    return nnew
+
+
+proto_rmw_cuda.launches = 0
+
+
+def proto_rmw(bids, offs, table, winner=None):
+    """The prototype's read-modify-write, in place: kernel D on a CUDA
+    table (with a `winner` image), the plain version on a CPU one."""
+    if table.is_cuda:
+        return proto_rmw_cuda(bids, offs, table, winner)
+    if table.device.type != "cpu":
+        raise ValueError("unsupported device %s" % table.device)
+    return proto_rmw_plain(bids, offs, table)
+
+
 def _blocked_occupied(table):
     """Occupancy proxy: nonzero counters of sub-table 0 (lanes 0..31)."""
     return (table[:, :QUART] != 0).sum()
@@ -249,7 +346,7 @@ class BlockedCountgraph(_Sketch):
     storage_kind = "blocked"
 
     def __init__(self, ksize, starting_size, n_tables=SUB, primes=None, *,
-                 device):
+                 device="cuda"):
         if primes is not None:
             nblocks = int(primes[0])
         else:
@@ -298,7 +395,7 @@ class BlockedCountgraph(_Sketch):
             f.write(raw.tobytes())
 
     @classmethod
-    def load(cls, filename, *, device):
+    def load(cls, filename, *, device="cuda"):
         with oxli_io._open_read(filename) as f:
             oxli_io._check_header(f, SAVED_BLOCKED, filename,
                                   "blocked count sketch")
@@ -312,7 +409,8 @@ class BlockedCountgraph(_Sketch):
         return obj
 
 
-def from_numpy_state(ksize, table_u8, n_unique, occupied_offset, device):
+def from_numpy_state(ksize, table_u8, n_unique, occupied_offset,
+                     device="cuda"):
     """A BlockedCountgraph holding the given state: the [nblocks, 128]
     uint8 table (e.g. ``np.asarray(jax_cg.tables[0])``), the unique
     count and the loaded-occupancy offset, on `device`."""

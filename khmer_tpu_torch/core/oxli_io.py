@@ -1,14 +1,36 @@
-"""OXLI v4 binary framing — counterpart of khmer_tpu/core/oxli_io.py.
+"""OXLI v4 binary format — counterpart of khmer_tpu/core/oxli_io.py,
+byte-compatible with khmer and with the JAX package.
 
-This slice needs only the frame shared by every OXLI file: the
-signature, the format version, gzip-transparent open, and the header
-check. The blocked table body is written in core/blocked.py.
+Ported: the frame shared by every OXLI file (signature, format version,
+gzip-transparent open, header check) and the table files of the ported
+sketches (little-endian):
+
+  Countgraph (.ct):  "OXLI" ver=4 type=1 use_bigcount:u8 ksize:u32
+                     n_tables:u8 occupied:u64 {tablesize:u64 bins:u8[n]}*
+                     n_bigcounts:u64 {hash:u64 count:u16}*
+  Nodegraph (.pt):   "OXLI" ver=4 type=2 ksize:u32 n_tables:u8 occupied:u64
+                     {tablesize:u64 bins:u8[n/8+1]}*
+
+Gzip variants are sniffed on read and chosen by a ".gz" file name on
+write. The blocked table (private type 127) is written in
+core/blocked.py.
 """
 
 import gzip
+import struct
+
+import numpy as np
 
 SAVED_SIGNATURE = b"OXLI"
 SAVED_FORMAT_VERSION = 4
+SAVED_COUNTING_HT = 1
+SAVED_HASHBITS = 2
+
+_TYPE_NAMES = {
+    SAVED_COUNTING_HT: "k-mer count graph",
+    SAVED_HASHBITS: "k-mer graph",
+}
+_TYPE_OF_KIND = {"byte": SAVED_COUNTING_HT, "bit": SAVED_HASHBITS}
 
 
 def _open_read(path):
@@ -44,3 +66,73 @@ def _check_header(f, expect_type, path, what):
             "Incorrect file format type %d while reading %s from %s"
             % (ht_type, what, path))
     return ht_type
+
+
+def save_sketch(sketch, path):
+    """Save a Countgraph (type 1) or Nodegraph (type 2) in OXLI v4."""
+    kind = sketch.storage_kind
+    if kind not in _TYPE_OF_KIND:
+        raise ValueError("cannot save storage kind %r" % kind)
+    raw = sketch.get_raw_tables()
+    occupied = sketch.n_occupied()
+    with _open_write(path) as f:
+        f.write(SAVED_SIGNATURE)
+        f.write(bytes([SAVED_FORMAT_VERSION, _TYPE_OF_KIND[kind]]))
+        if kind == "byte":
+            f.write(bytes([1 if sketch._use_bigcount else 0]))
+        f.write(struct.pack("<IBQ", sketch.ksize(), len(sketch._primes),
+                            occupied))
+        for prime, table in zip(sketch._primes, raw):
+            f.write(struct.pack("<Q", prime))
+            f.write(table.tobytes())
+        if kind == "byte":
+            f.write(struct.pack("<Q", len(sketch._bigcounts)))
+            for h in sorted(sketch._bigcounts):
+                f.write(struct.pack("<QH", h, sketch._bigcounts[h]))
+
+
+def _read_tables(f, path, kind):
+    ksize, n_tables, occupied = struct.unpack("<IBQ", f.read(13))
+    primes = []
+    tables = []
+    for _ in range(n_tables):
+        (tablesize,) = struct.unpack("<Q", f.read(8))
+        nbytes = tablesize if kind == "byte" else tablesize // 8 + 1
+        data = f.read(nbytes)
+        if len(data) != nbytes:
+            raise OSError("Error reading from: " + path)
+        primes.append(tablesize)
+        tables.append(np.frombuffer(data, dtype=np.uint8))
+    return ksize, primes, tables, occupied
+
+
+def load_sketch(cls, path, device="cuda"):
+    """Load an OXLI table file of cls's storage kind onto `device`."""
+    kind = cls.storage_kind
+    if kind not in _TYPE_OF_KIND:
+        raise ValueError("cannot load storage kind %r" % kind)
+    with _open_read(path) as f:
+        _check_header(f, _TYPE_OF_KIND[kind], path,
+                      _TYPE_NAMES[_TYPE_OF_KIND[kind]])
+        use_bigcount = kind == "byte" and f.read(1)[0] != 0
+        ksize, primes, tables, occupied = _read_tables(f, path, kind)
+        bigcounts = {}
+        if kind == "byte":
+            (n_counts,) = struct.unpack("<Q", f.read(8))
+            for _ in range(n_counts):
+                h, c = struct.unpack("<QH", f.read(10))
+                bigcounts[h] = c
+    # n_unique is not stored in the format (the reference loses it too);
+    # the saved occupied-bins header is kept, not recomputed
+    obj = cls.from_numpy_state(ksize, primes, tables, 0, 0, device,
+                               bigcounts=bigcounts,
+                               use_bigcount=use_bigcount)
+    obj._occupied_offset = occupied - obj._count_nonzero_t0()
+    return obj
+
+
+def load_countgraph(path, device="cuda"):
+    """Load a Countgraph (.ct, type 1) onto `device`."""
+    from khmer_tpu_torch.core.sketch import Countgraph
+
+    return load_sketch(Countgraph, path, device)

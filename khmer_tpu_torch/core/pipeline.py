@@ -12,7 +12,10 @@ zero-padded and masked by its count of valid hashes. (JAX's tail-size
 ladder only bounded XLA recompiles; PyTorch runs eagerly.)
 
 The unique-k-mer count stays on the device and is read once, at the
-end of the stream.
+end of the stream. With bigcount on, a Countgraph also reads one count
+per chunk, that of its update's saturation report
+(Countgraph._absorb_saturation), and the report itself when it is not
+empty.
 """
 
 import numpy as np
@@ -335,10 +338,15 @@ def abundance_distribution(main, source, tracking):
         raise ValueError("tracking table must be on %s" % main.device)
     dev = main.device
     batcher = Batcher(k)
+    # saturated counts resolve through the host-side bigcount map; only
+    # a non-empty map needs their hashes on the host
+    resolve = main._use_bigcount and bool(main._bigcounts)
     step = K.make_abund_dist(tracking.storage_kind, tracking._primes,
-                             main.storage_kind, main._primes)
+                             main.storage_kind, main._primes,
+                             collect_sat=resolve)
     dist = torch.zeros(K.MAX_BIGCOUNT + 2, dtype=torch.int64, device=dev)
     n_sat = torch.zeros((), dtype=torch.int64, device=dev)
+    sat_hashes = []
 
     def commit(batch):
         nonlocal n_sat
@@ -351,8 +359,11 @@ def abundance_distribution(main, source, tracking):
         codes, lengths = batch
         hashes, valid = hash_batch(torch.from_numpy(codes).to(dev),
                                    torch.from_numpy(lengths).to(dev), k)
-        n_sat = n_sat + step(tracking.tables, dist, main.tables,
-                             hashes.reshape(-1), valid.reshape(-1))
+        batch_sat, sat_hash = step(tracking.tables, dist, main.tables,
+                                   hashes.reshape(-1), valid.reshape(-1))
+        n_sat = n_sat + batch_sat
+        if resolve:
+            sat_hashes.append(sat_hash.cpu().numpy().view(np.uint64))
 
     for record in records_from(source):
         seq = record.cleaned_seq
@@ -361,7 +372,10 @@ def abundance_distribution(main, source, tracking):
     commit(batcher.flush())
 
     out = dist[: K.MAX_BIGCOUNT + 1].cpu().numpy()
-    # saturated counts would resolve through a bigcount map; the blocked
-    # and bit layouts have none, so they stay at MAX_KCOUNT
-    out[K.MAX_KCOUNT] += int(n_sat)
+    if resolve:
+        for h in np.concatenate(sat_hashes or [np.zeros(0, np.uint64)]):
+            c = main._bigcounts.get(int(h), K.MAX_KCOUNT)
+            out[min(c, K.MAX_BIGCOUNT)] += 1
+    else:
+        out[K.MAX_KCOUNT] += int(n_sat)
     return [int(x) for x in out]

@@ -1,11 +1,14 @@
 """User-facing sketch classes — counterpart of khmer_tpu/core/sketch.py.
 
-A sketch holds its tables on an explicit PyTorch device: a tuple of
-uint8 tensors, and its unique-k-mer count as an int64 [1] tensor beside
-them, so a stream of updates never waits for the host. Updates run in
-place. This slice ports the base class and the bit-storage Nodegraph,
-which is the tracking table of the abundance histogram; the blocked
-countgraph is in core/blocked.py.
+A sketch holds its tables on a PyTorch device: a tuple of uint8
+tensors, and its unique-k-mer count as an int64 [1] tensor beside them,
+so a stream of updates never waits for the host. Updates run in place.
+Every constructor and loader takes ``device``, "cuda" unless the caller
+asks for another; with no CUDA device that raises, and never falls back
+to the CPU. Ported here: the base class, the byte-storage Countgraph
+(with the host-side bigcount map, reference storage.hh:513), and the
+bit-storage Nodegraph, the tracking table of the abundance histogram;
+the blocked countgraph is in core/blocked.py.
 """
 
 import numpy as np
@@ -13,6 +16,9 @@ import torch
 
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.ops import hashing as H
+
+MAX_KCOUNT = K.MAX_KCOUNT
+MAX_BIGCOUNT = K.MAX_BIGCOUNT
 
 
 def _resolve_device(device):
@@ -34,10 +40,11 @@ def _hashes_tensor(hashes, device):
 class _Sketch:
     """Base: k-mer hashing + batched sketch updates/queries."""
 
-    storage_kind = None   # "blocked" | "bit"
+    storage_kind = None   # "byte" | "blocked" | "bit"
     hash_family = "twobit"
+    supports_bigcount = False
 
-    def __init__(self, ksize, primes, *, device):
+    def __init__(self, ksize, primes, *, device="cuda"):
         if ksize > H.KSIZE_MAX:
             raise ValueError("k-mer size must be <= %d" % H.KSIZE_MAX)
         if ksize < 1:
@@ -51,6 +58,8 @@ class _Sketch:
                                      device=self.device)
         # n_occupied() keeps a loaded header's value (see n_occupied)
         self._occupied_offset = 0
+        self._use_bigcount = False
+        self._bigcounts = {}
 
     # -- introspection ---------------------------------------------------
 
@@ -62,6 +71,9 @@ class _Sketch:
 
     def n_unique_kmers(self):
         return int(self._n_unique)
+
+    def n_tables(self):
+        return len(self._primes)
 
     def n_occupied(self):
         """Occupied bins in table 0.
@@ -116,11 +128,27 @@ class _Sketch:
         return int(self.get_counts_for_hashes(self._coerce_hashes(kmer))[0])
 
     def get_counts_for_hashes(self, hashes):
-        """Counts for an array of hashes -> numpy uint32."""
+        """Counts (with the bigcount fixup) for an array of hashes -> numpy
+        uint32."""
+        hashes = np.asarray(hashes, dtype=np.uint64).ravel()
         h = _hashes_tensor(hashes, self.device)
         counts = K._gather_counts(self.storage_kind, self._primes,
                                   self.tables, h)
-        return counts.cpu().numpy().astype(np.uint32)
+        counts = counts.cpu().numpy().astype(np.uint32)
+        if self._use_bigcount and self._bigcounts:
+            for i in np.nonzero(counts == MAX_KCOUNT)[0]:
+                counts[i] = self._bigcounts.get(int(hashes[i]), MAX_KCOUNT)
+        return counts
+
+    # -- bigcount --------------------------------------------------------
+
+    def set_use_bigcount(self, value):
+        if value and not self.supports_bigcount:
+            raise ValueError("Bigcount is not supported for this storage.")
+        self._use_bigcount = bool(value)
+
+    def get_use_bigcount(self):
+        return self._use_bigcount
 
     # -- file-level ops ----------------------------------------------------
 
@@ -139,6 +167,103 @@ class _Sketch:
         return pipeline.abundance_distribution(self, path_or_parser,
                                                tracking)
 
+    # -- save/load (OXLI) --------------------------------------------------
+
+    def get_raw_tables(self):
+        """Numpy copies of the raw table bytes."""
+        return [t.cpu().numpy() for t in self.tables]
+
+    def save(self, filename):
+        from khmer_tpu_torch.core import oxli_io
+
+        oxli_io.save_sketch(self, filename)
+
+    @classmethod
+    def load(cls, filename, *, device="cuda"):
+        from khmer_tpu_torch.core import oxli_io
+
+        return oxli_io.load_sketch(cls, filename, device=device)
+
+    @classmethod
+    def from_numpy_state(cls, ksize, primes, tables, n_unique,
+                         occupied_offset, device="cuda", bigcounts=None,
+                         use_bigcount=False):
+        """A sketch of this class holding the given state: its primes, the
+        tables as numpy uint8 arrays (e.g. ``np.asarray(t)`` for each of a
+        JAX sketch's tables), the unique count, the occupancy offset and,
+        for a Countgraph, the bigcount map and flag."""
+        obj = cls(ksize, 1, 1, primes=primes, device=device)
+        if len(tables) != len(obj.tables):
+            raise ValueError("expected %d tables" % len(obj.tables))
+        for dst, src in zip(obj.tables, tables):
+            src = np.ascontiguousarray(src, dtype=np.uint8)
+            if src.shape != tuple(dst.shape):
+                raise ValueError("table shape %s, expected %s"
+                                 % (src.shape, tuple(dst.shape)))
+            dst.copy_(torch.from_numpy(src.copy()))
+        obj._n_unique.fill_(int(n_unique))
+        obj._occupied_offset = int(occupied_offset)
+        obj.set_use_bigcount(use_bigcount)
+        obj._bigcounts = {int(h): int(c)
+                          for h, c in (bigcounts or {}).items()}
+        return obj
+
+
+class Countgraph(_Sketch):
+    """Count-Min sketch of 8-bit saturating counters over T prime tables,
+    with the 2-bit hash (reference Countgraph; JAX khmer_tpu Countgraph,
+    sketch.py:704-714). Counts past 255 live in the host-side bigcount
+    map when bigcount is on (set_use_bigcount).
+
+    The T tables are views into one flat buffer (sketch_kernels.
+    ByteTables); on a CUDA device the update keeps a persistent int32
+    winner image of one entry per counter (4 bytes per table byte, made
+    at first use).
+    """
+
+    storage_kind = "byte"
+    supports_bigcount = True
+
+    def __init__(self, ksize, starting_size, n_tables, primes=None, *,
+                 device="cuda"):
+        if primes is None:
+            primes = K.get_n_primes_near_x(int(n_tables), int(starting_size))
+        super().__init__(ksize, primes, device=device)
+        self._winner = None
+
+    def _winner_image(self):
+        if self._winner is None and self.device.type == "cuda":
+            self._winner = torch.full(self.tables.flat.shape, K.IDX_FILL,
+                                      dtype=torch.int32, device=self.device)
+        return self._winner
+
+    def _update(self, hashes, nvalid):
+        report = K.byte_update(self._primes, self.tables.flat,
+                               self._n_unique, hashes, nvalid,
+                               self._winner_image(),
+                               with_bigcount=self._use_bigcount)
+        if report is not None:
+            self._absorb_saturation(*report)
+
+    def _absorb_saturation(self, cand_hash, cand_old, n_cand):
+        """Fold an update's bigcount report into the map. Reading its
+        count is the one device-to-host read of an update."""
+        n = int(n_cand[0])
+        if n == 0:
+            return
+        hs = cand_hash[:n].cpu().numpy().view(np.uint64)
+        ms = cand_old[:n].cpu().numpy()
+        for h, triggers in K.bigcount_triggers(hs, ms).items():
+            self._bigcount_add(h, triggers)
+
+    def _bigcount_add(self, h, triggers):
+        b = self._bigcounts.get(h, 0)
+        self._bigcounts[h] = min(max(b, MAX_KCOUNT) + triggers,
+                                 MAX_BIGCOUNT)
+
+    def _count_nonzero_t0(self):
+        return int(K.byte_occupied(self.tables[0]))
+
 
 class Nodegraph(_Sketch):
     """Bloom filter with the 2-bit hash (reference Nodegraph)."""
@@ -146,7 +271,7 @@ class Nodegraph(_Sketch):
     storage_kind = "bit"
 
     def __init__(self, ksize, starting_size, n_tables, primes=None, *,
-                 device):
+                 device="cuda"):
         if primes is None:
             primes = K.get_n_primes_near_x(int(n_tables), int(starting_size))
         super().__init__(ksize, primes, device=device)
@@ -163,19 +288,7 @@ class Nodegraph(_Sketch):
 
 
 def from_numpy_state(ksize, primes, tables, n_unique, occupied_offset,
-                     device):
-    """A Nodegraph holding the given state: its primes, the bit tables as
-    numpy uint8 arrays (e.g. ``np.asarray(t)`` for each of a JAX
-    Nodegraph's tables), the unique count and the occupancy offset."""
-    obj = Nodegraph(ksize, 1, 1, primes=primes, device=device)
-    if len(tables) != len(obj.tables):
-        raise ValueError("expected %d tables" % len(obj.tables))
-    for dst, src in zip(obj.tables, tables):
-        src = np.ascontiguousarray(src, dtype=np.uint8)
-        if src.shape != tuple(dst.shape):
-            raise ValueError("table shape %s, expected %s"
-                             % (src.shape, tuple(dst.shape)))
-        dst.copy_(torch.from_numpy(src.copy()))
-    obj._n_unique.fill_(int(n_unique))
-    obj._occupied_offset = int(occupied_offset)
-    return obj
+                     device="cuda"):
+    """A Nodegraph holding the given state (see _Sketch.from_numpy_state)."""
+    return Nodegraph.from_numpy_state(ksize, primes, tables, n_unique,
+                                      occupied_offset, device)

@@ -1,7 +1,8 @@
 """Batch update and query building blocks for the sketches.
 
-Counterpart of khmer_tpu/core/sketch_kernels.py, the subset the blocked
-counting slice needs: the bit (Bloom) table update behind the tracking
+Counterpart of khmer_tpu/core/sketch_kernels.py, the subset the counting
+slices need: the exact byte layout (update with its bigcount report,
+gather, occupancy), the bit (Bloom) table update behind the tracking
 table of the abundance histogram, the count gathers, and the histogram
 step. A whole batch is committed at once, exactly equivalent to the
 sequential order of the batch:
@@ -17,8 +18,12 @@ the JAX version returned new tables (donated buffers), these functions
 update the tables in place.
 """
 
+import ctypes
+
+import numpy as np
 import torch
 
+from khmer_tpu_torch.ops import cuda
 from khmer_tpu_torch.ops.u64 import _SIGN, umod
 
 MAX_KCOUNT = 255      # reference: include/oxli/oxli.hh:81
@@ -26,6 +31,10 @@ MAX_BIGCOUNT = 65535  # reference: include/oxli/oxli.hh:82
 
 _I32_MAX = 2**31 - 1
 _I64_MAX = 2**63 - 1
+
+# winner-image sentinel of the update kernels; events per batch must stay
+# below it
+IDX_FILL = 1 << 30
 
 _POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)],
                          dtype=torch.int64)
@@ -135,13 +144,316 @@ def _apply_update(kind, primes, tables, d):
     return any_credit
 
 
+# --------------------------------------------------------------------------
+# the exact byte layout (ByteStorage, reference storage.hh:571-624)
+# --------------------------------------------------------------------------
+
+MAX_TABLES = 32  # csrc/byte_common.cuh kMaxTables
+
+
+def byte_offsets(primes):
+    """Start of each table in the joined byte buffer."""
+    return [int(o) for o in np.cumsum([0] + [int(p) for p in primes[:-1]])]
+
+
+def byte_flat_size(primes):
+    """Length of the joined buffer: sum(primes), padded to a multiple of 4
+    bytes so the kernels' aligned 32-bit CAS word never reads past it (a
+    prime-sized table's last byte may share a word with nothing)."""
+    return (sum(int(p) for p in primes) + 3) // 4 * 4
+
+
+class ByteTables(tuple):
+    """The T byte tables of a sketch: views of exactly p_t bytes (what
+    save and load write) into one flat u8 buffer, ``flat``, that joins
+    them end to end as JAX's v2 path does (sketch_kernels.py:501-502,
+    526-529). The kernels take the flat buffer and 64-bit indices."""
+
+    def __new__(cls, flat, primes):
+        views = [flat[o:o + int(p)]
+                 for o, p in zip(byte_offsets(primes), primes)]
+        obj = super().__new__(cls, views)
+        obj.flat = flat
+        return obj
+
+
+def byte_update_plain(primes, flat, n_unique, hashes, nvalid,
+                      with_bigcount=False):
+    """Exact byte update of hashes[:nvalid] in stream order, in place
+    (plain PyTorch, any device).
+
+    The contract of every JAX byte path (v2 :496-577, image :264-341, sort
+    :137-164 with _dedup_batch, make_update :600-646), for the T prime
+    tables joined in `flat`:
+      * each counter table_t[h % p_t] becomes min(old + occurrences in the
+        chunk, 255);
+      * n_unique (i64 [1]) grows by the unique hashes that are new: a hash
+        is new iff its first event is the lowest-index event of the chunk
+        to touch some counter whose value before the chunk was 0.
+    It is exact at any chunk and table size, so JAX's collision budget and
+    sticky overflow flag (:382-418, :460-493), artifacts of its fixed-size
+    XLA sort, have no counterpart; nor do the image and i32 gates.
+
+    With bigcount, returns the report (cand_hash i64 [n], cand_old i32
+    [n], n_cand i32 [1]): each event whose counters are all 255 after the
+    chunk, with its least counter before the chunk, in no fixed order;
+    bigcount_triggers turns it into per-hash triggers. Else None.
+    """
+    n = int(nvalid)
+    dev = flat.device
+    h = hashes[:n]
+    idx = torch.arange(n, device=dev)
+    fresh = torch.zeros(n, dtype=torch.bool, device=dev)
+    min_old = torch.full((n,), MAX_KCOUNT, dtype=torch.int32, device=dev)
+    counters = []
+    for off, p in zip(byte_offsets(primes), primes):
+        c = umod(h, p) + off
+        old = flat[c].to(torch.int32)
+        uc, inv, cnt = torch.unique(c, return_inverse=True,
+                                    return_counts=True)
+        first = torch.full(uc.shape, n, dtype=torch.int64,
+                           device=dev).scatter_reduce_(0, inv, idx, "amin")
+        fresh |= (first[inv] == idx) & (old == 0)
+        min_old = torch.minimum(min_old, old)
+        flat[uc] = (flat[uc].to(torch.int32) + cnt).clamp_(
+            max=MAX_KCOUNT).to(torch.uint8)
+        counters.append(c)
+    n_unique += fresh.sum()
+    if not with_bigcount:
+        return None
+    post = torch.stack([flat[c] for c in counters]).amin(dim=0)
+    cand = post == MAX_KCOUNT
+    cand_hash = h[cand]
+    return (cand_hash, min_old[cand],
+            torch.tensor([cand_hash.shape[0]], dtype=torch.int32,
+                         device=dev))
+
+
+def bigcount_triggers(cand_hash, cand_old):
+    """{hash: triggers > 0} from an update's bigcount report (numpy u64
+    hashes and least pre-chunk counters of the candidate events):
+    triggers = events - max(0, 255 - min_old) per hash, the rule of the
+    JAX image path (khmer_tpu/core/sketch.py:267-295), equal to v2's
+    ucnt - max(255 - min_old, 0). Every event of a hash has the same
+    counters, so the same min_old."""
+    hs = np.asarray(cand_hash, dtype=np.uint64)
+    if hs.size == 0:
+        return {}
+    ms = np.asarray(cand_old, dtype=np.int64)
+    uh, first, cnt = np.unique(hs, return_index=True, return_counts=True)
+    trig = cnt - np.maximum(0, MAX_KCOUNT - ms[first])
+    keep = trig > 0
+    return {int(h): int(t) for h, t in zip(uh[keep], trig[keep])}
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _layout(primes):
+    """Host int64 arrays of the primes and offsets for a C entry point."""
+    arr = ctypes.c_int64 * len(primes)
+    return (arr(*[int(p) for p in primes]), arr(*byte_offsets(primes)))
+
+
+def _check_byte_args(primes, flat, hashes):
+    dev = flat.device
+    if dev.type != "cuda":
+        raise ValueError("the CUDA kernels take CUDA tensors, not %s" % dev)
+    if hashes.device != dev:
+        raise ValueError("table and hashes must be on %s" % dev)
+    if not 1 <= len(primes) <= MAX_TABLES:
+        raise ValueError("the byte kernels take 1 to %d tables, not %d"
+                         % (MAX_TABLES, len(primes)))
+    if (flat.dtype != torch.uint8 or flat.dim() != 1
+            or not flat.is_contiguous()
+            or flat.shape[0] != byte_flat_size(primes)):
+        raise ValueError("flat must be the contiguous uint8 buffer of "
+                         "byte_flat_size(primes) = %d bytes"
+                         % byte_flat_size(primes))
+    if hashes.dtype != torch.int64 or hashes.dim() != 1 \
+            or not hashes.is_contiguous():
+        raise ValueError("hashes must be a contiguous 1-D int64 tensor")
+
+
+def byte_update_cuda(primes, flat, n_unique, hashes, nvalid, winner,
+                     with_bigcount=False):
+    """Kernel A (csrc/byte_update.cu): byte_update_plain on the card.
+
+    `winner` is the persistent int32 image of one entry per byte of
+    `flat`, holding IDX_FILL between calls. Returns the bigcount report
+    as device tensors (its count read by nobody here), or None. Counts
+    its launches in ``byte_update_cuda.launches``.
+    """
+    dev = flat.device
+    _check_byte_args(primes, flat, hashes)
+    n = int(nvalid)
+    if not 0 <= n <= hashes.shape[0]:
+        raise ValueError("nvalid %d outside [0, %d]" % (n, hashes.shape[0]))
+    if n >= IDX_FILL:
+        raise ValueError("byte batch too large: %d events (max %d)"
+                         % (n, IDX_FILL - 1))
+    if (winner is None or winner.device != dev
+            or winner.dtype != torch.int32
+            or winner.shape != flat.shape or not winner.is_contiguous()):
+        raise ValueError("winner must be a contiguous int32 tensor of one "
+                         "entry per table byte on %s" % dev)
+    if (n_unique.device != dev or n_unique.dtype != torch.int64
+            or n_unique.numel() != 1):
+        raise ValueError("n_unique must be an int64 [1] tensor on %s" % dev)
+    min_old = report = None
+    if with_bigcount:
+        min_old = torch.empty(n, dtype=torch.uint8, device=dev)
+        report = (torch.empty(n, dtype=torch.int64, device=dev),
+                  torch.empty(n, dtype=torch.int32, device=dev),
+                  torch.zeros(1, dtype=torch.int32, device=dev))
+    if n == 0:
+        return report
+    primes_arr, offsets_arr = _layout(primes)
+    cand_hash, cand_old, n_cand = report or (None, None, None)
+    err = cuda.library().khmer_byte_update(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), hashes.data_ptr(), n,
+        winner.data_ptr(), _ptr(min_old), n_unique.data_ptr(),
+        _ptr(cand_hash), _ptr(cand_old), _ptr(n_cand), dev.index,
+        _stream(dev))
+    cuda.check(err, "byte_update")
+    byte_update_cuda.launches += 1
+    return report
+
+
+byte_update_cuda.launches = 0
+
+
+def byte_update(primes, flat, n_unique, hashes, nvalid, winner=None,
+                with_bigcount=False):
+    """Exact byte update of hashes[:nvalid], in place: kernel A on a CUDA
+    buffer (with the sketch's `winner` image), the plain version on a CPU
+    one. Returns the bigcount report or None (see byte_update_plain)."""
+    if flat.is_cuda:
+        return byte_update_cuda(primes, flat, n_unique, hashes, nvalid,
+                                winner, with_bigcount)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return byte_update_plain(primes, flat, n_unique, hashes, nvalid,
+                             with_bigcount)
+
+
+def byte_gather_plain(primes, flat, hashes):
+    """Min over the T tables of table_t[h % p_t], for a hash tensor of any
+    shape -> int32 (plain PyTorch, any device)."""
+    counts = torch.full(hashes.shape, MAX_KCOUNT, dtype=torch.int32,
+                        device=hashes.device)
+    for off, p in zip(byte_offsets(primes), primes):
+        counts = torch.minimum(counts,
+                               flat[umod(hashes, p) + off].to(torch.int32))
+    return counts
+
+
+def byte_gather_cuda(primes, flat, hashes):
+    """Kernel B (csrc/byte_gather.cu): byte_gather_plain of a 1-D int64
+    hash tensor -> int32 [n]. Counts its launches in
+    ``byte_gather_cuda.launches``."""
+    dev = flat.device
+    _check_byte_args(primes, flat, hashes)
+    n = hashes.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    primes_arr, offsets_arr = _layout(primes)
+    err = cuda.library().khmer_byte_gather(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), hashes.data_ptr(), n, out.data_ptr(),
+        dev.index, _stream(dev))
+    cuda.check(err, "byte_gather")
+    byte_gather_cuda.launches += 1
+    return out
+
+
+byte_gather_cuda.launches = 0
+
+
+def byte_gather(primes, flat, hashes):
+    """Counts of a hash tensor (any shape) -> int32: kernel B on a CUDA
+    buffer, the plain version on a CPU one."""
+    if flat.is_cuda:
+        flat_h = hashes.reshape(-1).contiguous()
+        return byte_gather_cuda(primes, flat, flat_h).reshape(hashes.shape)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return byte_gather_plain(primes, flat, hashes)
+
+
+def byte_occupied(table0):
+    """Nonzero counters of a byte table (a device scalar)."""
+    return (table0 != 0).sum()
+
+
+# --------------------------------------------------------------------------
+# histogram_add (the abundance-histogram scatter)
+# --------------------------------------------------------------------------
+
+
+def histogram_add_plain(out, idx):
+    """out[idx[i]] += 1 for each idx[i] in [0, len(out)), others dropped
+    (JAX .at[].add drop mode); plain PyTorch, any device."""
+    keep = (idx >= 0) & (idx < out.shape[0])
+    sel = idx[keep]
+    out.index_add_(0, sel, torch.ones_like(sel, dtype=out.dtype))
+    return out
+
+
+def histogram_add_cuda(out, idx):
+    """Kernel C (csrc/histogram.cu): histogram_add_plain on the card, for
+    an int64 [nbins] `out` and 1-D int64 `idx`. Counts its launches in
+    ``histogram_add_cuda.launches``."""
+    dev = out.device
+    if dev.type != "cuda" or idx.device != dev:
+        raise ValueError("histogram_add takes CUDA tensors on one device")
+    if out.dtype != torch.int64 or out.dim() != 1 or not out.is_contiguous():
+        raise ValueError("out must be a contiguous 1-D int64 tensor")
+    if idx.dtype != torch.int64 or idx.dim() != 1 \
+            or not idx.is_contiguous():
+        raise ValueError("idx must be a contiguous 1-D int64 tensor")
+    if idx.shape[0] >= 2**31:
+        raise ValueError("histogram_add takes fewer than 2^31 indices")
+    if idx.shape[0] == 0 or out.shape[0] == 0:
+        return out
+    err = cuda.library().khmer_histogram_add(
+        idx.data_ptr(), idx.shape[0], out.data_ptr(), out.shape[0],
+        dev.index, _stream(dev))
+    cuda.check(err, "histogram_add")
+    histogram_add_cuda.launches += 1
+    return out
+
+
+histogram_add_cuda.launches = 0
+
+
+def histogram_add(out, idx):
+    """Accumulate the histogram of `idx` into `out`, in place: kernel C on
+    CUDA tensors, the plain version on CPU ones."""
+    if out.is_cuda:
+        return histogram_add_cuda(out, idx.reshape(-1).contiguous())
+    if out.device.type != "cpu":
+        raise ValueError("unsupported device %s" % out.device)
+    return histogram_add_plain(out, idx)
+
+
 def _gather_counts(kind, primes, tables, hashes):
-    """Count per hash (any shape) -> int32: the min over tables, or over
-    the four lanes of a blocked table; 0/1 presence for bit tables."""
+    """Count per hash (any shape) -> int32: the min over tables (byte
+    tables, a ByteTables), or over the four lanes of a blocked table; 0/1
+    presence for bit tables."""
     if kind == "blocked":
         from khmer_tpu_torch.core import blocked
 
         return blocked.gather_counts(primes[0], tables, hashes)
+    if kind == "byte":
+        return byte_gather(primes, tables.flat, hashes)
     if kind == "bit":
         present = torch.ones(hashes.shape, dtype=torch.bool,
                              device=hashes.device)
@@ -155,15 +467,18 @@ def _gather_counts(kind, primes, tables, hashes):
     raise NotImplementedError("%s tables are not yet ported" % kind)
 
 
-def make_abund_dist(track_kind, track_primes, main_kind, main_primes):
+def make_abund_dist(track_kind, track_primes, main_kind, main_primes,
+                    collect_sat=False):
     """Abundance-distribution step (reference hashtable.cc:451-502).
 
-    step(track_tables, dist, main_tables, hashes, valid) -> n_sat:
-    per event, in order, if the tracking count is 0, add to tracking
-    and histogram the main sketch's count. Updates the tracking tables
-    and ``dist`` [MAX_BIGCOUNT + 2] in place (JAX donated both) and
+    step(track_tables, dist, main_tables, hashes, valid) -> (n_sat,
+    sat_hash): per event, in order, if the tracking count is 0, add to
+    tracking and histogram the main sketch's count. Updates the tracking
+    tables and ``dist`` [MAX_BIGCOUNT + 2] in place (JAX donated both) and
     returns the number of saturated counts (count == MAX_KCOUNT) as a
-    device scalar; those go to the host for the bigcount fixup.
+    device scalar. Those belong in bin 255 unless a bigcount map resolves
+    them: with `collect_sat`, sat_hash holds their hashes (a host sync per
+    step); else it is None.
     """
     track_primes = tuple(int(p) for p in track_primes)
     main_primes = tuple(int(p) for p in main_primes)
@@ -177,8 +492,8 @@ def make_abund_dist(track_kind, track_primes, main_kind, main_primes):
                                 d["uh"]).to(torch.int64)
         is_sat = counted & (counts == MAX_KCOUNT)
         hist_idx = torch.where(counted & ~is_sat, counts, MAX_BIGCOUNT + 1)
-        dist.index_add_(0, hist_idx, torch.ones_like(hist_idx))
-        return is_sat.sum()
+        histogram_add(dist, hist_idx)
+        return is_sat.sum(), (d["uh"][is_sat] if collect_sat else None)
 
     return step
 
@@ -198,6 +513,10 @@ def init_tables(kind, primes, device):
     if kind == "bit":
         return tuple(torch.zeros(int(p) // 8 + 1, dtype=torch.uint8,
                                  device=device) for p in primes)
+    if kind == "byte":
+        return ByteTables(torch.zeros(byte_flat_size(primes),
+                                      dtype=torch.uint8, device=device),
+                          primes)
     raise NotImplementedError("%s tables are not yet ported" % kind)
 
 

@@ -10,14 +10,18 @@
 
 #include <cuda_runtime.h>
 
+#include "rmw_common.cuh"
+
 namespace khmer_blocked {
+
+using khmer_rmw::grid_for;
+using khmer_rmw::kIdxFill;
+using khmer_rmw::kMaxCount;
+using khmer_rmw::kThreads;
 
 constexpr int kLanes = 128;
 constexpr int kSub = 4;
 constexpr int kQuart = kLanes / kSub;
-constexpr int kThreads = 256;
-constexpr int32_t kIdxFill = 1 << 30;  // core/blocked.py IDX_FILL
-constexpr int kMaxCount = 255;
 
 // splitmix64 finalizer (core/blocked.py mix64)
 __device__ __forceinline__ uint64_t mix64(uint64_t x) {
@@ -33,10 +37,6 @@ __device__ __forceinline__ uint64_t mix64(uint64_t x) {
 __device__ __forceinline__ uint64_t lane_index(uint64_t row, uint64_t m,
                                                int t) {
   return row + kQuart * t + ((m >> (5 * t)) & (kQuart - 1));
-}
-
-inline unsigned grid_for(int64_t n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
 }  // namespace khmer_blocked

@@ -12,105 +12,33 @@
 // random sector accesses, not bandwidth or arithmetic.
 //
 // Design. The TPU kernel walks events one at a time, so each sees every
-// earlier increment. Hopper runs threads in no order, and the value an
-// atomic returns cannot decide credit. So the credit follows the rule of
-// blocked_local_update: an event is new iff it is the lowest-index event
-// of the chunk to touch a counter whose value before the chunk was 0.
-// Three launches, in stream order:
-//   1. claim:  atomicMin of the event index into the winner image, a
-//              persistent int32 array of one entry per counter that holds
-//              IDX_FILL everywhere between chunks;
-//   2. credit: winner == i && table == 0, read before any increment;
-//              each thread block adds its count to n_unique with one
-//              64-bit atomicAdd;
-//   3. commit: +1 per counter, capped at 255, by a CAS loop on the
-//              aligned 32-bit word (an event's four counters lie in four
-//              quarters and never share a word; different events do), and
-//              the reset of the winner entry to IDX_FILL.
-// Capped +1s commute, so the table equals the sequential result.
-// Duplicates of a hash share its counters, so only the first can win.
-// Only events i < nvalid take part: hash 0 is a real k-mer, so the zero
-// padding of a tail chunk is excluded by index, never by value.
+// earlier increment. Here the claim / credit / commit launches of
+// rmw_common.cuh give the same counters and new flags in parallel; this
+// file supplies the event source: a hash's four counters, one per 32-lane
+// quarter of its block (distinct by construction). Only events
+// i < nvalid take part: hash 0 is a real k-mer, so the zero padding of a
+// tail chunk is excluded by index, never by value.
 
 #include "blocked_common.cuh"
 
 namespace khmer_blocked {
 namespace {
 
-__global__ void claim_kernel(const uint64_t* __restrict__ hashes,
-                             int64_t nvalid, uint64_t nblocks,
-                             int32_t* __restrict__ winner) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x)
-                    + threadIdx.x;
-  if (i >= nvalid) return;
-  const uint64_t h = hashes[i];
-  const uint64_t m = mix64(h);
-  const uint64_t row = (h % nblocks) * kLanes;
-#pragma unroll
-  for (int t = 0; t < kSub; ++t) {
-    atomicMin(&winner[lane_index(row, m, t)], static_cast<int32_t>(i));
-  }
-}
+struct HashEvents {
+  const uint64_t* hashes;
+  uint64_t nblocks;
 
-__global__ void credit_kernel(const uint64_t* __restrict__ hashes,
-                              int64_t m_total, int64_t nvalid,
-                              uint64_t nblocks,
-                              const uint8_t* __restrict__ table,
-                              const int32_t* __restrict__ winner,
-                              bool* __restrict__ flags,
-                              unsigned long long* __restrict__ n_unique) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x)
-                    + threadIdx.x;
-  bool fresh = false;
-  if (i < nvalid) {
+  __device__ bool valid(int64_t) const { return true; }
+
+  template <class F>
+  __device__ void for_each_lane(int64_t i, F f) const {
     const uint64_t h = hashes[i];
     const uint64_t m = mix64(h);
     const uint64_t row = (h % nblocks) * kLanes;
 #pragma unroll
-    for (int t = 0; t < kSub; ++t) {
-      const uint64_t lane = lane_index(row, m, t);
-      fresh |= (winner[lane] == static_cast<int32_t>(i))
-               && (table[lane] == 0);
-    }
+    for (int t = 0; t < kSub; ++t) f(lane_index(row, m, t));
   }
-  if (i < m_total) flags[i] = fresh;
-  // every thread of the block reaches this barrier
-  const int count = __syncthreads_count(fresh);
-  if (threadIdx.x == 0 && count > 0) {
-    atomicAdd(n_unique, static_cast<unsigned long long>(count));
-  }
-}
-
-__device__ __forceinline__ void saturating_increment(uint8_t* table,
-                                                     uint64_t lane) {
-  unsigned int* word = reinterpret_cast<unsigned int*>(table + (lane & ~3ULL));
-  const unsigned int shift = static_cast<unsigned int>(lane & 3) * 8;
-  unsigned int old = *word;
-  unsigned int assumed;
-  do {
-    assumed = old;
-    if (((assumed >> shift) & 0xFFu) == kMaxCount) return;
-    old = atomicCAS(word, assumed, assumed + (1u << shift));
-  } while (old != assumed);
-}
-
-__global__ void commit_kernel(const uint64_t* __restrict__ hashes,
-                              int64_t nvalid, uint64_t nblocks,
-                              uint8_t* __restrict__ table,
-                              int32_t* __restrict__ winner) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x)
-                    + threadIdx.x;
-  if (i >= nvalid) return;
-  const uint64_t h = hashes[i];
-  const uint64_t m = mix64(h);
-  const uint64_t row = (h % nblocks) * kLanes;
-#pragma unroll
-  for (int t = 0; t < kSub; ++t) {
-    const uint64_t lane = lane_index(row, m, t);
-    saturating_increment(table, lane);
-    winner[lane] = kIdxFill;
-  }
-}
+};
 
 }  // namespace
 }  // namespace khmer_blocked
@@ -130,21 +58,10 @@ extern "C" int khmer_blocked_update(uint8_t* table, int64_t nblocks,
   using namespace khmer_blocked;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint64_t* h = reinterpret_cast<const uint64_t*>(hashes);
-  const uint64_t nb = static_cast<uint64_t>(nblocks);
-  if (nvalid > 0) {
-    claim_kernel<<<grid_for(nvalid), kThreads, 0, s>>>(h, nvalid, nb,
-                                                       winner);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  credit_kernel<<<grid_for(m), kThreads, 0, s>>>(
-      h, m, nvalid, nb, table, winner, flags,
-      reinterpret_cast<unsigned long long*>(n_unique));
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (nvalid > 0) {
-    commit_kernel<<<grid_for(nvalid), kThreads, 0, s>>>(h, nvalid, nb,
-                                                        table, winner);
-  }
-  return cudaGetLastError();
+  const HashEvents ev{reinterpret_cast<const uint64_t*>(hashes),
+                      static_cast<uint64_t>(nblocks)};
+  return khmer_rmw::launch_rmw(
+      ev, m, nvalid, table, winner, flags, nullptr,
+      reinterpret_cast<unsigned long long*>(n_unique),
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,42 @@
+// The exact byte layout: T prime-sized u8 tables joined end to end in one
+// flat buffer (khmer_tpu_torch/core/sketch_kernels.py ByteTables). Hash h
+// has counter offset_t + h % prime_t in table t. All indices are 64-bit:
+// the tables of -x 6e8 -N 4 already exceed 2^31 counters.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "rmw_common.cuh"
+
+namespace khmer_byte {
+
+constexpr int kMaxTables = 32;
+
+// Passed by value as a kernel parameter (528 bytes).
+struct ByteLayout {
+  int ntables;
+  uint64_t primes[kMaxTables];
+  uint64_t offsets[kMaxTables];
+};
+
+// Fill a layout from the host arrays the wrapper passes; false when the
+// table count is out of range.
+inline bool make_layout(int ntables, const int64_t* primes,
+                        const int64_t* offsets, ByteLayout* out) {
+  if (ntables < 1 || ntables > kMaxTables) return false;
+  out->ntables = ntables;
+  for (int t = 0; t < ntables; ++t) {
+    out->primes[t] = static_cast<uint64_t>(primes[t]);
+    out->offsets[t] = static_cast<uint64_t>(offsets[t]);
+  }
+  return true;
+}
+
+__device__ __forceinline__ uint64_t counter_index(const ByteLayout& layout,
+                                                  uint64_t h, int t) {
+  return layout.offsets[t] + h % layout.primes[t];
+}
+
+}  // namespace khmer_byte

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (sm_90a)
-into one shared library with a plain C interface, loaded with ctypes.
-The build runs at first use, into ``khmer_tpu_torch/_build/`` (not
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+Hopper (sm_90a), all started together, and the objects are linked into
+one shared library with a plain C interface, loaded with ctypes. The
+build runs at first use, into ``khmer_tpu_torch/_build/`` (not
 committed), and again whenever a source is newer than the library.
 Each C entry point launches on the stream it is given, allocates
 nothing and returns ``cudaGetLastError()``; ``check`` turns a non-zero
@@ -22,8 +23,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libkhmer_tpu_torch_kernels.so")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v", "-c"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -37,6 +39,18 @@ _ENTRY_POINTS = {
                              _I32, _P],
     # table, nblocks, hashes, n, out, device, stream
     "khmer_blocked_gather": [_P, _I64, _P, _I64, _P, _I32, _P],
+    # flat, ntables, primes (host), offsets (host), hashes, nvalid,
+    # winner, min_old, n_unique, cand_hash, cand_old, n_cand, device,
+    # stream
+    "khmer_byte_update": [_P, _I32, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
+                          _P, _I32, _P],
+    # flat, ntables, primes (host), offsets (host), hashes, n, out,
+    # device, stream
+    "khmer_byte_gather": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
+    # idx, n, out, nbins, device, stream
+    "khmer_histogram_add": [_P, _I64, _P, _I64, _I32, _P],
+    # bids, offs, m, table, nblocks, winner, nnew, device, stream
+    "khmer_proto_rmw": [_P, _P, _I64, _P, _I64, _P, _P, _I32, _P],
 }
 
 
@@ -61,7 +75,8 @@ def _stale():
 
 
 def build():
-    """Compile csrc/*.cu into LIB_PATH when it is missing or stale.
+    """Compile csrc/*.cu into LIB_PATH when it is missing or stale: one
+    nvcc per source, all at once, then one link.
 
     Returns (seconds spent, nvcc's report: ptxas registers and shared
     memory per kernel); (0.0, "") when the library was current.
@@ -69,17 +84,35 @@ def build():
     if not _stale():
         return 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (LIB_PATH, os.getpid())
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp]
-           + [s for s in _sources() if s.endswith(".cu")])
+    tag = "%d.tmp" % os.getpid()
+    units = [(src, os.path.join(BUILD_DIR, "%s.%s.o" % (
+        os.path.basename(src), tag)))
+        for src in _sources() if src.endswith(".cu")]
     t0 = time.perf_counter()
+    procs = [(subprocess.Popen(
+        [_nvcc()] + COMPILE_FLAGS + ["-o", obj, src],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        src) for src, obj in units]
+    report = []
+    failed = []
+    for proc, src in procs:
+        _, err = proc.communicate()
+        report.append(err)
+        if proc.returncode != 0:
+            failed.append("%s (%d):\n%s" % (src, proc.returncode, err))
+    if failed:
+        raise RuntimeError("nvcc failed on " + "\n".join(failed))
+    tmp = "%s.%s" % (LIB_PATH, tag)
+    cmd = ([_nvcc()] + ARCH_FLAGS + ["-shared", "-o", tmp]
+           + [obj for _, obj in units])
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
+        raise RuntimeError("nvcc link failed (%d):\n%s\n%s" % (
             proc.returncode, " ".join(cmd), proc.stderr))
+    for _, obj in units:
+        os.remove(obj)
     os.replace(tmp, LIB_PATH)
-    return seconds, proc.stderr
+    return time.perf_counter() - t0, "".join(report)
 
 
 @functools.cache

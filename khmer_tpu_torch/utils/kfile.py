@@ -1,5 +1,5 @@
 """File/space preflight checks (reference: khmer/kfile.py); a copy of the
-parts of khmer_tpu/utils/kfile.py that the CLI uses."""
+parts of khmer_tpu/utils/kfile.py that the CLIs use."""
 
 import errno
 import os
@@ -58,6 +58,31 @@ def check_file_writable(file_path):
     else:
         file_obj.close()
         return
+
+
+def check_space(in_files, force):
+    """Check that the disk of the first input has room for outputs as
+    large as the inputs together."""
+    in_file = in_files[0]
+    dir_path = os.path.dirname(os.path.realpath(in_file))
+    target = os.statvfs(dir_path)
+    free_space = target.f_frsize * target.f_bavail
+    valid_files = [f for f in in_files if os.path.isfile(f)]
+    total_size = sum(os.stat(f).st_size for f in valid_files)
+    size_diff = total_size - free_space
+    if size_diff > 0:
+        # message structure mirrors reference khmer/kfile.py:136-149
+        message = ("Not enough free space on disk for output files;"
+                   "\n       Need at least {:.1f} GB more."
+                   "\n       Estimated Output size: {:.1f} GB"
+                   "\n       Free space: {:.1f} GB").format(
+                       size_diff / 1e9, total_size / 1e9, free_space / 1e9)
+        if force:
+            print("WARNING:", message, file=sys.stderr)
+        else:
+            raise SystemExit(
+                "ERROR: " + message + "\nNOTE: This can be overridden "
+                "using the --force argument")
 
 
 def check_space_for_graph(outfile_name, graph_size, force):

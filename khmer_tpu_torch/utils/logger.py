@@ -1,5 +1,5 @@
 """Quiet-aware stderr logging (reference: khmer/khmer_logger.py); a copy
-of the parts of khmer_tpu/utils/logger.py that the CLI uses."""
+of the parts of khmer_tpu/utils/logger.py that the CLIs use."""
 
 import sys
 
@@ -19,6 +19,12 @@ def log_info(message, **kwargs):
 
 
 def log_warn(message, **kwargs):
+    if kwargs:
+        message = message.format(**kwargs)
+    print(message, file=sys.stderr)
+
+
+def log_error(message, **kwargs):
     if kwargs:
         message = message.format(**kwargs)
     print(message, file=sys.stderr)

@@ -1,5 +1,6 @@
-"""The port's load-into-counting CLI against the JAX CLI, the .ct files
-across the two packages, and the port's import boundary (no JAX)."""
+"""The port's CLIs (load-into-counting in both layouts, abundance-dist,
+abundance-dist-single) against the JAX CLIs, the .ct files across the
+two packages, and the port's import boundary (no JAX)."""
 
 import gzip
 import itertools
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 from khmer_tpu.core.blocked import BlockedCountgraph as JaxBlocked
-from khmer_tpu_torch.cli import load_into_counting
+from khmer_tpu_torch.cli import (abundance_dist, abundance_dist_single,
+                                 load_into_counting)
 from khmer_tpu_torch.core.blocked import BlockedCountgraph
 
 from tests.script_utils import runscript
@@ -64,13 +66,78 @@ def test_each_package_loads_the_others_ct(outputs):
             == ref.get_counts_for_hashes(hashes)).all()
 
 
+EXACT_ARGS = ["-k", "20", "-x", "1e6", "-N", "4", "-f"]
+
+
+@pytest.fixture(scope="module")
+def exact_outputs(tmp_path_factory):
+    """The .ct, .info and histogram CSVs written by each package's CLIs in
+    the default (exact) layout from data/25k.fq.gz: load-into-counting,
+    then abundance-dist on that .ct, and abundance-dist-single (which
+    also saves its countgraph). The tables are small for the input, so
+    -f lets the scripts past the false-positive guard, on both sides."""
+    out = {}
+    for side in ("port", "jax"):
+        d = tmp_path_factory.mktemp(side)
+        ct, hist = str(d / "out.ct"), str(d / "out.hist")
+        single, single_ct = str(d / "single.hist"), str(d / "single.ct")
+        if side == "port":
+            dev = ["--device", "cpu"]
+            load_into_counting.main(EXACT_ARGS + dev + [ct, DATA])
+            abundance_dist.main(dev + [ct, DATA, hist])
+            abundance_dist_single.main(
+                EXACT_ARGS + dev + ["--savegraph", single_ct, DATA, single])
+        else:
+            for script, args in (
+                    ("load-into-counting.py", EXACT_ARGS + [ct, DATA]),
+                    ("abundance-dist.py", [ct, DATA, hist]),
+                    ("abundance-dist-single.py", EXACT_ARGS + [
+                        "--savegraph", single_ct, DATA, single])):
+                status, _, err = runscript(script, args)
+                assert status == 0, err
+        out[side] = {"ct": ct, "info": ct + ".info", "hist": hist,
+                     "single": single, "single_ct": single_ct}
+    return out
+
+
+@pytest.mark.parametrize("what", ["ct", "info", "hist", "single",
+                                  "single_ct"])
+def test_exact_layout_clis_write_the_same_bytes_as_jax(exact_outputs, what):
+    with open(exact_outputs["port"][what], "rb") as a, \
+            open(exact_outputs["jax"][what], "rb") as b:
+        blob = a.read()
+        assert blob == b.read()
+    if what in ("ct", "single_ct"):
+        assert blob[:6] == b"OXLI\x04\x01" and blob[6] == 1  # bigcount on
+    if what in ("hist", "single"):
+        assert blob.startswith(b"abundance,count,cumulative,")
+
+
+def test_exact_layout_ct_loads_in_each_package(exact_outputs):
+    from khmer_tpu import load_countgraph as jax_load
+    from khmer_tpu_torch import load_countgraph
+
+    mine = load_countgraph(exact_outputs["jax"]["ct"], device="cpu")
+    ref = jax_load(exact_outputs["port"]["ct"])
+    assert mine.hashsizes() == ref.hashsizes() == [999983, 999979,
+                                                   999961, 999959]
+    assert mine.get_use_bigcount() and ref.get_use_bigcount()
+    for a, b in zip(mine.get_raw_tables(), ref.get_raw_tables()):
+        assert np.array_equal(a, b)
+    assert mine.n_occupied() == ref.n_occupied()
+    assert mine._bigcounts == ref._bigcounts
+
+
 def test_exact_layout_is_refused_as_not_yet_ported(tmp_path, capsys):
+    """The exact layout is the default now; its nibble variant
+    (--small-count, the SmallCountgraph) is what stays unported."""
     with pytest.raises(SystemExit) as exc:
-        load_into_counting.main(["-k", "20", "--device", "cpu",
-                                 str(tmp_path / "x.ct"), DATA])
+        load_into_counting.main(["-k", "20", "--small-count", "--device",
+                                 "cpu", str(tmp_path / "x.ct"), DATA])
     assert exc.value.code == 1
     assert "not yet ported" in capsys.readouterr().err
-    assert not os.path.exists(tmp_path / "x.ct.info")
+    # the writability check leaves the output empty; no table is saved
+    assert os.path.getsize(tmp_path / "x.ct") == 0
 
 
 def test_cuda_device_without_a_card_raises(tmp_path):
@@ -82,8 +149,11 @@ def test_cuda_device_without_a_card_raises(tmp_path):
 
 def test_port_imports_no_jax():
     code = ("import sys, khmer_tpu_torch, khmer_tpu_torch.cli."
-            "load_into_counting, khmer_tpu_torch.core.pipeline, "
-            "khmer_tpu_torch.ops.cuda; "
+            "load_into_counting, khmer_tpu_torch.cli.abundance_dist, "
+            "khmer_tpu_torch.cli.abundance_dist_single, "
+            "khmer_tpu_torch.core.pipeline, khmer_tpu_torch.ops.cuda, "
+            "khmer_tpu_torch.scripts.pallas_proto, "
+            "khmer_tpu_torch.scripts.profile_scatter2; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'khmer_tpu.'))"
             " or m == 'khmer_tpu']; "

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from khmer_tpu_torch.core import blocked as B
+from khmer_tpu_torch.core import sketch_kernels as K
+from khmer_tpu_torch.core.sketch import Countgraph
 
 pytestmark = pytest.mark.cuda
 
@@ -74,3 +76,82 @@ def test_dispatch_launches_kernels_on_cuda_tensors(cuda_device):
     assert cg.get("ACGTACGTACGTACGTACGT") == 1
     assert B.blocked_update_cuda.launches == before[0] + 1
     assert B.blocked_gather_cuda.launches == before[1] + 1
+
+
+@pytest.mark.parametrize("primes,n_chunks,m,pool", [
+    ((7, 11, 13), 3, 30000, 1 << 20),          # every counter past 255
+    ((997, 991, 983), 4, 8192, 64),            # heavy in-chunk duplicates
+    ((1000003, 999983, 999979, 999961), 3, 65536, 1 << 30),
+])
+def test_byte_update_and_gather_match_plain(cuda_device, primes, n_chunks,
+                                            m, pool):
+    dev = cuda_device
+    flat_k = torch.zeros(K.byte_flat_size(primes), dtype=torch.uint8,
+                         device=dev)
+    flat_p = flat_k.clone()
+    nu_k = torch.zeros(1, dtype=torch.int64, device=dev)
+    nu_p = nu_k.clone()
+    winner = torch.full(flat_k.shape, K.IDX_FILL, dtype=torch.int32,
+                        device=dev)
+    for h, nvalid in _chunks(len(primes), sum(primes), n_chunks, m, pool):
+        hd = torch.from_numpy(h.view(np.int64)).to(dev)
+        rk = K.byte_update_cuda(primes, flat_k, nu_k, hd, nvalid, winner,
+                                with_bigcount=True)
+        rp = K.byte_update_plain(primes, flat_p, nu_p, hd, nvalid,
+                                 with_bigcount=True)
+        assert torch.equal(flat_k, flat_p)
+        assert int(nu_k) == int(nu_p)
+        assert bool((winner == K.IDX_FILL).all())
+        nk = int(rk[2][0])
+        assert nk == int(rp[2][0])
+        assert K.bigcount_triggers(rk[0][:nk].cpu().numpy().view(np.uint64),
+                                   rk[1][:nk].cpu().numpy()) == \
+            K.bigcount_triggers(rp[0].cpu().numpy().view(np.uint64),
+                                rp[1].cpu().numpy())
+        assert torch.equal(K.byte_gather_cuda(primes, flat_k, hd),
+                           K.byte_gather_plain(primes, flat_p, hd))
+
+
+@pytest.mark.parametrize("m,nbins", [(1 << 21, 1 << 17), (600000, 65537),
+                                     (5000, 3)])
+def test_histogram_add_matches_plain(cuda_device, m, nbins):
+    rng = np.random.default_rng(m)
+    idx = rng.integers(-5, nbins + 5, m)
+    idx[: m // 2] = rng.integers(0, 4, m // 2)  # hot bins
+    idx[m // 2: m // 2 + 1000] = nbins - 1       # the top (global) bin
+    idx_d = torch.from_numpy(idx).to(cuda_device)
+    start = torch.from_numpy(rng.integers(0, 9, nbins)).to(cuda_device)
+    got = K.histogram_add_cuda(start.clone(), idx_d)
+    want = K.histogram_add_plain(start.clone(), idx_d)
+    assert torch.equal(got, want)
+
+
+def test_proto_rmw_matches_plain(cuda_device):
+    from khmer_tpu_torch.scripts import pallas_proto
+
+    dev = cuda_device
+    bids, offs, table = pallas_proto.correctness_case(
+        np.random.default_rng(0))
+    bids_d = torch.from_numpy(bids).to(dev)
+    offs_d = torch.from_numpy(pallas_proto.pack_offs(offs)).to(dev)
+    tab_k = torch.from_numpy(table).to(dev)
+    tab_p = tab_k.clone()
+    winner = torch.full((tab_k.numel(),), B.IDX_FILL, dtype=torch.int32,
+                        device=dev)
+    for _ in range(3):
+        nk = B.proto_rmw_cuda(bids_d, offs_d, tab_k, winner)
+        np_ = B.proto_rmw_plain(bids_d, offs_d, tab_p)
+        assert int(nk) == int(np_)
+        assert torch.equal(tab_k, tab_p)
+        assert bool((winner == B.IDX_FILL).all())
+
+
+def test_countgraph_dispatch_launches_kernels_on_cuda(cuda_device):
+    cg = Countgraph(20, 1e5, 4, device=cuda_device)
+    cg.set_use_bigcount(True)
+    before = (K.byte_update_cuda.launches, K.byte_gather_cuda.launches)
+    for _ in range(300):
+        cg.count("ACGTACGTACGTACGTACGT")
+    assert cg.get("ACGTACGTACGTACGTACGT") == 300
+    assert K.byte_update_cuda.launches == before[0] + 300
+    assert K.byte_gather_cuda.launches == before[1] + 1

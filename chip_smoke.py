@@ -51,7 +51,7 @@ DATA = os.path.join(REPO, "data", "25k.fq.gz")
 K = 20
 REPLAY = 50
 
-# H100 SXM peaks (on-chip-measurement guide): HBM3 bytes/s, and the
+# H100 SXM datasheet peaks: HBM3 bytes/s, and the
 # float32 rate outside the tensor cores, used here for the kernels'
 # 32-bit integer work (one operation per counter touched).
 PEAK_BYTES_S = 3.35e12

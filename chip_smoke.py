@@ -13,7 +13,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
      seeded adversarial inputs (hashes >= 2^63, in-chunk duplicates,
      cross-hash bin collisions on tiny tables, counts driven past 255 and
      into bigcount, zero-padded tails with real zeros inside nvalid, chunk
-     sequences, out-of-range histogram indices, the pallas_proto script's
+     sequences, one hash x 2^20 events, full 2^20 chunks on a 7-block
+     table and on tiny primes, chunks crowded onto a narrow counter range
+     that the update kernels must split, histogram indices out of range
+     and in the wrapped window [-nbins, 0), the pallas_proto script's
      correctness case);
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
      blocked, k=20, 4 x 5e7 bytes) on data/25k.fq.gz, then the abundance
@@ -27,7 +30,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
      plain version on the config-1 table and the largest the layout
      allows (2.1 GB); tables compared exactly, k-mers/s of each;
   5b. scale, exact: the same replay through the byte update and its plain
-     version on the config-1 tables and on -x 1e9 -N 4 (4 GB of tables);
+     version on the config-1 tables, on -x 1e9 -N 4 (4 GB of tables) and
+     on -x 5e9 -N 4 (20 GB); tables compared exactly, with the update's
+     chunk-sized scratch printed;
   6. microbenchmarks: the ports of scripts/pallas_proto.py (the decoded-
      event update against its plain version and against the blocked
      update) and scripts/profile_scatter2.py (the histogram against its
@@ -98,7 +103,7 @@ EXPECT_EXACT = {
     "csv_sha256": "198e0429f6b78b9b12cf9751e196c593"
                   "6097fbba9947fb04e8166a5fb32fea3d",
 }
-SCALE_X = 1e9  # phase 5b's large tables: -x 1e9 -N 4
+SCALE_X = (1e9, 5e9)  # phase 5b's large tables: -x 1e9 / 5e9 -N 4
 
 
 class SmokeFailure(AssertionError):
@@ -170,7 +175,7 @@ def main():
                                  "histogram_add", "proto_rmw")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
-        run_exact_case(torch, np, B, dev, name, nb, chunks, errs)
+        run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs)
     byte_cases = byte_adversarial_cases(np)
     for name, primes, chunks in byte_cases:
         run_byte_case(torch, np, SK, dev, name, primes, chunks, errs)
@@ -259,6 +264,9 @@ def adversarial_cases(np):
     seq = [(full(65536), 65536 - 1000 * i) for i in range(4)]
     for h, nvalid in seq:
         h[nvalid:] = 0
+    one = [(np.full(CHUNK, full(1)[0]), CHUNK) for _ in range(2)]
+    crowded = [(crowded_hashes(np, rng, 1 << 16, 400, 100003), 1 << 16)
+               for _ in range(2)]
     return [
         ("hashes>=2^63", 101, [(high, M)]),
         ("duplicates", 101, [(dup, M), (dup[::-1].copy(), M)]),
@@ -266,24 +274,39 @@ def adversarial_cases(np):
         ("saturate-101-blocks", 101, sat101),
         ("zero-padded-tail", 101, [(pad, 3000)]),
         ("chunk-sequence", 100003, seq),
+        ("one-hash-x2^20", 101, one),
+        ("full-chunk-7-blocks", 7, [(full(CHUNK), CHUNK)]),
+        ("crowded-bucket", 100003, crowded),
     ]
+
+
+CHUNK = 1 << 20  # core/pipeline.py DENSE_CHUNK
+
+
+def crowded_hashes(np, rng, n, width, modulus):
+    """n hashes whose residues mod `modulus` all lie below `width`: every
+    event of the chunk on a narrow counter range, with far more distinct
+    counters than one bucket's map of the update kernels holds."""
+    low = rng.integers(0, width, n, dtype=np.uint64)
+    k = rng.integers(0, 2**64 // modulus - 1, n, dtype=np.uint64)
+    return low + k * np.uint64(modulus)
 
 
 def _dev_hashes(torch, np, h, dev):
     return torch.from_numpy(np.ascontiguousarray(h).view(np.int64)).to(dev)
 
 
-def run_exact_case(torch, np, B, dev, name, nb, chunks, errs):
+def run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs):
     tab_k = torch.zeros((nb, B.LANES), dtype=torch.uint8, device=dev)
     tab_p = tab_k.clone()
     nu_k = torch.zeros(1, dtype=torch.int64, device=dev)
     nu_p = nu_k.clone()
-    winner = torch.full((nb * B.LANES,), B.IDX_FILL, dtype=torch.int32,
-                        device=dev)
+    scratch = None  # kept between chunks, as a sketch keeps it
     seen = []
     for h, nvalid in chunks:
         hd = _dev_hashes(torch, np, h, dev)
-        fk = B.blocked_update_cuda(tab_k, hd, nvalid, nu_k, winner)
+        scratch = SK.update_scratch(scratch, nvalid, B.SUB, dev)
+        fk = B.blocked_update_cuda(tab_k, hd, nvalid, nu_k, scratch)
         fp = B.blocked_update_plain(nb, (tab_p,), nu_p, hd, nvalid)
         torch.cuda.synchronize()
         diff = int((tab_k.int() - tab_p.int()).abs().max())
@@ -293,8 +316,6 @@ def run_exact_case(torch, np, B, dev, name, nb, chunks, errs):
         expect(diff == 0 and torch.equal(fk, fp)
                and int(nu_k) == int(nu_p),
                "blocked_update != plain on case %s" % name)
-        expect(bool((winner == B.IDX_FILL).all()),
-               "winner image not reset on case %s" % name)
         seen.append(h[:nvalid])
     q = _dev_hashes(torch, np, np.concatenate(
         seen + [np.random.default_rng(nb).integers(
@@ -329,13 +350,23 @@ def byte_adversarial_cases(np):
     seq = [(full(65536), 65536 - 1000 * i) for i in range(4)]
     for h, nvalid in seq:
         h[nvalid:] = 0
+    # hashes below 20,000 < every prime: each table's counters crowd into
+    # its first 20,000 bytes
+    crowded = [(rng.integers(0, 20000, 1 << 16, dtype=np.uint64), 1 << 16)
+               for _ in range(2)]
+    million = (999983, 999979, 999961, 999959)
     return [
         ("hashes>=2^63", four, [(high, M)]),
         ("duplicates", four, [(dup, M), (dup[::-1].copy(), M)]),
         ("bin-collisions-7-11-13", (7, 11, 13), tiny),
         ("bigcount-triggers", (10007, 10009, 10037, 10039), big),
         ("zero-padded-tail", four, [(pad, 3000)]),
-        ("chunk-sequence", (999983, 999979, 999961, 999959), seq),
+        ("chunk-sequence", million, seq),
+        # bigcount through 255 inside one chunk, then past it
+        ("one-hash-x2^20", million,
+         [(np.full(CHUNK, full(1)[0]), CHUNK) for _ in range(2)]),
+        ("full-chunk-tiny-primes", (7, 11, 13), [(full(CHUNK), CHUNK)]),
+        ("crowded-bucket", million, crowded),
     ]
 
 
@@ -361,14 +392,14 @@ def run_byte_case(torch, np, SK, dev, name, primes, chunks, errs):
     flat_p = flat_k.clone()
     nu_k = torch.zeros(1, dtype=torch.int64, device=dev)
     nu_p = nu_k.clone()
-    winner = torch.full(flat_k.shape, SK.IDX_FILL, dtype=torch.int32,
-                        device=dev)
+    scratch = None  # kept between chunks, as a sketch keeps it
     big_k, big_p = {}, {}
     seen = []
     for h, nvalid in chunks:
         hd = _dev_hashes(torch, np, h, dev)
-        rk = SK.byte_update_cuda(primes, flat_k, nu_k, hd, nvalid, winner,
-                                 with_bigcount=True)
+        scratch = SK.update_scratch(scratch, nvalid, len(primes), dev)
+        rk = SK.byte_update_cuda(primes, flat_k, nu_k, hd, nvalid,
+                                 with_bigcount=True, scratch=scratch)
         rp = SK.byte_update_plain(primes, flat_p, nu_p, hd, nvalid,
                                   with_bigcount=True)
         _fold(big_k, _report_triggers(np, SK, rk))
@@ -379,8 +410,6 @@ def run_byte_case(torch, np, SK, dev, name, primes, chunks, errs):
                                   0 if big_k == big_p else 1)
         expect(diff == 0 and int(nu_k) == int(nu_p) and big_k == big_p,
                "byte_update != plain on case %s" % name)
-        expect(bool((winner == SK.IDX_FILL).all()),
-               "winner image not reset on case %s" % name)
         seen.append(h[:nvalid])
     q = _dev_hashes(torch, np, np.concatenate(
         seen + [np.random.default_rng(len(primes)).integers(
@@ -402,6 +431,8 @@ def run_histogram_cases(torch, np, SK, dev, errs):
         idx = rng.integers(-5, nbins + 5, m)    # out-of-range both sides
         idx[: m // 2] = rng.integers(0, 4, m // 2)        # hot bins
         idx[m // 2: m // 2 + 1000] = nbins - 1  # the top bin, in global
+        # [-nbins, 0) wraps as JAX's .at[].add wraps it; below, dropped
+        idx[m // 4: m // 4 + 3000] = rng.integers(-nbins - 5, 0, 3000)
         idx_d = torch.from_numpy(idx).to(dev)
         start = torch.from_numpy(rng.integers(0, 9, nbins)).to(dev)
         got = SK.histogram_add_cuda(start.clone(), idx_d)
@@ -746,10 +777,14 @@ def run_scale(torch, np, B, dev, card, errs, one):
     """Replay the stream REPLAY times in 2^20-hash chunks through the
     kernel and the plain version, on the config-1 and the largest table;
     compare the final states exactly. Returns the config-1 kernel times."""
-    from khmer_tpu_torch.core.sketch_kernels import get_n_primes_near_x
+    from khmer_tpu_torch.core.pipeline import DENSE_CHUNK
+    from khmer_tpu_torch.core.sketch_kernels import (get_n_primes_near_x,
+                                                     update_plan,
+                                                     update_scratch)
     from khmer_tpu_torch.ops.u64 import umod
 
     chunks, total = replay_chunks(torch, np, dev, one)
+    scratch_bytes = update_plan(DENSE_CHUNK, B.SUB)[2]
     nchunks = len(chunks)
     max_nb = get_n_primes_near_x(1, B.MAX_BLOCKS + 1)[0]
     out = {}
@@ -760,14 +795,13 @@ def run_scale(torch, np, B, dev, card, errs, one):
             tab = torch.zeros((nb, B.LANES), dtype=torch.uint8, device=dev)
             nu = torch.zeros(1, dtype=torch.int64, device=dev)
             if which == "kernel":
-                winner = torch.full((nb * B.LANES,), B.IDX_FILL,
-                                    dtype=torch.int32, device=dev)
+                # the chunk's scratch, kept between chunks as a sketch
+                # keeps it
+                scratch = update_scratch(None, DENSE_CHUNK, B.SUB, dev)
 
                 def step(h, n):
-                    B.blocked_update_cuda(tab, h, n, nu, winner)
+                    B.blocked_update_cuda(tab, h, n, nu, scratch)
             else:
-                winner = None
-
                 def step(h, n):
                     B.blocked_update_plain(nb, (tab,), nu, h, n)
             # warm-up on a throwaway copy: allocator and first launch
@@ -782,7 +816,6 @@ def run_scale(torch, np, B, dev, card, errs, one):
                     step(h, n)
             ms[which] = _timed(torch, run)
             tabs[which] = (tab, int(nu))
-            del winner
             torch.cuda.empty_cache()
         (tk, nuk), (tp, nup) = tabs["kernel"], tabs["plain"]
         diff = int((tk.int() - tp.int()).abs().max()) if nb < 2**22 else \
@@ -802,12 +835,12 @@ def run_scale(torch, np, B, dev, card, errs, one):
                                       for _ in range(reps)]) / reps
         gp_ms = _timed(torch, lambda: [B.gather_counts_plain(nb, (tp,), gq)
                                        for _ in range(reps)]) / reps
-        say("phase 5 %s: %d blocks (%.2f GB), %d k-mers in %d chunks of "
-            "%d; n_unique %d; update kernel %.3f ms/chunk = %.4g k-mers/s, "
-            "plain %.3f ms/chunk = %.4g k-mers/s; gather of %d hashes "
-            "kernel %.4f ms, plain %.4f ms; on %s"
-            % (label, nb, nb * B.LANES / 1e9, total, nchunks,
-               gq.shape[0], nuk, ms["kernel"] / nchunks,
+        say("phase 5 %s: %d blocks (%.2f GB, update scratch %.1f MB), %d "
+            "k-mers in %d chunks of %d; n_unique %d; update kernel %.4f "
+            "ms/chunk = %.4g k-mers/s, plain %.4f ms/chunk = %.4g k-mers/s; "
+            "gather of %d hashes kernel %.4f ms, plain %.4f ms; on %s"
+            % (label, nb, nb * B.LANES / 1e9, scratch_bytes / 1e6, total,
+               nchunks, gq.shape[0], nuk, ms["kernel"] / nchunks,
                total / ms["kernel"] * 1e3, ms["plain"] / nchunks,
                total / ms["plain"] * 1e3, gq.shape[0], g_ms, gp_ms, card))
         if label == "config-1":
@@ -834,32 +867,38 @@ def run_scale(torch, np, B, dev, card, errs, one):
 
 def run_scale_exact(torch, np, SK, dev, card, errs, one):
     """Replay the stream REPLAY times through the byte update (bigcount
-    on, as the CLI runs it) and its plain version, on the config-1 tables
-    and on -x 1e9 -N 4; compare tables, n_unique and bigcount maps
-    exactly. The kernel's timed run keeps its reports on the card and
-    folds them afterwards. Returns the config-1 times."""
+    on, as the CLI runs it) and its plain version, on the config-1 tables,
+    on -x 1e9 -N 4 and on -x 5e9 -N 4 (20 GB of tables, more than the
+    first design's table-sized scratch left room for); compare tables,
+    n_unique and bigcount maps exactly. The kernel's timed run keeps its
+    reports on the card and folds them afterwards. Returns the config-1
+    times."""
+    from khmer_tpu_torch.core.pipeline import DENSE_CHUNK
     from khmer_tpu_torch.ops.u64 import umod
 
     chunks, total = replay_chunks(torch, np, dev, one)
     nchunks = len(chunks)
     out = {}
-    for label, primes in (
-            ("config-1", tuple(EXPECT_EXACT["primes"])),
-            ("-x 1e9 -N 4", tuple(SK.get_n_primes_near_x(4, SCALE_X)))):
+    for label, primes in [("config-1", tuple(EXPECT_EXACT["primes"]))] + [
+            ("-x %g -N 4" % x, tuple(SK.get_n_primes_near_x(4, x)))
+            for x in SCALE_X]:
         size = SK.byte_flat_size(primes)
+        scratch_bytes = SK.update_plan(DENSE_CHUNK, len(primes))[2]
         state = {}
         ms = {}
         for which in ("kernel", "plain"):
             flat = torch.zeros(size, dtype=torch.uint8, device=dev)
             nu = torch.zeros(1, dtype=torch.int64, device=dev)
-            winner = (torch.full((size,), SK.IDX_FILL, dtype=torch.int32,
-                                 device=dev) if which == "kernel" else None)
+            # the chunk's scratch, kept between chunks as a sketch keeps it
+            scratch = (SK.update_scratch(None, DENSE_CHUNK, len(primes), dev)
+                       if which == "kernel" else None)
             reports = []
 
             def step(h, n):
                 if which == "kernel":
                     return SK.byte_update_cuda(primes, flat, nu, h, n,
-                                               winner, with_bigcount=True)
+                                               with_bigcount=True,
+                                               scratch=scratch)
                 return SK.byte_update_plain(primes, flat, nu, h, n,
                                             with_bigcount=True)
             # warm-up on a throwaway copy: allocator and first launch
@@ -876,7 +915,7 @@ def run_scale_exact(torch, np, SK, dev, card, errs, one):
             big = {}
             for r in reports:
                 _fold(big, _report_triggers(np, SK, r))
-            del reports, winner
+            del reports, scratch
             torch.cuda.empty_cache()
             state[which] = (flat, int(nu), big)
         (fk, nuk, bk), (fp, nup, bp) = state["kernel"], state["plain"]
@@ -885,11 +924,11 @@ def run_scale_exact(torch, np, SK, dev, card, errs, one):
                                   abs(nuk - nup), 0 if bk == bp else 1)
         expect(same and nuk == nup and bk == bp,
                "byte_update != plain at %s scale" % label)
-        say("phase 5b %s: primes %s (%.2f GB of tables, %.2f GB winner "
-            "image), %d k-mers in %d chunks of %d; n_unique %d, bigcount "
-            "entries %d; update kernel %.3f ms/chunk = %.4g k-mers/s, plain "
-            "%.3f ms/chunk = %.4g k-mers/s; on %s"
-            % (label, list(primes), size / 1e9, 4 * size / 1e9, total,
+        say("phase 5b %s: primes %s (%.2f GB of tables, update scratch "
+            "%.1f MB), %d k-mers in %d chunks of %d; n_unique %d, bigcount "
+            "entries %d; update kernel %.4f ms/chunk = %.4g k-mers/s, plain "
+            "%.4f ms/chunk = %.4g k-mers/s; on %s"
+            % (label, list(primes), size / 1e9, scratch_bytes / 1e6, total,
                nchunks, chunks[0][0].shape[0], nuk, len(bk),
                ms["kernel"] / nchunks, total / ms["kernel"] * 1e3,
                ms["plain"] / nchunks, total / ms["plain"] * 1e3, card))

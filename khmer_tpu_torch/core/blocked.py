@@ -34,7 +34,7 @@ SAVED_BLOCKED = 127  # private OXLI type byte (reference uses 1..8)
 
 MAX_BLOCKS = (2**31 - 1) // LANES  # counter ids must stay i32
 
-IDX_FILL = K.IDX_FILL  # winner sentinel; events per batch must stay below
+IDX_FILL = K.IDX_FILL  # plain winner sentinel; events per batch stay below
 
 
 def _offsets(h):
@@ -126,37 +126,34 @@ def _check_blocked_args(table, hashes, device):
         raise ValueError("hashes must be a contiguous 1-D int64 tensor")
 
 
-def blocked_update_cuda(table, hashes, nvalid, n_unique, winner):
+def blocked_update_cuda(table, hashes, nvalid, n_unique, scratch=None):
     """Kernel 1 (csrc/blocked_update.cu): the blocked update on the card.
 
     Updates `table` [nblocks, 128] u8 and `n_unique` i64[1] in place with
-    hashes[:nvalid] and returns the new flags [M] bool. `winner` is the
-    persistent int32 image of one entry per counter, holding IDX_FILL
-    between calls. Counts its launches in ``blocked_update_cuda.launches``.
+    hashes[:nvalid] and returns the new flags [M] bool. `scratch` is a
+    uint8 buffer on the card of at least update_plan(nvalid, 4) bytes
+    (sketch_kernels.update_scratch; a sketch keeps one between chunks), or
+    None for a new one: nothing the size of the table. Counts its
+    launches in ``blocked_update_cuda.launches``.
     """
     dev = table.device
     _check_blocked_args(table, hashes, dev)
     M = hashes.shape[0]
-    if M >= IDX_FILL:
-        raise ValueError("blocked batch too large: %d events (max %d)"
-                         % (M, IDX_FILL - 1))
-    if not 0 <= int(nvalid) <= M:
-        raise ValueError("nvalid %d outside [0, %d]" % (nvalid, M))
-    if (winner.device != dev or winner.dtype != torch.int32
-            or winner.numel() != table.numel()
-            or not winner.is_contiguous()):
-        raise ValueError("winner must be a contiguous int32 tensor of one "
-                         "entry per counter on %s" % dev)
+    n = int(nvalid)
+    if not 0 <= n <= M:
+        raise ValueError("nvalid %d outside [0, %d]" % (n, M))
     if (n_unique.device != dev or n_unique.dtype != torch.int64
             or n_unique.numel() != 1):
         raise ValueError("n_unique must be an int64 [1] tensor on %s" % dev)
+    if n == 0:
+        return torch.zeros(M, dtype=torch.bool, device=dev)
+    # held until the launch: the allocator may not hand it out meanwhile
+    scratch = K.update_scratch(scratch, n, SUB, dev)
+    nbuckets, ptr = K._scratch_ptrs(scratch, n, SUB)
     flags = torch.empty(M, dtype=torch.bool, device=dev)
-    if M == 0:
-        return flags
     err = cuda.library().khmer_blocked_update(
-        table.data_ptr(), table.shape[0], hashes.data_ptr(), M,
-        int(nvalid), winner.data_ptr(), flags.data_ptr(),
-        n_unique.data_ptr(), dev.index,
+        table.data_ptr(), table.shape[0], hashes.data_ptr(), M, n, nbuckets,
+        *ptr[:4], flags.data_ptr(), n_unique.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda.check(err, "blocked_update")
     blocked_update_cuda.launches += 1
@@ -167,19 +164,19 @@ blocked_update_cuda.launches = 0
 
 
 def blocked_update_core(nblocks, tables, n_unique, hashes, nvalid,
-                        winner=None):
+                        scratch=None):
     """Batch update of hashes[:nvalid], sequential-order exact, in place.
 
-    On a CUDA table this launches kernel 1 (and needs the sketch's
-    `winner` image); on a CPU table it runs the plain version. Returns
-    the per-event new flags.
+    On a CUDA table this launches kernel 1 (with the sketch's `scratch`,
+    see blocked_update_cuda); on a CPU table it runs the plain version.
+    Returns the per-event new flags.
     """
     table = tables[0]
     if table.shape[0] != int(nblocks):
         raise ValueError("table has %d blocks, expected %d"
                          % (table.shape[0], nblocks))
     if table.is_cuda:
-        return blocked_update_cuda(table, hashes, nvalid, n_unique, winner)
+        return blocked_update_cuda(table, hashes, nvalid, n_unique, scratch)
     if table.device.type != "cpu":
         raise ValueError("unsupported device %s" % table.device)
     return blocked_update_plain(nblocks, tables, n_unique, hashes, nvalid)
@@ -357,7 +354,6 @@ class BlockedCountgraph(_Sketch):
             raise ValueError("blocked sketch too large: %d blocks (max "
                              "%d)" % (nblocks, MAX_BLOCKS))
         super().__init__(ksize, (nblocks,), device=device)
-        self._winner = None
 
     @property
     def nblocks(self):
@@ -368,17 +364,9 @@ class BlockedCountgraph(_Sketch):
         # guard computes (occupancy/subtable_size)**4 meaningfully)
         return [self._primes[0] * QUART] * SUB
 
-    def _winner_image(self):
-        """The kernel's persistent winner image, made on first use on a
-        CUDA device (4 bytes per counter); None on the CPU."""
-        if self._winner is None and self.device.type == "cuda":
-            self._winner = torch.full((self.nblocks * LANES,), IDX_FILL,
-                                      dtype=torch.int32, device=self.device)
-        return self._winner
-
     def _update(self, hashes, nvalid):
         blocked_update_core(self.nblocks, self.tables, self._n_unique,
-                                   hashes, nvalid, self._winner_image())
+                            hashes, nvalid, self._update_scratch(nvalid, SUB))
 
     def _count_nonzero_t0(self):
         return int(_blocked_occupied(self.tables[0]))

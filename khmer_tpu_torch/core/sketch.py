@@ -60,6 +60,17 @@ class _Sketch:
         self._occupied_offset = 0
         self._use_bigcount = False
         self._bigcounts = {}
+        self._scratch = None
+
+    def _update_scratch(self, nvalid, ntables):
+        """The update kernel's scratch for a chunk of nvalid events, kept
+        between chunks (sized by the chunk, never by the tables); None on
+        the CPU, where the plain versions need none."""
+        if self.device.type != "cuda":
+            return None
+        self._scratch = K.update_scratch(self._scratch, nvalid, ntables,
+                                         self.device)
+        return self._scratch
 
     # -- introspection ---------------------------------------------------
 
@@ -216,9 +227,8 @@ class Countgraph(_Sketch):
     map when bigcount is on (set_use_bigcount).
 
     The T tables are views into one flat buffer (sketch_kernels.
-    ByteTables); on a CUDA device the update keeps a persistent int32
-    winner image of one entry per counter (4 bytes per table byte, made
-    at first use).
+    ByteTables); on a CUDA device the update keeps only the chunk's
+    scratch (sketch_kernels.update_plan), nothing the size of the tables.
     """
 
     storage_kind = "byte"
@@ -229,19 +239,12 @@ class Countgraph(_Sketch):
         if primes is None:
             primes = K.get_n_primes_near_x(int(n_tables), int(starting_size))
         super().__init__(ksize, primes, device=device)
-        self._winner = None
-
-    def _winner_image(self):
-        if self._winner is None and self.device.type == "cuda":
-            self._winner = torch.full(self.tables.flat.shape, K.IDX_FILL,
-                                      dtype=torch.int32, device=self.device)
-        return self._winner
 
     def _update(self, hashes, nvalid):
-        report = K.byte_update(self._primes, self.tables.flat,
-                               self._n_unique, hashes, nvalid,
-                               self._winner_image(),
-                               with_bigcount=self._use_bigcount)
+        report = K.byte_update(
+            self._primes, self.tables.flat, self._n_unique, hashes, nvalid,
+            with_bigcount=self._use_bigcount,
+            scratch=self._update_scratch(nvalid, len(self._primes)))
         if report is not None:
             self._absorb_saturation(*report)
 

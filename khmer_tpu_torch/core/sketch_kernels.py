@@ -32,8 +32,8 @@ MAX_BIGCOUNT = 65535  # reference: include/oxli/oxli.hh:82
 _I32_MAX = 2**31 - 1
 _I64_MAX = 2**63 - 1
 
-# winner-image sentinel of the update kernels; events per batch must stay
-# below it
+# winner sentinel of the plain blocked update and of kernel D; events per
+# batch must stay below it
 IDX_FILL = 1 << 30
 
 _POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)],
@@ -158,8 +158,7 @@ def byte_offsets(primes):
 
 def byte_flat_size(primes):
     """Length of the joined buffer: sum(primes), padded to a multiple of 4
-    bytes so the kernels' aligned 32-bit CAS word never reads past it (a
-    prime-sized table's last byte may share a word with nothing)."""
+    bytes (whole 32-bit words; no kernel reads or writes the padding)."""
     return (sum(int(p) for p in primes) + 3) // 4 * 4
 
 
@@ -246,6 +245,71 @@ def bigcount_triggers(cand_hash, cand_old):
     return {int(h): int(t) for h, t in zip(uh[keep], trig[keep])}
 
 
+# --------------------------------------------------------------------------
+# the update kernels' scratch (csrc/bucket_common.cuh)
+# --------------------------------------------------------------------------
+
+# The update kernels bucket a chunk's lane-events (one counter of one
+# event, named by a 32-bit id) by counter range, about BUCKET_TARGET to a
+# bucket and at most MAX_BUCKETS buckets (csrc/bucket_common.cuh
+# kMaxBuckets); a chunk holds fewer than MAX_LANE_EVENTS of them.
+BUCKET_TARGET = 512
+MAX_BUCKETS = 16384
+MAX_LANE_EVENTS = 2**31
+
+_PLAN_PARTS = ("ids", "start", "cursor", "ev_word", "min_old")
+
+
+def update_plan(n, ntables):
+    """The scratch of one update of n events of `ntables` counters each:
+    (nbuckets, {part: (byte offset, bytes)}, total bytes), parts in the
+    order of _PLAN_PARTS, each 8-byte aligned: the lane-event ids (4 bytes
+    each), the bucket starts and cursors (4 bytes per bucket), and two
+    4-byte words per event. It depends on the chunk alone, never on the
+    table."""
+    n, ntables = int(n), int(ntables)
+    lanes = n * ntables
+    if lanes >= MAX_LANE_EVENTS:
+        raise ValueError("chunk too large: %d events x %d counters (the "
+                         "update takes fewer than %d)"
+                         % (n, ntables, MAX_LANE_EVENTS))
+    nbuckets = min(max(-(-lanes // BUCKET_TARGET), 1), MAX_BUCKETS)
+    sizes = (4 * lanes, 4 * (nbuckets + 1), 4 * nbuckets, 4 * n, 4 * n)
+    parts, off = {}, 0
+    for name, size in zip(_PLAN_PARTS, sizes):
+        parts[name] = (off, size)
+        off += -(-size // 8) * 8
+    return nbuckets, parts, off
+
+
+def bucket_of(index, size, nbuckets):
+    """The bucket of flat counter `index` (< size), as the kernels compute
+    it: floor(index * q * nbuckets / 2^64) with q = (2^64 - 1) // size.
+    Monotone in index, so each bucket is one contiguous range."""
+    q = (2**64 - 1) // size
+    return (index * q * nbuckets) >> 64
+
+
+def update_scratch(buf, n, ntables, device):
+    """A uint8 buffer for update_plan(n, ntables) on `device`: `buf` when
+    it is one and large enough (a sketch keeps its buffer between
+    chunks), else a new one from torch.empty."""
+    need = update_plan(n, ntables)[2]
+    if (buf is not None and buf.device == device
+            and buf.dtype == torch.uint8 and buf.dim() == 1
+            and buf.is_contiguous() and buf.data_ptr() % 8 == 0
+            and buf.numel() >= need):
+        return buf
+    return torch.empty(max(need, 8), dtype=torch.uint8, device=device)
+
+
+def _scratch_ptrs(buf, n, ntables):
+    """(nbuckets, [device address of each part]) of a scratch buffer."""
+    nbuckets, parts, _ = update_plan(n, ntables)
+    base = buf.data_ptr()
+    return nbuckets, [base + parts[name][0] for name in _PLAN_PARTS]
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -280,34 +344,30 @@ def _check_byte_args(primes, flat, hashes):
         raise ValueError("hashes must be a contiguous 1-D int64 tensor")
 
 
-def byte_update_cuda(primes, flat, n_unique, hashes, nvalid, winner,
-                     with_bigcount=False):
+def byte_update_cuda(primes, flat, n_unique, hashes, nvalid,
+                     with_bigcount=False, scratch=None):
     """Kernel A (csrc/byte_update.cu): byte_update_plain on the card.
 
-    `winner` is the persistent int32 image of one entry per byte of
-    `flat`, holding IDX_FILL between calls. Returns the bigcount report
-    as device tensors (its count read by nobody here), or None. Counts
-    its launches in ``byte_update_cuda.launches``.
+    `scratch` is a uint8 buffer on the card of at least
+    update_plan(nvalid, T) bytes (update_scratch; a sketch keeps one
+    between chunks), or None for a new one: nothing the size of the
+    tables. Returns the bigcount report as device tensors (its count read
+    by nobody here), or None. Counts its launches in
+    ``byte_update_cuda.launches``.
     """
     dev = flat.device
     _check_byte_args(primes, flat, hashes)
     n = int(nvalid)
     if not 0 <= n <= hashes.shape[0]:
         raise ValueError("nvalid %d outside [0, %d]" % (n, hashes.shape[0]))
-    if n >= IDX_FILL:
-        raise ValueError("byte batch too large: %d events (max %d)"
-                         % (n, IDX_FILL - 1))
-    if (winner is None or winner.device != dev
-            or winner.dtype != torch.int32
-            or winner.shape != flat.shape or not winner.is_contiguous()):
-        raise ValueError("winner must be a contiguous int32 tensor of one "
-                         "entry per table byte on %s" % dev)
     if (n_unique.device != dev or n_unique.dtype != torch.int64
             or n_unique.numel() != 1):
         raise ValueError("n_unique must be an int64 [1] tensor on %s" % dev)
-    min_old = report = None
+    # held until the launch: the allocator may not hand it out meanwhile
+    scratch = update_scratch(scratch, n, len(primes), dev)
+    nbuckets, ptr = _scratch_ptrs(scratch, n, len(primes))
+    report = None
     if with_bigcount:
-        min_old = torch.empty(n, dtype=torch.uint8, device=dev)
         report = (torch.empty(n, dtype=torch.int64, device=dev),
                   torch.empty(n, dtype=torch.int32, device=dev),
                   torch.zeros(1, dtype=torch.int32, device=dev))
@@ -316,9 +376,9 @@ def byte_update_cuda(primes, flat, n_unique, hashes, nvalid, winner,
     primes_arr, offsets_arr = _layout(primes)
     cand_hash, cand_old, n_cand = report or (None, None, None)
     err = cuda.library().khmer_byte_update(
-        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
-        ctypes.addressof(offsets_arr), hashes.data_ptr(), n,
-        winner.data_ptr(), _ptr(min_old), n_unique.data_ptr(),
+        flat.data_ptr(), flat.shape[0], len(primes),
+        ctypes.addressof(primes_arr), ctypes.addressof(offsets_arr),
+        hashes.data_ptr(), n, nbuckets, *ptr, n_unique.data_ptr(),
         _ptr(cand_hash), _ptr(cand_old), _ptr(n_cand), dev.index,
         _stream(dev))
     cuda.check(err, "byte_update")
@@ -329,14 +389,15 @@ def byte_update_cuda(primes, flat, n_unique, hashes, nvalid, winner,
 byte_update_cuda.launches = 0
 
 
-def byte_update(primes, flat, n_unique, hashes, nvalid, winner=None,
-                with_bigcount=False):
+def byte_update(primes, flat, n_unique, hashes, nvalid,
+                with_bigcount=False, scratch=None):
     """Exact byte update of hashes[:nvalid], in place: kernel A on a CUDA
-    buffer (with the sketch's `winner` image), the plain version on a CPU
-    one. Returns the bigcount report or None (see byte_update_plain)."""
+    buffer (with the sketch's `scratch`, see byte_update_cuda), the plain
+    version on a CPU one. Returns the bigcount report or None (see
+    byte_update_plain)."""
     if flat.is_cuda:
         return byte_update_cuda(primes, flat, n_unique, hashes, nvalid,
-                                winner, with_bigcount)
+                                with_bigcount, scratch)
     if flat.device.type != "cpu":
         raise ValueError("unsupported device %s" % flat.device)
     return byte_update_plain(primes, flat, n_unique, hashes, nvalid,
@@ -399,10 +460,12 @@ def byte_occupied(table0):
 
 
 def histogram_add_plain(out, idx):
-    """out[idx[i]] += 1 for each idx[i] in [0, len(out)), others dropped
-    (JAX .at[].add drop mode); plain PyTorch, any device."""
-    keep = (idx >= 0) & (idx < out.shape[0])
-    sel = idx[keep]
+    """out[idx[i]] += 1 as JAX's .at[].add does it: an index in
+    [-len(out), 0) wraps to idx + len(out), as in numpy, and one outside
+    [-len(out), len(out)) is dropped; plain PyTorch, any device."""
+    nbins = out.shape[0]
+    keep = (idx >= -nbins) & (idx < nbins)
+    sel = torch.remainder(idx[keep], max(nbins, 1))
     out.index_add_(0, sel, torch.ones_like(sel, dtype=out.dtype))
     return out
 

@@ -10,14 +10,13 @@
 
 #include <cuda_runtime.h>
 
-#include "rmw_common.cuh"
+#include "launch.cuh"
 
 namespace khmer_blocked {
 
-using khmer_rmw::grid_for;
-using khmer_rmw::kIdxFill;
-using khmer_rmw::kMaxCount;
-using khmer_rmw::kThreads;
+using khmer_cuda::grid_for;
+using khmer_cuda::kMaxCount;
+using khmer_cuda::kThreads;
 
 constexpr int kLanes = 128;
 constexpr int kSub = 4;

@@ -7,19 +7,21 @@
 //
 // What bounds it: random 128-byte row traffic. Each event touches four
 // counters in one 128-byte block of a table far larger than L2 (200 MB
-// to 2.1 GB) and the same four entries of the winner image (4 B per
-// counter), with a few integer ops per touch. The limit is the number of
-// random sector accesses, not bandwidth or arithmetic.
+// to 2.1 GB), with a few integer ops per touch. The least work is one
+// read and one write of each distinct counter the chunk touches, each a
+// 32-byte sector.
 //
 // Design. The TPU kernel walks events one at a time, so each sees every
-// earlier increment. Here the claim / credit / commit launches of
-// rmw_common.cuh give the same counters and new flags in parallel; this
-// file supplies the event source: a hash's four counters, one per 32-lane
+// earlier increment. Here the bucketed core of bucket_common.cuh gives the
+// same counters and new flags in parallel, reading and writing each
+// touched counter once, with scratch sized by the chunk; this file
+// supplies the event source: a hash's four counters, one per 32-lane
 // quarter of its block (distinct by construction). Only events
 // i < nvalid take part: hash 0 is a real k-mer, so the zero padding of a
 // tail chunk is excluded by index, never by value.
 
 #include "blocked_common.cuh"
+#include "bucket_common.cuh"
 
 namespace khmer_blocked {
 namespace {
@@ -28,15 +30,8 @@ struct HashEvents {
   const uint64_t* hashes;
   uint64_t nblocks;
 
-  __device__ bool valid(int64_t) const { return true; }
-
-  template <class F>
-  __device__ void for_each_lane(int64_t i, F f) const {
-    const uint64_t h = hashes[i];
-    const uint64_t m = mix64(h);
-    const uint64_t row = (h % nblocks) * kLanes;
-#pragma unroll
-    for (int t = 0; t < kSub; ++t) f(lane_index(row, m, t));
+  __device__ uint64_t lane(uint64_t h, int t) const {
+    return lane_index((h % nblocks) * kLanes, mix64(h), t);
   }
 };
 
@@ -49,19 +44,28 @@ extern "C" const char* khmer_cuda_error_string(int err) {
 
 // Update table[nblocks][128] in place with hashes[0:nvalid] (of m), write
 // the per-event new flags [m] (false from nvalid on), add the new count to
-// *n_unique. winner [nblocks*128] must hold IDX_FILL and does again after.
+// *n_unique. ids .. ev_word are the chunk's scratch of nbuckets buckets
+// (core/sketch_kernels.py update_plan).
 extern "C" int khmer_blocked_update(uint8_t* table, int64_t nblocks,
                                     const int64_t* hashes, int64_t m,
-                                    int64_t nvalid, int32_t* winner,
-                                    bool* flags, int64_t* n_unique,
-                                    int device, void* stream) {
+                                    int64_t nvalid, int nbuckets, void* ids,
+                                    void* start, void* cursor, void* ev_word,
+                                    bool* flags,
+                                    int64_t* n_unique, int device,
+                                    void* stream) {
   using namespace khmer_blocked;
+  if (nblocks <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const HashEvents ev{reinterpret_cast<const uint64_t*>(hashes),
-                      static_cast<uint64_t>(nblocks)};
-  return khmer_rmw::launch_rmw(
-      ev, m, nvalid, table, winner, flags, nullptr,
-      reinterpret_cast<unsigned long long*>(n_unique),
-      static_cast<cudaStream_t>(stream));
+  const khmer_bucket::Scratch sc{
+      static_cast<uint32_t*>(ids), static_cast<uint32_t*>(start),
+      static_cast<uint32_t*>(cursor), static_cast<uint32_t*>(ev_word),
+      nullptr};
+  return khmer_bucket::launch_update(
+      HashEvents{reinterpret_cast<const uint64_t*>(hashes),
+                 static_cast<uint64_t>(nblocks)},
+      kSub, static_cast<uint64_t>(nblocks) * kLanes, m, nvalid,
+      static_cast<uint32_t>(nbuckets), sc, table, flags,
+      reinterpret_cast<unsigned long long*>(n_unique), nullptr, nullptr,
+      nullptr, static_cast<cudaStream_t>(stream));
 }

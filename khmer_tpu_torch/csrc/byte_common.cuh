@@ -8,7 +8,7 @@
 
 #include <cuda_runtime.h>
 
-#include "rmw_common.cuh"
+#include "launch.cuh"
 
 namespace khmer_byte {
 

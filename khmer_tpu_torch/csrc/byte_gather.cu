@@ -22,10 +22,10 @@ __global__ void gather_kernel(const uint64_t* __restrict__ hashes,
                               int64_t n, ByteLayout layout,
                               const uint8_t* __restrict__ flat,
                               int32_t* __restrict__ out) {
-  const int64_t i = khmer_rmw::thread_index();
+  const int64_t i = khmer_cuda::thread_index();
   if (i >= n) return;
   const uint64_t h = hashes[i];
-  int count = khmer_rmw::kMaxCount;
+  int count = khmer_cuda::kMaxCount;
   for (int t = 0; t < layout.ntables; ++t) {
     count = min(count, static_cast<int>(flat[counter_index(layout, h, t)]));
   }
@@ -49,7 +49,7 @@ extern "C" int khmer_byte_gather(const uint8_t* flat, int ntables,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  gather_kernel<<<khmer_rmw::grid_for(n), khmer_rmw::kThreads, 0,
+  gather_kernel<<<khmer_cuda::grid_for(n), khmer_cuda::kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const uint64_t*>(hashes), n, layout, flat, out);
   return cudaGetLastError();

@@ -1,5 +1,6 @@
-// Kernel C: histogram_add, out[idx[i]] += 1 for every i < n with
-// 0 <= idx[i] < nbins; other indices are dropped (JAX .at[].add drop mode).
+// Kernel C: histogram_add, out[idx[i]] += 1 for every i < n, as JAX's
+// .at[].add does it: an index in [-nbins, 0) wraps to idx + nbins, as in
+// numpy; one >= nbins or < -nbins is dropped.
 //
 // Replaces the Pallas kernel scripts/profile_scatter2.py:59 (pallas_hist,
 // pallas_call :69), a serial scatter-add of 2^21 bins into a VMEM-resident
@@ -49,7 +50,8 @@ __global__ void histogram_kernel(const int64_t* __restrict__ idx, int64_t n,
                    + (threadIdx.x & ~31);
        w < n; w += stride) {
     const int64_t i = w + lane;
-    const int64_t b = i < n ? idx[i] : -1;
+    int64_t b = i < n ? idx[i] : nbins;
+    if (b < 0) b += nbins;
     const bool in_range = b >= 0 && b < nbins;
     const unsigned long long key =
         in_range ? static_cast<unsigned long long>(b) : ~0ULL;
@@ -74,8 +76,9 @@ __global__ void histogram_kernel(const int64_t* __restrict__ idx, int64_t n,
 }  // namespace
 }  // namespace khmer_hist
 
-// out[idx[i]] += 1 (int64 out[nbins]) for i < n, dropping indices outside
-// [0, nbins). n must stay below 2^31 (32-bit shared counters).
+// out[idx[i]] += 1 (int64 out[nbins]) for i < n, wrapping indices in
+// [-nbins, 0) and dropping those outside [-nbins, nbins). n must stay
+// below 2^31 (32-bit shared counters).
 extern "C" int khmer_histogram_add(const int64_t* idx, int64_t n,
                                    int64_t* out, int64_t nbins, int device,
                                    void* stream) {

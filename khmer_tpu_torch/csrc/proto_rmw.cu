@@ -21,6 +21,7 @@
 // at or past nblocks makes the event invalid, as a negative one does.
 
 #include "blocked_common.cuh"
+#include "rmw_common.cuh"
 
 namespace khmer_blocked {
 namespace {

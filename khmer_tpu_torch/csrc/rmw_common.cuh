@@ -1,10 +1,10 @@
-// Exact stream-order read-modify-write of saturating u8 counters.
+// Exact stream-order read-modify-write of saturating u8 counters, through
+// a persistent winner image.
 //
-// Shared by the three update kernels: the blocked update (kernel 1,
-// blocked_update.cu), the byte-layout update (kernel A, byte_update.cu)
-// and the decoded-event blocked update (kernel D, proto_rmw.cu). They
-// differ only in how an event names its counters, so each supplies an
-// event source `Ev` with
+// Used by the decoded-event blocked update (kernel D, proto_rmw.cu) alone:
+// the blocked and byte updates (kernels 1 and A) moved to the bucketed
+// single-pass core of bucket_common.cuh, which keeps no table-sized
+// scratch. The event source `Ev` supplies
 //
 //   __device__ bool valid(int64_t i) const;
 //   template <class F> __device__ void for_each_lane(int64_t i, F f) const;
@@ -37,19 +37,16 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace khmer_rmw {
 
-constexpr int kThreads = 256;
+using khmer_cuda::grid_for;
+using khmer_cuda::kMaxCount;
+using khmer_cuda::kThreads;
+using khmer_cuda::thread_index;
+
 constexpr int32_t kIdxFill = 1 << 30;  // core/sketch_kernels.py IDX_FILL
-constexpr int kMaxCount = 255;
-
-inline unsigned grid_for(int64_t n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
-}
-
-__device__ __forceinline__ int64_t thread_index() {
-  return blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-}
 
 // +1 on the u8 counter at `lane`, unless it holds 255. The word read is
 // aligned down, so a buffer whose length is a multiple of 4 is never read

@@ -33,17 +33,17 @@ _I32 = ctypes.c_int
 
 # name -> argtypes of each C entry point (restype int: cudaError_t)
 _ENTRY_POINTS = {
-    # table, nblocks, hashes, m, nvalid, winner, flags, n_unique,
-    # device, stream
-    "khmer_blocked_update": [_P, _I64, _P, _I64, _I64, _P, _P, _P,
-                             _I32, _P],
+    # table, nblocks, hashes, m, nvalid, nbuckets, ids, start, cursor,
+    # ev_word, flags, n_unique, device, stream
+    "khmer_blocked_update": [_P, _I64, _P, _I64, _I64, _I32, _P, _P, _P,
+                             _P, _P, _P, _I32, _P],
     # table, nblocks, hashes, n, out, device, stream
     "khmer_blocked_gather": [_P, _I64, _P, _I64, _P, _I32, _P],
-    # flat, ntables, primes (host), offsets (host), hashes, nvalid,
-    # winner, min_old, n_unique, cand_hash, cand_old, n_cand, device,
-    # stream
-    "khmer_byte_update": [_P, _I32, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
-                          _P, _I32, _P],
+    # flat, size, ntables, primes (host), offsets (host), hashes, nvalid,
+    # nbuckets, ids, start, cursor, ev_word, min_old, n_unique,
+    # cand_hash, cand_old, n_cand, device, stream
+    "khmer_byte_update": [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P, _I32, _P],
     # flat, ntables, primes (host), offsets (host), hashes, n, out,
     # device, stream
     "khmer_byte_gather": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from khmer_tpu_torch.core import blocked as B
+from khmer_tpu_torch.core.sketch_kernels import update_scratch
 from khmer_tpu_torch.scripts import cuda_ms
 
 SLAB = 32          # table rows per slab of the Pallas kernel
@@ -99,13 +100,14 @@ def main(nb=1 << 19, m=1 << 20, reps=5, seed=0):
                         device=dev)
     nnew = {"kernel": [], "plain": []}
     nu_1 = torch.zeros(1, dtype=torch.int64, device=dev)
+    scratch_1 = update_scratch(None, m, B.SUB, dev)
     ms = {
         "kernel": cuda_ms(lambda: nnew["kernel"].append(
             B.proto_rmw_cuda(bids_d, offs_d, tab_k, winner)), reps),
         "plain": cuda_ms(lambda: nnew["plain"].append(
             B.proto_rmw_plain(bids_d, offs_d, tab_p)), reps),
         "blocked_update": cuda_ms(lambda: B.blocked_update_cuda(
-            tab_1, hashes, m, nu_1, winner), reps),
+            tab_1, hashes, m, nu_1, scratch_1), reps),
     }
     total = {k: int(torch.stack(v).sum()) for k, v in nnew.items()}
     err = max(int((tab_k.int() - tab_p.int()).abs().max()),

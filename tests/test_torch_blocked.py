@@ -9,6 +9,7 @@ import torch
 
 from khmer_tpu.core import blocked as JB
 from khmer_tpu_torch.core import blocked as TB
+from khmer_tpu_torch.core import sketch_kernels as TK
 
 M = 8192
 
@@ -114,9 +115,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     table = torch.zeros((7, TB.LANES), dtype=torch.uint8)
     h = torch.zeros(4, dtype=torch.int64)
     nu = torch.zeros(1, dtype=torch.int64)
-    winner = torch.full((7 * TB.LANES,), TB.IDX_FILL, dtype=torch.int32)
+    scratch = torch.empty(TK.update_plan(4, TB.SUB)[2], dtype=torch.uint8)
     with pytest.raises(ValueError):
-        TB.blocked_update_cuda(table, h, 4, nu, winner)
+        TB.blocked_update_cuda(table, h, 4, nu, scratch)
     with pytest.raises(ValueError):
         TB.blocked_gather_cuda(table, h)
     assert TB.blocked_update_cuda.launches == 0

@@ -189,9 +189,11 @@ def test_the_cuda_wrappers_refuse_cpu_tensors():
     primes = (13, 11)
     flat = torch.zeros(TK.byte_flat_size(primes), dtype=torch.uint8)
     h = torch.zeros(4, dtype=torch.int64)
+    scratch = torch.empty(TK.update_plan(4, len(primes))[2],
+                          dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA"):
         TK.byte_update_cuda(primes, flat, torch.zeros(1, dtype=torch.int64),
-                            h, 4, None)
+                            h, 4, with_bigcount=True, scratch=scratch)
     with pytest.raises(ValueError, match="CUDA"):
         TK.byte_gather_cuda(primes, flat, h)
     with pytest.raises(ValueError, match="CUDA"):

@@ -44,6 +44,8 @@ def _chunks(seed, nblocks, n_chunks, m, pool):
     (7, 3, 30000, 1 << 20),      # every lane driven past 255
     (101, 4, 8192, 64),          # heavy in-chunk duplicates
     (100003, 3, 65536, 1 << 30),
+    (101, 2, 1 << 20, 1),        # one hash x 2^20 events, through 255
+    (7, 2, 1 << 20, 1 << 30),    # a full chunk on 896 counters
 ])
 def test_blocked_update_and_gather_match_plain(cuda_device, nblocks,
                                                n_chunks, m, pool):
@@ -52,19 +54,66 @@ def test_blocked_update_and_gather_match_plain(cuda_device, nblocks,
     tab_p = tab_k.clone()
     nu_k = torch.zeros(1, dtype=torch.int64, device=dev)
     nu_p = nu_k.clone()
-    winner = torch.full((nblocks * B.LANES,), B.IDX_FILL,
-                        dtype=torch.int32, device=dev)
+    scratch = None
     for h, nvalid in _chunks(nblocks, nblocks, n_chunks, m, pool):
         hd = torch.from_numpy(h.view(np.int64)).to(dev)
-        fk = B.blocked_update_cuda(tab_k, hd, nvalid, nu_k, winner)
+        scratch = K.update_scratch(scratch, nvalid, B.SUB, dev)
+        fk = B.blocked_update_cuda(tab_k, hd, nvalid, nu_k, scratch)
         fp = B.blocked_update_plain(nblocks, (tab_p,), nu_p, hd, nvalid)
         assert torch.equal(tab_k, tab_p)
         assert torch.equal(fk, fp)
         assert int(nu_k) == int(nu_p)
-        assert bool((winner == B.IDX_FILL).all())
         ck = B.blocked_gather_cuda(tab_k, hd)
         cp = B.gather_counts_plain(nblocks, (tab_p,), hd)
         assert torch.equal(ck, cp)
+
+
+def _crowded(seed, n, width, modulus):
+    """n distinct-ish hashes whose counters all fall in the first `width`
+    residues of `modulus`: far more distinct counters than one bucket's
+    map holds, so the kernel must split the bucket."""
+    rng = np.random.default_rng(seed)
+    low = rng.integers(0, width, n, dtype=np.uint64)
+    k = rng.integers(0, 2**64 // modulus - 1, n, dtype=np.uint64)
+    return low + k * np.uint64(modulus)
+
+
+def test_update_kernels_split_crowded_buckets(cuda_device):
+    """Every event of a chunk on a narrow counter range: tens of thousands
+    of distinct counters in a few buckets, in the blocked and the byte
+    layout, each checked against its plain version."""
+    dev = cuda_device
+    n = 1 << 16
+    nb = 100003
+    tab_k = torch.zeros((nb, B.LANES), dtype=torch.uint8, device=dev)
+    tab_p = tab_k.clone()
+    nu_k = torch.zeros(1, dtype=torch.int64, device=dev)
+    nu_p = nu_k.clone()
+    for seed in range(2):
+        hd = torch.from_numpy(_crowded(seed, n, 400, nb).view(np.int64)
+                              ).to(dev)
+        fk = B.blocked_update_cuda(tab_k, hd, n, nu_k)
+        fp = B.blocked_update_plain(nb, (tab_p,), nu_p, hd, n)
+        assert torch.equal(tab_k, tab_p) and torch.equal(fk, fp)
+        assert int(nu_k) == int(nu_p)
+    primes = (1000003, 999983, 999979, 999961)
+    flat_k = torch.zeros(K.byte_flat_size(primes), dtype=torch.uint8,
+                         device=dev)
+    flat_p = flat_k.clone()
+    nu_k.zero_()
+    nu_p.zero_()
+    for seed in range(2):
+        # h < 20000 < every prime: counter offset_t + h in each table
+        h = np.random.default_rng(seed).integers(0, 20000, n,
+                                                 dtype=np.uint64)
+        hd = torch.from_numpy(h.view(np.int64)).to(dev)
+        rk = K.byte_update_cuda(primes, flat_k, nu_k, hd, n,
+                                with_bigcount=True)
+        rp = K.byte_update_plain(primes, flat_p, nu_p, hd, n,
+                                 with_bigcount=True)
+        assert torch.equal(flat_k, flat_p)
+        assert int(nu_k) == int(nu_p)
+        assert int(rk[2][0]) == int(rp[2][0])
 
 
 def test_dispatch_launches_kernels_on_cuda_tensors(cuda_device):
@@ -82,6 +131,9 @@ def test_dispatch_launches_kernels_on_cuda_tensors(cuda_device):
     ((7, 11, 13), 3, 30000, 1 << 20),          # every counter past 255
     ((997, 991, 983), 4, 8192, 64),            # heavy in-chunk duplicates
     ((1000003, 999983, 999979, 999961), 3, 65536, 1 << 30),
+    # one hash x 2^20 events: bigcount through 255 in one chunk
+    ((1000003, 999983, 999979, 999961), 2, 1 << 20, 1),
+    ((7, 11, 13), 2, 1 << 20, 1 << 30),        # a full chunk on tiny primes
 ])
 def test_byte_update_and_gather_match_plain(cuda_device, primes, n_chunks,
                                             m, pool):
@@ -91,17 +143,16 @@ def test_byte_update_and_gather_match_plain(cuda_device, primes, n_chunks,
     flat_p = flat_k.clone()
     nu_k = torch.zeros(1, dtype=torch.int64, device=dev)
     nu_p = nu_k.clone()
-    winner = torch.full(flat_k.shape, K.IDX_FILL, dtype=torch.int32,
-                        device=dev)
+    scratch = None
     for h, nvalid in _chunks(len(primes), sum(primes), n_chunks, m, pool):
         hd = torch.from_numpy(h.view(np.int64)).to(dev)
-        rk = K.byte_update_cuda(primes, flat_k, nu_k, hd, nvalid, winner,
-                                with_bigcount=True)
+        scratch = K.update_scratch(scratch, nvalid, len(primes), dev)
+        rk = K.byte_update_cuda(primes, flat_k, nu_k, hd, nvalid,
+                                with_bigcount=True, scratch=scratch)
         rp = K.byte_update_plain(primes, flat_p, nu_p, hd, nvalid,
                                  with_bigcount=True)
         assert torch.equal(flat_k, flat_p)
         assert int(nu_k) == int(nu_p)
-        assert bool((winner == K.IDX_FILL).all())
         nk = int(rk[2][0])
         assert nk == int(rp[2][0])
         assert K.bigcount_triggers(rk[0][:nk].cpu().numpy().view(np.uint64),
@@ -118,6 +169,8 @@ def test_histogram_add_matches_plain(cuda_device, m, nbins):
     rng = np.random.default_rng(m)
     idx = rng.integers(-5, nbins + 5, m)
     idx[: m // 2] = rng.integers(0, 4, m // 2)  # hot bins
+    # wrapped, as JAX .at[].add wraps [-nbins, 0), and dropped below it
+    idx[m // 4: m // 4 + 3000] = rng.integers(-nbins - 5, 0, 3000)
     idx[m // 2: m // 2 + 1000] = nbins - 1       # the top (global) bin
     idx_d = torch.from_numpy(idx).to(cuda_device)
     start = torch.from_numpy(rng.integers(0, 9, nbins)).to(cuda_device)

@@ -48,18 +48,20 @@ def test_profile_scatter2_script_loads_and_shapes_agree():
 ])
 def test_histogram_add_plain_matches_xla_scatter_add(m, nbins,
                                                      out_of_range):
-    """out[idx] += 1, dropping indices outside [0, nbins). JAX's .at[]
-    wraps -nbins <= idx < 0 as numpy does, the port drops them; the
-    out-of-range indices here are >= nbins or < -nbins, dropped by
-    both, and the abundance path (sketch_kernels.make_abund_dist) never
-    passes a negative one."""
+    """out[idx] += 1 as JAX's .at[].add does it: indices in [-nbins, 0)
+    wrap to idx + nbins, as in numpy; indices >= nbins or < -nbins are
+    dropped. Each kind is fed here, in thirds of `out_of_range`."""
     rng = np.random.default_rng(m)
     idx = rng.integers(0, nbins, m)
     bad = rng.choice(m, out_of_range, replace=False)
-    idx[bad[::2]] = rng.integers(nbins, 2 * nbins + 5, len(bad[::2]))
-    idx[bad[1::2]] = -nbins - rng.integers(1, 1000, len(bad[1::2]))
+    high, low, wrap = bad[0::3], bad[1::3], bad[2::3]
+    idx[high] = rng.integers(nbins, 2 * nbins + 5, len(high))
+    idx[low] = -nbins - rng.integers(1, 1000, len(low))
+    idx[wrap] = -rng.integers(1, nbins + 1, len(wrap))  # -nbins .. -1
     want = np.asarray(jnp.zeros(nbins, jnp.int32).at[
         jnp.asarray(idx.astype(np.int32))].add(1))
+    if out_of_range:
+        assert want.sum() == m - len(high) - len(low)
     start = rng.integers(0, 5, nbins)
     out = torch.from_numpy(start.copy())
     got = K.histogram_add(out, torch.from_numpy(idx))

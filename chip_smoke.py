@@ -17,7 +17,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
      table and on tiny primes, chunks crowded onto a narrow counter range
      that the update kernels must split, histogram indices out of range
      and in the wrapped window [-nbins, 0), the pallas_proto script's
-     correctness case);
+     correctness case, decoded events: one event x 2^20, 2^20 events on 7
+     blocks, repeated lanes with invalid ids and saturation, a crowded
+     bucket; the byte gather on the edges of its reduction by a
+     reciprocal, on random tables of 0.2, 4 and 20 GB);
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
      blocked, k=20, 4 x 5e7 bytes) on data/25k.fq.gz, then the abundance
      histogram; results must equal the JAX package's and the blocked
@@ -26,6 +29,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
      abundance-dist on the .ct; every known JAX answer is asserted and the
      byte update, byte gather and histogram kernels must have launched on
      this path; consume k-mers/s on the record and native-parser paths;
+     the byte gather on one abundance batch (beside its byte bound and its
+     sector floor) and on 2^20 random live hashes;
   5. scale, blocked: the 25k stream replayed 50 times through kernel and
      plain version on the config-1 table and the largest the layout
      allows (2.1 GB); tables compared exactly, k-mers/s of each;
@@ -35,8 +40,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
      chunk-sized scratch printed;
   6. microbenchmarks: the ports of scripts/pallas_proto.py (the decoded-
      event update against its plain version and against the blocked
-     update) and scripts/profile_scatter2.py (the histogram against its
-     plain version and torch.bincount).
+     update in the same run, with its scratch) and
+     scripts/profile_scatter2.py (the histogram against its plain version
+     and torch.bincount).
 It prints the card's name and power limit, a JSON line of per-kernel
 results, then, last, the contract line {"ok": true, "device": {...}}.
 Without a CUDA device it exits 1 at once.
@@ -181,10 +187,11 @@ def main():
         run_byte_case(torch, np, SK, dev, name, primes, chunks, errs)
     n_hist = run_histogram_cases(torch, np, SK, dev, errs)
     n_proto = run_proto_cases(torch, np, B, dev, errs)
+    n_edges = run_gather_edge_cases(torch, np, SK, dev, errs)
     say("phase 3 exact: kernel == plain on %d blocked, %d byte, %d "
-        "histogram and %d decoded-event cases (tables, flags, n_unique, "
-        "bigcount reports, counts)"
-        % (len(cases), len(byte_cases), n_hist, n_proto))
+        "histogram, %d decoded-event and %d gather-reduction cases (tables, "
+        "flags, n_unique, bigcount reports, counts)"
+        % (len(cases), len(byte_cases), n_hist, n_proto, n_edges))
 
     # -- phase 4: config 1, blocked, through the port's entry points -------
     launches = run_config1(torch, B, dev)
@@ -444,41 +451,60 @@ def run_histogram_cases(torch, np, SK, dev, errs):
 
 
 def run_proto_cases(torch, np, B, dev, errs):
+    from khmer_tpu_torch.core.sketch_kernels import update_scratch
     from khmer_tpu_torch.scripts import pallas_proto
 
-    rng = np.random.default_rng(20261019)
     bids, offs, table = pallas_proto.correctness_case(
         np.random.default_rng(0))
     cases = [("script-correctness", bids, pallas_proto.pack_offs(offs),
               table, 3)]
-    # repeated lanes (a set), invalid and out-of-table ids, saturation
-    nb = 5
-    bids, offs = pallas_proto.timing_events(rng, nb, 4000)
-    bids[::7] = -1
-    bids[::11] = nb + 3
-    offs[::13] = pallas_proto.pack_offs(np.asarray([[5, 5, 40, 40]],
-                                                   np.int32))[0]
-    cases.append(("repeats-invalid-saturate", bids, offs,
-                  np.zeros((nb, B.LANES), np.uint8), 2))
+    cases += pallas_proto.adversarial_cases(np.random.default_rng(20261019))
     for name, bids, offs, table, passes in cases:
         bids_d = torch.from_numpy(bids).to(dev)
         offs_d = torch.from_numpy(offs).to(dev)
         tab_k = torch.from_numpy(table).to(dev)
         tab_p = tab_k.clone()
-        winner = torch.full((tab_k.numel(),), B.IDX_FILL, dtype=torch.int32,
-                            device=dev)
+        scratch = None  # kept between passes, as the script keeps it
         for _ in range(passes):
-            nk = int(B.proto_rmw_cuda(bids_d, offs_d, tab_k, winner))
+            scratch = update_scratch(scratch, len(bids), B.SUB, dev)
+            nk = int(B.proto_rmw_cuda(bids_d, offs_d, tab_k, scratch))
             np_ = int(B.proto_rmw_plain(bids_d, offs_d, tab_p))
             d = max(int((tab_k.int() - tab_p.int()).abs().max()),
                     abs(nk - np_))
             errs["proto_rmw"] = max(errs["proto_rmw"], d)
-            expect(d == 0 and bool((winner == B.IDX_FILL).all()),
-                   "proto_rmw != plain on case %s" % name)
-        say("  proto case %-26s %d events x %d passes: nnew (last) %d, "
-            "max count %d" % (name, len(bids), passes, nk,
-                              int(tab_k.max())))
+            expect(d == 0, "proto_rmw != plain on case %s" % name)
+        say("  proto case %-26s %d events on %d blocks x %d passes: nnew "
+            "(last) %d, max count %d" % (name, len(bids), table.shape[0],
+                                         passes, nk, int(tab_k.max())))
+        del tab_k, tab_p, scratch
     return len(cases)
+
+
+def run_gather_edge_cases(torch, np, SK, dev, errs):
+    """The byte gather against its plain version (which reduces by `%`) on
+    the reduction's edge cases, on random tables of each prime set, through
+    the paired loads (an aligned tensor) and the single ones (a view one
+    hash in, of odd length)."""
+    from khmer_tpu_torch.scripts.byte_gather_bench import (PRIME_SETS,
+                                                           reduction_edges)
+
+    for label, primes in PRIME_SETS.items():
+        gen = torch.Generator(device=dev).manual_seed(len(label))
+        flat = torch.randint(0, 256, (SK.byte_flat_size(primes),),
+                             dtype=torch.uint8, device=dev, generator=gen)
+        hd = _dev_hashes(torch, np, reduction_edges(primes), dev)
+        for h in (hd, hd[1:]):
+            d = int((SK.byte_gather_cuda(primes, flat, h)
+                     - SK.byte_gather_plain(primes, flat, h)).abs().max())
+            errs["byte_gather"] = max(errs["byte_gather"], d)
+            expect(d == 0, "byte_gather != plain on the reduction edges of "
+                   "%s" % label)
+        say("  gather case %-12s primes %s (%.2f GB of random tables): %d "
+            "edge and random hashes, aligned and offset by one"
+            % (label, list(primes), flat.shape[0] / 1e9, hd.shape[0]))
+        del flat
+        torch.cuda.empty_cache()
+    return len(PRIME_SETS)
 
 
 # ---------------------------------------------------------------------------
@@ -647,12 +673,14 @@ def time_abundance_batch(torch, np, SK, dev, cg, card, errs):
     .ct, rebuilt from the port's pieces (sketch_kernels.make_abund_dist):
     the byte gather over its unique hashes and the histogram of its
     indices, each kernel against its plain version (and the histogram
-    against torch.bincount), at the shapes the main path gives them."""
+    against torch.bincount), at the shapes the main path gives them. Then
+    the byte gather on 2^20 random live hashes on the same tables."""
     from khmer_tpu_torch import Nodegraph
     from khmer_tpu_torch.core.pipeline import Batcher, hash_batch
     from khmer_tpu_torch.io.fastx import FastxParser
-    from khmer_tpu_torch.ops.u64 import umod
     from khmer_tpu_torch.scripts import cuda_ms
+    from khmer_tpu_torch.scripts.byte_gather_bench import (gather_floors,
+                                                           time_gather)
 
     batcher = Batcher(K)
     batch = None
@@ -702,17 +730,30 @@ def time_abundance_batch(torch, np, SK, dev, cg, card, errs):
     }
     expect(torch.equal(acc_k, acc_p), "histogram_add != plain, accumulated")
     n = uh.shape[0]
-    touched = sum(int(torch.unique(umod(uh, p)).numel()) for p in primes)
-    g_bound = bound(8 * n + 4 * n + touched, n * len(primes))
+    # least bytes: 8 B a hash, 4 B a count, each distinct counter once; the
+    # sector floor: each distinct 32-byte sector of the counters once
+    g_bytes, sectors = gather_floors(primes, uh)
+    g_bound = bound(g_bytes, n * len(primes))
     h_bound = bound(8 * n + 16 * int((lib != 0).sum()), n)
-    say("  abundance batch: %d x %d windows, %d unique-hash slots, %d "
-        "counted; byte_gather kernel %.4f ms, plain %.4f ms, bound %.4f ms "
-        "(%s); histogram_add into %d bins kernel %.4f ms, plain %.4f ms, "
-        "torch.bincount %.4f ms, bound %.4f ms (%s); on %s"
-        % (codes.shape[0], hashes.shape[1], n, int(counted.sum()),
-           t["gather"], t["gather_plain"], g_bound[0], g_bound[1], nbins,
+    say("  abundance batch: %d x %d windows, %d unique-hash slots (%d live), "
+        "%d counted; byte_gather kernel %.4f ms, plain %.4f ms, bound %.4f "
+        "ms (%s), sector floor %.4f ms (%d sectors); histogram_add into %d "
+        "bins kernel %.4f ms, plain %.4f ms, torch.bincount %.4f ms, bound "
+        "%.4f ms (%s); on %s"
+        % (codes.shape[0], hashes.shape[1], n, int(d["uvalid"].sum()),
+           int(counted.sum()), t["gather"], t["gather_plain"], g_bound[0],
+           g_bound[1], sectors * 32 / PEAK_BYTES_S * 1e3, sectors, nbins,
            t["hist"], t["hist_plain"], t["hist_library"], h_bound[0],
            h_bound[1], card))
+    rnd = _dev_hashes(torch, np, np.random.default_rng(4).integers(
+        0, 2**64, 1 << 20, dtype=np.uint64), dev)
+    r = time_gather(primes, flat, rnd, reps)
+    errs["byte_gather"] = max(errs["byte_gather"], r["max_abs_err"])
+    expect(r["max_abs_err"] == 0, "byte_gather != plain on random hashes")
+    say("  byte_gather on %d random live hashes: kernel %.4f ms, plain %.4f "
+        "ms, bound %.4f ms (bytes), sector floor %.4f ms (%d sectors); on %s"
+        % (r["hashes"], r["ms"], r["plain_ms"], r["bound_ms"],
+           r["sector_floor_ms"], r["sectors"], card))
     return {
         "byte_gather": {"ms": t["gather"], "plain_ms": t["gather_plain"],
                         "bound_ms": g_bound[0], "bound_by": g_bound[1]},
@@ -969,11 +1010,14 @@ def run_microbench(B, card, launches, errs):
     say("phase 6 pallas_proto: correctness %d blocks x %d events, nnew %d, "
         "max_abs_err %d; %d blocks x %d events, %d calls: kernel %.4f ms "
         "(%.3f ns/event), plain %.4f ms, blocked_update on as many hashes "
-        "into as many blocks %.4f ms, nnew %d, max_abs_err %d; on %s"
+        "into as many blocks in the same run %.4f ms (kernel / blocked_update "
+        "%.3f), nnew %d, max_abs_err %d; scratch %d B (a winner image of one "
+        "int32 per counter: %d B); on %s"
         % (c["nblocks"], c["events"], c["nnew"], c["max_abs_err"],
            t["nblocks"], t["events"], t["calls"], t["ms"], t["ns_per_event"],
-           t["plain_ms"], t["blocked_update_ms"], t["nnew"],
-           t["max_abs_err"], card))
+           t["plain_ms"], t["blocked_update_ms"],
+           t["ms"] / t["blocked_update_ms"], t["nnew"], t["max_abs_err"],
+           t["scratch_bytes"], t["winner_image_bytes"], card))
     say("phase 6 profile_scatter2: %d indices into %d bins: kernel %.4f ms, "
         "plain %.4f ms, torch.bincount %.4f ms, max_abs_err %d; on %s"
         % (scatter["events"], scatter["nbins"], scatter["ms"],

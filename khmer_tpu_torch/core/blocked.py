@@ -276,11 +276,15 @@ def proto_rmw_plain(bids, offs, table):
     return fresh.sum().reshape(1)
 
 
-def proto_rmw_cuda(bids, offs, table, winner):
-    """Kernel D (csrc/proto_rmw.cu): proto_rmw_plain on the card. `winner`
-    is a persistent int32 image of one entry per counter, holding IDX_FILL
-    between calls. Returns nnew (i64 [1], on the card). Counts its
-    launches in ``proto_rmw_cuda.launches``."""
+def proto_rmw_cuda(bids, offs, table, scratch=None):
+    """Kernel D (csrc/proto_rmw.cu): proto_rmw_plain on the card.
+
+    `scratch` is a uint8 buffer on the card of at least update_plan(m, 4)
+    bytes for the m events (sketch_kernels.update_scratch), or None for a
+    new one: nothing the size of the table. Raises when m events of four
+    lanes pass the update's limit (m * 4 < 2^31). Returns nnew (i64 [1],
+    on the card). Counts its launches in ``proto_rmw_cuda.launches``.
+    """
     dev = table.device
     if dev.type != "cuda":
         raise ValueError("the CUDA kernels take CUDA tensors, not %s" % dev)
@@ -294,20 +298,16 @@ def proto_rmw_cuda(bids, offs, table, winner):
             raise ValueError("%s must be a contiguous 1-D int32 tensor of "
                              "one entry per event on %s" % (name, dev))
     M = bids.shape[0]
-    if M >= IDX_FILL:
-        raise ValueError("batch too large: %d events (max %d)"
-                         % (M, IDX_FILL - 1))
-    if (winner.device != dev or winner.dtype != torch.int32
-            or winner.numel() != table.numel()
-            or not winner.is_contiguous()):
-        raise ValueError("winner must be a contiguous int32 tensor of one "
-                         "entry per counter on %s" % dev)
+    K.update_plan(M, SUB)  # raises past the update's limit
     nnew = torch.zeros(1, dtype=torch.int64, device=dev)
     if M == 0:
         return nnew
+    # held until the launch: the allocator may not hand it out meanwhile
+    scratch = K.update_scratch(scratch, M, SUB, dev)
+    nbuckets, ptr = K._scratch_ptrs(scratch, M, SUB)
     err = cuda.library().khmer_proto_rmw(
         bids.data_ptr(), offs.data_ptr(), M, table.data_ptr(),
-        table.shape[0], winner.data_ptr(), nnew.data_ptr(), dev.index,
+        table.shape[0], nbuckets, *ptr[:4], nnew.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda.check(err, "proto_rmw")
     proto_rmw_cuda.launches += 1
@@ -317,11 +317,12 @@ def proto_rmw_cuda(bids, offs, table, winner):
 proto_rmw_cuda.launches = 0
 
 
-def proto_rmw(bids, offs, table, winner=None):
+def proto_rmw(bids, offs, table, scratch=None):
     """The prototype's read-modify-write, in place: kernel D on a CUDA
-    table (with a `winner` image), the plain version on a CPU one."""
+    table (with `scratch`, see proto_rmw_cuda), the plain version on a CPU
+    one."""
     if table.is_cuda:
-        return proto_rmw_cuda(bids, offs, table, winner)
+        return proto_rmw_cuda(bids, offs, table, scratch)
     if table.device.type != "cpu":
         raise ValueError("unsupported device %s" % table.device)
     return proto_rmw_plain(bids, offs, table)

@@ -32,8 +32,9 @@ MAX_BIGCOUNT = 65535  # reference: include/oxli/oxli.hh:82
 _I32_MAX = 2**31 - 1
 _I64_MAX = 2**63 - 1
 
-# winner sentinel of the plain blocked update and of kernel D; events per
-# batch must stay below it
+# winner sentinel of the plain versions of the blocked updates
+# (blocked.blocked_local_update, blocked.proto_rmw_plain); events per batch
+# must stay below it. No kernel uses it.
 IDX_FILL = 1 << 30
 
 _POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)],

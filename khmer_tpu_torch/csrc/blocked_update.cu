@@ -27,10 +27,13 @@ namespace khmer_blocked {
 namespace {
 
 struct HashEvents {
+  using Item = uint64_t;
   const uint64_t* hashes;
   uint64_t nblocks;
 
-  __device__ uint64_t lane(uint64_t h, int t) const {
+  __device__ Item load(int64_t i) const { return hashes[i]; }
+
+  __device__ uint64_t key(uint64_t h, int t) const {
     return lane_index((h % nblocks) * kLanes, mix64(h), t);
   }
 };
@@ -67,5 +70,5 @@ extern "C" int khmer_blocked_update(uint8_t* table, int64_t nblocks,
       kSub, static_cast<uint64_t>(nblocks) * kLanes, m, nvalid,
       static_cast<uint32_t>(nbuckets), sc, table, flags,
       reinterpret_cast<unsigned long long*>(n_unique), nullptr, nullptr,
-      nullptr, static_cast<cudaStream_t>(stream));
+      nullptr, nullptr, static_cast<cudaStream_t>(stream));
 }

@@ -2,15 +2,21 @@
 // write of each distinct counter a chunk touches, with scratch sized by
 // the chunk.
 //
-// Shared by the blocked update (kernel 1, blocked_update.cu) and the byte
-// update (kernel A, byte_update.cu). They differ only in how an event
-// names its counters, so each supplies an event source `Ev` with
+// Shared by the blocked update (kernel 1, blocked_update.cu), the byte
+// update (kernel A, byte_update.cu) and the decoded-event update (kernel
+// D, proto_rmw.cu). They differ only in how an event names its counters,
+// so each supplies an event source `Ev` with
 //
-//   const uint64_t* hashes;
-//   __device__ uint64_t lane(uint64_t h, int t) const;
+//   using Item = ...;
+//   __device__ Item load(int64_t i) const;
+//   __device__ uint64_t key(const Item& x, int t) const;
 //
-// where lane(h, t), t < ntables, is the flat counter index of hash h in
-// table (or quarter) t; the counters of one hash are distinct.
+// where load(i) reads event i once (a hash, or a block id and its packed
+// offsets) and key(load(i), t), t < ntables, is the flat counter of
+// lane-event (i, t), or kNone when that lane-event takes no part: an
+// invalid event, or a lane that repeats an earlier lane of the same event.
+// The counters of one event that take part are distinct. Kernels 1 and A
+// never return kNone; events i >= nvalid take no part in any kernel.
 //
 // Semantics (sequential ByteStorage::add, reference storage.hh:571-624):
 // each counter becomes min(old + occurrences in the chunk, 255); an event
@@ -19,7 +25,8 @@
 // +1s commute, and a repeat of a hash touches the same counters later).
 //
 // Design. A lane-event is one counter of one event, named by the 32-bit
-// id i * ntables + t; a chunk of n events has n * ntables of them. They
+// id i * ntables + t; a chunk of n events has at most n * ntables that
+// take part (the count and scatter passes skip kNone). They
 // are partitioned into buckets by counter range, the number of buckets
 // taken from the lane-event count (core/sketch_kernels.py update_plan:
 // about 512 a bucket, at most kMaxBuckets), never from the table size:
@@ -30,7 +37,7 @@
 //               bucket with one global atomic, and writes its ids there
 //               (positions from shared atomics);
 //   4. bucket:  one block per bucket rebuilds each id's counter from its
-//               hash (the chunk's 8 MB of hashes stay in L2) and builds an
+//               event (the chunk's 8 MB of events stay in L2) and builds an
 //               open-addressing map in shared memory from counter to
 //               (occurrences, lowest event), aggregating equal counters
 //               within a warp first (__match_any_sync); its slots follow
@@ -47,7 +54,8 @@
 //   5. finalize: one thread per event writes the new flag, counts the new
 //               events (a block reduce, one 64-bit atomic per block) and,
 //               with the report on, appends each event whose ntables
-//               counters all reached 255 as (hash, min_old).
+//               counters all reached 255 as (hash, min_old), from the hash
+//               array the caller names.
 // A bucket whose distinct counters do not fit the map (kLoadLimit) is
 // split inside the kernel: its counters are halved by the top bits of a
 // bijective mix, depth first, each half in its own pass over the bucket's
@@ -82,7 +90,8 @@ static_assert(kLoadLimit + kMapThreads < kSlots,
               "the map must never fill");
 constexpr int kUnroll = 2;              // ids a lane loads at once
 constexpr int kMaxDepth = 64;           // a part at depth 64 holds one key
-constexpr unsigned long long kEmpty = ~0ULL;
+constexpr uint64_t kNone = ~0ULL;      // Ev::key: takes no part
+constexpr unsigned long long kEmpty = kNone;  // a free map slot
 constexpr uint32_t kNewBit = 1u << 31;  // per-event word: new
 constexpr uint32_t kSatMask = 0xFFu;    //   and saturated lanes, below
 constexpr uint32_t kSatBit = 1u << 8;   // map entry after commit: at 255
@@ -129,7 +138,7 @@ __device__ __forceinline__ uint64_t key_of(const Ev& ev, uint32_t id,
                                            int ntables, uint32_t* event) {
   const uint32_t i = id / static_cast<uint32_t>(ntables);
   *event = i;
-  return ev.lane(ev.hashes[i], static_cast<int>(id - i * ntables));
+  return ev.key(ev.load(i), static_cast<int>(id - i * ntables));
 }
 
 // Steps 1 and 3: one block per tile of kThreads * kTileEvents events.
@@ -147,9 +156,10 @@ __global__ void tile_kernel(Ev ev, int ntables, int64_t nvalid, uint64_t q,
     const int64_t i = first + k * static_cast<int64_t>(blockDim.x)
                       + threadIdx.x;
     if (i >= nvalid) break;
-    const uint64_t h = ev.hashes[i];
+    const auto x = ev.load(i);
     for (int t = 0; t < ntables; ++t) {
-      atomicAdd(&hist[bucket_of(ev.lane(h, t), q, nbuckets)], 1u);
+      const uint64_t key = ev.key(x, t);
+      if (key != kNone) atomicAdd(&hist[bucket_of(key, q, nbuckets)], 1u);
     }
   }
   __syncthreads();
@@ -169,10 +179,11 @@ __global__ void tile_kernel(Ev ev, int ntables, int64_t nvalid, uint64_t q,
     const int64_t i = first + k * static_cast<int64_t>(blockDim.x)
                       + threadIdx.x;
     if (i >= nvalid) break;
-    const uint64_t h = ev.hashes[i];
+    const auto x = ev.load(i);
     for (int t = 0; t < ntables; ++t) {
-      const uint32_t pos =
-          atomicAdd(&hist[bucket_of(ev.lane(h, t), q, nbuckets)], 1u);
+      const uint64_t key = ev.key(x, t);
+      if (key == kNone) continue;
+      const uint32_t pos = atomicAdd(&hist[bucket_of(key, q, nbuckets)], 1u);
       sc.ids[pos] = static_cast<uint32_t>(i * ntables + t);
     }
   }
@@ -404,7 +415,8 @@ bucket_kernel(Ev ev, int ntables, uint64_t q, bool narrow, Scratch sc,
   }
 }
 
-// Step 5: one thread per event i < max(m_total, nvalid).
+// Step 5: one thread per event i < max(m_total, nvalid); hashes is read
+// only with the report on.
 __global__ void finalize_kernel(int64_t m_total, int64_t nvalid,
                                 int ntables,
                                 const uint32_t* __restrict__ ev_word,
@@ -435,17 +447,19 @@ __global__ void finalize_kernel(int64_t m_total, int64_t nvalid,
 // All launches on stream s for events i < nvalid of ntables counters each
 // in a flat table of `size` counters. flags [m_total] (nullable) gets the
 // new flags, false from nvalid on; *n_new grows by the new events. With
-// cand_hash non-null the bigcount report goes to cand_hash/cand_old
-// [nvalid], its length added to *n_cand (zeroed by the caller).
+// cand_hash non-null the bigcount report of the events, whose hashes are
+// hashes [nvalid], goes to cand_hash/cand_old [nvalid], its length added
+// to *n_cand (zeroed by the caller).
 template <class Ev>
 cudaError_t launch_update(const Ev& ev, int ntables, uint64_t size,
                           int64_t m_total, int64_t nvalid, uint32_t nbuckets,
                           const Scratch& sc, uint8_t* table, bool* flags,
-                          unsigned long long* n_new, int64_t* cand_hash,
-                          int32_t* cand_old, unsigned int* n_cand,
-                          cudaStream_t s) {
+                          unsigned long long* n_new, const uint64_t* hashes,
+                          int64_t* cand_hash, int32_t* cand_old,
+                          unsigned int* n_cand, cudaStream_t s) {
   if (size == 0 || nbuckets < 1 || nbuckets > kMaxBuckets || ntables < 1
-      || nvalid < 0 || nvalid * ntables >= (int64_t{1} << 31)) {
+      || nvalid < 0 || nvalid * ntables >= (int64_t{1} << 31)
+      || (cand_hash != nullptr && hashes == nullptr)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err;
@@ -495,7 +509,7 @@ cudaError_t launch_update(const Ev& ev, int ntables, uint64_t size,
   const int64_t span = m_total > nvalid ? m_total : nvalid;
   finalize_kernel<<<grid_for(span), kThreads, 0, s>>>(
       m_total, nvalid, ntables, sc.ev_word, sc.min_old, flags, n_new,
-      ev.hashes, cand_hash, cand_old, n_cand);
+      hashes, cand_hash, cand_old, n_cand);
   return cudaGetLastError();
 }
 

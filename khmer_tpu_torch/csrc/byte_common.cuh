@@ -14,29 +14,45 @@ namespace khmer_byte {
 
 constexpr int kMaxTables = 32;
 
-// Passed by value as a kernel parameter (528 bytes).
+// Passed by value as a kernel parameter (776 bytes).
 struct ByteLayout {
   int ntables;
   uint64_t primes[kMaxTables];
+  uint64_t recips[kMaxTables];  // floor((2^64 - 1) / prime)
   uint64_t offsets[kMaxTables];
 };
 
 // Fill a layout from the host arrays the wrapper passes; false when the
-// table count is out of range.
+// table count is out of range or a prime is not in [1, 2^63).
 inline bool make_layout(int ntables, const int64_t* primes,
                         const int64_t* offsets, ByteLayout* out) {
   if (ntables < 1 || ntables > kMaxTables) return false;
   out->ntables = ntables;
   for (int t = 0; t < ntables; ++t) {
+    if (primes[t] < 1) return false;
     out->primes[t] = static_cast<uint64_t>(primes[t]);
+    out->recips[t] = ~0ULL / out->primes[t];
     out->offsets[t] = static_cast<uint64_t>(offsets[t]);
   }
   return true;
 }
 
+// h % p for a run-time p in [1, 2^63), by its reciprocal m = floor((2^64 -
+// 1) / p) in place of the software division nvcc emits for a 64-bit `%`.
+// With 2^64 - 1 = m p + s, 0 <= s < p: h m / 2^64 = h / p - h (1 + s) /
+// (p 2^64), and h (1 + s) < p 2^64, so q = umulhi(h, m) is floor(h / p) or
+// one less, r = h - q p lies in [0, 2p), and one subtraction ends it. Exact
+// for every u64 h; khmer_tpu_torch/ops/u64.py umod_reciprocal mirrors the
+// steps.
+__device__ __forceinline__ uint64_t reduce(uint64_t h, uint64_t p,
+                                           uint64_t m) {
+  const uint64_t r = h - __umul64hi(h, m) * p;
+  return r >= p ? r - p : r;
+}
+
 __device__ __forceinline__ uint64_t counter_index(const ByteLayout& layout,
                                                   uint64_t h, int t) {
-  return layout.offsets[t] + h % layout.primes[t];
+  return layout.offsets[t] + reduce(h, layout.primes[t], layout.recips[t]);
 }
 
 }  // namespace khmer_byte

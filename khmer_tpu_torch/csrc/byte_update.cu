@@ -9,8 +9,9 @@
 //
 // What bounds it: random single-byte traffic. Each event touches one
 // counter in each of T tables that together far exceed L2 (200 MB at
-// config 1, 4 GB at -x 1e9 -N 4), plus a 64-bit modulo per table. The
-// least work is one read and one write of each distinct counter the chunk
+// config 1, 4 GB at -x 1e9 -N 4), plus a 64-bit reduction per table (by
+// a precomputed reciprocal, byte_common.cuh counter_index). The least
+// work is one read and one write of each distinct counter the chunk
 // touches; each costs a 32-byte sector.
 //
 // Design. The bucketed core of bucket_common.cuh, with the event's T
@@ -38,10 +39,13 @@ namespace khmer_byte {
 namespace {
 
 struct ByteEvents {
+  using Item = uint64_t;
   const uint64_t* hashes;
   ByteLayout layout;
 
-  __device__ uint64_t lane(uint64_t h, int t) const {
+  __device__ Item load(int64_t i) const { return hashes[i]; }
+
+  __device__ uint64_t key(uint64_t h, int t) const {
     return counter_index(layout, h, t);
   }
 };
@@ -75,11 +79,11 @@ extern "C" int khmer_byte_update(uint8_t* flat, int64_t size, int ntables,
       static_cast<uint32_t*>(ids), static_cast<uint32_t*>(start),
       static_cast<uint32_t*>(cursor), static_cast<uint32_t*>(ev_word),
       static_cast<uint32_t*>(min_old)};
+  const uint64_t* h = reinterpret_cast<const uint64_t*>(hashes);
   return khmer_bucket::launch_update(
-      ByteEvents{reinterpret_cast<const uint64_t*>(hashes), layout}, ntables,
-      static_cast<uint64_t>(size), nvalid, nvalid,
-      static_cast<uint32_t>(nbuckets), sc, flat, nullptr,
-      reinterpret_cast<unsigned long long*>(n_unique), cand_hash, cand_old,
-      reinterpret_cast<unsigned int*>(n_cand),
+      ByteEvents{h, layout}, ntables, static_cast<uint64_t>(size), nvalid,
+      nvalid, static_cast<uint32_t>(nbuckets), sc, flat, nullptr,
+      reinterpret_cast<unsigned long long*>(n_unique), h, cand_hash,
+      cand_old, reinterpret_cast<unsigned int*>(n_cand),
       static_cast<cudaStream_t>(stream));
 }

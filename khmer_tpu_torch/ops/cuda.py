@@ -49,8 +49,10 @@ _ENTRY_POINTS = {
     "khmer_byte_gather": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
     # idx, n, out, nbins, device, stream
     "khmer_histogram_add": [_P, _I64, _P, _I64, _I32, _P],
-    # bids, offs, m, table, nblocks, winner, nnew, device, stream
-    "khmer_proto_rmw": [_P, _P, _I64, _P, _I64, _P, _P, _I32, _P],
+    # bids, offs, m, table, nblocks, nbuckets, ids, start, cursor,
+    # ev_word, nnew, device, stream
+    "khmer_proto_rmw": [_P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P, _P,
+                        _I32, _P],
 }
 
 

@@ -42,6 +42,39 @@ def umod(x, p):
     return torch.where(x < 0, torch.remainder(r + (1 << 64) % p, p), r)
 
 
+_LOW32 = (1 << 32) - 1
+
+
+def reciprocal(p):
+    """floor((2^64 - 1) / p): the constant by which the byte kernels reduce
+    a hash modulo the prime p (csrc/byte_common.cuh ByteLayout.recips)."""
+    p = int(p)
+    if not 0 < p < (1 << 63):
+        raise ValueError("modulus %d out of range" % p)
+    return ((1 << 64) - 1) // p
+
+
+def umulhi(x, m):
+    """High 64 bits of the u64 product of bit patterns x and a constant
+    0 <= m < 2^64 (CUDA's __umul64hi), from 32-bit halves whose partial
+    products wrap in int64 to their u64 bits."""
+    x0, x1 = x & _LOW32, srl(x, 32)
+    m0, m1 = to_signed(m & _LOW32), to_signed(m >> 32)
+    p00, p01, p10 = x0 * m0, x0 * m1, x1 * m0
+    mid = srl(p00, 32) + (p01 & _LOW32) + (p10 & _LOW32)  # < 3 * 2^32
+    return x1 * m1 + srl(p01, 32) + srl(p10, 32) + srl(mid, 32)
+
+
+def umod_reciprocal(x, p):
+    """Unsigned ``x % p`` for a constant 0 < p < 2^63 by the byte kernels'
+    steps (csrc/byte_common.cuh reduce): q = umulhi(x, reciprocal(p)) is
+    floor(x / p) or one less, r = x - q p lies in [0, 2p), and one
+    subtraction ends it. The kernels' arithmetic, testable on the CPU."""
+    p = int(p)
+    r = x - umulhi(x, reciprocal(p)) * p
+    return torch.where(ult(r, p), r, r - p)
+
+
 def ult(a, b):
     """Unsigned ``a < b``: flipping the sign bit maps u64 order onto
     int64 order."""

@@ -12,7 +12,10 @@ version (core/blocked.py proto_rmw_plain), at the script's shapes:
     accumulating table, kernel against plain version, and kernel 1
     (csrc/blocked_update.cu) on 2^20 hashes into a table of the same
     size, whose events have the same shape (one lane in each 32-lane
-    quarter of one 128-byte block).
+    quarter of one 128-byte block). Both kernels run on the bucketed core
+    (csrc/bucket_common.cuh), with the events' scratch; its bytes are
+    printed beside those of an int32 winner image of one entry per
+    counter, the table-sized scratch the core does without.
 
 Needs a CUDA card. Run from the repo root:
 
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from khmer_tpu_torch.core import blocked as B
-from khmer_tpu_torch.core.sketch_kernels import update_scratch
+from khmer_tpu_torch.core.sketch_kernels import update_plan, update_scratch
 from khmer_tpu_torch.scripts import cuda_ms
 
 SLAB = 32          # table rows per slab of the Pallas kernel
@@ -64,10 +67,52 @@ def timing_events(rng, nb, m):
     return bids, offs
 
 
+ADVERSARIAL = ("one-event-x2^20", "all-on-7-blocks",
+               "repeats-invalid-saturate", "crowded-bucket")
+
+
+def adversarial_cases(rng):
+    """Decoded-event cases that hold kernel D to its plain version, drawn
+    from `rng`, in the order of ADVERSARIAL: (name, bids int32 [M], packed
+    offs int32 [M], table [nblocks, 128] uint8, passes).
+
+      * one event repeated 2^20 times: four counters of 2^20 occurrences
+        each, through 255 in one pass;
+      * 2^20 events crowded onto 7 blocks (896 counters);
+      * lanes repeated within an event (a set), ids below 0 and at or past
+        nblocks out to int32's limits, on a table whose first blocks sit at
+        250, so that counters saturate;
+      * 2^16 events on the first 400 of 100,003 blocks: tens of thousands
+        of distinct counters in two buckets, far more than one bucket's
+        map holds, so that the kernel splits them.
+    """
+    m = 1 << 20
+    one_b, one_o = timing_events(rng, 101, 1)
+    b7, o7 = timing_events(rng, 7, m)
+    nb = 5
+    bs, os_ = timing_events(rng, nb, 4000)
+    bs[::7] = -1
+    bs[::11] = nb + 3
+    bs[::17] = np.iinfo(np.int32).min
+    bs[::19] = np.iinfo(np.int32).max
+    os_[::13] = pack_offs(np.asarray([[5, 5, 40, 40]], np.int32))[0]
+    os_[::23] = pack_offs(np.asarray([[9, 9, 9, 9]], np.int32))[0]
+    sat = np.zeros((nb, LANES), np.uint8)
+    sat[:2] = 250
+    bc, oc = timing_events(rng, 400, 1 << 16)
+    return [
+        (ADVERSARIAL[0], np.repeat(one_b, m), np.repeat(one_o, m),
+         np.zeros((101, LANES), np.uint8), 2),
+        (ADVERSARIAL[1], b7, o7, np.zeros((7, LANES), np.uint8), 2),
+        (ADVERSARIAL[2], bs, os_, sat, 2),
+        (ADVERSARIAL[3], bc, oc, np.zeros((100003, LANES), np.uint8), 2),
+    ]
+
+
 def main(nb=1 << 19, m=1 << 20, reps=5, seed=0):
     """Run both phases on the current CUDA device; returns their numbers
     (the correctness result, and ms per call of kernel D, its plain
-    version and kernel 1)."""
+    version and kernel 1, with kernel D's scratch bytes)."""
     if not torch.cuda.is_available():
         raise RuntimeError("pallas_proto needs a CUDA device")
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -78,9 +123,7 @@ def main(nb=1 << 19, m=1 << 20, reps=5, seed=0):
     offs_d = torch.from_numpy(pack_offs(offs)).to(dev)
     tab_k = torch.from_numpy(table).to(dev)
     tab_p = tab_k.clone()
-    winner = torch.full((tab_k.numel(),), B.IDX_FILL, dtype=torch.int32,
-                        device=dev)
-    nnew_k = int(B.proto_rmw_cuda(bids_d, offs_d, tab_k, winner))
+    nnew_k = int(B.proto_rmw_cuda(bids_d, offs_d, tab_k))
     nnew_p = int(B.proto_rmw_plain(bids_d, offs_d, tab_p))
     err = max(int((tab_k.int() - tab_p.int()).abs().max()),
               abs(nnew_k - nnew_p))
@@ -96,14 +139,14 @@ def main(nb=1 << 19, m=1 << 20, reps=5, seed=0):
     tab_k = torch.zeros((nb, LANES), dtype=torch.uint8, device=dev)
     tab_p = tab_k.clone()
     tab_1 = tab_k.clone()
-    winner = torch.full((tab_k.numel(),), B.IDX_FILL, dtype=torch.int32,
-                        device=dev)
     nnew = {"kernel": [], "plain": []}
     nu_1 = torch.zeros(1, dtype=torch.int64, device=dev)
+    # each kernel's scratch, kept between calls as a sketch keeps it
+    scratch = update_scratch(None, m, B.SUB, dev)
     scratch_1 = update_scratch(None, m, B.SUB, dev)
     ms = {
         "kernel": cuda_ms(lambda: nnew["kernel"].append(
-            B.proto_rmw_cuda(bids_d, offs_d, tab_k, winner)), reps),
+            B.proto_rmw_cuda(bids_d, offs_d, tab_k, scratch)), reps),
         "plain": cuda_ms(lambda: nnew["plain"].append(
             B.proto_rmw_plain(bids_d, offs_d, tab_p)), reps),
         "blocked_update": cuda_ms(lambda: B.blocked_update_cuda(
@@ -122,6 +165,8 @@ def main(nb=1 << 19, m=1 << 20, reps=5, seed=0):
         "blocked_update_ms": ms["blocked_update"],
         "ns_per_event": ms["kernel"] * 1e6 / m,
         "bytes": 8 * m + 2 * touched, "ops": 4 * m,
+        "scratch_bytes": update_plan(m, B.SUB)[2],
+        "winner_image_bytes": 4 * tab_k.numel(),
         "nnew": total["kernel"], "max_abs_err": err}
     return out
 

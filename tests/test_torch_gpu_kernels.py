@@ -180,6 +180,8 @@ def test_histogram_add_matches_plain(cuda_device, m, nbins):
 
 
 def test_proto_rmw_matches_plain(cuda_device):
+    """The script's correctness case, three passes on one table, with the
+    events' scratch kept between calls: no winner image to keep."""
     from khmer_tpu_torch.scripts import pallas_proto
 
     dev = cuda_device
@@ -189,14 +191,78 @@ def test_proto_rmw_matches_plain(cuda_device):
     offs_d = torch.from_numpy(pallas_proto.pack_offs(offs)).to(dev)
     tab_k = torch.from_numpy(table).to(dev)
     tab_p = tab_k.clone()
-    winner = torch.full((tab_k.numel(),), B.IDX_FILL, dtype=torch.int32,
-                        device=dev)
+    scratch = K.update_scratch(None, len(bids), B.SUB, dev)
     for _ in range(3):
-        nk = B.proto_rmw_cuda(bids_d, offs_d, tab_k, winner)
+        nk = B.proto_rmw_cuda(bids_d, offs_d, tab_k, scratch)
         np_ = B.proto_rmw_plain(bids_d, offs_d, tab_p)
         assert int(nk) == int(np_)
         assert torch.equal(tab_k, tab_p)
-        assert bool((winner == B.IDX_FILL).all())
+
+
+def _proto_cases():
+    from khmer_tpu_torch.scripts import pallas_proto
+
+    return {c[0]: c for c in pallas_proto.adversarial_cases(
+        np.random.default_rng(20261019))}
+
+
+@pytest.mark.parametrize("name", ["one-event-x2^20", "all-on-7-blocks",
+                                  "repeats-invalid-saturate",
+                                  "crowded-bucket"])
+def test_proto_rmw_adversarial_cases_match_plain(cuda_device, name):
+    """One event x 2^20, 2^20 events on 7 blocks, repeated lanes with
+    invalid ids and saturation, and a crowded bucket that must split."""
+    dev = cuda_device
+    _, bids, offs, table, passes = _proto_cases()[name]
+    bids_d = torch.from_numpy(bids).to(dev)
+    offs_d = torch.from_numpy(offs).to(dev)
+    tab_k = torch.from_numpy(table).to(dev)
+    tab_p = tab_k.clone()
+    for _ in range(passes):
+        nk = B.proto_rmw_cuda(bids_d, offs_d, tab_k)
+        np_ = B.proto_rmw_plain(bids_d, offs_d, tab_p)
+        assert int(nk) == int(np_)
+        assert torch.equal(tab_k, tab_p)
+
+
+def test_proto_rmw_dispatch_runs_on_the_card(cuda_device):
+    """proto_rmw(bids, offs, table), called as the JAX script calls its
+    kernel, launches kernel D on a CUDA table (it once needed a winner
+    image and raised without one)."""
+    dev = cuda_device
+    bids = torch.tensor([0, 0, 1, -1], dtype=torch.int32, device=dev)
+    offs = torch.tensor([5 | 40 << 8 | 70 << 16 | 100 << 24] * 4,
+                        dtype=torch.int32, device=dev)
+    tab = torch.zeros((2, B.LANES), dtype=torch.uint8, device=dev)
+    before = B.proto_rmw_cuda.launches
+    assert int(B.proto_rmw(bids, offs, tab)) == 2
+    assert B.proto_rmw_cuda.launches == before + 1
+    assert tab[0, [5, 40, 70, 100]].tolist() == [2, 2, 2, 2]
+    assert tab[1, [5, 40, 70, 100]].tolist() == [1, 1, 1, 1]
+    assert int(tab.sum()) == 12
+
+
+@pytest.mark.parametrize("name", ["config-1", "-x 1e9 -N 4",
+                                  "-x 5e9 -N 4"])
+def test_byte_gather_reduction_edges_match_plain(cuda_device, name):
+    """Kernel B reduces each hash by the prime's reciprocal; on random
+    tables of each size (0.2, 4 and 20 GB) it equals the plain version's
+    `%` on the reduction's edge cases, through the paired loads (aligned)
+    and the single ones (a view one hash in, odd length)."""
+    from khmer_tpu_torch.scripts.byte_gather_bench import (PRIME_SETS,
+                                                           reduction_edges)
+
+    dev = cuda_device
+    primes = PRIME_SETS[name]
+    gen = torch.Generator(device=dev).manual_seed(len(name))
+    flat = torch.randint(0, 256, (K.byte_flat_size(primes),),
+                         dtype=torch.uint8, device=dev, generator=gen)
+    hd = torch.from_numpy(reduction_edges(primes).view(np.int64)).to(dev)
+    for h in (hd, hd[1:]):
+        assert torch.equal(K.byte_gather_cuda(primes, flat, h),
+                           K.byte_gather_plain(primes, flat, h))
+    del flat
+    torch.cuda.empty_cache()
 
 
 def test_countgraph_dispatch_launches_kernels_on_cuda(cuda_device):

@@ -132,3 +132,50 @@ def test_proto_rmw_lanes_are_a_set(jax_proto):
     oracle_t, _ = jax_proto.oracle(bids, offs, np.zeros((2, B.LANES),
                                                         np.uint8))
     assert oracle_t[0, 5] == 3 and oracle_t[0, 40] == 2
+
+
+def test_proto_rmw_cuda_refuses_cpu_tensors():
+    """No fallback inside the kernel's wrapper: on CPU tensors it raises,
+    and the dispatcher takes the plain version instead."""
+    bids = torch.zeros(4, dtype=torch.int32)
+    offs = torch.zeros(4, dtype=torch.int32)
+    tab = torch.zeros((2, B.LANES), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        B.proto_rmw_cuda(bids, offs, tab)
+    assert B.proto_rmw_cuda.launches == 0
+    assert int(B.proto_rmw(bids, offs, tab)) == 1
+    assert int(tab[0, 0]) == 4 and int(tab.sum()) == 4
+
+
+def test_proto_rmw_plain_matches_the_oracle_on_the_crowded_case(jax_proto):
+    """The crowded-bucket case that chip_smoke and the card's tests give
+    kernel D (one lane per quarter, all ids valid), through the plain
+    version and the script's oracle, two passes."""
+    cases = {c[0]: c for c in pallas_proto.adversarial_cases(
+        np.random.default_rng(20261019))}
+    assert list(cases) == list(pallas_proto.ADVERSARIAL)
+    _, bids, offs, table, passes = cases["crowded-bucket"]
+    lanes = np.stack([(offs >> (8 * j)) & 127 for j in range(4)], 1)
+    want_t = table
+    tab = torch.from_numpy(table.copy())
+    for _ in range(passes):
+        want_t, want_n = jax_proto.oracle(bids, lanes, want_t)
+        nnew = B.proto_rmw_plain(torch.from_numpy(bids),
+                                 torch.from_numpy(offs), tab)
+        assert int(nnew) == want_n
+        assert np.array_equal(tab.numpy(), want_t)
+
+
+def test_gather_floors_count_distinct_counters_and_sectors():
+    """byte_gather_bench's floors: 12 B a hash plus each distinct counter,
+    and the distinct 32-byte sectors of the flat buffer, over all tables."""
+    from khmer_tpu_torch.scripts import byte_gather_bench
+
+    primes = (13, 11, 7)
+    h = np.asarray([0, 1, 13, 2**64 - 1, 2**63, 5, 5], dtype=np.uint64)
+    idx = np.concatenate([h % np.uint64(p) + np.uint64(off) for p, off in
+                          zip(primes, K.byte_offsets(primes))])
+    nbytes, sectors = byte_gather_bench.gather_floors(
+        primes, torch.from_numpy(h.view(np.int64)))
+    assert nbytes == 12 * len(h) + len(np.unique(idx))
+    assert sectors == len(np.unique(idx >> np.uint64(5)))

@@ -10,6 +10,8 @@ from khmer_tpu.core import blocked as jax_blocked
 from khmer_tpu.ops import hashing as jax_hashing
 from khmer_tpu_torch.ops import hashing as H
 from khmer_tpu_torch.ops import u64
+from khmer_tpu_torch.scripts.byte_gather_bench import (PRIME_SETS,
+                                                       reduction_edges)
 
 EDGES = np.array([0, 1, 2, 3, 2**31 - 1, 2**32, 2**62, 2**63 - 1, 2**63,
                   2**63 + 1, 2**64 - 2, 2**64 - 1], dtype=np.uint64)
@@ -51,6 +53,42 @@ def test_umod_matches_numpy(p):
     got = u64.umod(_t(a), p).numpy()
     assert got.dtype == np.int64
     assert (got == (a % np.uint64(p)).astype(np.int64)).all()
+
+
+@pytest.mark.parametrize("name", list(PRIME_SETS))
+def test_umod_reciprocal_matches_numpy(name):
+    """The byte kernels' reduction by a precomputed reciprocal
+    (csrc/byte_common.cuh reduce), mirrored step for step, equals numpy's
+    uint64 % on every edge case of each table's prime."""
+    primes = PRIME_SETS[name]
+    a = reduction_edges(primes, 4000)
+    for p in primes:
+        got = u64.umod_reciprocal(_t(a), p).numpy()
+        assert (got == (a % np.uint64(p)).astype(np.int64)).all()
+        assert (got >= 0).all() and (got < p).all()
+
+
+def test_prime_sets_are_the_tables_primes():
+    from khmer_tpu_torch.core.sketch_kernels import get_n_primes_near_x
+
+    for x, name in ((5e7, "config-1"), (1e9, "-x 1e9 -N 4"),
+                    (5e9, "-x 5e9 -N 4")):
+        assert tuple(get_n_primes_near_x(4, x)) == PRIME_SETS[name]
+
+
+@pytest.mark.parametrize("m", [0, 1, 3, 2**32 - 1, 2**32, 2**63 + 5,
+                               2**64 - 1, ((1 << 64) - 1) // 49999991])
+def test_umulhi_matches_python_ints(m):
+    a = _values(m % 997)
+    want = np.asarray([(int(x) * m) >> 64 for x in a], dtype=np.uint64)
+    assert (_u(u64.umulhi(_t(a), m)) == want).all()
+
+
+@pytest.mark.parametrize("p", [1, 2, 7, 2**62 + 135, 2**63 - 25])
+def test_umod_reciprocal_at_extreme_moduli(p):
+    a = reduction_edges((p,), 4000)
+    assert (_u(u64.umod_reciprocal(_t(a), p)) == a % np.uint64(p)).all()
+    assert u64.reciprocal(p) == (2**64 - 1) // p
 
 
 def test_ult_and_umin_match_numpy():

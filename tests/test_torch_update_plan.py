@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from khmer_tpu_torch import BlockedCountgraph, Countgraph
+from khmer_tpu_torch.core import blocked as B
 from khmer_tpu_torch.core import sketch_kernels as K
 
 
@@ -44,6 +45,56 @@ def test_plan_refuses_chunks_past_32_bit_positions():
     K.update_plan(K.MAX_LANE_EVENTS // 4 - 1, 4)
     with pytest.raises(ValueError, match="chunk too large"):
         K.update_plan(K.MAX_LANE_EVENTS // 4, 4)
+
+
+@pytest.mark.parametrize("m", [1, 8192, 1 << 20, K.MAX_LANE_EVENTS // 4 - 1])
+def test_decoded_event_plan_is_the_updates(m):
+    """Kernel D (csrc/proto_rmw.cu) runs the update core on m decoded
+    events of four lanes: its scratch is update_plan(m, 4), sized by the
+    events alone; 2^20 events on 2^19 blocks take 25,231,368 B where the
+    first design's int32 winner image took 4 B per counter, 268,435,456 B."""
+    nbuckets, parts, total = K.update_plan(m, B.SUB)
+    assert parts["ids"][1] == 4 * B.SUB * m
+    assert total <= 4 * B.SUB * m + 8 * m + 8 * nbuckets + 64
+    if m == 1 << 20:
+        assert total == 25_231_368
+        assert total < 4 * (1 << 19) * B.LANES == 268_435_456
+
+
+def test_decoded_event_plan_refuses_past_the_limit():
+    """The events' limit is the update's, m * 4 < 2^31, no longer the
+    winner sentinel IDX_FILL; proto_rmw_cuda checks it before it looks
+    for scratch or the card's library."""
+    with pytest.raises(ValueError, match="chunk too large"):
+        K.update_plan(K.MAX_LANE_EVENTS // B.SUB, B.SUB)
+
+    class Events:  # only metadata is read before the check
+        def __init__(self, dev):
+            self.device = dev
+            self.dtype = torch.int32
+            self.shape = torch.Size([K.MAX_LANE_EVENTS // B.SUB])
+
+        def dim(self):
+            return 1
+
+        def is_contiguous(self):
+            return True
+
+    class Table:
+        device = torch.device("cuda", 0)
+        dtype = torch.uint8
+        shape = (7, B.LANES)
+
+        def dim(self):
+            return 2
+
+        def is_contiguous(self):
+            return True
+
+    ev = Events(Table.device)
+    with pytest.raises(ValueError, match="chunk too large"):
+        B.proto_rmw_cuda(ev, ev, Table())
+    assert B.proto_rmw_cuda.launches == 0
 
 
 def _first_index(size, nbuckets, b):

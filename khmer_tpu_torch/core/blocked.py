@@ -154,7 +154,7 @@ def blocked_update_cuda(table, hashes, nvalid, n_unique, scratch=None):
     err = cuda.library().khmer_blocked_update(
         table.data_ptr(), table.shape[0], hashes.data_ptr(), M, n, nbuckets,
         *ptr[:4], flags.data_ptr(), n_unique.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        K._stream(dev))
     cuda.check(err, "blocked_update")
     blocked_update_cuda.launches += 1
     return flags
@@ -192,6 +192,9 @@ def gather_counts_plain(nblocks, tables, hashes):
     return counts.to(torch.int32).reshape(hashes.shape)
 
 
+GATHER_MODE = 0
+
+
 def blocked_gather_cuda(table, hashes):
     """Kernel 2 (csrc/blocked_gather.cu): min-over-lanes counts of a 1-D
     int64 hash tensor -> int32 [n]. Counts its launches in
@@ -204,8 +207,8 @@ def blocked_gather_cuda(table, hashes):
         return out
     err = cuda.library().khmer_blocked_gather(
         table.data_ptr(), table.shape[0], hashes.data_ptr(), n,
-        out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), int(GATHER_MODE), dev.index,
+        K._stream(dev))
     cuda.check(err, "blocked_gather")
     blocked_gather_cuda.launches += 1
     return out
@@ -308,7 +311,7 @@ def proto_rmw_cuda(bids, offs, table, scratch=None):
     err = cuda.library().khmer_proto_rmw(
         bids.data_ptr(), offs.data_ptr(), M, table.data_ptr(),
         table.shape[0], nbuckets, *ptr[:4], nnew.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        K._stream(dev))
     cuda.check(err, "proto_rmw")
     proto_rmw_cuda.launches += 1
     return nnew

@@ -19,6 +19,7 @@ update the tables in place.
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -316,7 +317,15 @@ def _ptr(t):
 
 
 def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of `dev`'s current stream, for a C entry point.
+    (torch.cuda.current_stream builds a Stream object: several microseconds
+    a launch.)"""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _layout(primes):
@@ -471,10 +480,60 @@ def histogram_add_plain(out, idx):
     return out
 
 
+# Kernel C (csrc/histogram.cu) keeps the int32 histogram in the shared
+# memory of a thread-block cluster; these mirror its limits on sm_90.
+HIST_THREADS = 512           # threads a block (csrc kThreads)
+HIST_MAX_SHARED = 232_448    # shared bytes one block may use
+HIST_SM_SHARED = 233_472     # shared bytes of one SM, 1,024 kept per block
+HIST_MAX_CLUSTER = 8         # the portable cluster size
+HIST_PER_THREAD = 4          # indices a thread takes in one loop trip
+# Indices one launch takes: fewer than 2^31, so that no 32-bit shared
+# counter overflows. The wrapper splits a longer input into launches.
+HIST_LAUNCH_LIMIT = 2**31 - 1
+
+
+def _hist_blocks_per_sm(shared):
+    """Blocks of HIST_THREADS threads and `shared` bytes an SM holds."""
+    return max(1, min(2048 // HIST_THREADS,
+                      HIST_SM_SHARED // (shared + 1024)))
+
+
+@functools.lru_cache(maxsize=64)
+def histogram_plan(n, nbins, sms):
+    """Kernel C's launch for n indices into nbins bins on a card of `sms`
+    SMs: (cluster, per_block, shared, nclusters).
+
+    A cluster of `cluster` blocks keeps bins [r * per_block, (r + 1) *
+    per_block) in block r, `shared` = 4 * per_block bytes; bins from
+    cluster * per_block on (past 464,896) go to global memory. The cluster
+    is the smallest of 1, 2, 4 and 8 that holds every bin with an SM full
+    of threads (four blocks), else 8: the loads of the indices need every
+    warp an SM can hold in flight, so smaller slices of the histogram per
+    block beat fewer remote adds. `nclusters` fills the card with
+    clusters, but no more than give each thread HIST_PER_THREAD indices:
+    each cluster ends with a flush of its nonzero bins. The entry point
+    lowers it to what the card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    n, nbins, sms = int(n), int(nbins), int(sms)
+    max_bins = HIST_MAX_SHARED // 4
+    full = 2048 // HIST_THREADS
+    cluster = 1
+    while cluster < HIST_MAX_CLUSTER and (
+            -(-nbins // cluster) > max_bins
+            or _hist_blocks_per_sm(4 * -(-nbins // cluster)) < full):
+        cluster *= 2
+    per_block = max(1, min(-(-nbins // cluster), max_bins))
+    shared = 4 * per_block
+    resident = max(1, sms * _hist_blocks_per_sm(shared) // cluster)
+    wanted = -(-n // (cluster * HIST_THREADS * HIST_PER_THREAD))
+    return cluster, per_block, shared, max(1, min(resident, wanted))
+
+
 def histogram_add_cuda(out, idx):
     """Kernel C (csrc/histogram.cu): histogram_add_plain on the card, for
-    an int64 [nbins] `out` and 1-D int64 `idx`. Counts its launches in
-    ``histogram_add_cuda.launches``."""
+    an int64 [nbins] `out` and 1-D int64 `idx` of any length, in launches
+    of at most HIST_LAUNCH_LIMIT indices each (histogram_plan). Counts
+    its launches in ``histogram_add_cuda.launches``."""
     dev = out.device
     if dev.type != "cuda" or idx.device != dev:
         raise ValueError("histogram_add takes CUDA tensors on one device")
@@ -483,15 +542,18 @@ def histogram_add_cuda(out, idx):
     if idx.dtype != torch.int64 or idx.dim() != 1 \
             or not idx.is_contiguous():
         raise ValueError("idx must be a contiguous 1-D int64 tensor")
-    if idx.shape[0] >= 2**31:
-        raise ValueError("histogram_add takes fewer than 2^31 indices")
-    if idx.shape[0] == 0 or out.shape[0] == 0:
+    n, nbins = idx.shape[0], out.shape[0]
+    if n == 0 or nbins == 0:
         return out
-    err = cuda.library().khmer_histogram_add(
-        idx.data_ptr(), idx.shape[0], out.data_ptr(), out.shape[0],
-        dev.index, _stream(dev))
-    cuda.check(err, "histogram_add")
-    histogram_add_cuda.launches += 1
+    sms = _sm_count(dev.index)
+    lib, stream = cuda.library(), _stream(dev)
+    for lo in range(0, n, HIST_LAUNCH_LIMIT):
+        m = min(HIST_LAUNCH_LIMIT, n - lo)
+        err = lib.khmer_histogram_add(
+            idx.data_ptr() + 8 * lo, m, out.data_ptr(), nbins,
+            *histogram_plan(m, nbins, sms), dev.index, stream)
+        cuda.check(err, "histogram_add")
+        histogram_add_cuda.launches += 1
     return out
 
 

@@ -3,7 +3,9 @@
 // Layout (khmer_tpu_torch/core/blocked.py): table[nblocks][128] u8;
 // a hash h lives in block h % nblocks, and its four sub-counters sit at
 // lanes 32*t + ((mix64(h) >> 5t) & 31), t = 0..3, one per 32-lane
-// quarter. Hashes arrive as int64 tensors holding u64 bit patterns.
+// quarter. Hashes arrive as int64 tensors holding u64 bit patterns. The
+// block is reduced by the reciprocal of nblocks (u64_common.cuh), which
+// the entry points compute on the host.
 #pragma once
 
 #include <cstdint>
@@ -11,6 +13,7 @@
 #include <cuda_runtime.h>
 
 #include "launch.cuh"
+#include "u64_common.cuh"
 
 namespace khmer_blocked {
 
@@ -32,7 +35,14 @@ __device__ __forceinline__ uint64_t mix64(uint64_t x) {
   return x;
 }
 
-// Flat table index of sub-counter t; row = (h % nblocks) * kLanes.
+// Flat index of the first lane of h's block: (h % nblocks) * kLanes, with
+// recip = khmer_cuda::reciprocal(nblocks).
+__device__ __forceinline__ uint64_t row_of(uint64_t h, uint64_t nblocks,
+                                          uint64_t recip) {
+  return khmer_cuda::reduce(h, nblocks, recip) * kLanes;
+}
+
+// Flat table index of sub-counter t; row = row_of(h, ...), m = mix64(h).
 __device__ __forceinline__ uint64_t lane_index(uint64_t row, uint64_t m,
                                                int t) {
   return row + kQuart * t + ((m >> (5 * t)) & (kQuart - 1));

@@ -30,11 +30,12 @@ struct HashEvents {
   using Item = uint64_t;
   const uint64_t* hashes;
   uint64_t nblocks;
+  uint64_t recip;  // khmer_cuda::reciprocal(nblocks)
 
   __device__ Item load(int64_t i) const { return hashes[i]; }
 
   __device__ uint64_t key(uint64_t h, int t) const {
-    return lane_index((h % nblocks) * kLanes, mix64(h), t);
+    return lane_index(row_of(h, nblocks, recip), mix64(h), t);
   }
 };
 
@@ -66,7 +67,8 @@ extern "C" int khmer_blocked_update(uint8_t* table, int64_t nblocks,
       nullptr};
   return khmer_bucket::launch_update(
       HashEvents{reinterpret_cast<const uint64_t*>(hashes),
-                 static_cast<uint64_t>(nblocks)},
+                 static_cast<uint64_t>(nblocks),
+                 khmer_cuda::reciprocal(static_cast<uint64_t>(nblocks))},
       kSub, static_cast<uint64_t>(nblocks) * kLanes, m, nvalid,
       static_cast<uint32_t>(nbuckets), sc, table, flags,
       reinterpret_cast<unsigned long long*>(n_unique), nullptr, nullptr,

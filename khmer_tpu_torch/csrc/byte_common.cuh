@@ -9,6 +9,7 @@
 #include <cuda_runtime.h>
 
 #include "launch.cuh"
+#include "u64_common.cuh"
 
 namespace khmer_byte {
 
@@ -31,28 +32,17 @@ inline bool make_layout(int ntables, const int64_t* primes,
   for (int t = 0; t < ntables; ++t) {
     if (primes[t] < 1) return false;
     out->primes[t] = static_cast<uint64_t>(primes[t]);
-    out->recips[t] = ~0ULL / out->primes[t];
+    out->recips[t] = khmer_cuda::reciprocal(out->primes[t]);
     out->offsets[t] = static_cast<uint64_t>(offsets[t]);
   }
   return true;
 }
 
-// h % p for a run-time p in [1, 2^63), by its reciprocal m = floor((2^64 -
-// 1) / p) in place of the software division nvcc emits for a 64-bit `%`.
-// With 2^64 - 1 = m p + s, 0 <= s < p: h m / 2^64 = h / p - h (1 + s) /
-// (p 2^64), and h (1 + s) < p 2^64, so q = umulhi(h, m) is floor(h / p) or
-// one less, r = h - q p lies in [0, 2p), and one subtraction ends it. Exact
-// for every u64 h; khmer_tpu_torch/ops/u64.py umod_reciprocal mirrors the
-// steps.
-__device__ __forceinline__ uint64_t reduce(uint64_t h, uint64_t p,
-                                           uint64_t m) {
-  const uint64_t r = h - __umul64hi(h, m) * p;
-  return r >= p ? r - p : r;
-}
-
+// h % p_t by the reciprocal (u64_common.cuh reduce)
 __device__ __forceinline__ uint64_t counter_index(const ByteLayout& layout,
                                                   uint64_t h, int t) {
-  return layout.offsets[t] + reduce(h, layout.primes[t], layout.recips[t]);
+  return layout.offsets[t]
+         + khmer_cuda::reduce(h, layout.primes[t], layout.recips[t]);
 }
 
 }  // namespace khmer_byte

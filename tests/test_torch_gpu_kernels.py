@@ -179,6 +179,97 @@ def test_histogram_add_matches_plain(cuda_device, m, nbins):
     assert torch.equal(got, want)
 
 
+def test_histogram_add_abundance_shape_matches_plain(cuda_device):
+    """abundance-dist's batch: 65,537 bins, three quarters of 1,785,856
+    indices on the top bin, counts 1..255 below it, wrapped negatives,
+    into a nonzero histogram, twice (accumulated)."""
+    dev = cuda_device
+    nbins = K.MAX_BIGCOUNT + 2
+    rng = np.random.default_rng(nbins)
+    m = 1_785_856
+    idx = np.full(m, nbins - 1, dtype=np.int64)
+    live = rng.choice(m, m // 4, replace=False)
+    idx[live] = np.minimum(rng.geometric(0.6, len(live)), 255)
+    idx[live[:3000]] = -rng.integers(1, nbins + 1, 3000)
+    idx_d = torch.from_numpy(idx).to(dev)
+    start = torch.from_numpy(rng.integers(0, 1 << 40, nbins)).to(dev)
+    got, want = start.clone(), start.clone()
+    for _ in range(2):
+        K.histogram_add_cuda(got, idx_d)
+        K.histogram_add_plain(want, idx_d)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nbins", [65_537, 1 << 17, 10**6, 3])
+def test_histogram_add_cluster_rank_edges_match_plain(cuda_device, nbins):
+    """Indices on the first and last bin of each cluster rank (local and
+    remote shared counters), on the global range past the cluster's
+    capacity (10^6 bins), and their wrapped negatives."""
+    dev = cuda_device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cluster, per_block, _, _ = K.histogram_plan(1 << 20, nbins, sms)
+    edges = set()
+    for r in range(cluster):
+        lo, hi = r * per_block, min((r + 1) * per_block, nbins)
+        edges.update(b for b in (lo, lo + 1, hi - 2, hi - 1)
+                     if 0 <= b < nbins)
+    cap = cluster * per_block
+    if cap < nbins:
+        edges.update((cap - 1, cap, cap + 1, nbins - 1))
+    edges = np.asarray(sorted(edges), dtype=np.int64)
+    rng = np.random.default_rng(nbins)
+    idx = np.concatenate([rng.choice(edges, 1 << 20), edges - nbins,
+                          rng.integers(-2 * nbins, 2 * nbins, 1 << 16)])
+    rng.shuffle(idx)
+    idx_d = torch.from_numpy(idx).to(dev)
+    start = torch.from_numpy(rng.integers(0, 9, nbins)).to(dev)
+    got = K.histogram_add_cuda(start.clone(), idx_d)
+    want = K.histogram_add_plain(start.clone(), idx_d)
+    assert torch.equal(got, want)
+
+
+def test_histogram_add_splits_launches_under_a_lowered_limit(cuda_device,
+                                                             monkeypatch):
+    dev = cuda_device
+    monkeypatch.setattr(K, "HIST_LAUNCH_LIMIT", 100_000)
+    rng = np.random.default_rng(5)
+    idx = rng.integers(-70_000, 70_000, 345_678)
+    idx[::3] = 65_536
+    idx_d = torch.from_numpy(idx).to(dev)
+    before = K.histogram_add_cuda.launches
+    got = K.histogram_add_cuda(torch.ones(65_537, dtype=torch.int64,
+                                          device=dev), idx_d)
+    assert K.histogram_add_cuda.launches == before + 4
+    want = K.histogram_add_plain(torch.ones(65_537, dtype=torch.int64,
+                                            device=dev), idx_d)
+    assert torch.equal(got, want)
+    # an offset view: each launch starts mid-tensor
+    got = K.histogram_add_cuda(torch.zeros_like(got), idx_d[7:])
+    want = K.histogram_add_plain(torch.zeros_like(want), idx_d[7:])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nblocks", [1_562_471, 16_777_213, 7])
+def test_blocked_gather_reduction_edges_match_plain(cuda_device, nblocks):
+    """Kernel 2 reduces h % nblocks by the reciprocal; on random tables of
+    the config-1 (200 MB) and the largest (2.15 GB) block counts it equals
+    the plain version's `%` on the reduction's edge cases, through the
+    paired loads (aligned), the single ones (a view one hash in) and a
+    length that is no multiple of the 8 hashes a thread takes."""
+    from khmer_tpu_torch.scripts.byte_gather_bench import reduction_edges
+
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(nblocks)
+    table = torch.randint(0, 256, (nblocks, B.LANES), dtype=torch.uint8,
+                          device=dev, generator=gen)
+    hd = torch.from_numpy(reduction_edges((nblocks,)).view(np.int64)).to(dev)
+    for h in (hd, hd[1:], hd[3:-3], hd[:13]):
+        assert torch.equal(B.blocked_gather_cuda(table, h),
+                           B.gather_counts_plain(nblocks, (table,), h))
+    del table
+    torch.cuda.empty_cache()
+
+
 def test_proto_rmw_matches_plain(cuda_device):
     """The script's correctness case, three passes on one table, with the
     events' scratch kept between calls: no winner image to keep."""

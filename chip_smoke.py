@@ -16,15 +16,20 @@ Phases (each prints a line; any failure raises and exits non-zero):
      sequences, one hash x 2^20 events, full 2^20 chunks on a 7-block
      table and on tiny primes, chunks crowded onto a narrow counter range
      that the update kernels must split, histogram indices out of range
-     and in the wrapped window [-nbins, 0), the pallas_proto script's
+     and in the wrapped window [-nbins, 0), on abundance-dist's shape,
+     crowded onto the edges of the histogram's private bins, and split
+     into launches under a lowered limit; the pallas_proto script's
      correctness case, decoded events: one event x 2^20, 2^20 events on 7
      blocks, repeated lanes with invalid ids and saturation, a crowded
      bucket; the byte gather on the edges of its reduction by a
-     reciprocal, on random tables of 0.2, 4 and 20 GB);
+     reciprocal, on random tables of 0.2, 4 and 20 GB, and the blocked
+     gather on them at 0.2 and 2.15 GB);
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
      blocked, k=20, 4 x 5e7 bytes) on data/25k.fq.gz, then the abundance
      histogram; results must equal the JAX package's and the blocked
-     kernels must have launched on this path;
+     kernels must have launched on this path; then the blocked gather and
+     the histogram on the step's first batch, beside their bounds, the
+     gather's sector floor and torch.bincount;
   4b. config 1, exact (the default layout): load-into-counting, then
      abundance-dist on the .ct; every known JAX answer is asserted and the
      byte update, byte gather and histogram kernels must have launched on
@@ -33,7 +38,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
      sector floor) and on 2^20 random live hashes;
   5. scale, blocked: the 25k stream replayed 50 times through kernel and
      plain version on the config-1 table and the largest the layout
-     allows (2.1 GB); tables compared exactly, k-mers/s of each;
+     allows (2.1 GB); tables compared exactly, k-mers/s of each; the
+     blocked gather on the first chunk, beside its sector floor;
   5b. scale, exact: the same replay through the byte update and its plain
      version on the config-1 tables, on -x 1e9 -N 4 (4 GB of tables) and
      on -x 5e9 -N 4 (20 GB); tables compared exactly, with the update's
@@ -43,8 +49,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      update in the same run, with its scratch) and
      scripts/profile_scatter2.py (the histogram against its plain version
      and torch.bincount).
-It prints the card's name and power limit, a JSON line of per-kernel
-results, then, last, the contract line {"ok": true, "device": {...}}.
+Kernel times are device times (scripts.cuda_ms: the stream is held while
+the calls are issued); the host's time to issue one call is printed
+beside the histogram's and the blocked gather's. It prints the card's
+name and power limit, a JSON line of per-kernel results, then, last,
+the contract line {"ok": true, "device": {...}}.
 Without a CUDA device it exits 1 at once.
 """
 
@@ -188,13 +197,15 @@ def main():
     n_hist = run_histogram_cases(torch, np, SK, dev, errs)
     n_proto = run_proto_cases(torch, np, B, dev, errs)
     n_edges = run_gather_edge_cases(torch, np, SK, dev, errs)
+    n_edges2 = run_gather2_edge_cases(torch, np, B, dev, errs)
     say("phase 3 exact: kernel == plain on %d blocked, %d byte, %d "
-        "histogram, %d decoded-event and %d gather-reduction cases (tables, "
-        "flags, n_unique, bigcount reports, counts)"
-        % (len(cases), len(byte_cases), n_hist, n_proto, n_edges))
+        "histogram, %d decoded-event, %d byte-gather-reduction and %d "
+        "blocked-gather-reduction cases (tables, flags, n_unique, bigcount "
+        "reports, counts)"
+        % (len(cases), len(byte_cases), n_hist, n_proto, n_edges, n_edges2))
 
     # -- phase 4: config 1, blocked, through the port's entry points -------
-    launches = run_config1(torch, B, dev)
+    launches, blocked_timings = run_config1(torch, B, SK, dev, card, errs)
 
     # -- phase 4b: config 1, exact layout, through the CLIs ---------------
     exact_launches, exact_timings = run_config1_exact(torch, np, SK, dev,
@@ -204,6 +215,7 @@ def main():
     # -- phase 5: scale, blocked -------------------------------------------
     one = stream_hashes(np)
     timings = run_scale(torch, np, B, dev, card, errs, one)
+    timings.update(blocked_timings)
 
     # -- phase 5b: scale, exact layout -------------------------------------
     timings.update(exact_timings)
@@ -432,22 +444,101 @@ def run_byte_case(torch, np, SK, dev, name, primes, chunks, errs):
 
 
 def run_histogram_cases(torch, np, SK, dev, errs):
+    """Kernel C against its plain version: mixed indices (hot bins, the top
+    bin, out of range both sides, wrapped negatives) at three shapes;
+    abundance-dist's shape, accumulated twice into a nonzero histogram;
+    indices crowded onto the edges of each block's private bins ([0, 256)
+    and the top bin) and of the global ones; and an input split into
+    launches under a lowered per-launch limit, from an offset view."""
     rng = np.random.default_rng(20261018)
-    shapes = [(1 << 21, 1 << 17), (600000, SK.MAX_BIGCOUNT + 2), (5000, 3)]
-    for m, nbins in shapes:
-        idx = rng.integers(-5, nbins + 5, m)    # out-of-range both sides
-        idx[: m // 2] = rng.integers(0, 4, m // 2)        # hot bins
-        idx[m // 2: m // 2 + 1000] = nbins - 1  # the top bin, in global
-        # [-nbins, 0) wraps as JAX's .at[].add wraps it; below, dropped
-        idx[m // 4: m // 4 + 3000] = rng.integers(-nbins - 5, 0, 3000)
-        idx_d = torch.from_numpy(idx).to(dev)
-        start = torch.from_numpy(rng.integers(0, 9, nbins)).to(dev)
-        got = SK.histogram_add_cuda(start.clone(), idx_d)
-        want = SK.histogram_add_plain(start.clone(), idx_d)
+    n_cases = 0
+
+    def check(idx_d, start, what, times=1):
+        got, want = start.clone(), start.clone()
+        for _ in range(times):
+            SK.histogram_add_cuda(got, idx_d)
+            SK.histogram_add_plain(want, idx_d)
         d = int((got - want).abs().max())
         errs["histogram_add"] = max(errs["histogram_add"], d)
-        expect(d == 0, "histogram_add != plain at %d x %d" % (m, nbins))
-    return len(shapes)
+        expect(d == 0, "histogram_add != plain on %s" % what)
+
+    for m, nbins in [(1 << 21, 1 << 17), (600000, SK.MAX_BIGCOUNT + 2),
+                     (5000, 3)]:
+        idx = rng.integers(-5, nbins + 5, m)    # out-of-range both sides
+        idx[: m // 2] = rng.integers(0, 4, m // 2)        # hot bins
+        idx[m // 2: m // 2 + 1000] = nbins - 1  # the top bin
+        # [-nbins, 0) wraps as JAX's .at[].add wraps it; below, dropped
+        idx[m // 4: m // 4 + 3000] = rng.integers(-nbins - 5, 0, 3000)
+        check(torch.from_numpy(idx).to(dev),
+              torch.from_numpy(rng.integers(0, 9, nbins)).to(dev),
+              "%d x %d" % (m, nbins))
+        n_cases += 1
+    # abundance-dist's batch: three quarters on the top bin
+    nbins = SK.MAX_BIGCOUNT + 2
+    m = 1_785_856
+    idx = np.full(m, nbins - 1, dtype=np.int64)
+    live = rng.choice(m, m // 4, replace=False)
+    idx[live] = np.minimum(rng.geometric(0.6, len(live)), 255)
+    idx[live[:3000]] = -rng.integers(1, nbins + 1, 3000)
+    check(torch.from_numpy(idx).to(dev),
+          torch.from_numpy(rng.integers(0, 1 << 40, nbins)).to(dev),
+          "the abundance shape, accumulated", times=2)
+    n_cases += 1
+    low = SK.HIST_LOW_BINS
+    for nbins in (3, low, low + 1, SK.MAX_BIGCOUNT + 2, 1 << 17, 10**6):
+        edges = np.asarray(sorted(
+            b for b in {0, 1, low - 2, low - 1, low, low + 1, nbins - 2,
+                        nbins - 1} if 0 <= b < nbins), dtype=np.int64)
+        idx = np.concatenate([rng.choice(edges, 1 << 20), edges - nbins,
+                              rng.integers(-2 * nbins, 2 * nbins, 1 << 16)])
+        rng.shuffle(idx)
+        check(torch.from_numpy(idx).to(dev),
+              torch.from_numpy(rng.integers(0, 9, nbins)).to(dev),
+              "private-bin edges of %d bins" % nbins)
+        n_cases += 1
+    limit = SK.HIST_LAUNCH_LIMIT
+    SK.HIST_LAUNCH_LIMIT = 100_000
+    try:
+        idx = rng.integers(-70_000, 70_000, 345_679)
+        idx[::3] = 65_536
+        idx_d = torch.from_numpy(idx).to(dev)
+        before = SK.histogram_add_cuda.launches
+        check(idx_d[1:], torch.ones(65_537, dtype=torch.int64, device=dev),
+              "an offset view in launches of 100,000")
+        expect(SK.histogram_add_cuda.launches == before + 4,
+               "histogram_add split 345,678 indices into %d launches"
+               % (SK.histogram_add_cuda.launches - before))
+    finally:
+        SK.HIST_LAUNCH_LIMIT = limit
+    return n_cases + 1
+
+
+def run_gather2_edge_cases(torch, np, B, dev, errs):
+    """Kernel 2 against its plain version (which reduces by `%`) on the
+    edges of its reduction by a reciprocal, on random tables of config 1's
+    and the layout's largest block count (0.2 and 2.15 GB), on an aligned
+    tensor, views one and three hashes in and odd lengths."""
+    from khmer_tpu_torch.core.sketch_kernels import get_n_primes_near_x
+    from khmer_tpu_torch.scripts.byte_gather_bench import reduction_edges
+
+    sizes = (EXPECT["nblocks"], get_n_primes_near_x(1, B.MAX_BLOCKS + 1)[0])
+    for nb in sizes:
+        gen = torch.Generator(device=dev).manual_seed(nb)
+        table = torch.randint(0, 256, (nb, B.LANES), dtype=torch.uint8,
+                              device=dev, generator=gen)
+        hd = _dev_hashes(torch, np, reduction_edges((nb,)), dev)
+        for h in (hd, hd[1:], hd[3:-3], hd[:13]):
+            d = int((B.blocked_gather_cuda(table, h)
+                     - B.gather_counts_plain(nb, (table,), h)).abs().max())
+            errs["blocked_gather"] = max(errs["blocked_gather"], d)
+            expect(d == 0, "blocked_gather != plain on the reduction edges "
+                   "of %d blocks" % nb)
+        say("  gather2 case %d blocks (%.2f GB random table): %d edge and "
+            "random hashes, aligned, offset and of odd length"
+            % (nb, nb * B.LANES / 1e9, hd.shape[0]))
+        del table
+        torch.cuda.empty_cache()
+    return len(sizes)
 
 
 def run_proto_cases(torch, np, B, dev, errs):
@@ -533,9 +624,11 @@ def _consume_rates(torch, make, expect_counts, label):
         torch.cuda.empty_cache()
 
 
-def run_config1(torch, B, dev):
+def run_config1(torch, B, SK, dev, card, errs):
     """Config 1 (blocked) through the CLI and the histogram API, in this
-    process so the kernels' launch counters see it. Returns the counts."""
+    process so the kernels' launch counters see it; then kernels 2 and C
+    on the histogram step's first batch. Returns the launch counts and
+    kernel 2's times."""
     from khmer_tpu_torch import Nodegraph
     from khmer_tpu_torch.cli import load_into_counting
 
@@ -584,7 +677,70 @@ def run_config1(torch, B, dev):
     _consume_rates(torch, lambda: B.BlockedCountgraph(K, 5e7, 4, device=dev),
                    (EXPECT["n_reads"], EXPECT["n_kmers"], EXPECT["n_unique"]),
                    "blocked")
-    return launches
+    timings = time_blocked_batch(torch, B, SK, dev, cg, card, errs)
+    del cg
+    torch.cuda.empty_cache()
+    return launches, timings
+
+
+def time_blocked_batch(torch, B, SK, dev, cg, card, errs):
+    """The first batch of the blocked histogram step on the config-1 table,
+    rebuilt from the port's pieces (scripts/hist_gather_bench.first_batch):
+    kernel 2 over its unique hashes and kernel C over its indices, each
+    against its plain version (C also against torch.bincount), timed at
+    the shapes the main path gives them, with the host's time to issue
+    one call of each. Returns kernel 2's times."""
+    from khmer_tpu_torch.scripts import cuda_ms
+    from khmer_tpu_torch.scripts.hist_gather_bench import (blocked_floors,
+                                                           first_batch,
+                                                           host_us)
+
+    uh, idx = first_batch(cg, dev)
+    table, nb = cg.tables[0], cg.nblocks
+    d_g = int((B.blocked_gather_cuda(table, uh)
+               - B.gather_counts_plain(nb, (table,), uh)).abs().max())
+    errs["blocked_gather"] = max(errs["blocked_gather"], d_g)
+    expect(d_g == 0, "blocked_gather != plain on the blocked batch")
+    nbins = SK.MAX_BIGCOUNT + 2
+    zeros = torch.zeros(nbins, dtype=torch.int64, device=dev)
+    got = SK.histogram_add_cuda(zeros.clone(), idx)
+    lib = torch.bincount(idx, minlength=nbins)
+    d_c = max(int((got - SK.histogram_add_plain(zeros.clone(),
+                                                idx)).abs().max()),
+              int((got - lib).abs().max()))
+    errs["histogram_add"] = max(errs["histogram_add"], d_c)
+    expect(d_c == 0, "histogram_add != plain on the blocked batch")
+    reps = 50
+    acc = zeros.clone()
+    t = {
+        "gather": cuda_ms(lambda: B.blocked_gather_cuda(table, uh), reps),
+        "gather_plain": cuda_ms(
+            lambda: B.gather_counts_plain(nb, (table,), uh), reps),
+        "gather_host_us": host_us(lambda: B.blocked_gather_cuda(table, uh),
+                                  reps),
+        "hist": cuda_ms(lambda: SK.histogram_add_cuda(acc, idx), reps),
+        "hist_host_us": host_us(lambda: SK.histogram_add_cuda(acc, idx),
+                                reps),
+        "hist_library": cuda_ms(lambda: torch.bincount(idx, minlength=nbins),
+                                reps),
+    }
+    n = uh.shape[0]
+    g_bytes, sectors = blocked_floors(nb, uh)
+    g_bound = bound(g_bytes, n * B.SUB)
+    h_bound = bound(8 * n + 16 * int((lib != 0).sum()), n)
+    say("  blocked batch: %d unique-hash slots; blocked_gather kernel %.4f "
+        "ms (host %.1f us a call), plain %.4f ms, bound %.4f ms (%s), "
+        "sector floor %.4f ms (%d distinct (block, quarter) sectors); "
+        "histogram_add into %d bins kernel %.4f ms (host %.1f us a call), "
+        "torch.bincount %.4f ms, bound %.4f ms (%s); on %s"
+        % (n, t["gather"], t["gather_host_us"], t["gather_plain"],
+           g_bound[0], g_bound[1], sectors * 32 / PEAK_BYTES_S * 1e3,
+           sectors, nbins, t["hist"], t["hist_host_us"], t["hist_library"],
+           h_bound[0], h_bound[1], card))
+    return {"blocked_gather": {"ms": t["gather"],
+                               "plain_ms": t["gather_plain"],
+                               "bound_ms": g_bound[0],
+                               "bound_by": g_bound[1]}}
 
 
 def run_config1_exact(torch, np, SK, dev, card, errs):
@@ -681,6 +837,7 @@ def time_abundance_batch(torch, np, SK, dev, cg, card, errs):
     from khmer_tpu_torch.scripts import cuda_ms
     from khmer_tpu_torch.scripts.byte_gather_bench import (gather_floors,
                                                            time_gather)
+    from khmer_tpu_torch.scripts.hist_gather_bench import host_us
 
     batcher = Batcher(K)
     batch = None
@@ -729,6 +886,7 @@ def time_abundance_batch(torch, np, SK, dev, cg, card, errs):
                                 reps),
     }
     expect(torch.equal(acc_k, acc_p), "histogram_add != plain, accumulated")
+    hist_host_us = host_us(lambda: SK.histogram_add_cuda(acc_k, idx), reps)
     n = uh.shape[0]
     # least bytes: 8 B a hash, 4 B a count, each distinct counter once; the
     # sector floor: each distinct 32-byte sector of the counters once
@@ -738,13 +896,13 @@ def time_abundance_batch(torch, np, SK, dev, cg, card, errs):
     say("  abundance batch: %d x %d windows, %d unique-hash slots (%d live), "
         "%d counted; byte_gather kernel %.4f ms, plain %.4f ms, bound %.4f "
         "ms (%s), sector floor %.4f ms (%d sectors); histogram_add into %d "
-        "bins kernel %.4f ms, plain %.4f ms, torch.bincount %.4f ms, bound "
-        "%.4f ms (%s); on %s"
+        "bins kernel %.4f ms (host %.1f us a call), plain %.4f ms, "
+        "torch.bincount %.4f ms, bound %.4f ms (%s); on %s"
         % (codes.shape[0], hashes.shape[1], n, int(d["uvalid"].sum()),
            int(counted.sum()), t["gather"], t["gather_plain"], g_bound[0],
            g_bound[1], sectors * 32 / PEAK_BYTES_S * 1e3, sectors, nbins,
-           t["hist"], t["hist_plain"], t["hist_library"], h_bound[0],
-           h_bound[1], card))
+           t["hist"], hist_host_us, t["hist_plain"], t["hist_library"],
+           h_bound[0], h_bound[1], card))
     rnd = _dev_hashes(torch, np, np.random.default_rng(4).integers(
         0, 2**64, 1 << 20, dtype=np.uint64), dev)
     r = time_gather(primes, flat, rnd, reps)
@@ -817,12 +975,15 @@ def _timed(torch, fn):
 def run_scale(torch, np, B, dev, card, errs, one):
     """Replay the stream REPLAY times in 2^20-hash chunks through the
     kernel and the plain version, on the config-1 and the largest table;
-    compare the final states exactly. Returns the config-1 kernel times."""
+    compare the final states exactly; time kernel 2 on the first chunk,
+    beside its floors. Returns the config-1 update times."""
     from khmer_tpu_torch.core.pipeline import DENSE_CHUNK
     from khmer_tpu_torch.core.sketch_kernels import (get_n_primes_near_x,
                                                      update_plan,
                                                      update_scratch)
     from khmer_tpu_torch.ops.u64 import umod
+    from khmer_tpu_torch.scripts import cuda_ms
+    from khmer_tpu_torch.scripts.hist_gather_bench import blocked_floors
 
     chunks, total = replay_chunks(torch, np, dev, one)
     scratch_bytes = update_plan(DENSE_CHUNK, B.SUB)[2]
@@ -872,35 +1033,34 @@ def run_scale(torch, np, B, dev, card, errs, one):
         errs["blocked_gather"] = max(errs["blocked_gather"], gd)
         expect(gd == 0, "blocked_gather != plain at %s scale" % label)
         reps = 20
-        g_ms = _timed(torch, lambda: [B.blocked_gather_cuda(tk, gq)
-                                      for _ in range(reps)]) / reps
-        gp_ms = _timed(torch, lambda: [B.gather_counts_plain(nb, (tp,), gq)
-                                       for _ in range(reps)]) / reps
+        g_ms = cuda_ms(lambda: B.blocked_gather_cuda(tk, gq), reps)
+        gp_ms = cuda_ms(lambda: B.gather_counts_plain(nb, (tp,), gq), reps)
+        # kernel 2's floors on this chunk: its least bytes, and each
+        # distinct 32-byte (block, quarter) sector read once
+        g_bytes, sectors = blocked_floors(nb, gq)
         say("phase 5 %s: %d blocks (%.2f GB, update scratch %.1f MB), %d "
             "k-mers in %d chunks of %d; n_unique %d; update kernel %.4f "
             "ms/chunk = %.4g k-mers/s, plain %.4f ms/chunk = %.4g k-mers/s; "
-            "gather of %d hashes kernel %.4f ms, plain %.4f ms; on %s"
+            "gather of %d hashes kernel %.4f ms, plain %.4f ms, bound %.4f "
+            "ms (bytes), sector floor %.4f ms (%d sectors); on %s"
             % (label, nb, nb * B.LANES / 1e9, scratch_bytes / 1e6, total,
                nchunks, gq.shape[0], nuk, ms["kernel"] / nchunks,
                total / ms["kernel"] * 1e3, ms["plain"] / nchunks,
-               total / ms["plain"] * 1e3, gq.shape[0], g_ms, gp_ms, card))
+               total / ms["plain"] * 1e3, gq.shape[0], g_ms, gp_ms,
+               g_bytes / PEAK_BYTES_S * 1e3,
+               sectors * 32 / PEAK_BYTES_S * 1e3, sectors, card))
         if label == "config-1":
             # least traffic: 8 B per hash, one read and one write of each
-            # distinct counter a chunk touches (reads only for the gather)
+            # distinct counter a chunk touches
             def lanes(h):
                 return torch.unique(B._lane_index(umod(h, nb),
                                                   B._offsets(h))).numel()
             u_bytes = sum(8 * n + 2 * lanes(h[:n]) for h, n in chunks)
             u_bound = bound(u_bytes / nchunks, total * B.SUB / nchunks)
-            n = gq.shape[0]
-            g_bound = bound(12 * n + lanes(gq), n * B.SUB)
             out = {"blocked_update": {
                 "ms": ms["kernel"] / nchunks,
                 "plain_ms": ms["plain"] / nchunks,
-                "bound_ms": u_bound[0], "bound_by": u_bound[1]},
-                "blocked_gather": {
-                "ms": g_ms, "plain_ms": gp_ms,
-                "bound_ms": g_bound[0], "bound_by": g_bound[1]}}
+                "bound_ms": u_bound[0], "bound_by": u_bound[1]}}
         del tabs, tk, tp
         torch.cuda.empty_cache()
     return out

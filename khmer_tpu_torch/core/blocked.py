@@ -192,9 +192,6 @@ def gather_counts_plain(nblocks, tables, hashes):
     return counts.to(torch.int32).reshape(hashes.shape)
 
 
-GATHER_MODE = 0
-
-
 def blocked_gather_cuda(table, hashes):
     """Kernel 2 (csrc/blocked_gather.cu): min-over-lanes counts of a 1-D
     int64 hash tensor -> int32 [n]. Counts its launches in
@@ -207,7 +204,7 @@ def blocked_gather_cuda(table, hashes):
         return out
     err = cuda.library().khmer_blocked_gather(
         table.data_ptr(), table.shape[0], hashes.data_ptr(), n,
-        out.data_ptr(), int(GATHER_MODE), dev.index,
+        out.data_ptr(), dev.index,
         K._stream(dev))
     cuda.check(err, "blocked_gather")
     blocked_gather_cuda.launches += 1

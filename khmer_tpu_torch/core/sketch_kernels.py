@@ -480,60 +480,34 @@ def histogram_add_plain(out, idx):
     return out
 
 
-# Kernel C (csrc/histogram.cu) keeps the int32 histogram in the shared
-# memory of a thread-block cluster; these mirror its limits on sm_90.
+# Kernel C (csrc/histogram.cu): blocks of HIST_THREADS threads, each
+# keeping its own 32-bit counters for bins [0, HIST_LOW_BINS) and the top
+# bin in shared memory; these mirror its constants.
 HIST_THREADS = 512           # threads a block (csrc kThreads)
-HIST_MAX_SHARED = 232_448    # shared bytes one block may use
-HIST_SM_SHARED = 233_472     # shared bytes of one SM, 1,024 kept per block
-HIST_MAX_CLUSTER = 8         # the portable cluster size
+HIST_BLOCKS_PER_SM = 2048 // HIST_THREADS  # a full SM
 HIST_PER_THREAD = 4          # indices a thread takes in one loop trip
+HIST_LOW_BINS = 256          # csrc kLow: every count a u8 counter holds
 # Indices one launch takes: fewer than 2^31, so that no 32-bit shared
 # counter overflows. The wrapper splits a longer input into launches.
 HIST_LAUNCH_LIMIT = 2**31 - 1
 
 
-def _hist_blocks_per_sm(shared):
-    """Blocks of HIST_THREADS threads and `shared` bytes an SM holds."""
-    return max(1, min(2048 // HIST_THREADS,
-                      HIST_SM_SHARED // (shared + 1024)))
-
-
 @functools.lru_cache(maxsize=64)
-def histogram_plan(n, nbins, sms):
-    """Kernel C's launch for n indices into nbins bins on a card of `sms`
-    SMs: (cluster, per_block, shared, nclusters).
-
-    A cluster of `cluster` blocks keeps bins [r * per_block, (r + 1) *
-    per_block) in block r, `shared` = 4 * per_block bytes; bins from
-    cluster * per_block on (past 464,896) go to global memory. The cluster
-    is the smallest of 1, 2, 4 and 8 that holds every bin with an SM full
-    of threads (four blocks), else 8: the loads of the indices need every
-    warp an SM can hold in flight, so smaller slices of the histogram per
-    block beat fewer remote adds. `nclusters` fills the card with
-    clusters, but no more than give each thread HIST_PER_THREAD indices:
-    each cluster ends with a flush of its nonzero bins. The entry point
-    lowers it to what the card holds at once
-    (cudaOccupancyMaxActiveClusters)."""
-    n, nbins, sms = int(n), int(nbins), int(sms)
-    max_bins = HIST_MAX_SHARED // 4
-    full = 2048 // HIST_THREADS
-    cluster = 1
-    while cluster < HIST_MAX_CLUSTER and (
-            -(-nbins // cluster) > max_bins
-            or _hist_blocks_per_sm(4 * -(-nbins // cluster)) < full):
-        cluster *= 2
-    per_block = max(1, min(-(-nbins // cluster), max_bins))
-    shared = 4 * per_block
-    resident = max(1, sms * _hist_blocks_per_sm(shared) // cluster)
-    wanted = -(-n // (cluster * HIST_THREADS * HIST_PER_THREAD))
-    return cluster, per_block, shared, max(1, min(resident, wanted))
+def histogram_plan(n, sms):
+    """Kernel C's blocks for n indices on a card of `sms` SMs: a full
+    card (HIST_BLOCKS_PER_SM a SM), but no more than give each thread
+    HIST_PER_THREAD indices, since each block ends with a flush of its
+    nonzero private bins."""
+    per_block = HIST_THREADS * HIST_PER_THREAD
+    return max(1, min(int(sms) * HIST_BLOCKS_PER_SM,
+                      -(-int(n) // per_block)))
 
 
 def histogram_add_cuda(out, idx):
     """Kernel C (csrc/histogram.cu): histogram_add_plain on the card, for
     an int64 [nbins] `out` and 1-D int64 `idx` of any length, in launches
-    of at most HIST_LAUNCH_LIMIT indices each (histogram_plan). Counts
-    its launches in ``histogram_add_cuda.launches``."""
+    of at most HIST_LAUNCH_LIMIT indices each, each on histogram_plan's
+    blocks. Counts its launches in ``histogram_add_cuda.launches``."""
     dev = out.device
     if dev.type != "cuda" or idx.device != dev:
         raise ValueError("histogram_add takes CUDA tensors on one device")
@@ -551,7 +525,7 @@ def histogram_add_cuda(out, idx):
         m = min(HIST_LAUNCH_LIMIT, n - lo)
         err = lib.khmer_histogram_add(
             idx.data_ptr() + 8 * lo, m, out.data_ptr(), nbins,
-            *histogram_plan(m, nbins, sms), dev.index, stream)
+            histogram_plan(m, sms), dev.index, stream)
         cuda.check(err, "histogram_add")
         histogram_add_cuda.launches += 1
     return out

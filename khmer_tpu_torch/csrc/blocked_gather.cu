@@ -7,199 +7,47 @@
 //
 // What bounds it: random 128-byte row traffic. Each hash reads four
 // bytes in four different 32-byte sectors of one 128-byte block of a
-// table far larger than L2; there is no arithmetic to speak of. The floor
-// of a random gather is the distinct sectors it reads, well above the
-// bytes it needs.
+// table far larger than L2; there is no arithmetic to speak of. A hash
+// costs its block's whole line, so the floor of a random gather is the
+// distinct lines it reads, well above the bytes it needs.
 //
-// Design, as kernel B's (byte_gather.cu). The block h % nblocks is
-// reduced by the reciprocal the host computes (u64_common.cuh reduce) in
-// place of nvcc's software 64-bit division. What holds a gather back is
-// the number of random reads in flight, so each thread gathers kPerThread
-// hashes, loaded as 16-byte pairs (a warp's load is 512 contiguous bytes),
-// and issues the four byte loads of every one of them, 32 in all, before
-// it takes any minimum. The minimum goes out as int32 (PyTorch's uint16
-// support is thin), in 8-byte pairs.
+// Design: one thread per hash. The block h % nblocks is reduced by the
+// reciprocal the host computes (u64_common.cuh reduce) in place of nvcc's
+// software 64-bit division, and the four byte loads are issued before the
+// minimum is taken, each with the L2 128-byte fetch hint
+// (ld.global.nc.L2::128B): on a miss L2 fetches the line whole, one DRAM
+// request for the four sectors a hash reads. On an H100 (700 W) this came
+// out ahead of 2, 4 and 8 hashes a thread with 16-byte hash loads, of four
+// lanes of a warp per hash, and of a whole-line load per hash by eight
+// lanes, on the config-1 table and on abundance-dist's batch
+// (scripts/hist_gather_bench.py). The minimum is written as int32
+// (PyTorch's uint16 support is thin).
 
 #include "blocked_common.cuh"
 
 namespace khmer_blocked {
 namespace {
 
-constexpr int kBlock = 128;
-
-// One counter. kHint asks L2 to fetch the counter's whole 128-byte line on
-// a miss (ld.global.L2::128B): a hash's four lanes share that line.
-template <bool kHint>
-__device__ __forceinline__ int load_lane(const uint8_t* p) {
-  if constexpr (kHint) {
-    unsigned v;
-    asm("ld.global.nc.L2::128B.u8 %0, [%1];" : "=r"(v) : "l"(p));
-    return static_cast<int>(v);
-  } else {
-    return __ldg(p);
-  }
+__device__ __forceinline__ int load_line_hinted(const uint8_t* p) {
+  unsigned v;
+  asm("ld.global.nc.L2::128B.u8 %0, [%1];" : "=r"(v) : "l"(p));
+  return static_cast<int>(v);
 }
 
-// Hashes j, j + 1 with j = base + 2 * (p * blockDim + threadIdx), p <
-// kPerThread / 2, of the block's kPerThread * blockDim. `paired`: hashes
-// 16-byte and out 8-byte aligned, so whole pairs move as vectors.
-template <bool kHint, int kPerThread = 8>
-__global__ void __launch_bounds__(512)
-gather_kernel(const uint64_t* __restrict__ hashes, int64_t n, bool paired,
-              uint64_t nblocks, uint64_t recip,
-              const uint8_t* __restrict__ table, int32_t* __restrict__ out) {
-  const int64_t base =
-      blockIdx.x * static_cast<int64_t>(blockDim.x) * kPerThread;
-  int64_t first[kPerThread / 2];
-  uint64_t h[kPerThread];
-#pragma unroll
-  for (int p = 0; p < kPerThread / 2; ++p) {
-    const int64_t j =
-        base + 2 * (p * static_cast<int64_t>(blockDim.x) + threadIdx.x);
-    first[p] = j;
-    if (paired && j + 1 < n) {
-      const ulonglong2 v = *reinterpret_cast<const ulonglong2*>(hashes + j);
-      h[2 * p] = v.x;
-      h[2 * p + 1] = v.y;
-    } else {
-      h[2 * p] = j < n ? hashes[j] : 0;
-      h[2 * p + 1] = j + 1 < n ? hashes[j + 1] : 0;
-    }
-  }
-  // every load before any use; a hash past n reads block 0, unused
-  int v[kPerThread][kSub];
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const uint64_t row = row_of(h[k], nblocks, recip);
-    const uint64_t m = mix64(h[k]);
-#pragma unroll
-    for (int t = 0; t < kSub; ++t) {
-      v[k][t] = load_lane<kHint>(table + lane_index(row, m, t));
-    }
-  }
-  int count[kPerThread];
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    count[k] = min(min(v[k][0], v[k][1]), min(v[k][2], v[k][3]));
-  }
-#pragma unroll
-  for (int p = 0; p < kPerThread / 2; ++p) {
-    const int64_t j = first[p];
-    if (paired && j + 1 < n) {
-      *reinterpret_cast<int2*>(out + j) =
-          make_int2(count[2 * p], count[2 * p + 1]);
-    } else {
-      if (j < n) out[j] = count[2 * p];
-      if (j + 1 < n) out[j + 1] = count[2 * p + 1];
-    }
-  }
-}
-
-// Quads: lane l of a warp reads lane t = l & 3 of hash q = l >> 2, so one
-// load instruction touches eight 128-byte lines, four sectors of each,
-// where the thread-per-hash kernel's touches 32 lines, one sector each.
-// A warp takes 8 * kP consecutive hashes.
-template <bool kHint, int kP>
-__global__ void __launch_bounds__(kBlock)
-gather_quad_kernel(const uint64_t* __restrict__ hashes, int64_t n,
-                   uint64_t nblocks, uint64_t recip,
-                   const uint8_t* __restrict__ table,
-                   int32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int q = lane >> 2;
-  const int t = lane & 3;
-  const int64_t base =
-      ((blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5)
-      * (8 * kP);
-  int v[kP];
-#pragma unroll
-  for (int p = 0; p < kP; ++p) {
-    const int64_t j = base + 8 * p + q;
-    const uint64_t h = j < n ? hashes[j] : 0;
-    v[p] = load_lane<kHint>(
-        table + lane_index(row_of(h, nblocks, recip), mix64(h), t));
-  }
-#pragma unroll
-  for (int p = 0; p < kP; ++p) {
-    v[p] = min(v[p], __shfl_xor_sync(0xFFFFFFFFu, v[p], 1));
-    v[p] = min(v[p], __shfl_xor_sync(0xFFFFFFFFu, v[p], 2));
-  }
-  // lane (q, t) stores hash 8 (4 s + t) + q: 32 consecutive counts a store
-#pragma unroll
-  for (int s = 0; s < kP / 4; ++s) {
-    int c = v[4 * s];
-    c = t == 1 ? v[4 * s + 1] : c;
-    c = t == 2 ? v[4 * s + 2] : c;
-    c = t == 3 ? v[4 * s + 3] : c;
-    const int64_t j = base + 32 * s + 8 * t + q;
-    if (j < n) out[j] = c;
-  }
-}
-
-// Lines: lane c = l & 7 of the eight lanes of hash l >> 3 loads bytes
-// [16 c, 16 c + 16) of the hash's 128-byte row, so a hash is one whole-line
-// request; the lane holding quarter t's counter keeps it, the rest 255.
-template <bool kHint, int kP>
-__global__ void __launch_bounds__(kBlock)
-gather_line_kernel(const uint64_t* __restrict__ hashes, int64_t n,
-                   uint64_t nblocks, uint64_t recip,
-                   const uint8_t* __restrict__ table,
-                   int32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int q = lane >> 3;
-  const int c = lane & 7;
-  const int t = c >> 1;
-  const int64_t base =
-      ((blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5)
-      * (4 * kP);
-  uint4 w[kP];
-  int o[kP];
-#pragma unroll
-  for (int p = 0; p < kP; ++p) {
-    const int64_t j = base + 4 * p + q;
-    const uint64_t h = j < n ? hashes[j] : 0;
-    const uint64_t row = row_of(h, nblocks, recip);
-    o[p] = static_cast<int>((mix64(h) >> (5 * t)) & (kQuart - 1));
-    const uint4* src = reinterpret_cast<const uint4*>(table + row) + c;
-    if constexpr (kHint) {
-      asm("ld.global.nc.L2::128B.v4.u32 {%0,%1,%2,%3}, [%4];"
-          : "=r"(w[p].x), "=r"(w[p].y), "=r"(w[p].z), "=r"(w[p].w)
-          : "l"(src));
-    } else {
-      w[p] = __ldg(src);
-    }
-  }
-#pragma unroll
-  for (int p = 0; p < kP; ++p) {
-    int v = 255;
-    if ((o[p] >> 4) == (c & 1)) {
-      const int b = o[p] & 15;
-      const unsigned word = b < 4 ? w[p].x : b < 8 ? w[p].y
-                            : b < 12 ? w[p].z : w[p].w;
-      v = (word >> (8 * (b & 3))) & 255;
-    }
-    v = min(v, __shfl_xor_sync(0xFFFFFFFFu, v, 1));
-    v = min(v, __shfl_xor_sync(0xFFFFFFFFu, v, 2));
-    v = min(v, __shfl_xor_sync(0xFFFFFFFFu, v, 4));
-    const int64_t j = base + 4 * p + q;
-    if (c == 0 && j < n) out[j] = v;
-  }
-}
-
-template <bool kHint>
-__global__ void __launch_bounds__(1024) gather_one_kernel(const uint64_t* __restrict__ hashes,
-                                  int64_t n, uint64_t nblocks, uint64_t recip,
-                                  const uint8_t* __restrict__ table,
-                                  int32_t* __restrict__ out) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x)
-                    + threadIdx.x;
+__global__ void gather_kernel(const uint64_t* __restrict__ hashes,
+                              int64_t n, uint64_t nblocks, uint64_t recip,
+                              const uint8_t* __restrict__ table,
+                              int32_t* __restrict__ out) {
+  const int64_t i = khmer_cuda::thread_index();
   if (i >= n) return;
   const uint64_t h = hashes[i];
   const uint64_t m = mix64(h);
   const uint64_t row = row_of(h, nblocks, recip);
   int v[kSub];
 #pragma unroll
-  for (int t = 0; t < kSub; ++t) v[t] = load_lane<kHint>(table + lane_index(row, m, t));
+  for (int t = 0; t < kSub; ++t) {
+    v[t] = load_line_hinted(table + lane_index(row, m, t));
+  }
   out[i] = min(min(v[0], v[1]), min(v[2], v[3]));
 }
 
@@ -209,57 +57,16 @@ __global__ void __launch_bounds__(1024) gather_one_kernel(const uint64_t* __rest
 // out[i] = min over the four lanes of hashes[i], for i < n.
 extern "C" int khmer_blocked_gather(const uint8_t* table, int64_t nblocks,
                                     const int64_t* hashes, int64_t n,
-                                    int32_t* out, int hint, int device,
-                                    void* stream) {
+                                    int32_t* out, int device, void* stream) {
   using namespace khmer_blocked;
   if (nblocks <= 0 || n < 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n == 0) return cudaSuccess;
-  const uint64_t* h = reinterpret_cast<const uint64_t*>(hashes);
-  const bool paired = reinterpret_cast<uintptr_t>(h) % 16 == 0
-                      && reinterpret_cast<uintptr_t>(out) % 8 == 0;
   const uint64_t nb = static_cast<uint64_t>(nblocks);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint64_t recip = khmer_cuda::reciprocal(nb);
-  const int64_t qn = kBlock / 32 * 8;  // hashes a block takes, per kP
-  auto pairs = [&](auto kernel, int per_thread, int threads) {
-    const int64_t per = int64_t{threads} * per_thread;
-    kernel<<<static_cast<unsigned>((n + per - 1) / per), threads, 0, s>>>(
-        h, n, paired, nb, recip, table, out);
-  };
-  auto one = [&](auto kernel, int threads) {
-    kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
-             s>>>(h, n, nb, recip, table, out);
-  };
-  switch (hint) {
-    case 0: pairs(gather_kernel<false, 8>, 8, 128); break;
-    case 1: pairs(gather_kernel<true, 8>, 8, 128); break;
-    case 2: pairs(gather_kernel<true, 2>, 2, 128); break;
-    case 3: pairs(gather_kernel<true, 4>, 4, 128); break;
-    case 4: pairs(gather_kernel<true, 2>, 2, 256); break;
-    case 5: pairs(gather_kernel<true, 4>, 4, 256); break;
-    case 6:
-      gather_quad_kernel<true, 4><<<(n + 4 * qn - 1) / (4 * qn), kBlock, 0,
-                                    s>>>(h, n, nb, recip, table, out);
-      break;
-    case 7: one(gather_one_kernel<false>, 256); break;
-    case 8: one(gather_one_kernel<true>, 256); break;
-    case 9: one(gather_one_kernel<true>, 128); break;
-    case 10: one(gather_one_kernel<true>, 512); break;
-    case 11: one(gather_one_kernel<true>, 1024); break;
-    case 12:
-      gather_line_kernel<true, 4><<<(n + 4 * 16 - 1) / (4 * 16), kBlock, 0,
-                                    s>>>(h, n, nb, recip, table, out);
-      break;
-    case 13:
-      gather_line_kernel<true, 8><<<(n + 8 * 16 - 1) / (8 * 16), kBlock, 0,
-                                    s>>>(h, n, nb, recip, table, out);
-      break;
-    default:
-      gather_line_kernel<false, 8><<<(n + 8 * 16 - 1) / (8 * 16), kBlock, 0,
-                                     s>>>(h, n, nb, recip, table, out);
-      break;
-  }
+  gather_kernel<<<grid_for(n), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint64_t*>(hashes), n, nb,
+      khmer_cuda::reciprocal(nb), table, out);
   return cudaGetLastError();
 }

@@ -13,63 +13,49 @@
 // coalesced (8 B each); the abundance path sends most of them to a few
 // bins (count 1, and the top bin 65,536 that collects every slot the
 // tracking table did not count), so contention, not bandwidth, limits a
-// naive scatter, and worst of all on a global address.
+// naive scatter, and worst of all on a global address. Atomics on
+// distinct global addresses are cheap: L2 serves them in parallel.
 //
 // Design. The TPU kernel walked the indices one by one into VMEM. Here a
-// thread-block cluster of c blocks (Hopper's distributed shared memory)
-// holds the whole int32 histogram on chip: block rank r owns bins
-// [r * per_block, (r + 1) * per_block) in its dynamic shared memory, so
-// 65,537 bins take c = 2 blocks of 128 KB and 2^17 bins c = 4 (the plan,
-// core/sketch_kernels.py histogram_plan, picks c and the number of
-// clusters). A grid-stride loop over warps loads kUnroll groups of 32
-// indices before it counts any; each warp groups a group's indices by
-// value (__match_any_sync) and one lane adds the group's size to the
-// owner's shared counter, local or remote, with a 32-bit atomicAdd. So the
+// grid-stride loop over warps loads kUnroll groups of 32 indices before
+// it counts any; each warp groups a group's indices by value
+// (__match_any_sync) and one lane adds the group's size. Every block keeps
+// its own 32-bit counters in shared memory for the bins that take the
+// crowds, bins [0, kLow) (every count a u8 counter holds) and the top bin
+// nbins - 1, and adds them into the int64 output once at the end; every
+// other bin goes straight to global memory with a 64-bit atomicAdd. So the
 // top bin costs one shared-memory atomic per warp step, never a global
-// one. Bins beyond the cluster's capacity (c <= 8, the portable limit:
-// 464,896 bins) go to global memory the same way. After a cluster.sync
-// each block adds its nonzero owned bins into the int64 output with 64-bit
-// atomics: the output is accumulated into, not overwritten. A launch takes
-// fewer than 2^31 indices, so no 32-bit counter overflows; the wrapper
-// splits larger inputs.
+// one, and the block needs only 1 KB of shared memory, so four blocks of
+// 512 threads fit an SM with all their loads in flight. On an H100 this
+// beat a thread-block cluster that holds every bin in distributed shared
+// memory, on abundance-dist's batch and on 2^21 uniform indices into 2^17
+// bins alike: the cluster's remote adds crowd onto the two blocks owning
+// bins 1 and 65,536, and at the uniform shape its flush adds about as many
+// bins as there are indices (scripts/hist_gather_bench.py; PERF.md). The
+// output is accumulated into, not overwritten. A launch takes fewer than
+// 2^31 indices, so no 32-bit counter overflows; the wrapper splits larger
+// inputs.
 
-#include <atomic>
 #include <cstdint>
-#include <mutex>
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace khmer_hist {
 namespace {
 
 constexpr int kThreads = 512;  // core/sketch_kernels.py HIST_THREADS
 constexpr int kUnroll = 4;     // 32-index groups a warp loads at once
-constexpr int kMaxShared = 232448;  // bytes a block may use on sm_90
-constexpr int kMaxCluster = 8;
+constexpr int kLow = 256;      // HIST_LOW_BINS
 constexpr int64_t kMaxLaunch = 2147483647;  // HIST_LAUNCH_LIMIT
-constexpr int kMaxDevices = 64;
 
-// per_block bins a block; `owned` = min(c * per_block, nbins) bins live in
-// the cluster's shared memory, the rest in `out`. kHot > 0: bins [0, kHot)
-// and, with kTop, bin nbins - 1 are also kept by every block for itself
-// and added to their owner at the end.
-template <int kHot, bool kTop>
 __global__ void __launch_bounds__(kThreads)
 histogram_kernel(const int64_t* __restrict__ idx, int64_t n,
-                 unsigned long long* __restrict__ out, int64_t nbins,
-                 int per_block, int64_t owned) {
-  extern __shared__ unsigned int sub[];
-  unsigned int* hot = sub + per_block;  // kHot + 1 more, when kept
-  cg::cluster_group cluster = cg::this_cluster();
-  for (int b = threadIdx.x; b < per_block; b += blockDim.x) sub[b] = 0;
-  if (kHot > 0 || kTop) {
-    for (int b = threadIdx.x; b <= kHot; b += blockDim.x) hot[b] = 0;
-  }
-  // every block of the cluster has zeroed its bins before any is written
-  cluster.sync();
+                 unsigned long long* __restrict__ out, int64_t nbins) {
+  // sub[b] for bin b < low, sub[kLow] for the top bin nbins - 1
+  __shared__ unsigned int sub[kLow + 1];
+  for (int b = threadIdx.x; b <= kLow; b += blockDim.x) sub[b] = 0;
+  __syncthreads();
+  const int64_t low = nbins < kLow ? nbins : kLow;
   const int lane = threadIdx.x & 31;
   const int64_t stride =
       static_cast<int64_t>(gridDim.x) * blockDim.x * kUnroll;
@@ -94,171 +80,44 @@ histogram_kernel(const int64_t* __restrict__ idx, int64_t n,
       const unsigned peers = __match_any_sync(0xFFFFFFFFu, key);
       if (in_range && lane == __ffs(peers) - 1) {
         const unsigned count = __popc(peers);
-        if (kHot > 0 && b < kHot) {
-          atomicAdd(&hot[b], count);
-        } else if (kTop && b == nbins - 1) {
-          atomicAdd(&hot[kHot], count);
-        } else if (b < owned) {
-          const unsigned bin = static_cast<unsigned>(b);
-          const unsigned rank = bin / static_cast<unsigned>(per_block);
-          atomicAdd(cluster.map_shared_rank(sub, rank)
-                        + (bin - rank * static_cast<unsigned>(per_block)),
-                    count);
+        if (b < low) {
+          atomicAdd(&sub[b], count);
+        } else if (b == nbins - 1) {
+          atomicAdd(&sub[kLow], count);
         } else {
           atomicAdd(&out[b], static_cast<unsigned long long>(count));
         }
       }
     }
   }
-  if (kHot > 0 || kTop) {
-    __syncthreads();
-    for (int h = threadIdx.x; h <= kHot; h += blockDim.x) {
-      const unsigned count = hot[h];
-      if (count == 0) continue;
-      const int64_t b = h < kHot ? h : nbins - 1;
-      if (b < owned) {
-        const unsigned bin = static_cast<unsigned>(b);
-        const unsigned rank = bin / static_cast<unsigned>(per_block);
-        atomicAdd(cluster.map_shared_rank(sub, rank)
-                      + (bin - rank * static_cast<unsigned>(per_block)),
-                  count);
-      } else {
-        atomicAdd(&out[b], static_cast<unsigned long long>(count));
-      }
-    }
-  }
-  // every remote add has landed, and no block leaves while another can
-  // still write its shared memory
-  cluster.sync();
-  const int64_t lo = static_cast<int64_t>(cluster.block_rank()) * per_block;
-  for (int b = threadIdx.x; b < per_block; b += blockDim.x) {
+  __syncthreads();
+  for (int b = threadIdx.x; b <= kLow; b += blockDim.x) {
     const unsigned count = sub[b];  // 0 for a bin past nbins
     if (count != 0) {
-      atomicAdd(&out[lo + b], static_cast<unsigned long long>(count));
+      atomicAdd(&out[b < kLow ? b : nbins - 1],
+                static_cast<unsigned long long>(count));
     }
   }
-}
-
-cudaLaunchConfig_t config_for(unsigned grid, int cluster, int smem,
-                              cudaStream_t stream,
-                              cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(grid);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = static_cast<size_t>(smem);
-  config.stream = stream;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  return config;
-}
-
-// The most clusters of `cluster` blocks with `smem` bytes each that the
-// device holds at once, queried once per (device, cluster, smem).
-template <int kHot, bool kTop>
-cudaError_t max_clusters(int device, int cluster, int smem, int* out) {
-  const auto kernel = histogram_kernel<kHot, kTop>;
-  struct Entry {
-    int device, cluster, smem, value;
-  };
-  static std::mutex mu;
-  static Entry cache[16];
-  static int used = 0;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i) {
-    const Entry& e = cache[i];
-    if (e.device == device && e.cluster == cluster && e.smem == smem) {
-      *out = e.value;
-      return cudaSuccess;
-    }
-  }
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t config = config_for(static_cast<unsigned>(cluster),
-                                         cluster, smem, nullptr, &attr);
-  int value = 0;
-  cudaError_t err =
-      cudaOccupancyMaxActiveClusters(&value, kernel, &config);
-  if (err != cudaSuccess) return err;
-  cache[used < 16 ? used++ : 15] = Entry{device, cluster, smem, value};
-  *out = value;
-  return cudaSuccess;
-}
-
-template <int kHot, bool kTop>
-cudaError_t launch(const int64_t* idx, int64_t n, int64_t* out,
-                   int64_t nbins, int cluster, int per_block, int smem,
-                   int nclusters, int device, cudaStream_t stream) {
-  const auto kernel = histogram_kernel<kHot, kTop>;
-  static std::atomic<bool> smem_set[kMaxDevices];
-  cudaError_t err;
-  if (!smem_set[device].load()) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxShared);
-    if (err != cudaSuccess) return err;
-    smem_set[device].store(true);
-  }
-  int fit = 0;
-  err = max_clusters<kHot, kTop>(device, cluster, smem, &fit);
-  if (err != cudaSuccess) return err;
-  if (fit < 1) return cudaErrorInvalidConfiguration;
-  const int clusters = nclusters < fit ? nclusters : fit;
-  const int64_t owned_max = static_cast<int64_t>(cluster) * per_block;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t config =
-      config_for(static_cast<unsigned>(clusters * cluster), cluster, smem,
-                 stream, &attr);
-  err = cudaLaunchKernelEx(&config, kernel, idx, n,
-                           reinterpret_cast<unsigned long long*>(out), nbins,
-                           per_block,
-                           owned_max < nbins ? owned_max : nbins);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace khmer_hist
 
 // out[idx[i]] += 1 (int64 out[nbins]) for i < n < 2^31, wrapping indices
-// in [-nbins, 0) and dropping those outside [-nbins, nbins), with the plan
-// of core/sketch_kernels.py histogram_plan: clusters of `cluster` blocks
-// of per_block bins (smem = 4 * per_block bytes each), `nclusters` of
-// them (fewer if fewer fit on the device at once).
-extern "C" int khmer_histogram_add_variant(
-    const int64_t* idx, int64_t n, int64_t* out, int64_t nbins, int cluster,
-    int per_block, int smem, int nclusters, int variant, int device,
-    void* stream) {
+// in [-nbins, 0) and dropping those outside [-nbins, nbins), on `blocks`
+// blocks (core/sketch_kernels.py histogram_plan).
+extern "C" int khmer_histogram_add(const int64_t* idx, int64_t n,
+                                   int64_t* out, int64_t nbins, int blocks,
+                                   int device, void* stream) {
   using namespace khmer_hist;
-  if (n < 0 || n > kMaxLaunch || nbins < 1 || cluster < 1
-      || cluster > kMaxCluster || per_block < 1
-      || smem < 4 * per_block || smem > kMaxShared || nclusters < 1
-      || device < 0 || device >= kMaxDevices) {
+  if (n < 0 || n > kMaxLaunch || nbins < 1 || blocks < 1) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n == 0) return cudaSuccess;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case 1:
-      return launch<256, true>(idx, n, out, nbins, cluster,
-                    per_block, smem, nclusters, device, s);
-    case 2:
-      return launch<0, true>(idx, n, out, nbins, cluster,
-                    per_block, smem, nclusters, device, s);
-    default:
-      return launch<0, false>(idx, n, out, nbins, cluster,
-                    per_block, smem, nclusters, device, s);
-  }
-}
-
-extern "C" int khmer_histogram_add(const int64_t* idx, int64_t n,
-                                   int64_t* out, int64_t nbins, int cluster,
-                                   int per_block, int smem, int nclusters,
-                                   int device, void* stream) {
-  return khmer_histogram_add_variant(idx, n, out, nbins, cluster, per_block,
-                                     smem, nclusters, 0, device, stream);
+  histogram_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      idx, n, reinterpret_cast<unsigned long long*>(out), nbins);
+  return cudaGetLastError();
 }

@@ -37,8 +37,8 @@ _ENTRY_POINTS = {
     # ev_word, flags, n_unique, device, stream
     "khmer_blocked_update": [_P, _I64, _P, _I64, _I64, _I32, _P, _P, _P,
                              _P, _P, _P, _I32, _P],
-    # table, nblocks, hashes, n, out, hint, device, stream
-    "khmer_blocked_gather": [_P, _I64, _P, _I64, _P, _I32, _I32, _P],
+    # table, nblocks, hashes, n, out, device, stream
+    "khmer_blocked_gather": [_P, _I64, _P, _I64, _P, _I32, _P],
     # flat, size, ntables, primes (host), offsets (host), hashes, nvalid,
     # nbuckets, ids, start, cursor, ev_word, min_old, n_unique,
     # cand_hash, cand_old, n_cand, device, stream
@@ -47,10 +47,8 @@ _ENTRY_POINTS = {
     # flat, ntables, primes (host), offsets (host), hashes, n, out,
     # device, stream
     "khmer_byte_gather": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
-    # idx, n, out, nbins, cluster, per_block, smem, nclusters, device,
-    # stream
-    "khmer_histogram_add": [_P, _I64, _P, _I64, _I32, _I32, _I32, _I32,
-                            _I32, _P],
+    # idx, n, out, nbins, blocks, device, stream
+    "khmer_histogram_add": [_P, _I64, _P, _I64, _I32, _I32, _P],
     # bids, offs, m, table, nblocks, nbuckets, ids, start, cursor,
     # ev_word, nnew, device, stream
     "khmer_proto_rmw": [_P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P, _P,

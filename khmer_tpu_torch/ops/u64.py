@@ -46,8 +46,9 @@ _LOW32 = (1 << 32) - 1
 
 
 def reciprocal(p):
-    """floor((2^64 - 1) / p): the constant by which the byte kernels reduce
-    a hash modulo the prime p (csrc/byte_common.cuh ByteLayout.recips)."""
+    """floor((2^64 - 1) / p): the constant by which the kernels reduce a
+    hash modulo p, a byte table's prime or the blocked layout's block count
+    (csrc/u64_common.cuh reciprocal)."""
     p = int(p)
     if not 0 < p < (1 << 63):
         raise ValueError("modulus %d out of range" % p)
@@ -66,8 +67,8 @@ def umulhi(x, m):
 
 
 def umod_reciprocal(x, p):
-    """Unsigned ``x % p`` for a constant 0 < p < 2^63 by the byte kernels'
-    steps (csrc/byte_common.cuh reduce): q = umulhi(x, reciprocal(p)) is
+    """Unsigned ``x % p`` for a constant 0 < p < 2^63 by the kernels'
+    steps (csrc/u64_common.cuh reduce): q = umulhi(x, reciprocal(p)) is
     floor(x / p) or one less, r = x - q p lies in [0, 2p), and one
     subtraction ends it. The kernels' arithmetic, testable on the CPU."""
     p = int(p)

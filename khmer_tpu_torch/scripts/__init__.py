@@ -1,15 +1,23 @@
 """Microbenchmarks of the port's kernels (counterparts of scripts/)."""
 
+# ~50 ms of an H100's clock: longer than the host takes to issue a
+# benchmark's calls
+HOLD_CYCLES = 100_000_000
+
 
 def cuda_ms(fn, reps=1):
     """Mean device time of fn() in ms over `reps` calls, by CUDA events,
-    after one warm-up call."""
+    after one warm-up call. A sleep kernel holds the stream while the
+    host issues the calls, so the host's time to issue one (microseconds
+    through ctypes) does not count where a kernel takes less; a call that
+    waits on the device runs as it is issued."""
     import torch
 
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()

@@ -40,7 +40,7 @@ PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 
 def reduction_edges(primes, n_random=5001, seed=0):
     """u64 hashes at the edges of the byte kernels' reduction by a
-    reciprocal (csrc/byte_common.cuh reduce), for each prime p: 0, 1,
+    reciprocal (csrc/u64_common.cuh reduce), for each prime p: 0, 1,
     2^63 - 1, 2^63, 2^64 - 1, p - 1, p, p + 1, and k p - 1, k p, k p + 1
     for the four largest multiples k p below 2^64, where umulhi(h, m)
     falls one short of floor(h / p); then n_random random ones."""

@@ -14,24 +14,26 @@ through the package's own entry points:
 
 Each is timed two ways by CUDA events over `reps` back-to-back calls:
 "paced", as the host issues them (launch overhead included, what a
-caller sees), and "queued", with the stream held by a sleep kernel until
-every call is enqueued (the device time alone); and the host's time to
-issue one call. The script uses only
-what the package had before kernels C and 2 were redesigned, so it also
-times another checkout's kernels: from the root of this one,
+caller sees), and "queued", with the stream held by a sleep kernel while
+the calls are issued (the device time alone, scripts.cuda_ms); and the
+host's time to issue one call. The script uses only what the package
+had before kernels C and 2 were redesigned, so it also times another
+checkout's kernels: from the root of this one,
 
     python -m khmer_tpu_torch.scripts.hist_gather_bench
     PYTHONPATH=<other checkout> python khmer_tpu_torch/scripts/hist_gather_bench.py
 
-With --sweep (this tree's package) it also times kernel C under other
-launch plans (cluster sizes and counts) and kernel 2 with and without
-the L2 128-byte fetch hint, on a table that fits in L2 and on hashes
-sorted by block. Prints one JSON object.
+With --sweep (this tree's package) it also times kernel C on other block
+counts than its plan's, and kernel 2 on a table that fits in L2 and on
+hashes sorted by block: what the gather costs when DRAM serves it less.
+Prints one JSON object, with the card's name and power limit.
 """
 
 import json
 import os
+import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -45,6 +47,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(
 DATA = os.path.join(REPO, "data", "25k.fq.gz")
 KSIZE = 20
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
+HOLD_CYCLES = 100_000_000  # scripts.HOLD_CYCLES
 
 
 def paced_ms(fn, reps):
@@ -62,13 +65,14 @@ def paced_ms(fn, reps):
 
 
 def queued_ms(fn, reps):
-    """ms per call of fn() with every call enqueued before the first runs:
-    a sleep kernel holds the stream while the host issues them."""
+    """ms per call of fn() with a sleep kernel holding the stream while the
+    host issues the calls: the device time alone (scripts.cuda_ms of this
+    tree, restated here so the script runs on an older package)."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)  # ~60 ms at 1.7 GHz
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -80,11 +84,9 @@ def queued_ms(fn, reps):
 def host_us(fn, reps):
     """Host microseconds per call of fn(), the stream held by a sleep
     kernel so that no call waits on the device."""
-    import time
-
     fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(HOLD_CYCLES)
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
@@ -188,88 +190,40 @@ def time_gather2(table, hashes, reps):
     return out
 
 
-def sweep(dev, shapes, table, chunk, uh, reps):
-    """Kernel C under other plans, kernel 2 with and without the hint, on
-    an L2-resident table and on block-sorted hashes (this tree only)."""
+def sweep(dev, shapes, table, chunk, reps):
+    """Kernel C on other block counts than histogram_plan's; kernel 2 on
+    a table that fits in L2 and on hashes sorted by block (this tree
+    only)."""
     from khmer_tpu_torch.ops import cuda
 
     lib = cuda.library()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = K._stream(dev)
     out = {"hist": [], "gather": []}
     for label, idx, nbins in shapes:
         want = torch.bincount(idx, minlength=nbins)
-        base = K.histogram_plan(idx.shape[0], nbins, sms)
-        for cluster in (1, 2, 4, 8):
-            per_block = -(-nbins // cluster)
-            if 4 * per_block > K.HIST_MAX_SHARED:
-                continue
-            for nclusters in sorted({1, 2, 4, 8, 16, 33, 66, 132,
-                                     base[3]}):
-                if nclusters * cluster > 4 * sms:
-                    continue
-                acc = torch.zeros(nbins, dtype=torch.int64, device=dev)
-
-                def run():
-                    cuda.check(lib.khmer_histogram_add(
-                        idx.data_ptr(), idx.shape[0], acc.data_ptr(),
-                        nbins, cluster, per_block, 4 * per_block,
-                        nclusters, dev.index, stream), "histogram_add")
-                run()
-                err = int((acc - want).abs().max())
-                out["hist"].append({
-                    "shape": label, "cluster": cluster,
-                    "nclusters": nclusters, "max_abs_err": err,
-                    "plan": list(base),
-                    "queued_ms": queued_ms(run, reps)})
-    import ctypes
-
-    fn = lib.khmer_histogram_add_variant
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_int64] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    for label, idx, nbins in shapes:
-        want = torch.bincount(idx, minlength=nbins)
-        base = K.histogram_plan(idx.shape[0], nbins, sms)
-        plans = [(1, base[:2] + (base[3],)), (2, base[:2] + (base[3],))]
-        for low in (256, 4096, 16384, 49152):
-            plans.append((2, (1, low,
-                              sms * K._hist_blocks_per_sm(4 * low + 4))))
-        for variant, (cluster, per_block, nclusters) in plans:
+        plan = K.histogram_plan(idx.shape[0], sms)
+        for blocks in sorted({sms // 2, sms, 2 * sms, 4 * sms, 8 * sms,
+                              plan}):
             acc = torch.zeros(nbins, dtype=torch.int64, device=dev)
 
-            hot = 257 if variant == 1 else 1
-
             def run():
-                cuda.check(fn(idx.data_ptr(), idx.shape[0], acc.data_ptr(),
-                              nbins, cluster, per_block,
-                              4 * (per_block + hot), nclusters, variant,
-                              dev.index, stream), "histogram_add_variant")
-            row = {"shape": label, "variant": variant, "cluster": cluster,
-                   "per_block": per_block, "nclusters": nclusters}
-            try:
-                run()
-            except RuntimeError as e:
-                row["error"] = str(e)
-                out["hist"].append(row)
-                continue
-            row.update({"max_abs_err": int((acc - want).abs().max()),
-                        "queued_ms": queued_ms(run, reps),
-                        "paced_ms": paced_ms(run, reps)})
-            out["hist"].append(row)
+                cuda.check(lib.khmer_histogram_add(
+                    idx.data_ptr(), idx.shape[0], acc.data_ptr(), nbins,
+                    blocks, dev.index, stream), "histogram_add")
+            run()
+            out["hist"].append({
+                "shape": label, "blocks": blocks, "plan": plan,
+                "max_abs_err": int((acc - want).abs().max()),
+                "queued_ms": queued_ms(run, reps)})
     small = table[:196613]  # 25 MB: fits in L2
     order = torch.argsort(K.umod(chunk, table.shape[0]))
-    for mode in range(15):
-        B.GATHER_MODE = mode
-        for label, tab, h in (("chunk", table, chunk),
-                              ("chunk, L2-resident table", small, chunk),
-                              ("chunk sorted by block", table,
-                               chunk[order].contiguous()),
-                              ("blocked batch", table, uh)):
-            r = time_gather2(tab, h, reps)
-            r.update({"case": label, "mode": mode})
-            out["gather"].append(r)
-    B.GATHER_MODE = 0
+    for label, tab, h in (("chunk, L2-resident table", small, chunk),
+                          ("chunk sorted by block", table,
+                           chunk[order].contiguous())):
+        r = time_gather2(tab, h, reps)
+        r["case"] = label
+        out["gather"].append(r)
     return out
 
 
@@ -297,6 +251,11 @@ def main(reps=50, do_sweep=False):
         0, 1 << 17, 1 << 21).astype(np.int64)).to(dev)
     res = {
         "device": torch.cuda.get_device_name(dev),
+        # name and power limit: a card set below 700 W runs slower
+        "card": subprocess.run(
+            ["nvidia-smi", "-i", str(dev.index),
+             "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip(),
         "package": os.path.dirname(khmer_tpu_torch.__file__),
         "hist_exact_batch": time_hist(idx_exact, nbins, reps),
         "hist_blocked_batch": time_hist(idx_blocked, nbins, reps),
@@ -308,7 +267,7 @@ def main(reps=50, do_sweep=False):
     if do_sweep:
         res["sweep"] = sweep(dev, [
             ("exact batch", idx_exact, nbins),
-            ("uniform 2^21x2^17", uniform, 1 << 17)], table, chunk, uh, reps)
+            ("uniform 2^21x2^17", uniform, 1 << 17)], table, chunk, reps)
     return res
 
 

@@ -171,7 +171,7 @@ def test_histogram_add_matches_plain(cuda_device, m, nbins):
     idx[: m // 2] = rng.integers(0, 4, m // 2)  # hot bins
     # wrapped, as JAX .at[].add wraps [-nbins, 0), and dropped below it
     idx[m // 4: m // 4 + 3000] = rng.integers(-nbins - 5, 0, 3000)
-    idx[m // 2: m // 2 + 1000] = nbins - 1       # the top (global) bin
+    idx[m // 2: m // 2 + 1000] = nbins - 1       # the top bin
     idx_d = torch.from_numpy(idx).to(cuda_device)
     start = torch.from_numpy(rng.integers(0, 9, nbins)).to(cuda_device)
     got = K.histogram_add_cuda(start.clone(), idx_d)
@@ -200,23 +200,17 @@ def test_histogram_add_abundance_shape_matches_plain(cuda_device):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("nbins", [65_537, 1 << 17, 10**6, 3])
-def test_histogram_add_cluster_rank_edges_match_plain(cuda_device, nbins):
-    """Indices on the first and last bin of each cluster rank (local and
-    remote shared counters), on the global range past the cluster's
-    capacity (10^6 bins), and their wrapped negatives."""
+@pytest.mark.parametrize("nbins", [3, 256, 257, 65_537, 1 << 17, 10**6])
+def test_histogram_add_private_bin_edges_match_plain(cuda_device, nbins):
+    """Indices on the edges of the bins each block counts in shared memory
+    ([0, HIST_LOW_BINS) and the top bin) and of the bins added in global
+    memory, crowded (every warp sees the same few bins), their wrapped
+    negatives, and out-of-range indices on both sides."""
     dev = cuda_device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    cluster, per_block, _, _ = K.histogram_plan(1 << 20, nbins, sms)
-    edges = set()
-    for r in range(cluster):
-        lo, hi = r * per_block, min((r + 1) * per_block, nbins)
-        edges.update(b for b in (lo, lo + 1, hi - 2, hi - 1)
-                     if 0 <= b < nbins)
-    cap = cluster * per_block
-    if cap < nbins:
-        edges.update((cap - 1, cap, cap + 1, nbins - 1))
-    edges = np.asarray(sorted(edges), dtype=np.int64)
+    low = K.HIST_LOW_BINS
+    edges = {0, 1, low - 2, low - 1, low, low + 1, nbins - 2, nbins - 1}
+    edges = np.asarray(sorted(b for b in edges if 0 <= b < nbins),
+                       dtype=np.int64)
     rng = np.random.default_rng(nbins)
     idx = np.concatenate([rng.choice(edges, 1 << 20), edges - nbins,
                           rng.integers(-2 * nbins, 2 * nbins, 1 << 16)])
@@ -253,9 +247,9 @@ def test_histogram_add_splits_launches_under_a_lowered_limit(cuda_device,
 def test_blocked_gather_reduction_edges_match_plain(cuda_device, nblocks):
     """Kernel 2 reduces h % nblocks by the reciprocal; on random tables of
     the config-1 (200 MB) and the largest (2.15 GB) block counts it equals
-    the plain version's `%` on the reduction's edge cases, through the
-    paired loads (aligned), the single ones (a view one hash in) and a
-    length that is no multiple of the 8 hashes a thread takes."""
+    the plain version's `%` on the reduction's edge cases, on an aligned
+    tensor, on views that start one and three hashes in (8-byte, not
+    16-byte aligned) and on odd lengths."""
     from khmer_tpu_torch.scripts.byte_gather_bench import reduction_edges
 
     dev = cuda_device

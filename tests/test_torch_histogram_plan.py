@@ -2,7 +2,7 @@
 and run here (khmer_tpu_torch/core/sketch_kernels.py histogram_plan and
 histogram_add_cuda's split into launches; ops/u64.py umod_reciprocal at
 the blocked layout's block counts), and histogram_add_plain against
-JAX's .at[].add on an abundance-shaped batch. The kernels themselves run
+JAX's .at[].add on abundance-shaped batches. The kernels themselves run
 only on the card (tests/test_torch_gpu_kernels.py). Integer results:
 exact."""
 
@@ -19,60 +19,33 @@ from khmer_tpu_torch.scripts.byte_gather_bench import reduction_edges
 H100_SMS = 132
 
 
-@pytest.mark.parametrize("nbins", [3, 65_537, 1 << 17, 1 << 20, 10**6])
-@pytest.mark.parametrize("n", [1, 5_000, 1_785_856, 1 << 21])
-def test_plan_owns_every_bin_once(n, nbins):
-    cluster, per_block, shared, nclusters = K.histogram_plan(n, nbins,
-                                                             H100_SMS)
-    assert cluster in (1, 2, 4, 8) and cluster <= K.HIST_MAX_CLUSTER
-    assert shared == 4 * per_block <= K.HIST_MAX_SHARED == 232_448
-    assert nclusters >= 1
-    # at most one wave of clusters, and never more than the card's SMs
-    # hold at once
-    assert nclusters * cluster <= H100_SMS * (2048 // K.HIST_THREADS)
-    # rank r owns [r * per_block, (r + 1) * per_block) up to nbins; the
-    # rest lies in the global range [cluster * per_block, nbins)
-    owner = np.full(nbins, -1)
-    for r in range(cluster):
-        lo, hi = r * per_block, min((r + 1) * per_block, nbins)
-        assert (owner[lo:hi] == -1).all()
-        owner[lo:hi] = r
-    glob = np.arange(nbins) >= cluster * per_block
-    assert ((owner >= 0) ^ glob).all()
-    # bins go global only when eight blocks cannot hold them all
-    assert glob.any() == (-(-nbins // 8) * 4 > K.HIST_MAX_SHARED)
-
-    def full(c):  # every bin on chip, and four blocks of 512 an SM
-        shared = 4 * -(-nbins // c)
-        return (shared <= K.HIST_MAX_SHARED
-                and K.HIST_SM_SHARED // (shared + 1024) >= 4)
-    # the smallest such cluster, else the largest
-    if cluster < K.HIST_MAX_CLUSTER:
-        assert full(cluster)
-    if cluster > 1:
-        assert not full(cluster // 2)
+@pytest.mark.parametrize("n", [1, 2048, 2049, 5_000, 1_785_856, 1 << 21,
+                               2**31 - 1])
+def test_plan_fills_the_card_but_no_more_than_the_work(n):
+    blocks = K.histogram_plan(n, H100_SMS)
+    per_block = K.HIST_THREADS * K.HIST_PER_THREAD
+    # one wave: four blocks of 512 threads an SM
+    assert 1 <= blocks <= H100_SMS * K.HIST_BLOCKS_PER_SM == 528
+    # every block has indices to count, and the blocks take them all in
+    # one trip each unless the card is full
+    assert (blocks - 1) * per_block < n
+    assert blocks * per_block >= n or blocks == 528
 
 
 def test_plan_at_the_main_paths_shapes():
-    # abundance-dist: 65,537 bins in eight blocks of 32 KB, four blocks
-    # an SM: 66 clusters fill the card
-    assert K.histogram_plan(1_785_856, 65_537, H100_SMS) == (
-        8, 8_193, 32_772, 66)
-    # profile_scatter2: 2^17 bins in eight blocks of 64 KB, three an SM
-    assert K.histogram_plan(1 << 21, 1 << 17, H100_SMS) == (
-        8, 16_384, 65_536, 49)
-    # 10^6 bins: eight blocks of 227 KB hold 464,896, the rest is global
-    c, per_block, shared, _ = K.histogram_plan(1 << 20, 10**6, H100_SMS)
-    assert (c, per_block, shared) == (8, 58_112, 232_448)
-    assert c * per_block == 464_896
-    # a small input takes few clusters: 4 indices a thread
-    assert K.histogram_plan(5_000, 3, H100_SMS) == (1, 3, 12, 3)
+    # abundance-dist's batch and profile_scatter2's indices fill the card
+    assert K.histogram_plan(1_785_856, H100_SMS) == 528
+    assert K.histogram_plan(1 << 21, H100_SMS) == 528
+    # a small input takes few blocks: 2,048 indices a block
+    assert K.histogram_plan(5_000, H100_SMS) == 3
+    assert K.histogram_plan(5_000, 1) == 3
+    assert K.histogram_plan(10**6, 1) == 4
 
 
-def test_plan_never_takes_fewer_clusters_for_more_indices():
-    for nbins in (3, 65_537, 1 << 17):
-        got = [K.histogram_plan(n, nbins, H100_SMS)[3]
-               for n in (1, 10**4, 10**5, 10**6, 10**7)]
+def test_plan_never_takes_fewer_blocks_for_more_indices():
+    for sms in (1, 16, H100_SMS):
+        got = [K.histogram_plan(n, sms)
+               for n in (1, 10**3, 10**4, 10**5, 10**6, 10**7)]
         assert got == sorted(got)
 
 
@@ -118,9 +91,9 @@ def test_wrapper_splits_what_one_launch_cannot_take(monkeypatch):
     assert [c[:4] for c in calls] == [
         (1 << 20, limit, 1 << 40, 65_537),
         ((1 << 20) + 8 * limit, n - limit, 1 << 40, 65_537)]
-    assert calls[0][4:8] == K.histogram_plan(limit, 65_537, H100_SMS)
-    assert calls[1][4:8] == K.histogram_plan(n - limit, 65_537, H100_SMS)
-    assert calls[1][8:] == (0, 7)
+    assert calls[0][4] == K.histogram_plan(limit, H100_SMS)
+    assert calls[1][4] == K.histogram_plan(n - limit, H100_SMS)
+    assert calls[1][5:] == (0, 7)
     assert K.histogram_add_cuda.launches == 2
     # a lowered limit splits a small input the same way
     calls.clear()
@@ -130,18 +103,20 @@ def test_wrapper_splits_what_one_launch_cannot_take(monkeypatch):
                                              (16000, 500)]
 
 
-def test_histogram_add_plain_matches_jax_on_an_abundance_batch():
-    """abundance-dist's shape: 65,537 bins, three quarters of the indices
+@pytest.mark.parametrize("nbins", [3, 256, 257, 65_537])
+def test_histogram_add_plain_matches_jax_on_an_abundance_batch(nbins):
+    """abundance-dist's shape (65,537 bins): three quarters of the indices
     on the top bin (every slot the tracking table did not count), counts
-    1..255 below it, and wrapped negatives, into a nonzero histogram."""
-    nbins = K.MAX_BIGCOUNT + 2
-    rng = np.random.default_rng(65537)
+    1..255 below it, and wrapped negatives, into a nonzero histogram; and
+    the same on as few bins as sit around kernel C's private range."""
+    rng = np.random.default_rng(nbins)
     m = 200_000
     idx = np.full(m, nbins - 1, dtype=np.int64)
     live = rng.choice(m, m // 4, replace=False)
-    idx[live] = np.minimum(rng.geometric(0.6, len(live)), 255)
+    idx[live] = np.minimum(rng.geometric(0.6, len(live)), min(255, nbins))
     wrap = rng.choice(live, 2_000, replace=False)
     idx[wrap] = -rng.integers(1, nbins + 1, len(wrap))  # -nbins .. -1
+    idx[live[-1000:]] = rng.integers(nbins, 2 * nbins + 1, 1000)  # dropped
     want = np.asarray(jnp.zeros(nbins, jnp.int32).at[
         jnp.asarray(idx.astype(np.int32))].add(1))
     start = rng.integers(0, 1000, nbins)

@@ -58,7 +58,7 @@ def test_umod_matches_numpy(p):
 @pytest.mark.parametrize("name", list(PRIME_SETS))
 def test_umod_reciprocal_matches_numpy(name):
     """The byte kernels' reduction by a precomputed reciprocal
-    (csrc/byte_common.cuh reduce), mirrored step for step, equals numpy's
+    (csrc/u64_common.cuh reduce), mirrored step for step, equals numpy's
     uint64 % on every edge case of each table's prime."""
     primes = PRIME_SETS[name]
     a = reduction_edges(primes, 4000)

@@ -49,11 +49,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
      update in the same run, with its scratch) and
      scripts/profile_scatter2.py (the histogram against its plain version
      and torch.bincount).
-Kernel times are device times (scripts.cuda_ms: the stream is held while
-the calls are issued); the host's time to issue one call is printed
-beside the histogram's and the blocked gather's. It prints the card's
-name and power limit, a JSON line of per-kernel results, then, last,
-the contract line {"ok": true, "device": {...}}.
+Kernel times in the per-kernel line are CUDA-event times of calls issued
+back to back (scripts.cuda_ms), what a caller sees; the phase lines of
+the histogram and the gathers also print their device time alone
+(scripts.device_ms: the stream held while the calls are issued) and the
+host's time to issue one call. It prints the card's name and power
+limit, a JSON line of per-kernel results, then, last, the contract line
+{"ok": true, "device": {...}}.
 Without a CUDA device it exits 1 at once.
 """
 
@@ -205,7 +207,7 @@ def main():
         % (len(cases), len(byte_cases), n_hist, n_proto, n_edges, n_edges2))
 
     # -- phase 4: config 1, blocked, through the port's entry points -------
-    launches, blocked_timings = run_config1(torch, B, SK, dev, card, errs)
+    launches = run_config1(torch, B, SK, dev, card, errs)
 
     # -- phase 4b: config 1, exact layout, through the CLIs ---------------
     exact_launches, exact_timings = run_config1_exact(torch, np, SK, dev,
@@ -215,7 +217,6 @@ def main():
     # -- phase 5: scale, blocked -------------------------------------------
     one = stream_hashes(np)
     timings = run_scale(torch, np, B, dev, card, errs, one)
-    timings.update(blocked_timings)
 
     # -- phase 5b: scale, exact layout -------------------------------------
     timings.update(exact_timings)
@@ -447,9 +448,9 @@ def run_histogram_cases(torch, np, SK, dev, errs):
     """Kernel C against its plain version: mixed indices (hot bins, the top
     bin, out of range both sides, wrapped negatives) at three shapes;
     abundance-dist's shape, accumulated twice into a nonzero histogram;
-    indices crowded onto the edges of each block's private bins ([0, 256)
-    and the top bin) and of the global ones; and an input split into
-    launches under a lowered per-launch limit, from an offset view."""
+    indices crowded onto the edges of each block's private bins [0, 256)
+    and of the global ones; and an input split into launches under a
+    lowered per-launch limit, from an offset view."""
     rng = np.random.default_rng(20261018)
     n_cases = 0
 
@@ -473,10 +474,10 @@ def run_histogram_cases(torch, np, SK, dev, errs):
               torch.from_numpy(rng.integers(0, 9, nbins)).to(dev),
               "%d x %d" % (m, nbins))
         n_cases += 1
-    # abundance-dist's batch: three quarters on the top bin
-    nbins = SK.MAX_BIGCOUNT + 2
+    # abundance-dist's batch: three quarters past the last bin (dropped)
+    nbins = SK.ABUND_BINS
     m = 1_785_856
-    idx = np.full(m, nbins - 1, dtype=np.int64)
+    idx = np.full(m, nbins, dtype=np.int64)
     live = rng.choice(m, m // 4, replace=False)
     idx[live] = np.minimum(rng.geometric(0.6, len(live)), 255)
     idx[live[:3000]] = -rng.integers(1, nbins + 1, 3000)
@@ -627,8 +628,7 @@ def _consume_rates(torch, make, expect_counts, label):
 def run_config1(torch, B, SK, dev, card, errs):
     """Config 1 (blocked) through the CLI and the histogram API, in this
     process so the kernels' launch counters see it; then kernels 2 and C
-    on the histogram step's first batch. Returns the launch counts and
-    kernel 2's times."""
+    on the histogram step's first batch. Returns the launch counts."""
     from khmer_tpu_torch import Nodegraph
     from khmer_tpu_torch.cli import load_into_counting
 
@@ -677,23 +677,23 @@ def run_config1(torch, B, SK, dev, card, errs):
     _consume_rates(torch, lambda: B.BlockedCountgraph(K, 5e7, 4, device=dev),
                    (EXPECT["n_reads"], EXPECT["n_kmers"], EXPECT["n_unique"]),
                    "blocked")
-    timings = time_blocked_batch(torch, B, SK, dev, cg, card, errs)
+    time_blocked_batch(torch, B, SK, dev, cg, card, errs)
     del cg
     torch.cuda.empty_cache()
-    return launches, timings
+    return launches
 
 
 def time_blocked_batch(torch, B, SK, dev, cg, card, errs):
-    """The first batch of the blocked histogram step on the config-1 table,
-    rebuilt from the port's pieces (scripts/hist_gather_bench.first_batch):
-    kernel 2 over its unique hashes and kernel C over its indices, each
-    against its plain version (C also against torch.bincount), timed at
-    the shapes the main path gives them, with the host's time to issue
-    one call of each. Returns kernel 2's times."""
-    from khmer_tpu_torch.scripts import cuda_ms
-    from khmer_tpu_torch.scripts.hist_gather_bench import (blocked_floors,
-                                                           first_batch,
-                                                           host_us)
+    """The first batch of the blocked histogram step on the config-1 table
+    (scripts/hist_gather_bench.first_batch, through the step's own
+    sketch_kernels.abund_batch): kernel 2 over its unique hashes and
+    kernel C over its indices, each against its plain version (C also
+    against torch.bincount), timed at the shapes the main path gives them,
+    as issued and on the device alone, with the host's time a call."""
+    from khmer_tpu_torch.scripts import cuda_ms, device_ms, host_us
+    from khmer_tpu_torch.scripts.hist_gather_bench import (bincount,
+                                                           blocked_floors,
+                                                           first_batch)
 
     uh, idx = first_batch(cg, dev)
     table, nb = cg.tables[0], cg.nblocks
@@ -701,10 +701,10 @@ def time_blocked_batch(torch, B, SK, dev, cg, card, errs):
                - B.gather_counts_plain(nb, (table,), uh)).abs().max())
     errs["blocked_gather"] = max(errs["blocked_gather"], d_g)
     expect(d_g == 0, "blocked_gather != plain on the blocked batch")
-    nbins = SK.MAX_BIGCOUNT + 2
+    nbins = SK.ABUND_BINS
     zeros = torch.zeros(nbins, dtype=torch.int64, device=dev)
     got = SK.histogram_add_cuda(zeros.clone(), idx)
-    lib = torch.bincount(idx, minlength=nbins)
+    lib = bincount(idx, nbins)
     d_c = max(int((got - SK.histogram_add_plain(zeros.clone(),
                                                 idx)).abs().max()),
               int((got - lib).abs().max()))
@@ -712,35 +712,36 @@ def time_blocked_batch(torch, B, SK, dev, cg, card, errs):
     expect(d_c == 0, "histogram_add != plain on the blocked batch")
     reps = 50
     acc = zeros.clone()
-    t = {
-        "gather": cuda_ms(lambda: B.blocked_gather_cuda(table, uh), reps),
-        "gather_plain": cuda_ms(
-            lambda: B.gather_counts_plain(nb, (table,), uh), reps),
-        "gather_host_us": host_us(lambda: B.blocked_gather_cuda(table, uh),
-                                  reps),
-        "hist": cuda_ms(lambda: SK.histogram_add_cuda(acc, idx), reps),
-        "hist_host_us": host_us(lambda: SK.histogram_add_cuda(acc, idx),
-                                reps),
-        "hist_library": cuda_ms(lambda: torch.bincount(idx, minlength=nbins),
-                                reps),
-    }
+
+    def gather():
+        return B.blocked_gather_cuda(table, uh)
+
+    def hist():
+        return SK.histogram_add_cuda(acc, idx)
+
+    t = {"gather": cuda_ms(gather, reps),
+         "gather_device": device_ms(gather, reps),
+         "gather_host_us": host_us(gather, reps),
+         "gather_plain": cuda_ms(
+             lambda: B.gather_counts_plain(nb, (table,), uh), reps),
+         "hist": cuda_ms(hist, reps), "hist_device": device_ms(hist, reps),
+         "hist_host_us": host_us(hist, reps),
+         "hist_library": cuda_ms(lambda: bincount(idx, nbins), reps)}
     n = uh.shape[0]
     g_bytes, sectors = blocked_floors(nb, uh)
     g_bound = bound(g_bytes, n * B.SUB)
     h_bound = bound(8 * n + 16 * int((lib != 0).sum()), n)
     say("  blocked batch: %d unique-hash slots; blocked_gather kernel %.4f "
-        "ms (host %.1f us a call), plain %.4f ms, bound %.4f ms (%s), "
-        "sector floor %.4f ms (%d distinct (block, quarter) sectors); "
-        "histogram_add into %d bins kernel %.4f ms (host %.1f us a call), "
-        "torch.bincount %.4f ms, bound %.4f ms (%s); on %s"
-        % (n, t["gather"], t["gather_host_us"], t["gather_plain"],
-           g_bound[0], g_bound[1], sectors * 32 / PEAK_BYTES_S * 1e3,
-           sectors, nbins, t["hist"], t["hist_host_us"], t["hist_library"],
+        "ms (device %.4f ms, host %.1f us a call), plain %.4f ms, bound "
+        "%.4f ms (%s), sector floor %.4f ms (%d distinct (block, quarter) "
+        "sectors); histogram_add into %d bins kernel %.4f ms (device %.4f "
+        "ms, host %.1f us a call), torch.bincount %.4f ms, bound %.4f ms "
+        "(%s); on %s"
+        % (n, t["gather"], t["gather_device"], t["gather_host_us"],
+           t["gather_plain"], g_bound[0], g_bound[1],
+           sectors * 32 / PEAK_BYTES_S * 1e3, sectors, nbins, t["hist"],
+           t["hist_device"], t["hist_host_us"], t["hist_library"],
            h_bound[0], h_bound[1], card))
-    return {"blocked_gather": {"ms": t["gather"],
-                               "plain_ms": t["gather_plain"],
-                               "bound_ms": g_bound[0],
-                               "bound_by": g_bound[1]}}
 
 
 def run_config1_exact(torch, np, SK, dev, card, errs):
@@ -826,45 +827,28 @@ def run_config1_exact(torch, np, SK, dev, card, errs):
 
 def time_abundance_batch(torch, np, SK, dev, cg, card, errs):
     """The first batch of abundance-dist's histogram step on the config-1
-    .ct, rebuilt from the port's pieces (sketch_kernels.make_abund_dist):
-    the byte gather over its unique hashes and the histogram of its
-    indices, each kernel against its plain version (and the histogram
-    against torch.bincount), at the shapes the main path gives them. Then
-    the byte gather on 2^20 random live hashes on the same tables."""
-    from khmer_tpu_torch import Nodegraph
-    from khmer_tpu_torch.core.pipeline import Batcher, hash_batch
-    from khmer_tpu_torch.io.fastx import FastxParser
-    from khmer_tpu_torch.scripts import cuda_ms
+    .ct (scripts/hist_gather_bench.first_batch, through the step's own
+    sketch_kernels.abund_batch): the byte gather over its unique hashes
+    and the histogram of its indices, each kernel against its plain
+    version (and the histogram against torch.bincount), at the shapes the
+    main path gives them, as issued and on the device alone. Then the
+    byte gather on 2^20 random live hashes on the same tables."""
+    from khmer_tpu_torch.scripts import cuda_ms, device_ms, host_us
     from khmer_tpu_torch.scripts.byte_gather_bench import (gather_floors,
                                                            time_gather)
-    from khmer_tpu_torch.scripts.hist_gather_bench import host_us
+    from khmer_tpu_torch.scripts.hist_gather_bench import (bincount,
+                                                           first_batch)
 
-    batcher = Batcher(K)
-    batch = None
-    for rec in FastxParser(DATA):
-        batch = batcher.add(rec.cleaned_seq)
-        if batch is not None:
-            break
-    codes, lengths = batch
-    hashes, valid = hash_batch(torch.from_numpy(codes).to(dev),
-                               torch.from_numpy(lengths).to(dev), K)
-    tracking = Nodegraph(K, 1, 1, primes=cg.hashsizes(), device=dev)
-    d = SK._dedup_batch(hashes.reshape(-1), valid.reshape(-1))
-    counted = d["uvalid"] & SK._apply_update("bit", tracking._primes,
-                                             tracking.tables, d)
-    uh = d["uh"]
+    uh, idx = first_batch(cg, dev)
     primes, flat = cg._primes, cg.tables.flat
     counts = SK.byte_gather_cuda(primes, flat, uh)
     d_b = int((counts - SK.byte_gather_plain(primes, flat, uh)).abs().max())
     errs["byte_gather"] = max(errs["byte_gather"], d_b)
     expect(d_b == 0, "byte_gather != plain on the abundance batch")
-    counts = counts.to(torch.int64)
-    is_sat = counted & (counts == SK.MAX_KCOUNT)
-    idx = torch.where(counted & ~is_sat, counts, SK.MAX_BIGCOUNT + 1)
-    nbins = SK.MAX_BIGCOUNT + 2
+    nbins = SK.ABUND_BINS
     got = SK.histogram_add_cuda(
         torch.zeros(nbins, dtype=torch.int64, device=dev), idx)
-    lib = torch.bincount(idx, minlength=nbins)
+    lib = bincount(idx, nbins)
     d_c = max(int((got - SK.histogram_add_plain(
         torch.zeros(nbins, dtype=torch.int64, device=dev), idx)).abs().max()),
         int((got - lib).abs().max()))
@@ -874,35 +858,40 @@ def time_abundance_batch(torch, np, SK, dev, cg, card, errs):
     # the histogram timings accumulate into one output each
     reps = 50
     acc_k, acc_p = got.clone(), got.clone()
-    t = {
-        "gather": cuda_ms(lambda: SK.byte_gather_cuda(primes, flat, uh),
-                          reps),
-        "gather_plain": cuda_ms(lambda: SK.byte_gather_plain(primes, flat,
-                                                             uh), reps),
-        "hist": cuda_ms(lambda: SK.histogram_add_cuda(acc_k, idx), reps),
-        "hist_plain": cuda_ms(lambda: SK.histogram_add_plain(acc_p, idx),
-                              reps),
-        "hist_library": cuda_ms(lambda: torch.bincount(idx, minlength=nbins),
-                                reps),
-    }
+
+    def gather():
+        return SK.byte_gather_cuda(primes, flat, uh)
+
+    def hist():
+        return SK.histogram_add_cuda(acc_k, idx)
+
+    t = {"gather": cuda_ms(gather, reps),
+         "gather_device": device_ms(gather, reps),
+         "gather_plain": cuda_ms(lambda: SK.byte_gather_plain(primes, flat,
+                                                              uh), reps),
+         "hist": cuda_ms(hist, reps),
+         "hist_plain": cuda_ms(lambda: SK.histogram_add_plain(acc_p, idx),
+                               reps),
+         "hist_library": cuda_ms(lambda: bincount(idx, nbins), reps)}
     expect(torch.equal(acc_k, acc_p), "histogram_add != plain, accumulated")
-    hist_host_us = host_us(lambda: SK.histogram_add_cuda(acc_k, idx), reps)
+    t["hist_device"] = device_ms(hist, reps)
+    t["hist_host_us"] = host_us(hist, reps)
     n = uh.shape[0]
     # least bytes: 8 B a hash, 4 B a count, each distinct counter once; the
     # sector floor: each distinct 32-byte sector of the counters once
     g_bytes, sectors = gather_floors(primes, uh)
     g_bound = bound(g_bytes, n * len(primes))
     h_bound = bound(8 * n + 16 * int((lib != 0).sum()), n)
-    say("  abundance batch: %d x %d windows, %d unique-hash slots (%d live), "
-        "%d counted; byte_gather kernel %.4f ms, plain %.4f ms, bound %.4f "
-        "ms (%s), sector floor %.4f ms (%d sectors); histogram_add into %d "
-        "bins kernel %.4f ms (host %.1f us a call), plain %.4f ms, "
-        "torch.bincount %.4f ms, bound %.4f ms (%s); on %s"
-        % (codes.shape[0], hashes.shape[1], n, int(d["uvalid"].sum()),
-           int(counted.sum()), t["gather"], t["gather_plain"], g_bound[0],
-           g_bound[1], sectors * 32 / PEAK_BYTES_S * 1e3, sectors, nbins,
-           t["hist"], hist_host_us, t["hist_plain"], t["hist_library"],
-           h_bound[0], h_bound[1], card))
+    say("  abundance batch: %d unique-hash slots, %d histogrammed; "
+        "byte_gather kernel %.4f ms (device %.4f ms), plain %.4f ms, bound "
+        "%.4f ms (%s), sector floor %.4f ms (%d sectors); histogram_add "
+        "into %d bins kernel %.4f ms (device %.4f ms, host %.1f us a call), "
+        "plain %.4f ms, torch.bincount %.4f ms, bound %.4f ms (%s); on %s"
+        % (n, int((idx < nbins).sum()), t["gather"], t["gather_device"],
+           t["gather_plain"], g_bound[0], g_bound[1],
+           sectors * 32 / PEAK_BYTES_S * 1e3, sectors, nbins, t["hist"],
+           t["hist_device"], t["hist_host_us"], t["hist_plain"],
+           t["hist_library"], h_bound[0], h_bound[1], card))
     rnd = _dev_hashes(torch, np, np.random.default_rng(4).integers(
         0, 2**64, 1 << 20, dtype=np.uint64), dev)
     r = time_gather(primes, flat, rnd, reps)
@@ -976,13 +965,13 @@ def run_scale(torch, np, B, dev, card, errs, one):
     """Replay the stream REPLAY times in 2^20-hash chunks through the
     kernel and the plain version, on the config-1 and the largest table;
     compare the final states exactly; time kernel 2 on the first chunk,
-    beside its floors. Returns the config-1 update times."""
+    beside its floors. Returns the config-1 times of kernels 1 and 2."""
     from khmer_tpu_torch.core.pipeline import DENSE_CHUNK
     from khmer_tpu_torch.core.sketch_kernels import (get_n_primes_near_x,
                                                      update_plan,
                                                      update_scratch)
     from khmer_tpu_torch.ops.u64 import umod
-    from khmer_tpu_torch.scripts import cuda_ms
+    from khmer_tpu_torch.scripts import device_ms
     from khmer_tpu_torch.scripts.hist_gather_bench import blocked_floors
 
     chunks, total = replay_chunks(torch, np, dev, one)
@@ -1033,34 +1022,42 @@ def run_scale(torch, np, B, dev, card, errs, one):
         errs["blocked_gather"] = max(errs["blocked_gather"], gd)
         expect(gd == 0, "blocked_gather != plain at %s scale" % label)
         reps = 20
-        g_ms = cuda_ms(lambda: B.blocked_gather_cuda(tk, gq), reps)
-        gp_ms = cuda_ms(lambda: B.gather_counts_plain(nb, (tp,), gq), reps)
+        g_ms = _timed(torch, lambda: [B.blocked_gather_cuda(tk, gq)
+                                      for _ in range(reps)]) / reps
+        gp_ms = _timed(torch, lambda: [B.gather_counts_plain(nb, (tp,), gq)
+                                       for _ in range(reps)]) / reps
+        g_dev = device_ms(lambda: B.blocked_gather_cuda(tk, gq), reps)
         # kernel 2's floors on this chunk: its least bytes, and each
         # distinct 32-byte (block, quarter) sector read once
         g_bytes, sectors = blocked_floors(nb, gq)
         say("phase 5 %s: %d blocks (%.2f GB, update scratch %.1f MB), %d "
             "k-mers in %d chunks of %d; n_unique %d; update kernel %.4f "
             "ms/chunk = %.4g k-mers/s, plain %.4f ms/chunk = %.4g k-mers/s; "
-            "gather of %d hashes kernel %.4f ms, plain %.4f ms, bound %.4f "
-            "ms (bytes), sector floor %.4f ms (%d sectors); on %s"
+            "gather of %d hashes kernel %.4f ms (device %.4f ms), plain "
+            "%.4f ms, bound %.4f ms (bytes), sector floor %.4f ms (%d "
+            "sectors); on %s"
             % (label, nb, nb * B.LANES / 1e9, scratch_bytes / 1e6, total,
                nchunks, gq.shape[0], nuk, ms["kernel"] / nchunks,
                total / ms["kernel"] * 1e3, ms["plain"] / nchunks,
-               total / ms["plain"] * 1e3, gq.shape[0], g_ms, gp_ms,
+               total / ms["plain"] * 1e3, gq.shape[0], g_ms, g_dev, gp_ms,
                g_bytes / PEAK_BYTES_S * 1e3,
                sectors * 32 / PEAK_BYTES_S * 1e3, sectors, card))
         if label == "config-1":
             # least traffic: 8 B per hash, one read and one write of each
-            # distinct counter a chunk touches
+            # distinct counter a chunk touches (reads only for the gather)
             def lanes(h):
                 return torch.unique(B._lane_index(umod(h, nb),
                                                   B._offsets(h))).numel()
             u_bytes = sum(8 * n + 2 * lanes(h[:n]) for h, n in chunks)
             u_bound = bound(u_bytes / nchunks, total * B.SUB / nchunks)
+            g_bound = bound(g_bytes, gq.shape[0] * B.SUB)
             out = {"blocked_update": {
                 "ms": ms["kernel"] / nchunks,
                 "plain_ms": ms["plain"] / nchunks,
-                "bound_ms": u_bound[0], "bound_by": u_bound[1]}}
+                "bound_ms": u_bound[0], "bound_by": u_bound[1]},
+                "blocked_gather": {
+                "ms": g_ms, "plain_ms": gp_ms,
+                "bound_ms": g_bound[0], "bound_by": g_bound[1]}}
         del tabs, tk, tp
         torch.cuda.empty_cache()
     return out

@@ -344,7 +344,7 @@ def abundance_distribution(main, source, tracking):
     step = K.make_abund_dist(tracking.storage_kind, tracking._primes,
                              main.storage_kind, main._primes,
                              collect_sat=resolve)
-    dist = torch.zeros(K.MAX_BIGCOUNT + 2, dtype=torch.int64, device=dev)
+    dist = torch.zeros(K.ABUND_BINS, dtype=torch.int64, device=dev)
     n_sat = torch.zeros((), dtype=torch.int64, device=dev)
     sat_hashes = []
 
@@ -371,7 +371,7 @@ def abundance_distribution(main, source, tracking):
             commit(batcher.add(seq))
     commit(batcher.flush())
 
-    out = dist[: K.MAX_BIGCOUNT + 1].cpu().numpy()
+    out = dist.cpu().numpy()
     if resolve:
         for h in np.concatenate(sat_hashes or [np.zeros(0, np.uint64)]):
             c = main._bigcounts.get(int(h), K.MAX_KCOUNT)

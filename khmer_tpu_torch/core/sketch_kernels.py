@@ -317,9 +317,10 @@ def _ptr(t):
 
 
 def _stream(dev):
-    """The raw handle of `dev`'s current stream, for a C entry point.
-    (torch.cuda.current_stream builds a Stream object: several microseconds
-    a launch.)"""
+    """The raw handle of `dev`'s current stream, for a C entry point: the
+    same as torch.cuda.current_stream(dev).cuda_stream, without building a
+    Stream object (several microseconds a launch). A private torch call:
+    tests/test_torch_gpu_kernels.py holds it to the public one."""
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
@@ -481,12 +482,15 @@ def histogram_add_plain(out, idx):
 
 
 # Kernel C (csrc/histogram.cu): blocks of HIST_THREADS threads, each
-# keeping its own 32-bit counters for bins [0, HIST_LOW_BINS) and the top
-# bin in shared memory; these mirror its constants.
+# keeping its own 32-bit counters for bins [0, HIST_LOW_BINS) in shared
+# memory; these mirror its constants.
 HIST_THREADS = 512           # threads a block (csrc kThreads)
-HIST_BLOCKS_PER_SM = 2048 // HIST_THREADS  # a full SM
-HIST_PER_THREAD = 4          # indices a thread takes in one loop trip
+HIST_PER_THREAD = 4          # indices a thread takes a loop trip (kUnroll)
 HIST_LOW_BINS = 256          # csrc kLow: every count a u8 counter holds
+# Blocks an SM: two, measured on an H100 (PERF.md): on abundance-dist's
+# batch faster than one or four, and as fast as four on 2^21 uniform
+# indices into 2^17 bins.
+HIST_BLOCKS_PER_SM = 2
 # Indices one launch takes: fewer than 2^31, so that no 32-bit shared
 # counter overflows. The wrapper splits a longer input into launches.
 HIST_LAUNCH_LIMIT = 2**31 - 1
@@ -494,8 +498,8 @@ HIST_LAUNCH_LIMIT = 2**31 - 1
 
 @functools.lru_cache(maxsize=64)
 def histogram_plan(n, sms):
-    """Kernel C's blocks for n indices on a card of `sms` SMs: a full
-    card (HIST_BLOCKS_PER_SM a SM), but no more than give each thread
+    """Kernel C's blocks for n indices on a card of `sms` SMs:
+    HIST_BLOCKS_PER_SM a SM, but no more than give each thread
     HIST_PER_THREAD indices, since each block ends with a flush of its
     nonzero private bins."""
     per_block = HIST_THREADS * HIST_PER_THREAD
@@ -567,6 +571,31 @@ def _gather_counts(kind, primes, tables, hashes):
     raise NotImplementedError("%s tables are not yet ported" % kind)
 
 
+# abundance-dist's histogram: bins 0..MAX_BIGCOUNT. A slot it does not
+# count takes the index ABUND_BINS, one past the last bin, which
+# histogram_add drops.
+ABUND_BINS = MAX_BIGCOUNT + 1
+
+
+def abund_batch(track_kind, track_primes, track_tables, main_kind,
+                main_primes, main_tables, hashes, valid):
+    """One batch of the abundance-distribution step up to its histogram:
+    dedup, the tracking update (in place), the main sketch's counts.
+    Returns a dict of per-slot tensors: uh (unique hashes), uvalid,
+    counted (new to tracking), counts (int64), is_sat (counted at
+    MAX_KCOUNT) and idx, the histogram index: the count where counted and
+    not saturated, else ABUND_BINS."""
+    d = _dedup_batch(hashes, valid)
+    counted = d["uvalid"] & _apply_update(track_kind, track_primes,
+                                          track_tables, d)
+    counts = _gather_counts(main_kind, main_primes, main_tables,
+                            d["uh"]).to(torch.int64)
+    is_sat = counted & (counts == MAX_KCOUNT)
+    return {"uh": d["uh"], "uvalid": d["uvalid"], "counted": counted,
+            "counts": counts, "is_sat": is_sat,
+            "idx": torch.where(counted & ~is_sat, counts, ABUND_BINS)}
+
+
 def make_abund_dist(track_kind, track_primes, main_kind, main_primes,
                     collect_sat=False):
     """Abundance-distribution step (reference hashtable.cc:451-502).
@@ -574,7 +603,7 @@ def make_abund_dist(track_kind, track_primes, main_kind, main_primes,
     step(track_tables, dist, main_tables, hashes, valid) -> (n_sat,
     sat_hash): per event, in order, if the tracking count is 0, add to
     tracking and histogram the main sketch's count. Updates the tracking
-    tables and ``dist`` [MAX_BIGCOUNT + 2] in place (JAX donated both) and
+    tables and ``dist`` [ABUND_BINS] in place (JAX donated both) and
     returns the number of saturated counts (count == MAX_KCOUNT) as a
     device scalar. Those belong in bin 255 unless a bigcount map resolves
     them: with `collect_sat`, sat_hash holds their hashes (a host sync per
@@ -584,16 +613,11 @@ def make_abund_dist(track_kind, track_primes, main_kind, main_primes,
     main_primes = tuple(int(p) for p in main_primes)
 
     def step(track_tables, dist, main_tables, hashes, valid):
-        d = _dedup_batch(hashes, valid)
-        any_credit = _apply_update(track_kind, track_primes, track_tables,
-                                   d)
-        counted = d["uvalid"] & any_credit
-        counts = _gather_counts(main_kind, main_primes, main_tables,
-                                d["uh"]).to(torch.int64)
-        is_sat = counted & (counts == MAX_KCOUNT)
-        hist_idx = torch.where(counted & ~is_sat, counts, MAX_BIGCOUNT + 1)
-        histogram_add(dist, hist_idx)
-        return is_sat.sum(), (d["uh"][is_sat] if collect_sat else None)
+        b = abund_batch(track_kind, track_primes, track_tables, main_kind,
+                        main_primes, main_tables, hashes, valid)
+        histogram_add(dist, b["idx"])
+        is_sat = b["is_sat"]
+        return is_sat.sum(), (b["uh"][is_sat] if collect_sat else None)
 
     return step
 

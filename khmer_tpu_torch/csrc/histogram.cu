@@ -10,30 +10,28 @@
 // histogram_add_plain.
 //
 // What bounds it: same-address atomics. The indices are read once,
-// coalesced (8 B each); the abundance path sends most of them to a few
-// bins (count 1, and the top bin 65,536 that collects every slot the
-// tracking table did not count), so contention, not bandwidth, limits a
-// naive scatter, and worst of all on a global address. Atomics on
-// distinct global addresses are cheap: L2 serves them in parallel.
+// coalesced (8 B each); the abundance path sends most of the ones it keeps
+// to a few low bins (count 1 above all), so contention, not bandwidth,
+// limits a naive scatter, and worst of all on a global address. Atomics on
+// distinct global addresses are cheap: L2 serves them in parallel. (The
+// slots abundance-dist does not count, three in four of a batch, carry an
+// index past its histogram: dropped here at no cost.)
 //
 // Design. The TPU kernel walked the indices one by one into VMEM. Here a
 // grid-stride loop over warps loads kUnroll groups of 32 indices before
 // it counts any; each warp groups a group's indices by value
 // (__match_any_sync) and one lane adds the group's size. Every block keeps
-// its own 32-bit counters in shared memory for the bins that take the
-// crowds, bins [0, kLow) (every count a u8 counter holds) and the top bin
-// nbins - 1, and adds them into the int64 output once at the end; every
-// other bin goes straight to global memory with a 64-bit atomicAdd. So the
-// top bin costs one shared-memory atomic per warp step, never a global
-// one, and the block needs only 1 KB of shared memory, so four blocks of
-// 512 threads fit an SM with all their loads in flight. On an H100 this
-// beat a thread-block cluster that holds every bin in distributed shared
-// memory, on abundance-dist's batch and on 2^21 uniform indices into 2^17
-// bins alike: the cluster's remote adds crowd onto the two blocks owning
-// bins 1 and 65,536, and at the uniform shape its flush adds about as many
-// bins as there are indices (scripts/hist_gather_bench.py; PERF.md). The
-// output is accumulated into, not overwritten. A launch takes fewer than
-// 2^31 indices, so no 32-bit counter overflows; the wrapper splits larger
+// its own 32-bit counters in shared memory for bins [0, kLow) (every count
+// a u8 counter holds), the bins that take the crowds, and adds them into
+// the int64 output once at the end; every other bin goes straight to
+// global memory with a 64-bit atomicAdd. The block needs 1 KB of shared
+// memory. On an H100 this beat a thread-block cluster that holds every
+// bin in distributed shared memory, on abundance-dist's batch and on 2^21
+// uniform indices into 2^17 bins alike: the cluster's remote adds crowd
+// onto the blocks owning the hot bins, and at the uniform shape its flush
+// adds about as many bins as there are indices (PERF.md). The output is
+// accumulated into, not overwritten. A launch takes fewer than 2^31
+// indices, so no 32-bit counter overflows; the wrapper splits larger
 // inputs.
 
 #include <cstdint>
@@ -43,17 +41,18 @@
 namespace khmer_hist {
 namespace {
 
-constexpr int kThreads = 512;  // core/sketch_kernels.py HIST_THREADS
-constexpr int kUnroll = 4;     // 32-index groups a warp loads at once
-constexpr int kLow = 256;      // HIST_LOW_BINS
-constexpr int64_t kMaxLaunch = 2147483647;  // HIST_LAUNCH_LIMIT
+// mirrored in core/sketch_kernels.py as HIST_THREADS, HIST_PER_THREAD,
+// HIST_LOW_BINS and HIST_LAUNCH_LIMIT
+constexpr int kThreads = 512;
+constexpr int kUnroll = 4;  // 32-index groups a warp loads at once
+constexpr int kLow = 256;
+constexpr int64_t kMaxLaunch = 2147483647;
 
 __global__ void __launch_bounds__(kThreads)
 histogram_kernel(const int64_t* __restrict__ idx, int64_t n,
                  unsigned long long* __restrict__ out, int64_t nbins) {
-  // sub[b] for bin b < low, sub[kLow] for the top bin nbins - 1
-  __shared__ unsigned int sub[kLow + 1];
-  for (int b = threadIdx.x; b <= kLow; b += blockDim.x) sub[b] = 0;
+  __shared__ unsigned int sub[kLow];  // bins [0, low)
+  for (int b = threadIdx.x; b < kLow; b += blockDim.x) sub[b] = 0;
   __syncthreads();
   const int64_t low = nbins < kLow ? nbins : kLow;
   const int lane = threadIdx.x & 31;
@@ -82,8 +81,6 @@ histogram_kernel(const int64_t* __restrict__ idx, int64_t n,
         const unsigned count = __popc(peers);
         if (b < low) {
           atomicAdd(&sub[b], count);
-        } else if (b == nbins - 1) {
-          atomicAdd(&sub[kLow], count);
         } else {
           atomicAdd(&out[b], static_cast<unsigned long long>(count));
         }
@@ -91,11 +88,9 @@ histogram_kernel(const int64_t* __restrict__ idx, int64_t n,
     }
   }
   __syncthreads();
-  for (int b = threadIdx.x; b <= kLow; b += blockDim.x) {
-    const unsigned count = sub[b];  // 0 for a bin past nbins
-    if (count != 0) {
-      atomicAdd(&out[b < kLow ? b : nbins - 1],
-                static_cast<unsigned long long>(count));
+  for (int b = threadIdx.x; b < low; b += blockDim.x) {
+    if (sub[b] != 0) {
+      atomicAdd(&out[b], static_cast<unsigned long long>(sub[b]));
     }
   }
 }

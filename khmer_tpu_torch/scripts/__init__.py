@@ -5,22 +5,51 @@
 HOLD_CYCLES = 100_000_000
 
 
-def cuda_ms(fn, reps=1):
-    """Mean device time of fn() in ms over `reps` calls, by CUDA events,
-    after one warm-up call. A sleep kernel holds the stream while the
-    host issues the calls, so the host's time to issue one (microseconds
-    through ctypes) does not count where a kernel takes less; a call that
-    waits on the device runs as it is issued."""
+def _events_ms(fn, reps, hold):
     import torch
 
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(HOLD_CYCLES)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def cuda_ms(fn, reps=1):
+    """Mean time of fn() in ms over `reps` calls issued back to back, by
+    CUDA events, after one warm-up call: what a caller sees, the host's
+    time to issue a call included where a kernel takes less."""
+    return _events_ms(fn, reps, hold=False)
+
+
+def device_ms(fn, reps=1):
+    """As cuda_ms, but a sleep kernel holds the stream while the host
+    issues the calls, so only the device's time counts (torch.cuda._sleep,
+    a private torch call); a call that waits on the device runs as it is
+    issued."""
+    return _events_ms(fn, reps, hold=True)
+
+
+def host_us(fn, reps=1):
+    """Host microseconds per call of fn(), the stream held by a sleep
+    kernel so that no call waits on the device."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us

@@ -12,28 +12,24 @@ through the package's own entry points:
     config-1 blocked table (kernel 2), and 2^20 random hashes;
   * scripts/profile_scatter2.py's 2^21 uniform indices into 2^17 bins (C).
 
-Each is timed two ways by CUDA events over `reps` back-to-back calls:
-"paced", as the host issues them (launch overhead included, what a
-caller sees), and "queued", with the stream held by a sleep kernel while
-the calls are issued (the device time alone, scripts.cuda_ms); and the
-host's time to issue one call. The script uses only what the package
-had before kernels C and 2 were redesigned, so it also times another
-checkout's kernels: from the root of this one,
+Each is timed by CUDA events over `reps` back-to-back calls, as the host
+issues them (scripts.cuda_ms: launch overhead included, what a caller
+sees) and with the stream held while they are issued (scripts.device_ms:
+the device time alone), beside the host's time to issue one call
+(scripts.host_us). From the root of the repo:
 
-    python -m khmer_tpu_torch.scripts.hist_gather_bench
-    PYTHONPATH=<other checkout> python khmer_tpu_torch/scripts/hist_gather_bench.py
+    python -m khmer_tpu_torch.scripts.hist_gather_bench [--sweep]
 
-With --sweep (this tree's package) it also times kernel C on other block
-counts than its plan's, and kernel 2 on a table that fits in L2 and on
-hashes sorted by block: what the gather costs when DRAM serves it less.
-Prints one JSON object, with the card's name and power limit.
+With --sweep it also times kernel C on other block counts than its plan's,
+and kernel 2 on a table that fits in L2 and on hashes sorted by block:
+what the gather costs when DRAM serves it less. Prints one JSON object,
+with the card's name and power limit.
 """
 
 import json
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
@@ -41,69 +37,24 @@ import torch
 import khmer_tpu_torch
 from khmer_tpu_torch.core import blocked as B
 from khmer_tpu_torch.core import sketch_kernels as K
+from khmer_tpu_torch.scripts import cuda_ms, device_ms, host_us
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(
     khmer_tpu_torch.__file__)))
 DATA = os.path.join(REPO, "data", "25k.fq.gz")
 KSIZE = 20
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
-HOLD_CYCLES = 100_000_000  # scripts.HOLD_CYCLES
 
 
-def paced_ms(fn, reps):
-    """ms per call of fn() issued back to back by the host."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def queued_ms(fn, reps):
-    """ms per call of fn() with a sleep kernel holding the stream while the
-    host issues the calls: the device time alone (scripts.cuda_ms of this
-    tree, restated here so the script runs on an older package)."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def host_us(fn, reps):
-    """Host microseconds per call of fn(), the stream held by a sleep
-    kernel so that no call waits on the device."""
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(HOLD_CYCLES)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
-def both(fn, reps):
-    return {"paced_ms": paced_ms(fn, reps), "queued_ms": queued_ms(fn, reps),
+def timed(fn, reps):
+    return {"ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps),
             "host_us": host_us(fn, reps)}
 
 
 def first_batch(main, dev):
-    """The first abundance batch of `main` (a config-1 sketch): the unique
-    hash slots, and the histogram indices make_abund_dist builds from
-    them (main's counts via its gather)."""
+    """The first abundance batch of `main` (a config-1 sketch) through
+    sketch_kernels.abund_batch, as abundance-dist's step builds it: the
+    unique hash slots and their histogram indices."""
     from khmer_tpu_torch import Nodegraph
     from khmer_tpu_torch.core.pipeline import Batcher, hash_batch
     from khmer_tpu_torch.io.fastx import FastxParser
@@ -118,14 +69,16 @@ def first_batch(main, dev):
     hashes, valid = hash_batch(torch.from_numpy(codes).to(dev),
                                torch.from_numpy(lengths).to(dev), KSIZE)
     tracking = Nodegraph(KSIZE, 1, 1, primes=main.hashsizes(), device=dev)
-    d = K._dedup_batch(hashes.reshape(-1), valid.reshape(-1))
-    counted = d["uvalid"] & K._apply_update("bit", tracking._primes,
-                                            tracking.tables, d)
-    counts = K._gather_counts(main.storage_kind, main._primes, main.tables,
-                              d["uh"]).to(torch.int64)
-    is_sat = counted & (counts == K.MAX_KCOUNT)
-    idx = torch.where(counted & ~is_sat, counts, K.MAX_BIGCOUNT + 1)
-    return d["uh"], idx
+    b = K.abund_batch("bit", tracking._primes, tracking.tables,
+                      main.storage_kind, main._primes, main.tables,
+                      hashes.reshape(-1), valid.reshape(-1))
+    return b["uh"], b["idx"]
+
+
+def bincount(idx, nbins):
+    """torch.bincount as histogram_add computes it, for indices >= 0: the
+    bins past nbins dropped."""
+    return torch.bincount(idx, minlength=nbins)[:nbins]
 
 
 def stream_chunk(n=1 << 20):
@@ -159,21 +112,19 @@ def blocked_floors(nblocks, hashes):
 
 def hist_bound_bytes(idx, nbins):
     """8 B an index, a read and a write (int64) of each touched bin."""
-    touched = int((torch.bincount(idx[(idx >= 0) & (idx < nbins)],
-                                  minlength=nbins) != 0).sum())
+    touched = int((bincount(idx[idx >= 0], nbins) != 0).sum())
     return 8 * idx.shape[0] + 16 * touched
 
 
 def time_hist(idx, nbins, reps):
     acc = torch.zeros(nbins, dtype=torch.int64, device=idx.device)
-    want = torch.bincount(idx, minlength=nbins)
+    want = bincount(idx, nbins)
     got = K.histogram_add_cuda(torch.zeros_like(acc), idx)
     out = {"indices": idx.shape[0], "nbins": nbins,
            "max_abs_err": int((got - want).abs().max()),
            "bound_ms": hist_bound_bytes(idx, nbins) / PEAK_BYTES_S * 1e3}
-    out.update(both(lambda: K.histogram_add_cuda(acc, idx), reps))
-    out["bincount"] = both(lambda: torch.bincount(idx, minlength=nbins),
-                           reps)
+    out.update(timed(lambda: K.histogram_add_cuda(acc, idx), reps))
+    out["bincount"] = timed(lambda: bincount(idx, nbins), reps)
     return out
 
 
@@ -186,7 +137,7 @@ def time_gather2(table, hashes, reps):
            "max_abs_err": int((got - want).abs().max()),
            "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "sectors": sectors,
            "sector_floor_ms": sectors * 32 / PEAK_BYTES_S * 1e3}
-    out.update(both(lambda: B.blocked_gather_cuda(table, hashes), reps))
+    out.update(timed(lambda: B.blocked_gather_cuda(table, hashes), reps))
     return out
 
 
@@ -197,11 +148,11 @@ def sweep(dev, shapes, table, chunk, reps):
     from khmer_tpu_torch.ops import cuda
 
     lib = cuda.library()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = K._sm_count(dev.index)
     stream = K._stream(dev)
     out = {"hist": [], "gather": []}
     for label, idx, nbins in shapes:
-        want = torch.bincount(idx, minlength=nbins)
+        want = bincount(idx, nbins)
         plan = K.histogram_plan(idx.shape[0], sms)
         for blocks in sorted({sms // 2, sms, 2 * sms, 4 * sms, 8 * sms,
                               plan}):
@@ -215,7 +166,7 @@ def sweep(dev, shapes, table, chunk, reps):
             out["hist"].append({
                 "shape": label, "blocks": blocks, "plan": plan,
                 "max_abs_err": int((acc - want).abs().max()),
-                "queued_ms": queued_ms(run, reps)})
+                "device_ms": device_ms(run, reps)})
     small = table[:196613]  # 25 MB: fits in L2
     order = torch.argsort(K.umod(chunk, table.shape[0]))
     for label, tab, h in (("chunk, L2-resident table", small, chunk),
@@ -234,7 +185,7 @@ def main(reps=50, do_sweep=False):
     from khmer_tpu_torch.io.fastx import FastxParser
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    nbins = K.MAX_BIGCOUNT + 2
+    nbins = K.ABUND_BINS
     exact = Countgraph(KSIZE, 5e7, 4, device=dev)
     exact.set_use_bigcount(True)
     exact.consume_seqfile(FastxParser(DATA))
@@ -256,7 +207,6 @@ def main(reps=50, do_sweep=False):
             ["nvidia-smi", "-i", str(dev.index),
              "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60).stdout.strip(),
-        "package": os.path.dirname(khmer_tpu_torch.__file__),
         "hist_exact_batch": time_hist(idx_exact, nbins, reps),
         "hist_blocked_batch": time_hist(idx_blocked, nbins, reps),
         "hist_uniform_2^21x2^17": time_hist(uniform, 1 << 17, reps),

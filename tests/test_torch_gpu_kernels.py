@@ -179,15 +179,18 @@ def test_histogram_add_matches_plain(cuda_device, m, nbins):
     assert torch.equal(got, want)
 
 
-def test_histogram_add_abundance_shape_matches_plain(cuda_device):
-    """abundance-dist's batch: 65,537 bins, three quarters of 1,785,856
-    indices on the top bin, counts 1..255 below it, wrapped negatives,
-    into a nonzero histogram, twice (accumulated)."""
+@pytest.mark.parametrize("sink", ["past the last bin", "the top bin"])
+def test_histogram_add_abundance_shape_matches_plain(cuda_device, sink):
+    """abundance-dist's batch: 65,536 bins, three quarters of 1,785,856
+    indices past the last bin (the slots it does not count; dropped) or on
+    the top bin, counts 1..255, wrapped negatives, into a nonzero
+    histogram, twice (accumulated)."""
     dev = cuda_device
-    nbins = K.MAX_BIGCOUNT + 2
+    nbins = K.ABUND_BINS
     rng = np.random.default_rng(nbins)
     m = 1_785_856
-    idx = np.full(m, nbins - 1, dtype=np.int64)
+    idx = np.full(m, nbins if sink == "past the last bin" else nbins - 1,
+                  dtype=np.int64)
     live = rng.choice(m, m // 4, replace=False)
     idx[live] = np.minimum(rng.geometric(0.6, len(live)), 255)
     idx[live[:3000]] = -rng.integers(1, nbins + 1, 3000)
@@ -203,8 +206,8 @@ def test_histogram_add_abundance_shape_matches_plain(cuda_device):
 @pytest.mark.parametrize("nbins", [3, 256, 257, 65_537, 1 << 17, 10**6])
 def test_histogram_add_private_bin_edges_match_plain(cuda_device, nbins):
     """Indices on the edges of the bins each block counts in shared memory
-    ([0, HIST_LOW_BINS) and the top bin) and of the bins added in global
-    memory, crowded (every warp sees the same few bins), their wrapped
+    ([0, HIST_LOW_BINS)) and of the bins added in global memory (up to the
+    top bin), crowded (every warp sees the same few bins), their wrapped
     negatives, and out-of-range indices on both sides."""
     dev = cuda_device
     low = K.HIST_LOW_BINS
@@ -241,6 +244,17 @@ def test_histogram_add_splits_launches_under_a_lowered_limit(cuda_device,
     got = K.histogram_add_cuda(torch.zeros_like(got), idx_d[7:])
     want = K.histogram_add_plain(torch.zeros_like(want), idx_d[7:])
     assert torch.equal(got, want)
+
+
+def test_raw_stream_handle_is_the_current_streams(cuda_device):
+    """The wrappers pass sketch_kernels._stream, a private torch call, as
+    the stream of every launch: it must name torch's current stream, on
+    the default stream and inside another."""
+    dev = cuda_device
+    assert K._stream(dev) == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert K._stream(dev) == side.cuda_stream != 0
 
 
 @pytest.mark.parametrize("nblocks", [1_562_471, 16_777_213, 7])

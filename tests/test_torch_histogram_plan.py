@@ -1,10 +1,10 @@
 """Kernel C's launch plan and kernel 2's reduction, which are plain Python
 and run here (khmer_tpu_torch/core/sketch_kernels.py histogram_plan and
 histogram_add_cuda's split into launches; ops/u64.py umod_reciprocal at
-the blocked layout's block counts), and histogram_add_plain against
-JAX's .at[].add on abundance-shaped batches. The kernels themselves run
-only on the card (tests/test_torch_gpu_kernels.py). Integer results:
-exact."""
+the blocked layout's block counts), histogram_add_plain against JAX's
+.at[].add on abundance-shaped batches, and one abundance-dist step, whose
+indices kernel C takes, against JAX's. The kernels themselves run only on
+the card (tests/test_torch_gpu_kernels.py). Integer results: exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,22 +24,23 @@ H100_SMS = 132
 def test_plan_fills_the_card_but_no_more_than_the_work(n):
     blocks = K.histogram_plan(n, H100_SMS)
     per_block = K.HIST_THREADS * K.HIST_PER_THREAD
-    # one wave: four blocks of 512 threads an SM
-    assert 1 <= blocks <= H100_SMS * K.HIST_BLOCKS_PER_SM == 528
+    # one wave: two blocks of 512 threads an SM
+    assert 1 <= blocks <= H100_SMS * K.HIST_BLOCKS_PER_SM == 264
     # every block has indices to count, and the blocks take them all in
     # one trip each unless the card is full
     assert (blocks - 1) * per_block < n
-    assert blocks * per_block >= n or blocks == 528
+    assert blocks * per_block >= n or blocks == 264
 
 
 def test_plan_at_the_main_paths_shapes():
     # abundance-dist's batch and profile_scatter2's indices fill the card
-    assert K.histogram_plan(1_785_856, H100_SMS) == 528
-    assert K.histogram_plan(1 << 21, H100_SMS) == 528
+    assert K.histogram_plan(1_785_856, H100_SMS) == 264
+    assert K.histogram_plan(1 << 21, H100_SMS) == 264
     # a small input takes few blocks: 2,048 indices a block
     assert K.histogram_plan(5_000, H100_SMS) == 3
-    assert K.histogram_plan(5_000, 1) == 3
-    assert K.histogram_plan(10**6, 1) == 4
+    # and one SM takes two
+    assert K.histogram_plan(5_000, 1) == 2
+    assert K.histogram_plan(10**6, 1) == 2
 
 
 def test_plan_never_takes_fewer_blocks_for_more_indices():
@@ -124,6 +125,48 @@ def test_histogram_add_plain_matches_jax_on_an_abundance_batch(nbins):
                           torch.from_numpy(idx))
     assert np.array_equal(got.numpy(), start + want)
     assert want[nbins - 1] >= 3 * m // 4 - len(wrap)
+
+
+def test_abundance_step_matches_jax_step():
+    """One abundance-dist step (make_abund_dist through abund_batch) on a
+    seeded batch, with duplicates, invalid slots and saturated counts,
+    against JAX's: the same tracking tables, histogram bins
+    0..MAX_BIGCOUNT and saturated count. The port drops the slots it does
+    not count (index ABUND_BINS); JAX adds them to a bin past the
+    histogram, which its caller drops."""
+    from khmer_tpu.core import sketch_kernels as JK
+
+    rng = np.random.default_rng(11)
+    primes, track_primes = (1009, 1013, 1019, 1021), (10007, 10009)
+    tables = [np.where(rng.random(p) < 0.7, 255,
+                       rng.integers(1, 4, p)).astype(np.uint8)
+              for p in primes]
+    pool = rng.integers(0, 2**64, 3000, dtype=np.uint64)
+    hashes = pool[rng.integers(0, 3000, 8192)]
+    valid = rng.random(8192) < 0.9
+
+    jstep = JK.make_abund_dist("bit", track_primes, "byte", primes)
+    jtrack, jdist, jsat, _ = jstep(
+        JK.init_tables("bit", track_primes),
+        jnp.zeros(K.MAX_BIGCOUNT + 2, dtype=jnp.uint64),
+        tuple(jnp.asarray(t) for t in tables), jnp.asarray(hashes),
+        jnp.asarray(valid))
+
+    main = K.init_tables("byte", primes, "cpu")
+    for view, t in zip(main, tables):
+        view.copy_(torch.from_numpy(t))
+    track = K.init_tables("bit", track_primes, "cpu")
+    dist = torch.zeros(K.ABUND_BINS, dtype=torch.int64)
+    step = K.make_abund_dist("bit", track_primes, "byte", primes)
+    n_sat, _ = step(track, dist, main,
+                    torch.from_numpy(hashes.view(np.int64)),
+                    torch.from_numpy(valid))
+    jdist = np.asarray(jdist).astype(np.int64)
+    assert np.array_equal(dist.numpy(), jdist[:K.ABUND_BINS])
+    assert dist[1:4].sum() > 0 and jdist[K.ABUND_BINS] > 0
+    assert int(n_sat) == int(jsat) > 0
+    for t, jt in zip(track, jtrack):
+        assert np.array_equal(t.numpy(), np.asarray(jt))
 
 
 BLOCK_COUNTS = [1, 2, 1_562_471, 16_777_213, 2**31 - 1]

@@ -106,10 +106,10 @@ def test_wrapper_splits_what_one_launch_cannot_take(monkeypatch):
 
 @pytest.mark.parametrize("nbins", [3, 256, 257, 65_537])
 def test_histogram_add_plain_matches_jax_on_an_abundance_batch(nbins):
-    """abundance-dist's shape (65,537 bins): three quarters of the indices
-    on the top bin (every slot the tracking table did not count), counts
-    1..255 below it, and wrapped negatives, into a nonzero histogram; and
-    the same on as few bins as sit around kernel C's private range."""
+    """abundance-dist's batch shape at 65,537 bins: three quarters of the
+    indices crowded on one bin, the top one, counts 1..255 below it, and
+    wrapped negatives, into a nonzero histogram; and the same on as few
+    bins as sit around kernel C's private range."""
     rng = np.random.default_rng(nbins)
     m = 200_000
     idx = np.full(m, nbins - 1, dtype=np.int64)

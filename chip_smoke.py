@@ -23,7 +23,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      blocks, repeated lanes with invalid ids and saturation, a crowded
      bucket; the byte gather on the edges of its reduction by a
      reciprocal, on random tables of 0.2, 4 and 20 GB, and the blocked
-     gather on them at 0.2 and 2.15 GB);
+     gather on them at 0.2 and 2.15 GB; the diginorm median test and
+     keep/consume scan on the windows of scripts/diginorm_cases.py:
+     counters at 254 and 255, C = 1, 255 and 300, k = 32, rows of 64 and
+     4096 codes, 1 and 32 tables, a window rejected whole and one not at
+     all, and the byte tables of 0.2, 4 and 20 GB);
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
      blocked, k=20, 4 x 5e7 bytes) on data/25k.fq.gz, then the abundance
      histogram; results must equal the JAX package's and the blocked
@@ -48,7 +52,16 @@ Phases (each prints a line; any failure raises and exits non-zero):
      event update against its plain version and against the blocked
      update in the same run, with its scratch) and
      scripts/profile_scatter2.py (the histogram against its plain version
-     and torch.bincount).
+     and torch.bincount);
+  7. config 2: the port's normalize-by-median -C 20 -s on
+     data/stamps-reads.fa.gz (the defaults: k 32, 4 x 1e6 tables); the
+     JAX answers (.keep and .ct sha256, kept reads, n_unique) asserted and
+     the median-test and scan kernels seen to launch; a traced run for
+     their device time; both kernels on window 6 against their plain
+     versions, beside their bounds (scripts/diginorm_bench.py);
+  7b. config 2 at -k 20 -C 20 -x 1e9 -N 4 (4 GB of tables) on 1,000,000
+     seeded synthetic reads (scripts/synth_reads.py); the JAX answers
+     asserted, the device memory beside the tables, a traced run.
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees; the phase lines of
 the histogram and the gathers also print their device time alone
@@ -122,6 +135,37 @@ EXPECT_EXACT = {
 }
 SCALE_X = (1e9, 5e9)  # phase 5b's large tables: -x 1e9 / 5e9 -N 4
 
+STAMPS = os.path.join(REPO, "data", "stamps-reads.fa.gz")
+# Config 2 through the JAX package (khmer_tpu, CPU), the same under
+# KHMER_TPU_ENGINE=auto (the native host tier) and =device (the scan):
+# normalize-by-median -C 20 -s out.ct data/stamps-reads.fa.gz (k 32, 4
+# tables near 1e6: the defaults).
+EXPECT_C2 = {
+    "reads": 200000,
+    "kept": 26834,
+    "n_unique": 663232,
+    "keep_sha256": "851c9b21bbc10505b19ee8a1508f136b"
+                   "51bd46d5190dd6845f51b2fdfed41992",
+    "ct_bytes": 3999942,
+    "ct_sha256": "a822096360a2be140c53fed77678b6e1"
+                 "6c32091d9cc9acd178d94e6acb901dbc",
+}
+# Phase 7b through the JAX package (CPU, KHMER_TPU_ENGINE=auto):
+# normalize-by-median -k 20 -C 20 -x 1e9 -N 4 -s out.ct on the reads of
+# khmer_tpu_torch/scripts/synth_reads.py at its defaults.
+EXPECT_C2_SCALE = {
+    "reads": 1000000,
+    "input_sha256": "a3157d2e2fad87287f346c335f697133"
+                    "5f33c80d9cf6fb5e8e9549aca15a3329",
+    "kept": 691977,
+    "n_unique": 13244756,
+    "keep_sha256": "4769367e26918d0f785edd76d51473be"
+                   "56b25160ff04944dc3107b578cfc7d4d",
+    "ct_bytes": 3999999702,
+    "ct_sha256": "a96e76ab8d1b00f288e1f2130ff7e565"
+                 "ce21567ee83f6b31ec7313b1a878b919",
+}
+
 
 class SmokeFailure(AssertionError):
     pass
@@ -189,7 +233,8 @@ def main():
     # -- phase 3: kernels vs plain versions, exact -------------------------
     errs = {name: 0 for name in ("blocked_update", "blocked_gather",
                                  "byte_update", "byte_gather",
-                                 "histogram_add", "proto_rmw")}
+                                 "histogram_add", "proto_rmw",
+                                 "diginorm_med", "diginorm_scan")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
         run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs)
@@ -200,11 +245,13 @@ def main():
     n_proto = run_proto_cases(torch, np, B, dev, errs)
     n_edges = run_gather_edge_cases(torch, np, SK, dev, errs)
     n_edges2 = run_gather2_edge_cases(torch, np, B, dev, errs)
+    n_digi = run_diginorm_cases(torch, dev, errs)
     say("phase 3 exact: kernel == plain on %d blocked, %d byte, %d "
-        "histogram, %d decoded-event, %d byte-gather-reduction and %d "
-        "blocked-gather-reduction cases (tables, flags, n_unique, bigcount "
-        "reports, counts)"
-        % (len(cases), len(byte_cases), n_hist, n_proto, n_edges, n_edges2))
+        "histogram, %d decoded-event, %d byte-gather-reduction, %d "
+        "blocked-gather-reduction and %d diginorm cases (tables, flags, "
+        "n_unique, bigcount reports, counts, keep flags)"
+        % (len(cases), len(byte_cases), n_hist, n_proto, n_edges, n_edges2,
+           n_digi))
 
     # -- phase 4: config 1, blocked, through the port's entry points -------
     launches = run_config1(torch, B, SK, dev, card, errs)
@@ -225,6 +272,14 @@ def main():
     # -- phase 6: microbenchmarks -------------------------------------------
     timings.update(run_microbench(B, card, launches, errs))
 
+    # -- phase 7: config 2, normalize-by-median, through the CLI -----------
+    digi_launches, digi_timings = run_config2(torch, SK, dev, card, errs)
+    launches.update(digi_launches)
+    timings.update(digi_timings)
+
+    # -- phase 7b: config 2 at 4 GB of tables --------------------------------
+    run_config2_scale(torch, SK, dev, card)
+
     kernels = []
     for name, source, replaces in (
             ("blocked_update", "blocked_update.cu",
@@ -237,7 +292,11 @@ def main():
              "khmer_tpu/core/sketch_kernels.py:649"),
             ("histogram_add", "histogram.cu",
              "scripts/profile_scatter2.py:59"),
-            ("proto_rmw", "proto_rmw.cu", "scripts/pallas_proto.py:44")):
+            ("proto_rmw", "proto_rmw.cu", "scripts/pallas_proto.py:44"),
+            ("diginorm_med", "diginorm_med.cu",
+             "khmer_tpu/core/diginorm_scan.py:93"),
+            ("diginorm_scan", "diginorm_scan.cu",
+             "khmer_tpu/core/diginorm_scan.py:127")):
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1191,6 +1250,241 @@ def run_microbench(B, card, launches, errs):
     p_bound = bound(t["bytes"], t["ops"])
     return {"proto_rmw": {"ms": t["ms"], "plain_ms": t["plain_ms"],
                           "bound_ms": p_bound[0], "bound_by": p_bound[1]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: config 2, normalize-by-median, through the CLI
+# ---------------------------------------------------------------------------
+
+
+def run_diginorm_cases(torch, dev, errs):
+    """Kernels E and F against their plain versions on the windows of
+    scripts/diginorm_cases.py."""
+    from khmer_tpu_torch.scripts import diginorm_cases
+
+    for name in diginorm_cases.CASES:
+        got = diginorm_cases.check_case(name, dev)
+        errs["diginorm_med"] = max(errs["diginorm_med"], got["med"])
+        errs["diginorm_scan"] = max(errs["diginorm_scan"], got["scan"])
+        expect(got["med"] == 0, "diginorm_med != plain on case %s" % name)
+        expect(got["scan"] == 0, "diginorm_scan != plain on case %s" % name)
+        if name == "all-rejected":
+            expect(got["rejected"] == got["bundles"]
+                   and got["kept after E"] == 0,
+                   "phase A left bundles in the all-rejected window")
+        if name == "none-rejected":
+            expect(got["rejected"] == 0,
+                   "phase A rejected bundles in the none-rejected window")
+        say("  diginorm case %-20s %d bundles: rejected by E %d; kept after "
+            "E %d, alone %d; new k-mers after E %d, alone %d"
+            % (name, got["bundles"], got["rejected"], got["kept after E"],
+               got["kept alone"], got["new after E"], got["new alone"]))
+    return len(diginorm_cases.CASES)
+
+
+def _normalize(torch, args, cwd):
+    """The port's normalize-by-median in this process, in `cwd`: (wall s,
+    its stderr, the ScanNormalizer it made)."""
+    import contextlib
+    import io
+
+    from khmer_tpu_torch.cli import normalize_by_median as nbm
+
+    made = []
+    engine = nbm.ScanNormalizer
+
+    class Recording(engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    err = io.StringIO()
+    old = os.getcwd()
+    nbm.ScanNormalizer = Recording
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stderr(err):
+            t0 = time.perf_counter()
+            nbm.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        os.chdir(old)
+        nbm.ScanNormalizer = engine
+    return wall, err.getvalue(), made[0]
+
+
+def _traced_normalize(torch, args, cwd):
+    """_normalize under torch.profiler: (wall s, device ms in all, (ms,
+    launches) of kernel E, of kernel F, the ScanNormalizer)."""
+    from torch.autograd import DeviceType
+
+    from khmer_tpu_torch.scripts.trace_config1 import _self_device_us
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall, _, norm = _normalize(torch, args, cwd)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+
+    def kernel(name):
+        hit = [e for e in events if name in e.key]
+        return (sum(_self_device_us(e) for e in hit) / 1e3,
+                sum(e.count for e in hit))
+
+    return (wall, sum(_self_device_us(e) for e in events) / 1e3,
+            kernel("med_kernel"), kernel("scan_kernel"), norm)
+
+
+def _file_sha256(path):
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 26), b""):
+            h.update(block)
+    return h.hexdigest(), os.path.getsize(path)
+
+
+def _check_normalize(E, err, keep_path, ct_path, label):
+    """The run's answers against the JAX package's: (kept reads, n_unique,
+    .keep sha256, .ct sha256, .ct bytes)."""
+    n_unique = int(err.split("Total number of unique k-mers:")[1].split()[0])
+    with open(keep_path, "rb") as f:
+        kept = f.read().count(b">")
+    keep_sha, _ = _file_sha256(keep_path)
+    ct_sha, ct_bytes = _file_sha256(ct_path)
+    got = (kept, n_unique, keep_sha, ct_sha, ct_bytes)
+    expect(got == (E["kept"], E["n_unique"], E["keep_sha256"],
+                   E["ct_sha256"], E["ct_bytes"]),
+           "%s: (kept, n_unique, .keep sha256, .ct sha256, .ct bytes) = %s, "
+           "JAX gives %s" % (label, got, (E["kept"], E["n_unique"],
+                                          E["keep_sha256"], E["ct_sha256"],
+                                          E["ct_bytes"])))
+    return got
+
+
+def run_config2(torch, SK, dev, card, errs):
+    """Config 2 as BASELINE defines it, through the port's CLI in this
+    process: normalize-by-median -C 20 -s out.ct data/stamps-reads.fa.gz
+    (k 32, 4 x 1e6 tables), the JAX answers asserted and kernels E and F
+    seen to launch; then a traced run (device time by kernel), and E and
+    F on window 6 against their plain versions, timed beside their bounds
+    (scripts/diginorm_bench.py). Returns the launches and those times."""
+    from khmer_tpu_torch.scripts.diginorm_bench import time_window
+
+    E = EXPECT_C2
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        run, traced = os.path.join(tmp, "run"), os.path.join(tmp, "trace")
+        os.makedirs(run)
+        os.makedirs(traced)
+        SK.diginorm_med_cuda.launches = 0
+        SK.diginorm_scan_cuda.launches = 0
+        wall, err, norm = _normalize(
+            torch, ["-C", "20", "-s", "out.ct", STAMPS], run)
+        launches = {"diginorm_med": SK.diginorm_med_cuda.launches,
+                    "diginorm_scan": SK.diginorm_scan_cuda.launches}
+        got = _check_normalize(E, err, os.path.join(
+            run, "stamps-reads.fa.gz.keep"), os.path.join(run, "out.ct"),
+            "config 2")
+        windows, cand = norm.scan_windows, int(norm.candidates)
+        t_wall, dev_ms, (e_ms, e_n), (f_ms, f_n), _ = _traced_normalize(
+            torch, ["-C", "20", STAMPS], traced)
+    for name, n in launches.items():
+        expect(n > 0, "%s never launched on the config-2 path" % name)
+    say("phase 7 config 2: normalize-by-median -C 20 -s on "
+        "data/stamps-reads.fa.gz: %.6f s = %.6g reads/s; kept %d of %d, "
+        "n_unique %d, .keep sha256 %s, .ct %d B sha256 %s (the JAX "
+        "answers); %d windows, %d scan candidates (%.1f a window); "
+        "launches %s; traced: %.6f s, device %.4f ms (busy %.2f%%), "
+        "diginorm_med %.4f ms in %d launches (%.4f a window), "
+        "diginorm_scan %.4f ms in %d launches (%.4f a window, %.3f us a "
+        "candidate); on %s"
+        % (wall, E["reads"] / wall, got[0], E["reads"], got[1], got[2],
+           got[4], got[3], windows, cand, cand / max(windows, 1), launches,
+           t_wall, dev_ms, 100 * dev_ms / (t_wall * 1e3), e_ms, e_n,
+           e_ms / max(e_n, 1), f_ms, f_n, f_ms / max(f_n, 1),
+           f_ms * 1e3 / max(cand, 1), card))
+
+    w = time_window(dev)
+    for key, name in (("med", "diginorm_med"), ("scan", "diginorm_scan")):
+        errs[name] = max(errs[name], w[key]["mismatches"])
+        expect(w[key]["mismatches"] == 0,
+               "%s != plain on config 2's window %d" % (name, w["window"]))
+    m, s = w["med"], w["scan"]
+    say("  config 2 window %d: %d bundles of rows of %d codes, %d "
+        "candidates, %d kept; diginorm_med kernel %.4f ms, plain %.4f ms, "
+        "bound %.5f ms (%s; %d B, %d ops); diginorm_scan kernel %.4f ms "
+        "(%.3f us a candidate), plain %.4f ms, bound %.5f ms (%s; %d B, "
+        "%d ops); on %s"
+        % (w["window"], w["bundles"], w["L"], w["candidates"], w["kept"],
+           m["ms"], m["plain_ms"], m["bound"][0], m["bound"][1],
+           m["bytes"], m["ops"], s["ms"], s["us_per_candidate"],
+           s["plain_ms"], s["bound"][0], s["bound"][1], s["bytes"],
+           s["ops"], card))
+    timings = {name: {"ms": w[key]["ms"], "plain_ms": w[key]["plain_ms"],
+                      "bound_ms": w[key]["bound"][0],
+                      "bound_by": w[key]["bound"][1], "library_ms": None}
+               for key, name in (("med", "diginorm_med"),
+                                 ("scan", "diginorm_scan"))}
+    torch.cuda.empty_cache()
+    return launches, timings
+
+
+def run_config2_scale(torch, SK, dev, card):
+    """Config 2 at a table size users run: normalize-by-median -k 20 -C 20
+    -x 1e9 -N 4 -s (4 GB of u8 tables) on 1,000,000 seeded synthetic
+    reads (scripts/synth_reads.py), the JAX answers asserted, E and F seen
+    to launch, the device memory beside the tables read; then a traced
+    run without -s for F's time a candidate."""
+    from khmer_tpu_torch.scripts.synth_reads import write_reads
+
+    E = EXPECT_C2_SCALE
+    args = ["-k", "20", "-C", "20", "-x", "1e9", "-N", "4"]
+    primes = SK.get_n_primes_near_x(4, 1e9)
+    tables = SK.byte_flat_size(primes)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        reads = os.path.join(tmp, "synth.fa")
+        t0 = time.perf_counter()
+        write_reads(reads)
+        gen_s = time.perf_counter() - t0
+        sha, _ = _file_sha256(reads)
+        expect(sha == E["input_sha256"], "synthetic reads: sha256 %s" % sha)
+        run, traced = os.path.join(tmp, "run"), os.path.join(tmp, "trace")
+        os.makedirs(run)
+        os.makedirs(traced)
+        SK.diginorm_med_cuda.launches = 0
+        SK.diginorm_scan_cuda.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        wall, err, norm = _normalize(torch, args + ["-s", "out.ct", reads],
+                                     run)
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = (SK.diginorm_med_cuda.launches,
+                    SK.diginorm_scan_cuda.launches)
+        got = _check_normalize(E, err, os.path.join(run, "synth.fa.keep"),
+                               os.path.join(run, "out.ct"), "config 2 at 4 GB")
+        os.remove(os.path.join(run, "out.ct"))
+        windows, cand = norm.scan_windows, int(norm.candidates)
+        t_wall, dev_ms, (e_ms, e_n), (f_ms, f_n), t_norm = _traced_normalize(
+            torch, args + [reads], traced)
+    expect(min(launches) > 0, "diginorm kernels never launched at 4 GB")
+    say("phase 7b config 2 at -k 20 -C 20 -x 1e9 -N 4: %d synthetic reads "
+        "(written in %.3f s), %.6f s = %.6g reads/s; kept %d, n_unique %d, "
+        ".keep sha256 %s, .ct %d B sha256 %s (the JAX answers); tables "
+        "%.3f GB, peak device memory %.3f GB, beside the tables %.1f MB (a "
+        "u32 copy of the tables would add %.3f GB); %d windows, %d scan "
+        "candidates; launches %s; traced: %.6f s, device %.4f ms (busy "
+        "%.2f%%), diginorm_med %.4f ms in %d launches, diginorm_scan %.4f "
+        "ms in %d launches, %.3f us a candidate; on %s"
+        % (E["reads"], gen_s, wall, E["reads"] / wall, got[0], got[1],
+           got[2], got[4], got[3], tables / 1e9, peak / 1e9,
+           (peak - tables) / 1e6, 4 * tables / 1e9, windows, cand,
+           launches, t_wall, dev_ms, 100 * dev_ms / (t_wall * 1e3), e_ms,
+           e_n, f_ms, f_n, f_ms * 1e3 / max(int(t_norm.candidates), 1),
+           card))
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

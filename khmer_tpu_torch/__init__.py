@@ -5,9 +5,10 @@ the same tables, counts and files with PyTorch, and runs the hot
 kernels as hand-written CUDA for Hopper (csrc/). It imports no JAX.
 Ported so far: the counting path in the exact byte layout (Countgraph,
 bigcount, OXLI type-1 files, the default of load-into-counting) and in
-the blocked layout, and the abundance histogram (abundance-dist,
-abundance-dist-single). Sketches are made on the card ("cuda") unless
-the caller names another device.
+the blocked layout, the abundance histogram (abundance-dist,
+abundance-dist-single) and digital normalization (normalize-by-median).
+Sketches are made on the card ("cuda") unless the caller names another
+device.
 """
 
 __version__ = "0.1.0"

@@ -23,22 +23,29 @@ from khmer_tpu_torch.utils.logger import (configure_logging, log_error,
                                           log_info, log_warn)
 
 
+HEADER = ['abundance', 'count', 'cumulative', 'cumulative_fraction']
+
+
 def write_histogram(path, abundances, output_zero):
     """Write the histogram CSV (abundance, count, cumulative count and
     fraction) to `path`, or to stdout for '-' or '/dev/stdout'; stops
     after the last non-empty bin."""
     if path in ('-', '/dev/stdout'):
-        _write_rows(sys.stdout, abundances, output_zero)
+        _write_csv(sys.stdout, abundances, output_zero)
     else:
         with open(path, 'w') as fp:
-            _write_rows(fp, abundances, output_zero)
+            _write_csv(fp, abundances, output_zero)
 
 
-def _write_rows(fp, abundances, output_zero):
-    total = sum(abundances)
+def _write_csv(fp, abundances, output_zero):
     writer = csv.writer(fp)
-    writer.writerow(['abundance', 'count', 'cumulative',
-                     'cumulative_fraction'])
+    writer.writerow(HEADER)
+    write_rows(writer, abundances, output_zero)
+
+
+def write_rows(writer, abundances, output_zero):
+    """The histogram's rows, after the header, through a csv writer."""
+    total = sum(abundances)
     sofar = 0
     for abundance, count in enumerate(abundances):
         if count == 0 and not output_zero:

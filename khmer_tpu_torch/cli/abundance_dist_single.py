@@ -10,13 +10,14 @@ histogram scatter-add (kernel C).
 % python -m khmer_tpu_torch.cli.abundance_dist_single <data> <histout>
 """
 
+import csv
 import os
 import sys
 import textwrap
 
 from khmer_tpu_torch import calc_expected_collisions
 from khmer_tpu_torch.cli import args as khmer_args
-from khmer_tpu_torch.cli.abundance_dist import write_histogram
+from khmer_tpu_torch.cli.abundance_dist import HEADER, write_rows
 from khmer_tpu_torch.cli.args import (add_threading_args,
                                       build_counting_args,
                                       calculate_graphsize,
@@ -95,7 +96,19 @@ def main(argv=None):
         log_error('ERROR: {output} exists; not squashing.',
                   output=args.output_histogram_filename)
         sys.exit(1)
+    # opened, with its header, before counting, as the JAX CLI does: '-'
+    # is a file of that name, and a run that finds nothing leaves the
+    # header alone
+    with open(args.output_histogram_filename, 'w') as hist_fp:
+        hist_fp_csv = csv.writer(hist_fp)
+        hist_fp_csv.writerow(HEADER)
+        hist_fp.flush()
+        _count_and_write(args, hist_fp_csv)
 
+
+def _count_and_write(args, hist_fp_csv):
+    """Count the input twice (the table, then the histogram) and write
+    the histogram's rows after the header."""
     log_info('making countgraph on {device}', device=args.device)
     # 8/(9+eps) of memory for the countgraph, the rest for tracking
     countgraph = khmer_args.create_countgraph(args,
@@ -131,8 +144,7 @@ def main(argv=None):
         log_error("\tPlease verify that the input files are valid.")
         sys.exit(1)
 
-    write_histogram(args.output_histogram_filename, abundances,
-                    args.output_zero)
+    write_rows(hist_fp_csv, abundances, args.output_zero)
 
     if args.savegraph is not None:
         log_info('Saving k-mer countgraph to {savegraph}',

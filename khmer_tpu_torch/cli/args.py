@@ -1,9 +1,9 @@
 """Argument parsing mirroring khmer_args (reference: khmer/khmer_args.py).
 
 A copy of the parts of khmer_tpu/cli/args.py that load-into-counting,
-abundance-dist and abundance-dist-single need: the same flags, memory
-model and sizing math, so the port's CLIs accept the same command lines,
-plus the device a sketch is made on.
+abundance-dist, abundance-dist-single and normalize-by-median need: the
+same flags, memory model, sizing math and loadgraph checks, so the port's
+CLIs accept the same command lines, plus the device a sketch is made on.
 """
 
 import argparse
@@ -13,7 +13,8 @@ import textwrap
 from collections import namedtuple
 
 import khmer_tpu_torch
-from khmer_tpu_torch.utils.logger import log_info, log_warn, print_error
+from khmer_tpu_torch.utils.logger import (configure_logging, log_info,
+                                          log_warn, print_error)
 
 DEFAULT_K = 32
 DEFAULT_N_TABLES = 4
@@ -105,6 +106,18 @@ class KhmerArgumentParser(argparse.ArgumentParser):
         return args
 
 
+class FileType(argparse.FileType):
+    def __call__(self, fname):
+        from io import StringIO
+
+        if (fname == '-' and not isinstance(sys.stdout, StringIO)):
+            if 'r' in self._mode:
+                fname = sys.stdin.fileno()
+            elif 'w' in self._mode:
+                fname = sys.stdout.fileno()
+        return super().__call__(fname)
+
+
 def memory_setting(label):
     """Parse '1G'/'1e9'-style memory strings to floats (bytes)."""
     suffixes = {
@@ -155,6 +168,58 @@ def estimate_optimal_with_K_and_f(num_kmers, des_fp_rate):
     res = namedtuple("result", ["num_htables", "htable_size", "mem_use",
                                 "fp_rate"])
     return res(int_n_tables, ht_size, mem_cap, fp_rate)
+
+
+def check_conflicting_args(args, hashtype):
+    if getattr(args, "quiet", None):
+        configure_logging(args.quiet)
+
+    loadgraph_table_conflicts = {"ksize": DEFAULT_K,
+                                 "n_tables": DEFAULT_N_TABLES,
+                                 "max_tablesize": DEFAULT_MAX_TABLESIZE}
+    loadgraph_autoarg_conflicts = ("unique_kmers", "max_memory_usage")
+
+    if getattr(args, "loadgraph", None):
+        for key, value in loadgraph_table_conflicts.items():
+            if getattr(args, key, value) != value:
+                log_warn('''
+*** WARNING: You are loading a saved k-mer countgraph from
+*** {hashfile}, but have set k-mer table parameters.
+*** Your values for ksize, n_tables, and tablesize
+*** will be ignored.'''.format(hashfile=args.loadgraph))
+                break
+
+        for element in loadgraph_autoarg_conflicts:
+            if getattr(args, element, None):
+                log_warn("\n*** WARNING: You have asked that the graph "
+                         "size be automatically calculated\n"
+                         "*** (by using -U or -M).\n"
+                         "*** But you are loading an existing graph!\n"
+                         "*** Size will NOT be set automatically.")
+                break
+
+        if hashtype in ('countgraph', 'smallcountgraph'):
+            from khmer_tpu_torch.core.oxli_io import (
+                SAVED_SMALLCOUNT, extract_countgraph_info)
+            infoset = extract_countgraph_info(args.loadgraph)
+            args.ksize = infoset.ksize
+            args.n_tables = infoset.n_tables
+            args.max_tablesize = infoset.table_size
+            if infoset.ht_type == SAVED_SMALLCOUNT:
+                args.small_count = True
+
+
+def check_argument_range(low, high, parameter_name):
+    def _in_range(value):
+        value = int(value)
+        if not low <= value < high:
+            print_error("\n** ERROR: khmer only supports "
+                        "%i <= %s < %i.\n" % (low, parameter_name, high))
+            sys.exit(1)
+        else:
+            return value
+
+    return _in_range
 
 
 def _check_fp_rate(args, desired_max_fp):
@@ -249,6 +314,12 @@ def build_counting_args(descr=None, epilog=None, citations=None):
     return parser
 
 
+def add_loadgraph_args(parser):
+    parser.add_argument('-l', '--loadgraph', metavar="filename",
+                        default=None,
+                        help='load a precomputed k-mer graph from disk')
+
+
 def calculate_graphsize(args, graphtype, multiplier=1.0):
     """Target size (in buckets) of each individual table."""
     if graphtype not in _buckets_per_byte:
@@ -311,6 +382,7 @@ def create_matching_nodegraph(countgraph):
 
 
 def report_on_config(args, graphtype='countgraph'):
+    check_conflicting_args(args, graphtype)
     if graphtype not in _buckets_per_byte:
         raise ValueError('unknown graph type: ' + graphtype)
 

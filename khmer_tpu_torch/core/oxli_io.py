@@ -16,6 +16,7 @@ write. The blocked table (private type 127) is written in
 core/blocked.py.
 """
 
+import collections
 import gzip
 import struct
 
@@ -25,6 +26,7 @@ SAVED_SIGNATURE = b"OXLI"
 SAVED_FORMAT_VERSION = 4
 SAVED_COUNTING_HT = 1
 SAVED_HASHBITS = 2
+SAVED_SMALLCOUNT = 7
 
 _TYPE_NAMES = {
     SAVED_COUNTING_HT: "k-mer count graph",
@@ -136,3 +138,34 @@ def load_countgraph(path, device="cuda"):
     from khmer_tpu_torch.core.sketch import Countgraph
 
     return load_sketch(Countgraph, path, device)
+
+
+CgInfo = collections.namedtuple(
+    "CgInfo", ["ksize", "n_tables", "table_size", "use_bigcount",
+               "version", "ht_type", "n_occupied"])
+
+
+def extract_countgraph_info(path):
+    """CgInfo namedtuple; mirrors the reference
+    khmer/__init__.py:134-178 (field order AND table_size rounding)."""
+    try:
+        with open(path, "rb") as f:
+            sig = f.read(4)
+            version = f.read(1)[0]
+            ht_type = f.read(1)[0]
+            if ht_type != SAVED_SMALLCOUNT:
+                use_bigcount = f.read(1)[0]
+            else:
+                use_bigcount = None
+            ksize, n_tables = struct.unpack("<IB", f.read(5))
+            (occupied,) = struct.unpack("<Q", f.read(8))
+            (tablesize,) = struct.unpack("<Q", f.read(8))
+        if sig != SAVED_SIGNATURE:
+            raise ValueError("Count graph file '{}' is missing file type "
+                             "signature. ".format(path) + str(sig))
+    except ValueError:
+        raise
+    except Exception:
+        raise ValueError("Count graph file '{}' is corrupt ".format(path))
+    return CgInfo(ksize, n_tables, round(tablesize, -2), use_bigcount,
+                  version, ht_type, occupied)

@@ -3,9 +3,10 @@
 Counterpart of khmer_tpu/core/sketch_kernels.py, the subset the counting
 slices need: the exact byte layout (update with its bigcount report,
 gather, occupancy), the bit (Bloom) table update behind the tracking
-table of the abundance histogram, the count gathers, and the histogram
-step. A whole batch is committed at once, exactly equivalent to the
-sequential order of the batch:
+table of the abundance histogram, the count gathers, the histogram step,
+and diginorm's median test and keep/consume scan (the XLA functions of
+khmer_tpu/core/diginorm_scan.py). A whole batch is committed at once,
+exactly equivalent to the sequential order of the batch:
 
 - per-event "is new": the reference counts an add as new iff some
   table's bin was zero at that moment (storage.hh:571-624); within a
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from khmer_tpu_torch.ops import cuda
+from khmer_tpu_torch.ops.hashing import rolling_hash_windows
 from khmer_tpu_torch.ops.u64 import _SIGN, umod
 
 MAX_KCOUNT = 255      # reference: include/oxli/oxli.hh:81
@@ -336,11 +338,18 @@ def _layout(primes):
 
 
 def _check_byte_args(primes, flat, hashes):
+    _check_byte_layout(primes, flat)
+    if hashes.device != flat.device:
+        raise ValueError("table and hashes must be on %s" % flat.device)
+    if hashes.dtype != torch.int64 or hashes.dim() != 1 \
+            or not hashes.is_contiguous():
+        raise ValueError("hashes must be a contiguous 1-D int64 tensor")
+
+
+def _check_byte_layout(primes, flat):
     dev = flat.device
     if dev.type != "cuda":
         raise ValueError("the CUDA kernels take CUDA tensors, not %s" % dev)
-    if hashes.device != dev:
-        raise ValueError("table and hashes must be on %s" % dev)
     if not 1 <= len(primes) <= MAX_TABLES:
         raise ValueError("the byte kernels take 1 to %d tables, not %d"
                          % (MAX_TABLES, len(primes)))
@@ -350,9 +359,6 @@ def _check_byte_args(primes, flat, hashes):
         raise ValueError("flat must be the contiguous uint8 buffer of "
                          "byte_flat_size(primes) = %d bytes"
                          % byte_flat_size(primes))
-    if hashes.dtype != torch.int64 or hashes.dim() != 1 \
-            or not hashes.is_contiguous():
-        raise ValueError("hashes must be a contiguous 1-D int64 tensor")
 
 
 def byte_update_cuda(primes, flat, n_unique, hashes, nvalid,
@@ -460,9 +466,292 @@ def byte_gather(primes, flat, hashes):
     return byte_gather_plain(primes, flat, hashes)
 
 
+# bytes of a table that byte_occupied counts at a time
+OCCUPIED_SLICE = 1 << 22
+
+
 def byte_occupied(table0):
-    """Nonzero counters of a byte table (a device scalar)."""
-    return (table0 != 0).sum()
+    """Nonzero counters of a byte table (a device scalar), counted a slice
+    of OCCUPIED_SLICE bytes at a time, so that the count's temporaries
+    follow the slice and not the table: one pass over the 1 GB table 0 of
+    -x 1e9 -N 4 raised the peak device memory by 9 GB on an H100."""
+    total = torch.zeros((), dtype=torch.int64, device=table0.device)
+    for lo in range(0, table0.shape[0], OCCUPIED_SLICE):
+        total += (table0[lo:lo + OCCUPIED_SLICE] != 0).sum()
+    return total
+
+
+# --------------------------------------------------------------------------
+# diginorm: the median test (kernel E) and the keep/consume scan (kernel F)
+# --------------------------------------------------------------------------
+
+# A window is B bundles of at most two reads: rows 2b and 2b + 1 of a
+# [2B, L] uint8 matrix of 2-bit codes, with their lengths (int32 [2B]; 0
+# for an absent read). A read is present iff its length is >= k, and its
+# windows j < length - k + 1 are valid.
+
+
+def _window_hashes(codes, lengths, k):
+    """(hashes [2B, W] int64, valid [2B, W] bool, nvalid [2B] int64) of a
+    window's reads: the canonical 2-bit hash of every k-window, which of
+    them lie inside their read, and max(length - k + 1, 0)."""
+    L = codes.shape[-1]
+    W = L - k + 1
+    hashes = rolling_hash_windows(codes, k)[0]
+    lengths = lengths.to(torch.int64)
+    win = torch.arange(W, device=codes.device)
+    valid = win[None, :] <= (lengths[:, None] - k)
+    return hashes, valid, torch.clamp(lengths - (k - 1), min=0)
+
+
+def _min_required(nvalid):
+    """median_at_least's threshold floor(0.5 + nvalid / 2), in float32 as
+    the reference computes it (hashtable.cc:333-364)."""
+    return torch.floor(0.5 + nvalid.to(torch.float32) / 2.0).to(torch.int64)
+
+
+def med_ok_plain(primes, k, cutoff, flat, codes, lengths):
+    """Phase A of diginorm (JAX diginorm_scan.make_med_ok; plain PyTorch,
+    any device): bool [B], True iff every present read of bundle b has
+    median_at_least(cutoff) under the tables as they stand, i.e. the
+    bundle is rejected. Counts are min(count, 255) over the tables."""
+    hashes, valid, nvalid = _window_hashes(codes, lengths, k)
+    counts = byte_gather_plain(primes, flat, hashes)
+    ge = (valid & (counts >= int(cutoff))).sum(dim=1)
+    ok = (ge >= _min_required(nvalid)) | (lengths < k)
+    return ok.reshape(-1, 2).all(dim=1)
+
+
+def _consume_bundle(flat, n_unique, counters, old):
+    """Commit one kept bundle (JAX diginorm_scan._consume_bundle), in
+    place: counters [T, n] are the flat counters of its n events in stream
+    order, old [T, n] their values before the bundle. Each counter becomes
+    min(old + hits, 255); an event is new iff, in some table, its counter
+    was 0 and it is the bundle's lowest event on that counter."""
+    T, n = counters.shape
+    event = torch.arange(n, device=flat.device).repeat(T)
+    uc, inv, hits = torch.unique(counters.reshape(-1), return_inverse=True,
+                                 return_counts=True)
+    first = torch.full(uc.shape, n, dtype=torch.int64,
+                       device=flat.device).scatter_reduce_(0, inv, event,
+                                                           "amin")
+    fresh = (first[inv] == event) & (old.reshape(-1) == 0)
+    new = torch.zeros(n, dtype=torch.bool, device=flat.device)
+    new[event[fresh]] = True
+    n_unique += new.sum()
+    flat[uc] = (flat[uc].to(torch.int32) + hits).clamp_(
+        max=MAX_KCOUNT).to(torch.uint8)
+
+
+# candidates whose counters diginorm_window_plain computes at once
+_PLAIN_BLOCK = 512
+
+
+def diginorm_window_plain(primes, k, cutoff, flat, n_unique, codes, lengths,
+                          reject=None, n_cand=None):
+    """The diginorm keep/consume scan of one window, in stream order (JAX
+    diginorm_scan.make_diginorm_window with _step_gather, _med_at_least
+    and _consume_bundle; plain PyTorch, any device, a Python loop over
+    bundles). Updates the u8 tables in `flat` and n_unique (int64 [1]) in
+    place and returns keep, bool [B].
+
+    A bundle is kept iff some present read fails median_at_least(cutoff)
+    under the tables the earlier bundles left; a kept bundle adds +1 to the
+    counter of each of its valid windows (read 0's, then read 1's) in each
+    table, saturating at 255 (_consume_bundle). Bundles with `reject` set
+    (kernel E's final rejections) are skipped: keep False, no test; the
+    bundles tested are added to `n_cand` (int64 [1]) when given. The
+    bigcount map plays no part, as in the JAX scan.
+    """
+    hashes, valid, nvalid = _window_hashes(codes, lengths, k)
+    B = codes.shape[0] // 2
+    keep = torch.zeros(B, dtype=torch.bool, device=codes.device)
+    # per read, on the host once: valid windows (a prefix of the row),
+    # the test's threshold, presence
+    nw = valid.sum(dim=1).tolist()
+    min_req = _min_required(nvalid).tolist()
+    present = (lengths >= k).tolist()
+    if reject is None:
+        cand = list(range(B))
+    else:
+        cand = torch.nonzero(~reject).flatten().tolist()
+    if n_cand is not None:
+        n_cand += len(cand)
+    offsets = byte_offsets(primes)
+    C = int(cutoff)
+    for i, b in enumerate(cand):
+        if i % _PLAIN_BLOCK == 0:
+            # every window's counter in each table, for the next block of
+            # candidates (they depend on the hashes alone)
+            rows = torch.tensor(cand[i:i + _PLAIN_BLOCK],
+                                device=codes.device)
+            rows = torch.stack([2 * rows, 2 * rows + 1], dim=1).flatten()
+            block = torch.stack([umod(hashes[rows], p) + o
+                                 for p, o in zip(primes, offsets)])
+        r0, r1 = 2 * b, 2 * b + 1
+        n0 = nw[r0]
+        j = 2 * (i % _PLAIN_BLOCK)
+        # _step_gather: the bundle's events, their counters and counts
+        counters = torch.cat([block[:, j, :n0], block[:, j + 1, :nw[r1]]],
+                             dim=1)
+        old = flat[counters]
+        at_least = old.amin(dim=0).to(torch.int32) >= C
+        ge0, ge1 = torch.stack([at_least[:n0].sum(),
+                                at_least[n0:].sum()]).tolist()
+        # _med_at_least: an absent read passes
+        ok0 = not present[r0] or ge0 >= min_req[r0]
+        ok1 = not present[r1] or ge1 >= min_req[r1]
+        if ok0 and ok1:
+            continue
+        keep[b] = True
+        _consume_bundle(flat, n_unique, counters, old)
+    return keep
+
+
+# Kernel F (csrc/diginorm_scan.cu): one block of DIGI_SCAN_THREADS threads
+# walks the window; its shared-memory map holds DIGI_MAP_SLOTS counters;
+# these mirror its constants.
+DIGI_SCAN_THREADS = 256
+DIGI_MAP_SLOTS = 4096
+
+
+def diginorm_plan(L, k, ntables):
+    """Kernel F's shared memory for a window of rows of L codes, k-mers of
+    k and `ntables` tables: {"sub": events a sub-chunk of the adds, "smem":
+    dynamic shared bytes, "parts": {name: bytes}}. The parts, in the
+    kernel's order: the map's keys (8 B a slot), the bundle's hashes (8 B
+    for each of its at most 2 (L - k + 1) windows), the map's hits and
+    lowest events (4 B a slot each), the candidate list (4 B a thread) and
+    a sub-chunk's new flags (1 B an event). It follows the window (L, k)
+    and the number of tables, never their size: there is no other
+    scratch."""
+    L, k, ntables = int(L), int(k), int(ntables)
+    if not 1 <= k <= 32 or L < k:
+        raise ValueError("rows of %d codes hold no %d-mer" % (L, k))
+    if not 1 <= ntables <= MAX_TABLES:
+        raise ValueError("the byte kernels take 1 to %d tables, not %d"
+                         % (MAX_TABLES, ntables))
+    sub = DIGI_MAP_SLOTS // (2 * ntables)
+    parts = {"keys": 8 * DIGI_MAP_SLOTS, "hashes": 8 * 2 * (L - k + 1),
+             "hits": 4 * DIGI_MAP_SLOTS, "first": 4 * DIGI_MAP_SLOTS,
+             "list": 4 * DIGI_SCAN_THREADS, "fresh": sub}
+    return {"sub": sub, "smem": sum(parts.values()), "parts": parts}
+
+
+def _check_window(codes, lengths, k, dev):
+    if codes.device != dev or lengths.device != dev:
+        raise ValueError("codes and lengths must be on %s" % dev)
+    if (codes.dtype != torch.uint8 or codes.dim() != 2
+            or not codes.is_contiguous() or codes.shape[0] % 2):
+        raise ValueError("codes must be a contiguous uint8 [2B, L] tensor")
+    if (lengths.dtype != torch.int32 or lengths.dim() != 1
+            or not lengths.is_contiguous()
+            or lengths.shape[0] != codes.shape[0]):
+        raise ValueError("lengths must be a contiguous int32 [2B] tensor")
+    if not 1 <= int(k) <= 32 or codes.shape[1] < int(k):
+        raise ValueError("rows of %d codes hold no %d-mer"
+                         % (codes.shape[1], k))
+
+
+def _bundle_flags(t, B, dev, what):
+    if (t.device != dev or t.dtype != torch.bool or t.dim() != 1
+            or t.shape[0] != B or not t.is_contiguous()):
+        raise ValueError("%s must be a contiguous bool [%d] tensor on %s"
+                         % (what, B, dev))
+
+
+def _cutoff_arg(cutoff):
+    """C as the kernels take it: an int32; any C above 255 is one that no
+    u8 count meets."""
+    return max(min(int(cutoff), MAX_KCOUNT + 1), -1)
+
+
+def diginorm_med_cuda(primes, k, cutoff, flat, codes, lengths):
+    """Kernel E (csrc/diginorm_med.cu): med_ok_plain on the card -> bool
+    [B]. Counts its launches in ``diginorm_med_cuda.launches``."""
+    dev = flat.device
+    _check_byte_layout(primes, flat)
+    _check_window(codes, lengths, k, dev)
+    B = codes.shape[0] // 2
+    reject = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:
+        return reject
+    primes_arr, offsets_arr = _layout(primes)
+    err = cuda.library().khmer_diginorm_med(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), codes.data_ptr(), lengths.data_ptr(),
+        B, codes.shape[1], int(k), _cutoff_arg(cutoff), reject.data_ptr(),
+        dev.index, _stream(dev))
+    cuda.check(err, "diginorm_med")
+    diginorm_med_cuda.launches += 1
+    return reject
+
+
+diginorm_med_cuda.launches = 0
+
+
+def diginorm_med(primes, k, cutoff, flat, codes, lengths):
+    """Phase A's rejections, bool [B]: kernel E on a CUDA buffer, the plain
+    version on a CPU one."""
+    if flat.is_cuda:
+        return diginorm_med_cuda(primes, k, cutoff, flat, codes, lengths)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return med_ok_plain(primes, k, cutoff, flat, codes, lengths)
+
+
+def diginorm_scan_cuda(primes, k, cutoff, flat, n_unique, codes, lengths,
+                       reject, n_cand=None):
+    """Kernel F (csrc/diginorm_scan.cu): diginorm_window_plain with kernel
+    E's `reject` on the card, one launch for the window, the u8 tables
+    updated in place; its only scratch is diginorm_plan's shared memory.
+    Returns keep, bool [B]; the bundles it tested are added to `n_cand`
+    (int64 [1] on the card) when given. Counts its launches in
+    ``diginorm_scan_cuda.launches``."""
+    dev = flat.device
+    _check_byte_layout(primes, flat)
+    _check_window(codes, lengths, k, dev)
+    B = codes.shape[0] // 2
+    _bundle_flags(reject, B, dev, "reject")
+    if n_cand is None:
+        n_cand = torch.zeros(1, dtype=torch.int64, device=dev)
+    for name, t in (("n_unique", n_unique), ("n_cand", n_cand)):
+        if (t.device != dev or t.dtype != torch.int64 or t.numel() != 1
+                or not t.is_contiguous()):
+            raise ValueError("%s must be an int64 [1] tensor on %s"
+                             % (name, dev))
+    keep = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:
+        return keep
+    plan = diginorm_plan(codes.shape[1], k, len(primes))
+    primes_arr, offsets_arr = _layout(primes)
+    err = cuda.library().khmer_diginorm_scan(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), codes.data_ptr(), lengths.data_ptr(),
+        reject.data_ptr(), B, codes.shape[1], int(k), _cutoff_arg(cutoff),
+        plan["sub"], plan["smem"], keep.data_ptr(), n_unique.data_ptr(),
+        n_cand.data_ptr(), dev.index, _stream(dev))
+    cuda.check(err, "diginorm_scan")
+    diginorm_scan_cuda.launches += 1
+    return keep
+
+
+diginorm_scan_cuda.launches = 0
+
+
+def diginorm_scan(primes, k, cutoff, flat, n_unique, codes, lengths, reject,
+                  n_cand=None):
+    """The keep/consume scan of one window over the bundles phase A did not
+    reject, in place -> keep, bool [B], the bundles it tested added to
+    `n_cand` when given: kernel F on a CUDA buffer, the plain version on a
+    CPU one."""
+    if flat.is_cuda:
+        return diginorm_scan_cuda(primes, k, cutoff, flat, n_unique, codes,
+                                  lengths, reject, n_cand)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return diginorm_window_plain(primes, k, cutoff, flat, n_unique, codes,
+                                 lengths, reject, n_cand)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""FASTA/FASTQ reading — a copy of the reading half of
-khmer_tpu/io/fastx.py (which cannot be imported without JAX).
+"""FASTA/FASTQ reading and writing — a copy of khmer_tpu/io/fastx.py
+(which cannot be imported without JAX).
 
 Transparent gzip/bzip2 decompression is sniffed from magic bytes.
 Sequence cleaning follows oxli::_to_valid_dna (read_parsers.cc:53-69):
@@ -30,6 +30,10 @@ class Record:
             self._cleaned_seq = clean_dna(self.sequence)
         return self._cleaned_seq
 
+    @cleaned_seq.setter
+    def cleaned_seq(self, value):
+        self._cleaned_seq = value
+
     def __len__(self):
         return len(self.sequence)
 
@@ -44,10 +48,23 @@ for _c in b"acgt":
     _CLEAN_TABLE[_c] = _c - 32
 _CLEAN_TABLE = bytes(_CLEAN_TABLE)
 
+# script-level cleaning (khmer/utils.py:158-168) differs: upper, N->A only
+_CLEAN_TABLE_SCRIPT = bytearray(range(256))
+for _i in range(ord("a"), ord("z") + 1):
+    _CLEAN_TABLE_SCRIPT[_i] = _i - 32
+_CLEAN_TABLE_SCRIPT[ord("N")] = ord("A")
+_CLEAN_TABLE_SCRIPT[ord("n")] = ord("A")
+_CLEAN_TABLE_SCRIPT = bytes(_CLEAN_TABLE_SCRIPT)
+
 
 def clean_dna(seq: str) -> str:
     """acgt -> ACGT, any other character -> A (oxli::_to_valid_dna)."""
     return seq.encode("ascii").translate(_CLEAN_TABLE).decode("ascii")
+
+
+def clean_dna_script(seq: str) -> str:
+    """upper() then N->A (khmer/utils.py clean_input_reads semantics)."""
+    return seq.encode("ascii").translate(_CLEAN_TABLE_SCRIPT).decode("ascii")
 
 
 def open_maybe_compressed(path):
@@ -162,3 +179,18 @@ class FastxParser:
 
     def close(self):
         self._fp.close()
+
+
+def write_record(record, fileobj):
+    """Write a record in FASTA/FASTQ format (khmer/utils.py:120-135)."""
+    if getattr(record, "quality", None) is not None:
+        recstr = "@{name}\n{sequence}\n+\n{quality}\n".format(
+            name=record.name, sequence=record.sequence,
+            quality=record.quality)
+    else:
+        recstr = ">{name}\n{sequence}\n".format(
+            name=record.name, sequence=record.sequence)
+    try:
+        fileobj.write(bytes(recstr, "ascii"))
+    except TypeError:
+        fileobj.write(recstr)

@@ -88,3 +88,14 @@ def rolling_hash_windows(codes, k: int):
         f = (f << 2) | c[..., j:j + W]
         r = (r << 2) | (c[..., k - 1 - j:k - 1 - j + W] ^ 1)
     return umin(f, r), f, r
+
+
+def hash_windows(codes, k: int, hash_family: str):
+    """Canonical hashes of every k-window for the given hash family: the
+    [..., L-k+1] int64 tensor of u64 bit patterns."""
+    if hash_family == "twobit":
+        return rolling_hash_windows(codes, k)[0]
+    elif hash_family == "murmur":
+        raise NotImplementedError("the murmur hash is not yet ported")
+    else:
+        raise ValueError("unknown hash family %r" % hash_family)

@@ -1,6 +1,7 @@
 """The port's CLIs (load-into-counting in both layouts, abundance-dist,
 abundance-dist-single) against the JAX CLIs, the .ct files across the
-two packages, and the port's import boundary (no JAX)."""
+two packages, and the port's import boundary (no JAX). normalize-by-median
+is held to the JAX CLI in tests/test_torch_normalize_cli.py."""
 
 import gzip
 import itertools
@@ -151,6 +152,11 @@ def test_port_imports_no_jax():
     code = ("import sys, khmer_tpu_torch, khmer_tpu_torch.cli."
             "load_into_counting, khmer_tpu_torch.cli.abundance_dist, "
             "khmer_tpu_torch.cli.abundance_dist_single, "
+            "khmer_tpu_torch.cli.normalize_by_median, "
+            "khmer_tpu_torch.core.diginorm, "
+            "khmer_tpu_torch.core.diginorm_scan, "
+            "khmer_tpu_torch.io.pairing, "
+            "khmer_tpu_torch.scripts.synth_reads, "
             "khmer_tpu_torch.core.pipeline, khmer_tpu_torch.ops.cuda, "
             "khmer_tpu_torch.scripts.pallas_proto, "
             "khmer_tpu_torch.scripts.profile_scatter2; "
@@ -161,3 +167,56 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _single_case(tmp_path, reads, out_name):
+    """abundance-dist-single through each package, in its own directory,
+    with output `out_name`: {side: (status, the output's bytes or None)}."""
+    args = ["-k", "20", "-x", "1e4", "-N", "2", "-f", reads, out_name]
+    got = {}
+    for side in ("port", "jax"):
+        d = tmp_path / side
+        d.mkdir()
+        old = os.getcwd()
+        os.chdir(d)
+        try:
+            if side == "port":
+                try:
+                    abundance_dist_single.main(args + ["--device", "cpu"])
+                    status = 0
+                except SystemExit as exc:
+                    status = exc.code or 0
+            else:
+                status, _, _ = runscript("abundance-dist-single.py", args,
+                                         fail_ok=True)
+        finally:
+            os.chdir(old)
+        out = d / out_name
+        got[side] = (status, out.read_bytes() if out.exists() else None)
+    return got
+
+
+def test_abundance_dist_single_dash_is_a_file_as_in_jax(tmp_path):
+    """'-' names a file of that name, opened before counting, as the JAX
+    CLI opens it (khmer_tpu/cli/abundance_dist_single.py:86-95)."""
+    reads = str(tmp_path / "reads.fa")
+    with gzip.open(DATA, "rt") as src, open(reads, "w") as dst:
+        for i, rec in enumerate(itertools.islice(zip(*[src] * 4), 300)):
+            dst.write(">%d\n%s" % (i, rec[1]))
+    got = _single_case(tmp_path, reads, "-")
+    assert got["port"] == got["jax"]
+    status, blob = got["port"]
+    assert status == 0 and blob.startswith(b"abundance,count,cumulative,")
+    assert blob.count(b"\n") > 2
+
+
+def test_abundance_dist_single_all_short_reads_leaves_the_header(tmp_path):
+    """Every read shorter than k: the distribution is all zero, the CLI
+    exits 1 and the output holds the header row alone, as in JAX."""
+    reads = str(tmp_path / "short.fa")
+    with open(reads, "w") as f:
+        for i in range(50):
+            f.write(">%d\n%s\n" % (i, "ACGTTGCA"[: 3 + i % 5] * 2))
+    got = _single_case(tmp_path, reads, "out.hist")
+    assert got["port"] == got["jax"] == (
+        1, b"abundance,count,cumulative,cumulative_fraction\r\n")

@@ -15,6 +15,7 @@ import torch
 from khmer_tpu_torch.core import blocked as B
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.core.sketch import Countgraph
+from khmer_tpu_torch.scripts import diginorm_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -373,3 +374,45 @@ def test_countgraph_dispatch_launches_kernels_on_cuda(cuda_device):
     assert cg.get("ACGTACGTACGTACGTACGT") == 300
     assert K.byte_update_cuda.launches == before[0] + 300
     assert K.byte_gather_cuda.launches == before[1] + 1
+
+
+@pytest.mark.parametrize("name", list(diginorm_cases.CASES))
+def test_diginorm_kernels_match_plain(cuda_device, name):
+    """Kernels E and F against their plain versions on the windows of
+    scripts/diginorm_cases.py: rejections, keep flags, tables, n_unique
+    and candidate counts all equal."""
+    got = diginorm_cases.check_case(name, cuda_device)
+    assert got["med"] == 0 and got["scan"] == 0, got
+    if name == "all-rejected":
+        assert got["rejected"] == got["bundles"] and got["kept after E"] == 0
+    if name == "none-rejected":
+        assert got["rejected"] == 0
+
+
+def test_scan_normalizer_launches_kernels_on_cuda(cuda_device):
+    """ScanNormalizer on a countgraph on the card runs kernel E and kernel
+    F once a window, and keeps what the CPU engine keeps, with the same
+    tables and n_unique."""
+    from khmer_tpu_torch.core.diginorm_scan import ScanNormalizer
+    from khmer_tpu_torch.io.fastx import Record
+
+    rng = np.random.default_rng(9)
+    genome = "".join(rng.choice(list("ACGT"), 3000))
+    bundles = []
+    for i in range(600):
+        s = int(rng.integers(0, 2900))
+        r = Record("r%d" % i, genome[s:s + int(rng.integers(10, 100))])
+        r.cleaned_seq = r.sequence
+        bundles.append([r])
+    engines = [ScanNormalizer(Countgraph(20, 5e3, 3, device=d), 5,
+                              window=256) for d in (cuda_device, "cpu")]
+    before = (K.diginorm_med_cuda.launches, K.diginorm_scan_cuda.launches)
+    for s in range(0, 600, 256):
+        got, want = (e.process_window(bundles[s:s + 256]) for e in engines)
+        assert [len(x) for x in got] == [len(x) for x in want]
+    assert K.diginorm_med_cuda.launches == before[0] + 3
+    assert K.diginorm_scan_cuda.launches == before[1] + 3
+    cg, ref = (e.graph for e in engines)
+    assert cg.n_unique_kmers() == ref.n_unique_kmers()
+    assert torch.equal(cg.tables.flat.cpu(), ref.tables.flat)
+    assert int(engines[0].candidates) == int(engines[1].candidates) > 0

@@ -167,3 +167,14 @@ def test_sketches_on_the_cpu_keep_no_update_scratch(make):
     assert g.get("ACGTACGTACGTACGTACGT") == 1
     assert g._scratch is None
     assert not hasattr(g, "_winner")
+
+
+@pytest.mark.parametrize("size", [1, 999, 1000, 1001, 12_345])
+def test_byte_occupied_counts_in_slices(size, monkeypatch):
+    """byte_occupied counts a table a slice at a time (its temporaries
+    follow the slice, not the table) and gives the whole table's count
+    across slice edges."""
+    monkeypatch.setattr(K, "OCCUPIED_SLICE", 1000)
+    rng = np.random.default_rng(size)
+    table = torch.from_numpy(rng.integers(0, 3, size, dtype=np.uint8))
+    assert int(K.byte_occupied(table)) == int((table != 0).sum())

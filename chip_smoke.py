@@ -25,9 +25,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      reciprocal, on random tables of 0.2, 4 and 20 GB, and the blocked
      gather on them at 0.2 and 2.15 GB; the diginorm median test and
      keep/consume scan on the windows of scripts/diginorm_cases.py:
-     counters at 254 and 255, C = 1, 255 and 300, k = 32, rows of 64 and
-     4096 codes, 1 and 32 tables, a window rejected whole and one not at
-     all, and the byte tables of 0.2, 4 and 20 GB);
+     counters at 254 and 255, C = 1, 255 and 300, k = 32, rows of 64,
+     4096, 9000 and 20000 codes, 1 and 32 tables, a window rejected whole
+     and one not at all, and the byte tables of 0.2, 4 and 20 GB; and the
+     port's ScanNormalizer on the card against the CPU's over windows
+     holding reads of 5,000 to 15,000 bases);
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
      blocked, k=20, 4 x 5e7 bytes) on data/25k.fq.gz, then the abundance
      histogram; results must equal the JAX package's and the blocked
@@ -58,10 +60,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
      JAX answers (.keep and .ct sha256, kept reads, n_unique) asserted and
      the median-test and scan kernels seen to launch; a traced run for
      their device time; both kernels on window 6 against their plain
-     versions, beside their bounds (scripts/diginorm_bench.py);
+     versions, beside their bounds and E's sector floor
+     (scripts/diginorm_bench.py);
   7b. config 2 at -k 20 -C 20 -x 1e9 -N 4 (4 GB of tables) on 1,000,000
      seeded synthetic reads (scripts/synth_reads.py); the JAX answers
-     asserted, the device memory beside the tables, a traced run.
+     asserted, the device memory beside the tables, a traced run; both
+     kernels on its window 6 against their plain versions, beside their
+     bounds and E's sector floor.
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees; the phase lines of
 the histogram and the gathers also print their device time alone
@@ -278,7 +283,7 @@ def main():
     timings.update(digi_timings)
 
     # -- phase 7b: config 2 at 4 GB of tables --------------------------------
-    run_config2_scale(torch, SK, dev, card)
+    run_config2_scale(torch, SK, dev, card, errs)
 
     kernels = []
     for name, source, replaces in (
@@ -1279,39 +1284,40 @@ def run_diginorm_cases(torch, dev, errs):
             "E %d, alone %d; new k-mers after E %d, alone %d"
             % (name, got["bundles"], got["rejected"], got["kept after E"],
                got["kept alone"], got["new after E"], got["new alone"]))
-    return len(diginorm_cases.CASES)
+    got = diginorm_cases.check_long_window(dev)
+    errs["diginorm_med"] = max(errs["diginorm_med"], got["mismatches"])
+    errs["diginorm_scan"] = max(errs["diginorm_scan"], got["mismatches"])
+    expect(got["mismatches"] == 0,
+           "ScanNormalizer on the card != on the CPU with long reads")
+    expect(got["launches"] == (got["runs"], got["runs"]),
+           "long-read windows: %s launches for %d runs"
+           % (got["launches"], got["runs"]))
+    say("  diginorm long reads: 3 windows of 200 bundles with reads of "
+        "5,000-15,000 bases in %d runs, kept %d, card == CPU"
+        % (got["runs"], got["kept"]))
+    return len(diginorm_cases.CASES) + 1
 
 
 def _normalize(torch, args, cwd):
     """The port's normalize-by-median in this process, in `cwd`: (wall s,
-    its stderr, the ScanNormalizer it made)."""
+    its stderr, the ScanNormalizer it ran)."""
     import contextlib
     import io
 
     from khmer_tpu_torch.cli import normalize_by_median as nbm
 
-    made = []
-    engine = nbm.ScanNormalizer
-
-    class Recording(engine):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            made.append(self)
-
     err = io.StringIO()
     old = os.getcwd()
-    nbm.ScanNormalizer = Recording
     os.chdir(cwd)
     try:
         with contextlib.redirect_stderr(err):
             t0 = time.perf_counter()
-            nbm.main(args)
+            norm = nbm.main(args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         os.chdir(old)
-        nbm.ScanNormalizer = engine
-    return wall, err.getvalue(), made[0]
+    return wall, err.getvalue(), norm
 
 
 def _traced_normalize(torch, args, cwd):
@@ -1387,7 +1393,7 @@ def run_config2(torch, SK, dev, card, errs):
         got = _check_normalize(E, err, os.path.join(
             run, "stamps-reads.fa.gz.keep"), os.path.join(run, "out.ct"),
             "config 2")
-        windows, cand = norm.scan_windows, int(norm.candidates)
+        runs, cand = norm.scan_runs, int(norm.candidates)
         t_wall, dev_ms, (e_ms, e_n), (f_ms, f_n), _ = _traced_normalize(
             torch, ["-C", "20", STAMPS], traced)
     for name, n in launches.items():
@@ -1395,33 +1401,19 @@ def run_config2(torch, SK, dev, card, errs):
     say("phase 7 config 2: normalize-by-median -C 20 -s on "
         "data/stamps-reads.fa.gz: %.6f s = %.6g reads/s; kept %d of %d, "
         "n_unique %d, .keep sha256 %s, .ct %d B sha256 %s (the JAX "
-        "answers); %d windows, %d scan candidates (%.1f a window); "
+        "answers); %d scan runs (a run a window), %d scan candidates (%.1f a "
+        "run); "
         "launches %s; traced: %.6f s, device %.4f ms (busy %.2f%%), "
         "diginorm_med %.4f ms in %d launches (%.4f a window), "
         "diginorm_scan %.4f ms in %d launches (%.4f a window, %.3f us a "
         "candidate); on %s"
         % (wall, E["reads"] / wall, got[0], E["reads"], got[1], got[2],
-           got[4], got[3], windows, cand, cand / max(windows, 1), launches,
+           got[4], got[3], runs, cand, cand / max(runs, 1), launches,
            t_wall, dev_ms, 100 * dev_ms / (t_wall * 1e3), e_ms, e_n,
            e_ms / max(e_n, 1), f_ms, f_n, f_ms / max(f_n, 1),
            f_ms * 1e3 / max(cand, 1), card))
 
-    w = time_window(dev)
-    for key, name in (("med", "diginorm_med"), ("scan", "diginorm_scan")):
-        errs[name] = max(errs[name], w[key]["mismatches"])
-        expect(w[key]["mismatches"] == 0,
-               "%s != plain on config 2's window %d" % (name, w["window"]))
-    m, s = w["med"], w["scan"]
-    say("  config 2 window %d: %d bundles of rows of %d codes, %d "
-        "candidates, %d kept; diginorm_med kernel %.4f ms, plain %.4f ms, "
-        "bound %.5f ms (%s; %d B, %d ops); diginorm_scan kernel %.4f ms "
-        "(%.3f us a candidate), plain %.4f ms, bound %.5f ms (%s; %d B, "
-        "%d ops); on %s"
-        % (w["window"], w["bundles"], w["L"], w["candidates"], w["kept"],
-           m["ms"], m["plain_ms"], m["bound"][0], m["bound"][1],
-           m["bytes"], m["ops"], s["ms"], s["us_per_candidate"],
-           s["plain_ms"], s["bound"][0], s["bound"][1], s["bytes"],
-           s["ops"], card))
+    w = _bench_window(time_window(dev), "config 2", errs, card)
     timings = {name: {"ms": w[key]["ms"], "plain_ms": w[key]["plain_ms"],
                       "bound_ms": w[key]["bound"][0],
                       "bound_by": w[key]["bound"][1], "library_ms": None}
@@ -1431,12 +1423,34 @@ def run_config2(torch, SK, dev, card, errs):
     return launches, timings
 
 
-def run_config2_scale(torch, SK, dev, card):
+def _bench_window(w, label, errs, card):
+    """Check and print one diginorm_bench.time_window result."""
+    for key, name in (("med", "diginorm_med"), ("scan", "diginorm_scan")):
+        errs[name] = max(errs[name], w[key]["mismatches"])
+        expect(w[key]["mismatches"] == 0,
+               "%s != plain on %s's window %d" % (name, label, w["window"]))
+    m, s = w["med"], w["scan"]
+    say("  %s window %d: %d bundles of rows of %d codes, %d candidates, %d "
+        "kept; diginorm_med kernel %.4f ms, plain %.4f ms, bound %.5f ms "
+        "(%s; %d B, %d ops), sector floor %.5f ms (%d B); diginorm_scan "
+        "kernel %.4f ms (%.3f us a candidate), plain %.4f ms, bound %.5f ms "
+        "(%s; %d B, %d ops); on %s"
+        % (label, w["window"], w["bundles"], w["L"], w["candidates"],
+           w["kept"], m["ms"], m["plain_ms"], m["bound"][0], m["bound"][1],
+           m["bytes"], m["ops"], m["sector_ms"], m["sector_bytes"], s["ms"],
+           s["us_per_candidate"], s["plain_ms"], s["bound"][0],
+           s["bound"][1], s["bytes"], s["ops"], card))
+    return w
+
+
+def run_config2_scale(torch, SK, dev, card, errs):
     """Config 2 at a table size users run: normalize-by-median -k 20 -C 20
     -x 1e9 -N 4 -s (4 GB of u8 tables) on 1,000,000 seeded synthetic
     reads (scripts/synth_reads.py), the JAX answers asserted, E and F seen
     to launch, the device memory beside the tables read; then a traced
-    run without -s for F's time a candidate."""
+    run without -s for F's time a candidate, and E and F on window 6
+    against their plain versions, timed beside their bounds."""
+    from khmer_tpu_torch.scripts.diginorm_bench import time_window
     from khmer_tpu_torch.scripts.synth_reads import write_reads
 
     E = EXPECT_C2_SCALE
@@ -1466,24 +1480,27 @@ def run_config2_scale(torch, SK, dev, card):
         got = _check_normalize(E, err, os.path.join(run, "synth.fa.keep"),
                                os.path.join(run, "out.ct"), "config 2 at 4 GB")
         os.remove(os.path.join(run, "out.ct"))
-        windows, cand = norm.scan_windows, int(norm.candidates)
+        runs, cand = norm.scan_runs, int(norm.candidates)
         t_wall, dev_ms, (e_ms, e_n), (f_ms, f_n), t_norm = _traced_normalize(
             torch, args + [reads], traced)
+        torch.cuda.empty_cache()
+        w = time_window(dev, reads, k=20, x=1e9, reps=3)
     expect(min(launches) > 0, "diginorm kernels never launched at 4 GB")
     say("phase 7b config 2 at -k 20 -C 20 -x 1e9 -N 4: %d synthetic reads "
         "(written in %.3f s), %.6f s = %.6g reads/s; kept %d, n_unique %d, "
         ".keep sha256 %s, .ct %d B sha256 %s (the JAX answers); tables "
         "%.3f GB, peak device memory %.3f GB, beside the tables %.1f MB (a "
-        "u32 copy of the tables would add %.3f GB); %d windows, %d scan "
+        "u32 copy of the tables would add %.3f GB); %d scan runs, %d scan "
         "candidates; launches %s; traced: %.6f s, device %.4f ms (busy "
         "%.2f%%), diginorm_med %.4f ms in %d launches, diginorm_scan %.4f "
         "ms in %d launches, %.3f us a candidate; on %s"
         % (E["reads"], gen_s, wall, E["reads"] / wall, got[0], got[1],
            got[2], got[4], got[3], tables / 1e9, peak / 1e9,
-           (peak - tables) / 1e6, 4 * tables / 1e9, windows, cand,
+           (peak - tables) / 1e6, 4 * tables / 1e9, runs, cand,
            launches, t_wall, dev_ms, 100 * dev_ms / (t_wall * 1e3), e_ms,
            e_n, f_ms, f_n, f_ms * 1e3 / max(int(t_norm.candidates), 1),
            card))
+    _bench_window(w, "-x 1e9", errs, card)
     torch.cuda.empty_cache()
 
 

@@ -42,7 +42,8 @@ from khmer_tpu_torch.utils.logger import (configure_logging, log_error,
 
 DEFAULT_DESIRED_COVERAGE = 20
 # bundles per window: one upload, one launch of each kernel and one read
-# of the keep flags each (the keep set is the same at every size)
+# of the keep flags each, unless reads longer than 4096 bases split it
+# (diginorm_scan.row_runs); the keep set is the same at every size
 WINDOW = 16384
 
 
@@ -111,6 +112,25 @@ def catch_io_errors(ifile, out, single_out, force, corrupt_files):
             corrupt_files.append(ifile)
 
 
+def read_windows(filename, ksize, force_single=False, require_paired=False,
+                 size=WINDOW):
+    """The read bundles of a file (one or two records each, as
+    broken_paired_reader pairs them) in windows of `size` bundles, the
+    last one shorter."""
+    reader = broken_paired_reader(clean_input_reads(FastxParser(filename)),
+                                  min_length=ksize,
+                                  force_single=force_single,
+                                  require_paired=require_paired)
+    window = []
+    for _, _, read0, read1 in reader:
+        window.append([r for r in (read0, read1) if r])
+        if len(window) >= size:
+            yield window
+            window = []
+    if window:
+        yield window
+
+
 def get_parser():
     epilog = """\
     Discard sequences based on whether or not their median k-mer abundance
@@ -177,6 +197,8 @@ def get_parser():
 
 
 def main(argv=None):  # pylint: disable=too-many-branches,too-many-statements
+    """Run the command; returns the ScanNormalizer it ran, whose counters
+    (scan_runs, candidates) say what the scan did."""
     parser = sanitize_help(get_parser())
     args = parser.parse_args(argv)
 
@@ -213,7 +235,7 @@ def main(argv=None):  # pylint: disable=too-many-branches,too-many-statements
         log_info('making countgraph on {device}', device=args.device)
         countgraph = khmer_args.create_countgraph(args, device=args.device)
 
-    norm = ScanNormalizer(countgraph, args.cutoff, window=WINDOW)
+    norm = ScanNormalizer(countgraph, args.cutoff)
     diag = WithDiagnostics(report_fp, args.report_frequency)
 
     files = []
@@ -244,20 +266,8 @@ def main(argv=None):  # pylint: disable=too-many-branches,too-many-statements
         reads_start = diag.total
         with catch_io_errors(filename, outfp, args.single_output_file,
                              args.force, corrupt_files):
-            screed_iter = clean_input_reads(FastxParser(filename))
-            reader = broken_paired_reader(screed_iter,
-                                          min_length=args.ksize,
-                                          force_single=force_single,
-                                          require_paired=require_paired)
-
-            window = []
-            for _, is_paired, read0, read1 in reader:
-                bundle = [r for r in (read0, read1) if r]
-                window.append(bundle)
-                if len(window) >= WINDOW:
-                    _flush(norm, diag, window, outfp, filename)
-                    window = []
-            if window:
+            for window in read_windows(filename, args.ksize, force_single,
+                                       require_paired):
                 _flush(norm, diag, window, outfp, filename)
 
             log_info('output in {name}',
@@ -284,6 +294,7 @@ def main(argv=None):  # pylint: disable=too-many-branches,too-many-statements
         log_error("** WARNING: Finished with errors!")
         log_error("** I/O Errors occurred in the following files:")
         log_error("\t" + " ".join(corrupt_files))
+    return norm
 
 
 def _flush(norm, diag, window, outfp, filename):

@@ -17,9 +17,10 @@ bundles:
      in one batched update at window end (n_unique and bigcount stay
      exact).
 
-On byte tables the card runs the whole scan instead (core/diginorm_scan.py
-ScanNormalizer); this engine is its exact path for a window holding a read
-longer than pipeline.MAX_ROW_LEN.
+On byte tables the kernels run the whole scan instead
+(core/diginorm_scan.py ScanNormalizer, which the normalize-by-median CLI
+uses); this engine serves the other storage kinds and is the tests'
+second reference.
 """
 
 import numpy as np
@@ -157,10 +158,9 @@ class SeqWindow:
 class BatchedNormalizer:
     """Window-batched exact diginorm engine."""
 
-    def __init__(self, countgraph, desired_coverage, window=512):
+    def __init__(self, countgraph, desired_coverage):
         self.graph = countgraph
         self.C = int(desired_coverage)
-        self.window = window
         self.k = countgraph.ksize()
 
     def finalize(self):

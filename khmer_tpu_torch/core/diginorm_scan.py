@@ -22,7 +22,15 @@ countgraph costs its own size and no more, and finalize() has nothing to
 copy back. The host reads the keep flags once per window. The plain
 versions of both phases (sketch_kernels.med_ok_plain,
 diginorm_window_plain) run for a countgraph on the CPU.
+
+The kernels take rows of any length. A window is packed at the ladder
+length of its longest read, except that bundles holding a read longer than
+pipeline.MAX_ROW_LEN go in runs of their own (row_runs), so one long read
+does not pad the whole window; the runs go through both phases in stream
+order, which changes no decision.
 """
+
+import itertools
 
 import numpy as np
 import torch
@@ -61,39 +69,73 @@ def pack_window(bundles, L):
     return codes, lengths
 
 
+# padded codes a run of bundles holding reads longer than MAX_ROW_LEN
+# packs at once
+LONG_RUN_BYTES = 1 << 24
+
+
+def row_runs(bundles, k):
+    """Split a window into consecutive runs, each packed at one row length:
+    [(start, stop, L)]. Bundles whose reads fit pipeline.MAX_ROW_LEN run
+    together at the ladder length of their longest read (at least k + 7),
+    as the whole window does when it holds no longer read; the others run
+    at the length of their longest read, as many together as keep the
+    run's padded codes, 2 (stop - start) L bytes, within LONG_RUN_BYTES
+    (a single bundle always runs)."""
+    lens = [max((len(r.cleaned_seq) for r in b[:2]), default=0)
+            for b in bundles]
+    runs, start = [], 0
+    for long, group in itertools.groupby(
+            lens, lambda n: n > pipeline.MAX_ROW_LEN):
+        group = list(group)
+        stop = start + len(group)
+        if not long:
+            runs.append((start, stop,
+                         max(pipeline._bucket_len(max(group)), k + 7)))
+        else:
+            s, L = start, 0
+            for i, n in enumerate(group, start):
+                if i > s and 2 * (i + 1 - s) * max(L, n) > LONG_RUN_BYTES:
+                    runs.append((s, i, L))
+                    s, L = i, 0
+                L = max(L, n)
+            runs.append((s, stop, L))
+        start = stop
+    return runs
+
+
 class ScanNormalizer:
     """Window-batched, device-sequential exact diginorm engine."""
 
-    def __init__(self, countgraph, desired_coverage, window=512):
+    def __init__(self, countgraph, desired_coverage):
         if countgraph.storage_kind != "byte":
             raise ValueError("ScanNormalizer requires byte storage; use "
                              "BatchedNormalizer for other kinds")
         self.graph = countgraph
         self.C = int(desired_coverage)
-        self.window = window
         self.k = countgraph.ksize()
         self._primes = tuple(countgraph._primes)
-        # what the scan windows did: their number, and the bundles phase
-        # B tested (a counter on the sketch's device, read by nobody here)
-        self.scan_windows = 0
+        # what the scan did: the runs it scanned (one a window unless reads
+        # longer than MAX_ROW_LEN split it), and the bundles phase B tested
+        # (a counter on the sketch's device)
+        self.scan_runs = 0
         self.candidates = torch.zeros(1, dtype=torch.int64,
                                       device=countgraph.device)
 
     def process_window(self, bundles):
-        """bundles: list of record lists (1 or 2 reads). Returns kept
-        records per bundle, exactly as the sequential reference."""
-        n = len(bundles)
-        out = [[] for _ in range(n)]
-        if n == 0:
-            return out
-        if n > self.window:
-            raise ValueError("window too large")
-        maxlen = max(max((len(r.cleaned_seq) for r in b), default=0)
-                     for b in bundles)
-        if maxlen > pipeline.MAX_ROW_LEN:
-            # pathological long reads: exact host-side window instead
-            return self._host_window(bundles)
-        L = max(pipeline._bucket_len(maxlen), self.k + 7)
+        """bundles: list of record lists (1 or 2 reads), as many as the
+        caller wants a window to hold. Returns kept records per bundle,
+        exactly as the sequential reference."""
+        out = [[] for _ in bundles]
+        for start, stop, L in row_runs(bundles, self.k):
+            keep = self._scan(bundles[start:stop], L)
+            for i in np.nonzero(keep)[0]:
+                out[start + i] = list(bundles[start + i])
+        return out
+
+    def _scan(self, bundles, L):
+        """Phases A and B of one run at rows of L codes -> keep, bool
+        numpy [n]."""
         codes, lengths = pack_window(bundles, L)
         dev = self.graph.device
         codes = torch.from_numpy(codes).to(dev)
@@ -102,22 +144,12 @@ class ScanNormalizer:
         keep = K.diginorm_scan(self._primes, self.k, self.C,
                                self.graph.tables.flat, self.graph._n_unique,
                                codes, lengths, rejected, self.candidates)
-        self.scan_windows += 1
-        for i in np.nonzero(keep.cpu().numpy())[0]:
-            out[i] = list(bundles[i])
-        return out
+        self.scan_runs += 1
+        return keep.cpu().numpy()
 
     def _phase_a(self, codes, lengths):
         return K.diginorm_med(self._primes, self.k, self.C,
                               self.graph.tables.flat, codes, lengths)
-
-    def _host_window(self, bundles):
-        """Stream-order exact window through the delta-map engine, which
-        commits to the same tables."""
-        from khmer_tpu_torch.core.diginorm import BatchedNormalizer
-
-        return BatchedNormalizer(self.graph, self.C,
-                                 window=len(bundles)).process_window(bundles)
 
     def finalize(self):
         """Nothing to write back: the scan updated the countgraph's own

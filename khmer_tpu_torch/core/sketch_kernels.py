@@ -610,19 +610,25 @@ def diginorm_window_plain(primes, k, cutoff, flat, n_unique, codes, lengths,
 
 # Kernel F (csrc/diginorm_scan.cu): one block of DIGI_SCAN_THREADS threads
 # walks the window; its shared-memory map holds DIGI_MAP_SLOTS counters;
-# these mirror its constants.
+# these mirror its constants. DIGI_SMEM_LIMIT is the dynamic shared memory
+# it asks for at most: a block's 227 KB on the H100, less 1 KB for its
+# static shared words.
 DIGI_SCAN_THREADS = 256
 DIGI_MAP_SLOTS = 4096
+DIGI_SMEM_LIMIT = 227 * 1024 - 1024
 
 
 def diginorm_plan(L, k, ntables):
-    """Kernel F's shared memory for a window of rows of L codes, k-mers of
-    k and `ntables` tables: {"sub": events a sub-chunk of the adds, "smem":
-    dynamic shared bytes, "parts": {name: bytes}}. The parts, in the
-    kernel's order: the map's keys (8 B a slot), the bundle's hashes (8 B
-    for each of its at most 2 (L - k + 1) windows), the map's hits and
-    lowest events (4 B a slot each), the candidate list (4 B a thread) and
-    a sub-chunk's new flags (1 B an event). It follows the window (L, k)
+    """Kernel F's scratch for a window of rows of L codes, k-mers of k and
+    `ntables` tables: {"sub": events a sub-chunk of the adds, "smem":
+    dynamic shared bytes, "parts": {name: shared bytes}, "hash_words":
+    words of the device buffer that holds the bundle's hashes, 0 when
+    they are in shared memory}. The parts, in the kernel's order: the
+    map's keys (8 B a slot), the bundle's hashes (8 B for each of its at
+    most 2 (L - k + 1) windows) unless they do not fit DIGI_SMEM_LIMIT
+    (rows of about 10,000 codes and more), the map's hits and lowest
+    events (4 B a slot each), the candidate list (4 B a thread) and a
+    sub-chunk's new flags (1 B an event). It follows the window (L, k)
     and the number of tables, never their size: there is no other
     scratch."""
     L, k, ntables = int(L), int(k), int(ntables)
@@ -632,10 +638,16 @@ def diginorm_plan(L, k, ntables):
         raise ValueError("the byte kernels take 1 to %d tables, not %d"
                          % (MAX_TABLES, ntables))
     sub = DIGI_MAP_SLOTS // (2 * ntables)
-    parts = {"keys": 8 * DIGI_MAP_SLOTS, "hashes": 8 * 2 * (L - k + 1),
+    words = 2 * (L - k + 1)
+    parts = {"keys": 8 * DIGI_MAP_SLOTS, "hashes": 8 * words,
              "hits": 4 * DIGI_MAP_SLOTS, "first": 4 * DIGI_MAP_SLOTS,
              "list": 4 * DIGI_SCAN_THREADS, "fresh": sub}
-    return {"sub": sub, "smem": sum(parts.values()), "parts": parts}
+    hash_words = 0
+    if sum(parts.values()) > DIGI_SMEM_LIMIT:
+        del parts["hashes"]
+        hash_words = words
+    return {"sub": sub, "smem": sum(parts.values()), "parts": parts,
+            "hash_words": hash_words}
 
 
 def _check_window(codes, lengths, k, dev):
@@ -704,7 +716,8 @@ def diginorm_scan_cuda(primes, k, cutoff, flat, n_unique, codes, lengths,
                        reject, n_cand=None):
     """Kernel F (csrc/diginorm_scan.cu): diginorm_window_plain with kernel
     E's `reject` on the card, one launch for the window, the u8 tables
-    updated in place; its only scratch is diginorm_plan's shared memory.
+    updated in place; its only scratch is diginorm_plan's, sized by the
+    row length.
     Returns keep, bool [B]; the bundles it tested are added to `n_cand`
     (int64 [1] on the card) when given. Counts its launches in
     ``diginorm_scan_cuda.launches``."""
@@ -724,13 +737,18 @@ def diginorm_scan_cuda(primes, k, cutoff, flat, n_unique, codes, lengths,
     if B == 0:
         return keep
     plan = diginorm_plan(codes.shape[1], k, len(primes))
+    hashes = None
+    if plan["hash_words"]:
+        hashes = torch.empty(plan["hash_words"], dtype=torch.int64,
+                             device=dev)
     primes_arr, offsets_arr = _layout(primes)
     err = cuda.library().khmer_diginorm_scan(
         flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
         ctypes.addressof(offsets_arr), codes.data_ptr(), lengths.data_ptr(),
         reject.data_ptr(), B, codes.shape[1], int(k), _cutoff_arg(cutoff),
-        plan["sub"], plan["smem"], keep.data_ptr(), n_unique.data_ptr(),
-        n_cand.data_ptr(), dev.index, _stream(dev))
+        plan["sub"], plan["smem"],
+        None if hashes is None else hashes.data_ptr(), keep.data_ptr(),
+        n_unique.data_ptr(), n_cand.data_ptr(), dev.index, _stream(dev))
     cuda.check(err, "diginorm_scan")
     diginorm_scan_cuda.launches += 1
     return keep

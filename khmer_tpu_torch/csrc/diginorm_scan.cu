@@ -41,7 +41,9 @@
 // stores, ordered by __syncthreads() within the one block (no read-only
 // cache path). No u32 copy of the tables and no scratch the size of the
 // tables: the shared memory is sized by the window's row length
-// (core/sketch_kernels.py diginorm_plan).
+// (core/sketch_kernels.py diginorm_plan). Rows too long for the bundle's
+// hashes to fit in shared memory (about 10,000 codes) keep them in a
+// device buffer of 16 B a window instead, also sized by the row.
 
 #include "byte_common.cuh"
 #include "twobit_common.cuh"
@@ -73,8 +75,8 @@ __device__ __forceinline__ uint64_t mix(uint64_t x) {
 }
 
 // The dynamic shared memory, in the order of diginorm_plan: map keys,
-// the bundle's hashes, map hits and lowest events, the candidate list,
-// the new flags of a sub-chunk.
+// the bundle's hashes (unless `hash_buf` holds them), map hits and lowest
+// events, the candidate list, the new flags of a sub-chunk.
 struct Smem {
   unsigned long long* keys;
   uint64_t* hashes;
@@ -84,12 +86,17 @@ struct Smem {
   uint8_t* fresh;
 };
 
-__device__ __forceinline__ Smem carve(unsigned char* base, int max_events) {
+__device__ __forceinline__ Smem carve(unsigned char* base, int max_events,
+                                      uint64_t* hash_buf) {
   Smem s;
   s.keys = reinterpret_cast<unsigned long long*>(base);
   base += sizeof(unsigned long long) * kSlots;
-  s.hashes = reinterpret_cast<uint64_t*>(base);
-  base += sizeof(uint64_t) * max_events;
+  if (hash_buf != nullptr) {
+    s.hashes = hash_buf;
+  } else {
+    s.hashes = reinterpret_cast<uint64_t*>(base);
+    base += sizeof(uint64_t) * max_events;
+  }
   s.hits = reinterpret_cast<uint32_t*>(base);
   base += sizeof(uint32_t) * kSlots;
   s.first = reinterpret_cast<uint32_t*>(base);
@@ -147,12 +154,12 @@ scan_kernel(const uint8_t* __restrict__ codes,
             const uint8_t* __restrict__ reject, int64_t nbundles, int L,
             int k, int cutoff, int sub,
             const __grid_constant__ ByteLayout layout, uint8_t* flat,
-            uint8_t* __restrict__ keep,
+            uint64_t* hash_buf, uint8_t* __restrict__ keep,
             unsigned long long* __restrict__ n_unique,
             unsigned long long* __restrict__ n_cand) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int W = L - k + 1;
-  const Smem s = carve(smem_raw, 2 * W);
+  const Smem s = carve(smem_raw, 2 * W, hash_buf);
   // per-read counts at or above C, three bundles' worth in rotation (see
   // the reset below); warp totals of the tile compaction and of the end
   __shared__ int ge[3][2];
@@ -284,9 +291,10 @@ scan_kernel(const uint8_t* __restrict__ codes,
 // [2 nbundles], skipping those with reject[b] set: keep[b] for every b,
 // the flat byte tables updated in place, the new k-mers added to
 // *n_unique and the bundles scanned to *n_cand. primes/offsets are HOST
-// arrays of ntables; `sub` (events a sub-chunk) and `smem` (dynamic
-// shared bytes) come from core/sketch_kernels.py diginorm_plan(L, k,
-// ntables).
+// arrays of ntables; `sub` (events a sub-chunk), `smem` (dynamic shared
+// bytes) and whether the bundle's hashes go to `hashes`, a device buffer
+// of 2 (L - k + 1) words, or to shared memory (`hashes` null) come from
+// core/sketch_kernels.py diginorm_plan(L, k, ntables).
 extern "C" int khmer_diginorm_scan(uint8_t* flat, int ntables,
                                    const int64_t* primes,
                                    const int64_t* offsets,
@@ -294,7 +302,7 @@ extern "C" int khmer_diginorm_scan(uint8_t* flat, int ntables,
                                    const int32_t* lengths,
                                    const uint8_t* reject, int64_t nbundles,
                                    int L, int k, int cutoff, int sub,
-                                   int smem, uint8_t* keep,
+                                   int smem, void* hashes, uint8_t* keep,
                                    int64_t* n_unique, int64_t* n_cand,
                                    int device, void* stream) {
   using namespace khmer_digi_scan;
@@ -304,7 +312,8 @@ extern "C" int khmer_diginorm_scan(uint8_t* flat, int ntables,
       || static_cast<int64_t>(sub) * ntables > kSlots / 2) {
     return cudaErrorInvalidValue;
   }
-  const int64_t need = int64_t{8} * kSlots + int64_t{8} * 2 * (L - k + 1)
+  const int64_t need = int64_t{8} * kSlots
+                       + (hashes ? 0 : int64_t{8} * 2 * (L - k + 1))
                        + int64_t{8} * kSlots + int64_t{4} * kBlock + sub;
   if (smem < need) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -316,7 +325,8 @@ extern "C" int khmer_diginorm_scan(uint8_t* flat, int ntables,
   if (err != cudaSuccess) return err;
   scan_kernel<<<1, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       codes, lengths, reject, nbundles, L, k, cutoff, sub, layout, flat,
-      keep, reinterpret_cast<unsigned long long*>(n_unique),
+      static_cast<uint64_t*>(hashes), keep,
+      reinterpret_cast<unsigned long long*>(n_unique),
       reinterpret_cast<unsigned long long*>(n_cand));
   return cudaGetLastError();
 }

@@ -58,10 +58,10 @@ _ENTRY_POINTS = {
     "khmer_diginorm_med": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
                            _P, _I32, _P],
     # flat, ntables, primes (host), offsets (host), codes, lengths, reject,
-    # nbundles, L, k, cutoff, sub, smem, keep, n_unique, n_cand, device,
-    # stream
+    # nbundles, L, k, cutoff, sub, smem, hashes, keep, n_unique, n_cand,
+    # device, stream
     "khmer_diginorm_scan": [_P, _I32, _P, _P, _P, _P, _P, _I64, _I32, _I32,
-                            _I32, _I32, _I32, _P, _P, _P, _I32, _P],
+                            _I32, _I32, _I32, _P, _P, _P, _P, _I32, _P],
 }
 
 

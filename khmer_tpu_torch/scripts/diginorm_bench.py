@@ -4,83 +4,74 @@ window of config 2 as the CLI gives it, on the card.
 
 Config 2 is normalize-by-median -C 20 on data/stamps-reads.fa.gz with the
 defaults (k 32, 4 tables of about 1e6 bytes). This script runs the port's
-ScanNormalizer over the file's first windows (WINDOW bundles each), then,
-on the next window and the tables as the earlier windows left them, times
+ScanNormalizer over the file's first windows, as the CLI forms them
+(cli/normalize_by_median.py read_windows, WINDOW bundles each), then, on
+the next window and the tables as the earlier windows left them, times
 kernel E and kernel F against their plain versions, checked equal, beside
 their bounds (the larger of bytes over 3.35 TB/s and operations over 67
 TOP/s, H100 SXM):
   * E reads the codes, the lengths and each distinct counter of the
     window's k-mers once (1 B each) and writes a flag a bundle; one
-    operation per counter read;
+    operation per counter read. Its counter reads are random, and DRAM
+    serves whole 32-byte sectors, so it also has a sector floor: the
+    same bytes with 32 B for each distinct sector its counters lie in;
   * F reads the candidates' codes and lengths, the flags, each distinct
     counter of the candidates' k-mers once, writes each distinct counter
     of the kept bundles' k-mers once and a flag a bundle; one operation
     per counter read or added.
 F changes the tables, so each of its timed calls starts from a copy of
 them, made before the call's events. Needs a CUDA card. From the repo
-root:
+root (config 2's window 6; chip_smoke.py phase 7b calls time_window on
+its own reads and tables):
 
     python -m khmer_tpu_torch.scripts.diginorm_bench
 """
 
+import itertools
 import json
 import os
 
 import torch
 
-from khmer_tpu_torch.core import pipeline
+from khmer_tpu_torch.cli.normalize_by_median import read_windows
 from khmer_tpu_torch.core import sketch_kernels as K
-from khmer_tpu_torch.core.diginorm_scan import ScanNormalizer, pack_window
+from khmer_tpu_torch.core.diginorm_scan import (ScanNormalizer, pack_window,
+                                                row_runs)
 from khmer_tpu_torch.core.sketch import Countgraph
-from khmer_tpu_torch.io.fastx import FastxParser
-from khmer_tpu_torch.io.pairing import broken_paired_reader, clean_input_reads
 from khmer_tpu_torch.ops.u64 import umod
 from khmer_tpu_torch.scripts import cuda_ms
 from khmer_tpu_torch.scripts.byte_gather_bench import PEAK_BYTES_S
 
 STAMPS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "data", "stamps-reads.fa.gz")
-WINDOW = 16384  # cli/normalize_by_median.py WINDOW
 PEAK_OPS_S = 67e12  # H100 SXM, 32-bit operations outside tensor cores
-
-
-def read_windows(path, k, window, limit):
-    """The first `limit` windows of bundles of a read file, as
-    normalize-by-median forms them."""
-    reader = broken_paired_reader(clean_input_reads(FastxParser(path)),
-                                  min_length=k)
-    windows, cur = [], []
-    for _, _, read0, read1 in reader:
-        cur.append([r for r in (read0, read1) if r])
-        if len(cur) >= window:
-            windows.append(cur)
-            cur = []
-            if len(windows) == limit:
-                return windows
-    if cur:
-        windows.append(cur)
-    return windows[:limit]
+SECTOR = 32  # bytes DRAM serves for one random read
 
 
 def bounds(primes, k, codes, lengths, reject, keep):
-    """{"E": (bytes, operations), "F": (bytes, operations)} of one window
-    (module docstring), from its device tensors and flags."""
+    """{"E": (bytes, operations, sector-floor bytes), "F": (bytes,
+    operations)} of one window (module docstring), from its device tensors
+    and flags."""
     hashes, valid, _ = K._window_hashes(codes, lengths, k)
     offsets = K.byte_offsets(primes)
 
     def counters(bundles):
+        """(distinct counters, counter reads, distinct sectors)."""
         v = valid & bundles.repeat_interleave(2)[:, None]
         h = hashes[v]
-        idx = torch.cat([umod(h, p) + o for p, o in zip(primes, offsets)])
-        return int(torch.unique(idx).numel()), int(idx.numel())
+        idx = torch.unique(torch.cat([umod(h, p) + o
+                                      for p, o in zip(primes, offsets)]))
+        return (int(idx.numel()), int(v.sum()) * len(primes),
+                int(torch.unique(idx // SECTOR).numel()))
 
     B = reject.shape[0]
-    e_counters, e_ops = counters(torch.ones_like(reject))
-    f_read, f_ops_read = counters(~reject)
-    f_write, f_ops_add = counters(keep)
+    e_counters, e_ops, e_sectors = counters(torch.ones_like(reject))
+    f_read, f_ops_read, _ = counters(~reject)
+    f_write, f_ops_add, _ = counters(keep)
     ncand = int((~reject).sum())
+    e_rest = codes.numel() + 4 * lengths.numel() + B
     return {
-        "E": (codes.numel() + 4 * lengths.numel() + B + e_counters, e_ops),
+        "E": (e_rest + e_counters, e_ops, e_rest + SECTOR * e_sectors),
         "F": (ncand * (2 * codes.shape[1] + 8) + 2 * B + f_read + f_write,
               f_ops_read + f_ops_add)}
 
@@ -112,18 +103,18 @@ def _timed_from(flat, snap, nu, nu0, fn, reps):
 
 
 def time_window(dev, path=STAMPS, k=32, cutoff=20, x=1e6, n_tables=4,
-                window=WINDOW, at=6, reps=10):
+                at=6, reps=10):
     """Window `at` of `path` (after windows 0..at-1 went through the
     port's ScanNormalizer): kernels E and F against their plain versions,
-    times, bounds and mismatches."""
+    times, bounds and mismatches. The window must pack as one run (reads
+    of at most 4096 bases)."""
     cg = Countgraph(k, x, n_tables, device=dev)
-    norm = ScanNormalizer(cg, cutoff, window=window)
-    windows = read_windows(path, k, window, at + 1)
+    norm = ScanNormalizer(cg, cutoff)
+    windows = list(itertools.islice(read_windows(path, k), at + 1))
     for w in windows[:at]:
         norm.process_window(w)
     bundles = windows[at]
-    maxlen = max(len(r.cleaned_seq) for b in bundles for r in b)
-    L = max(pipeline._bucket_len(maxlen), k + 7)
+    (_, _, L), = row_runs(bundles, k)
     codes, lengths = (torch.from_numpy(a).to(dev)
                       for a in pack_window(bundles, L))
     primes, flat, nu = cg._primes, cg.tables.flat, cg._n_unique
@@ -154,7 +145,9 @@ def time_window(dev, path=STAMPS, k=32, cutoff=20, x=1e6, n_tables=4,
         "kept": int(keep.sum()),
         "med": {"ms": e_ms, "plain_ms": e_plain, "mismatches": med_err,
                 "bytes": b["E"][0], "ops": b["E"][1],
-                "bound": bound_ms(*b["E"])},
+                "bound": bound_ms(*b["E"][:2]),
+                "sector_bytes": b["E"][2],
+                "sector_ms": b["E"][2] / PEAK_BYTES_S * 1e3},
         "scan": {"ms": f_ms, "plain_ms": f_plain, "mismatches": scan_err,
                  "us_per_candidate": f_ms * 1e3 / max(ncand, 1),
                  "bytes": b["F"][0], "ops": b["F"][1],

@@ -5,10 +5,14 @@ csrc/diginorm_scan.cu) to their plain versions.
 k-mers repeat across and within bundles; ``CASES`` names the windows and
 tables that chip_smoke.py phase 3 and tests/test_torch_gpu_kernels.py run
 on the card: counters at 254 and 255, C = 1, 255 and above 255, k = 32,
-rows of 64 and 4096 codes, one and 32 tables (a bundle's adds in several
+rows of 64 and 4096 codes, rows longer than 4096 (9000, where kernel F
+keeps a bundle's hashes in shared memory, and 20000, where they go to a
+device buffer), one and 32 tables (a bundle's adds in several
 sub-chunks, one k-mer repeated across them), a window that phase A
 rejects whole and one where it rejects nothing, and the byte tables of
 PRIME_SETS (scripts/byte_gather_bench.py), up to 20 GB.
+``check_long_window`` runs the ScanNormalizer on the card and on the CPU
+over windows that hold reads longer than 4096 bases.
 """
 
 import numpy as np
@@ -64,6 +68,10 @@ CASES = {
     "C=300": (SMALL, None, 20, 300, 128, 64, 300, False),
     "k=32": ((1009, 1013, 1019), None, 32, 3, 128, 64, 400, False),
     "L=4096": ((100003, 100019), (0, 4, 0), 20, 3, 8, 4096, 6000, False),
+    "L=9000": ((100003, 100019, 100043), (0, 4, 0), 20, 3, 8, 9000, 12000,
+               False),
+    "L=20000": ((100003, 100019, 100043), (0, 4, 0), 20, 3, 8, 20000,
+                25000, False),
     "32-tables-subchunks": (tuple(K.get_n_primes_near_x(32, 2000)), None,
                             20, 5, 32, 512, 2000, False),
     "one-table": ((7919,), None, 20, 4, 128, 128, 500, False),
@@ -149,4 +157,57 @@ def check_case(name, dev):
         out["new " + label] = int(nu_k) - 5
         del flat_k, flat_p
         torch.cuda.empty_cache()
+    return out
+
+
+def long_read_windows(seed=20261021):
+    """Three windows of single-read bundles from a 40,000-base genome:
+    short reads (30-150 bases), with reads of 6,000, 12,000 and 15,000
+    (side by side) and 5,000 bases among them, so row_runs splits each
+    window into runs of short and long bundles."""
+    from khmer_tpu_torch.io.fastx import Record
+
+    rng = np.random.default_rng(seed)
+    genome = "".join(rng.choice(list("ACGT"), 40000))
+    out = []
+    for w in range(3):
+        lens = [int(n) for n in rng.integers(30, 150, 200)]
+        lens[20], lens[90], lens[91], lens[199] = 6000, 12000, 15000, 5000
+        window = []
+        for i, n in enumerate(lens):
+            s = int(rng.integers(0, len(genome) - n))
+            r = Record("w%dr%d" % (w, i), genome[s:s + n])
+            r.cleaned_seq = r.sequence
+            window.append([r])
+        out.append(window)
+    return out
+
+
+def check_long_window(dev, C=3):
+    """ScanNormalizer on a countgraph on the card against one on the CPU
+    (the plain versions) over long_read_windows: mismatched keep flags,
+    plus 1 for tables that differ, plus the n_unique, candidate and run
+    count differences; and the kernels' launches, which must be one of
+    each a run."""
+    from khmer_tpu_torch.core.diginorm_scan import ScanNormalizer
+    from khmer_tpu_torch.core.sketch import Countgraph
+
+    engines = [ScanNormalizer(Countgraph(20, 2e5, 3, device=d), C)
+               for d in (dev, "cpu")]
+    before = (K.diginorm_med_cuda.launches, K.diginorm_scan_cuda.launches)
+    out = {"mismatches": 0, "kept": 0}
+    for window in long_read_windows():
+        got, want = (e.process_window(window) for e in engines)
+        out["mismatches"] += sum(len(a) != len(b) for a, b in zip(got, want))
+        out["kept"] += sum(1 for a in got if a)
+    card, cpu = engines
+    out["mismatches"] += (
+        (0 if torch.equal(card.graph.tables.flat.cpu(),
+                          cpu.graph.tables.flat) else 1)
+        + abs(card.graph.n_unique_kmers() - cpu.graph.n_unique_kmers())
+        + abs(int(card.candidates) - int(cpu.candidates))
+        + abs(card.scan_runs - cpu.scan_runs))
+    out["runs"] = card.scan_runs
+    out["launches"] = (K.diginorm_med_cuda.launches - before[0],
+                       K.diginorm_scan_cuda.launches - before[1])
     return out

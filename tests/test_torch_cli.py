@@ -157,6 +157,9 @@ def test_port_imports_no_jax():
             "khmer_tpu_torch.core.diginorm_scan, "
             "khmer_tpu_torch.io.pairing, "
             "khmer_tpu_torch.scripts.synth_reads, "
+            "khmer_tpu_torch.scripts.diginorm_bench, "
+            "khmer_tpu_torch.scripts.diginorm_cases, "
+            "khmer_tpu_torch.scripts.peak_rss, "
             "khmer_tpu_torch.core.pipeline, khmer_tpu_torch.ops.cuda, "
             "khmer_tpu_torch.scripts.pallas_proto, "
             "khmer_tpu_torch.scripts.profile_scatter2; "

@@ -21,9 +21,10 @@ from khmer_tpu.core import hostengine
 from khmer_tpu.io.fastx import Record as JaxRecord
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.core.diginorm import BatchedNormalizer
-from khmer_tpu_torch.core.diginorm_scan import (ScanNormalizer,
+from khmer_tpu_torch.core.diginorm_scan import (LONG_RUN_BYTES,
+                                                ScanNormalizer,
                                                 diginorm_window_plain,
-                                                med_ok_plain)
+                                                med_ok_plain, row_runs)
 from khmer_tpu_torch.core.sketch import Countgraph, Nodegraph
 from khmer_tpu_torch.io.fastx import Record
 from khmer_tpu_torch.scripts.diginorm_cases import window as _window
@@ -183,7 +184,7 @@ def test_scan_normalizer_matches_jax_engines():
     j2, _ = _seeded_graphs(np.random.default_rng(5), genome)
     engines = [jax_scan.ScanNormalizer(j1, 4, window=128),
                jax_diginorm.BatchedNormalizer(j2, 4, window=128)]
-    mine = ScanNormalizer(pg, 4, window=128)
+    mine = ScanNormalizer(pg, 4)
     jb = _bundles(np.random.default_rng(2), seqs, JaxRecord)
     pb = _bundles(np.random.default_rng(2), seqs, Record)
     kept = 0
@@ -201,19 +202,19 @@ def test_scan_normalizer_matches_jax_engines():
 
 
 def test_scan_normalizer_long_read_window_matches_host_engine():
-    """A window holding a read longer than MAX_ROW_LEN (4096) takes the
-    exact host-side path (_host_window through BatchedNormalizer). The
-    JAX package's device engines cannot take such a read (their rows stop
-    at 4096 codes; ROADMAP section 3), so the port is held to JAX's native
-    host engine, the sequential reference, over windows before and after
-    it."""
+    """A window holding a read longer than MAX_ROW_LEN (4096) splits into
+    runs (row_runs), the long read's at rows of its own length, which go
+    through the same two phases in stream order. The JAX package's device
+    engines cannot take such a read (their rows stop at 4096 codes;
+    ROADMAP section 3), so the port is held to JAX's native host engine,
+    the sequential reference, over windows before and after it."""
     rng = np.random.default_rng(12)
     genome = "".join(rng.choice(list("ACGT"), 9000))
     seqs = _reads(rng, 300, genome)
     seqs[200] = genome[100:5100]
     jg, pg = _seeded_graphs(np.random.default_rng(6), genome)
     ref = hostengine.NativeNormalizer(jg, 3)
-    mine = ScanNormalizer(pg, 3, window=100)
+    mine = ScanNormalizer(pg, 3)
     jb = _bundles(np.random.default_rng(4), seqs, JaxRecord)
     pb = _bundles(np.random.default_rng(4), seqs, Record)
     long_at = [i for i, b in enumerate(pb)
@@ -223,6 +224,57 @@ def test_scan_normalizer_long_read_window_matches_host_engine():
         want = [len(x) for x in ref.process_window(jb[s:s + 100])]
         assert [len(x) for x in mine.process_window(pb[s:s + 100])] == want
         _same_state(jg, pg)
+    assert mine.scan_runs == 2 + 3  # the long read's window in 3 runs
+
+
+def _lens_bundles(lens):
+    out = []
+    for i, ls in enumerate(lens):
+        b = []
+        for n in ls:
+            r = Record("r%d" % i, "A" * n)
+            r.cleaned_seq = r.sequence
+            b.append(r)
+        out.append(b)
+    return out
+
+
+def test_row_runs_split_only_at_long_reads():
+    """A window with no read longer than 4096 is one run at the ladder
+    length of its longest read (at least k + 7); bundles holding a longer
+    read run apart from the others, at their own longest read, several
+    together while their padded codes fit LONG_RUN_BYTES."""
+    assert row_runs(_lens_bundles([[90, 100], [30], [4096]]), 20) \
+        == [(0, 3, 4096)]
+    assert row_runs(_lens_bundles([[10], [5]]), 32) == [(0, 2, 64)]
+    assert row_runs(_lens_bundles([[100], [200, 50]]), 20) == [(0, 2, 256)]
+    assert row_runs(_lens_bundles([[100], [5000, 100], [9000], [100],
+                                   [4097]]), 20) \
+        == [(0, 1, 128), (1, 3, 9000), (3, 4, 128), (4, 5, 4097)]
+    n = LONG_RUN_BYTES // (2 * 6000)
+    runs = row_runs(_lens_bundles([[6000]] * (n + 1)), 20)
+    assert runs == [(0, n, 6000), (n, n + 1, 6000)]
+    assert row_runs([], 20) == []
+
+
+def test_scan_normalizer_window_size_is_the_callers():
+    """The engine takes whatever number of bundles a window holds: one
+    window of 600 gives what windows of 1, 7 and 256 give."""
+    rng = np.random.default_rng(21)
+    genome = "".join(rng.choice(list("ACGT"), 2000))
+    pb = _bundles(np.random.default_rng(3), _reads(rng, 600, genome),
+                  Record)
+    states = []
+    for size in (600, 256, 7, 1):
+        cg = Countgraph(20, 3000, 3, device="cpu")
+        norm = ScanNormalizer(cg, 3)
+        kept = []
+        for s in range(0, len(pb), size):
+            kept += [len(x) for x in norm.process_window(pb[s:s + size])]
+        states.append((kept, cg.n_unique_kmers(), cg.tables.flat.clone()))
+    for kept, nu, flat in states[1:]:
+        assert kept == states[0][0] and nu == states[0][1]
+        assert torch.equal(flat, states[0][2])
 
 
 @pytest.mark.parametrize("kind", ["byte", "bit"])
@@ -241,7 +293,7 @@ def test_batched_normalizer_matches_jax(kind):
         pg = Nodegraph(20, 4000, 3, device="cpu")
         cutoff = 1
     ref = jax_diginorm.BatchedNormalizer(jg, cutoff, window=64)
-    mine = BatchedNormalizer(pg, cutoff, window=64)
+    mine = BatchedNormalizer(pg, cutoff)
     jb = _bundles(np.random.default_rng(8), seqs, JaxRecord)
     pb = _bundles(np.random.default_rng(8), seqs, Record)
     for s in range(0, len(pb), 64):
@@ -265,6 +317,7 @@ def test_diginorm_plan_follows_the_window_not_the_tables(k, ntables):
         assert list(parts) == ["keys", "hashes", "hits", "first", "list",
                                "fresh"]
         assert parts["hashes"] == 16 * (L - k + 1)
+        assert plan["hash_words"] == 0
         assert parts["keys"] + parts["hits"] + parts["first"] \
             == 16 * K.DIGI_MAP_SLOTS
         assert parts["list"] == 4 * K.DIGI_SCAN_THREADS
@@ -274,6 +327,29 @@ def test_diginorm_plan_follows_the_window_not_the_tables(k, ntables):
         if prev is not None:
             assert plan["smem"] > prev
         prev = plan["smem"]
+
+
+@pytest.mark.parametrize("ntables", [1, 4, 32])
+def test_diginorm_plan_moves_long_rows_hashes_to_a_row_sized_buffer(
+        ntables):
+    """Rows too long for a bundle's hashes to fit the block's shared
+    memory keep them in a device buffer of 2 (L - k + 1) words, sized by
+    the row; the shared memory then holds the map and the per-thread and
+    per-event words alone, at any row length."""
+    fixed = K.diginorm_plan(64, 20, ntables)["smem"] - 16 * (64 - 20 + 1)
+    for L in (5000, 9000, 10000, 10500, 20000, 1 << 20):
+        plan = K.diginorm_plan(L, 20, ntables)
+        words = 2 * (L - 20 + 1)
+        assert plan["smem"] <= K.DIGI_SMEM_LIMIT < SMEM_LIMIT
+        if fixed + 8 * words <= K.DIGI_SMEM_LIMIT:
+            assert plan["hash_words"] == 0
+            assert plan["parts"]["hashes"] == 8 * words
+        else:
+            assert plan["hash_words"] == words
+            assert "hashes" not in plan["parts"]
+            assert plan["smem"] == fixed
+    assert K.diginorm_plan(9000, 20, 4)["hash_words"] == 0
+    assert K.diginorm_plan(20000, 20, 4)["hash_words"] > 0
 
 
 def test_diginorm_plan_refuses_rows_without_a_kmer():

@@ -404,8 +404,8 @@ def test_scan_normalizer_launches_kernels_on_cuda(cuda_device):
         r = Record("r%d" % i, genome[s:s + int(rng.integers(10, 100))])
         r.cleaned_seq = r.sequence
         bundles.append([r])
-    engines = [ScanNormalizer(Countgraph(20, 5e3, 3, device=d), 5,
-                              window=256) for d in (cuda_device, "cpu")]
+    engines = [ScanNormalizer(Countgraph(20, 5e3, 3, device=d), 5)
+               for d in (cuda_device, "cpu")]
     before = (K.diginorm_med_cuda.launches, K.diginorm_scan_cuda.launches)
     for s in range(0, 600, 256):
         got, want = (e.process_window(bundles[s:s + 256]) for e in engines)
@@ -416,3 +416,14 @@ def test_scan_normalizer_launches_kernels_on_cuda(cuda_device):
     assert cg.n_unique_kmers() == ref.n_unique_kmers()
     assert torch.equal(cg.tables.flat.cpu(), ref.tables.flat)
     assert int(engines[0].candidates) == int(engines[1].candidates) > 0
+
+
+def test_scan_normalizer_long_reads_on_cuda(cuda_device):
+    """Windows holding reads of 5,000 to 15,000 bases run on the card in
+    runs (row_runs), kernels E and F once a run, kernel F keeping the
+    15,000-base run's hashes in a device buffer; the card's engine keeps
+    what the CPU's does, with the same tables, n_unique and candidates."""
+    got = diginorm_cases.check_long_window(cuda_device)
+    assert got["mismatches"] == 0, got
+    assert got["runs"] == 18 and got["launches"] == (18, 18), got
+    assert 0 < got["kept"] < 600

@@ -27,7 +27,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      keep/consume scan on the windows of scripts/diginorm_cases.py:
      counters at 254 and 255, C = 1, 255 and 300, k = 32, rows of 64,
      4096, 9000 and 20000 codes, 1 and 32 tables, a window rejected whole
-     and one not at all, and the byte tables of 0.2, 4 and 20 GB; and the
+     and one not at all, the byte tables of 0.2, 4 and 20 GB, and windows
+     that only exact groups of the scan pass (a copy rejected because an
+     earlier one of its group raised its counters to C, counters at 254
+     and 255, k-mers first seen twice in a group, rows of 9000 codes
+     mixing grouped and lone bundles); and the
      port's ScanNormalizer on the card against the CPU's over windows
      holding reads of 5,000 to 15,000 bases);
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
@@ -58,13 +62,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
   7. config 2: the port's normalize-by-median -C 20 -s on
      data/stamps-reads.fa.gz (the defaults: k 32, 4 x 1e6 tables); the
      JAX answers (.keep and .ct sha256, kept reads, n_unique) asserted and
-     the median-test and scan kernels seen to launch; a traced run for
+     the median-test and scan kernels seen to launch, and the scan's
+     groups (candidates a group); a traced run for
      their device time; both kernels on window 6 against their plain
      versions, beside their bounds and E's sector floor
      (scripts/diginorm_bench.py);
   7b. config 2 at -k 20 -C 20 -x 1e9 -N 4 (4 GB of tables) on 1,000,000
      seeded synthetic reads (scripts/synth_reads.py); the JAX answers
-     asserted, the device memory beside the tables, a traced run; both
+     asserted, the device memory beside the tables, the scan's groups, a
+     traced run; both
      kernels on its window 6 against their plain versions, beside their
      bounds and E's sector floor.
 Kernel times in the per-kernel line are CUDA-event times of calls issued
@@ -1394,10 +1400,12 @@ def run_config2(torch, SK, dev, card, errs):
             run, "stamps-reads.fa.gz.keep"), os.path.join(run, "out.ct"),
             "config 2")
         runs, cand = norm.scan_runs, int(norm.candidates)
+        groups = int(norm.groups)
         t_wall, dev_ms, (e_ms, e_n), (f_ms, f_n), _ = _traced_normalize(
             torch, ["-C", "20", STAMPS], traced)
     for name, n in launches.items():
         expect(n > 0, "%s never launched on the config-2 path" % name)
+    _say_groups("phase 7", runs, cand, groups)
     say("phase 7 config 2: normalize-by-median -C 20 -s on "
         "data/stamps-reads.fa.gz: %.6f s = %.6g reads/s; kept %d of %d, "
         "n_unique %d, .keep sha256 %s, .ct %d B sha256 %s (the JAX "
@@ -1421,6 +1429,16 @@ def run_config2(torch, SK, dev, card, errs):
                                  ("scan", "diginorm_scan"))}
     torch.cuda.empty_cache()
     return launches, timings
+
+
+def _say_groups(label, runs, cand, groups):
+    """Kernel F's groups over a run: more than one candidate a group on
+    average, or the overlay did not engage."""
+    expect(0 < groups < cand, "%s: kernel F took %d candidates in %d groups"
+           % (label, cand, groups))
+    say("%s groups: kernel F took %d scan candidates in %d groups, %.4f "
+        "groups a run, %.4f candidates a group"
+        % (label, cand, groups, groups / max(runs, 1), cand / groups))
 
 
 def _bench_window(w, label, errs, card):
@@ -1481,11 +1499,13 @@ def run_config2_scale(torch, SK, dev, card, errs):
                                os.path.join(run, "out.ct"), "config 2 at 4 GB")
         os.remove(os.path.join(run, "out.ct"))
         runs, cand = norm.scan_runs, int(norm.candidates)
+        groups = int(norm.groups)
         t_wall, dev_ms, (e_ms, e_n), (f_ms, f_n), t_norm = _traced_normalize(
             torch, args + [reads], traced)
         torch.cuda.empty_cache()
         w = time_window(dev, reads, k=20, x=1e9, reps=3)
     expect(min(launches) > 0, "diginorm kernels never launched at 4 GB")
+    _say_groups("phase 7b", runs, cand, groups)
     say("phase 7b config 2 at -k 20 -C 20 -x 1e9 -N 4: %d synthetic reads "
         "(written in %.3f s), %.6f s = %.6g reads/s; kept %d, n_unique %d, "
         ".keep sha256 %s, .ct %d B sha256 %s (the JAX answers); tables "

@@ -14,7 +14,9 @@ two reads each):
   other bundles, the keep candidates, in stream order: gather the counts,
   test median_at_least(C) (hashtable.cc:333), and if the bundle is kept,
   add its k-mers to the u8 tables in place, saturating, with n_unique
-  exact (some counter 0 when the k-mer came).
+  exact (some counter 0 when the k-mer came). The kernel gathers a group
+  of candidates' counters at once and runs the group's tests and adds on
+  a copy in shared memory (sketch_kernels.scan_groups).
 
 The JAX engine keeps u32 copies of the u8 tables because XLA has no
 saturating u8 scatter; the kernels add to the u8 tables themselves, so the
@@ -116,11 +118,13 @@ class ScanNormalizer:
         self.k = countgraph.ksize()
         self._primes = tuple(countgraph._primes)
         # what the scan did: the runs it scanned (one a window unless reads
-        # longer than MAX_ROW_LEN split it), and the bundles phase B tested
-        # (a counter on the sketch's device)
+        # longer than MAX_ROW_LEN split it), the bundles phase B tested and
+        # the groups kernel F took them in (counters on the sketch's device)
         self.scan_runs = 0
         self.candidates = torch.zeros(1, dtype=torch.int64,
                                       device=countgraph.device)
+        self.groups = torch.zeros(1, dtype=torch.int64,
+                                  device=countgraph.device)
 
     def process_window(self, bundles):
         """bundles: list of record lists (1 or 2 reads), as many as the
@@ -143,7 +147,8 @@ class ScanNormalizer:
         rejected = self._phase_a(codes, lengths)
         keep = K.diginorm_scan(self._primes, self.k, self.C,
                                self.graph.tables.flat, self.graph._n_unique,
-                               codes, lengths, rejected, self.candidates)
+                               codes, lengths, rejected, self.candidates,
+                               self.groups)
         self.scan_runs += 1
         return keep.cpu().numpy()
 

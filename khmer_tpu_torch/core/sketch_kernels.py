@@ -548,7 +548,7 @@ _PLAIN_BLOCK = 512
 
 
 def diginorm_window_plain(primes, k, cutoff, flat, n_unique, codes, lengths,
-                          reject=None, n_cand=None):
+                          reject=None, n_cand=None, n_groups=None):
     """The diginorm keep/consume scan of one window, in stream order (JAX
     diginorm_scan.make_diginorm_window with _step_gather, _med_at_least
     and _consume_bundle; plain PyTorch, any device, a Python loop over
@@ -560,7 +560,8 @@ def diginorm_window_plain(primes, k, cutoff, flat, n_unique, codes, lengths,
     counter of each of its valid windows (read 0's, then read 1's) in each
     table, saturating at 255 (_consume_bundle). Bundles with `reject` set
     (kernel E's final rejections) are skipped: keep False, no test; the
-    bundles tested are added to `n_cand` (int64 [1]) when given. The
+    bundles tested are added to `n_cand` (int64 [1]) when given, and the
+    groups kernel F forms of them (scan_groups) to `n_groups`. The
     bigcount map plays no part, as in the JAX scan.
     """
     hashes, valid, nvalid = _window_hashes(codes, lengths, k)
@@ -577,6 +578,9 @@ def diginorm_window_plain(primes, k, cutoff, flat, n_unique, codes, lengths,
         cand = torch.nonzero(~reject).flatten().tolist()
     if n_cand is not None:
         n_cand += len(cand)
+    if n_groups is not None:
+        nev = (valid[0::2].sum(dim=1) + valid[1::2].sum(dim=1)).tolist()
+        n_groups += len(scan_groups(nev, cand, len(primes)))
     offsets = byte_offsets(primes)
     C = int(cutoff)
     for i, b in enumerate(cand):
@@ -609,44 +613,95 @@ def diginorm_window_plain(primes, k, cutoff, flat, n_unique, codes, lengths,
 
 
 # Kernel F (csrc/diginorm_scan.cu): one block of DIGI_SCAN_THREADS threads
-# walks the window; its shared-memory map holds DIGI_MAP_SLOTS counters;
-# these mirror its constants. DIGI_SMEM_LIMIT is the dynamic shared memory
-# it asks for at most: a block's 227 KB on the H100, less 1 KB for its
-# static shared words.
-DIGI_SCAN_THREADS = 256
+# walks the window in tiles of as many bundles. It takes a tile's
+# candidates in groups whose (event, table) items fit DIGI_GROUP_ITEMS,
+# half of its shared-memory overlay of DIGI_OVERLAY_SLOTS counters; a
+# bundle with more items runs alone, its adds through a map of
+# DIGI_MAP_SLOTS counters. These mirror its constants. DIGI_SMEM_LIMIT is
+# the dynamic shared memory it asks for at most: a block's 227 KB on the
+# H100, less 1 KB for its static shared words.
+DIGI_SCAN_THREADS = 512
+DIGI_OVERLAY_SLOTS = 8192
+DIGI_GROUP_ITEMS = DIGI_OVERLAY_SLOTS // 2
 DIGI_MAP_SLOTS = 4096
 DIGI_SMEM_LIMIT = 227 * 1024 - 1024
 
 
+def scan_groups(nev, cand, ntables):
+    """Kernel F's groups: `cand` (candidate bundles, ascending) cut into
+    consecutive lists, within each tile of DIGI_SCAN_THREADS bundles: from
+    each group's first candidate, as many as keep the events (nev[b], the
+    bundle's valid windows) within DIGI_GROUP_ITEMS // ntables, and at
+    least one. A bundle with more events than that is a group alone."""
+    cap = DIGI_GROUP_ITEMS // ntables
+    groups = []
+    i = 0
+    while i < len(cand):
+        tile = cand[i] // DIGI_SCAN_THREADS
+        total, j = nev[cand[i]], i + 1
+        if total <= cap:
+            while (j < len(cand) and cand[j] // DIGI_SCAN_THREADS == tile
+                   and total + nev[cand[j]] <= cap):
+                total += nev[cand[j]]
+                j += 1
+        groups.append(cand[i:j])
+        i = j
+    return groups
+
+
 def diginorm_plan(L, k, ntables):
     """Kernel F's scratch for a window of rows of L codes, k-mers of k and
-    `ntables` tables: {"sub": events a sub-chunk of the adds, "smem":
-    dynamic shared bytes, "parts": {name: shared bytes}, "hash_words":
-    words of the device buffer that holds the bundle's hashes, 0 when
-    they are in shared memory}. The parts, in the kernel's order: the
-    map's keys (8 B a slot), the bundle's hashes (8 B for each of its at
-    most 2 (L - k + 1) windows) unless they do not fit DIGI_SMEM_LIMIT
-    (rows of about 10,000 codes and more), the map's hits and lowest
-    events (4 B a slot each), the candidate list (4 B a thread) and a
-    sub-chunk's new flags (1 B an event). It follows the window (L, k)
-    and the number of tables, never their size: there is no other
-    scratch."""
+    `ntables` tables: {"sub": events a sub-chunk of a lone bundle's adds,
+    "group_events": the most events a group holds, DIGI_GROUP_ITEMS //
+    ntables (a bundle with more runs alone), "smem": dynamic shared bytes,
+    "group", "alone", "tile": {name: shared bytes}, "union": bytes of
+    the union of "group" and "alone", "hash_words": words of the device
+    buffer that holds a lone bundle's hashes, 0 when they are in shared
+    memory}.
+
+    The shared memory is the union of two layouts, rounded up to 16
+    bytes, then the tile's candidate list, in the kernel's order:
+    - "group", the overlay: claims (4 B a slot: the item that took it),
+      the counter of each (event, table) item (8 B an item), hits and
+      lowest events (4 B a slot each), values and dirty bits (2 B a
+      slot), each item's slot with its owner bit (2 B an item), new
+      flags (1 B an event);
+    - "alone", a lone bundle's map: keys (8 B a slot), its hashes (8 B
+      for each of its at most 2 (L - k + 1) windows) unless they do not
+      fit DIGI_SMEM_LIMIT (rows of about 10,000 codes and more), hits and
+      lowest events (4 B a slot each), a sub-chunk's new flags (1 B an
+      event);
+    - "tile": per candidate its two reads' window counts (8 B), its
+      bundle (4 B), and where its events start (4 B, one more).
+    It follows the window (L, k) and the number of tables, never their
+    size: there is no other scratch."""
     L, k, ntables = int(L), int(k), int(ntables)
     if not 1 <= k <= 32 or L < k:
         raise ValueError("rows of %d codes hold no %d-mer" % (L, k))
     if not 1 <= ntables <= MAX_TABLES:
         raise ValueError("the byte kernels take 1 to %d tables, not %d"
                          % (MAX_TABLES, ntables))
-    sub = DIGI_MAP_SLOTS // (2 * ntables)
+    S, G, M = DIGI_OVERLAY_SLOTS, DIGI_GROUP_ITEMS, DIGI_MAP_SLOTS
+    sub = M // (2 * ntables)
+    gev = G // ntables
     words = 2 * (L - k + 1)
-    parts = {"keys": 8 * DIGI_MAP_SLOTS, "hashes": 8 * words,
-             "hits": 4 * DIGI_MAP_SLOTS, "first": 4 * DIGI_MAP_SLOTS,
-             "list": 4 * DIGI_SCAN_THREADS, "fresh": sub}
+    group = {"claim": 4 * S, "keys": 8 * G, "hits": 4 * S, "first": 4 * S,
+             "values": 2 * S, "slots": 2 * G, "fresh": gev}
+    alone = {"keys": 8 * M, "hashes": 8 * words, "hits": 4 * M,
+             "first": 4 * M, "fresh": sub}
+    T = DIGI_SCAN_THREADS
+    tile = {"reads": 8 * T, "list": 4 * T, "starts": 4 * (T + 1)}
+
+    def union():
+        return -(-max(sum(group.values()), sum(alone.values())) // 16) * 16
+
     hash_words = 0
-    if sum(parts.values()) > DIGI_SMEM_LIMIT:
-        del parts["hashes"]
+    if union() + sum(tile.values()) > DIGI_SMEM_LIMIT:
+        del alone["hashes"]
         hash_words = words
-    return {"sub": sub, "smem": sum(parts.values()), "parts": parts,
+    return {"sub": sub, "group_events": gev,
+            "smem": union() + sum(tile.values()), "group": group,
+            "alone": alone, "tile": tile, "union": union(),
             "hash_words": hash_words}
 
 
@@ -713,13 +768,14 @@ def diginorm_med(primes, k, cutoff, flat, codes, lengths):
 
 
 def diginorm_scan_cuda(primes, k, cutoff, flat, n_unique, codes, lengths,
-                       reject, n_cand=None):
+                       reject, n_cand=None, n_groups=None):
     """Kernel F (csrc/diginorm_scan.cu): diginorm_window_plain with kernel
     E's `reject` on the card, one launch for the window, the u8 tables
     updated in place; its only scratch is diginorm_plan's, sized by the
-    row length.
+    row length and the number of tables.
     Returns keep, bool [B]; the bundles it tested are added to `n_cand`
-    (int64 [1] on the card) when given. Counts its launches in
+    and the groups it formed of them to `n_groups` (each int64 [1] on the
+    card) when given. Counts its launches in
     ``diginorm_scan_cuda.launches``."""
     dev = flat.device
     _check_byte_layout(primes, flat)
@@ -728,7 +784,10 @@ def diginorm_scan_cuda(primes, k, cutoff, flat, n_unique, codes, lengths,
     _bundle_flags(reject, B, dev, "reject")
     if n_cand is None:
         n_cand = torch.zeros(1, dtype=torch.int64, device=dev)
-    for name, t in (("n_unique", n_unique), ("n_cand", n_cand)):
+    for name, t in (("n_unique", n_unique), ("n_cand", n_cand),
+                    ("n_groups", n_groups)):
+        if t is None and name == "n_groups":
+            continue
         if (t.device != dev or t.dtype != torch.int64 or t.numel() != 1
                 or not t.is_contiguous()):
             raise ValueError("%s must be an int64 [1] tensor on %s"
@@ -748,7 +807,8 @@ def diginorm_scan_cuda(primes, k, cutoff, flat, n_unique, codes, lengths,
         reject.data_ptr(), B, codes.shape[1], int(k), _cutoff_arg(cutoff),
         plan["sub"], plan["smem"],
         None if hashes is None else hashes.data_ptr(), keep.data_ptr(),
-        n_unique.data_ptr(), n_cand.data_ptr(), dev.index, _stream(dev))
+        n_unique.data_ptr(), n_cand.data_ptr(), _ptr(n_groups), dev.index,
+        _stream(dev))
     cuda.check(err, "diginorm_scan")
     diginorm_scan_cuda.launches += 1
     return keep
@@ -758,18 +818,18 @@ diginorm_scan_cuda.launches = 0
 
 
 def diginorm_scan(primes, k, cutoff, flat, n_unique, codes, lengths, reject,
-                  n_cand=None):
+                  n_cand=None, n_groups=None):
     """The keep/consume scan of one window over the bundles phase A did not
     reject, in place -> keep, bool [B], the bundles it tested added to
-    `n_cand` when given: kernel F on a CUDA buffer, the plain version on a
-    CPU one."""
+    `n_cand` and kernel F's groups of them to `n_groups` when given:
+    kernel F on a CUDA buffer, the plain version on a CPU one."""
     if flat.is_cuda:
         return diginorm_scan_cuda(primes, k, cutoff, flat, n_unique, codes,
-                                  lengths, reject, n_cand)
+                                  lengths, reject, n_cand, n_groups)
     if flat.device.type != "cpu":
         raise ValueError("unsupported device %s" % flat.device)
     return diginorm_window_plain(primes, k, cutoff, flat, n_unique, codes,
-                                 lengths, reject, n_cand)
+                                 lengths, reject, n_cand, n_groups)
 
 
 # --------------------------------------------------------------------------

@@ -26,6 +26,25 @@ __device__ __forceinline__ uint64_t canonical(const uint8_t* codes, int k) {
   return f < r ? f : r;
 }
 
+// canonical(), with the k codes loaded at once before any is used: one
+// memory latency a window instead of one for every few codes.
+__device__ __forceinline__ uint64_t canonical_loads_first(
+    const uint8_t* codes, int k) {
+  uint32_t c[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) c[i] = i < k ? codes[i] : 0;
+  uint64_t f = 0;
+  uint64_t r = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (i < k) {
+      f = (f << 2) | c[i];
+      r |= static_cast<uint64_t>(c[i] ^ 1) << (2 * i);
+    }
+  }
+  return f < r ? f : r;
+}
+
 // Windows of a read row of `len` codes that a k-mer test counts:
 // max(len - k + 1, 0), as khmer_tpu/core/diginorm_scan.py takes nvalid.
 __device__ __forceinline__ int n_windows(int len, int k) {

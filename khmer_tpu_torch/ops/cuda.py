@@ -59,9 +59,9 @@ _ENTRY_POINTS = {
                            _P, _I32, _P],
     # flat, ntables, primes (host), offsets (host), codes, lengths, reject,
     # nbundles, L, k, cutoff, sub, smem, hashes, keep, n_unique, n_cand,
-    # device, stream
+    # n_groups, device, stream
     "khmer_diginorm_scan": [_P, _I32, _P, _P, _P, _P, _P, _I64, _I32, _I32,
-                            _I32, _I32, _I32, _P, _P, _P, _P, _I32, _P],
+                            _I32, _I32, _I32, _P, _P, _P, _P, _P, _I32, _P],
 }
 
 

@@ -10,7 +10,12 @@ keeps a bundle's hashes in shared memory, and 20000, where they go to a
 device buffer), one and 32 tables (a bundle's adds in several
 sub-chunks, one k-mer repeated across them), a window that phase A
 rejects whole and one where it rejects nothing, and the byte tables of
-PRIME_SETS (scripts/byte_gather_bench.py), up to 20 GB.
+PRIME_SETS (scripts/byte_gather_bench.py), up to 20 GB. The cases of
+GROUP_CASES hold kernel F's groups (sketch_kernels.scan_groups) to the
+sequential rule: a scan that read each group's counters as the group
+found them would get each of them wrong (tests/test_torch_diginorm.py).
+``repeated_window`` makes their windows: each bundle several times in a
+row, so a later copy in the same group sees what the earlier one added.
 ``check_long_window`` runs the ScanNormalizer on the card and on the CPU
 over windows that hold reads longer than 4096 bases.
 """
@@ -56,11 +61,41 @@ def window(rng, B, L, k, genome_len=300, all_present=False):
     return codes, lengths
 
 
+def repeated_window(rng, B, L, k, genome_len, copies=3, long_every=0):
+    """(codes, lengths) of B bundles from a random genome: each bundle
+    drawn once and then repeated, `copies` times in a row in all. Read 0
+    has 20-150 codes (at least k), read 1 the same or is absent; with
+    `long_every`, read 0 of every long_every-th bundle drawn has L/2 to L
+    codes, too many events for a group (it runs alone)."""
+    genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    codes = np.zeros((2 * B, L), dtype=np.uint8)
+    lengths = np.zeros(2 * B, dtype=np.int32)
+    for i, b in enumerate(range(0, B, copies)):
+        for row in (2 * b, 2 * b + 1):
+            if row % 2 and rng.random() < 0.5:
+                continue
+            if long_every and i % long_every == long_every - 1 \
+                    and row % 2 == 0:
+                n = int(rng.integers(L // 2, L + 1))
+            else:
+                n = int(rng.integers(max(k, 20), min(L, 150) + 1))
+            s = int(rng.integers(0, genome_len - n + 1))
+            codes[row, :n] = genome[s:s + n]
+            lengths[row] = n
+        for c in range(b + 1, min(b + copies, B)):
+            codes[2 * c:2 * c + 2] = codes[2 * b:2 * b + 2]
+            lengths[2 * c:2 * c + 2] = lengths[2 * b:2 * b + 2]
+    return codes, lengths
+
+
 SMALL = (211, 223, 227)
+MID = (1009, 1013, 1019)
 
 # name: (primes, table fill (None: zeros; (lo, hi, zero_below): uniform
 # counts in [lo, hi], those below zero_below then set to 0), k, C,
-# bundles, row length, genome length, every read present)
+# bundles, row length, genome length, every read present[, "repeats": the
+# window of repeated_window, or "repeats+long": with every third bundle
+# drawn long])
 CASES = {
     "C=1": (SMALL, None, 17, 1, 128, 64, 300, False),
     "counters-254-255": (SMALL, (246, 255, 250), 20, 255, 128, 64, 300,
@@ -83,15 +118,36 @@ CASES = {
                     5000, False),
     "-x 5e9 -N 4": (PRIME_SETS["-x 5e9 -N 4"], (0, 40, 0), 20, 20, 512, 128,
                     5000, False),
+    # a copy is rejected only because the earlier copy, kept in the same
+    # group, raised its counters from C - 1 to C
+    "group-raises-to-C": (MID, (4, 4, 0), 20, 5, 128, 64, 2000, False,
+                          "repeats"),
+    # counters at 254 and 255 hit by several kept candidates of a group
+    "group-254-255": (MID, (254, 255, 0), 20, 255, 128, 64, 2000, False,
+                      "repeats"),
+    # k-mers first seen by two kept candidates of a group: only the first
+    # is new
+    "group-first-seen-twice": (MID, None, 20, 20, 64, 64, 150, True),
+    # rows of 9000 codes: short bundles grouped, long ones alone
+    "L=9000-grouped-and-alone": ((100003, 100019, 100043), (2, 2, 0), 20, 3,
+                                 24, 9000, 12000, False, "repeats+long"),
 }
+
+GROUP_CASES = ("group-raises-to-C", "group-254-255",
+               "group-first-seen-twice", "L=9000-grouped-and-alone")
 
 
 def make_case(name, seed=20261020):
     """(primes, k, C, codes, lengths, fill) of case `name`; the tables are
     made on the card by fill_tables."""
-    primes, fill, k, C, B, L, glen, present = CASES[name]
+    primes, fill, k, C, B, L, glen, present, *kind = CASES[name]
     rng = np.random.default_rng(seed + sum(map(ord, name)))
-    codes, lengths = window(rng, B, L, k, glen, present)
+    if kind:
+        codes, lengths = repeated_window(
+            rng, B, L, k, glen, long_every=3 if kind[0] == "repeats+long"
+            else 0)
+    else:
+        codes, lengths = window(rng, B, L, k, glen, present)
     return primes, k, C, codes, lengths, fill
 
 
@@ -121,8 +177,8 @@ def check_case(name, dev):
     F against diginorm_window_plain twice, after E (with its rejections)
     and alone (no bundle rejected), from the same tables. Returns the
     mismatches of each kernel (rejections; keep flags, plus 1 for tables
-    that differ, plus the n_unique and candidate-count differences) and
-    what the window held."""
+    that differ, plus the n_unique, candidate-count and group-count
+    differences) and what the window held."""
     primes, k, C, codes, lengths, fill = make_case(name)
     c = torch.from_numpy(codes).to(dev)
     n = torch.from_numpy(lengths).to(dev)
@@ -144,17 +200,21 @@ def check_case(name, dev):
         nu_p = nu_k.clone()
         cand_k = torch.zeros(1, dtype=torch.int64, device=dev)
         cand_p = cand_k.clone()
+        groups_k = torch.zeros(1, dtype=torch.int64, device=dev)
+        groups_p = groups_k.clone()
         keep_k = K.diginorm_scan_cuda(primes, k, C, flat_k, nu_k, c, n,
-                                      reject, cand_k)
+                                      reject, cand_k, groups_k)
         keep_p = K.diginorm_window_plain(primes, k, C, flat_p, nu_p, c, n,
-                                         reject_p, cand_p)
+                                         reject_p, cand_p, groups_p)
         torch.cuda.synchronize()
         out["scan"] += (int((keep_k != keep_p).sum())
                         + (0 if _equal(flat_k, flat_p) else 1)
                         + abs(int(nu_k) - int(nu_p))
-                        + abs(int(cand_k) - int(cand_p)))
+                        + abs(int(cand_k) - int(cand_p))
+                        + abs(int(groups_k) - int(groups_p)))
         out["kept " + label] = int(keep_k.sum())
         out["new " + label] = int(nu_k) - 5
+        out["groups " + label] = int(groups_k)
         del flat_k, flat_p
         torch.cuda.empty_cache()
     return out
@@ -186,9 +246,9 @@ def long_read_windows(seed=20261021):
 def check_long_window(dev, C=3):
     """ScanNormalizer on a countgraph on the card against one on the CPU
     (the plain versions) over long_read_windows: mismatched keep flags,
-    plus 1 for tables that differ, plus the n_unique, candidate and run
-    count differences; and the kernels' launches, which must be one of
-    each a run."""
+    plus 1 for tables that differ, plus the n_unique, candidate, group
+    and run count differences; and the kernels' launches, which must be
+    one of each a run."""
     from khmer_tpu_torch.core.diginorm_scan import ScanNormalizer
     from khmer_tpu_torch.core.sketch import Countgraph
 
@@ -206,6 +266,7 @@ def check_long_window(dev, C=3):
                           cpu.graph.tables.flat) else 1)
         + abs(card.graph.n_unique_kmers() - cpu.graph.n_unique_kmers())
         + abs(int(card.candidates) - int(cpu.candidates))
+        + abs(int(card.groups) - int(cpu.groups))
         + abs(card.scan_runs - cpu.scan_runs))
     out["runs"] = card.scan_runs
     out["launches"] = (K.diginorm_med_cuda.launches - before[0],

@@ -27,6 +27,8 @@ from khmer_tpu_torch.core.diginorm_scan import (LONG_RUN_BYTES,
                                                 med_ok_plain, row_runs)
 from khmer_tpu_torch.core.sketch import Countgraph, Nodegraph
 from khmer_tpu_torch.io.fastx import Record
+from khmer_tpu_torch.ops.u64 import umod
+from khmer_tpu_torch.scripts import diginorm_cases
 from khmer_tpu_torch.scripts.diginorm_cases import window as _window
 
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may have (H100)
@@ -302,54 +304,175 @@ def test_batched_normalizer_matches_jax(kind):
     _same_state(jg, pg)
 
 
+def _stale_scan(primes, k, cutoff, flat, n_unique, codes, lengths):
+    """Kernel F as it would run if it skipped its overlay: each group of
+    scan_groups tested and added against the tables as the group found
+    them, each kept bundle writing min(found + hits, 255) over what the
+    earlier ones of its group wrote. Returns keep, bool [B]."""
+    hashes, valid, nvalid = K._window_hashes(codes, lengths, k)
+    nw = valid.sum(dim=1)
+    B = codes.shape[0] // 2
+    keep = torch.zeros(B, dtype=torch.bool)
+    min_req = K._min_required(nvalid).tolist()
+    present = (lengths >= k).tolist()
+    offsets = K.byte_offsets(primes)
+    groups = K.scan_groups((nw[0::2] + nw[1::2]).tolist(), list(range(B)),
+                           len(primes))
+    for group in groups:
+        found = flat.clone()
+        for b in group:
+            rows = (2 * b, 2 * b + 1)
+            counters = torch.cat([torch.stack(
+                [umod(hashes[r, :int(nw[r])], p) + o
+                 for p, o in zip(primes, offsets)]) for r in rows], dim=1)
+            old = found[counters]
+            at_least = (old.amin(dim=0) >= cutoff if old.shape[1]
+                        else torch.zeros(0, dtype=torch.bool))
+            n0 = int(nw[rows[0]])
+            ok0 = not present[rows[0]] or int(at_least[:n0].sum()) \
+                >= min_req[rows[0]]
+            ok1 = not present[rows[1]] or int(at_least[n0:].sum()) \
+                >= min_req[rows[1]]
+            if ok0 and ok1:
+                continue
+            keep[b] = True
+            added = found.clone()
+            K._consume_bundle(added, n_unique, counters, old)
+            flat[counters] = added[counters]
+    return keep
+
+
+@pytest.mark.parametrize("name", diginorm_cases.GROUP_CASES)
+def test_group_cases_catch_a_scan_that_skips_the_overlay(name):
+    """Each window of diginorm_cases.GROUP_CASES (which kernel F must pass
+    on the card) forms groups of several candidates, and a scan that read
+    each group's counters as the group found them (_stale_scan) gets its
+    keep flags, tables or n_unique wrong: so each case would catch a
+    kernel F that skipped its overlay. The L=9000 window also holds
+    bundles too large for a group, which run alone."""
+    primes, k, C, codes, lengths, fill = diginorm_cases.make_case(name)
+    c, n = torch.from_numpy(codes), torch.from_numpy(lengths)
+    flat0 = diginorm_cases.fill_tables(primes, fill, "cpu")
+    _, valid, _ = K._window_hashes(c, n, k)
+    nw = valid.sum(dim=1)
+    nev = (nw[0::2] + nw[1::2]).tolist()
+    B = codes.shape[0] // 2
+    groups = K.scan_groups(nev, list(range(B)), len(primes))
+    assert max(len(g) for g in groups) > 1
+    alone = [g for g in groups
+             if nev[g[0]] > K.DIGI_GROUP_ITEMS // len(primes)]
+    assert bool(alone) == (name == "L=9000-grouped-and-alone")
+    flat_p, flat_s = flat0.clone(), flat0.clone()
+    nu_p = torch.zeros(1, dtype=torch.int64)
+    nu_s = nu_p.clone()
+    groups_p = torch.zeros(1, dtype=torch.int64)
+    keep_p = diginorm_window_plain(primes, k, C, flat_p, nu_p, c, n,
+                                   n_groups=groups_p)
+    keep_s = _stale_scan(primes, k, C, flat_s, nu_s, c, n)
+    assert int(groups_p) == len(groups)
+    assert 0 < int(keep_p.sum()) < B
+    assert (not torch.equal(keep_p, keep_s) or not torch.equal(flat_p, flat_s)
+            or int(nu_p) != int(nu_s))
+
+
+def _round16(n):
+    return -(-n // 16) * 16
+
+
 @pytest.mark.parametrize("k", [17, 20, 32])
-@pytest.mark.parametrize("ntables", [1, 4, 20, 32])
+@pytest.mark.parametrize("ntables", [1, 2, 3, 4, 20, 32])
 def test_diginorm_plan_follows_the_window_not_the_tables(k, ntables):
-    """Kernel F's only scratch is its shared memory: the bundle's hashes
-    (8 B for each of 2 (L - k + 1) windows), the map (16 B a slot) and
-    per-thread and per-event words. It grows with the row length, never
-    with the table size (the plan takes none), and fits a block at every
-    row length of the ladder."""
+    """Kernel F's only scratch is its shared memory: the union of the
+    group's overlay (4 B of claim, 4 B of hits, 4 B of lowest event and
+    2 B of value a slot; 8 B of counter and 2 B of slot and owner bit an
+    item; 1 B of new flag an event) and a lone bundle's
+    map (16 B a slot, its hashes, 8 B for each of 2 (L - k + 1) windows,
+    and a sub-chunk's flags), then the tile's candidate list. It follows
+    the row length and the number of tables, never the table size (the
+    plan takes none), and fits a block at every row length of the
+    ladder."""
+    S, G, M = K.DIGI_OVERLAY_SLOTS, K.DIGI_GROUP_ITEMS, K.DIGI_MAP_SLOTS
+    T = K.DIGI_SCAN_THREADS
     prev = None
     for L in (64, 128, 256, 512, 1024, 2048, 4096):
         plan = K.diginorm_plan(L, k, ntables)
-        parts = plan["parts"]
-        assert list(parts) == ["keys", "hashes", "hits", "first", "list",
-                               "fresh"]
-        assert parts["hashes"] == 16 * (L - k + 1)
+        group, alone, tile = plan["group"], plan["alone"], plan["tile"]
+        assert list(group) == ["claim", "keys", "hits", "first", "values",
+                               "slots", "fresh"]
+        assert list(alone) == ["keys", "hashes", "hits", "first", "fresh"]
+        assert list(tile) == ["reads", "list", "starts"]
+        gev = plan["group_events"]
+        assert gev == G // ntables and gev * ntables <= G == S // 2
+        assert group["claim"] + group["hits"] + group["first"] \
+            + group["values"] == 14 * S
+        assert group["keys"] == 4 * group["slots"] == 8 * G
+        assert group["fresh"] == gev
+        assert alone["hashes"] == 16 * (L - k + 1)
         assert plan["hash_words"] == 0
-        assert parts["keys"] + parts["hits"] + parts["first"] \
-            == 16 * K.DIGI_MAP_SLOTS
-        assert parts["list"] == 4 * K.DIGI_SCAN_THREADS
-        assert plan["sub"] * ntables <= K.DIGI_MAP_SLOTS // 2
-        assert parts["fresh"] == plan["sub"] >= 64
-        assert plan["smem"] == sum(parts.values()) <= SMEM_LIMIT
+        assert alone["keys"] + alone["hits"] + alone["first"] == 16 * M
+        assert plan["sub"] * ntables <= M // 2
+        assert alone["fresh"] == plan["sub"] >= 64
+        assert tile == {"reads": 8 * T, "list": 4 * T, "starts": 4 * (T + 1)}
+        assert plan["union"] == _round16(max(sum(group.values()),
+                                             sum(alone.values())))
+        assert plan["smem"] == plan["union"] + sum(tile.values()) \
+            <= K.DIGI_SMEM_LIMIT < SMEM_LIMIT
         if prev is not None:
-            assert plan["smem"] > prev
+            assert plan["smem"] >= prev
+            if sum(alone.values()) > sum(group.values()):
+                assert plan["smem"] > prev
         prev = plan["smem"]
 
 
-@pytest.mark.parametrize("ntables", [1, 4, 32])
+@pytest.mark.parametrize("ntables", [1, 3, 4, 32])
 def test_diginorm_plan_moves_long_rows_hashes_to_a_row_sized_buffer(
         ntables):
-    """Rows too long for a bundle's hashes to fit the block's shared
+    """Rows too long for a lone bundle's hashes to fit the block's shared
     memory keep them in a device buffer of 2 (L - k + 1) words, sized by
-    the row; the shared memory then holds the map and the per-thread and
-    per-event words alone, at any row length."""
-    fixed = K.diginorm_plan(64, 20, ntables)["smem"] - 16 * (64 - 20 + 1)
+    the row; the shared memory then holds the overlay or the map and the
+    tile's words, at any row length."""
+    base = K.diginorm_plan(64, 20, ntables)
+    fixed_alone = sum(base["alone"].values()) - 16 * (64 - 20 + 1)
+    group, tile = sum(base["group"].values()), sum(base["tile"].values())
     for L in (5000, 9000, 10000, 10500, 20000, 1 << 20):
         plan = K.diginorm_plan(L, 20, ntables)
         words = 2 * (L - 20 + 1)
         assert plan["smem"] <= K.DIGI_SMEM_LIMIT < SMEM_LIMIT
-        if fixed + 8 * words <= K.DIGI_SMEM_LIMIT:
+        assert plan["group"] == base["group"]
+        if _round16(max(group, fixed_alone + 8 * words)) + tile \
+                <= K.DIGI_SMEM_LIMIT:
             assert plan["hash_words"] == 0
-            assert plan["parts"]["hashes"] == 8 * words
+            assert plan["alone"]["hashes"] == 8 * words
         else:
             assert plan["hash_words"] == words
-            assert "hashes" not in plan["parts"]
-            assert plan["smem"] == fixed
+            assert "hashes" not in plan["alone"]
+            assert plan["smem"] == _round16(max(group, fixed_alone)) + tile
     assert K.diginorm_plan(9000, 20, 4)["hash_words"] == 0
     assert K.diginorm_plan(20000, 20, 4)["hash_words"] > 0
+
+
+@pytest.mark.parametrize("ntables", [1, 3, 4, 32])
+def test_scan_groups_fill_the_overlay_and_run_large_bundles_alone(ntables):
+    """Kernel F's groups (scan_groups): from each group's first candidate,
+    in order, as many as keep the group's events within group_events =
+    DIGI_GROUP_ITEMS // ntables, and at least one; a bundle of more events
+    (its events x tables exceed half the overlay) is a group alone; no
+    group crosses a tile of DIGI_SCAN_THREADS bundles."""
+    gev = K.diginorm_plan(128, 20, ntables)["group_events"]
+    assert gev * ntables <= K.DIGI_GROUP_ITEMS < (gev + 1) * ntables
+    assert K.scan_groups([gev, 0, 1], [0, 1, 2], ntables) == [[0, 1], [2]]
+    assert K.scan_groups([1, gev + 1, 1], [0, 1, 2], ntables) \
+        == [[0], [1], [2]]
+    # bundle 2 is no candidate; the group of 0 and 1 is full
+    assert K.scan_groups([gev - 1, 1, 0, 5], [0, 1, 3], ntables) \
+        == [[0, 1], [3]]
+    T = K.DIGI_SCAN_THREADS
+    nev = [1] * (T + 40)
+    got = K.scan_groups(nev, list(range(T + 40)), ntables)
+    assert all(g[0] // T == g[-1] // T for g in got)
+    assert sum(got, []) == list(range(T + 40))
+    assert max(len(g) for g in got) == min(gev, T)
+    assert K.scan_groups([], [], ntables) == []
 
 
 def test_diginorm_plan_refuses_rows_without_a_kmer():

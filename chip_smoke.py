@@ -31,7 +31,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      that only exact groups of the scan pass (a copy rejected because an
      earlier one of its group raised its counters to C, counters at 254
      and 255, k-mers first seen twice in a group, rows of 9000 codes
-     mixing grouped and lone bundles); and the
+     mixing grouped and lone bundles), and windows on the edges of the
+     median test's tiles and rounds (rows of exactly one segment of
+     windows and of one more, 32 tables, rows of a million codes, reads
+     whose table-0 survivors equal their threshold or fall one short),
+     the median test's load counter held to its rule's on each; and the
      port's ScanNormalizer on the card against the CPU's over windows
      holding reads of 5,000 to 15,000 bases);
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
@@ -62,15 +66,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
   7. config 2: the port's normalize-by-median -C 20 -s on
      data/stamps-reads.fa.gz (the defaults: k 32, 4 x 1e6 tables); the
      JAX answers (.keep and .ct sha256, kept reads, n_unique) asserted and
-     the median-test and scan kernels seen to launch, and the scan's
-     groups (candidates a group); a traced run for
+     the median-test and scan kernels seen to launch, the median test's
+     counter loads (a launch, and beside every table of every window) and
+     the scan's groups (candidates a group); a traced run for
      their device time; both kernels on window 6 against their plain
-     versions, beside their bounds and E's sector floor
+     versions, beside their bounds and E's sector floors, E as issued and
+     as the device sees it, its load counter held to its rule's
      (scripts/diginorm_bench.py);
   7b. config 2 at -k 20 -C 20 -x 1e9 -N 4 (4 GB of tables) on 1,000,000
      seeded synthetic reads (scripts/synth_reads.py); the JAX answers
-     asserted, the device memory beside the tables, the scan's groups, a
-     traced run; both
+     asserted, the device memory beside the tables, the median test's
+     loads (asserted below every table of every window: its rounds
+     engaged), the scan's groups, a traced run; both
      kernels on its window 6 against their plain versions, beside their
      bounds and E's sector floor.
 Kernel times in the per-kernel line are CUDA-event times of calls issued
@@ -1406,6 +1413,7 @@ def run_config2(torch, SK, dev, card, errs):
     for name, n in launches.items():
         expect(n > 0, "%s never launched on the config-2 path" % name)
     _say_groups("phase 7", runs, cand, groups)
+    _say_med_loads("phase 7", norm, launches["diginorm_med"])
     say("phase 7 config 2: normalize-by-median -C 20 -s on "
         "data/stamps-reads.fa.gz: %.6f s = %.6g reads/s; kept %d of %d, "
         "n_unique %d, .keep sha256 %s, .ct %d B sha256 %s (the JAX "
@@ -1441,6 +1449,19 @@ def _say_groups(label, runs, cand, groups):
         % (label, cand, groups, groups / max(runs, 1), cand / groups))
 
 
+def _say_med_loads(label, norm, launches):
+    """Kernel E's counter loads over a run (ScanNormalizer.med_loads)
+    beside every table of every valid window: (loads, windows x T)."""
+    loads = int(norm.med_loads)
+    all_loads = norm.med_windows * len(norm._primes)
+    say("%s med loads: kernel E loaded %d counters in %d launches (%.1f a "
+        "launch) for %d valid windows x %d tables = %d (%.4f of them)"
+        % (label, loads, launches, loads / max(launches, 1),
+           norm.med_windows, len(norm._primes), all_loads,
+           loads / max(all_loads, 1)))
+    return loads, all_loads
+
+
 def _bench_window(w, label, errs, card):
     """Check and print one diginorm_bench.time_window result."""
     for key, name in (("med", "diginorm_med"), ("scan", "diginorm_scan")):
@@ -1449,14 +1470,18 @@ def _bench_window(w, label, errs, card):
                "%s != plain on %s's window %d" % (name, label, w["window"]))
     m, s = w["med"], w["scan"]
     say("  %s window %d: %d bundles of rows of %d codes, %d candidates, %d "
-        "kept; diginorm_med kernel %.4f ms, plain %.4f ms, bound %.5f ms "
-        "(%s; %d B, %d ops), sector floor %.5f ms (%d B); diginorm_scan "
-        "kernel %.4f ms (%.3f us a candidate), plain %.4f ms, bound %.5f ms "
-        "(%s; %d B, %d ops); on %s"
+        "kept; diginorm_med kernel %.4f ms as issued, device %.4f ms, "
+        "plain %.4f ms, bound %.5f ms (%s; %d B, %d ops), sector floor "
+        "%.5f ms (%d B; every counter), the rule's sector floor %.5f ms (%d "
+        "B), loads %d of %d windows x tables (%.4f); diginorm_scan kernel "
+        "%.4f ms (%.3f us a candidate), plain %.4f ms, bound %.5f ms (%s; "
+        "%d B, %d ops); on %s"
         % (label, w["window"], w["bundles"], w["L"], w["candidates"],
-           w["kept"], m["ms"], m["plain_ms"], m["bound"][0], m["bound"][1],
-           m["bytes"], m["ops"], m["sector_ms"], m["sector_bytes"], s["ms"],
-           s["us_per_candidate"], s["plain_ms"], s["bound"][0],
+           w["kept"], m["ms"], m["device_ms"], m["plain_ms"], m["bound"][0],
+           m["bound"][1], m["bytes"], m["ops"], m["sector_ms"],
+           m["sector_bytes"], m["rule_sector_ms"], m["rule_sector_bytes"],
+           m["loads"], m["all_loads"], m["loads"] / max(m["all_loads"], 1),
+           s["ms"], s["us_per_candidate"], s["plain_ms"], s["bound"][0],
            s["bound"][1], s["bytes"], s["ops"], card))
     return w
 
@@ -1506,6 +1531,10 @@ def run_config2_scale(torch, SK, dev, card, errs):
         w = time_window(dev, reads, k=20, x=1e9, reps=3)
     expect(min(launches) > 0, "diginorm kernels never launched at 4 GB")
     _say_groups("phase 7b", runs, cand, groups)
+    loads, all_loads = _say_med_loads("phase 7b", norm, launches[0])
+    expect(loads < all_loads, "phase 7b: kernel E loaded %d counters, every "
+           "table of every window (%d): its rounds did not engage"
+           % (loads, all_loads))
     say("phase 7b config 2 at -k 20 -C 20 -x 1e9 -N 4: %d synthetic reads "
         "(written in %.3f s), %.6f s = %.6g reads/s; kept %d, n_unique %d, "
         ".keep sha256 %s, .ct %d B sha256 %s (the JAX answers); tables "

@@ -9,7 +9,9 @@ two reads each):
 
 - phase A (kernel E, sketch_kernels.diginorm_med): the median test of
   every bundle under the tables as the window found them. Counts only
-  grow, so a bundle rejected here stays rejected;
+  grow, so a bundle rejected here stays rejected. The kernel loads table
+  0 first and the other tables only where that leaves a bundle undecided
+  (sketch_kernels.med_load_plan);
 - phase B (kernel F, sketch_kernels.diginorm_scan): one launch walks the
   other bundles, the keep candidates, in stream order: gather the counts,
   test median_at_least(C) (hashtable.cc:333), and if the bundle is kept,
@@ -118,13 +120,16 @@ class ScanNormalizer:
         self.k = countgraph.ksize()
         self._primes = tuple(countgraph._primes)
         # what the scan did: the runs it scanned (one a window unless reads
-        # longer than MAX_ROW_LEN split it), the bundles phase B tested and
-        # the groups kernel F took them in (counters on the sketch's device)
+        # longer than MAX_ROW_LEN split it), the valid k-windows phase A
+        # tested, the counters kernel E loaded for them (med_load_plan's
+        # rule), the bundles phase B tested and the groups kernel F took
+        # them in (counters on the sketch's device but med_windows)
         self.scan_runs = 0
-        self.candidates = torch.zeros(1, dtype=torch.int64,
-                                      device=countgraph.device)
-        self.groups = torch.zeros(1, dtype=torch.int64,
-                                  device=countgraph.device)
+        self.med_windows = 0
+        dev = countgraph.device
+        self.med_loads = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.candidates = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.groups = torch.zeros(1, dtype=torch.int64, device=dev)
 
     def process_window(self, bundles):
         """bundles: list of record lists (1 or 2 reads), as many as the
@@ -141,6 +146,8 @@ class ScanNormalizer:
         """Phases A and B of one run at rows of L codes -> keep, bool
         numpy [n]."""
         codes, lengths = pack_window(bundles, L)
+        self.med_windows += int(np.maximum(
+            lengths.astype(np.int64) - (self.k - 1), 0).sum())
         dev = self.graph.device
         codes = torch.from_numpy(codes).to(dev)
         lengths = torch.from_numpy(lengths).to(dev)
@@ -154,7 +161,8 @@ class ScanNormalizer:
 
     def _phase_a(self, codes, lengths):
         return K.diginorm_med(self._primes, self.k, self.C,
-                              self.graph.tables.flat, codes, lengths)
+                              self.graph.tables.flat, codes, lengths,
+                              self.med_loads)
 
     def finalize(self):
         """Nothing to write back: the scan updated the countgraph's own

@@ -332,9 +332,15 @@ def _sm_count(index):
 
 
 def _layout(primes):
-    """Host int64 arrays of the primes and offsets for a C entry point."""
+    """Host int64 arrays of the primes and offsets for a C entry point,
+    made once for each set of primes (the entry points copy them)."""
+    return _layout_arrays(tuple(int(p) for p in primes))
+
+
+@functools.lru_cache(maxsize=16)
+def _layout_arrays(primes):
     arr = ctypes.c_int64 * len(primes)
-    return (arr(*[int(p) for p in primes]), arr(*byte_offsets(primes)))
+    return (arr(*primes), arr(*byte_offsets(primes)))
 
 
 def _check_byte_args(primes, flat, hashes):
@@ -520,6 +526,77 @@ def med_ok_plain(primes, k, cutoff, flat, codes, lengths):
     ge = (valid & (counts >= int(cutoff))).sum(dim=1)
     ok = (ge >= _min_required(nvalid)) | (lengths < k)
     return ok.reshape(-1, 2).all(dim=1)
+
+
+# Kernel E (csrc/diginorm_med.cu): blocks of MED_THREADS threads, each
+# taking a tile of rows (whole bundles), at most MED_MAX_ROWS, in segments
+# of at most MED_SEG windows; these mirror its constants. MED_ROWS is the
+# tile it is given where shared memory allows, MED_SMEM_LIMIT the dynamic
+# shared memory it asks for at most (a block's 227 KB on the H100, less 2
+# KB for its static shared words).
+MED_THREADS = 256
+MED_MAX_ROWS = 64
+MED_ROWS = 32
+MED_SEG = 1024
+MED_SMEM_LIMIT = 227 * 1024 - 2048
+
+
+@functools.lru_cache(maxsize=64)
+def med_plan(L, k):
+    """Kernel E's tiling for rows of L codes and k-mers of k: {"rows": rows
+    a block (even), "seg": windows a segment (a multiple of 32),
+    "bit_words": 32-bit words of window bits a row (0: the tables are
+    loaded in one round), "smem": dynamic shared bytes}.
+
+    Per row the block keeps a segment's packed codes, forward and reverse
+    (16 B for each 32 codes of the segment's seg + 31, rounded up to
+    words), a bit for each of the row's L - k + 1 windows and the row of
+    each of a segment's items (1 B an item). It follows the window (L,
+    k), never the tables."""
+    L, k = int(L), int(k)
+    if not 1 <= k <= 32 or L < k:
+        raise ValueError("rows of %d codes hold no %d-mer" % (L, k))
+    W = L - k + 1
+    seg = min(-(-W // 32) * 32, MED_SEG)
+    per_row = 16 * (seg // 32 + 1) + seg
+    bit_words = -(-W // 32)
+    rows = min(MED_ROWS,
+               MED_SMEM_LIMIT // (per_row + 4 * bit_words) // 2 * 2)
+    if rows < 2:
+        bit_words = 0
+        rows = min(MED_ROWS, MED_SMEM_LIMIT // per_row // 2 * 2)
+    return {"rows": rows, "seg": seg, "bit_words": bit_words,
+            "smem": rows * (per_row + 4 * bit_words)}
+
+
+def med_load_plan(primes, k, cutoff, flat, codes, lengths):
+    """Kernel E's rule for which counters it loads (plain PyTorch, any
+    device): (reject bool [B], loaded bool [T, 2B, L - k + 1]), loaded[t,
+    r, j] True iff the kernel loads table t's counter of window j of row r.
+
+    Round 0 loads table 0 for every valid window. A present read whose
+    windows with a table-0 count >= C are fewer than its threshold fails,
+    and so does its bundle. Round 1 loads tables 1..T-1 for those surviving
+    windows of every bundle that did not fail; a window counts iff every
+    table's count is >= C. With one table, or rows whose window bits do not
+    fit (med_plan's bit_words 0), one round loads every table for every
+    valid window. The rejections equal med_ok_plain's."""
+    hashes, valid, nvalid = _window_hashes(codes, lengths, k)
+    C = int(cutoff)
+    at = torch.stack([flat[umod(hashes, p) + o].to(torch.int32) >= C
+                      for p, o in zip(primes, byte_offsets(primes))])
+    need = _min_required(nvalid)
+    present = lengths >= k
+    T = len(primes)
+    loaded = valid.expand(T, -1, -1).clone()
+    if T > 1 and med_plan(codes.shape[1], k)["bit_words"]:
+        survive = valid & at[0]
+        fail = present & (survive.sum(dim=1) < need)
+        failed = fail.reshape(-1, 2).any(dim=1)
+        loaded[1:] = survive & ~failed.repeat_interleave(2)[:, None]
+    ge = (valid & at.all(dim=0)).sum(dim=1)
+    ok = (ge >= need) | ~present
+    return ok.reshape(-1, 2).all(dim=1), loaded
 
 
 def _consume_bundle(flat, n_unique, counters, old):
@@ -733,21 +810,33 @@ def _cutoff_arg(cutoff):
     return max(min(int(cutoff), MAX_KCOUNT + 1), -1)
 
 
-def diginorm_med_cuda(primes, k, cutoff, flat, codes, lengths):
+def _check_counter(t, dev, name):
+    if (t.device != dev or t.dtype != torch.int64 or t.numel() != 1
+            or not t.is_contiguous()):
+        raise ValueError("%s must be an int64 [1] tensor on %s" % (name, dev))
+
+
+def diginorm_med_cuda(primes, k, cutoff, flat, codes, lengths, loads=None):
     """Kernel E (csrc/diginorm_med.cu): med_ok_plain on the card -> bool
-    [B]. Counts its launches in ``diginorm_med_cuda.launches``."""
+    [B], tiled by med_plan; the counter loads it issued (med_load_plan's)
+    are added to `loads` (int64 [1] on the card) when given. Counts its
+    launches in ``diginorm_med_cuda.launches``."""
     dev = flat.device
     _check_byte_layout(primes, flat)
     _check_window(codes, lengths, k, dev)
+    if loads is not None:
+        _check_counter(loads, dev, "loads")
     B = codes.shape[0] // 2
     reject = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
         return reject
+    plan = med_plan(codes.shape[1], k)
     primes_arr, offsets_arr = _layout(primes)
     err = cuda.library().khmer_diginorm_med(
         flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
         ctypes.addressof(offsets_arr), codes.data_ptr(), lengths.data_ptr(),
-        B, codes.shape[1], int(k), _cutoff_arg(cutoff), reject.data_ptr(),
+        B, codes.shape[1], int(k), _cutoff_arg(cutoff), plan["rows"],
+        plan["seg"], plan["bit_words"], reject.data_ptr(), _ptr(loads),
         dev.index, _stream(dev))
     cuda.check(err, "diginorm_med")
     diginorm_med_cuda.launches += 1
@@ -757,14 +846,19 @@ def diginorm_med_cuda(primes, k, cutoff, flat, codes, lengths):
 diginorm_med_cuda.launches = 0
 
 
-def diginorm_med(primes, k, cutoff, flat, codes, lengths):
-    """Phase A's rejections, bool [B]: kernel E on a CUDA buffer, the plain
-    version on a CPU one."""
+def diginorm_med(primes, k, cutoff, flat, codes, lengths, loads=None):
+    """Phase A's rejections, bool [B], the counter loads of kernel E's rule
+    added to `loads` when given: kernel E on a CUDA buffer, its plain
+    mirror (med_load_plan) on a CPU one."""
     if flat.is_cuda:
-        return diginorm_med_cuda(primes, k, cutoff, flat, codes, lengths)
+        return diginorm_med_cuda(primes, k, cutoff, flat, codes, lengths,
+                                 loads)
     if flat.device.type != "cpu":
         raise ValueError("unsupported device %s" % flat.device)
-    return med_ok_plain(primes, k, cutoff, flat, codes, lengths)
+    reject, loaded = med_load_plan(primes, k, cutoff, flat, codes, lengths)
+    if loads is not None:
+        loads += loaded.sum()
+    return reject
 
 
 def diginorm_scan_cuda(primes, k, cutoff, flat, n_unique, codes, lengths,
@@ -786,12 +880,8 @@ def diginorm_scan_cuda(primes, k, cutoff, flat, n_unique, codes, lengths,
         n_cand = torch.zeros(1, dtype=torch.int64, device=dev)
     for name, t in (("n_unique", n_unique), ("n_cand", n_cand),
                     ("n_groups", n_groups)):
-        if t is None and name == "n_groups":
-            continue
-        if (t.device != dev or t.dtype != torch.int64 or t.numel() != 1
-                or not t.is_contiguous()):
-            raise ValueError("%s must be an int64 [1] tensor on %s"
-                             % (name, dev))
+        if t is not None or name != "n_groups":
+            _check_counter(t, dev, name)
     keep = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
         return keep

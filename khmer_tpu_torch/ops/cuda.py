@@ -54,9 +54,10 @@ _ENTRY_POINTS = {
     "khmer_proto_rmw": [_P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P, _P,
                         _I32, _P],
     # flat, ntables, primes (host), offsets (host), codes, lengths,
-    # nbundles, L, k, cutoff, reject, device, stream
+    # nbundles, L, k, cutoff, rows, seg, bit_words, reject, loads, device,
+    # stream
     "khmer_diginorm_med": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
-                           _P, _I32, _P],
+                           _I32, _I32, _I32, _P, _P, _I32, _P],
     # flat, ntables, primes (host), offsets (host), codes, lengths, reject,
     # nbundles, L, k, cutoff, sub, smem, hashes, keep, n_unique, n_cand,
     # n_groups, device, stream

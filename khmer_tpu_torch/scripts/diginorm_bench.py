@@ -14,7 +14,12 @@ TOP/s, H100 SXM):
     window's k-mers once (1 B each) and writes a flag a bundle; one
     operation per counter read. Its counter reads are random, and DRAM
     serves whole 32-byte sectors, so it also has a sector floor: the
-    same bytes with 32 B for each distinct sector its counters lie in;
+    same bytes with 32 B for each distinct sector its counters lie in.
+    That floor counts every counter of every window (as it did before E
+    loaded its tables in rounds); the rule's floor counts the sectors of
+    the counters E's rule loads (sketch_kernels.med_load_plan). E is
+    timed as issued (scripts.cuda_ms) and as the device sees it
+    (scripts.device_ms), and its load counter is held to the rule's;
   * F reads the candidates' codes and lengths, the flags, each distinct
     counter of the candidates' k-mers once, writes each distinct counter
     of the kept bundles' k-mers once and a flag a bundle; one operation
@@ -39,7 +44,7 @@ from khmer_tpu_torch.core.diginorm_scan import (ScanNormalizer, pack_window,
                                                 row_runs)
 from khmer_tpu_torch.core.sketch import Countgraph
 from khmer_tpu_torch.ops.u64 import umod
-from khmer_tpu_torch.scripts import cuda_ms
+from khmer_tpu_torch.scripts import cuda_ms, device_ms
 from khmer_tpu_torch.scripts.byte_gather_bench import PEAK_BYTES_S
 
 STAMPS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -48,12 +53,16 @@ PEAK_OPS_S = 67e12  # H100 SXM, 32-bit operations outside tensor cores
 SECTOR = 32  # bytes DRAM serves for one random read
 
 
-def bounds(primes, k, codes, lengths, reject, keep):
-    """{"E": (bytes, operations, sector-floor bytes), "F": (bytes,
-    operations)} of one window (module docstring), from its device tensors
-    and flags."""
+def bounds(primes, k, codes, lengths, reject, keep, loaded):
+    """{"E": (bytes, operations, sector-floor bytes, the rule's
+    sector-floor bytes), "F": (bytes, operations)} of one window (module
+    docstring), from its device tensors, flags and the counters E's rule
+    loads (`loaded`, med_load_plan's)."""
     hashes, valid, _ = K._window_hashes(codes, lengths, k)
     offsets = K.byte_offsets(primes)
+    rule = torch.cat([(umod(hashes, p) + o)[loaded[t]]
+                      for t, (p, o) in enumerate(zip(primes, offsets))])
+    rule_sectors = int(torch.unique(rule // SECTOR).numel())
 
     def counters(bundles):
         """(distinct counters, counter reads, distinct sectors)."""
@@ -71,7 +80,8 @@ def bounds(primes, k, codes, lengths, reject, keep):
     ncand = int((~reject).sum())
     e_rest = codes.numel() + 4 * lengths.numel() + B
     return {
-        "E": (e_rest + e_counters, e_ops, e_rest + SECTOR * e_sectors),
+        "E": (e_rest + e_counters, e_ops, e_rest + SECTOR * e_sectors,
+              e_rest + SECTOR * rule_sectors),
         "F": (ncand * (2 * codes.shape[1] + 8) + 2 * B + f_read + f_write,
               f_ops_read + f_ops_add)}
 
@@ -120,11 +130,20 @@ def time_window(dev, path=STAMPS, k=32, cutoff=20, x=1e6, n_tables=4,
     primes, flat, nu = cg._primes, cg.tables.flat, cg._n_unique
     snap, nu0 = flat.clone(), nu.clone()
 
-    reject = K.diginorm_med_cuda(primes, k, cutoff, flat, codes, lengths)
-    med_err = int((reject != K.med_ok_plain(primes, k, cutoff, flat, codes,
-                                            lengths)).sum())
-    e_ms = cuda_ms(lambda: K.diginorm_med_cuda(primes, k, cutoff, flat,
-                                               codes, lengths), reps)
+    loads = torch.zeros(1, dtype=torch.int64, device=dev)
+    reject = K.diginorm_med_cuda(primes, k, cutoff, flat, codes, lengths,
+                                 loads)
+    _, loaded = K.med_load_plan(primes, k, cutoff, flat, codes, lengths)
+    windows = int(loaded[0].sum())
+    med_err = (int((reject != K.med_ok_plain(primes, k, cutoff, flat, codes,
+                                             lengths)).sum())
+               + abs(int(loads) - int(loaded.sum())))
+
+    def med():
+        return K.diginorm_med_cuda(primes, k, cutoff, flat, codes, lengths)
+
+    e_ms = cuda_ms(med, reps)
+    e_dev = device_ms(med, reps)
     e_plain = cuda_ms(lambda: K.med_ok_plain(primes, k, cutoff, flat, codes,
                                              lengths), 3)
 
@@ -137,17 +156,21 @@ def time_window(dev, path=STAMPS, k=32, cutoff=20, x=1e6, n_tables=4,
             primes, k, cutoff, flat, nu, codes, lengths, reject), 1)
     scan_err = (int((keep != keep_p).sum()) + abs(f_nu - int(nu))
                 + (0 if torch.equal(f_tables, flat) else 1))
-    b = bounds(primes, k, codes, lengths, reject, keep)
+    b = bounds(primes, k, codes, lengths, reject, keep, loaded)
     ncand = int((~reject).sum())
     return {
         "device": torch.cuda.get_device_name(dev), "window": at,
         "bundles": len(bundles), "L": L, "candidates": ncand,
         "kept": int(keep.sum()),
-        "med": {"ms": e_ms, "plain_ms": e_plain, "mismatches": med_err,
+        "med": {"ms": e_ms, "device_ms": e_dev, "plain_ms": e_plain,
+                "mismatches": med_err, "windows": windows,
+                "loads": int(loads), "all_loads": windows * len(primes),
                 "bytes": b["E"][0], "ops": b["E"][1],
                 "bound": bound_ms(*b["E"][:2]),
                 "sector_bytes": b["E"][2],
-                "sector_ms": b["E"][2] / PEAK_BYTES_S * 1e3},
+                "sector_ms": b["E"][2] / PEAK_BYTES_S * 1e3,
+                "rule_sector_bytes": b["E"][3],
+                "rule_sector_ms": b["E"][3] / PEAK_BYTES_S * 1e3},
         "scan": {"ms": f_ms, "plain_ms": f_plain, "mismatches": scan_err,
                  "us_per_candidate": f_ms * 1e3 / max(ncand, 1),
                  "bytes": b["F"][0], "ops": b["F"][1],

@@ -16,6 +16,12 @@ sequential rule: a scan that read each group's counters as the group
 found them would get each of them wrong (tests/test_torch_diginorm.py).
 ``repeated_window`` makes their windows: each bundle several times in a
 row, so a later copy in the same group sees what the earlier one added.
+The last five cases hold kernel E's tiling and its rounds of loads
+(sketch_kernels.med_plan, med_load_plan): rows of exactly one segment and
+of one window more, 32 tables, rows of a million codes (one round), and
+reads whose table-0 survivors equal their threshold or fall one short
+(``need_edge_tables``); check_case also holds E's load counter to
+med_load_plan's.
 ``check_long_window`` runs the ScanNormalizer on the card and on the CPU
 over windows that hold reads longer than 4096 bases.
 """
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from khmer_tpu_torch.core import sketch_kernels as K
+from khmer_tpu_torch.ops.u64 import umod
 from khmer_tpu_torch.scripts.byte_gather_bench import PRIME_SETS
 
 
@@ -90,9 +97,11 @@ def repeated_window(rng, B, L, k, genome_len, copies=3, long_every=0):
 
 SMALL = (211, 223, 227)
 MID = (1009, 1013, 1019)
+BIG = (1000003, 1000033, 1000037)
 
 # name: (primes, table fill (None: zeros; (lo, hi, zero_below): uniform
-# counts in [lo, hi], those below zero_below then set to 0), k, C,
+# counts in [lo, hi], those below zero_below then set to 0; "need-edge":
+# need_edge_tables of the window), k, C,
 # bundles, row length, genome length, every read present[, "repeats": the
 # window of repeated_window, or "repeats+long": with every third bundle
 # drawn long])
@@ -131,6 +140,23 @@ CASES = {
     # rows of 9000 codes: short bundles grouped, long ones alone
     "L=9000-grouped-and-alone": ((100003, 100019, 100043), (2, 2, 0), 20, 3,
                                  24, 9000, 12000, False, "repeats+long"),
+    # kernel E's tiles (sketch_kernels.med_plan): rows of exactly one
+    # segment of MED_SEG windows and of one window more; 32 tables with
+    # counts about C, so that its second round of loads runs
+    "one-segment-rows": ((100003, 100019, 100043), (2, 6, 0), 20, 3, 8,
+                         K.MED_SEG + 19, 3000, True),
+    "two-segment-rows": ((100003, 100019, 100043), (2, 6, 0), 20, 3, 8,
+                         K.MED_SEG + 20, 3000, True),
+    "32-tables-staged": (tuple(K.get_n_primes_near_x(32, 2000)), (2, 6, 0),
+                         20, 3, 32, 512, 2000, False),
+    # rows of a million codes: too many window bits for two rows' shared
+    # memory, so kernel E loads every table in one round
+    "one-round-1M-rows": ((100003, 100019, 100043), (2, 6, 0), 20, 3, 1,
+                          10**6, 10**6, True),
+    # reads whose table-0 survivors equal their threshold, or fall one
+    # short of it, and reads that pass table 0 but fail the last table
+    # (need_edge_tables)
+    "survivors-equal-need": (BIG, "need-edge", 20, 5, 64, 128, 50000, True),
 }
 
 GROUP_CASES = ("group-raises-to-C", "group-254-255",
@@ -148,12 +174,42 @@ def make_case(name, seed=20261020):
             else 0)
     else:
         codes, lengths = window(rng, B, L, k, glen, present)
+    if fill == "need-edge":
+        fill = need_edge_tables(primes, k, C, codes, lengths)
     return primes, k, C, codes, lengths, fill
+
+
+def need_edge_tables(primes, k, C, codes, lengths):
+    """Flat tables (numpy uint8) for a window of present reads: every table
+    but table 0 at C; table 0 at C on the first `need` windows of each read
+    (need: its threshold), one fewer on read 0 of bundles 1, 4, 7, ...,
+    and 0 elsewhere; the last table at C - 1 on the first window of read 1
+    of bundles 2, 5, 8, .... So, but for counters two windows share, both
+    reads of bundles 0, 3, 6, ... pass with exactly the windows they need
+    (the bundle is rejected), read 0 of bundles 1, 4, 7, ... fails on table
+    0 (its mate's other tables are never loaded), and read 1 of bundles 2,
+    5, 8, ... passes table 0 and fails on the last table."""
+    c, n = torch.from_numpy(codes), torch.from_numpy(lengths)
+    hashes, _, nvalid = K._window_hashes(c, n, k)
+    need = K._min_required(nvalid).tolist()
+    offsets = K.byte_offsets(primes)
+    flat = np.full(K.byte_flat_size(primes), C, dtype=np.uint8)
+    flat[:primes[0]] = 0
+    first = (umod(hashes, primes[0]) + offsets[0]).numpy()
+    last = (umod(hashes[:, 0], primes[-1]) + offsets[-1]).numpy()
+    for row, want in enumerate(need):
+        kind = (row // 2 % 3, row % 2)
+        flat[first[row, :want - (kind == (1, 0))]] = C
+        if kind == (2, 1) and want:
+            flat[last[row]] = C - 1
+    return flat
 
 
 def fill_tables(primes, fill, dev, seed=0):
     """The flat byte tables of a case on `dev`."""
     size = K.byte_flat_size(primes)
+    if isinstance(fill, np.ndarray):
+        return torch.from_numpy(fill).to(dev)
     if fill is None:
         return torch.zeros(size, dtype=torch.uint8, device=dev)
     lo, hi, zero_below = fill
@@ -173,12 +229,13 @@ def _equal(a, b, piece=1 << 30):
 
 
 def check_case(name, dev):
-    """Case `name` on the card: kernel E against med_ok_plain, then kernel
-    F against diginorm_window_plain twice, after E (with its rejections)
-    and alone (no bundle rejected), from the same tables. Returns the
-    mismatches of each kernel (rejections; keep flags, plus 1 for tables
-    that differ, plus the n_unique, candidate-count and group-count
-    differences) and what the window held."""
+    """Case `name` on the card: kernel E against med_ok_plain and its load
+    counter against med_load_plan, then kernel F against
+    diginorm_window_plain twice, after E (with its rejections) and alone
+    (no bundle rejected), from the same tables. Returns the mismatches of
+    each kernel (rejections plus the load-count difference; keep flags,
+    plus 1 for tables that differ, plus the n_unique, candidate-count and
+    group-count differences) and what the window held."""
     primes, k, C, codes, lengths, fill = make_case(name)
     c = torch.from_numpy(codes).to(dev)
     n = torch.from_numpy(lengths).to(dev)
@@ -187,9 +244,13 @@ def check_case(name, dev):
     for label in ("after E", "alone"):
         flat_k = fill_tables(primes, fill, dev)
         if label == "after E":
-            reject = K.diginorm_med_cuda(primes, k, C, flat_k, c, n)
+            loads = torch.zeros(1, dtype=torch.int64, device=dev)
+            reject = K.diginorm_med_cuda(primes, k, C, flat_k, c, n, loads)
             want = K.med_ok_plain(primes, k, C, flat_k, c, n)
-            out["med"] = int((reject != want).sum())
+            _, loaded = K.med_load_plan(primes, k, C, flat_k, c, n)
+            out["loads"], out["planned loads"] = int(loads), int(loaded.sum())
+            out["med"] = (int((reject != want).sum())
+                          + abs(out["loads"] - out["planned loads"]))
             out["rejected"] = int(reject.sum())
             reject_p = want
         else:
@@ -246,9 +307,9 @@ def long_read_windows(seed=20261021):
 def check_long_window(dev, C=3):
     """ScanNormalizer on a countgraph on the card against one on the CPU
     (the plain versions) over long_read_windows: mismatched keep flags,
-    plus 1 for tables that differ, plus the n_unique, candidate, group
-    and run count differences; and the kernels' launches, which must be
-    one of each a run."""
+    plus 1 for tables that differ, plus the n_unique, kernel E load and
+    window, candidate, group and run count differences; and the kernels'
+    launches, which must be one of each a run."""
     from khmer_tpu_torch.core.diginorm_scan import ScanNormalizer
     from khmer_tpu_torch.core.sketch import Countgraph
 
@@ -265,6 +326,8 @@ def check_long_window(dev, C=3):
         (0 if torch.equal(card.graph.tables.flat.cpu(),
                           cpu.graph.tables.flat) else 1)
         + abs(card.graph.n_unique_kmers() - cpu.graph.n_unique_kmers())
+        + abs(int(card.med_loads) - int(cpu.med_loads))
+        + abs(card.med_windows - cpu.med_windows)
         + abs(int(card.candidates) - int(cpu.candidates))
         + abs(int(card.groups) - int(cpu.groups))
         + abs(card.scan_runs - cpu.scan_runs))

@@ -71,6 +71,198 @@ def test_med_ok_plain_matches_jax(k, cutoff, L):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+def _jax_med_ok(primes, k, cutoff, flat, codes, lengths):
+    tables = tuple(jnp.asarray(t.astype(np.uint32))
+                   for t in _split(primes, flat))
+    return np.asarray(jax_scan.make_med_ok(
+        tuple(primes), k, "twobit", cutoff, codes.shape[1])(
+        tables, jnp.asarray(codes), jnp.asarray(lengths)))
+
+
+def _check_load_plan(primes, k, cutoff, flat, codes, lengths):
+    """med_load_plan's rejections against med_ok_plain's and JAX
+    make_med_ok's; returns (loaded, valid windows)."""
+    c, n = torch.from_numpy(codes), torch.from_numpy(lengths)
+    reject, loaded = K.med_load_plan(primes, k, cutoff, flat, c, n)
+    assert reject.dtype == torch.bool
+    assert reject.shape == (codes.shape[0] // 2,)
+    assert torch.equal(reject, med_ok_plain(primes, k, cutoff, flat, c, n))
+    assert np.array_equal(reject.numpy(),
+                          _jax_med_ok(primes, k, cutoff, flat, codes,
+                                      lengths))
+    _, valid, _ = K._window_hashes(c, n, k)
+    assert loaded.shape == (len(primes),) + valid.shape
+    # only valid windows load, table 0 always, and never more than T each
+    assert not bool((loaded & ~valid).any())
+    assert torch.equal(loaded[0], valid)
+    assert int(loaded.sum()) <= int(valid.sum()) * len(primes)
+    return loaded, int(valid.sum())
+
+
+@pytest.mark.parametrize("k,cutoff,L", [(17, 1, 64), (20, 5, 64),
+                                        (20, 255, 128), (32, 20, 64),
+                                        (20, 300, 64)])
+def test_med_load_plan_matches_jax(k, cutoff, L):
+    """Kernel E's staged rule (med_load_plan) rejects what JAX make_med_ok
+    and med_ok_plain reject, on test_med_ok_plain_matches_jax's windows,
+    loading table 0 for every valid window and the others for fewer."""
+    rng = np.random.default_rng(k * 1000 + cutoff)
+    primes = (1009, 1013, 1019)
+    tables = _tables(rng, primes, 0, 255)
+    for t in tables:
+        t[rng.choice(len(t), len(t) // 3)] = min(cutoff, 255)
+    codes, lengths = _window(rng, 64, L, k)
+    _check_load_plan(primes, k, cutoff, _flat(primes, tables), codes,
+                     lengths)
+
+
+# the diginorm_cases windows whose tables a CPU test can hold (the others,
+# 200 MB to 20 GB of tables, run on the card only)
+_HOST_CASES = [name for name, case in diginorm_cases.CASES.items()
+               if K.byte_flat_size(case[0]) <= 1 << 24]
+
+
+@pytest.mark.parametrize("name", _HOST_CASES)
+def test_med_load_plan_matches_jax_on_the_card_cases(name):
+    """med_load_plan against med_ok_plain and JAX make_med_ok on the
+    windows and tables that kernel E runs on the card
+    (scripts/diginorm_cases.py), at their two exact extremes where the
+    case is one."""
+    primes, k, C, codes, lengths, fill = diginorm_cases.make_case(name)
+    flat = diginorm_cases.fill_tables(primes, fill, "cpu")
+    loaded, windows = _check_load_plan(primes, k, C, flat, codes, lengths)
+    if name == "all-rejected":
+        assert int(loaded.sum()) == windows * len(primes)
+    if name in ("C=300", "32-tables-subchunks"):  # every count below C
+        assert int(loaded.sum()) == windows
+    if name == "one-round-1M-rows":
+        assert K.med_plan(codes.shape[1], k)["bit_words"] == 0
+        assert int(loaded.sum()) == windows * len(primes)
+
+
+@pytest.mark.parametrize("ntables", [2, 3, 4, 32])
+@pytest.mark.parametrize("L", [64, 1043, 1044])
+def test_med_load_plan_loads_table_0_alone_when_it_fails_every_read(
+        ntables, L):
+    """Every table-0 counter below C: each present read fails on table 0,
+    so kernel E loads exactly one counter a valid window and rejects no
+    bundle that holds a present read."""
+    rng = np.random.default_rng(ntables * 100 + L)
+    primes = tuple(K.get_n_primes_near_x(ntables, 3000))
+    tables = _tables(rng, primes, 0, 255)
+    tables[0][:] = rng.integers(0, 7, primes[0], dtype=np.uint8)
+    codes, lengths = _window(rng, 16, L, 20, genome_len=2 * L)
+    loaded, windows = _check_load_plan(primes, 20, 7, _flat(primes, tables),
+                                       codes, lengths)
+    assert windows > 0 and int(loaded.sum()) == windows
+    reject, _ = K.med_load_plan(primes, 20, 7, _flat(primes, tables),
+                                torch.from_numpy(codes),
+                                torch.from_numpy(lengths))
+    present = (lengths >= 20).reshape(-1, 2).any(axis=1)
+    assert np.array_equal(reject.numpy(), ~present)
+
+
+@pytest.mark.parametrize("ntables", [1, 2, 4, 32])
+@pytest.mark.parametrize("L", [64, 1043, 1044])
+def test_med_load_plan_loads_every_table_when_every_count_meets_c(
+        ntables, L):
+    """Every counter at or above C: no read fails on table 0, so kernel E
+    loads all T counters of every valid window (windows x T) and rejects
+    every bundle."""
+    rng = np.random.default_rng(ntables * 10 + L)
+    primes = tuple(K.get_n_primes_near_x(ntables, 3000))
+    tables = _tables(rng, primes, 7, 255)
+    codes, lengths = _window(rng, 16, L, 20, genome_len=2 * L)
+    flat = _flat(primes, tables)
+    loaded, windows = _check_load_plan(primes, 20, 7, flat, codes, lengths)
+    assert int(loaded.sum()) == windows * ntables
+    reject, _ = K.med_load_plan(primes, 20, 7, flat, torch.from_numpy(codes),
+                                torch.from_numpy(lengths))
+    assert bool(reject.all())
+
+
+def test_need_edge_case_holds_the_threshold_both_ways():
+    """diginorm_cases' survivors-equal-need window holds bundles rejected
+    with exactly the windows their reads need, reads one table-0 survivor
+    short (failing, their mates' other tables never loaded) and reads that
+    pass table 0 but fail on the last table."""
+    primes, k, C, codes, lengths, fill = diginorm_cases.make_case(
+        "survivors-equal-need")
+    flat = diginorm_cases.fill_tables(primes, fill, "cpu")
+    c, n = torch.from_numpy(codes), torch.from_numpy(lengths)
+    hashes, valid, nvalid = K._window_hashes(c, n, k)
+    need = K._min_required(nvalid)
+    count = K.byte_gather_plain(primes, flat, hashes)
+    table0 = flat[umod(hashes, primes[0])].to(torch.int32) >= C
+    survive = (valid & table0).sum(dim=1)
+    ge = (valid & (count >= C)).sum(dim=1)
+    exact = ((survive == need) & (ge == need)).reshape(-1, 2).all(dim=1)
+    short = (survive == need - 1) & (torch.arange(codes.shape[0]) % 2 == 0)
+    late = (survive >= need) & (ge < need)
+    reject, loaded = K.med_load_plan(primes, k, C, flat, c, n)
+    assert int((exact & reject).sum()) >= 10
+    assert int(short.sum()) >= 10 and int(late.sum()) >= 10
+    # a read that fails on table 0 loads no other table, nor does its mate
+    assert not bool(loaded[1:, short].any())
+    assert not bool(loaded[1:, short.nonzero().flatten() + 1].any())
+    assert not bool(reject[late.reshape(-1, 2).any(dim=1)].any())
+
+
+def test_layout_arrays_are_made_once_for_each_set_of_primes():
+    """The byte kernels' host arrays of primes and offsets are built once
+    for a set of primes, whatever sequence type carries it."""
+    primes = K.get_n_primes_near_x(4, 1e5)
+    first = K._layout(list(primes))
+    assert K._layout(tuple(primes)) is first
+    assert list(first[0]) == [int(p) for p in primes]
+    assert list(first[1]) == K.byte_offsets(primes)
+    assert K._layout(primes[:3]) is not first
+
+
+def test_med_plan_fits_a_block_and_follows_the_window():
+    """Kernel E's tile (med_plan) fits a block's shared memory for rows of
+    64 to a million codes, holds a bit for every window where it stages
+    the tables, and falls back to one round only where two rows' bits do
+    not fit."""
+    for L in (64, 128, 1043, 1044, 4096, 9000, 20000, 10**5, 10**6):
+        for k in (17, 20, 32):
+            p = K.med_plan(L, k)
+            W = L - k + 1
+            assert 2 <= p["rows"] <= K.MED_MAX_ROWS and p["rows"] % 2 == 0
+            assert p["seg"] % 32 == 0 and 32 <= p["seg"] <= K.MED_SEG
+            assert p["seg"] >= min(W, K.MED_SEG)
+            assert p["smem"] <= K.MED_SMEM_LIMIT
+            per_row = 16 * (p["seg"] // 32 + 1) + p["seg"]
+            assert p["smem"] == p["rows"] * (per_row + 4 * p["bit_words"])
+            if p["bit_words"]:
+                assert p["bit_words"] == -(-W // 32)
+            else:
+                assert 2 * (per_row + 4 * -(-W // 32)) > K.MED_SMEM_LIMIT
+    assert K.med_plan(128, 32) == {"rows": K.MED_ROWS, "seg": 128,
+                                   "bit_words": 4,
+                                   "smem": K.MED_ROWS * (16 * 5 + 128 + 16)}
+    with pytest.raises(ValueError):
+        K.med_plan(19, 20)
+
+
+def test_diginorm_med_counts_the_planned_loads_on_the_cpu():
+    """diginorm_med on CPU tables with a load counter: med_load_plan's
+    rejections and loads, added to the counter call after call."""
+    rng = np.random.default_rng(44)
+    primes = (1009, 1013, 1019)
+    tables = _tables(rng, primes, 0, 12)
+    flat = _flat(primes, tables)
+    codes, lengths = _window(rng, 64, 128, 20)
+    c, n = torch.from_numpy(codes), torch.from_numpy(lengths)
+    loads = torch.zeros(1, dtype=torch.int64)
+    for _ in range(2):
+        reject = K.diginorm_med(primes, 20, 6, flat, c, n, loads)
+        assert torch.equal(reject, med_ok_plain(primes, 20, 6, flat, c, n))
+    _, loaded = K.med_load_plan(primes, 20, 6, flat, c, n)
+    assert int(loads) == 2 * int(loaded.sum()) > 0
+    assert torch.equal(K.diginorm_med(primes, 20, 6, flat, c, n), reject)
+
+
 @pytest.mark.parametrize("k,cutoff,start", [
     (17, 1, "zero"),      # C = 1: the first add of a k-mer meets it
     (20, 5, "zero"),

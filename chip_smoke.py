@@ -37,7 +37,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
      whose table-0 survivors equal their threshold or fall one short),
      the median test's load counter held to its rule's on each; and the
      port's ScanNormalizer on the card against the CPU's over windows
-     holding reads of 5,000 to 15,000 bases);
+     holding reads of 5,000 to 15,000 bases); the trim-low-abund pass-1
+     scan and the per-read count/trim on the windows of
+     scripts/trim_cases.py (counters at 254 and 255, cutoff 1, 2, 255 and
+     300, -Z 20 and 300, --diginorm on and off, k 20 and 32, 1 and 32
+     tables, rows of 64, 4096 and 20,000 codes, a mate shorter than k, a
+     consume that lifts a later bundle's k-mer to the cutoff so its trim
+     position moves, tables of 0.2 and 4 GB; the count/trim also with a
+     bigcount table at -C 300), and the port's ScanTrimmerState on the
+     card against the CPU's over the long-read windows;
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
      blocked, k=20, 4 x 5e7 bytes) on data/25k.fq.gz, then the abundance
      histogram; results must equal the JAX package's and the blocked
@@ -79,7 +87,20 @@ Phases (each prints a line; any failure raises and exits non-zero):
      loads (asserted below every table of every window: its rounds
      engaged), the scan's groups, a traced run; both
      kernels on its window 6 against their plain versions, beside their
-     bounds and E's sector floor.
+     bounds and E's sector floor;
+  8. config 3 at the reference's parameters through the port's CLIs:
+     trim-low-abund -k 20 -x 5e7 -N 4 -C 2 -s --summary-info json on
+     data/stamps-reads.fa.gz, the same with -V, filter-abund -C 2 on phase
+     4b's .ct over data/25k.fq.gz and filter-abund-single -k 20 -x 5e7 -C
+     2 on it; the JAX answers (.abundtrim, .ct and .abundfilt sha256,
+     summary fields, n_unique) asserted and the scan and count/trim
+     kernels seen to launch; a traced run (the scan's time a bundle, the
+     count/trim's a window); both kernels on window 6 against their plain
+     versions, beside their bounds and the count/trim's sector floor
+     (scripts/trim_bench.py);
+  8b. trim-low-abund -k 20 -C 2 -x 1e9 -N 4 (4 GB of tables) on phase 7b's
+     1,000,000 synthetic reads; the JAX answers asserted, the device
+     memory beside the tables, a traced run, both kernels on its window 6.
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees; the phase lines of
 the histogram and the gathers also print their device time alone
@@ -184,6 +205,73 @@ EXPECT_C2_SCALE = {
                  "ce21567ee83f6b31ec7313b1a878b919",
 }
 
+# Config 3 through the JAX package (khmer_tpu, CPU), the same under
+# KHMER_TPU_ENGINE=auto and =device, at the reference's parameters
+# (khmer_tpu/cli/trim_low_abund.py and filter_abund.py epilogs):
+# trim-low-abund -k 20 -x 5e7 -N 4 -C 2 [-V] -s out.ct --summary-info json
+# on data/stamps-reads.fa.gz (n_unique read off the countgraph after the
+# run); filter-abund -C 2 on phase 4b's .ct over data/25k.fq.gz; and
+# filter-abund-single -k 20 -x 5e7 -C 2 on data/25k.fq.gz.
+EXPECT_C3 = {
+    "trim": {
+        "abundtrim_sha256": "9900820a5a9d08df5a707d7b662d6b77"
+                            "f29a0bf230733a9a22504d90bcda7963",
+        "abundtrim_bytes": 16540203,
+        "ct_sha256": "fc8aef5be11661caff4301540e9f8f3c"
+                     "5fb7cef8506aa754d262b94219eb5e13",
+        "ct_bytes": 199999772,
+        "n_unique": 213613,
+        "info_sha256": "9101e2927eb3ed524f8d52e627d0c327"
+                       "f16450fe681036250e998b40153cbebe",
+        "info": {"fpr": 3.3020481896772825e-10, "reads": 200000,
+                 "basepairs": 20000000, "reads_written": 174719,
+                 "basepairs_written": 14016091, "reads_skipped": 0,
+                 "basepairs_skipped": 0, "reads_removed": 25281,
+                 "reads_trimmed": 103194,
+                 "basepairs_removed_or_trimmed": 5983909}},
+    "trim-V": {
+        "abundtrim_sha256": "e5ba57fa09b67fd2faac74814a163f23"
+                            "61e348de501d9bf761dfa1262b5d8dc5",
+        "abundtrim_bytes": 16869113,
+        "ct_sha256": "fc8aef5be11661caff4301540e9f8f3c"
+                     "5fb7cef8506aa754d262b94219eb5e13",
+        "ct_bytes": 199999772,
+        "n_unique": 213613,
+        "info_sha256": "2cdef707ecef02ff22f29a6362341a56"
+                       "5eca33af6800095828966854e8e7c327",
+        "info": {"fpr": 3.3020481896772825e-10, "reads": 200000,
+                 "basepairs": 20000000, "reads_written": 175828,
+                 "basepairs_written": 14328974, "reads_skipped": 0,
+                 "basepairs_skipped": 0, "reads_removed": 24172,
+                 "reads_trimmed": 98592,
+                 "basepairs_removed_or_trimmed": 5671026}},
+    "filter": {"abundfilt_sha256": "9f577c7ab26cfd6eb8b31cd665c9a8d0"
+                                   "3b7ea4f82f656f2cba500702d36843a6",
+               "abundfilt_bytes": 7893},
+    "single": {"abundfilt_sha256": "9f577c7ab26cfd6eb8b31cd665c9a8d0"
+                                   "3b7ea4f82f656f2cba500702d36843a6",
+               "abundfilt_bytes": 7893, "n_unique": 1246182},
+}
+
+# Phase 8b through the JAX package (CPU, KHMER_TPU_ENGINE=auto):
+# trim-low-abund -k 20 -C 2 -x 1e9 -N 4 -s out.ct --summary-info json on
+# phase 7b's reads. Pass 1 consumes a bundle iff normalize-by-median -C 20
+# keeps it (trim coverage 20), so the .ct and n_unique are 7b's.
+EXPECT_C3_SCALE = {
+    "abundtrim_sha256": "59a4f4caed81fa15354a8986f1419c03"
+                        "3153c9335e42cd5a9d0be8a9f8aee4fb",
+    "abundtrim_bytes": 70658728,
+    "ct_sha256": EXPECT_C2_SCALE["ct_sha256"],
+    "ct_bytes": EXPECT_C2_SCALE["ct_bytes"],
+    "n_unique": EXPECT_C2_SCALE["n_unique"],
+    "info": {"fpr": 2.997075468214521e-08, "reads": 1000000,
+             "basepairs": 100000000, "reads_written": 828866,
+             "basepairs_written": 62462726, "reads_skipped": 0,
+             "basepairs_skipped": 0, "reads_removed": 171134,
+             "reads_trimmed": 619342,
+             "basepairs_removed_or_trimmed": 37537274},
+}
+
 
 class SmokeFailure(AssertionError):
     pass
@@ -252,7 +340,8 @@ def main():
     errs = {name: 0 for name in ("blocked_update", "blocked_gather",
                                  "byte_update", "byte_gather",
                                  "histogram_add", "proto_rmw",
-                                 "diginorm_med", "diginorm_scan")}
+                                 "diginorm_med", "diginorm_scan",
+                                 "trim_scan", "read_counts")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
         run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs)
@@ -264,12 +353,14 @@ def main():
     n_edges = run_gather_edge_cases(torch, np, SK, dev, errs)
     n_edges2 = run_gather2_edge_cases(torch, np, B, dev, errs)
     n_digi = run_diginorm_cases(torch, dev, errs)
+    n_trim = run_trim_cases(torch, dev, errs)
     say("phase 3 exact: kernel == plain on %d blocked, %d byte, %d "
         "histogram, %d decoded-event, %d byte-gather-reduction, %d "
-        "blocked-gather-reduction and %d diginorm cases (tables, flags, "
-        "n_unique, bigcount reports, counts, keep flags)"
+        "blocked-gather-reduction, %d diginorm and %d trim cases (tables, "
+        "flags, n_unique, bigcount reports, counts, keep flags, branches, "
+        "trim positions)"
         % (len(cases), len(byte_cases), n_hist, n_proto, n_edges, n_edges2,
-           n_digi))
+           n_digi, n_trim))
 
     # -- phase 4: config 1, blocked, through the port's entry points -------
     launches = run_config1(torch, B, SK, dev, card, errs)
@@ -295,8 +386,21 @@ def main():
     launches.update(digi_launches)
     timings.update(digi_timings)
 
-    # -- phase 7b: config 2 at 4 GB of tables --------------------------------
-    run_config2_scale(torch, SK, dev, card, errs)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        reads, gen_s = synth_reads(tmp)
+
+        # -- phase 7b: config 2 at 4 GB of tables ----------------------------
+        run_config2_scale(torch, SK, dev, card, errs, reads, gen_s)
+
+        # -- phase 8: config 3 through the CLIs ------------------------------
+        trim_launches, trim_timings = run_config3(torch, SK, dev, card,
+                                                  errs)
+        launches.update(trim_launches)
+        timings.update(trim_timings)
+
+        # -- phase 8b: trim-low-abund at 4 GB of tables ----------------------
+        run_config3_scale(torch, SK, dev, card, errs, reads)
 
     kernels = []
     for name, source, replaces in (
@@ -314,7 +418,11 @@ def main():
             ("diginorm_med", "diginorm_med.cu",
              "khmer_tpu/core/diginorm_scan.py:93"),
             ("diginorm_scan", "diginorm_scan.cu",
-             "khmer_tpu/core/diginorm_scan.py:127")):
+             "khmer_tpu/core/diginorm_scan.py:127"),
+            ("trim_scan", "trim_scan.cu",
+             "khmer_tpu/core/diginorm_scan.py:168"),
+            ("read_counts", "read_counts.cu",
+             "khmer_tpu/core/pipeline.py:755")):
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1311,13 +1419,11 @@ def run_diginorm_cases(torch, dev, errs):
     return len(diginorm_cases.CASES) + 1
 
 
-def _normalize(torch, args, cwd):
-    """The port's normalize-by-median in this process, in `cwd`: (wall s,
-    its stderr, the ScanNormalizer it ran)."""
+def _run_cli(torch, main, args, cwd):
+    """A port CLI's main(args) in this process, in `cwd`: (wall s, its
+    stderr, what main returned)."""
     import contextlib
     import io
-
-    from khmer_tpu_torch.cli import normalize_by_median as nbm
 
     err = io.StringIO()
     old = os.getcwd()
@@ -1325,17 +1431,18 @@ def _normalize(torch, args, cwd):
     try:
         with contextlib.redirect_stderr(err):
             t0 = time.perf_counter()
-            norm = nbm.main(args)
+            got = main(args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         os.chdir(old)
-    return wall, err.getvalue(), norm
+    return wall, err.getvalue(), got
 
 
-def _traced_normalize(torch, args, cwd):
-    """_normalize under torch.profiler: (wall s, device ms in all, (ms,
-    launches) of kernel E, of kernel F, the ScanNormalizer)."""
+def _traced_cli(torch, main, args, cwd, kernels):
+    """_run_cli under torch.profiler: (wall s, device ms in all, {name:
+    (ms, launches)} of the device kernels whose names hold each of
+    `kernels`, what main returned)."""
     from torch.autograd import DeviceType
 
     from khmer_tpu_torch.scripts.trace_config1 import _self_device_us
@@ -1343,17 +1450,34 @@ def _traced_normalize(torch, args, cwd):
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        wall, _, norm = _normalize(torch, args, cwd)
+        wall, _, got = _run_cli(torch, main, args, cwd)
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
-
-    def kernel(name):
+    found = {}
+    for name in kernels:
         hit = [e for e in events if name in e.key]
-        return (sum(_self_device_us(e) for e in hit) / 1e3,
-                sum(e.count for e in hit))
+        found[name] = (sum(_self_device_us(e) for e in hit) / 1e3,
+                       sum(e.count for e in hit))
+    return (wall, sum(_self_device_us(e) for e in events) / 1e3, found,
+            got)
 
-    return (wall, sum(_self_device_us(e) for e in events) / 1e3,
-            kernel("med_kernel"), kernel("scan_kernel"), norm)
+
+def _normalize(torch, args, cwd):
+    """The port's normalize-by-median in this process, in `cwd`: (wall s,
+    its stderr, the ScanNormalizer it ran)."""
+    from khmer_tpu_torch.cli import normalize_by_median as nbm
+
+    return _run_cli(torch, nbm.main, args, cwd)
+
+
+def _traced_normalize(torch, args, cwd):
+    """_normalize under torch.profiler: (wall s, device ms in all, (ms,
+    launches) of kernel E, of kernel F, the ScanNormalizer)."""
+    from khmer_tpu_torch.cli import normalize_by_median as nbm
+
+    wall, dev_ms, found, norm = _traced_cli(
+        torch, nbm.main, args, cwd, ("med_kernel", "scan_kernel"))
+    return (wall, dev_ms, found["med_kernel"], found["scan_kernel"], norm)
 
 
 def _file_sha256(path):
@@ -1486,15 +1610,30 @@ def _bench_window(w, label, errs, card):
     return w
 
 
-def run_config2_scale(torch, SK, dev, card, errs):
+def synth_reads(tmp):
+    """The 1,000,000 reads of scripts/synth_reads.py written in `tmp`, the
+    input of phases 7b and 8b, their sha256 asserted: (path, seconds it
+    took to write them)."""
+    from khmer_tpu_torch.scripts.synth_reads import write_reads
+
+    reads = os.path.join(tmp, "synth.fa")
+    t0 = time.perf_counter()
+    write_reads(reads)
+    gen_s = time.perf_counter() - t0
+    sha, _ = _file_sha256(reads)
+    expect(sha == EXPECT_C2_SCALE["input_sha256"],
+           "synthetic reads: sha256 %s" % sha)
+    return reads, gen_s
+
+
+def run_config2_scale(torch, SK, dev, card, errs, reads, gen_s):
     """Config 2 at a table size users run: normalize-by-median -k 20 -C 20
     -x 1e9 -N 4 -s (4 GB of u8 tables) on 1,000,000 seeded synthetic
-    reads (scripts/synth_reads.py), the JAX answers asserted, E and F seen
-    to launch, the device memory beside the tables read; then a traced
-    run without -s for F's time a candidate, and E and F on window 6
-    against their plain versions, timed beside their bounds."""
+    reads (synth_reads), the JAX answers asserted, E and F seen to launch,
+    the device memory beside the tables read; then a traced run without -s
+    for F's time a candidate, and E and F on window 6 against their plain
+    versions, timed beside their bounds."""
     from khmer_tpu_torch.scripts.diginorm_bench import time_window
-    from khmer_tpu_torch.scripts.synth_reads import write_reads
 
     E = EXPECT_C2_SCALE
     args = ["-k", "20", "-C", "20", "-x", "1e9", "-N", "4"]
@@ -1502,12 +1641,6 @@ def run_config2_scale(torch, SK, dev, card, errs):
     tables = SK.byte_flat_size(primes)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
-        reads = os.path.join(tmp, "synth.fa")
-        t0 = time.perf_counter()
-        write_reads(reads)
-        gen_s = time.perf_counter() - t0
-        sha, _ = _file_sha256(reads)
-        expect(sha == E["input_sha256"], "synthetic reads: sha256 %s" % sha)
         run, traced = os.path.join(tmp, "run"), os.path.join(tmp, "trace")
         os.makedirs(run)
         os.makedirs(traced)
@@ -1550,6 +1683,278 @@ def run_config2_scale(torch, SK, dev, card, errs):
            e_n, f_ms, f_n, f_ms * 1e3 / max(int(t_norm.candidates), 1),
            card))
     _bench_window(w, "-x 1e9", errs, card)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: config 3, trim-low-abund / filter-abund / filter-abund-single
+# ---------------------------------------------------------------------------
+
+
+def run_trim_cases(torch, dev, errs):
+    """Kernels G and H against their plain versions on the windows of
+    scripts/trim_cases.py, and the port's ScanTrimmerState on the card
+    against the CPU's over windows holding long reads."""
+    from khmer_tpu_torch.scripts import trim_cases
+
+    for name in trim_cases.CASES:
+        got = trim_cases.check_case(name, dev)
+        errs["trim_scan"] = max(errs["trim_scan"], got["scan"])
+        errs["read_counts"] = max(errs["read_counts"], got["counts"])
+        expect(got["scan"] == 0, "trim_scan != plain on case %s" % name)
+        expect(got["counts"] == 0, "read_counts != plain on case %s" % name)
+        if name == "consume-lifts-trim":
+            expect(got["lifted"] >= 30, "consume-lifts-trim: %d bundles' "
+                   "trim positions moved" % got["lifted"])
+        if name == "C=300-Z=300":
+            expect(got["big entries"] > 0 and got["big moved"] > 0,
+                   "C=300-Z=300: the bigcount table moved no count")
+        say("  trim case %-20s %d bundles, rows of %d: branches %s, new "
+            "k-mers %d, trim positions moved by earlier consumes in %d "
+            "bundles; bigcount table %d entries, windows at 300 moved in %d "
+            "reads" % (name, got["bundles"], got["L"], got["branches"],
+                       got["new"], got["lifted"], got["big entries"],
+                       got["big moved"]))
+    got = trim_cases.check_long_window(dev)
+    errs["trim_scan"] = max(errs["trim_scan"], got["mismatches"])
+    expect(got["mismatches"] == 0,
+           "ScanTrimmerState on the card != on the CPU with long reads")
+    expect(got["launches"] == got["runs"],
+           "long-read windows: %d launches for %d runs"
+           % (got["launches"], got["runs"]))
+    say("  trim long reads: 3 windows of 200 bundles with reads of "
+        "5,000-15,000 bases in %d runs, %d bundles consumed, card == CPU"
+        % (got["runs"], got["consumed"]))
+    return len(trim_cases.CASES) + 1
+
+
+def _trim_launch_counters(SK):
+    SK.trim_scan_cuda.launches = 0
+    SK.read_counts_cuda.launches = 0
+
+
+def _trim_launches(SK):
+    return {"trim_scan": SK.trim_scan_cuda.launches,
+            "read_counts": SK.read_counts_cuda.launches}
+
+
+def _check_trim(E, d, out_name, trimmer, label):
+    """A trim-low-abund run's answers against the JAX package's: (.abundtrim
+    sha256 and bytes, .ct sha256 and bytes, n_unique, summary-info sha256,
+    its fields)."""
+    info_path = os.path.join(d, "stamps-reads.fa.gz.info.json")
+    with open(info_path) as f:
+        info = json.load(f)
+    got = (_file_sha256(os.path.join(d, out_name))
+           + _file_sha256(os.path.join(d, "out.ct"))
+           + (trimmer.graph.n_unique_kmers(), _file_sha256(info_path)[0],
+              info))
+    want = (E["abundtrim_sha256"], E["abundtrim_bytes"], E["ct_sha256"],
+            E["ct_bytes"], E["n_unique"], E["info_sha256"], E["info"])
+    expect(got == want, "%s: (.abundtrim sha256, bytes, .ct sha256, bytes, "
+           "n_unique, summary sha256, summary) = %s, JAX gives %s"
+           % (label, got, want))
+    return got
+
+
+def run_config3(torch, SK, dev, card, errs):
+    """Config 3 through the port's CLIs in this process, at the reference's
+    parameters, the JAX answers asserted and kernels G and H seen to
+    launch: (a) trim-low-abund -k 20 -x 5e7 -N 4 -C 2 -s --summary-info json
+    on data/stamps-reads.fa.gz, (b) the same with -V, (c) filter-abund -C 2
+    on phase 4b's .ct (made again) over data/25k.fq.gz, (d)
+    filter-abund-single -k 20 -x 5e7 -C 2 on it; then (a) traced (G's device
+    time a bundle, H's a window), and G and H on its window 6 against their
+    plain versions, timed beside their bounds (scripts/trim_bench.py).
+    Returns the launches of (a) and those times."""
+    from khmer_tpu_torch.cli import (filter_abund, filter_abund_single,
+                                     load_into_counting, trim_low_abund)
+    from khmer_tpu_torch.scripts.trim_bench import time_window
+
+    E = EXPECT_C3
+    args = ["-k", "20", "-x", "5e7", "-N", "4", "-C", "2"]
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        for label, extra in (("trim", []), ("trim-V", ["-V"]),
+                             ("trace", None)):
+            d = os.path.join(tmp, label)
+            os.makedirs(d)
+            # --summary-info writes beside its input
+            os.symlink(STAMPS, os.path.join(d, "stamps-reads.fa.gz"))
+            _trim_launch_counters(SK)
+            if extra is None:
+                t_wall, dev_ms, found, t_trim = _traced_cli(
+                    torch, trim_low_abund.main,
+                    args + ["stamps-reads.fa.gz"], d,
+                    ("trim_kernel", "counts_kernel"))
+                continue
+            wall, _, trimmer = _run_cli(
+                torch, trim_low_abund.main, args + extra + [
+                    "-s", "out.ct", "--summary-info", "json",
+                    "stamps-reads.fa.gz"], d)
+            runs[label] = (wall, _trim_launches(SK), trimmer, _check_trim(
+                E[label], d, "stamps-reads.fa.gz.abundtrim", trimmer,
+                "config 3 " + label))
+        d = os.path.join(tmp, "filter")
+        os.makedirs(d)
+        _run_cli(torch, load_into_counting.main,
+                 ["-q", "-k", str(K), "-x", "5e7", "-N", "4", "out.ct", DATA],
+                 d)
+        ct = _file_sha256(os.path.join(d, "out.ct"))
+        expect(ct == (EXPECT_EXACT["ct_sha256"], EXPECT_EXACT["ct_bytes"]),
+               "config 3 filter-abund: the .ct of load-into-counting %s" % (
+                   ct,))
+        _trim_launch_counters(SK)
+        f_wall, _, _ = _run_cli(torch, filter_abund.main,
+                                ["-C", "2", "out.ct", DATA], d)
+        f_launches = _trim_launches(SK)
+        f_got = _file_sha256(os.path.join(d, "25k.fq.gz.abundfilt"))
+        d = os.path.join(tmp, "single")
+        os.makedirs(d)
+        _trim_launch_counters(SK)
+        s_wall, s_err, _ = _run_cli(
+            torch, filter_abund_single.main,
+            ["-k", "20", "-x", "5e7", "-C", "2", DATA], d)
+        s_launches = _trim_launches(SK)
+        s_got = (_file_sha256(os.path.join(d, "25k.fq.gz.abundfilt"))
+                 + (int(s_err.split("Total number of unique k-mers:")[1]
+                        .split()[0]),))
+    for label, want in (("filter", (E["filter"]["abundfilt_sha256"],
+                                    E["filter"]["abundfilt_bytes"])),
+                        ("single", (E["single"]["abundfilt_sha256"],
+                                    E["single"]["abundfilt_bytes"],
+                                    E["single"]["n_unique"]))):
+        got = f_got if label == "filter" else s_got
+        expect(got == want, "config 3 %s: %s, JAX gives %s"
+               % (label, got, want))
+    for label, n in (("trim", runs["trim"][1]), ("trim -V", runs["trim-V"][1]),
+                     ("filter-abund", f_launches),
+                     ("filter-abund-single", s_launches)):
+        for name in (("trim_scan", "read_counts") if "trim" in label
+                     else ("read_counts",)):
+            expect(n[name] > 0, "%s never launched on config 3's %s"
+                   % (name, label))
+    bundles = t_trim.scan.bundles
+    g_ms, g_n = found["trim_kernel"]
+    h_ms, h_n = found["counts_kernel"]
+    for label in ("trim", "trim-V"):
+        wall, n, trimmer, got = runs[label]
+        say("phase 8 config 3 (%s): trim-low-abund %s-s --summary-info "
+            "json on data/stamps-reads.fa.gz: %.6f s = %.6g reads/s; "
+            ".abundtrim %d B sha256 %s, .ct %d B sha256 %s, n_unique %d, "
+            "summary %s (the JAX answers); %d scan runs; launches %s; on %s"
+            % ("a" if label == "trim" else "b", "-V " if "V" in label
+               else "", wall, got[6]["reads"] / wall, got[1], got[0], got[3],
+               got[2], got[4], got[6], trimmer.scan.scan_runs, n, card))
+    say("phase 8 config 3 (c): filter-abund -C 2 on phase 4b's .ct over "
+        "data/25k.fq.gz: %.6f s; .abundfilt %d B sha256 %s (the JAX "
+        "answer); launches %s; (d) filter-abund-single -k 20 -x 5e7 -C 2: "
+        "%.6f s; .abundfilt %d B sha256 %s, n_unique %d (the JAX answers); "
+        "launches %s; on %s"
+        % (f_wall, f_got[1], f_got[0], f_launches, s_wall, s_got[1],
+           s_got[0], s_got[2], s_launches, card))
+    say("phase 8 traced (a): %.6f s, device %.4f ms (busy %.2f%%); "
+        "trim_scan %.4f ms in %d launches over %d bundles = %.4f us a "
+        "bundle; read_counts %.4f ms in %d launches = %.4f ms a window; on "
+        "%s" % (t_wall, dev_ms, 100 * dev_ms / (t_wall * 1e3), g_ms, g_n,
+                bundles, g_ms * 1e3 / max(bundles, 1), h_ms, h_n,
+                h_ms / max(h_n, 1), card))
+    w = _trim_bench_window(time_window(dev), "config 3", errs, card)
+    timings = {name: {"ms": w[key]["ms"], "plain_ms": w[key]["plain_ms"],
+                      "bound_ms": w[key]["bound"][0],
+                      "bound_by": w[key]["bound"][1], "library_ms": None}
+               for key, name in (("scan", "trim_scan"),
+                                 ("counts", "read_counts"))}
+    torch.cuda.empty_cache()
+    return runs["trim"][1], timings
+
+
+def _trim_bench_window(w, label, errs, card):
+    """Check and print one trim_bench.time_window result."""
+    for key, name in (("scan", "trim_scan"), ("counts", "read_counts")):
+        errs[name] = max(errs[name], w[key]["mismatches"])
+        expect(w[key]["mismatches"] == 0,
+               "%s != plain on %s's window %d" % (name, label, w["window"]))
+    g, h = w["scan"], w["counts"]
+    say("  %s window %d: %d bundles (%d reads) of rows of %d codes, "
+        "branches %s; trim_scan kernel %.4f ms (%.4f us a bundle), plain "
+        "%.4f ms, bound %.5f ms (%s; %d B, %d ops); read_counts kernel "
+        "%.4f ms, plain %.4f ms, bound %.5f ms (%s; %d B, %d ops), sector "
+        "floor %.5f ms (%d B); on %s"
+        % (label, w["window"], w["bundles"], w["reads"], w["L"],
+           w["branches"], g["ms"], g["us_per_bundle"], g["plain_ms"],
+           g["bound"][0], g["bound"][1], g["bytes"], g["ops"], h["ms"],
+           h["plain_ms"], h["bound"][0], h["bound"][1], h["bytes"], h["ops"],
+           h["sector_ms"], h["sector_bytes"], card))
+    return w
+
+
+def run_config3_scale(torch, SK, dev, card, errs, reads):
+    """trim-low-abund at a table size users run: -k 20 -C 2 -x 1e9 -N 4 -s
+    --summary-info json (4 GB of u8 tables) on the 1,000,000 synthetic
+    reads (50x coverage, 1% substitutions: the load trim-low-abund exists
+    for), the JAX answers asserted, G and H seen to launch, the device
+    memory beside the tables read; then a traced run without -s, and G and
+    H on its window 6 against their plain versions, beside their bounds."""
+    from khmer_tpu_torch.cli import trim_low_abund
+    from khmer_tpu_torch.scripts.trim_bench import time_window
+
+    E = EXPECT_C3_SCALE
+    args = ["-k", "20", "-C", "2", "-x", "1e9", "-N", "4"]
+    tables = SK.byte_flat_size(SK.get_n_primes_near_x(4, 1e9))
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        run, traced = os.path.join(tmp, "run"), os.path.join(tmp, "trace")
+        for d in (run, traced):
+            os.makedirs(d)
+            os.symlink(reads, os.path.join(d, "synth.fa"))
+        _trim_launch_counters(SK)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        wall, _, trimmer = _run_cli(torch, trim_low_abund.main, args + [
+            "-s", "out.ct", "--summary-info", "json", "synth.fa"], run)
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = _trim_launches(SK)
+        with open(os.path.join(run, "synth.fa.info.json")) as f:
+            info = json.load(f)
+        got = (_file_sha256(os.path.join(run, "synth.fa.abundtrim"))
+               + _file_sha256(os.path.join(run, "out.ct"))
+               + (trimmer.graph.n_unique_kmers(), info))
+        os.remove(os.path.join(run, "out.ct"))
+        want = (E["abundtrim_sha256"], E["abundtrim_bytes"], E["ct_sha256"],
+                E["ct_bytes"], E["n_unique"], E["info"])
+        expect(got == want, "config 3 at 4 GB: (.abundtrim sha256, bytes, "
+               ".ct sha256, bytes, n_unique, summary) = %s, JAX gives %s"
+               % (got, want))
+        del trimmer
+        torch.cuda.empty_cache()
+        t_wall, dev_ms, found, t_trim = _traced_cli(
+            torch, trim_low_abund.main, args + ["synth.fa"], traced,
+            ("trim_kernel", "counts_kernel"))
+        bundles = t_trim.scan.bundles
+        del t_trim
+        torch.cuda.empty_cache()
+        w = time_window(dev, reads, x=1e9, reps=3)
+    expect(min(launches.values()) > 0,
+           "trim kernels never launched at 4 GB: %s" % launches)
+    g_ms, g_n = found["trim_kernel"]
+    h_ms, h_n = found["counts_kernel"]
+    say("phase 8b config 3 at -k 20 -C 2 -x 1e9 -N 4: trim-low-abund -s "
+        "--summary-info json on %d synthetic reads: %.6f s = %.6g reads/s; "
+        ".abundtrim %d B sha256 %s, .ct %d B sha256 %s, n_unique %d, "
+        "summary %s (the JAX answers); tables %.3f GB, peak device memory "
+        "%.3f GB, beside the tables %.1f MB; launches %s; traced: %.6f s, "
+        "device %.4f ms (busy %.2f%%), trim_scan %.4f ms in %d launches "
+        "over %d bundles = %.4f us a bundle, read_counts %.4f ms in %d "
+        "launches = %.4f ms a window; on %s"
+        % (info["reads"], wall, info["reads"] / wall, got[1], got[0], got[3],
+           got[2], got[4], got[5], tables / 1e9, peak / 1e9,
+           (peak - tables) / 1e6, launches, t_wall, dev_ms,
+           100 * dev_ms / (t_wall * 1e3), g_ms, g_n, bundles,
+           g_ms * 1e3 / max(bundles, 1), h_ms, h_n, h_ms / max(h_n, 1),
+           card))
+    _trim_bench_window(w, "-x 1e9", errs, card)
     torch.cuda.empty_cache()
 
 

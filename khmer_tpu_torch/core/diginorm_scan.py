@@ -52,22 +52,31 @@ def pack_window(bundles, L):
     """(codes uint8 [2n, L], lengths int32 [2n]) of n bundles: read j of
     bundle i (j < 2) in row 2i + j as cleaned 2-bit codes, zero-padded;
     absent reads have length 0."""
-    n = len(bundles)
-    lengths = np.zeros(2 * n, dtype=np.int32)
     rows, seqs = [], []
     for i, bundle in enumerate(bundles):
         for j, rec in enumerate(bundle[:2]):
-            seq = rec.cleaned_seq
-            lengths[2 * i + j] = len(seq)
             rows.append(2 * i + j)
-            seqs.append(seq)
-    codes = np.zeros((2 * n, L), dtype=np.uint8)
+            seqs.append(rec.cleaned_seq)
+    return _pack(rows, seqs, 2 * len(bundles), L)
+
+
+def pack_reads(seqs, L):
+    """(codes uint8 [n, L], lengths int32 [n]) of n cleaned sequences, one
+    a row, zero-padded."""
+    return _pack(range(len(seqs)), seqs, len(seqs), L)
+
+
+def _pack(rows, seqs, nrows, L):
+    lengths = np.zeros(nrows, dtype=np.int32)
+    rows = np.asarray(rows, dtype=np.int64)
+    lengths[rows] = [len(s) for s in seqs]
+    codes = np.zeros((nrows, L), dtype=np.uint8)
     if seqs:
         flat = ASCII_TO_CODE[np.frombuffer("".join(seqs).encode("ascii"),
                                            dtype=np.uint8)]
         per = lengths[rows].astype(np.int64)
         starts = np.cumsum(per) - per
-        row = np.repeat(np.asarray(rows, dtype=np.int64), per)
+        row = np.repeat(rows, per)
         col = np.arange(flat.shape[0]) - np.repeat(starts, per)
         codes[row, col] = flat
     return codes, lengths
@@ -167,3 +176,81 @@ class ScanNormalizer:
     def finalize(self):
         """Nothing to write back: the scan updated the countgraph's own
         tables and unique count (interface parity with the JAX engine)."""
+
+
+class ScanTrimmerState:
+    """trim-low-abund's pass 1 on the sketch's device, a window of bundles
+    at a time — counterpart of khmer_tpu/core/diginorm_scan.py:238.
+
+    Per bundle, in stream order (reference scripts/trim-low-abund.py
+    :190-238): branch 0 (--diginorm: every present read at digi_cov) drops
+    the bundle, branch 1 (every present read at trim_cov) emits it trimmed
+    at trim_at, branch 2 consumes its k-mers, which later bundles see, and
+    saves it for pass 2. One launch of kernel G a run (sketch_kernels.
+    trim_scan; its plain version for a countgraph on the CPU) decides a
+    run and adds to the u8 tables in place; the host reads the branches
+    and trim positions once a run. Runs are row_runs', as ScanNormalizer
+    packs them, so reads longer than pipeline.MAX_ROW_LEN need no host
+    window."""
+
+    def __init__(self, graph, cutoff, trim_cov, digi_cov=None):
+        if graph.storage_kind != "byte":
+            raise ValueError("scan trimmer requires byte storage")
+        self.graph = graph
+        self.k = graph.ksize()
+        self.cutoff = int(cutoff)
+        self.trim_cov = int(trim_cov)
+        self.digi_cov = None if digi_cov is None else int(digi_cov)
+        self._primes = tuple(graph._primes)
+        self.scan_runs = 0  # kernel G's launches (one a run)
+        self.bundles = 0    # the bundles they scanned
+
+    def process_window(self, bundles):
+        """bundles: list of record lists (1 or 2 reads). Returns (branch
+        int32 [n], trim_at int32 [n, 2]) numpy arrays, exactly as the
+        sequential reference decides."""
+        n = len(bundles)
+        self.bundles += n
+        out = np.zeros((n, 3), dtype=np.int32)
+        dev = self.graph.device
+        for start, stop, L in row_runs(bundles, self.k):
+            codes, lengths = pack_window(bundles[start:stop], L)
+            branch, trim_at = K.trim_scan(
+                self._primes, self.k, self.cutoff, self.trim_cov,
+                self.digi_cov, self.graph.tables.flat, self.graph._n_unique,
+                torch.from_numpy(codes).to(dev),
+                torch.from_numpy(lengths).to(dev))
+            out[start:stop] = torch.cat([branch[:, None], trim_at],
+                                        dim=1).cpu().numpy()
+            self.scan_runs += 1
+        return out[:, 0], out[:, 1:]
+
+    def finalize(self):
+        """Nothing to write back: the scan updated the countgraph's own
+        tables and unique count (interface parity with the JAX engine)."""
+
+    def reload(self):
+        """Nothing to re-read: the countgraph's tables are the scan's."""
+
+
+def read_counts_window(graph, records, cutoff, at_least, big=None):
+    """Kernel H (sketch_kernels.read_counts) over a window of records, read
+    only: (trim_at int32 [n], n_ge int32 [n]) numpy arrays, each record's
+    trim position under `cutoff` (utils/trimming.py trim_pos_from_counts of
+    its counts) and its windows at or above `at_least`; with `big`
+    (sketch_kernels.bigcount_table of the countgraph's map), counts of 255
+    read through the map. One launch and one host read a run of row_runs,
+    one record a row."""
+    out = np.zeros((len(records), 2), dtype=np.int32)
+    k = graph.ksize()
+    dev = graph.device
+    for start, stop, L in row_runs([[r] for r in records], k):
+        codes, lengths = pack_reads(
+            [r.cleaned_seq for r in records[start:stop]], L)
+        trim_at, n_ge = K.read_counts(
+            tuple(graph._primes), k, cutoff, at_least, graph.tables.flat,
+            torch.from_numpy(codes).to(dev),
+            torch.from_numpy(lengths).to(dev), big)
+        out[start:stop] = torch.stack([trim_at, n_ge],
+                                      dim=1).cpu().numpy()
+    return out[:, 0], out[:, 1]

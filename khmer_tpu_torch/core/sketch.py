@@ -267,6 +267,44 @@ class Countgraph(_Sketch):
     def _count_nonzero_t0(self):
         return int(K.byte_occupied(self.tables[0]))
 
+    # -- sequence-level queries (kernel H) ----------------------------------
+
+    def _read_counts(self, seq, cutoff, at_least):
+        """Kernel H (sketch_kernels.read_counts) on one sequence of at
+        least k bases, with the bigcount map: (its trim position under
+        `cutoff`, its windows at or above `at_least`)."""
+        codes = H.encode_dna(seq)
+        row = torch.from_numpy(codes[None, :].copy()).to(self.device)
+        length = torch.tensor([codes.shape[0]], dtype=torch.int32,
+                              device=self.device)
+        big = None
+        if self._use_bigcount and self._bigcounts:
+            big = K.bigcount_table(self._bigcounts, self.device)
+        trim_at, n_ge = K.read_counts(self._primes, self._ksize, cutoff,
+                                      at_least, self.tables.flat, row,
+                                      length, big)
+        return int(trim_at[0]), int(n_ge[0])
+
+    def median_at_least(self, seq, cutoff):
+        """True if the medioid count is >= cutoff (diginorm primitive;
+        reference hashtable.cc:333-364)."""
+        if len(seq) < self._ksize:
+            raise ValueError("no k-mer counts for this string; too short?")
+        _, n_ge = self._read_counts(seq, 0, cutoff)
+        min_req = int(0.5 + (len(seq) - self._ksize + 1) / 2.0)
+        return n_ge >= min_req
+
+    def trim_on_abundance(self, seq, min_abund):
+        """Trim at the first k-mer below min_abund.
+
+        Returns (trimmed_seq, trim_at) — reference: hashtable.cc:504-533;
+        a sequence with one k-mer, or none, trims to 0.
+        """
+        if len(seq) < self._ksize:
+            return seq[:0], 0
+        pos, _ = self._read_counts(seq, min_abund, 0)
+        return seq[:pos], pos
+
 
 class Nodegraph(_Sketch):
     """Bloom filter with the 2-bit hash (reference Nodegraph)."""

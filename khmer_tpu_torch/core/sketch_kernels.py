@@ -782,19 +782,27 @@ def diginorm_plan(L, k, ntables):
             "hash_words": hash_words}
 
 
-def _check_window(codes, lengths, k, dev):
+def _check_rows(codes, lengths, k, dev):
     if codes.device != dev or lengths.device != dev:
         raise ValueError("codes and lengths must be on %s" % dev)
     if (codes.dtype != torch.uint8 or codes.dim() != 2
-            or not codes.is_contiguous() or codes.shape[0] % 2):
-        raise ValueError("codes must be a contiguous uint8 [2B, L] tensor")
+            or not codes.is_contiguous()):
+        raise ValueError("codes must be a contiguous uint8 [R, L] tensor")
     if (lengths.dtype != torch.int32 or lengths.dim() != 1
             or not lengths.is_contiguous()
             or lengths.shape[0] != codes.shape[0]):
-        raise ValueError("lengths must be a contiguous int32 [2B] tensor")
+        raise ValueError("lengths must be a contiguous int32 [R] tensor")
     if not 1 <= int(k) <= 32 or codes.shape[1] < int(k):
         raise ValueError("rows of %d codes hold no %d-mer"
                          % (codes.shape[1], k))
+
+
+def _check_window(codes, lengths, k, dev):
+    """_check_rows for a window of bundles: two rows a bundle."""
+    _check_rows(codes, lengths, k, dev)
+    if codes.shape[0] % 2:
+        raise ValueError("a window holds two rows a bundle, not %d rows"
+                         % codes.shape[0])
 
 
 def _bundle_flags(t, B, dev, what):
@@ -804,10 +812,11 @@ def _bundle_flags(t, B, dev, what):
                          % (what, B, dev))
 
 
-def _cutoff_arg(cutoff):
-    """C as the kernels take it: an int32; any C above 255 is one that no
-    u8 count meets."""
-    return max(min(int(cutoff), MAX_KCOUNT + 1), -1)
+def _cutoff_arg(cutoff, top=MAX_KCOUNT):
+    """A count threshold as the kernels take it: an int32; any above `top`,
+    the largest count they read (255 for the u8 tables, MAX_BIGCOUNT with
+    the bigcount map), is one that no count meets."""
+    return max(min(int(cutoff), top + 1), -1)
 
 
 def _check_counter(t, dev, name):
@@ -920,6 +929,280 @@ def diginorm_scan(primes, k, cutoff, flat, n_unique, codes, lengths, reject,
         raise ValueError("unsupported device %s" % flat.device)
     return diginorm_window_plain(primes, k, cutoff, flat, n_unique, codes,
                                  lengths, reject, n_cand, n_groups)
+
+
+# --------------------------------------------------------------------------
+# trim-low-abund: the pass-1 scan (kernel G) and the read-only per-read count
+# and trim (kernel H)
+# --------------------------------------------------------------------------
+
+
+def _trim_pos(nvalid, bad0, first_bad, k):
+    """The trim position of JAX make_trim1_window (hashtable.cc:504-533) of
+    a read with `nvalid` windows, whether window 0 is below the cutoff and
+    the first later window that is (None: none): 0 for a read whose window
+    0 is bad or that has one window, k + j - 1 for a first bad window j >=
+    1, else its length, nvalid + k - 1 (k - 1 for an absent read)."""
+    if (nvalid and bad0) or nvalid == 1:
+        return 0
+    if first_bad is not None:
+        return k + first_bad - 1
+    return nvalid + k - 1
+
+
+def trim_window_plain(primes, k, cutoff, trim_cov, digi_cov, flat, n_unique,
+                      codes, lengths):
+    """trim-low-abund's pass-1 scan of one window, in stream order (JAX
+    diginorm_scan.make_trim1_window with _step_gather, _med_at_least and
+    _consume_bundle; plain PyTorch, any device, a Python loop over
+    bundles). Updates the u8 tables in `flat` and n_unique (int64 [1]) in
+    place and returns (branch int32 [B], trim_at int32 [B, 2]).
+
+    Per bundle, from the min-over-tables counts under the tables the
+    earlier bundles left: branch 0 with `digi_cov` (not None) if every
+    present read has median_at_least(digi_cov) (drop), else 1 if every
+    present read has median_at_least(trim_cov) (emit trimmed), else 2
+    (consume: +1 to the counter of each valid window in each table,
+    saturating at 255, n_unique by _consume_bundle's rule). An absent read
+    passes both tests. trim_at is each read's _trim_pos under `cutoff`, at
+    the bundle's position in the stream, whatever its branch. The bigcount
+    map plays no part, as in the JAX scan."""
+    hashes, valid, nvalid = _window_hashes(codes, lengths, k)
+    dev = codes.device
+    B = codes.shape[0] // 2
+    nw = valid.sum(dim=1).tolist()
+    nv = nvalid.tolist()
+    min_req = _min_required(nvalid).tolist()
+    offsets = byte_offsets(primes)
+    thresholds = [int(trim_cov)] + ([] if digi_cov is None
+                                    else [int(digi_cov)])
+    cut = int(cutoff)
+    branch = [0] * B
+    trim_at = [[0, 0] for _ in range(B)]
+    for b in range(B):
+        if b % _PLAIN_BLOCK == 0:
+            # every window's counter in each table, for the next block of
+            # bundles (they depend on the hashes alone)
+            rows = slice(2 * b, 2 * (b + _PLAIN_BLOCK))
+            block = torch.stack([umod(hashes[rows], p) + o
+                                 for p, o in zip(primes, offsets)])
+        r0 = 2 * b
+        j = r0 - 2 * (b - b % _PLAIN_BLOCK)
+        n0, n1 = nw[r0], nw[r0 + 1]
+        # _step_gather: the bundle's events, their counters and counts
+        counters = torch.cat([block[:, j, :n0], block[:, j + 1, :n1]],
+                             dim=1)
+        old = flat[counters]
+        counts = old.amin(dim=0).to(torch.int32)
+        stats = []
+        for c in (counts[:n0], counts[n0:]):
+            stats += [(c >= x).sum() for x in thresholds]
+            # window 0 below the cutoff; the first later one, or len(c)
+            # (two sentinels: an absent read's c is empty)
+            bad = torch.cat([c < cut, torch.ones(2, dtype=torch.bool,
+                                                 device=dev)])
+            stats += [bad[0].long(), bad[1:].to(torch.uint8).argmax() + 1]
+        stats = torch.stack(stats).tolist()
+        per = len(thresholds) + 2
+        ok = [[not nv[r0 + r] or stats[r * per + i] >= min_req[r0 + r]
+               for r in (0, 1)] for i in range(len(thresholds))]
+        if digi_cov is not None and all(ok[1]):
+            branch[b] = 0
+        elif all(ok[0]):
+            branch[b] = 1
+        else:
+            branch[b] = 2
+        for r, n in enumerate((n0, n1)):
+            first = stats[r * per + per - 1]
+            trim_at[b][r] = _trim_pos(nv[r0 + r], stats[r * per + per - 2],
+                                      first if first < n else None, k)
+        if branch[b] == 2:
+            _consume_bundle(flat, n_unique, counters, old)
+    return (torch.tensor(branch, dtype=torch.int32, device=dev),
+            torch.tensor(trim_at, dtype=torch.int32,
+                         device=dev).reshape(B, 2))
+
+
+# Kernel G (csrc/trim_scan.cu): one block of TRIM_THREADS threads walks the
+# window; a consumed bundle's adds go through a shared-memory map of
+# TRIM_MAP_SLOTS counters, in sub-chunks of at most TRIM_MAP_SLOTS // (2 T)
+# events. These mirror its constants.
+TRIM_THREADS = 256
+TRIM_MAP_SLOTS = 4096
+
+
+def trim_plan(ntables):
+    """Kernel G's shared memory for `ntables` tables: {"sub": events a
+    sub-chunk of a consumed bundle's adds, "smem": dynamic shared bytes}:
+    the map's keys (8 B a slot), hits and lowest events (4 B a slot each),
+    the window counts of a tile of bundles (8 B a bundle), each sub-chunk
+    item's slot (2 B, TRIM_MAP_SLOTS // 2 items) and a sub-chunk's new
+    flags (1 B an event, rounded up to 16 B). It follows the number of
+    tables alone: not the rows, not the tables' size."""
+    ntables = int(ntables)
+    if not 1 <= ntables <= MAX_TABLES:
+        raise ValueError("the byte kernels take 1 to %d tables, not %d"
+                         % (MAX_TABLES, ntables))
+    M = TRIM_MAP_SLOTS
+    sub = M // (2 * ntables)
+    smem = 8 * M + 4 * M * 2 + 8 * TRIM_THREADS + 2 * (M // 2)
+    return {"sub": sub, "smem": smem + -(-sub // 16) * 16}
+
+
+def trim_scan_cuda(primes, k, cutoff, trim_cov, digi_cov, flat, n_unique,
+                   codes, lengths):
+    """Kernel G (csrc/trim_scan.cu): trim_window_plain on the card, one
+    launch for the window, the u8 tables updated in place; its only
+    scratch is trim_plan's shared memory. Returns (branch int32 [B],
+    trim_at int32 [B, 2]). Counts its launches in
+    ``trim_scan_cuda.launches``."""
+    dev = flat.device
+    _check_byte_layout(primes, flat)
+    _check_window(codes, lengths, k, dev)
+    _check_counter(n_unique, dev, "n_unique")
+    B = codes.shape[0] // 2
+    branch = torch.empty(B, dtype=torch.int32, device=dev)
+    trim_at = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    if B == 0:
+        return branch, trim_at
+    plan = trim_plan(len(primes))
+    primes_arr, offsets_arr = _layout(primes)
+    err = cuda.library().khmer_trim_scan(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), codes.data_ptr(), lengths.data_ptr(),
+        B, codes.shape[1], int(k), _cutoff_arg(cutoff),
+        _cutoff_arg(trim_cov), _cutoff_arg(0 if digi_cov is None
+                                          else digi_cov),
+        int(digi_cov is not None), plan["sub"], plan["smem"],
+        branch.data_ptr(), trim_at.data_ptr(), n_unique.data_ptr(),
+        dev.index, _stream(dev))
+    cuda.check(err, "trim_scan")
+    trim_scan_cuda.launches += 1
+    return branch, trim_at
+
+
+trim_scan_cuda.launches = 0
+
+
+def trim_scan(primes, k, cutoff, trim_cov, digi_cov, flat, n_unique, codes,
+              lengths):
+    """trim-low-abund's pass-1 scan of one window, in place -> (branch,
+    trim_at): kernel G on a CUDA buffer, the plain version on a CPU one."""
+    if flat.is_cuda:
+        return trim_scan_cuda(primes, k, cutoff, trim_cov, digi_cov, flat,
+                              n_unique, codes, lengths)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return trim_window_plain(primes, k, cutoff, trim_cov, digi_cov, flat,
+                             n_unique, codes, lengths)
+
+
+def bigcount_table(bigcounts, device):
+    """A sketch's bigcount map as kernel H takes it: (keys int64 [n], the
+    u64 hashes' bits in ascending unsigned order; values int32 [n]) on
+    `device`."""
+    keys = np.fromiter(bigcounts.keys(), dtype=np.uint64,
+                       count=len(bigcounts))
+    values = np.fromiter(bigcounts.values(), dtype=np.int32,
+                         count=len(bigcounts))
+    order = np.argsort(keys, kind="stable")
+    return (torch.from_numpy(keys[order].view(np.int64).copy()).to(device),
+            torch.from_numpy(values[order].copy()).to(device))
+
+
+def _big_arg(big, dev):
+    if big is None:
+        return None
+    keys, values = big
+    if (keys.device != dev or values.device != dev
+            or keys.dtype != torch.int64 or values.dtype != torch.int32
+            or keys.dim() != 1 or keys.shape != values.shape
+            or not keys.is_contiguous() or not values.is_contiguous()):
+        raise ValueError("big must be bigcount_table's (int64 [n], int32 "
+                         "[n]) on %s" % dev)
+    return big if keys.shape[0] else None
+
+
+def read_counts_plain(primes, k, cutoff, at_least, flat, codes, lengths,
+                      big=None):
+    """Per read of codes [R, L] / lengths [R], from the minimum over the
+    tables of each window's counter (read only; plain PyTorch, any device):
+    (trim_at int32 [R], n_ge int32 [R]). trim_at is trim_pos_from_counts
+    (utils/trimming.py) under `cutoff`: 0 for a read with no window or one,
+    or whose window 0 is below it; k + j - 1 for the first later window j
+    below it; else the read's length. n_ge counts the windows at or above
+    `at_least`, which median_at_least needs. With `big` (bigcount_table), a
+    count of 255 is the map's value for its hash where the map has one, as
+    JAX pipeline.counts_for_records reads it."""
+    hashes, valid, nvalid = _window_hashes(codes, lengths, k)
+    counts = byte_gather_plain(primes, flat, hashes)
+    big = _big_arg(big, flat.device)
+    if big is not None:
+        keys, values = big
+        sat = valid & (counts == MAX_KCOUNT)
+        h = hashes[sat]
+        pos = torch.searchsorted(keys ^ _SIGN, h ^ _SIGN).clamp_(
+            max=keys.shape[0] - 1)
+        counts[sat] = torch.where(keys[pos] == h, values[pos],
+                                  torch.full_like(values[pos], MAX_KCOUNT))
+    n_ge = (valid & (counts >= int(at_least))).sum(dim=1)
+    bad = valid & (counts < int(cutoff))
+    W = bad.shape[1]
+    j = torch.arange(W, device=codes.device)
+    first = torch.where(bad & (j >= 1), j, W).amin(dim=1)
+    trim = torch.where(first < W, k + first - 1, lengths.to(torch.int64))
+    trim = torch.where(bad[:, 0] | (nvalid <= 1), 0, trim)
+    return trim.to(torch.int32), n_ge.to(torch.int32)
+
+
+# Kernel H (csrc/read_counts.cu): blocks of READ_THREADS threads, a warp a
+# read; these mirror its constants.
+READ_THREADS = 256
+READS_PER_BLOCK = READ_THREADS // 32
+
+
+def read_counts_cuda(primes, k, cutoff, at_least, flat, codes, lengths,
+                     big=None):
+    """Kernel H (csrc/read_counts.cu): read_counts_plain on the card ->
+    (trim_at int32 [R], n_ge int32 [R]); the tables are only read. Counts
+    its launches in ``read_counts_cuda.launches``."""
+    dev = flat.device
+    _check_byte_layout(primes, flat)
+    _check_rows(codes, lengths, k, dev)
+    big = _big_arg(big, dev)
+    R = codes.shape[0]
+    trim_at = torch.empty(R, dtype=torch.int32, device=dev)
+    n_ge = torch.empty(R, dtype=torch.int32, device=dev)
+    if R == 0:
+        return trim_at, n_ge
+    keys, values = big or (None, None)
+    primes_arr, offsets_arr = _layout(primes)
+    err = cuda.library().khmer_read_counts(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), codes.data_ptr(), lengths.data_ptr(),
+        R, codes.shape[1], int(k), _cutoff_arg(cutoff, MAX_BIGCOUNT),
+        _cutoff_arg(at_least, MAX_BIGCOUNT),
+        _ptr(keys), _ptr(values), 0 if keys is None else keys.shape[0],
+        trim_at.data_ptr(), n_ge.data_ptr(), dev.index, _stream(dev))
+    cuda.check(err, "read_counts")
+    read_counts_cuda.launches += 1
+    return trim_at, n_ge
+
+
+read_counts_cuda.launches = 0
+
+
+def read_counts(primes, k, cutoff, at_least, flat, codes, lengths, big=None):
+    """Per-read trim positions and windows at or above `at_least` ->
+    (trim_at, n_ge): kernel H on a CUDA buffer, the plain version on a CPU
+    one."""
+    if flat.is_cuda:
+        return read_counts_cuda(primes, k, cutoff, at_least, flat, codes,
+                                lengths, big)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return read_counts_plain(primes, k, cutoff, at_least, flat, codes,
+                             lengths, big)
 
 
 # --------------------------------------------------------------------------

@@ -11,6 +11,7 @@ the behavioral specification.
 import bz2
 import gzip
 import io
+import os
 
 
 class Record:
@@ -179,6 +180,14 @@ class FastxParser:
 
     def close(self):
         self._fp.close()
+
+
+def ReadParser(path, **kwargs):
+    """khmer-compatible constructor name for a FastxParser; an empty file
+    raises OSError, as the reference's parser does."""
+    if os.path.exists(path) and os.path.getsize(path) == 0:
+        raise OSError("file is empty: %s" % path)
+    return FastxParser(path)
 
 
 def write_record(record, fileobj):

@@ -63,6 +63,16 @@ _ENTRY_POINTS = {
     # n_groups, device, stream
     "khmer_diginorm_scan": [_P, _I32, _P, _P, _P, _P, _P, _I64, _I32, _I32,
                             _I32, _I32, _I32, _P, _P, _P, _P, _P, _I32, _P],
+    # flat, ntables, primes (host), offsets (host), codes, lengths,
+    # nbundles, L, k, cutoff, trim_cov, digi_cov, use_digi, sub, smem,
+    # branch, trim_at, n_unique, device, stream
+    "khmer_trim_scan": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                        _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _I32, _P],
+    # flat, ntables, primes (host), offsets (host), codes, lengths, nrows,
+    # L, k, cutoff, at_least, big_keys, big_values, nbig, trim_at, n_ge,
+    # device, stream
+    "khmer_read_counts": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                          _I32, _P, _P, _I64, _P, _P, _I32, _P],
 }
 
 

@@ -153,6 +153,12 @@ def test_port_imports_no_jax():
             "load_into_counting, khmer_tpu_torch.cli.abundance_dist, "
             "khmer_tpu_torch.cli.abundance_dist_single, "
             "khmer_tpu_torch.cli.normalize_by_median, "
+            "khmer_tpu_torch.cli.trim_low_abund, "
+            "khmer_tpu_torch.cli.filter_abund, "
+            "khmer_tpu_torch.cli.filter_abund_single, "
+            "khmer_tpu_torch.utils.trimming, "
+            "khmer_tpu_torch.scripts.trim_cases, "
+            "khmer_tpu_torch.scripts.trim_bench, "
             "khmer_tpu_torch.core.diginorm, "
             "khmer_tpu_torch.core.diginorm_scan, "
             "khmer_tpu_torch.io.pairing, "

@@ -15,7 +15,7 @@ import torch
 from khmer_tpu_torch.core import blocked as B
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.core.sketch import Countgraph
-from khmer_tpu_torch.scripts import diginorm_cases
+from khmer_tpu_torch.scripts import diginorm_cases, trim_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -427,3 +427,65 @@ def test_scan_normalizer_long_reads_on_cuda(cuda_device):
     assert got["mismatches"] == 0, got
     assert got["runs"] == 18 and got["launches"] == (18, 18), got
     assert 0 < got["kept"] < 600
+
+
+@pytest.mark.parametrize("name", list(trim_cases.CASES))
+def test_trim_kernels_match_plain(cuda_device, name):
+    """Kernels G and H against their plain versions on the windows of
+    scripts/trim_cases.py: branches, trim positions, tables and n_unique
+    (G); trim positions and windows at coverage, with and without a
+    bigcount table (H)."""
+    got = trim_cases.check_case(name, cuda_device)
+    assert got["scan"] == 0 and got["counts"] == 0, got
+    if name == "consume-lifts-trim":
+        assert got["lifted"] >= 30, got
+    if name == "C=300-Z=300":
+        assert got["big entries"] > 0 and got["big moved"] > 0, got
+
+
+def test_scan_trimmer_long_reads_on_cuda(cuda_device):
+    """ScanTrimmerState on the card against the CPU's over windows holding
+    reads of 5,000 to 15,000 bases: kernel G once a run of row_runs, the
+    same branches, trim positions, tables and n_unique."""
+    got = trim_cases.check_long_window(cuda_device)
+    assert got["mismatches"] == 0, got
+    assert got["runs"] == got["launches"] == 18, got
+    assert got["consumed"] > 0
+
+
+def test_trim_entry_points_launch_kernels_on_cuda(cuda_device):
+    """ScanTrimmerState, read_counts_window and the Countgraph's sequence
+    queries on the card launch kernels G and H and answer as the CPU's
+    plain versions do."""
+    from khmer_tpu_torch.core.diginorm_scan import (ScanTrimmerState,
+                                                    read_counts_window)
+    from khmer_tpu_torch.io.fastx import Record
+
+    rng = np.random.default_rng(19)
+    genome = "".join(rng.choice(list("ACGT"), 3000))
+    recs = []
+    for i in range(700):
+        s = int(rng.integers(0, 2900))
+        recs.append(Record("r%d" % i, genome[s:s + int(rng.integers(10,
+                                                                    100))]))
+    engines = [ScanTrimmerState(Countgraph(20, 5e3, 3, device=d), 2, 4)
+               for d in (cuda_device, "cpu")]
+    before = (K.trim_scan_cuda.launches, K.read_counts_cuda.launches)
+    for s in range(0, 700, 256):
+        window = [[r] for r in recs[s:s + 256]]
+        (bk, tk), (bp, tp) = (e.process_window(window) for e in engines)
+        assert np.array_equal(bk, bp) and np.array_equal(tk, tp)
+    assert K.trim_scan_cuda.launches == before[0] + 3
+    cg, ref = (e.graph for e in engines)
+    assert cg.n_unique_kmers() == ref.n_unique_kmers()
+    assert torch.equal(cg.tables.flat.cpu(), ref.tables.flat)
+    got = read_counts_window(cg, recs, 2, 3)
+    want = read_counts_window(ref, recs, 2, 3)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    for r in recs[:20]:
+        if len(r.sequence) >= 20:
+            assert cg.median_at_least(r.sequence, 3) == \
+                ref.median_at_least(r.sequence, 3)
+        assert cg.trim_on_abundance(r.sequence, 2) == \
+            ref.trim_on_abundance(r.sequence, 2)
+    assert K.read_counts_cuda.launches > before[1] + 1

@@ -38,14 +38,19 @@ Phases (each prints a line; any failure raises and exits non-zero):
      the median test's load counter held to its rule's on each; and the
      port's ScanNormalizer on the card against the CPU's over windows
      holding reads of 5,000 to 15,000 bases); the trim-low-abund pass-1
-     scan and the per-read count/trim on the windows of
+     scan (whole, and each of its pre-pass's mark and probe launches and
+     its walk) and the per-read count/trim on the windows of
      scripts/trim_cases.py (counters at 254 and 255, cutoff 1, 2, 255 and
      300, -Z 20 and 300, --diginorm on and off, k 20 and 32, 1 and 32
-     tables, rows of 64, 4096 and 20,000 codes, a mate shorter than k, a
-     consume that lifts a later bundle's k-mer to the cutoff so its trim
-     position moves, tables of 0.2 and 4 GB; the count/trim also with a
-     bigcount table at -C 300), and the port's ScanTrimmerState on the
-     card against the CPU's over the long-read windows;
+     tables, rows of 64, 4096 and 20,000 codes, a mate shorter than k,
+     tables of 0.2 and 4 GB; in stream order, a consume that lifts a
+     later bundle's k-mer to the cutoff so its trim position moves, one
+     that moves a later bundle from branch 1 to 0 under --diginorm, one
+     that lifts a later candidate past the trim coverage, and live
+     bundles across groups and a tile, grouped and alone; the count/trim
+     also with a bigcount table at -C 300), and the port's
+     ScanTrimmerState on the card against the CPU's over the long-read
+     windows;
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
      blocked, k=20, 4 x 5e7 bytes) on data/25k.fq.gz, then the abundance
      histogram; results must equal the JAX package's and the blocked
@@ -93,14 +98,17 @@ Phases (each prints a line; any failure raises and exits non-zero):
      data/stamps-reads.fa.gz, the same with -V, filter-abund -C 2 on phase
      4b's .ct over data/25k.fq.gz and filter-abund-single -k 20 -x 5e7 -C
      2 on it; the JAX answers (.abundtrim, .ct and .abundfilt sha256,
-     summary fields, n_unique) asserted and the scan and count/trim
-     kernels seen to launch; a traced run (the scan's time a bundle, the
-     count/trim's a window); both kernels on window 6 against their plain
+     summary fields, n_unique) asserted and the scan's three launches and
+     the count/trim kernel seen to launch; the scan's candidates, live
+     bundles and groups; a traced run (the scan's pre-pass and walk time
+     apart, a bundle; the count/trim's a window); the scan whole and each
+     of its launches, and the count/trim, on window 6 against their plain
      versions, beside their bounds and the count/trim's sector floor
      (scripts/trim_bench.py);
   8b. trim-low-abund -k 20 -C 2 -x 1e9 -N 4 (4 GB of tables) on phase 7b's
      1,000,000 synthetic reads; the JAX answers asserted, the device
-     memory beside the tables, a traced run, both kernels on its window 6.
+     memory beside the tables, the scan's counts, a traced run, the
+     kernels on its window 6.
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees; the phase lines of
 the histogram and the gathers also print their device time alone
@@ -341,7 +349,8 @@ def main():
                                  "byte_update", "byte_gather",
                                  "histogram_add", "proto_rmw",
                                  "diginorm_med", "diginorm_scan",
-                                 "trim_scan", "read_counts")}
+                                 "trim_mark", "trim_probe", "trim_scan",
+                                 "read_counts")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
         run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs)
@@ -419,6 +428,10 @@ def main():
              "khmer_tpu/core/diginorm_scan.py:93"),
             ("diginorm_scan", "diginorm_scan.cu",
              "khmer_tpu/core/diginorm_scan.py:127"),
+            ("trim_mark", "trim_prepass.cu",
+             "khmer_tpu/core/diginorm_scan.py:168"),
+            ("trim_probe", "trim_prepass.cu",
+             "khmer_tpu/core/diginorm_scan.py:168"),
             ("trim_scan", "trim_scan.cu",
              "khmer_tpu/core/diginorm_scan.py:168"),
             ("read_counts", "read_counts.cu",
@@ -1699,28 +1712,41 @@ def run_trim_cases(torch, dev, errs):
 
     for name in trim_cases.CASES:
         got = trim_cases.check_case(name, dev)
-        errs["trim_scan"] = max(errs["trim_scan"], got["scan"])
-        errs["read_counts"] = max(errs["read_counts"], got["counts"])
-        expect(got["scan"] == 0, "trim_scan != plain on case %s" % name)
-        expect(got["counts"] == 0, "read_counts != plain on case %s" % name)
+        for key, kernel in (("mark", "trim_mark"), ("probe", "trim_probe"),
+                            ("walk", "trim_scan"), ("scan", "trim_scan"),
+                            ("counts", "read_counts")):
+            errs[kernel] = max(errs[kernel], got[key])
+            expect(got[key] == 0, "%s (%s) != plain on case %s"
+                   % (kernel, key, name))
         if name == "consume-lifts-trim":
             expect(got["lifted"] >= 30, "consume-lifts-trim: %d bundles' "
                    "trim positions moved" % got["lifted"])
+        if name in ("consume-lifts-digi", "consume-lifts-candidate"):
+            expect(got["moved"] >= 30, "%s: %d bundles' branches moved"
+                   % (name, got["moved"]))
+        if name == "groups-and-lone":
+            expect(0 < got["alone"] < got["groups"] < got["live"]
+                   < got["bundles"], "groups-and-lone: %d live bundles in "
+                   "%d groups, %d alone" % (got["live"], got["groups"],
+                                            got["alone"]))
         if name == "C=300-Z=300":
             expect(got["big entries"] > 0 and got["big moved"] > 0,
                    "C=300-Z=300: the bigcount table moved no count")
-        say("  trim case %-20s %d bundles, rows of %d: branches %s, new "
+        say("  trim case %-23s %d bundles, rows of %d: branches %s, new "
             "k-mers %d, trim positions moved by earlier consumes in %d "
-            "bundles; bigcount table %d entries, windows at 300 moved in %d "
-            "reads" % (name, got["bundles"], got["L"], got["branches"],
-                       got["new"], got["lifted"], got["big entries"],
-                       got["big moved"]))
+            "bundles, branches in %d; %d candidates, %d live in %d groups "
+            "(%d alone); bigcount table %d entries, windows at 300 moved "
+            "in %d reads" % (name, got["bundles"], got["L"], got["branches"],
+                             got["new"], got["lifted"], got["moved"],
+                             got["candidates"], got["live"], got["groups"],
+                             got["alone"], got["big entries"],
+                             got["big moved"]))
     got = trim_cases.check_long_window(dev)
     errs["trim_scan"] = max(errs["trim_scan"], got["mismatches"])
     expect(got["mismatches"] == 0,
            "ScanTrimmerState on the card != on the CPU with long reads")
-    expect(got["launches"] == got["runs"],
-           "long-read windows: %d launches for %d runs"
+    expect(got["launches"] == (got["runs"],) * 3,
+           "long-read windows: %s launches for %d runs"
            % (got["launches"], got["runs"]))
     say("  trim long reads: 3 windows of 200 bundles with reads of "
         "5,000-15,000 bases in %d runs, %d bundles consumed, card == CPU"
@@ -1728,14 +1754,51 @@ def run_trim_cases(torch, dev, errs):
     return len(trim_cases.CASES) + 1
 
 
+# kernel G's launches and the wrappers that count them
+_TRIM_WRAPPERS = (("trim_mark", "trim_mark_cuda"),
+                  ("trim_probe", "trim_probe_cuda"),
+                  ("trim_scan", "trim_walk_cuda"),
+                  ("read_counts", "read_counts_cuda"))
+# their kernels' names in a trace
+_TRIM_TRACED = ("mark_kernel", "probe_kernel", "walk_kernel",
+                "counts_kernel")
+
+
 def _trim_launch_counters(SK):
-    SK.trim_scan_cuda.launches = 0
-    SK.read_counts_cuda.launches = 0
+    for _, fn in _TRIM_WRAPPERS:
+        getattr(SK, fn).launches = 0
 
 
 def _trim_launches(SK):
-    return {"trim_scan": SK.trim_scan_cuda.launches,
-            "read_counts": SK.read_counts_cuda.launches}
+    return {name: getattr(SK, fn).launches for name, fn in _TRIM_WRAPPERS}
+
+
+def _say_trim_trace(label, t_wall, dev_ms, found, scan, card):
+    """A traced trim-low-abund run: device time in all, kernel G's
+    pre-pass (mark and probe) and walk apart, a bundle and a live bundle,
+    its counts (ScanTrimmerState), and H's time a window."""
+    mark_ms, mark_n = found["mark_kernel"]
+    probe_ms, probe_n = found["probe_kernel"]
+    walk_ms, walk_n = found["walk_kernel"]
+    h_ms, h_n = found["counts_kernel"]
+    cand, live, groups = (int(c) for c in (scan.candidates, scan.live,
+                                           scan.groups))
+    expect(0 < groups <= live <= scan.bundles and cand <= live,
+           "%s: %d candidates, %d live bundles in %d groups of %d"
+           % (label, cand, live, groups, scan.bundles))
+    g_ms = mark_ms + probe_ms + walk_ms
+    say("%s traced: %.6f s, device %.4f ms (busy %.2f%%); kernel G %.4f ms "
+        "over %d bundles = %.4f us a bundle: pre-pass mark %.4f ms in %d "
+        "launches + probe %.4f ms in %d, walk %.4f ms in %d launches over "
+        "%d live bundles (%.4f of all) = %.4f us a live bundle; %d "
+        "candidates, %d groups (%.4f live bundles a group); read_counts "
+        "%.4f ms in %d launches = %.4f ms a window; on %s"
+        % (label, t_wall, dev_ms, 100 * dev_ms / (t_wall * 1e3), g_ms,
+           scan.bundles, g_ms * 1e3 / max(scan.bundles, 1), mark_ms, mark_n,
+           probe_ms, probe_n, walk_ms, walk_n, live,
+           live / max(scan.bundles, 1), walk_ms * 1e3 / max(live, 1), cand,
+           groups, live / max(groups, 1), h_ms, h_n, h_ms / max(h_n, 1),
+           card))
 
 
 def _check_trim(E, d, out_name, trimmer, label):
@@ -1786,8 +1849,7 @@ def run_config3(torch, SK, dev, card, errs):
             if extra is None:
                 t_wall, dev_ms, found, t_trim = _traced_cli(
                     torch, trim_low_abund.main,
-                    args + ["stamps-reads.fa.gz"], d,
-                    ("trim_kernel", "counts_kernel"))
+                    args + ["stamps-reads.fa.gz"], d, _TRIM_TRACED)
                 continue
             wall, _, trimmer = _run_cli(
                 torch, trim_low_abund.main, args + extra + [
@@ -1831,13 +1893,10 @@ def run_config3(torch, SK, dev, card, errs):
     for label, n in (("trim", runs["trim"][1]), ("trim -V", runs["trim-V"][1]),
                      ("filter-abund", f_launches),
                      ("filter-abund-single", s_launches)):
-        for name in (("trim_scan", "read_counts") if "trim" in label
+        for name in ([n for n, _ in _TRIM_WRAPPERS] if "trim" in label
                      else ("read_counts",)):
             expect(n[name] > 0, "%s never launched on config 3's %s"
                    % (name, label))
-    bundles = t_trim.scan.bundles
-    g_ms, g_n = found["trim_kernel"]
-    h_ms, h_n = found["counts_kernel"]
     for label in ("trim", "trim-V"):
         wall, n, trimmer, got = runs[label]
         say("phase 8 config 3 (%s): trim-low-abund %s-s --summary-info "
@@ -1854,17 +1913,14 @@ def run_config3(torch, SK, dev, card, errs):
         "launches %s; on %s"
         % (f_wall, f_got[1], f_got[0], f_launches, s_wall, s_got[1],
            s_got[0], s_got[2], s_launches, card))
-    say("phase 8 traced (a): %.6f s, device %.4f ms (busy %.2f%%); "
-        "trim_scan %.4f ms in %d launches over %d bundles = %.4f us a "
-        "bundle; read_counts %.4f ms in %d launches = %.4f ms a window; on "
-        "%s" % (t_wall, dev_ms, 100 * dev_ms / (t_wall * 1e3), g_ms, g_n,
-                bundles, g_ms * 1e3 / max(bundles, 1), h_ms, h_n,
-                h_ms / max(h_n, 1), card))
+    _say_trim_trace("phase 8 (a)", t_wall, dev_ms, found, t_trim.scan, card)
     w = _trim_bench_window(time_window(dev), "config 3", errs, card)
     timings = {name: {"ms": w[key]["ms"], "plain_ms": w[key]["plain_ms"],
                       "bound_ms": w[key]["bound"][0],
                       "bound_by": w[key]["bound"][1], "library_ms": None}
-               for key, name in (("scan", "trim_scan"),
+               for key, name in (("mark", "trim_mark"),
+                                 ("probe", "trim_probe"),
+                                 ("walk", "trim_scan"),
                                  ("counts", "read_counts"))}
     torch.cuda.empty_cache()
     return runs["trim"][1], timings
@@ -1872,19 +1928,32 @@ def run_config3(torch, SK, dev, card, errs):
 
 def _trim_bench_window(w, label, errs, card):
     """Check and print one trim_bench.time_window result."""
-    for key, name in (("scan", "trim_scan"), ("counts", "read_counts")):
+    for key, name in (("scan", "trim_scan"), ("mark", "trim_mark"),
+                      ("probe", "trim_probe"), ("walk", "trim_scan"),
+                      ("counts", "read_counts")):
         errs[name] = max(errs[name], w[key]["mismatches"])
-        expect(w[key]["mismatches"] == 0,
-               "%s != plain on %s's window %d" % (name, label, w["window"]))
+        expect(w[key]["mismatches"] == 0, "%s (%s) != plain on %s's window "
+               "%d" % (name, key, label, w["window"]))
     g, h = w["scan"], w["counts"]
+    parts = "; ".join(
+        "%s %.4f ms as issued, device %.4f ms, plain %.4f ms, bound %.5f ms "
+        "(%s; %d B, %d ops)" % (key, w[key]["ms"], w[key]["device_ms"],
+                                w[key]["plain_ms"], w[key]["bound"][0],
+                                w[key]["bound"][1], w[key]["bytes"],
+                                w[key]["ops"])
+        for key in ("mark", "probe", "walk"))
     say("  %s window %d: %d bundles (%d reads) of rows of %d codes, "
-        "branches %s; trim_scan kernel %.4f ms (%.4f us a bundle), plain "
-        "%.4f ms, bound %.5f ms (%s; %d B, %d ops); read_counts kernel "
-        "%.4f ms, plain %.4f ms, bound %.5f ms (%s; %d B, %d ops), sector "
-        "floor %.5f ms (%d B); on %s"
+        "branches %s, %d candidates, %d probed, %d live in %d groups (set of "
+        "2^%d bits); kernel G whole %.4f ms as issued (%.4f us a bundle), "
+        "device %.4f ms, plain %.4f ms, bound %.5f ms (%s; %d B, %d ops); "
+        "%s (%.4f us a live bundle); read_counts kernel %.4f ms, plain %.4f "
+        "ms, bound %.5f ms (%s; %d B, %d ops), sector floor %.5f ms (%d B); "
+        "on %s"
         % (label, w["window"], w["bundles"], w["reads"], w["L"],
-           w["branches"], g["ms"], g["us_per_bundle"], g["plain_ms"],
-           g["bound"][0], g["bound"][1], g["bytes"], g["ops"], h["ms"],
+           w["branches"], w["candidates"], w["probed"], w["live"],
+           w["groups"], w["mark_bits"], g["ms"], g["us_per_bundle"],
+           g["device_ms"], g["plain_ms"], g["bound"][0], g["bound"][1],
+           g["bytes"], g["ops"], parts, w["walk"]["us_per_live"], h["ms"],
            h["plain_ms"], h["bound"][0], h["bound"][1], h["bytes"], h["ops"],
            h["sector_ms"], h["sector_bytes"], card))
     return w
@@ -1931,29 +2000,21 @@ def run_config3_scale(torch, SK, dev, card, errs, reads):
         torch.cuda.empty_cache()
         t_wall, dev_ms, found, t_trim = _traced_cli(
             torch, trim_low_abund.main, args + ["synth.fa"], traced,
-            ("trim_kernel", "counts_kernel"))
-        bundles = t_trim.scan.bundles
+            _TRIM_TRACED)
+        _say_trim_trace("phase 8b", t_wall, dev_ms, found, t_trim.scan, card)
         del t_trim
         torch.cuda.empty_cache()
         w = time_window(dev, reads, x=1e9, reps=3)
     expect(min(launches.values()) > 0,
            "trim kernels never launched at 4 GB: %s" % launches)
-    g_ms, g_n = found["trim_kernel"]
-    h_ms, h_n = found["counts_kernel"]
     say("phase 8b config 3 at -k 20 -C 2 -x 1e9 -N 4: trim-low-abund -s "
         "--summary-info json on %d synthetic reads: %.6f s = %.6g reads/s; "
         ".abundtrim %d B sha256 %s, .ct %d B sha256 %s, n_unique %d, "
         "summary %s (the JAX answers); tables %.3f GB, peak device memory "
-        "%.3f GB, beside the tables %.1f MB; launches %s; traced: %.6f s, "
-        "device %.4f ms (busy %.2f%%), trim_scan %.4f ms in %d launches "
-        "over %d bundles = %.4f us a bundle, read_counts %.4f ms in %d "
-        "launches = %.4f ms a window; on %s"
+        "%.3f GB, beside the tables %.1f MB; launches %s; on %s"
         % (info["reads"], wall, info["reads"] / wall, got[1], got[0], got[3],
            got[2], got[4], got[5], tables / 1e9, peak / 1e9,
-           (peak - tables) / 1e6, launches, t_wall, dev_ms,
-           100 * dev_ms / (t_wall * 1e3), g_ms, g_n, bundles,
-           g_ms * 1e3 / max(bundles, 1), h_ms, h_n, h_ms / max(h_n, 1),
-           card))
+           (peak - tables) / 1e6, launches, card))
     _trim_bench_window(w, "-x 1e9", errs, card)
     torch.cuda.empty_cache()
 

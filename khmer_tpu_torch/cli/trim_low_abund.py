@@ -45,9 +45,9 @@ DEFAULT_TRIM_AT_COVERAGE = 20
 DEFAULT_CUTOFF = 2
 DEFAULT_DIGINORM_COVERAGE = 20
 REPORT_EVERY_N_READS = 10000
-# bundles per window: one upload, one launch of kernel G (pass 1) or H
-# (pass 2) and one read of its results each, unless reads longer than 4096
-# bases split it (diginorm_scan.row_runs)
+# bundles per window: one upload, kernel G's three launches (pass 1) or
+# one of H (pass 2), and one read of the results each, unless reads longer
+# than 4096 bases split it (diginorm_scan.row_runs)
 WINDOW = 16384
 
 

@@ -186,12 +186,14 @@ class ScanTrimmerState:
     :190-238): branch 0 (--diginorm: every present read at digi_cov) drops
     the bundle, branch 1 (every present read at trim_cov) emits it trimmed
     at trim_at, branch 2 consumes its k-mers, which later bundles see, and
-    saves it for pass 2. One launch of kernel G a run (sketch_kernels.
-    trim_scan; its plain version for a countgraph on the CPU) decides a
-    run and adds to the u8 tables in place; the host reads the branches
-    and trim positions once a run. Runs are row_runs', as ScanNormalizer
-    packs them, so reads longer than pipeline.MAX_ROW_LEN need no host
-    window."""
+    saves it for pass 2. Kernel G (sketch_kernels.trim_scan; its plain
+    versions for a countgraph on the CPU) decides a run and adds to the u8
+    tables in place, in three launches: the pre-pass's mark and probe
+    settle, against the tables as the run starts, every bundle no add of
+    the run can change, and the walk runs the rest, the live bundles, in
+    stream order. The host reads the branches and trim positions once a
+    run. Runs are row_runs', as ScanNormalizer packs them, so reads longer
+    than pipeline.MAX_ROW_LEN need no host window."""
 
     def __init__(self, graph, cutoff, trim_cov, digi_cov=None):
         if graph.storage_kind != "byte":
@@ -202,8 +204,16 @@ class ScanTrimmerState:
         self.trim_cov = int(trim_cov)
         self.digi_cov = None if digi_cov is None else int(digi_cov)
         self._primes = tuple(graph._primes)
-        self.scan_runs = 0  # kernel G's launches (one a run)
-        self.bundles = 0    # the bundles they scanned
+        # what the scan did: the runs it scanned (one a window unless reads
+        # longer than MAX_ROW_LEN split it), their bundles, and on the
+        # sketch's device the candidates, the live bundles the walk took
+        # and the groups it took them in
+        self.scan_runs = 0
+        self.bundles = 0
+        dev = graph.device
+        self.candidates = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.live = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.groups = torch.zeros(1, dtype=torch.int64, device=dev)
 
     def process_window(self, bundles):
         """bundles: list of record lists (1 or 2 reads). Returns (branch
@@ -219,7 +229,8 @@ class ScanTrimmerState:
                 self._primes, self.k, self.cutoff, self.trim_cov,
                 self.digi_cov, self.graph.tables.flat, self.graph._n_unique,
                 torch.from_numpy(codes).to(dev),
-                torch.from_numpy(lengths).to(dev))
+                torch.from_numpy(lengths).to(dev), self.candidates,
+                self.live, self.groups)
             out[start:stop] = torch.cat([branch[:, None], trim_at],
                                         dim=1).cpu().numpy()
             self.scan_runs += 1

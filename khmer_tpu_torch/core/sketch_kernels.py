@@ -27,7 +27,7 @@ import torch
 
 from khmer_tpu_torch.ops import cuda
 from khmer_tpu_torch.ops.hashing import rolling_hash_windows
-from khmer_tpu_torch.ops.u64 import _SIGN, umod
+from khmer_tpu_torch.ops.u64 import _SIGN, srl, to_signed, umod
 
 MAX_KCOUNT = 255      # reference: include/oxli/oxli.hh:81
 MAX_BIGCOUNT = 65535  # reference: include/oxli/oxli.hh:82
@@ -1023,46 +1023,317 @@ def trim_window_plain(primes, k, cutoff, trim_cov, digi_cov, flat, n_unique,
                          device=dev).reshape(B, 2))
 
 
-# Kernel G (csrc/trim_scan.cu): one block of TRIM_THREADS threads walks the
-# window; a consumed bundle's adds go through a shared-memory map of
-# TRIM_MAP_SLOTS counters, in sub-chunks of at most TRIM_MAP_SLOTS // (2 T)
-# events. These mirror its constants.
-TRIM_THREADS = 256
+# Kernel G: a pre-pass (csrc/trim_prepass.cu; blocks of TRIM_PRE_THREADS
+# threads, a warp a bundle) gives every bundle of a window a state from the
+# tables as the window starts: TRIM_LIVE for a candidate (a bundle that
+# would take branch 2 now), TRIM_PROBE or TRIM_PROBE_DIGI for a bundle with
+# windows that a candidate's adds might move across cutoff (or digi_cov),
+# TRIM_SETTLED for the rest, whose branch and trim positions are final. The
+# probe then turns each PROBE bundle LIVE or SETTLED. The walk
+# (csrc/trim_scan.cu) runs the LIVE bundles in stream order, in kernel F's
+# tiles and groups (TRIM_THREADS, TRIM_OVERLAY_SLOTS, TRIM_GROUP_ITEMS: F's
+# constants), a bundle too large for a group through a map of
+# TRIM_MAP_SLOTS counters. These mirror the kernels' constants.
+TRIM_SETTLED, TRIM_LIVE, TRIM_PROBE, TRIM_PROBE_DIGI = 0, 1, 2, 3
+TRIM_PRE_THREADS = 256
+TRIM_MARK_BITS = (16, 27)  # the pre-pass's set: 2^16 to 2^27 bits
+TRIM_THREADS = DIGI_SCAN_THREADS
+TRIM_OVERLAY_SLOTS = DIGI_OVERLAY_SLOTS
+TRIM_GROUP_ITEMS = DIGI_GROUP_ITEMS
 TRIM_MAP_SLOTS = 4096
+TRIM_SMEM_LIMIT = DIGI_SMEM_LIMIT
+_FIB = to_signed(0x9E3779B97F4A7C15)  # 2^64 / golden ratio
 
 
-def trim_plan(ntables):
-    """Kernel G's shared memory for `ntables` tables: {"sub": events a
-    sub-chunk of a consumed bundle's adds, "smem": dynamic shared bytes}:
-    the map's keys (8 B a slot), hits and lowest events (4 B a slot each),
-    the window counts of a tile of bundles (8 B a bundle), each sub-chunk
-    item's slot (2 B, TRIM_MAP_SLOTS // 2 items) and a sub-chunk's new
-    flags (1 B an event, rounded up to 16 B). It follows the number of
-    tables alone: not the rows, not the tables' size."""
+def trim_plan(ntables, nbundles=0, W=0):
+    """Kernel G's scratch for `ntables` tables and a window of `nbundles`
+    bundles of rows of W windows (L - k + 1): {"sub": events a sub-chunk of
+    a lone bundle's adds, "group_events": the most events a group holds,
+    TRIM_GROUP_ITEMS // ntables, "smem": the walk's dynamic shared bytes,
+    "group", "alone", "tile": {name: shared bytes}, "union": bytes of the
+    union of "group" and "alone", "mark_bits": log2 of the bits of the
+    pre-pass's set, "mark_words": its 32-bit words}.
+
+    The walk's shared memory is the union of two layouts, rounded up to 16
+    bytes, then the tile's list, in the kernel's order:
+    - "group", kernel F's overlay (diginorm_plan);
+    - "alone", a lone bundle's map: keys (8 B a slot), hits and lowest
+      events (4 B a slot each), each sub-chunk item's slot (2 B,
+      TRIM_MAP_SLOTS // 2 items), a sub-chunk's new flags (1 B an event);
+    - "tile": per live bundle its two reads' window counts (8 B), its
+      bundle (4 B), and where its events start (4 B, one more).
+    It follows the number of tables alone. The set follows the window: at
+    least 4 bits for each counter its candidates could mark (2 nbundles W
+    ntables), within TRIM_MARK_BITS; never the tables' size."""
     ntables = int(ntables)
     if not 1 <= ntables <= MAX_TABLES:
         raise ValueError("the byte kernels take 1 to %d tables, not %d"
                          % (MAX_TABLES, ntables))
-    M = TRIM_MAP_SLOTS
+    S, G, M = TRIM_OVERLAY_SLOTS, TRIM_GROUP_ITEMS, TRIM_MAP_SLOTS
     sub = M // (2 * ntables)
-    smem = 8 * M + 4 * M * 2 + 8 * TRIM_THREADS + 2 * (M // 2)
-    return {"sub": sub, "smem": smem + -(-sub // 16) * 16}
+    gev = G // ntables
+    group = {"claim": 4 * S, "keys": 8 * G, "hits": 4 * S, "first": 4 * S,
+             "values": 2 * S, "slots": 2 * G, "fresh": gev}
+    alone = {"keys": 8 * M, "hits": 4 * M, "first": 4 * M,
+             "slots": 2 * (M // 2), "fresh": sub}
+    T = TRIM_THREADS
+    tile = {"reads": 8 * T, "list": 4 * T, "starts": 4 * (T + 1)}
+    union = -(-max(sum(group.values()), sum(alone.values())) // 16) * 16
+    marks = 8 * int(nbundles) * max(int(W), 0) * ntables
+    lo, hi = TRIM_MARK_BITS
+    bits = min(max(max(marks - 1, 1).bit_length(), lo), hi)
+    return {"sub": sub, "group_events": gev,
+            "smem": union + sum(tile.values()), "group": group,
+            "alone": alone, "tile": tile, "union": union,
+            "mark_bits": bits, "mark_words": (1 << bits) // 32}
 
 
-def trim_scan_cuda(primes, k, cutoff, trim_cov, digi_cov, flat, n_unique,
-                   codes, lengths):
-    """Kernel G (csrc/trim_scan.cu): trim_window_plain on the card, one
-    launch for the window, the u8 tables updated in place; its only
-    scratch is trim_plan's shared memory. Returns (branch int32 [B],
-    trim_at int32 [B, 2]). Counts its launches in
-    ``trim_scan_cuda.launches``."""
+def _trim_counters(primes, k, flat, codes, lengths):
+    """(counters int64 [T, 2B, W], their values int32, valid bool [2B, W],
+    nvalid [2B]) of a window's reads: each window's flat counter in each
+    table, as _window_hashes takes the windows."""
+    hashes, valid, nvalid = _window_hashes(codes, lengths, k)
+    counters = torch.stack([umod(hashes, p) + o
+                            for p, o in zip(primes, byte_offsets(primes))])
+    return counters, flat[counters].to(torch.int32), valid, nvalid
+
+
+def _mark_bit(counters, bits):
+    """The pre-pass's set bit of flat counters: the top `bits` bits of the
+    u64 product counter * 2^64 / golden ratio (csrc/trim_prepass.cu
+    mark_bit)."""
+    return srl(counters * _FIB, 64 - bits)
+
+
+def _marks_log2(marks):
+    """log2 of the bits of the set held in `marks` (int32 words)."""
+    return (marks.numel() * 32).bit_length() - 1
+
+
+def trim_mark_plain(primes, k, cutoff, trim_cov, digi_cov, flat, codes,
+                    lengths, marks, n_cand=None):
+    """The pre-pass's mark step (csrc/trim_prepass.cu mark_kernel; plain
+    PyTorch, any device): every bundle of the window against the tables as
+    they stand, read only -> (state uint8 [B], branch int32 [B], trim_at
+    int32 [B, 2]), trim_window_plain's branch and trim positions for a
+    bundle that came first. A bundle of branch 2 is a candidate, state
+    TRIM_LIVE: the bit (_mark_bit) of every counter of every valid window
+    of it, in every table, is set in `marks` (int32 words, a power of two
+    of them, in place); the candidates are added to `n_cand` when given.
+    Any other bundle is TRIM_PROBE_DIGI if --diginorm's test fails it (it
+    passes trim_cov), else TRIM_PROBE if some window of it is below
+    `cutoff`, else TRIM_SETTLED."""
+    counters, vals, valid, nvalid = _trim_counters(primes, k, flat, codes,
+                                                   lengths)
+    counts = vals.amin(dim=0)
+    B = codes.shape[0] // 2
+    need = _min_required(nvalid)
+    absent = nvalid == 0
+
+    def passes(x):
+        ge = (valid & (counts >= int(x))).sum(dim=1)
+        return ((ge >= need) | absent).reshape(B, 2).all(dim=1)
+
+    ok_trim = passes(trim_cov)
+    ok_digi = (passes(digi_cov) if digi_cov is not None
+               else torch.zeros_like(ok_trim))
+    branch = torch.where(ok_digi, 0, torch.where(ok_trim, 1, 2))
+    bad = valid & (counts < int(cutoff))
+    W = counts.shape[1]
+    pos = torch.arange(W, device=codes.device)
+    first = torch.where(bad & (pos >= 1), pos, W).amin(dim=1)
+    trim_at = torch.where(first < W, k + first - 1, nvalid + k - 1)
+    trim_at = torch.where(bad[:, 0] | (nvalid == 1), 0, trim_at)
+    cand = branch == 2
+    state = torch.where(
+        cand, TRIM_LIVE, torch.where(
+            ~ok_digi & (digi_cov is not None), TRIM_PROBE_DIGI,
+            torch.where(bad.reshape(B, -1).any(dim=1), TRIM_PROBE,
+                        TRIM_SETTLED)))
+    chosen = valid & cand.repeat_interleave(2)[:, None]
+    bit = torch.unique(_mark_bit(counters[:, chosen], _marks_log2(marks)))
+    words = torch.zeros(marks.shape, dtype=torch.int64, device=marks.device)
+    words.index_add_(0, bit >> 5, torch.ones_like(bit) << (bit & 31))
+    marks |= torch.where(words > _I32_MAX, words - (1 << 32),
+                         words).to(torch.int32)
+    if n_cand is not None:
+        n_cand += cand.sum()
+    return (state.to(torch.uint8), branch.to(torch.int32),
+            trim_at.reshape(B, 2).to(torch.int32))
+
+
+def trim_probe_plain(primes, k, cutoff, digi_cov, flat, codes, lengths,
+                     marks, state):
+    """The pre-pass's probe step (csrc/trim_prepass.cu probe_kernel; plain
+    PyTorch, any device), in place on `state` (uint8 [B]), which it
+    returns: a TRIM_PROBE or TRIM_PROBE_DIGI bundle becomes TRIM_LIVE iff
+    some valid window of it has a count below a threshold that matters to
+    it (cutoff; digi_cov too for TRIM_PROBE_DIGI) and every counter of that
+    window below the threshold has its bit set in `marks`; else
+    TRIM_SETTLED."""
+    counters, vals, valid, _ = _trim_counters(primes, k, flat, codes,
+                                              lengths)
+    bit = _mark_bit(counters, _marks_log2(marks))
+    marked = ((marks[bit >> 5].to(torch.int64) >> (bit & 31)) & 1).bool()
+
+    def movable(x):
+        low = vals < int(x)
+        return valid & low.any(dim=0) & (~low | marked).all(dim=0)
+
+    hit = movable(cutoff)
+    if digi_cov is not None:
+        rows = (state == TRIM_PROBE_DIGI).repeat_interleave(2)
+        hit |= movable(digi_cov) & rows[:, None]
+    live = hit.reshape(state.shape[0], -1).any(dim=1)
+    probe = (state == TRIM_PROBE) | (state == TRIM_PROBE_DIGI)
+    state[probe & live] = TRIM_LIVE
+    state[probe & ~live] = TRIM_SETTLED
+    return state
+
+
+def trim_classify_plain(primes, k, cutoff, trim_cov, digi_cov, flat, codes,
+                        lengths, marks=None):
+    """Kernel G's pre-pass, mark then probe (plain PyTorch, any device),
+    read only: (candidates bool [B], live bool [B], branch int32 [B],
+    trim_at int32 [B, 2]), the outputs final for the bundles not live.
+    `marks`, the set (int32 words), defaults to an empty one of trim_plan's
+    size; a set with bits set beforehand errs towards live, as a shared
+    bit does."""
+    B, W = codes.shape[0] // 2, codes.shape[1] - k + 1
+    if marks is None:
+        marks = torch.zeros(trim_plan(len(primes), B, W)["mark_words"],
+                            dtype=torch.int32, device=codes.device)
+    state, branch, trim_at = trim_mark_plain(
+        primes, k, cutoff, trim_cov, digi_cov, flat, codes, lengths, marks)
+    cand = state == TRIM_LIVE
+    trim_probe_plain(primes, k, cutoff, digi_cov, flat, codes, lengths,
+                     marks, state)
+    return cand, state == TRIM_LIVE, branch, trim_at
+
+
+def trim_walk_plain(primes, k, cutoff, trim_cov, digi_cov, flat, n_unique,
+                    codes, lengths, state, branch, trim_at, n_live=None,
+                    n_groups=None):
+    """Kernel G's walk (plain PyTorch, any device): trim_window_plain over
+    the bundles whose `state` is TRIM_LIVE alone, in stream order, their
+    branch and trim_at written in place (the others keep theirs), the
+    tables and n_unique updated in place. The live bundles are added to
+    `n_live` and the groups the kernel forms of them (scan_groups) to
+    `n_groups` when given. Returns (branch, trim_at)."""
+    live = torch.nonzero(state == TRIM_LIVE).flatten()
+    rows = torch.stack([2 * live, 2 * live + 1], dim=1).flatten()
+    b, t = trim_window_plain(primes, k, cutoff, trim_cov, digi_cov, flat,
+                             n_unique, codes[rows], lengths[rows])
+    branch[live] = b
+    trim_at[live] = t
+    if n_live is not None:
+        n_live += live.numel()
+    if n_groups is not None:
+        W = codes.shape[1] - k + 1
+        nw = torch.clamp(lengths.to(torch.int64) - (k - 1), 0, W)
+        nev = (nw[0::2] + nw[1::2]).tolist()
+        n_groups += len(scan_groups(nev, live.tolist(), len(primes)))
+    return branch, trim_at
+
+
+def _trim_args(primes, k, flat, codes, lengths):
     dev = flat.device
     _check_byte_layout(primes, flat)
     _check_window(codes, lengths, k, dev)
-    _check_counter(n_unique, dev, "n_unique")
-    B = codes.shape[0] // 2
+    return dev, codes.shape[0] // 2
+
+
+def _check_marks(marks, dev):
+    n = marks.numel()
+    if (marks.device != dev or marks.dtype != torch.int32 or marks.dim() != 1
+            or not marks.is_contiguous() or n < 1 or n & (n - 1)):
+        raise ValueError("marks must be a contiguous int32 tensor of a "
+                         "power of two words on %s" % dev)
+
+
+def _check_state(state, B, dev):
+    if (state.device != dev or state.dtype != torch.uint8
+            or state.shape != (B,) or not state.is_contiguous()):
+        raise ValueError("state must be a contiguous uint8 [%d] tensor on "
+                         "%s" % (B, dev))
+
+
+def trim_mark_cuda(primes, k, cutoff, trim_cov, digi_cov, flat, codes,
+                   lengths, marks, n_cand=None):
+    """The pre-pass's mark launch (csrc/trim_prepass.cu): trim_mark_plain
+    on the card -> (state, branch, trim_at); `marks` is cleared first.
+    Counts its launches in ``trim_mark_cuda.launches``."""
+    dev, B = _trim_args(primes, k, flat, codes, lengths)
+    _check_marks(marks, dev)
+    if n_cand is not None:
+        _check_counter(n_cand, dev, "n_cand")
+    state = torch.empty(B, dtype=torch.uint8, device=dev)
     branch = torch.empty(B, dtype=torch.int32, device=dev)
     trim_at = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    if B == 0:
+        return state, branch, trim_at
+    primes_arr, offsets_arr = _layout(primes)
+    err = cuda.library().khmer_trim_mark(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), codes.data_ptr(), lengths.data_ptr(),
+        B, codes.shape[1], int(k), _cutoff_arg(cutoff),
+        _cutoff_arg(trim_cov), _cutoff_arg(0 if digi_cov is None
+                                          else digi_cov),
+        int(digi_cov is not None), _marks_log2(marks), marks.data_ptr(),
+        state.data_ptr(), branch.data_ptr(), trim_at.data_ptr(),
+        _ptr(n_cand), dev.index, _stream(dev))
+    cuda.check(err, "trim_mark")
+    trim_mark_cuda.launches += 1
+    return state, branch, trim_at
+
+
+trim_mark_cuda.launches = 0
+
+
+def trim_probe_cuda(primes, k, cutoff, digi_cov, flat, codes, lengths,
+                    marks, state):
+    """The pre-pass's probe launch (csrc/trim_prepass.cu): trim_probe_plain
+    on the card, in place on `state`, which it returns. Counts its launches
+    in ``trim_probe_cuda.launches``."""
+    dev, B = _trim_args(primes, k, flat, codes, lengths)
+    _check_marks(marks, dev)
+    _check_state(state, B, dev)
+    if B == 0:
+        return state
+    primes_arr, offsets_arr = _layout(primes)
+    err = cuda.library().khmer_trim_probe(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), codes.data_ptr(), lengths.data_ptr(),
+        B, codes.shape[1], int(k), _cutoff_arg(cutoff),
+        _cutoff_arg(-1 if digi_cov is None else digi_cov), _marks_log2(marks),
+        marks.data_ptr(), state.data_ptr(), dev.index, _stream(dev))
+    cuda.check(err, "trim_probe")
+    trim_probe_cuda.launches += 1
+    return state
+
+
+trim_probe_cuda.launches = 0
+
+
+def trim_walk_cuda(primes, k, cutoff, trim_cov, digi_cov, flat, n_unique,
+                   codes, lengths, state, branch, trim_at, n_live=None,
+                   n_groups=None):
+    """Kernel G's walk (csrc/trim_scan.cu): trim_walk_plain on the card,
+    one launch, the u8 tables updated in place; its only scratch is
+    trim_plan's shared memory. Returns (branch, trim_at). Counts its
+    launches in ``trim_walk_cuda.launches``."""
+    dev, B = _trim_args(primes, k, flat, codes, lengths)
+    _check_state(state, B, dev)
+    for name, t in (("n_unique", n_unique), ("n_live", n_live),
+                    ("n_groups", n_groups)):
+        if t is not None or name == "n_unique":
+            _check_counter(t, dev, name)
+    if (branch.shape != (B,) or trim_at.shape != (B, 2)
+            or branch.dtype != torch.int32 or trim_at.dtype != torch.int32
+            or branch.device != dev or trim_at.device != dev
+            or not branch.is_contiguous() or not trim_at.is_contiguous()):
+        raise ValueError("branch and trim_at must be contiguous int32 [%d] "
+                         "and [%d, 2] tensors on %s" % (B, B, dev))
     if B == 0:
         return branch, trim_at
     plan = trim_plan(len(primes))
@@ -1070,31 +1341,64 @@ def trim_scan_cuda(primes, k, cutoff, trim_cov, digi_cov, flat, n_unique,
     err = cuda.library().khmer_trim_scan(
         flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
         ctypes.addressof(offsets_arr), codes.data_ptr(), lengths.data_ptr(),
-        B, codes.shape[1], int(k), _cutoff_arg(cutoff),
+        state.data_ptr(), B, codes.shape[1], int(k), _cutoff_arg(cutoff),
         _cutoff_arg(trim_cov), _cutoff_arg(0 if digi_cov is None
                                           else digi_cov),
         int(digi_cov is not None), plan["sub"], plan["smem"],
         branch.data_ptr(), trim_at.data_ptr(), n_unique.data_ptr(),
-        dev.index, _stream(dev))
+        _ptr(n_live), _ptr(n_groups), dev.index, _stream(dev))
     cuda.check(err, "trim_scan")
-    trim_scan_cuda.launches += 1
+    trim_walk_cuda.launches += 1
     return branch, trim_at
 
 
-trim_scan_cuda.launches = 0
+trim_walk_cuda.launches = 0
+
+
+def trim_scan_cuda(primes, k, cutoff, trim_cov, digi_cov, flat, n_unique,
+                   codes, lengths, n_cand=None, n_live=None, n_groups=None):
+    """Kernel G on the card, trim_window_plain's answer: the mark, probe
+    and walk launches on the current stream, no host synchronisation; the
+    only scratch beside the walk's shared memory is the pre-pass's set and
+    a state byte a bundle (trim_plan, sized by the window). Returns
+    (branch int32 [B], trim_at int32 [B, 2]); the candidates, live bundles
+    and groups are added to the counters given."""
+    dev, B = _trim_args(primes, k, flat, codes, lengths)
+    plan = trim_plan(len(primes), B, codes.shape[1] - k + 1)
+    marks = torch.empty(plan["mark_words"], dtype=torch.int32, device=dev)
+    state, branch, trim_at = trim_mark_cuda(primes, k, cutoff, trim_cov,
+                                            digi_cov, flat, codes, lengths,
+                                            marks, n_cand)
+    trim_probe_cuda(primes, k, cutoff, digi_cov, flat, codes, lengths, marks,
+                    state)
+    return trim_walk_cuda(primes, k, cutoff, trim_cov, digi_cov, flat,
+                          n_unique, codes, lengths, state, branch, trim_at,
+                          n_live, n_groups)
 
 
 def trim_scan(primes, k, cutoff, trim_cov, digi_cov, flat, n_unique, codes,
-              lengths):
+              lengths, n_cand=None, n_live=None, n_groups=None):
     """trim-low-abund's pass-1 scan of one window, in place -> (branch,
-    trim_at): kernel G on a CUDA buffer, the plain version on a CPU one."""
+    trim_at), trim_window_plain's answer; the candidates, live bundles and
+    the walk's groups added to the counters given: kernel G (pre-pass and
+    walk) on a CUDA buffer, their plain versions on a CPU one."""
     if flat.is_cuda:
         return trim_scan_cuda(primes, k, cutoff, trim_cov, digi_cov, flat,
-                              n_unique, codes, lengths)
+                              n_unique, codes, lengths, n_cand, n_live,
+                              n_groups)
     if flat.device.type != "cpu":
         raise ValueError("unsupported device %s" % flat.device)
-    return trim_window_plain(primes, k, cutoff, trim_cov, digi_cov, flat,
-                             n_unique, codes, lengths)
+    B, W = codes.shape[0] // 2, codes.shape[1] - k + 1
+    marks = torch.zeros(trim_plan(len(primes), B, W)["mark_words"],
+                        dtype=torch.int32)
+    state, branch, trim_at = trim_mark_plain(primes, k, cutoff, trim_cov,
+                                             digi_cov, flat, codes, lengths,
+                                             marks, n_cand)
+    trim_probe_plain(primes, k, cutoff, digi_cov, flat, codes, lengths,
+                     marks, state)
+    return trim_walk_plain(primes, k, cutoff, trim_cov, digi_cov, flat,
+                           n_unique, codes, lengths, state, branch, trim_at,
+                           n_live, n_groups)
 
 
 def bigcount_table(bigcounts, device):

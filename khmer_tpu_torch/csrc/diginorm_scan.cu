@@ -30,30 +30,13 @@
 // Design. One block walks the whole window: there is no host round trip
 // inside a window, and the host reads the keep flags once per window. The
 // block compacts kernel E's flags a tile of kBlock bundles at a time into
-// a candidate list in shared memory, with each candidate's window counts
-// and its events' prefix sum. It then takes the list in GROUPS: the next
-// run of candidates, in order, whose events x T items fit kGroupItems,
-// half of a shared-memory OVERLAY of kOverlay slots. For a group:
-//   a. all threads hash all of its events, each loading its window's
-//      codes at once, and keep the counter of each item (event, table);
-//      each item then finds its counter's slot or claims a free one (a
-//      read, then a 32-bit CAS of its own index: a slot's counter is its
-//      claimer's), and keeps the slot's 2-byte index, so later steps
-//      never probe;
-//   b. each claimer loads its counter from the tables, all together: one
-//      round of independent global loads for the group;
-//   c. the candidates run in stream order against the overlay alone, no
-//      global load or store, two barriers each: the test reads each
-//      item's value through its slot while adding the bundle's hits and
-//      lowest event per slot (shared atomics, which the test does not
-//      read); then the lowest event on each slot clears the slot's hits
-//      and, if the bundle is kept, sets v = min(v + hits, 255), marks it
-//      dirty and credits its event new if v was 0 (the reference rule);
-//   d. each claimer of a dirty slot stores its counter once to the
-//      tables, a plain byte store, and frees the slot.
-// One block owns the tables for the launch; a group's reads all come
-// before its writes and every later value comes from the overlay, so the
-// groups compose into the sequential scan exactly.
+// a candidate list in shared memory and takes the list in GROUPS on a
+// shared-memory overlay (csrc/overlay_groups.cuh, steps a-d): a group's
+// counters load in one round, then the candidates run in stream order
+// against the overlay alone, no global load or store, two barriers each
+// (the test reads each item's value while the bundle's hits are
+// recorded; then, if the bundle is kept, its lowest event on each slot
+// adds them), and each changed counter is stored once.
 //
 // A bundle whose events x T alone exceed kGroupItems (rows of thousands of
 // codes, or many tables) is a group of its own, scanned as one: its
@@ -70,8 +53,7 @@
 // the shared memory is sized by the window's row length and the number of
 // tables (core/sketch_kernels.py diginorm_plan).
 
-#include "byte_common.cuh"
-#include "twobit_common.cuh"
+#include "overlay_groups.cuh"
 
 namespace khmer_digi_scan {
 namespace {
@@ -79,28 +61,22 @@ namespace {
 using khmer_byte::ByteLayout;
 using khmer_byte::counter_index;
 using khmer_cuda::kMaxCount;
+using khmer_groups::Group;
+using khmer_groups::Items;
+using khmer_groups::kBlock;
+using khmer_groups::kFull;
+using khmer_groups::kGroupItems;
+using khmer_groups::kNoEvent;
+using khmer_groups::kTileBytes;
+using khmer_groups::kWarps;
+using khmer_groups::Tile;
 
-// core/sketch_kernels.py DIGI_SCAN_THREADS, DIGI_OVERLAY_SLOTS,
-// DIGI_GROUP_ITEMS and DIGI_MAP_SLOTS
-constexpr int kBlock = 512;
-constexpr int kWarps = kBlock / 32;
-constexpr int kOverlayBits = 13;
-constexpr int kOverlay = 1 << kOverlayBits;
-constexpr int kGroupItems = kOverlay / 2;
+// core/sketch_kernels.py DIGI_MAP_SLOTS
 constexpr int kMapBits = 12;
 constexpr int kMap = 1 << kMapBits;
 constexpr int kMapPerThread = kMap / kBlock;
-// counters a thread loads at once: a full group's in one round
-constexpr int kLoadBatch = kGroupItems / kBlock;
 
 constexpr unsigned long long kEmpty = ~0ULL;
-constexpr uint32_t kNoEvent = ~0u;
-constexpr uint16_t kDirty = 0x100;  // an overlay value the group changed
-constexpr int kOwner = 0x8000;      // on the item that claimed its slot
-constexpr int kSlotMask = kOverlay - 1;
-constexpr uint64_t kNoKey = ~0ULL;
-constexpr uint64_t kFib = 0x9E3779B97F4A7C15ULL;  // 2^64 / golden ratio
-constexpr unsigned kFull = 0xffffffffu;
 
 // splitmix64 finalizer: spreads counters over the slots.
 __device__ __forceinline__ uint64_t mix(uint64_t x) {
@@ -113,19 +89,9 @@ __device__ __forceinline__ uint64_t mix(uint64_t x) {
 }
 
 // The dynamic shared memory, in the order of diginorm_plan: a union of
-// the group's overlay and the lone bundle's map, rounded up to 16 bytes,
-// then the tile's candidate list.
-struct Group {
-  uint32_t* claim;           // kOverlay: the claiming item + 1 (0: free)
-  uint64_t* keys;            // kGroupItems: the counter of each item
-  uint32_t* hits;            // kOverlay; 0 outside a bundle's add
-  uint32_t* first;           // kOverlay; kNoEvent outside a bundle's add
-  uint16_t* values;          // kOverlay: the counter, kDirty once changed
-  uint16_t* slots;           // kGroupItems: slot of item e * T + t,
-                             // with kOwner on the item that took it
-  uint8_t* fresh;            // the group's events: new k-mer
-};
-
+// the group's overlay (khmer_groups::Group) and the lone bundle's map,
+// rounded up to 16 bytes, then the tile's candidate list
+// (khmer_groups::Tile).
 struct Alone {
   unsigned long long* keys;  // kMap
   uint64_t* hashes;          // the bundle's events (or the device buffer)
@@ -133,18 +99,6 @@ struct Alone {
   uint32_t* first;           // kMap
   uint8_t* fresh;            // a sub-chunk's events
 };
-
-struct Tile {
-  int2* reads;     // per candidate: windows of read 0 and of read 1
-  int32_t* list;   // per candidate: its bundle - tile base
-  int32_t* starts; // kBlock + 1: events before each candidate, clamped
-};
-
-__host__ __device__ inline int64_t group_bytes(int group_events) {
-  return int64_t{4} * kOverlay + int64_t{8} * kGroupItems
-         + int64_t{4} * kOverlay * 2 + int64_t{2} * kOverlay
-         + int64_t{2} * kGroupItems + group_events;
-}
 
 __host__ __device__ inline int64_t alone_bytes(int64_t smem_hash_words,
                                                int sub) {
@@ -155,31 +109,9 @@ __host__ __device__ inline int64_t alone_bytes(int64_t smem_hash_words,
 __host__ __device__ inline int64_t union_bytes(int group_events,
                                                int64_t smem_hash_words,
                                                int sub) {
-  const int64_t g = group_bytes(group_events);
+  const int64_t g = khmer_groups::group_bytes(group_events);
   const int64_t a = alone_bytes(smem_hash_words, sub);
   return ((g > a ? g : a) + 15) & ~int64_t{15};
-}
-
-constexpr int64_t kTileBytes =
-    int64_t{8} * kBlock + int64_t{4} * kBlock + int64_t{4} * (kBlock + 1);
-
-__device__ __forceinline__ Group carve_group(unsigned char* base,
-                                             int group_events) {
-  Group g;
-  g.claim = reinterpret_cast<uint32_t*>(base);
-  base += sizeof(uint32_t) * kOverlay;
-  g.keys = reinterpret_cast<uint64_t*>(base);
-  base += sizeof(uint64_t) * kGroupItems;
-  g.hits = reinterpret_cast<uint32_t*>(base);
-  base += sizeof(uint32_t) * kOverlay;
-  g.first = reinterpret_cast<uint32_t*>(base);
-  base += sizeof(uint32_t) * kOverlay;
-  g.values = reinterpret_cast<uint16_t*>(base);
-  base += sizeof(uint16_t) * kOverlay;
-  g.slots = reinterpret_cast<uint16_t*>(base);
-  base += sizeof(uint16_t) * kGroupItems;
-  g.fresh = base;
-  return g;
 }
 
 __device__ __forceinline__ Alone carve_alone(unsigned char* base,
@@ -202,26 +134,7 @@ __device__ __forceinline__ Alone carve_alone(unsigned char* base,
   return a;
 }
 
-__device__ __forceinline__ Tile carve_tile(unsigned char* base) {
-  Tile tl;
-  tl.reads = reinterpret_cast<int2*>(base);
-  base += sizeof(int2) * kBlock;
-  tl.list = reinterpret_cast<int32_t*>(base);
-  base += sizeof(int32_t) * kBlock;
-  tl.starts = reinterpret_cast<int32_t*>(base);
-  return tl;
-}
-
-// Empty overlay or map: the state each layout keeps between its uses.
-__device__ void clear_group(const Group& g, int group_events) {
-  for (int i = threadIdx.x; i < kOverlay; i += kBlock) {
-    g.claim[i] = 0;
-    g.hits[i] = 0;
-    g.first[i] = kNoEvent;
-  }
-  for (int i = threadIdx.x; i < group_events; i += kBlock) g.fresh[i] = 0;
-}
-
+// Empty map: the state it keeps between its uses.
 __device__ void clear_alone(const Alone& a, int sub) {
   for (int i = threadIdx.x; i < kMap; i += kBlock) {
     a.keys[i] = kEmpty;
@@ -267,93 +180,18 @@ __device__ __forceinline__ bool decide(Counts& n, int c0, int c1, int2 nv,
   return kept;
 }
 
-// Item i of a group is (event i / T, table i % T); i < kGroupItems, and
-// for such i, (i * recip) >> 20 with recip = ceil(2^20 / T) is i / T.
-struct Items {
-  int T;
-  uint32_t recip;
-  __device__ __forceinline__ int event(int i) const {
-    return static_cast<int>((static_cast<uint32_t>(i) * recip) >> 20);
-  }
-};
-
-// Candidates [c0, c1) of the tile as one group (steps a-d above). Leaves
-// the overlay empty, behind a barrier.
+// Candidates [c0, c1) of the tile as one group (overlay_groups.cuh,
+// steps a-d). Leaves the overlay empty, behind a barrier.
 __device__ void group_pass(const Group& g, const Tile& tl, int c0, int c1,
                            int64_t base, const uint8_t* codes, int L, int k,
                            int W, int cutoff, const ByteLayout& layout,
                            uint8_t* flat, uint8_t* keep, Counts& n,
                            unsigned long long& my_new) {
-  const int tid = threadIdx.x;
   const int T = layout.ntables;
-  const Items it{T, ((1u << 20) + T - 1) / T};
+  const Items it(T);
   const int s0 = tl.starts[c0];
-  const int gnev = tl.starts[c1] - s0;
-  const int items = gnev * T;
-
-  // a. hash every event of the group (its candidate is the last whose
-  //    events start at or before it), and keep each item's counter
-  for (int e = tid; e < gnev; e += kBlock) {
-    int lo = c0;
-    int hi = c1 - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) / 2;
-      if (tl.starts[mid] - s0 <= e) lo = mid; else hi = mid - 1;
-    }
-    const int j = e - (tl.starts[lo] - s0);
-    const int nw0 = min(tl.reads[lo].x, W);
-    const int r = j >= nw0;
-    const int64_t row = 2 * (base + tl.list[lo]) + r;
-    const uint64_t h = khmer_twobit::canonical_loads_first(
-        codes + row * L + (r ? j - nw0 : j), k);
-    for (int t = 0; t < T; ++t) {
-      g.keys[e * T + t] = counter_index(layout, h, t);
-    }
-  }
-  __syncthreads();
-  //    each item finds its counter's slot, or claims a free one (a read,
-  //    then a 32-bit CAS of its index + 1: the claimer owns the slot, and
-  //    the slot's counter is the claimer's)
-  for (int i = tid; i < items; i += kBlock) {
-    const uint64_t key = g.keys[i];
-    uint32_t slot =
-        static_cast<uint32_t>((key * kFib) >> (64 - kOverlayBits));
-    uint32_t own = 0;
-    for (;;) {
-      uint32_t prev = g.claim[slot];
-      if (prev == 0) prev = atomicCAS(&g.claim[slot], 0u, i + 1u);
-      if (prev == 0) {
-        own = kOwner;
-        break;
-      }
-      if (g.keys[prev - 1] == key) break;
-      slot = (slot + 1) & kSlotMask;
-    }
-    g.slots[i] = static_cast<uint16_t>(slot | own);
-  }
-  __syncthreads();
-
-  // b. every claimed counter loaded at once
-  for (int i0 = tid; i0 < items; i0 += kBlock * kLoadBatch) {
-    uint64_t key[kLoadBatch];
-    uint8_t v[kLoadBatch];
-#pragma unroll
-    for (int q = 0; q < kLoadBatch; ++q) {
-      const int i = i0 + q * kBlock;
-      key[q] = i < items && (g.slots[i] & kOwner) ? g.keys[i] : kNoKey;
-    }
-#pragma unroll
-    for (int q = 0; q < kLoadBatch; ++q) {
-      v[q] = key[q] != kNoKey ? flat[key[q]] : 0;
-    }
-#pragma unroll
-    for (int q = 0; q < kLoadBatch; ++q) {
-      if (key[q] != kNoKey) {
-        g.values[g.slots[i0 + q * kBlock] & kSlotMask] = v[q];
-      }
-    }
-  }
-  __syncthreads();
+  khmer_groups::gather_group(g, tl, c0, c1, base, codes, L, k, W, layout,
+                             flat);
 
   // c. the candidates in stream order, on the overlay alone
   for (int c = c0; c < c1; ++c) {
@@ -364,56 +202,18 @@ __device__ void group_pass(const Group& g, const Tile& tl, int c0, int c1,
     const uint16_t* sl = g.slots + e0 * T;
     const int64_t bundle = base + tl.list[c];
     open_bundle(n);
-    // the test, and the bundle's hits and lowest events per slot should
-    // it be kept (they do not touch the values the test reads)
+    // the test, while the bundle's hits are recorded should it be kept
     int n0 = 0;
     int n1 = 0;
-    for (int e = tid; e < nev; e += kBlock) {
-      int m = kMaxCount;
-      for (int t = 0; t < T; ++t) {
-        const int slot = sl[e * T + t] & kSlotMask;
-        m = min(m, static_cast<int>(g.values[slot] & 0xff));
-        atomicAdd(&g.hits[slot], 1u);
-        atomicMin(&g.first[slot], static_cast<uint32_t>(e));
-      }
+    khmer_groups::read_bundle(g, sl, nev, T, [&](int e, int m) {
       if (m >= cutoff) {
         if (e >= nw0) ++n1; else ++n0;
       }
-    }
+    });
     const bool kept = decide(n, n0, n1, nv, bundle, keep);
-    // each slot's lowest event of the bundle clears the slot's hits and,
-    // if the bundle is kept, adds them; clearing `first` cannot make
-    // another item of the slot look like its lowest
-    for (int i = tid; i < nev * T; i += kBlock) {
-      const int slot = sl[i] & kSlotMask;
-      const uint32_t e = static_cast<uint32_t>(it.event(i));
-      if (g.first[slot] != e) continue;
-      const int hits = static_cast<int>(g.hits[slot]);
-      g.hits[slot] = 0;
-      g.first[slot] = kNoEvent;
-      if (!kept) continue;
-      const int v = g.values[slot] & 0xff;
-      if (v == 0) g.fresh[e0 + e] = 1;
-      g.values[slot] =
-          static_cast<uint16_t>(kDirty | min(v + hits, kMaxCount));
-    }
-    __syncthreads();
+    khmer_groups::add_bundle(g, sl, nev, e0, it, kept);
   }
-
-  // d. write back what changed, empty the overlay
-  for (int i = tid; i < items; i += kBlock) {
-    const int sl = g.slots[i];
-    if (!(sl & kOwner)) continue;
-    const int slot = sl & kSlotMask;
-    const uint16_t v = g.values[slot];
-    if (v & kDirty) flat[g.keys[i]] = static_cast<uint8_t>(v);
-    g.claim[slot] = 0;
-  }
-  for (int e = tid; e < gnev; e += kBlock) {
-    my_new += g.fresh[e];
-    g.fresh[e] = 0;
-  }
-  __syncthreads();
+  khmer_groups::store_group(g, tl, c0, c1, T, flat, my_new);
 }
 
 // Record one hit of `key` by sub-chunk event `e`. The map holds at most
@@ -517,9 +317,9 @@ scan_kernel(const uint8_t* __restrict__ codes,
   const int W = L - k + 1;
   const int group_events = kGroupItems / layout.ntables;
   const int64_t words = int64_t{2} * W;
-  const Group g = carve_group(smem_raw, group_events);
+  const Group g = khmer_groups::carve_group(smem_raw, group_events);
   const Alone a = carve_alone(smem_raw, words, hash_buf);
-  const Tile tl = carve_tile(
+  const Tile tl = khmer_groups::carve_tile(
       smem_raw + union_bytes(group_events, hash_buf ? 0 : words, sub));
   __shared__ int ge[3][2];
   __shared__ int warp_total[kWarps];
@@ -529,7 +329,7 @@ scan_kernel(const uint8_t* __restrict__ codes,
   const int lane = tid % 32;
   const int warp = tid / 32;
 
-  clear_group(g, group_events);
+  khmer_groups::clear_group(g, group_events);
   if (tid < 6) ge[tid / 2][tid % 2] = 0;
   Counts counts{ge, 0};
   bool alone_layout = false;  // which layout the union holds, cleared
@@ -539,9 +339,8 @@ scan_kernel(const uint8_t* __restrict__ codes,
   __syncthreads();
 
   for (int64_t base = 0; base < nbundles; base += kBlock) {
-    // compact this tile's candidates into the list, in bundle order, with
-    // their window counts and the prefix sum of their events, each
-    // clamped at group_events + 1 (more than that runs alone)
+    // compact this tile's candidates into the list, with their window
+    // counts (the reads' own; the events count at most W a read)
     const int64_t b = base + tid;
     const bool cand = b < nbundles && !reject[b];
     if (b < nbundles && !cand) keep[b] = 0;
@@ -550,41 +349,9 @@ scan_kernel(const uint8_t* __restrict__ codes,
       nv.x = khmer_twobit::n_windows(lengths[2 * b], k);
       nv.y = khmer_twobit::n_windows(lengths[2 * b + 1], k);
     }
-    const long long events =
-        static_cast<long long>(min(nv.x, W)) + min(nv.y, W);
-    const int nev = events > group_events ? group_events + 1
-                                          : static_cast<int>(events);
-    const unsigned ballot = __ballot_sync(kFull, cand);
-    int incl = nev;
-#pragma unroll
-    for (int d = 1; d < 32; d *= 2) {
-      const int y = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += y;
-    }
-    if (lane == 31) {
-      warp_total[warp] = __popc(ballot);
-      warp_events[warp] = incl;
-    }
-    __syncthreads();
-    int offset = 0;
-    int ncand = 0;
-    int ev_off = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) {
-        offset += warp_total[w];
-        ev_off += warp_events[w];
-      }
-      ncand += warp_total[w];
-    }
-    if (cand) {
-      const int pos = offset + __popc(ballot & ((1u << lane) - 1));
-      tl.list[pos] = static_cast<int32_t>(b - base);
-      tl.reads[pos] = nv;
-      tl.starts[pos] = ev_off + incl - nev;
-    }
-    if (tid == kBlock - 1) tl.starts[ncand] = ev_off + incl;
+    const int ncand = khmer_groups::compact_tile(
+        tl, b, base, cand, nv, W, group_events, warp_total, warp_events);
     if (tid == 0) cand_total += ncand;
-    __syncthreads();
 
     for (int c0 = 0; c0 < ncand;) {
       // the group: from c0, as many candidates as fit, and at least one
@@ -597,7 +364,11 @@ scan_kernel(const uint8_t* __restrict__ codes,
       if (tid == 0) ++group_total;
       if (alone != alone_layout) {
         __syncthreads();  // the other layout's last readers are done
-        if (alone) clear_alone(a, sub); else clear_group(g, group_events);
+        if (alone) {
+          clear_alone(a, sub);
+        } else {
+          khmer_groups::clear_group(g, group_events);
+        }
         alone_layout = alone;
         __syncthreads();
       }

@@ -64,10 +64,21 @@ _ENTRY_POINTS = {
     "khmer_diginorm_scan": [_P, _I32, _P, _P, _P, _P, _P, _I64, _I32, _I32,
                             _I32, _I32, _I32, _P, _P, _P, _P, _P, _I32, _P],
     # flat, ntables, primes (host), offsets (host), codes, lengths,
+    # nbundles, L, k, cutoff, trim_cov, digi_cov, use_digi, bits, marks,
+    # state, branch, trim_at, n_cand, device, stream
+    "khmer_trim_mark": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                        _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P, _I32,
+                        _P],
+    # flat, ntables, primes (host), offsets (host), codes, lengths,
+    # nbundles, L, k, cutoff, digi_cov, bits, marks, state, device, stream
+    "khmer_trim_probe": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                         _I32, _I32, _P, _P, _I32, _P],
+    # flat, ntables, primes (host), offsets (host), codes, lengths, state,
     # nbundles, L, k, cutoff, trim_cov, digi_cov, use_digi, sub, smem,
-    # branch, trim_at, n_unique, device, stream
-    "khmer_trim_scan": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
-                        _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _I32, _P],
+    # branch, trim_at, n_unique, n_live, n_groups, device, stream
+    "khmer_trim_scan": [_P, _I32, _P, _P, _P, _P, _P, _I64, _I32, _I32,
+                        _I32, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
+                        _P, _I32, _P],
     # flat, ntables, primes (host), offsets (host), codes, lengths, nrows,
     # L, k, cutoff, at_least, big_keys, big_values, nbig, trim_at, n_ge,
     # device, stream

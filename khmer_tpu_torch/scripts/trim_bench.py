@@ -1,36 +1,62 @@
 #!/usr/bin/env python
-"""Kernels G and H (csrc/trim_scan.cu, csrc/read_counts.cu) on one window
-of config 3 as the CLI gives it, on the card.
+"""Kernels G and H (csrc/trim_prepass.cu and csrc/trim_scan.cu,
+csrc/read_counts.cu) on windows of config 3 as the CLI gives them.
 
 Config 3 here is trim-low-abund -k 20 -x 5e7 -N 4 -C 2 on
 data/stamps-reads.fa.gz (the reference's parameters). This script runs the
 port's ScanTrimmerState over the file's first windows, as the CLI forms
 them (cli/trim_low_abund.py, WINDOW bundles each), then, on the next window
-and the tables as the earlier windows left them, times kernel G against
-trim_window_plain and kernel H (on the window's reads, one a row, as pass 2
-and filter-abund read them) against read_counts_plain, each checked equal,
-beside their bounds (the larger of bytes over 3.35 TB/s and operations over
-67 TOP/s, H100 SXM):
+and the tables as the earlier windows left them, times kernel G whole (its
+pre-pass's mark and probe launches and its walk) against
+trim_window_plain, each of G's three launches against its plain version
+(trim_mark_plain, trim_probe_plain, trim_walk_plain), and kernel H (on the
+window's reads, one a row, as pass 2 and filter-abund read them) against
+read_counts_plain, each checked equal, beside their bounds (the larger of
+bytes over 3.35 TB/s and operations over 67 TOP/s, H100 SXM):
   * G reads the codes and lengths, each distinct counter of the window's
     k-mers once (1 B each), writes each distinct counter of the consumed
     bundles' k-mers once and its outputs (4 B of branch and 8 B of trim
     positions a bundle); one operation per counter read or added;
+  * the mark: the codes and lengths, each distinct counter once, the set
+    (cleared and filled: its bytes once) and 13 B of outputs a bundle;
+    one operation per counter read and per candidate's counter marked;
+  * the probe: the state (1 B a bundle), the probed bundles' codes and
+    lengths and each distinct counter of theirs (the set's words they
+    read not counted); one operation per counter read;
+  * the walk: the state, the live bundles' codes and lengths, each
+    distinct counter they read, each one they add to, 12 B of outputs a
+    live bundle; one operation per counter read or added;
   * H reads the codes and lengths and each distinct counter once, writes 8
     B a read; one operation per counter read. Its counter reads are
     random, and DRAM serves whole 32-byte sectors, so it also has a sector
     floor: the same bytes with 32 B for each distinct sector its counters
     lie in.
-G changes the tables, so each of its timed calls starts from a copy of
-them, made before the call's events. Both are timed as issued
-(scripts.cuda_ms); G takes far longer than the host needs to issue it.
-Needs a CUDA card. From the repo root (window 6; chip_smoke.py phase 8b
-calls time_window on its own reads and tables):
+Each of G's timed calls starts from the state it needs, restored before
+the call's events (the tables and n_unique; the probe's state). Times are
+as issued (CUDA events around each call) and on the device alone (the
+stream held by a sleep kernel while the call is issued,
+scripts.device_ms). Needs a CUDA card, but for --counts, which runs on any
+device. From the repo root:
 
-    python -m khmer_tpu_torch.scripts.trim_bench
+    python -m khmer_tpu_torch.scripts.trim_bench [--at 0 6]
+    python -m khmer_tpu_torch.scripts.trim_bench --at 0 6 --parent DIR
+    python -m khmer_tpu_torch.scripts.trim_bench --counts 13 --device cpu
+
+The first times window 6, or the windows given (one JSON line each;
+chip_smoke.py phase 8b calls time_window on its own reads and tables).
+The second times them in turns with another checkout of the repo at DIR,
+parent, this one, this one, parent, each side by its own time_window in a
+process of its own, one JSON line a window tagged with its side. The
+third prints, for each of the file's first 13 windows, its bundles,
+candidates, live bundles, the walk's groups and the consumed bundles.
 """
 
+import argparse
 import itertools
 import json
+import os
+import subprocess
+import sys
 
 import torch
 
@@ -43,10 +69,9 @@ from khmer_tpu_torch.core.sketch import Countgraph
 from khmer_tpu_torch.io.fastx import ReadParser
 from khmer_tpu_torch.io.pairing import broken_paired_reader
 from khmer_tpu_torch.ops.u64 import umod
-from khmer_tpu_torch.scripts import cuda_ms
+from khmer_tpu_torch.scripts import HOLD_CYCLES, cuda_ms
 from khmer_tpu_torch.scripts.byte_gather_bench import PEAK_BYTES_S
-from khmer_tpu_torch.scripts.diginorm_bench import (SECTOR, STAMPS,
-                                                    _timed_from, bound_ms)
+from khmer_tpu_torch.scripts.diginorm_bench import SECTOR, STAMPS, bound_ms
 
 
 def _counters(primes, hashes, valid):
@@ -59,21 +84,42 @@ def _counters(primes, hashes, valid):
             int(torch.unique(idx // SECTOR).numel()))
 
 
-def bounds(primes, k, codes, lengths, branch, rows, row_lengths):
-    """{"G": (bytes, operations), "H": (bytes, operations, sector-floor
-    bytes)} of one window (module docstring): G's from its bundle rows and
-    branches, H's from its read rows."""
+def _rows(flags):
+    """A bundle flag [B] as a row flag [2B, 1]."""
+    return flags.repeat_interleave(2)[:, None]
+
+
+def bounds(primes, k, codes, lengths, branch, cand, probed, live, words,
+           rows, row_lengths):
+    """{name: (bytes, operations)} of one window (module docstring): "G"
+    whole, its launches "mark", "probe" and "walk", from the bundle rows,
+    the branches, the candidates, the bundles probed and the live ones, and
+    the set's words; "H" (with its sector-floor bytes third) from the read
+    rows."""
     hashes, valid, _ = K._window_hashes(codes, lengths, k)
     read, ops_read, _ = _counters(primes, hashes, valid)
-    consumed = valid & (branch == 2).repeat_interleave(2)[:, None]
-    written, ops_add, _ = _counters(primes, hashes, consumed)
+    written, ops_add, _ = _counters(primes, hashes,
+                                    valid & _rows(branch == 2))
     B = branch.shape[0]
-    g = (codes.numel() + 4 * lengths.numel() + read + written + 12 * B,
-         ops_read + ops_add)
+    rows_bytes = codes.numel() + 4 * lengths.numel()
+    row = codes.shape[1] + 4
+    _, ops_mark, _ = _counters(primes, hashes, valid & _rows(cand))
+    p_read, p_ops, _ = _counters(primes, hashes, valid & _rows(probed))
+    n_probed = int(probed.sum())
+    w_read, w_ops, _ = _counters(primes, hashes, valid & _rows(live))
+    n_live = int(live.sum())
+    out = {
+        "G": (rows_bytes + read + written + 12 * B, ops_read + ops_add),
+        "mark": (rows_bytes + read + 4 * words + 13 * B, ops_read + ops_mark),
+        "probe": (B + 2 * n_probed * row + p_read, p_ops),
+        "walk": (B + 2 * n_live * row + w_read + written + 12 * n_live,
+                 w_ops + ops_add),
+    }
     hashes, valid, _ = K._window_hashes(rows, row_lengths, k)
     h_read, h_ops, h_sectors = _counters(primes, hashes, valid)
     rest = rows.numel() + 4 * row_lengths.numel() + 8 * rows.shape[0]
-    return {"G": g, "H": (rest + h_read, h_ops, rest + SECTOR * h_sectors)}
+    out["H"] = (rest + h_read, h_ops, rest + SECTOR * h_sectors)
+    return out
 
 
 def first_windows(path, k, at):
@@ -82,12 +128,45 @@ def first_windows(path, k, at):
     return list(itertools.islice(_windows(reader), at + 1))
 
 
+def _timed(reset, fn, reps, hold):
+    """Mean CUDA-event ms of fn() over `reps` calls, each after reset()
+    (outside the events); with `hold`, a sleep kernel holds the stream
+    while the call is issued, so only the device's time counts. Returns the
+    last call's result too."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        reset()
+        torch.cuda.synchronize()
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps, out
+
+
+def _both(reset, fn, reps):
+    """(ms as issued, ms on the device, the last result) of _timed."""
+    issued, _ = _timed(reset, fn, reps, False)
+    device, out = _timed(reset, fn, reps, True)
+    return issued, device, out
+
+
+def _mismatch(got, want):
+    return sum(int((a != b).sum()) for a, b in zip(got, want))
+
+
 def time_window(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
                 n_tables=4, at=6, reps=5):
     """Window `at` of `path` (after windows 0..at-1 went through the port's
-    ScanTrimmerState): kernels G and H against their plain versions, times,
-    bounds and mismatches. The window must pack as one run (reads of at
-    most 4096 bases)."""
+    ScanTrimmerState): kernel G whole and its three launches, and kernel H,
+    against their plain versions: times, bounds, mismatches and the
+    window's candidates, live bundles and groups. The window must pack as
+    one run (reads of at most 4096 bases)."""
     cg = Countgraph(k, x, n_tables, device=dev)
     scan = ScanTrimmerState(cg, cutoff, trim_cov)
     windows = first_windows(path, k, at)
@@ -102,41 +181,101 @@ def time_window(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
                          for a in pack_reads(reads, L))
     primes, flat, nu = cg._primes, cg.tables.flat, cg._n_unique
     snap, nu0 = flat.clone(), nu.clone()
+    B = len(bundles)
+    plan = K.trim_plan(len(primes), B, L - k + 1)
+    args = (primes, k, cutoff)
+
+    def restore():
+        flat.copy_(snap)
+        nu.copy_(nu0)
 
     # H first: it reads the tables as the earlier windows left them
     def counts():
-        return K.read_counts_cuda(primes, k, cutoff, trim_cov, flat, rows,
-                                  row_lengths)
+        return K.read_counts_cuda(*args, trim_cov, flat, rows, row_lengths)
 
     h_ms = cuda_ms(counts, reps * 4)
-    got = counts()
     h_plain = cuda_ms(lambda: K.read_counts_plain(
-        primes, k, cutoff, trim_cov, flat, rows, row_lengths), 1)
-    want = K.read_counts_plain(primes, k, cutoff, trim_cov, flat, rows,
-                               row_lengths)
-    counts_err = sum(int((a != b).sum()) for a, b in zip(got, want))
+        *args, trim_cov, flat, rows, row_lengths), 1)
+    counts_err = _mismatch(counts(), K.read_counts_plain(
+        *args, trim_cov, flat, rows, row_lengths))
 
-    g_ms, (branch, trim_at) = _timed_from(
-        flat, snap, nu, nu0, lambda: K.trim_scan_cuda(
-            primes, k, cutoff, trim_cov, None, flat, nu, codes, lengths),
-        reps)
+    # the pre-pass's launches, each against its plain version
+    marks = torch.empty(plan["mark_words"], dtype=torch.int32, device=dev)
+    mark_ms, mark_dev, marked = _both(lambda: None, lambda: K.trim_mark_cuda(
+        *args, trim_cov, None, flat, codes, lengths, marks), reps)
+    marks_p = torch.zeros_like(marks)
+    mark_plain, marked_p = _timed(lambda: marks_p.zero_(),
+                                  lambda: K.trim_mark_plain(
+                                      *args, trim_cov, None, flat, codes,
+                                      lengths, marks_p), 1, False)
+    mark_err = (_mismatch(marked, marked_p)
+                + int((marks != marks_p).sum()))
+    state0 = marked[0].clone()
+    state = state0.clone()
+    probe_ms, probe_dev, _ = _both(
+        lambda: state.copy_(state0), lambda: K.trim_probe_cuda(
+            *args, None, flat, codes, lengths, marks, state), reps)
+    state_p = state0.clone()
+    probe_plain, _ = _timed(lambda: state_p.copy_(state0),
+                            lambda: K.trim_probe_plain(
+                                *args, None, flat, codes, lengths, marks,
+                                state_p), 1, False)
+    probe_err = int((state != state_p).sum())
+
+    # the walk from the pre-pass's outputs, then G whole
+    branch, trim_at = (t.clone() for t in marked[1:])
+    n_live = torch.zeros(1, dtype=torch.int64, device=dev)
+    n_groups = torch.zeros(1, dtype=torch.int64, device=dev)
+    walk_ms, walk_dev, _ = _both(restore, lambda: K.trim_walk_cuda(
+        *args, trim_cov, None, flat, nu, codes, lengths, state, branch,
+        trim_at), reps)
+    restore()
+    K.trim_walk_cuda(*args, trim_cov, None, flat, nu, codes, lengths, state,
+                     branch, trim_at, n_live, n_groups)
+    walk_tables, walk_nu = flat.clone(), int(nu)
+    branch_w, trim_w = (t.clone() for t in marked_p[1:])
+    walk_plain, _ = _timed(restore, lambda: K.trim_walk_plain(
+        *args, trim_cov, None, flat, nu, codes, lengths, state_p, branch_w,
+        trim_w), 1, False)
+    walk_err = (_mismatch((branch, trim_at), (branch_w, trim_w))
+                + abs(walk_nu - int(nu))
+                + (0 if torch.equal(walk_tables, flat) else 1))
+
+    g_ms, g_dev, (g_branch, g_trim) = _both(restore, lambda: K.trim_scan_cuda(
+        *args, trim_cov, None, flat, nu, codes, lengths), reps)
     g_tables, g_nu = flat.clone(), int(nu)
-    g_plain, (branch_p, trim_p) = _timed_from(
-        flat, snap, nu, nu0, lambda: K.trim_window_plain(
-            primes, k, cutoff, trim_cov, None, flat, nu, codes, lengths), 1)
-    scan_err = (int((branch != branch_p).sum())
-                + int((trim_at != trim_p).sum()) + abs(g_nu - int(nu))
+    g_plain, (branch_p, trim_p) = _timed(restore, lambda: K.trim_window_plain(
+        *args, trim_cov, None, flat, nu, codes, lengths), 1, False)
+    scan_err = (_mismatch((g_branch, g_trim), (branch_p, trim_p))
+                + abs(g_nu - int(nu))
                 + (0 if torch.equal(g_tables, flat) else 1))
-    b = bounds(primes, k, codes, lengths, branch, rows, row_lengths)
-    B = len(bundles)
+    flat.copy_(snap)
+    cand = state0 == K.TRIM_LIVE
+    probed = state0 >= K.TRIM_PROBE
+    live = state == K.TRIM_LIVE
+    b = bounds(primes, k, codes, lengths, branch_p, cand, probed, live,
+               plan["mark_words"], rows, row_lengths)
+
+    def entry(ms, device, plain, err, key):
+        return {"ms": ms, "device_ms": device, "plain_ms": plain,
+                "mismatches": err, "bytes": b[key][0], "ops": b[key][1],
+                "bound": bound_ms(*b[key][:2])}
+
+    g = entry(g_ms, g_dev, g_plain, scan_err, "G")
+    g["us_per_bundle"] = g_ms * 1e3 / max(B, 1)
+    walk = entry(walk_ms, walk_dev, walk_plain, walk_err, "walk")
+    walk["us_per_live"] = walk_dev * 1e3 / max(int(live.sum()), 1)
     return {
         "device": torch.cuda.get_device_name(dev), "window": at,
         "bundles": B, "reads": len(reads), "L": L,
-        "branches": torch.bincount(branch.long(), minlength=3).tolist(),
-        "scan": {"ms": g_ms, "plain_ms": g_plain, "mismatches": scan_err,
-                 "us_per_bundle": g_ms * 1e3 / max(B, 1),
-                 "bytes": b["G"][0], "ops": b["G"][1],
-                 "bound": bound_ms(*b["G"])},
+        "branches": torch.bincount(branch_p.long(), minlength=3).tolist(),
+        "candidates": int(cand.sum()), "probed": int(probed.sum()),
+        "live": int(live.sum()), "groups": int(n_groups),
+        "mark_bits": plan["mark_bits"],
+        "scan": g,
+        "mark": entry(mark_ms, mark_dev, mark_plain, mark_err, "mark"),
+        "probe": entry(probe_ms, probe_dev, probe_plain, probe_err, "probe"),
+        "walk": walk,
         "counts": {"ms": h_ms, "plain_ms": h_plain,
                    "mismatches": counts_err, "bytes": b["H"][0],
                    "ops": b["H"][1], "bound": bound_ms(*b["H"][:2]),
@@ -145,11 +284,71 @@ def time_window(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
     }
 
 
-def main():
+def window_counts(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
+                  n_tables=4, windows=13):
+    """The first `windows` windows of `path` through the port's
+    ScanTrimmerState on `dev`: per window {bundles, candidates, live,
+    groups, consumed}."""
+    scan = ScanTrimmerState(Countgraph(k, x, n_tables, device=dev), cutoff,
+                            trim_cov)
+    out = []
+    for i, w in enumerate(first_windows(path, k, windows - 1)):
+        before = [int(c) for c in (scan.candidates, scan.live, scan.groups)]
+        branch, _ = scan.process_window(w)
+        after = [int(c) for c in (scan.candidates, scan.live, scan.groups)]
+        out.append(dict(window=i, bundles=len(w), consumed=int(
+            (branch == 2).sum()), **{name: a - b for name, a, b in zip(
+                ("candidates", "live", "groups"), after, before)}))
+    return out
+
+
+# One side of in_turns, run in its checkout's root: that checkout's own
+# time_window of each window given.
+_SIDE = ("import json, sys, torch\n"
+         "from khmer_tpu_torch.scripts.trim_bench import time_window\n"
+         "dev = torch.device('cuda', 0)\n"
+         "for at in map(int, sys.argv[1:]):\n"
+         "    print(json.dumps(time_window(dev, at=at)), flush=True)\n")
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def in_turns(parent, ats):
+    """Windows `ats` timed by the checkout at `parent` and by this one in
+    turns, parent, this, this, parent, each side in a process of its own:
+    yields (side, time_window's result)."""
+    for side, root in (("parent", parent), ("change", _REPO),
+                       ("change", _REPO), ("parent", parent)):
+        out = subprocess.run(
+            [sys.executable, "-c", _SIDE] + [str(a) for a in ats],
+            cwd=root, capture_output=True, text=True, check=True).stdout
+        for line in out.splitlines():
+            yield side, json.loads(line)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--at", type=int, nargs="+", default=[6],
+                    help="windows to time (default: 6)")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="time them in turns with the checkout at DIR")
+    ap.add_argument("--counts", type=int, default=0,
+                    help="print the first N windows' counts instead")
+    ap.add_argument("--device", default="cuda")
+    a = ap.parse_args(argv)
+    if a.counts:
+        for row in window_counts(torch.device(a.device), windows=a.counts):
+            print(json.dumps(row), flush=True)
+        return
     if not torch.cuda.is_available():
         raise RuntimeError("trim_bench needs a CUDA device")
-    print(json.dumps(time_window(torch.device(
-        "cuda", torch.cuda.current_device()))))
+    if a.parent:
+        for side, out in in_turns(a.parent, a.at):
+            print(json.dumps(dict(side=side, **out)), flush=True)
+        return
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for at in a.at:
+        print(json.dumps(time_window(dev, at=at)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Seeded trim-low-abund windows that hold kernels G and H
-(csrc/trim_scan.cu, csrc/read_counts.cu) to their plain versions.
+(csrc/trim_prepass.cu and csrc/trim_scan.cu, csrc/read_counts.cu) to their
+plain versions.
 
 ``CASES`` names the windows and tables that chip_smoke.py phase 3 and
 tests/test_torch_gpu_kernels.py run on the card: counters at 254 and 255,
@@ -9,12 +10,22 @@ sub-chunks), rows of 64, 4096 and 20,000 codes, bundles whose read 1 is
 shorter than k, a window where a consume lifts a later branch-1 bundle's
 k-mer from cutoff - 1 to cutoff (``lift_window``: that bundle's trim
 position moves), and the byte tables of 0.2 and 4 GB (PRIME_SETS of
-scripts/byte_gather_bench.py). The windows come from
+scripts/byte_gather_bench.py). Four hold G's pre-pass and walk to the
+sequential rule, in stream order: ``consume-lifts-trim`` (a bundle that
+is no candidate, whose bad window an earlier consume lifts),
+``consume-lifts-digi`` (with --diginorm, a bundle that is no candidate
+moved from branch 1 to branch 0 by an earlier consume),
+``consume-lifts-candidate`` (a candidate that an earlier consume lifts
+past the trim coverage, so it is not consumed; both ``pair_window``) and
+``groups-and-lone`` (live bundles across groups and a tile boundary,
+short ones grouped, long ones alone, each repeated so later copies see
+earlier adds). The windows come from
 scripts/diginorm_cases.py's ``window``: reads drawn from a short random
 genome, so k-mers repeat across and within bundles, with absent reads,
 reads shorter than k and reads of exactly k among them.
 
-``check_case`` runs kernel G against trim_window_plain and kernel H
+``check_case`` runs kernel G against trim_window_plain, each of its
+launches (mark, probe, walk) against its plain version, and kernel H
 against read_counts_plain on one case, H also with a bigcount table and
 thresholds above 255; ``check_long_window`` runs the port's
 ScanTrimmerState on the card and on the CPU over windows holding reads of
@@ -32,14 +43,17 @@ from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.ops.u64 import umod
 from khmer_tpu_torch.scripts.byte_gather_bench import PRIME_SETS
 from khmer_tpu_torch.scripts.diginorm_cases import (BIG, MID, SMALL, _equal,
-                                                    fill_tables, window)
+                                                    fill_tables,
+                                                    repeated_window, window)
 
 # name: (primes, table fill (None: zeros; (lo, hi, zero_below) as
-# diginorm_cases.fill_tables takes it; "lift": lift_tables of the window),
-# k, cutoff (-C), trim coverage (-Z), diginorm coverage (None: off),
-# bundles, row length, genome length, window kind ("mixed": diginorm_cases
-# .window; "short-mate": read 1 of every bundle shorter than k; "lift":
-# lift_window))
+# diginorm_cases.fill_tables takes it; "lift": lift_tables of the window;
+# ("pair", shared, own): pair_tables), k, cutoff (-C), trim coverage (-Z),
+# diginorm coverage (None: off), bundles, row length, genome length, window
+# kind ("mixed": diginorm_cases.window; "short-mate": read 1 of every
+# bundle shorter than k; "lift": lift_window; "pair": pair_window;
+# "repeats+long": diginorm_cases.repeated_window, every fourth bundle
+# drawn long))
 CASES = {
     "C=1": (SMALL, None, 20, 1, 20, None, 128, 64, 300, "mixed"),
     "C=2-Z=20": (SMALL, (0, 30, 0), 20, 2, 20, None, 128, 64, 300, "mixed"),
@@ -64,6 +78,12 @@ CASES = {
                    "short-mate"),
     "consume-lifts-trim": (BIG, "lift", 20, 2, 2, None, 64, 128, 100000,
                            "lift"),
+    "consume-lifts-digi": (BIG, ("pair", 4, 0), 20, 2, 3, 5, 64, 128,
+                           100000, "pair"),
+    "consume-lifts-candidate": (BIG, ("pair", 2, 0), 20, 2, 3, None, 64,
+                                128, 100000, "pair"),
+    "groups-and-lone": ((100003, 100019, 100043), (2, 8, 0), 20, 3, 3,
+                        None, 600, 2048, 20000, "repeats+long"),
     "config-1": (PRIME_SETS["config-1"], (0, 40, 0), 20, 2, 20, None, 512,
                  128, 5000, "mixed"),
     "-x 1e9 -N 4": (PRIME_SETS["-x 1e9 -N 4"], (0, 40, 0), 20, 2, 20, 30,
@@ -126,6 +146,51 @@ def lift_tables(primes, k, cutoff, codes, lengths):
     return flat
 
 
+# where pair_window's read B starts inside read A's span (codes)
+PAIR_OFFSET = 10
+
+
+def pair_window(rng, B, L, k, genome_len):
+    """Pairs of single-read bundles from a random genome: bundle 2i holds a
+    read A of L codes, bundle 2i + 1 a read of L / 2 codes that starts
+    PAIR_OFFSET codes before A, so more than half of its windows are A's
+    (its windows PAIR_OFFSET .. L / 2 - k) and fewer than half of A's are
+    its. Pair i lies in genome[2 L i, 2 L (i + 1)), so pairs share no
+    k-mer. pair_tables sets the counters of A's windows."""
+    genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    codes = np.zeros((2 * B, L), dtype=np.uint8)
+    lengths = np.zeros(2 * B, dtype=np.int32)
+    half = L // 2
+    for i in range(B // 2):
+        s = 2 * L * i + int(rng.integers(0, L - PAIR_OFFSET))
+        a, b = 4 * i, 4 * i + 2
+        codes[a] = genome[s + PAIR_OFFSET:s + PAIR_OFFSET + L]
+        lengths[a] = L
+        codes[b, :half] = genome[s:s + half]
+        lengths[b] = half
+    return codes, lengths
+
+
+def pair_tables(primes, k, shared, own, codes, lengths):
+    """Flat tables (numpy uint8) for pair_window: LIFT_HIGH everywhere but
+    the counters of the A reads' windows: `shared` for those the next read
+    shares, `own` for the rest. With `own` below the trim coverage, each A
+    is consumed and lifts the shared counters by one, which moves the next
+    read across a threshold at `shared` + 1."""
+    c, n = torch.from_numpy(codes), torch.from_numpy(lengths)
+    hashes, valid, _ = K._window_hashes(c, n, k)
+    flat = np.full(K.byte_flat_size(primes), LIFT_HIGH, dtype=np.uint8)
+    rows = torch.arange(0, codes.shape[0], 4)
+    L = codes.shape[1]
+    nshared = L // 2 - k - PAIR_OFFSET + 1
+    is_shared = torch.arange(L - k + 1) < nshared
+    for value, part in ((own, ~is_shared), (shared, is_shared)):
+        for p, o in zip(primes, K.byte_offsets(primes)):
+            idx = (umod(hashes[rows], p) + o)[valid[rows] & part]
+            flat[idx.numpy()] = value
+    return flat
+
+
 def make_case(name, seed=20261030):
     """(primes, k, cutoff, trim_cov, digi_cov, codes, lengths, fill) of
     case `name`; the tables are made on the card by
@@ -136,10 +201,16 @@ def make_case(name, seed=20261030):
         codes, lengths = window(rng, B, L, k, glen)
     elif kind == "short-mate":
         codes, lengths = short_mate_window(rng, B, L, k, glen)
-    else:
+    elif kind == "lift":
         codes, lengths = lift_window(rng, B, L, k, glen)
+    elif kind == "pair":
+        codes, lengths = pair_window(rng, B, L, k, glen)
+    else:
+        codes, lengths = repeated_window(rng, B, L, k, glen, long_every=4)
     if fill == "lift":
         fill = lift_tables(primes, k, C, codes, lengths)
+    elif fill is not None and fill[0] == "pair":
+        fill = pair_tables(primes, k, *fill[1:], codes, lengths)
     return primes, k, C, Z, D, codes, lengths, fill
 
 
@@ -160,9 +231,61 @@ def big_table(primes, k, flat, codes, lengths, dev, seed=7):
     return K.bigcount_table(dict(zip(keys.tolist(), values.tolist())), dev)
 
 
+def _mismatch(got, want):
+    return sum(int((a != b).sum()) for a, b in zip(got, want))
+
+
+def check_launches(primes, k, C, Z, D, flat, c, n):
+    """Kernel G's launches one at a time on the card, each against its
+    plain version on the same inputs, from tables `flat` (left as they
+    were): {"mark": differing states, branches, trim positions and set
+    words, "probe": differing states, "walk": differing branches and trim
+    positions, plus 1 for tables that differ, plus the n_unique
+    difference}, and the window's candidates, live bundles, groups, live
+    bundles run alone and bundles whose branch the walk moved from the
+    pre-pass's."""
+    dev = flat.device
+    B, W = c.shape[0] // 2, c.shape[1] - k + 1
+    words = K.trim_plan(len(primes), B, W)["mark_words"]
+    marks_k = torch.empty(words, dtype=torch.int32, device=dev)
+    marks_p = torch.zeros_like(marks_k)
+    out = {}
+    got = K.trim_mark_cuda(primes, k, C, Z, D, flat, c, n, marks_k)
+    want = K.trim_mark_plain(primes, k, C, Z, D, flat, c, n, marks_p)
+    out["mark"] = _mismatch(got, want) + int((marks_k != marks_p).sum())
+    state_k, state_p = got[0], want[0].clone()
+    out["candidates"] = int((state_p == K.TRIM_LIVE).sum())
+    K.trim_probe_cuda(primes, k, C, D, flat, c, n, marks_p, state_k)
+    K.trim_probe_plain(primes, k, C, D, flat, c, n, marks_p, state_p)
+    out["probe"] = int((state_k != state_p).sum())
+    out["live"] = int((state_p == K.TRIM_LIVE).sum())
+    flat_k, flat_p = flat.clone(), flat.clone()
+    nu_k = torch.full((1,), 5, dtype=torch.int64, device=dev)
+    nu_p = nu_k.clone()
+    groups = torch.zeros(1, dtype=torch.int64, device=dev)
+    walk_k = K.trim_walk_cuda(primes, k, C, Z, D, flat_k, nu_k, c, n,
+                              state_p, *(t.clone() for t in want[1:]),
+                              n_groups=groups)
+    walk_p = K.trim_walk_plain(primes, k, C, Z, D, flat_p, nu_p, c, n,
+                               state_p, *(t.clone() for t in want[1:]))
+    torch.cuda.synchronize(dev)
+    out["walk"] = (_mismatch(walk_k, walk_p)
+                   + (0 if _equal(flat_k, flat_p) else 1)
+                   + abs(int(nu_k) - int(nu_p)))
+    out["groups"] = int(groups)
+    # bundles whose branch the walk moved from the pre-pass's, and live
+    # bundles too large for a group (the walk runs them alone)
+    out["moved"] = int((walk_p[0] != want[1]).sum())
+    nw = torch.clamp(n.to(torch.int64) - (k - 1), 0, W)
+    big = (nw[0::2] + nw[1::2]) > K.trim_plan(len(primes))["group_events"]
+    out["alone"] = int((big & (state_p == K.TRIM_LIVE)).sum())
+    return out
+
+
 def check_case(name, dev):
     """Case `name` on the card: kernel G against trim_window_plain from the
-    same tables (branch, trim_at, tables, n_unique), and kernel H against
+    same tables (branch, trim_at, tables, n_unique), each of G's launches
+    against its plain version (check_launches), and kernel H against
     read_counts_plain on the window's rows under the window-start tables,
     at the case's (cutoff, trim coverage), then with a bigcount table at
     (300, 300). Returns the mismatches of each kernel (differing outputs,
@@ -184,6 +307,7 @@ def check_case(name, dev):
                         for x, y in zip(at_k + big_k, at_p + big_p))
     out["big entries"] = int(big[0].shape[0])
     out["big moved"] = int((big_k[1] != at_k[1]).sum()) if Z == 300 else 0
+    out.update(check_launches(primes, k, C, Z, D, flat_k, c, n))
     flat_p = flat_k.clone()
     nu_k = torch.full((1,), 5, dtype=torch.int64, device=dev)
     nu_p = nu_k.clone()
@@ -208,15 +332,17 @@ def check_long_window(dev, cutoff=2, trim_cov=3):
     """ScanTrimmerState on a countgraph on the card against one on the CPU
     (the plain versions) over diginorm_cases.long_read_windows: mismatched
     branches and trim positions, plus 1 for tables that differ, plus the
-    n_unique and run-count differences; and kernel G's launches, which
-    must be one a run."""
+    n_unique, run-count, candidate, live and group differences; and
+    kernel G's launches, which
+    must be one a run (each of its three)."""
     from khmer_tpu_torch.core.diginorm_scan import ScanTrimmerState
     from khmer_tpu_torch.core.sketch import Countgraph
     from khmer_tpu_torch.scripts.diginorm_cases import long_read_windows
 
     engines = [ScanTrimmerState(Countgraph(20, 2e5, 3, device=d), cutoff,
                                 trim_cov) for d in (dev, "cpu")]
-    before = K.trim_scan_cuda.launches
+    launchers = (K.trim_mark_cuda, K.trim_probe_cuda, K.trim_walk_cuda)
+    before = [f.launches for f in launchers]
     out = {"mismatches": 0, "consumed": 0}
     for win in long_read_windows():
         (bk, tk), (bp, tp) = (e.process_window(win) for e in engines)
@@ -227,9 +353,12 @@ def check_long_window(dev, cutoff=2, trim_cov=3):
         (0 if torch.equal(card.graph.tables.flat.cpu(),
                           cpu.graph.tables.flat) else 1)
         + abs(card.graph.n_unique_kmers() - cpu.graph.n_unique_kmers())
-        + abs(card.scan_runs - cpu.scan_runs))
+        + abs(card.scan_runs - cpu.scan_runs)
+        + sum(abs(int(getattr(card, c)) - int(getattr(cpu, c)))
+              for c in ("candidates", "live", "groups")))
     out["runs"] = card.scan_runs
-    out["launches"] = K.trim_scan_cuda.launches - before
+    out["launches"] = tuple(f.launches - b
+                            for f, b in zip(launchers, before))
     return out
 
 
@@ -238,7 +367,8 @@ def main():
     failed = 0
     for name in CASES:
         got = check_case(name, dev)
-        failed += got["scan"] + got["counts"]
+        failed += (got["scan"] + got["counts"] + got["mark"]
+                   + got["probe"] + got["walk"])
         print(json.dumps(dict(case=name, **got)), flush=True)
     got = check_long_window(dev)
     failed += got["mismatches"]

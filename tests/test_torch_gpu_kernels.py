@@ -433,12 +433,21 @@ def test_scan_normalizer_long_reads_on_cuda(cuda_device):
 def test_trim_kernels_match_plain(cuda_device, name):
     """Kernels G and H against their plain versions on the windows of
     scripts/trim_cases.py: branches, trim positions, tables and n_unique
-    (G); trim positions and windows at coverage, with and without a
-    bigcount table (H)."""
+    (G whole, and its walk), states, branches, trim positions and the set
+    (G's mark), states (G's probe); trim positions and windows at
+    coverage, with and without a bigcount table (H). The pinned windows
+    move what they must: trim positions, branches, and live bundles across
+    groups with some alone."""
     got = trim_cases.check_case(name, cuda_device)
     assert got["scan"] == 0 and got["counts"] == 0, got
+    assert got["mark"] == got["probe"] == got["walk"] == 0, got
     if name == "consume-lifts-trim":
         assert got["lifted"] >= 30, got
+    if name in ("consume-lifts-digi", "consume-lifts-candidate"):
+        assert got["moved"] >= 30, got
+    if name == "groups-and-lone":
+        assert 0 < got["alone"] < got["groups"] < got["live"], got
+        assert got["live"] < got["bundles"], got
     if name == "C=300-Z=300":
         assert got["big entries"] > 0 and got["big moved"] > 0, got
 
@@ -446,10 +455,12 @@ def test_trim_kernels_match_plain(cuda_device, name):
 def test_scan_trimmer_long_reads_on_cuda(cuda_device):
     """ScanTrimmerState on the card against the CPU's over windows holding
     reads of 5,000 to 15,000 bases: kernel G once a run of row_runs, the
-    same branches, trim positions, tables and n_unique."""
+    same branches, trim positions, tables, n_unique and counts of
+    candidates, live bundles and groups; each of G's three launches once a
+    run."""
     got = trim_cases.check_long_window(cuda_device)
     assert got["mismatches"] == 0, got
-    assert got["runs"] == got["launches"] == 18, got
+    assert got["runs"] == 18 and got["launches"] == (18, 18, 18), got
     assert got["consumed"] > 0
 
 
@@ -470,12 +481,13 @@ def test_trim_entry_points_launch_kernels_on_cuda(cuda_device):
                                                                     100))]))
     engines = [ScanTrimmerState(Countgraph(20, 5e3, 3, device=d), 2, 4)
                for d in (cuda_device, "cpu")]
-    before = (K.trim_scan_cuda.launches, K.read_counts_cuda.launches)
+    launchers = (K.trim_mark_cuda, K.trim_probe_cuda, K.trim_walk_cuda)
+    before = [f.launches for f in launchers] + [K.read_counts_cuda.launches]
     for s in range(0, 700, 256):
         window = [[r] for r in recs[s:s + 256]]
         (bk, tk), (bp, tp) = (e.process_window(window) for e in engines)
         assert np.array_equal(bk, bp) and np.array_equal(tk, tp)
-    assert K.trim_scan_cuda.launches == before[0] + 3
+    assert [f.launches for f in launchers] == [b + 3 for b in before[:3]]
     cg, ref = (e.graph for e in engines)
     assert cg.n_unique_kmers() == ref.n_unique_kmers()
     assert torch.equal(cg.tables.flat.cpu(), ref.tables.flat)
@@ -488,4 +500,4 @@ def test_trim_entry_points_launch_kernels_on_cuda(cuda_device):
                 ref.median_at_least(r.sequence, 3)
         assert cg.trim_on_abundance(r.sequence, 2) == \
             ref.trim_on_abundance(r.sequence, 2)
-    assert K.read_counts_cuda.launches > before[1] + 1
+    assert K.read_counts_cuda.launches > before[3] + 1

@@ -48,9 +48,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
      that moves a later bundle from branch 1 to 0 under --diginorm, one
      that lifts a later candidate past the trim coverage, and live
      bundles across groups and a tile, grouped and alone; the count/trim
-     also with a bigcount table at -C 300), and the port's
-     ScanTrimmerState on the card against the CPU's over the long-read
-     windows;
+     also with a bigcount table at -C 300), the count/trim alone on the
+     rows of scripts/trim_cases.py COUNT_CASES (one row of 1,000,000
+     codes, a long-read run of 559 reads of 5,000-15,000 bases, rows of
+     L % 16 != 0 of one segment and of several, short reads mixed with
+     long ones, a tile's tail of rows, k 1 and 32 with reads of 0, 1 and
+     2 windows, counters at 254-255 under a bigcount table; cutoff and
+     at_least 0, equal and in either order; bad windows at window 0, in a
+     later segment only, or nowhere), and the port's ScanTrimmerState on
+     the card against the CPU's over the long-read windows;
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
      blocked, k=20, 4 x 5e7 bytes) on data/25k.fq.gz, then the abundance
      histogram; results must equal the JAX package's and the blocked
@@ -104,7 +110,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
      apart, a bundle; the count/trim's a window); the scan whole and each
      of its launches, and the count/trim, on window 6 against their plain
      versions, beside their bounds and the count/trim's sector floor
-     (scripts/trim_bench.py);
+     (scripts/trim_bench.py); the count/trim as issued and on the device,
+     with the share of its loads a staging by table 0 would save, there
+     and alone on a long-read run and on one row of 1,000,000 codes
+     (trim_bench H_SHAPES (c) and (d));
   8b. trim-low-abund -k 20 -C 2 -x 1e9 -N 4 (4 GB of tables) on phase 7b's
      1,000,000 synthetic reads; the JAX answers asserted, the device
      memory beside the tables, the scan's counts, a traced run, the
@@ -1741,6 +1750,15 @@ def run_trim_cases(torch, dev, errs):
                              got["candidates"], got["live"], got["groups"],
                              got["alone"], got["big entries"],
                              got["big moved"]))
+    for name in trim_cases.COUNT_CASES:
+        got = trim_cases.check_counts_case(name, dev)
+        errs["read_counts"] = max(errs["read_counts"], got["mismatches"])
+        expect(got["mismatches"] == 0, "read_counts != plain on count case "
+               "%s" % name)
+        say("  count case %-36s %d rows of %d codes (plan %s): read_counts "
+            "== plain; %d trimmed to 0, %d untrimmed over its thresholds"
+            % (name, got["rows"], got["L"], got["plan"], got["trim 0"],
+               got["untrimmed"]))
     got = trim_cases.check_long_window(dev)
     errs["trim_scan"] = max(errs["trim_scan"], got["mismatches"])
     expect(got["mismatches"] == 0,
@@ -1751,7 +1769,7 @@ def run_trim_cases(torch, dev, errs):
     say("  trim long reads: 3 windows of 200 bundles with reads of "
         "5,000-15,000 bases in %d runs, %d bundles consumed, card == CPU"
         % (got["runs"], got["consumed"]))
-    return len(trim_cases.CASES) + 1
+    return len(trim_cases.CASES) + len(trim_cases.COUNT_CASES) + 1
 
 
 # kernel G's launches and the wrappers that count them
@@ -1832,7 +1850,7 @@ def run_config3(torch, SK, dev, card, errs):
     Returns the launches of (a) and those times."""
     from khmer_tpu_torch.cli import (filter_abund, filter_abund_single,
                                      load_into_counting, trim_low_abund)
-    from khmer_tpu_torch.scripts.trim_bench import time_window
+    from khmer_tpu_torch.scripts.trim_bench import time_shape, time_window
 
     E = EXPECT_C3
     args = ["-k", "20", "-x", "5e7", "-N", "4", "-C", "2"]
@@ -1915,6 +1933,8 @@ def run_config3(torch, SK, dev, card, errs):
            s_got[0], s_got[2], s_launches, card))
     _say_trim_trace("phase 8 (a)", t_wall, dev_ms, found, t_trim.scan, card)
     w = _trim_bench_window(time_window(dev), "config 3", errs, card)
+    for shape in ("c", "d"):
+        _say_counts_shape(time_shape(dev, shape), errs, card)
     timings = {name: {"ms": w[key]["ms"], "plain_ms": w[key]["plain_ms"],
                       "bound_ms": w[key]["bound"][0],
                       "bound_by": w[key]["bound"][1], "library_ms": None}
@@ -1924,6 +1944,30 @@ def run_config3(torch, SK, dev, card, errs):
                                  ("counts", "read_counts"))}
     torch.cuda.empty_cache()
     return runs["trim"][1], timings
+
+
+def _say_counts(h):
+    """Kernel H's part of a phase-8 line: times, bounds, the staging
+    share."""
+    staging = "%.4f" % h["staging"]
+    if "staging_pass2" in h:
+        staging += ", %.4f on the consumed reads after their consume" % (
+            h["staging_pass2"])
+    return ("read_counts kernel %.4f ms as issued, device %.4f ms, plain "
+            "%.4f ms, bound %.5f ms (%s; %d B, %d ops), sector floor %.5f ms "
+            "(%d B); loads a staging by table 0 would save %s"
+            % (h["ms"], h["device_ms"], h["plain_ms"], h["bound"][0],
+               h["bound"][1], h["bytes"], h["ops"], h["sector_ms"],
+               h["sector_bytes"], staging))
+
+
+def _say_counts_shape(h, errs, card):
+    """Check and print one trim_bench.time_shape result."""
+    errs["read_counts"] = max(errs["read_counts"], h["mismatches"])
+    expect(h["mismatches"] == 0, "read_counts != plain on shape (%s)"
+           % h["shape"])
+    say("  H shape (%s) %s: %d rows of %d codes; %s; on %s"
+        % (h["shape"], h["what"], h["rows"], h["L"], _say_counts(h), card))
 
 
 def _trim_bench_window(w, label, errs, card):
@@ -1946,16 +1990,13 @@ def _trim_bench_window(w, label, errs, card):
         "branches %s, %d candidates, %d probed, %d live in %d groups (set of "
         "2^%d bits); kernel G whole %.4f ms as issued (%.4f us a bundle), "
         "device %.4f ms, plain %.4f ms, bound %.5f ms (%s; %d B, %d ops); "
-        "%s (%.4f us a live bundle); read_counts kernel %.4f ms, plain %.4f "
-        "ms, bound %.5f ms (%s; %d B, %d ops), sector floor %.5f ms (%d B); "
-        "on %s"
+        "%s (%.4f us a live bundle); %s; on %s"
         % (label, w["window"], w["bundles"], w["reads"], w["L"],
            w["branches"], w["candidates"], w["probed"], w["live"],
            w["groups"], w["mark_bits"], g["ms"], g["us_per_bundle"],
            g["device_ms"], g["plain_ms"], g["bound"][0], g["bound"][1],
-           g["bytes"], g["ops"], parts, w["walk"]["us_per_live"], h["ms"],
-           h["plain_ms"], h["bound"][0], h["bound"][1], h["bytes"], h["ops"],
-           h["sector_ms"], h["sector_bytes"], card))
+           g["bytes"], g["ops"], parts, w["walk"]["us_per_live"],
+           _say_counts(h), card))
     return w
 
 

@@ -1427,17 +1427,10 @@ def _big_arg(big, dev):
     return big if keys.shape[0] else None
 
 
-def read_counts_plain(primes, k, cutoff, at_least, flat, codes, lengths,
-                      big=None):
-    """Per read of codes [R, L] / lengths [R], from the minimum over the
-    tables of each window's counter (read only; plain PyTorch, any device):
-    (trim_at int32 [R], n_ge int32 [R]). trim_at is trim_pos_from_counts
-    (utils/trimming.py) under `cutoff`: 0 for a read with no window or one,
-    or whose window 0 is below it; k + j - 1 for the first later window j
-    below it; else the read's length. n_ge counts the windows at or above
-    `at_least`, which median_at_least needs. With `big` (bigcount_table), a
-    count of 255 is the map's value for its hash where the map has one, as
-    JAX pipeline.counts_for_records reads it."""
+def _read_window_counts(primes, k, flat, codes, lengths, big):
+    """(counts [R, W], valid [R, W], nvalid [R]) of kernel H's rows: the
+    minimum over the tables of each window's counter, a count of 255 read
+    through `big` (bigcount_table) where the map has its hash."""
     hashes, valid, nvalid = _window_hashes(codes, lengths, k)
     counts = byte_gather_plain(primes, flat, hashes)
     big = _big_arg(big, flat.device)
@@ -1449,6 +1442,22 @@ def read_counts_plain(primes, k, cutoff, at_least, flat, codes, lengths,
             max=keys.shape[0] - 1)
         counts[sat] = torch.where(keys[pos] == h, values[pos],
                                   torch.full_like(values[pos], MAX_KCOUNT))
+    return counts, valid, nvalid
+
+
+def read_counts_plain(primes, k, cutoff, at_least, flat, codes, lengths,
+                      big=None):
+    """Per read of codes [R, L] / lengths [R], from the minimum over the
+    tables of each window's counter (read only; plain PyTorch, any device):
+    (trim_at int32 [R], n_ge int32 [R]). trim_at is trim_pos_from_counts
+    (utils/trimming.py) under `cutoff`: 0 for a read with no window or one,
+    or whose window 0 is below it; k + j - 1 for the first later window j
+    below it; else the read's length. n_ge counts the windows at or above
+    `at_least`, which median_at_least needs. With `big` (bigcount_table), a
+    count of 255 is the map's value for its hash where the map has one, as
+    JAX pipeline.counts_for_records reads it."""
+    counts, valid, nvalid = _read_window_counts(primes, k, flat, codes,
+                                                lengths, big)
     n_ge = (valid & (counts >= int(at_least))).sum(dim=1)
     bad = valid & (counts < int(cutoff))
     W = bad.shape[1]
@@ -1459,17 +1468,87 @@ def read_counts_plain(primes, k, cutoff, at_least, flat, codes, lengths,
     return trim.to(torch.int32), n_ge.to(torch.int32)
 
 
-# Kernel H (csrc/read_counts.cu): blocks of READ_THREADS threads, a warp a
-# read; these mirror its constants.
+# Kernel H (csrc/read_counts.cu): blocks of READ_THREADS threads, each
+# taking the items of one segment (at most READ_SEG windows) of a tile of
+# rows (at most READ_MAX_ROWS), about READ_ITEMS items a block; these
+# mirror its constants. READ_SMEM_LIMIT is the dynamic shared memory it
+# asks for at most (a block's 227 KB on the H100, less 2 KB for its static
+# shared words).
 READ_THREADS = 256
-READS_PER_BLOCK = READ_THREADS // 32
+READ_MAX_ROWS = 64
+READ_SEG = 1024
+READ_ITEMS = 512
+READ_SMEM_LIMIT = 227 * 1024 - 2048
+
+
+@functools.lru_cache(maxsize=64)
+def read_plan(L, k):
+    """Kernel H's tiling for rows of L codes and k-mers of k: {"rows": rows
+    a tile, "seg": windows a segment (a multiple of 32), "segs": segments
+    a row, "smem": dynamic shared bytes}. A block takes one segment of one
+    tile: rows of up to READ_SEG windows are one segment (one block holds
+    whole rows and writes their outputs), longer ones are cut into segments
+    of READ_SEG over as many blocks. Per row the block keeps the segment's
+    packed codes, forward and reverse (16 B for each 32 codes of its seg +
+    31, rounded up to words), and the row of each of its items (1 B an
+    item). It follows the shape (L, k), never the tables."""
+    L, k = int(L), int(k)
+    if not 1 <= k <= 32 or L < k:
+        raise ValueError("rows of %d codes hold no %d-mer" % (L, k))
+    W = L - k + 1
+    seg = min(-(-W // 32) * 32, READ_SEG)
+    per_row = 16 * (seg // 32 + 1) + seg
+    rows = max(1, min(READ_MAX_ROWS, READ_ITEMS // seg,
+                      READ_SMEM_LIMIT // per_row))
+    return {"rows": rows, "seg": seg, "segs": -(-W // seg),
+            "smem": rows * per_row}
+
+
+def read_blocks(R, L, k):
+    """Kernel H's blocks over R rows of L codes, in grid order: (first row,
+    row past the last, first window, window past the last) of each, the
+    windows cut at the rows' L - k + 1 (a read's own windows may end
+    sooner)."""
+    plan = read_plan(L, k)
+    rows, seg, W = plan["rows"], plan["seg"], int(L) - int(k) + 1
+    for row0 in range(0, R, rows):
+        for s0 in range(0, W, seg):
+            yield row0, min(row0 + rows, R), s0, min(s0 + seg, W)
+
+
+def read_split_plain(primes, k, cutoff, at_least, flat, codes, lengths,
+                     big=None):
+    """read_counts_plain as kernel H splits and combines it (plain
+    PyTorch, any device): each block of read_blocks takes, for each of its
+    rows, its windows at or above `at_least` and its first window below
+    `cutoff`; the blocks of a row combine by a sum and a minimum, and the
+    trim position follows from the row's windows, its first window below
+    `cutoff` (0: window 0's flag) and its length. -> (trim_at int32 [R],
+    n_ge int32 [R]), equal to read_counts_plain's."""
+    counts, valid, nvalid = _read_window_counts(primes, k, flat, codes,
+                                                lengths, big)
+    R, W = counts.shape
+    none = _I32_MAX
+    ge = torch.zeros(R, dtype=torch.int64, device=counts.device)
+    first = torch.full((R,), none, dtype=torch.int64, device=counts.device)
+    j = torch.arange(W, device=counts.device)
+    for r0, r1, w0, w1 in read_blocks(R, codes.shape[1], k):
+        c, v = counts[r0:r1, w0:w1], valid[r0:r1, w0:w1]
+        ge[r0:r1] += (v & (c >= int(at_least))).sum(dim=1)
+        bad = v & (c < int(cutoff))
+        first[r0:r1] = torch.minimum(first[r0:r1], torch.where(
+            bad, j[w0:w1], none).amin(dim=1))
+    nw = torch.clamp(nvalid, max=W)
+    trim = torch.where(first < none, k + first - 1, lengths.to(torch.int64))
+    trim = torch.where((nw <= 1) | (first == 0), 0, trim)
+    return trim.to(torch.int32), ge.to(torch.int32)
 
 
 def read_counts_cuda(primes, k, cutoff, at_least, flat, codes, lengths,
                      big=None):
     """Kernel H (csrc/read_counts.cu): read_counts_plain on the card ->
-    (trim_at int32 [R], n_ge int32 [R]); the tables are only read. Counts
-    its launches in ``read_counts_cuda.launches``."""
+    (trim_at int32 [R], n_ge int32 [R]), tiled by read_plan; the tables
+    are only read. Counts its launches in ``read_counts_cuda.launches``."""
     dev = flat.device
     _check_byte_layout(primes, flat)
     _check_rows(codes, lengths, k, dev)
@@ -1479,15 +1558,21 @@ def read_counts_cuda(primes, k, cutoff, at_least, flat, codes, lengths,
     n_ge = torch.empty(R, dtype=torch.int32, device=dev)
     if R == 0:
         return trim_at, n_ge
+    plan = read_plan(codes.shape[1], k)
+    scratch = None
+    if plan["segs"] > 1:  # sums, first windows and a counter a tile
+        scratch = torch.empty(2 * R + -(-R // plan["rows"]),
+                              dtype=torch.int32, device=dev)
     keys, values = big or (None, None)
     primes_arr, offsets_arr = _layout(primes)
     err = cuda.library().khmer_read_counts(
         flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
         ctypes.addressof(offsets_arr), codes.data_ptr(), lengths.data_ptr(),
         R, codes.shape[1], int(k), _cutoff_arg(cutoff, MAX_BIGCOUNT),
-        _cutoff_arg(at_least, MAX_BIGCOUNT),
+        _cutoff_arg(at_least, MAX_BIGCOUNT), plan["rows"], plan["seg"],
         _ptr(keys), _ptr(values), 0 if keys is None else keys.shape[0],
-        trim_at.data_ptr(), n_ge.data_ptr(), dev.index, _stream(dev))
+        trim_at.data_ptr(), n_ge.data_ptr(), _ptr(scratch), dev.index,
+        _stream(dev))
     cuda.check(err, "read_counts")
     read_counts_cuda.launches += 1
     return trim_at, n_ge

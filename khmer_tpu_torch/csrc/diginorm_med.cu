@@ -54,6 +54,8 @@ namespace {
 
 using khmer_byte::ByteLayout;
 using khmer_byte::counter_index;
+using khmer_twobit::hash_at;
+using khmer_twobit::pack_word;
 
 // core/sketch_kernels.py MED_THREADS and MED_MAX_ROWS
 constexpr int kBlock = 256;
@@ -63,63 +65,6 @@ constexpr int kBatch = 2;   // items a thread takes at once
 constexpr int kTables = 4;  // tables whose loads it issues at once
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNoKey = 0x7fffffff;  // a lane past the segment's items
-
-// 4 codes in the bytes of x (code i in byte i, 2 bits each) packed into 8
-// bits: code 0 most significant (msb4) or least significant (lsb4).
-__device__ __forceinline__ uint32_t msb4(uint32_t x) {
-  return ((x << 6) | (x >> 4) | (x >> 14) | (x >> 24)) & 0xffu;
-}
-__device__ __forceinline__ uint32_t lsb4(uint32_t x) {
-  return (x | (x >> 6) | (x >> 12) | (x >> 18)) & 0xffu;
-}
-
-// Codes [p, p + 32) of a row of L codes (zeros past L) as the forward word
-// (code p in the top two bits) and the reverse-complement word (code p's
-// complement in the low two bits).
-__device__ __forceinline__ void pack_word(const uint8_t* row, int p, int L,
-                                          uint64_t* fw, uint64_t* rw) {
-  uint32_t x[8];
-  const uint8_t* src = row + p;
-  if (p + 32 <= L && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(src));
-    const uint4 b = __ldg(reinterpret_cast<const uint4*>(src) + 1);
-    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      x[i] = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (p + 4 * i + j < L) x[i] |= uint32_t{src[4 * i + j]} << (8 * j);
-      }
-    }
-  }
-  uint64_t f = 0;
-  uint64_t r = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t c = x[i] & 0x03030303u;
-    f = (f << 8) | msb4(c);
-    r |= static_cast<uint64_t>(lsb4(c)) << (8 * i);
-  }
-  *fw = f;
-  *rw = r ^ 0x5555555555555555ULL;  // complement: code ^ 1
-}
-
-// The canonical hash of the window at code q of a packed segment (q < seg):
-// khmer_twobit::canonical of the same k codes.
-__device__ __forceinline__ uint64_t hash_at(const uint64_t* fw,
-                                            const uint64_t* rw, int q,
-                                            int k) {
-  const int w = q >> 5;
-  const int sh = 2 * (q & 31);
-  const uint64_t f = ((fw[w] << sh) | ((fw[w + 1] >> 1) >> (63 - sh)))
-                     >> (64 - 2 * k);
-  const uint64_t r = ((rw[w] >> sh) | ((rw[w + 1] << 1) << (63 - sh)))
-                     & (~0ULL >> (64 - 2 * k));
-  return f < r ? f : r;
-}
 
 struct Tile {
   int nw[kMaxRows];         // windows of each row in the matrix

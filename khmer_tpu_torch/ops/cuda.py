@@ -80,10 +80,11 @@ _ENTRY_POINTS = {
                         _I32, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
                         _P, _I32, _P],
     # flat, ntables, primes (host), offsets (host), codes, lengths, nrows,
-    # L, k, cutoff, at_least, big_keys, big_values, nbig, trim_at, n_ge,
-    # device, stream
+    # L, k, cutoff, at_least, rows, seg, big_keys, big_values, nbig,
+    # trim_at, n_ge, scratch, device, stream
     "khmer_read_counts": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
-                          _I32, _P, _P, _I64, _P, _P, _I32, _P],
+                          _I32, _I32, _I32, _P, _P, _I64, _P, _P, _P, _I32,
+                          _P],
 }
 
 

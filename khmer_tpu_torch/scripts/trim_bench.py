@@ -30,24 +30,40 @@ bytes over 3.35 TB/s and operations over 67 TOP/s, H100 SXM):
     B a read; one operation per counter read. Its counter reads are
     random, and DRAM serves whole 32-byte sectors, so it also has a sector
     floor: the same bytes with 32 B for each distinct sector its counters
-    lie in.
+    lie in. Beside its times, the share of its counter loads that a
+    staging by table 0 would save (tables 1..T-1 of the windows whose
+    table-0 count alone settles them: below min(cutoff, at_least, 255)),
+    on the window's reads and on its consumed reads against the tables
+    after the consume (the reads and tables of pass 2).
 Each of G's timed calls starts from the state it needs, restored before
 the call's events (the tables and n_unique; the probe's state). Times are
 as issued (CUDA events around each call) and on the device alone (the
 stream held by a sleep kernel while the call is issued,
-scripts.device_ms). Needs a CUDA card, but for --counts, which runs on any
-device. From the repo root:
+scripts.device_ms). Kernel H alone is also timed on H_SHAPES: (a) window
+6 of config 3, (b) window 6 of trim-low-abund -x 1e9 -N 4 on
+scripts/synth_reads.py's reads (4 GB of tables), (c) one long-read run as
+core/diginorm_scan.py row_runs packs reads of 5,000-15,000 bases, (d) one
+row of 1,000,000 codes, the shape Countgraph.median_at_least sends for a
+1 Mb sequence; (c) and (d) on config 3's 200 MB of tables, seeded. Needs a
+CUDA card, but for --counts, which runs on any device. From the repo
+root:
 
     python -m khmer_tpu_torch.scripts.trim_bench [--at 0 6]
-    python -m khmer_tpu_torch.scripts.trim_bench --at 0 6 --parent DIR
+    python -m khmer_tpu_torch.scripts.trim_bench --shapes a b c d
+    python -m khmer_tpu_torch.scripts.trim_bench --parent DIR [--at 0 6]
     python -m khmer_tpu_torch.scripts.trim_bench --counts 13 --device cpu
 
-The first times window 6, or the windows given (one JSON line each;
-chip_smoke.py phase 8b calls time_window on its own reads and tables).
-The second times them in turns with another checkout of the repo at DIR,
-parent, this one, this one, parent, each side by its own time_window in a
-process of its own, one JSON line a window tagged with its side. The
-third prints, for each of the file's first 13 windows, its bundles,
+The first times G and H on window 6, or the windows given (one JSON line
+each; chip_smoke.py phase 8b calls time_window on its own reads and
+tables). The second times H alone on the shapes given (one JSON line
+each; (b) writes the synthetic reads first, into a directory of its own
+in the repo root, removed after). The third times H on the shapes of
+--shapes (default a b c d) and, with --at, G and H on those windows, in
+turns with another checkout of the repo at DIR, parent, this one, this
+one, parent: each side a process of its own, running this file's timing
+code on its own checkout's kernels (H's wrapper takes the same arguments
+in both), one JSON line a shape or window tagged with its side. The
+fourth prints, for each of the file's first 13 windows, its bundles,
 candidates, live bundles, the walk's groups and the consumed bundles.
 """
 
@@ -57,21 +73,34 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
+import numpy as np
 import torch
 
 from khmer_tpu_torch.cli.trim_low_abund import _windows
 from khmer_tpu_torch.core import sketch_kernels as K
-from khmer_tpu_torch.core.diginorm_scan import (ScanTrimmerState,
+from khmer_tpu_torch.core.diginorm_scan import (LONG_RUN_BYTES,
+                                                ScanTrimmerState,
                                                 pack_reads, pack_window,
                                                 row_runs)
 from khmer_tpu_torch.core.sketch import Countgraph
 from khmer_tpu_torch.io.fastx import ReadParser
 from khmer_tpu_torch.io.pairing import broken_paired_reader
 from khmer_tpu_torch.ops.u64 import umod
-from khmer_tpu_torch.scripts import HOLD_CYCLES, cuda_ms
+from khmer_tpu_torch.scripts import HOLD_CYCLES, cuda_ms, device_ms
 from khmer_tpu_torch.scripts.byte_gather_bench import PEAK_BYTES_S
 from khmer_tpu_torch.scripts.diginorm_bench import SECTOR, STAMPS, bound_ms
+
+# kernel H's shapes: (what, table size -x, row length, rows, read lengths)
+H_SHAPES = {
+    "a": ("window 6 of config 3", 5e7, None, None, None),
+    "b": ("window 6 at -x 1e9 -N 4", 1e9, None, None, None),
+    "c": ("one long-read run", 5e7, 15000, LONG_RUN_BYTES // (2 * 15000),
+          (5000, 15000)),
+    "d": ("one row of 1,000,000 codes", 5e7, 1_000_000, 1,
+          (1_000_000, 1_000_000)),
+}
 
 
 def _counters(primes, hashes, valid):
@@ -89,13 +118,11 @@ def _rows(flags):
     return flags.repeat_interleave(2)[:, None]
 
 
-def bounds(primes, k, codes, lengths, branch, cand, probed, live, words,
-           rows, row_lengths):
+def bounds(primes, k, codes, lengths, branch, cand, probed, live, words):
     """{name: (bytes, operations)} of one window (module docstring): "G"
     whole, its launches "mark", "probe" and "walk", from the bundle rows,
     the branches, the candidates, the bundles probed and the live ones, and
-    the set's words; "H" (with its sector-floor bytes third) from the read
-    rows."""
+    the set's words."""
     hashes, valid, _ = K._window_hashes(codes, lengths, k)
     read, ops_read, _ = _counters(primes, hashes, valid)
     written, ops_add, _ = _counters(primes, hashes,
@@ -115,17 +142,118 @@ def bounds(primes, k, codes, lengths, branch, cand, probed, live, words,
         "walk": (B + 2 * n_live * row + w_read + written + 12 * n_live,
                  w_ops + ops_add),
     }
-    hashes, valid, _ = K._window_hashes(rows, row_lengths, k)
-    h_read, h_ops, h_sectors = _counters(primes, hashes, valid)
-    rest = rows.numel() + 4 * row_lengths.numel() + 8 * rows.shape[0]
-    out["H"] = (rest + h_read, h_ops, rest + SECTOR * h_sectors)
     return out
+
+
+def counts_bounds(primes, k, rows, row_lengths):
+    """(bytes, operations, sector-floor bytes) of kernel H on read rows
+    (module docstring)."""
+    hashes, valid, _ = K._window_hashes(rows, row_lengths, k)
+    read, ops, sectors = _counters(primes, hashes, valid)
+    rest = rows.numel() + 4 * row_lengths.numel() + 8 * rows.shape[0]
+    return rest + read, ops, rest + SECTOR * sectors
+
+
+def staging_share(primes, k, cutoff, at_least, flat, rows, row_lengths):
+    """The share of kernel H's counter loads (valid windows x tables) that
+    a staging by table 0 would save: tables 1..T-1 of the windows whose
+    table-0 count is below min(cutoff, at_least, 255) (they are below
+    cutoff and at_least whatever the other tables hold)."""
+    hashes, valid, _ = K._window_hashes(rows, row_lengths, k)
+    low = min(int(cutoff), int(at_least), K.MAX_KCOUNT)
+    settled = valid & (flat[umod(hashes, primes[0])].to(torch.int32) < low)
+    T = len(primes)
+    return int(settled.sum()) * (T - 1) / max(int(valid.sum()) * T, 1)
+
+
+def time_counts(primes, k, cutoff, at_least, flat, rows, row_lengths,
+                reps):
+    """Kernel H on read rows against read_counts_plain: ms as issued and
+    on the device, the plain version's, mismatches, bounds and sector
+    floor, the staging share and the rows' shape."""
+    args = (primes, k, cutoff, at_least, flat, rows, row_lengths)
+    ms = cuda_ms(lambda: K.read_counts_cuda(*args), reps)
+    dev_ms = device_ms(lambda: K.read_counts_cuda(*args), reps)
+    plain = cuda_ms(lambda: K.read_counts_plain(*args), 1)
+    err = _mismatch(K.read_counts_cuda(*args), K.read_counts_plain(*args))
+    nbytes, ops, sector_bytes = counts_bounds(primes, k, rows, row_lengths)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+            "mismatches": err, "bytes": nbytes, "ops": ops,
+            "bound": bound_ms(nbytes, ops), "sector_bytes": sector_bytes,
+            "sector_ms": sector_bytes / PEAK_BYTES_S * 1e3,
+            "staging": staging_share(primes, k, cutoff, at_least, flat,
+                                     rows, row_lengths),
+            "rows": rows.shape[0], "L": rows.shape[1]}
 
 
 def first_windows(path, k, at):
     """Windows 0..at of `path` as the CLI forms them."""
     reader = broken_paired_reader(ReadParser(path), min_length=k)
     return list(itertools.islice(_windows(reader), at + 1))
+
+
+def window_state(dev, path, k, cutoff, trim_cov, x, n_tables, at):
+    """(countgraph, bundles, row length) of window `at` of `path`, the
+    countgraph as the port's ScanTrimmerState left it after windows
+    0..at-1. The window must pack as one run (reads of at most 4096
+    bases)."""
+    cg = Countgraph(k, x, n_tables, device=dev)
+    scan = ScanTrimmerState(cg, cutoff, trim_cov)
+    windows = first_windows(path, k, at)
+    for w in windows[:at]:
+        scan.process_window(w)
+    (_, _, L), = row_runs(windows[at], k)
+    return cg, windows[at], L
+
+
+def shape_rows(dev, L, R, lens, seed=2027):
+    """Seeded read rows of kernel H's shapes (c) and (d): R reads of
+    uniform lengths in `lens` drawn from a random genome, at rows of L."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, max(L, 200_000) + 1, dtype=np.uint8)
+    lengths = rng.integers(lens[0], lens[1] + 1, R).astype(np.int32)
+    codes = np.zeros((R, L), dtype=np.uint8)
+    for r, n in enumerate(lengths):
+        s0 = int(rng.integers(0, genome.shape[0] - n + 1))
+        codes[r, :n] = genome[s0:s0 + n]
+    return (torch.from_numpy(codes).to(dev),
+            torch.from_numpy(lengths).to(dev))
+
+
+def shape_inputs(dev, shape, reads=None, k=20, cutoff=2, trim_cov=20,
+                 n_tables=4):
+    """(primes, tables, rows, lengths) of one of H_SHAPES (module
+    docstring): (a) and (b) window 6's reads against the tables windows
+    0..5 left, (b) from `reads`, the synthetic reads' path; (c) and (d)
+    seeded rows against config 3's tables filled with counts of 3 to 40
+    (seeded)."""
+    _, x, L, R, lens = H_SHAPES[shape]
+    if L is None:
+        cg, bundles, L = window_state(dev, STAMPS if shape == "a" else reads,
+                                      k, cutoff, trim_cov, x, n_tables, 6)
+        rows, lengths = (torch.from_numpy(a).to(dev) for a in pack_reads(
+            [r.cleaned_seq for b in bundles for r in b], L))
+        return cg._primes, cg.tables.flat, rows, lengths
+    primes = tuple(K.get_n_primes_near_x(n_tables, x))
+    gen = torch.Generator(device=dev).manual_seed(2027)
+    flat = torch.randint(3, 41, (K.byte_flat_size(primes),),
+                         dtype=torch.uint8, device=dev, generator=gen)
+    return (primes, flat) + shape_rows(dev, L, R, lens)
+
+
+def time_shape(dev, shape, reads=None, k=20, cutoff=2, trim_cov=20,
+               n_tables=4, reps=20):
+    """Kernel H alone on one of H_SHAPES (shape_inputs), at config 3's
+    cutoff and trim coverage: time_counts' result with the shape's name."""
+    primes, flat, rows, lengths = shape_inputs(dev, shape, reads, k, cutoff,
+                                               trim_cov, n_tables)
+    if shape == "d":
+        reps = max(reps // 4, 1)
+    out = time_counts(primes, k, cutoff, trim_cov, flat, rows, lengths, reps)
+    del flat
+    torch.cuda.empty_cache()
+    return dict(shape=shape, what=H_SHAPES[shape][0],
+                device=torch.cuda.get_device_name(dev), **out)
 
 
 def _timed(reset, fn, reps, hold):
@@ -167,13 +295,8 @@ def time_window(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
     against their plain versions: times, bounds, mismatches and the
     window's candidates, live bundles and groups. The window must pack as
     one run (reads of at most 4096 bases)."""
-    cg = Countgraph(k, x, n_tables, device=dev)
-    scan = ScanTrimmerState(cg, cutoff, trim_cov)
-    windows = first_windows(path, k, at)
-    for w in windows[:at]:
-        scan.process_window(w)
-    bundles = windows[at]
-    (_, _, L), = row_runs(bundles, k)
+    cg, bundles, L = window_state(dev, path, k, cutoff, trim_cov, x,
+                                  n_tables, at)
     codes, lengths = (torch.from_numpy(a).to(dev)
                       for a in pack_window(bundles, L))
     reads = [r.cleaned_seq for b in bundles for r in b]
@@ -190,14 +313,8 @@ def time_window(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
         nu.copy_(nu0)
 
     # H first: it reads the tables as the earlier windows left them
-    def counts():
-        return K.read_counts_cuda(*args, trim_cov, flat, rows, row_lengths)
-
-    h_ms = cuda_ms(counts, reps * 4)
-    h_plain = cuda_ms(lambda: K.read_counts_plain(
-        *args, trim_cov, flat, rows, row_lengths), 1)
-    counts_err = _mismatch(counts(), K.read_counts_plain(
-        *args, trim_cov, flat, rows, row_lengths))
+    counts = time_counts(primes, k, cutoff, trim_cov, flat, rows,
+                         row_lengths, reps * 4)
 
     # the pre-pass's launches, each against its plain version
     marks = torch.empty(plan["mark_words"], dtype=torch.int32, device=dev)
@@ -244,6 +361,14 @@ def time_window(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
     g_ms, g_dev, (g_branch, g_trim) = _both(restore, lambda: K.trim_scan_cuda(
         *args, trim_cov, None, flat, nu, codes, lengths), reps)
     g_tables, g_nu = flat.clone(), int(nu)
+    # the reads pass 2 reads, against the tables after their consume
+    consumed = [r.cleaned_seq for b, x in zip(bundles, g_branch.tolist())
+                if x == 2 for r in b]
+    if consumed:
+        c2, n2 = (torch.from_numpy(a).to(dev)
+                  for a in pack_reads(consumed, L))
+        counts["staging_pass2"] = staging_share(primes, k, cutoff, trim_cov,
+                                                flat, c2, n2)
     g_plain, (branch_p, trim_p) = _timed(restore, lambda: K.trim_window_plain(
         *args, trim_cov, None, flat, nu, codes, lengths), 1, False)
     scan_err = (_mismatch((g_branch, g_trim), (branch_p, trim_p))
@@ -254,7 +379,7 @@ def time_window(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
     probed = state0 >= K.TRIM_PROBE
     live = state == K.TRIM_LIVE
     b = bounds(primes, k, codes, lengths, branch_p, cand, probed, live,
-               plan["mark_words"], rows, row_lengths)
+               plan["mark_words"])
 
     def entry(ms, device, plain, err, key):
         return {"ms": ms, "device_ms": device, "plain_ms": plain,
@@ -276,11 +401,7 @@ def time_window(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
         "mark": entry(mark_ms, mark_dev, mark_plain, mark_err, "mark"),
         "probe": entry(probe_ms, probe_dev, probe_plain, probe_err, "probe"),
         "walk": walk,
-        "counts": {"ms": h_ms, "plain_ms": h_plain,
-                   "mismatches": counts_err, "bytes": b["H"][0],
-                   "ops": b["H"][1], "bound": bound_ms(*b["H"][:2]),
-                   "sector_bytes": b["H"][2],
-                   "sector_ms": b["H"][2] / PEAK_BYTES_S * 1e3},
+        "counts": counts,
     }
 
 
@@ -302,34 +423,58 @@ def window_counts(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
     return out
 
 
-# One side of in_turns, run in its checkout's root: that checkout's own
-# time_window of each window given.
-_SIDE = ("import json, sys, torch\n"
-         "from khmer_tpu_torch.scripts.trim_bench import time_window\n"
+# One side of in_turns, run in the root of its checkout (its package
+# first on the path): this file's time_shape of each shape and
+# time_window of each window, on that checkout's kernels.
+_SIDE = ("import importlib.util as iu, json, sys, torch\n"
+         "spec = iu.spec_from_file_location('bench', sys.argv[1])\n"
+         "bench = iu.module_from_spec(spec)\n"
+         "spec.loader.exec_module(bench)\n"
          "dev = torch.device('cuda', 0)\n"
-         "for at in map(int, sys.argv[1:]):\n"
-         "    print(json.dumps(time_window(dev, at=at)), flush=True)\n")
+         "reads, shapes, ats = json.loads(sys.argv[2])\n"
+         "for shape in shapes:\n"
+         "    print(json.dumps(bench.time_shape(dev, shape, reads)),\n"
+         "          flush=True)\n"
+         "for at in ats:\n"
+         "    print(json.dumps(bench.time_window(dev, at=at)), flush=True)\n")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def in_turns(parent, ats):
-    """Windows `ats` timed by the checkout at `parent` and by this one in
-    turns, parent, this, this, parent, each side in a process of its own:
-    yields (side, time_window's result)."""
+def in_turns(parent, shapes, ats, reads=None):
+    """Kernel H on `shapes` and windows `ats` timed on the kernels of the
+    checkout at `parent` and of this one in turns, parent, this, this,
+    parent, each side in a process of its own: yields (side, result)."""
+    job = json.dumps([reads, shapes, ats])
     for side, root in (("parent", parent), ("change", _REPO),
                        ("change", _REPO), ("parent", parent)):
         out = subprocess.run(
-            [sys.executable, "-c", _SIDE] + [str(a) for a in ats],
+            [sys.executable, "-c", _SIDE, os.path.abspath(__file__), job],
             cwd=root, capture_output=True, text=True, check=True).stdout
         for line in out.splitlines():
             yield side, json.loads(line)
 
 
+def _synth_dir(shapes):
+    """A directory in the repo root holding the synthetic reads when shape
+    (b) is asked for, else None."""
+    if "b" not in shapes:
+        return None
+    from khmer_tpu_torch.scripts.synth_reads import write_reads
+
+    tmp = tempfile.TemporaryDirectory(prefix=".trim_bench_", dir=_REPO)
+    write_reads(os.path.join(tmp.name, "synth.fa"))
+    return tmp
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--at", type=int, nargs="+", default=[6],
-                    help="windows to time (default: 6)")
+    ap.add_argument("--at", type=int, nargs="+",
+                    help="windows to time G and H on (default: 6, none "
+                    "with --parent)")
+    ap.add_argument("--shapes", nargs="+", choices=sorted(H_SHAPES),
+                    help="H_SHAPES to time H alone on (default with "
+                    "--parent: a b c d)")
     ap.add_argument("--parent", metavar="DIR",
                     help="time them in turns with the checkout at DIR")
     ap.add_argument("--counts", type=int, default=0,
@@ -342,13 +487,23 @@ def main(argv=None):
         return
     if not torch.cuda.is_available():
         raise RuntimeError("trim_bench needs a CUDA device")
-    if a.parent:
-        for side, out in in_turns(a.parent, a.at):
-            print(json.dumps(dict(side=side, **out)), flush=True)
-        return
-    dev = torch.device("cuda", torch.cuda.current_device())
-    for at in a.at:
-        print(json.dumps(time_window(dev, at=at)), flush=True)
+    shapes = a.shapes or (sorted(H_SHAPES) if a.parent else [])
+    ats = a.at or ([] if a.parent or a.shapes else [6])
+    tmp = _synth_dir(shapes)
+    reads = tmp and os.path.join(tmp.name, "synth.fa")
+    try:
+        if a.parent:
+            for side, out in in_turns(a.parent, shapes, ats, reads):
+                print(json.dumps(dict(side=side, **out)), flush=True)
+            return
+        dev = torch.device("cuda", torch.cuda.current_device())
+        for shape in shapes:
+            print(json.dumps(time_shape(dev, shape, reads)), flush=True)
+        for at in ats:
+            print(json.dumps(time_window(dev, at=at)), flush=True)
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
 
 
 if __name__ == "__main__":

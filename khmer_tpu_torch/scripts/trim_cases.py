@@ -24,12 +24,24 @@ scripts/diginorm_cases.py's ``window``: reads drawn from a short random
 genome, so k-mers repeat across and within bundles, with absent reads,
 reads shorter than k and reads of exactly k among them.
 
+``COUNT_CASES`` names the rows that hold kernel H alone to its plain
+version on the shapes its tiles and segments meet: one row of 1,000,000
+codes (the shape Countgraph.median_at_least sends for a 1 Mb sequence),
+a long-read run as row_runs packs reads of 5,000-15,000 bases, rows of L
+% 16 != 0 (no 16-byte loads past the first row) of one segment and of
+several, short reads mixed with long ones in one matrix and a tile's tail
+of rows, k = 1 and 32 with reads of 0, 1 and 2 windows, and counters at
+254-255 under a bigcount table; each at several (cutoff, at_least),
+either order, equal and 0 among them, with windows zeroed so that rows
+turn bad at window 0, at a window of a later segment, or nowhere.
+
 ``check_case`` runs kernel G against trim_window_plain, each of its
 launches (mark, probe, walk) against its plain version, and kernel H
 against read_counts_plain on one case, H also with a bigcount table and
-thresholds above 255; ``check_long_window`` runs the port's
-ScanTrimmerState on the card and on the CPU over windows holding reads of
-5,000 to 15,000 bases.
+thresholds above 255; ``check_counts_case`` runs kernel H against
+read_counts_plain on one of COUNT_CASES; ``check_long_window`` runs the
+port's ScanTrimmerState on the card and on the CPU over windows holding
+reads of 5,000 to 15,000 bases.
 
     python -m khmer_tpu_torch.scripts.trim_cases   # every case, on the card
 """
@@ -40,6 +52,7 @@ import numpy as np
 import torch
 
 from khmer_tpu_torch.core import sketch_kernels as K
+from khmer_tpu_torch.core.diginorm_scan import LONG_RUN_BYTES
 from khmer_tpu_torch.ops.u64 import umod
 from khmer_tpu_torch.scripts.byte_gather_bench import PRIME_SETS
 from khmer_tpu_torch.scripts.diginorm_cases import (BIG, MID, SMALL, _equal,
@@ -328,6 +341,110 @@ def check_case(name, dev):
     return out
 
 
+# rows row_runs packs into one run of reads of up to 15,000 bases
+LONG_RUN_ROWS = LONG_RUN_BYTES // (2 * 15000)
+# (cutoff, at_least) pairs each count case runs at
+THRESHOLDS = ((2, 20), (20, 2), (0, 0), (0, 5), (5, 0), (7, 7))
+BIG_THRESHOLDS = ((300, 300), (255, 255), (256, 260), (2, 300))
+
+# name: (primes, table fill (lo, hi), k, rows, row length, read lengths
+# (lo, hi), reads of 0, 1 and 2 windows among them, a bigcount table)
+COUNT_CASES = {
+    "one row of 1,000,000 codes": (PRIME_SETS["config-1"], (3, 40), 20, 1,
+                                   1_000_000, (1_000_000, 1_000_000),
+                                   False, False),
+    "long-read run": (PRIME_SETS["config-1"], (3, 40), 20, LONG_RUN_ROWS,
+                      15000, (5000, 15000), False, False),
+    "L=133 (L % 16 != 0)": (BIG, (3, 40), 20, 1000, 133, (1, 133), True,
+                            False),
+    "L=5003 (L % 16 != 0)": (BIG, (3, 40), 20, 41, 5003, (1, 5003), True,
+                             False),
+    "short and long reads mixed": (BIG, (3, 40), 20, 301, 15000, (30, 150),
+                                   True, False),
+    "short rows, a tile's tail": (BIG, (3, 40), 20, 53, 128, (1, 128), True,
+                                  False),
+    "k=1": (MID, (3, 40), 1, 300, 77, (0, 77), True, False),
+    "k=32": (BIG, (3, 40), 32, 40, 4099, (1, 4099), True, False),
+    "counters 254-255, bigcount": (BIG, (254, 255), 20, 60, 2000, (1, 2000),
+                                   True, True),
+}
+
+
+def _kmer_hash(codes, k):
+    """The canonical 2-bit hash of k codes (khmer_twobit::canonical)."""
+    f = r = 0
+    for i, c in enumerate(codes[:k]):
+        f = (f << 2) | int(c)
+        r |= (int(c) ^ 1) << (2 * i)
+    return min(f, r)
+
+
+def make_count_case(name, seed=20261101):
+    """(primes, k, codes, lengths, fill, thresholds, big) of count case
+    `name`: reads drawn from a random genome, long ones at the lengths the
+    case gives and, in the short-and-long case, every tenth read long;
+    fill is the flat tables (numpy uint8) with one table's counter of one
+    window zeroed in three rows of every four, row 0 first: a window past
+    the first segment (past window 0 where the read has one segment), any
+    later window, none, window 0 (none for k < 8, whose few k-mers every
+    row shares)."""
+    primes, (lo, hi), k, R, L, (n_lo, n_hi), edges, big = COUNT_CASES[name]
+    rng = np.random.default_rng(seed + sum(map(ord, name)))
+    genome = rng.integers(0, 4, max(L, 200_000) + 1, dtype=np.uint8)
+    lens = rng.integers(n_lo, n_hi + 1, R)
+    if L > n_hi:  # short reads with long ones among them
+        lens[::10] = rng.integers(5000, L + 1, len(lens[::10]))
+    if edges:  # reads of no window, of one and of two
+        lens[1:9] = (0, k - 1, k, k + 1, k, k + 1, L, L)
+    codes = np.zeros((R, L), dtype=np.uint8)
+    for r, n in enumerate(lens):
+        s0 = int(rng.integers(0, genome.shape[0] - n + 1))
+        codes[r, :n] = genome[s0:s0 + n]
+    fill = rng.integers(lo, hi + 1, K.byte_flat_size(primes),
+                        dtype=np.uint8)
+    seg = K.read_plan(L, k)["seg"]
+    offsets = K.byte_offsets(primes)
+    for r, n in enumerate(lens):
+        nw, kind = n - k + 1, (r + 2) % 4
+        if nw < 1 or kind == 0 or k < 8:  # 1-mers: all rows share them
+            continue
+        if kind == 1 or nw == 1:
+            j = 0
+        elif kind == 2:
+            j = int(rng.integers(seg if nw > seg else 1, nw))
+        else:
+            j = int(rng.integers(1, nw))
+        t = r % len(primes)
+        fill[offsets[t] + _kmer_hash(codes[r, j:j + k], k) % primes[t]] = 0
+    thresholds = THRESHOLDS + (BIG_THRESHOLDS if big else ())
+    return primes, k, codes, lens.astype(np.int32), fill, thresholds, big
+
+
+def check_counts_case(name, dev):
+    """Count case `name` on the card: kernel H against read_counts_plain at
+    each of the case's (cutoff, at_least), with its bigcount table where it
+    has one (diginorm's big_table: counts of 255 to 600). Returns the
+    differing outputs, the rows and the row length, the case's plan, and
+    the rows whose trim position is 0 and those at their full length."""
+    primes, k, codes, lengths, fill, thresholds, big = make_count_case(name)
+    c = torch.from_numpy(codes).to(dev)
+    n = torch.from_numpy(lengths).to(dev)
+    flat = torch.from_numpy(fill).to(dev)
+    table = big_table(primes, k, flat, c, n, dev) if big else None
+    out = {"rows": codes.shape[0], "L": codes.shape[1],
+           "plan": K.read_plan(codes.shape[1], k), "mismatches": 0,
+           "trim 0": 0, "untrimmed": 0}
+    for C, X in thresholds:
+        got = K.read_counts_cuda(primes, k, C, X, flat, c, n, table)
+        want = K.read_counts_plain(primes, k, C, X, flat, c, n, table)
+        out["mismatches"] += _mismatch(got, want)
+        out["trim 0"] += int((want[0] == 0).sum())
+        out["untrimmed"] += int((want[0] == n).sum())
+    del flat
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_long_window(dev, cutoff=2, trim_cov=3):
     """ScanTrimmerState on a countgraph on the card against one on the CPU
     (the plain versions) over diginorm_cases.long_read_windows: mismatched
@@ -369,6 +486,10 @@ def main():
         got = check_case(name, dev)
         failed += (got["scan"] + got["counts"] + got["mark"]
                    + got["probe"] + got["walk"])
+        print(json.dumps(dict(case=name, **got)), flush=True)
+    for name in COUNT_CASES:
+        got = check_counts_case(name, dev)
+        failed += got["mismatches"]
         print(json.dumps(dict(case=name, **got)), flush=True)
     got = check_long_window(dev)
     failed += got["mismatches"]

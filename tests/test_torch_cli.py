@@ -159,6 +159,7 @@ def test_port_imports_no_jax():
             "khmer_tpu_torch.utils.trimming, "
             "khmer_tpu_torch.scripts.trim_cases, "
             "khmer_tpu_torch.scripts.trim_bench, "
+            "khmer_tpu_torch.scripts.read_counts_variants, "
             "khmer_tpu_torch.core.diginorm, "
             "khmer_tpu_torch.core.diginorm_scan, "
             "khmer_tpu_torch.io.pairing, "

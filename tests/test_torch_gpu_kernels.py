@@ -452,6 +452,38 @@ def test_trim_kernels_match_plain(cuda_device, name):
         assert got["big entries"] > 0 and got["big moved"] > 0, got
 
 
+@pytest.mark.parametrize("name", list(trim_cases.COUNT_CASES))
+def test_read_counts_count_cases_match_plain(cuda_device, name):
+    """Kernel H against read_counts_plain on the rows of
+    trim_cases.COUNT_CASES: one row of 1,000,000 codes, a long-read run of
+    row_runs, rows of L % 16 != 0, short reads mixed with long ones, a
+    tile's tail of rows, k 1 and 32, counters at 254-255 with a bigcount
+    table; at every threshold pair of the case."""
+    got = trim_cases.check_counts_case(name, cuda_device)
+    assert got["mismatches"] == 0, got
+    assert got["trim 0"] > 0 and got["untrimmed"] > 0, got
+
+
+def test_read_counts_spreads_a_long_row_over_blocks(cuda_device):
+    """Rows of several segments, launched twice on the same inputs: the
+    same answers each time (each call's scratch is cleared on the stream
+    before its launch), equal to the plain version's, and one launch
+    counted a call."""
+    primes, k, codes, lengths, fill, _, _ = trim_cases.make_count_case(
+        "L=5003 (L % 16 != 0)")
+    c = torch.from_numpy(codes).to(cuda_device)
+    n = torch.from_numpy(lengths).to(cuda_device)
+    flat = torch.from_numpy(fill).to(cuda_device)
+    assert K.read_plan(c.shape[1], k)["segs"] > 1
+    before = K.read_counts_cuda.launches
+    first = K.read_counts_cuda(primes, k, 2, 20, flat, c, n)
+    again = K.read_counts_cuda(primes, k, 2, 20, flat, c, n)
+    want = K.read_counts_plain(primes, k, 2, 20, flat, c, n)
+    assert all(torch.equal(a, b) for a, b in zip(first, want))
+    assert all(torch.equal(a, b) for a, b in zip(again, want))
+    assert K.read_counts_cuda.launches == before + 2
+
+
 def test_scan_trimmer_long_reads_on_cuda(cuda_device):
     """ScanTrimmerState on the card against the CPU's over windows holding
     reads of 5,000 to 15,000 bases: kernel G once a run of row_runs, the

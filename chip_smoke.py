@@ -56,7 +56,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
      2 windows, counters at 254-255 under a bigcount table; cutoff and
      at_least 0, equal and in either order; bad windows at window 0, in a
      later segment only, or nowhere), and the port's ScanTrimmerState on
-     the card against the CPU's over the long-read windows;
+     the card against the CPU's over the long-read windows; the Bloom-
+     filter update (kernel J) and the murmur + HLL register max (kernel
+     K) on the cases of scripts/graph_cases.py (crowded bins that split a
+     bucket, one hash x 2^20, hashes >= 2^63 on 8 tables, bits already
+     set, a valid mask with nvalid < m, empty batches, bit indices past
+     2^32; p 4, 14 and 18, k 4, 17, 20, 31 and 32, palindromes, reads
+     shorter than k and across read boundaries, a continued first read, a
+     fill short of the codes, a read over eight tiles);
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
      blocked, k=20, 4 x 5e7 bytes) on data/25k.fq.gz, then the abundance
      histogram; results must equal the JAX package's and the blocked
@@ -66,7 +73,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
   4b. config 1, exact (the default layout): load-into-counting, then
      abundance-dist on the .ct; every known JAX answer is asserted and the
      byte update, byte gather and histogram kernels must have launched on
-     this path; consume k-mers/s on the record and native-parser paths;
+     this path, and the bit-table update (kernel J) as abundance-dist's
+     tracking update; a traced abundance-dist; J on its first batch; consume k-mers/s on the record and native-parser paths;
      the byte gather on one abundance batch (beside its byte bound and its
      sector floor) and on 2^20 random live hashes;
   5. scale, blocked: the 25k stream replayed 50 times through kernel and
@@ -96,7 +104,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
      seeded synthetic reads (scripts/synth_reads.py); the JAX answers
      asserted, the device memory beside the tables, the median test's
      loads (asserted below every table of every window: its rounds
-     engaged), the scan's groups, a traced run; both
+     engaged), the scan's groups, a traced run on the first 250,000
+     of the reads (the run's depth cut to keep the script's time); both
      kernels on its window 6 against their plain versions, beside their
      bounds and E's sector floor;
   8. config 3 at the reference's parameters through the port's CLIs:
@@ -116,10 +125,26 @@ Phases (each prints a line; any failure raises and exits non-zero):
      (trim_bench H_SHAPES (c) and (d));
   8b. trim-low-abund -k 20 -C 2 -x 1e9 -N 4 (4 GB of tables) on phase 7b's
      1,000,000 synthetic reads; the JAX answers asserted, the device
-     memory beside the tables, the scan's counts, a traced run, the
-     kernels on its window 6.
+     memory beside the tables, the scan's counts, a traced run on the
+     first 250,000 of the reads, the kernels on window 6;
+  9. config 4 as BASELINE runs it: the port's unique-kmers -k 20 -e 0.01
+     and load-graph -k 20 -x 2.5e7 -N 4 on data/stamps-genomes.fa; the
+     JAX answers (estimate 7,948; n_unique, tags, and the .ng, .tagset
+     and .info sha256) asserted and kernels K and J seen to launch; wall
+     time, reads/s and k-mers/s; after 9b, the HLL consume and the tagged
+     consume of 9, 9a and 9b traced (scripts/trace_config4.py, in a
+     process of its own: device time of K and J, the busy share);
+  9a. the same on data/stamps-reads.fa.gz, load-graph at -x 12.5e6 (the
+     tagged consume config 5 starts from); K against its plain version
+     and scatter_reduce_ on the run's first native block;
+  9b. load-graph -k 20 -x 8e9 -N 4 (4 GB of bit tables) and unique-kmers
+     -k 20 on phase 7b's 1,000,000 synthetic reads; J against its plain
+     version on the stream's first 2^20 hashes, into those tables zeroed
+     (as the first chunk finds them: the time in the per-kernel line) and
+     into them as the whole stream left them (a side reading).
 Kernel times in the per-kernel line are CUDA-event times of calls issued
-back to back (scripts.cuda_ms), what a caller sees; the phase lines of
+back to back (scripts.cuda_ms), what a caller sees (J's at 9b each call
+alone after its tables are zeroed, scripts.reset_ms); the phase lines of
 the histogram and the gathers also print their device time alone
 (scripts.device_ms: the stream held while the calls are issued) and the
 host's time to issue one call. It prints the card's name and power
@@ -132,6 +157,7 @@ import csv
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -290,6 +316,49 @@ EXPECT_C3_SCALE = {
 }
 
 
+# Config 4 through the JAX package (khmer_tpu, CPU), the same under
+# KHMER_TPU_ENGINE=auto and =device: unique-kmers -k 20 -e 0.01 and
+# load-graph -k 20 -x 2.5e7 -N 4 on data/stamps-genomes.fa (the shape of
+# scripts/bench_configs.py:180); unique-kmers -k 20 and load-graph -k 20
+# -x 12.5e6 -N 4 on data/stamps-reads.fa.gz (config 5's tagged consume,
+# bench_configs.py:214-216). Phase 9b's answers: the JAX CLIs under
+# KHMER_TPU_ENGINE=auto only, load-graph at -x 8e9 -N 4 on phase 7b's
+# reads (its device engine ran at -x 1e8 only, and matched auto there).
+EXPECT_C4 = {
+    "genomes": {
+        "reads": 2, "kmers": 7962, "estimate": 7948, "n_unique": 7962,
+        "n_tags": 206,
+        "ng_sha256": "25975470d20cc3c8fa76f45b55d52ea7"
+                     "0e695b68ed8f99ce59ffd6d6e59ec0ba",
+        "ng_bytes": 12500039,
+        "tagset_sha256": "60a4aeb92583e7554138083ef677c440"
+                         "6d0655814d635747ae01c390966d48e3",
+        "info_sha256": "872dbca49fe379883dbba08435220a2a"
+                       "af144bf1a403ea9309206ec071082584"},
+    "stamps": {
+        "reads": 200000, "kmers": 16200000, "estimate": 542972,
+        "n_unique": 536430, "n_tags": 16121,
+        "ng_sha256": "b0f3ecd167f9abb4fbe752c474ec678d"
+                     "2981dbe0e1dd2c33f2f563d6c42f4385",
+        "ng_bytes": 6250029,
+        "tagset_sha256": "9a6c123f03eae3a72c29ed517aa0ec44"
+                         "b85e9576a9e132d481fd1e2c9c869329",
+        "info_sha256": "2087ffcbf8dc667641d0f4974c05814b"
+                       "6f3513d1b28417eba9fa857e6c2b28bb"},
+    "synth": {
+        "reads": 1000000, "kmers": 81000000, "estimate": 16167709,
+        "n_unique": 16031415, "n_tags": 527780,
+        "ng_sha256": "9eaf0a0f3259f1489860900f5a1c74b6"
+                     "61994bf5f1b3d8cf622b5721733660b1",
+        "ng_bytes": 4000000020,
+        "tagset_sha256": "ca41862106ef6d7da1287ba21efaf6bc"
+                         "c5b94c5e39f13344e4187a38c61c294b",
+        "info_sha256": "e579c4422598ee84629d2fc37387b0e5"
+                       "95d7dc054dfc0c474f03539bfe2a60cc"},
+}
+GENOMES = os.path.join(REPO, "data", "stamps-genomes.fa")
+
+
 class SmokeFailure(AssertionError):
     pass
 
@@ -301,6 +370,14 @@ def expect(cond, what):
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+T0 = time.perf_counter()
+
+
+def lap(label):
+    """The seconds since the script started, after `label`."""
+    say("  [%s ends at %.1f s]" % (label, time.perf_counter() - T0))
 
 
 def bound(nbytes, nops):
@@ -352,6 +429,7 @@ def main():
             say("  ptxas:", line.strip())
     say("phase 2 build: %.1f s (nvcc, sm_90a) -> %s"
         % (seconds, os.path.relpath(cuda.LIB_PATH, REPO)))
+    lap("phase 2")
 
     # -- phase 3: kernels vs plain versions, exact -------------------------
     errs = {name: 0 for name in ("blocked_update", "blocked_gather",
@@ -359,7 +437,7 @@ def main():
                                  "histogram_add", "proto_rmw",
                                  "diginorm_med", "diginorm_scan",
                                  "trim_mark", "trim_probe", "trim_scan",
-                                 "read_counts")}
+                                 "read_counts", "bit_update", "hll_add")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
         run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs)
@@ -372,53 +450,90 @@ def main():
     n_edges2 = run_gather2_edge_cases(torch, np, B, dev, errs)
     n_digi = run_diginorm_cases(torch, dev, errs)
     n_trim = run_trim_cases(torch, dev, errs)
+    n_bit, n_hll = run_graph_cases(torch, dev, errs)
     say("phase 3 exact: kernel == plain on %d blocked, %d byte, %d "
         "histogram, %d decoded-event, %d byte-gather-reduction, %d "
-        "blocked-gather-reduction, %d diginorm and %d trim cases (tables, "
-        "flags, n_unique, bigcount reports, counts, keep flags, branches, "
-        "trim positions)"
+        "blocked-gather-reduction, %d diginorm, %d trim, %d bit-table and "
+        "%d HLL cases (tables, flags, n_unique, bigcount reports, counts, "
+        "keep flags, branches, trim positions, registers)"
         % (len(cases), len(byte_cases), n_hist, n_proto, n_edges, n_edges2,
-           n_digi, n_trim))
+           n_digi, n_trim, n_bit, n_hll))
+    lap("phase 3")
 
     # -- phase 4: config 1, blocked, through the port's entry points -------
     launches = run_config1(torch, B, SK, dev, card, errs)
+    lap("phase 4")
 
     # -- phase 4b: config 1, exact layout, through the CLIs ---------------
     exact_launches, exact_timings = run_config1_exact(torch, np, SK, dev,
                                                       card, errs)
     launches.update(exact_launches)
+    lap("phase 4b")
 
     # -- phase 5: scale, blocked -------------------------------------------
     one = stream_hashes(np)
     timings = run_scale(torch, np, B, dev, card, errs, one)
+    lap("phase 5")
 
     # -- phase 5b: scale, exact layout -------------------------------------
     timings.update(exact_timings)
     timings.update(run_scale_exact(torch, np, SK, dev, card, errs, one))
+    lap("phase 5b")
 
     # -- phase 6: microbenchmarks -------------------------------------------
     timings.update(run_microbench(B, card, launches, errs))
+    lap("phase 6")
 
     # -- phase 7: config 2, normalize-by-median, through the CLI -----------
     digi_launches, digi_timings = run_config2(torch, SK, dev, card, errs)
     launches.update(digi_launches)
     timings.update(digi_timings)
+    lap("phase 7")
 
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
         reads, gen_s = synth_reads(tmp)
+        head = synth_head(reads)
 
         # -- phase 7b: config 2 at 4 GB of tables ----------------------------
-        run_config2_scale(torch, SK, dev, card, errs, reads, gen_s)
+        run_config2_scale(torch, SK, dev, card, errs, reads, head, gen_s)
+        lap("phase 7b")
 
         # -- phase 8: config 3 through the CLIs ------------------------------
         trim_launches, trim_timings = run_config3(torch, SK, dev, card,
                                                   errs)
         launches.update(trim_launches)
         timings.update(trim_timings)
+        lap("phase 8")
 
         # -- phase 8b: trim-low-abund at 4 GB of tables ----------------------
-        run_config3_scale(torch, SK, dev, card, errs, reads)
+        run_config3_scale(torch, SK, dev, card, errs, reads, head)
+        lap("phase 8b")
+
+        # -- phase 9: config 4, unique-kmers and load-graph, through the CLIs
+        graph_launches, _ = run_config4(torch, SK, dev, card, errs,
+                                        "phase 9", GENOMES, "2.5e7",
+                                        EXPECT_C4["genomes"])
+        launches.update(graph_launches)
+        lap("phase 9")
+
+        # -- phase 9a: config 4 on the real read set ------------------------
+        _, first_block = run_config4(torch, SK, dev, card, errs, "phase 9a",
+                                     STAMPS, "12.5e6", EXPECT_C4["stamps"])
+        timings["hll_add"] = time_hll_block(torch, SK, dev, card, errs,
+                                            first_block)
+        lap("phase 9a")
+
+        # -- phase 9b: load-graph on 4 GB of bit tables ----------------------
+        ng, _ = run_config4(torch, SK, dev, card, errs, "phase 9b", reads,
+                            "8e9", EXPECT_C4["synth"], keep_graph=True)
+        timings["bit_update"] = time_bit_chunk(torch, SK, dev, card, errs,
+                                               ng, reads)
+        del ng
+        torch.cuda.empty_cache()
+        lap("phase 9b")
+        trace_config4(torch, card, reads)
+        lap("phase 9's traces")
 
     kernels = []
     for name, source, replaces in (
@@ -444,7 +559,10 @@ def main():
             ("trim_scan", "trim_scan.cu",
              "khmer_tpu/core/diginorm_scan.py:168"),
             ("read_counts", "read_counts.cu",
-             "khmer_tpu/core/pipeline.py:755")):
+             "khmer_tpu/core/pipeline.py:755"),
+            ("bit_update", "bit_update.cu",
+             "khmer_tpu/core/sketch_kernels.py:204"),
+            ("hll_add", "hll_add.cu", "khmer_tpu/core/hll.py:65")):
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -852,11 +970,13 @@ def run_config1(torch, B, SK, dev, card, errs):
         cli_s = time.perf_counter() - t0
         cg = B.BlockedCountgraph.load(ct, device=dev)
         tracking = Nodegraph(K, 1, 1, primes=cg.hashsizes(), device=dev)
+        SK.bit_update_cuda.launches = 0
         t0 = time.perf_counter()
         hist = cg.abundance_distribution(DATA, tracking)
         hist_s = time.perf_counter() - t0
         launches = {"blocked_update": B.blocked_update_cuda.launches,
-                    "blocked_gather": B.blocked_gather_cuda.launches}
+                    "blocked_gather": B.blocked_gather_cuda.launches,
+                    "bit_update (tracking)": SK.bit_update_cuda.launches}
         with open(ct, "rb") as f:
             blob = f.read()
         with open(ct + ".info") as f:
@@ -880,6 +1000,7 @@ def run_config1(torch, B, SK, dev, card, errs):
     expect(nonzero[:8] == EXPECT["hist_head"], "histogram head")
     for name, n in launches.items():
         expect(n > 0, "%s never launched on the config-1 path" % name)
+    del launches["bit_update (tracking)"]
 
     _consume_rates(torch, lambda: B.BlockedCountgraph(K, 5e7, 4, device=dev),
                    (EXPECT["n_reads"], EXPECT["n_kmers"], EXPECT["n_unique"]),
@@ -893,7 +1014,7 @@ def run_config1(torch, B, SK, dev, card, errs):
 def time_blocked_batch(torch, B, SK, dev, cg, card, errs):
     """The first batch of the blocked histogram step on the config-1 table
     (scripts/hist_gather_bench.first_batch, through the step's own
-    sketch_kernels.abund_batch): kernel 2 over its unique hashes and
+    sketch_kernels.abund_batch): kernel 2 over its events' hashes and
     kernel C over its indices, each against its plain version (C also
     against torch.bincount), timed at the shapes the main path gives them,
     as issued and on the device alone, with the host's time a call."""
@@ -938,7 +1059,7 @@ def time_blocked_batch(torch, B, SK, dev, cg, card, errs):
     g_bytes, sectors = blocked_floors(nb, uh)
     g_bound = bound(g_bytes, n * B.SUB)
     h_bound = bound(8 * n + 16 * int((lib != 0).sum()), n)
-    say("  blocked batch: %d unique-hash slots; blocked_gather kernel %.4f "
+    say("  blocked batch: %d events; blocked_gather kernel %.4f "
         "ms (device %.4f ms, host %.1f us a call), plain %.4f ms, bound "
         "%.4f ms (%s), sector floor %.4f ms (%d distinct (block, quarter) "
         "sectors); histogram_add into %d bins kernel %.4f ms (device %.4f "
@@ -967,6 +1088,7 @@ def run_config1_exact(torch, np, SK, dev, card, errs):
         SK.byte_update_cuda.launches = 0
         SK.byte_gather_cuda.launches = 0
         SK.histogram_add_cuda.launches = 0
+        SK.bit_update_cuda.launches = 0
         t0 = time.perf_counter()
         load_into_counting.main(
             ["-q", "-k", str(K), "-x", "5e7", "-N", "4", "--device", "cuda",
@@ -980,6 +1102,7 @@ def run_config1_exact(torch, np, SK, dev, card, errs):
         launches = {"byte_update": SK.byte_update_cuda.launches,
                     "byte_gather": SK.byte_gather_cuda.launches,
                     "histogram_add": SK.histogram_add_cuda.launches}
+        j_hist = SK.bit_update_cuda.launches
         with open(ct, "rb") as f:
             blob = f.read()
         with open(ct + ".info") as f:
@@ -987,6 +1110,10 @@ def run_config1_exact(torch, np, SK, dev, card, errs):
         with open(hist_csv, "rb") as f:
             csv_blob = f.read()
         cg = load_countgraph(ct, device=dev)
+        t_wall, t_dev, found, _ = _traced_cli(
+            torch, abundance_dist.main,
+            ["-q", "--device", "cuda", ct, DATA, hist_csv + ".traced"], tmp,
+            _J_TRACED + ("histogram", "gather"), top=6)
 
     rows = list(csv.reader(csv_blob.decode().splitlines()))[1:]
     hist = [int(r[1]) for r in rows]
@@ -1018,6 +1145,16 @@ def run_config1_exact(torch, np, SK, dev, card, errs):
     expect(csv_sha == E["csv_sha256"], "histogram CSV sha256")
     for name, n in launches.items():
         expect(n > 0, "%s never launched on the exact config-1 path" % name)
+    expect(j_hist > 0, "bit_update never launched in abundance-dist")
+    j_ms, j_n = _j_traced(found)
+    say("  abundance-dist traced: %.6f s, device %.4f ms (busy %.2f%%): "
+        "tracking update (kernel J) %.4f ms in %d launches = %.4f ms a "
+        "batch (%d kernels; %d launches untraced); histogram_add %.4f ms, "
+        "byte_gather %.4f ms; the most device time: %s; on %s"
+        % (t_wall, t_dev, 100 * t_dev / (t_wall * 1e3), j_ms,
+           SK.bit_update_cuda.launches - j_hist, j_ms / max(
+               SK.bit_update_cuda.launches - j_hist, 1), j_n, j_hist,
+           found["histogram"][0], found["gather"][0], found["top"], card))
 
     def make():
         g = Countgraph(K, 5e7, 4, device=dev)
@@ -1035,7 +1172,7 @@ def run_config1_exact(torch, np, SK, dev, card, errs):
 def time_abundance_batch(torch, np, SK, dev, cg, card, errs):
     """The first batch of abundance-dist's histogram step on the config-1
     .ct (scripts/hist_gather_bench.first_batch, through the step's own
-    sketch_kernels.abund_batch): the byte gather over its unique hashes
+    sketch_kernels.abund_batch): the byte gather over its events' hashes
     and the histogram of its indices, each kernel against its plain
     version (and the histogram against torch.bincount), at the shapes the
     main path gives them, as issued and on the device alone. Then the
@@ -1083,13 +1220,14 @@ def time_abundance_batch(torch, np, SK, dev, cg, card, errs):
     expect(torch.equal(acc_k, acc_p), "histogram_add != plain, accumulated")
     t["hist_device"] = device_ms(hist, reps)
     t["hist_host_us"] = host_us(hist, reps)
+    j = time_tracking_update(torch, SK, dev, primes, errs)
     n = uh.shape[0]
     # least bytes: 8 B a hash, 4 B a count, each distinct counter once; the
     # sector floor: each distinct 32-byte sector of the counters once
     g_bytes, sectors = gather_floors(primes, uh)
     g_bound = bound(g_bytes, n * len(primes))
     h_bound = bound(8 * n + 16 * int((lib != 0).sum()), n)
-    say("  abundance batch: %d unique-hash slots, %d histogrammed; "
+    say("  abundance batch: %d events, %d histogrammed; "
         "byte_gather kernel %.4f ms (device %.4f ms), plain %.4f ms, bound "
         "%.4f ms (%s), sector floor %.4f ms (%d sectors); histogram_add "
         "into %d bins kernel %.4f ms (device %.4f ms, host %.1f us a call), "
@@ -1099,6 +1237,11 @@ def time_abundance_batch(torch, np, SK, dev, cg, card, errs):
            sectors * 32 / PEAK_BYTES_S * 1e3, sectors, nbins, t["hist"],
            t["hist_device"], t["hist_host_us"], t["hist_plain"],
            t["hist_library"], h_bound[0], h_bound[1], card))
+    say("  abundance batch's tracking update (kernel J, a fresh tracking "
+        "table a call): kernel %.4f ms (device %.4f ms), plain %.4f ms, "
+        "bound %.4f ms (%s); %d new of %d valid events; on %s"
+        % (j["ms"], j["device"], j["plain_ms"], j["bound_ms"],
+           j["bound_by"], j["new"], j["valid"], card))
     rnd = _dev_hashes(torch, np, np.random.default_rng(4).integers(
         0, 2**64, 1 << 20, dtype=np.uint64), dev)
     r = time_gather(primes, flat, rnd, reps)
@@ -1461,10 +1604,11 @@ def _run_cli(torch, main, args, cwd):
     return wall, err.getvalue(), got
 
 
-def _traced_cli(torch, main, args, cwd, kernels):
+def _traced_cli(torch, main, args, cwd, kernels, top=None):
     """_run_cli under torch.profiler: (wall s, device ms in all, {name:
     (ms, launches)} of the device kernels whose names hold each of
-    `kernels`, what main returned)."""
+    `kernels`, what main returned); with `top`, found["top"] lists the
+    `top` device entries that took the most time as (name, ms, count)."""
     from torch.autograd import DeviceType
 
     from khmer_tpu_torch.scripts.trace_config1 import _self_device_us
@@ -1480,6 +1624,10 @@ def _traced_cli(torch, main, args, cwd, kernels):
         hit = [e for e in events if name in e.key]
         found[name] = (sum(_self_device_us(e) for e in hit) / 1e3,
                        sum(e.count for e in hit))
+    if top:
+        ranked = sorted(events, key=_self_device_us, reverse=True)[:top]
+        found["top"] = [(e.key[:60], round(_self_device_us(e) / 1e3, 4),
+                         e.count) for e in ranked]
     return (wall, sum(_self_device_us(e) for e in events) / 1e3, found,
             got)
 
@@ -1632,6 +1780,20 @@ def _bench_window(w, label, errs, card):
     return w
 
 
+# phases 7b and 8b trace their CLIs on the first quarter of the reads
+TRACED_READS = 250_000
+
+
+def synth_head(reads, n=TRACED_READS):
+    """The first n reads of `reads` (two FASTA lines each), written beside
+    it."""
+    head = reads[:-len(".fa")] + "-head.fa"
+    with open(reads, "rb") as src, open(head, "wb") as dst:
+        for _ in range(2 * n):
+            dst.write(src.readline())
+    return head
+
+
 def synth_reads(tmp):
     """The 1,000,000 reads of scripts/synth_reads.py written in `tmp`, the
     input of phases 7b and 8b, their sha256 asserted: (path, seconds it
@@ -1648,13 +1810,14 @@ def synth_reads(tmp):
     return reads, gen_s
 
 
-def run_config2_scale(torch, SK, dev, card, errs, reads, gen_s):
+def run_config2_scale(torch, SK, dev, card, errs, reads, head, gen_s):
     """Config 2 at a table size users run: normalize-by-median -k 20 -C 20
     -x 1e9 -N 4 -s (4 GB of u8 tables) on 1,000,000 seeded synthetic
     reads (synth_reads), the JAX answers asserted, E and F seen to launch,
     the device memory beside the tables read; then a traced run without -s
-    for F's time a candidate, and E and F on window 6 against their plain
-    versions, timed beside their bounds."""
+    on the first TRACED_READS of them (`head`) for F's time a candidate,
+    and E and F on window 6 against their plain versions, timed beside
+    their bounds."""
     from khmer_tpu_torch.scripts.diginorm_bench import time_window
 
     E = EXPECT_C2_SCALE
@@ -1681,7 +1844,7 @@ def run_config2_scale(torch, SK, dev, card, errs, reads, gen_s):
         runs, cand = norm.scan_runs, int(norm.candidates)
         groups = int(norm.groups)
         t_wall, dev_ms, (e_ms, e_n), (f_ms, f_n), t_norm = _traced_normalize(
-            torch, args + [reads], traced)
+            torch, args + [head], traced)
         torch.cuda.empty_cache()
         w = time_window(dev, reads, k=20, x=1e9, reps=3)
     expect(min(launches) > 0, "diginorm kernels never launched at 4 GB")
@@ -1695,15 +1858,16 @@ def run_config2_scale(torch, SK, dev, card, errs, reads, gen_s):
         ".keep sha256 %s, .ct %d B sha256 %s (the JAX answers); tables "
         "%.3f GB, peak device memory %.3f GB, beside the tables %.1f MB (a "
         "u32 copy of the tables would add %.3f GB); %d scan runs, %d scan "
-        "candidates; launches %s; traced: %.6f s, device %.4f ms (busy "
-        "%.2f%%), diginorm_med %.4f ms in %d launches, diginorm_scan %.4f "
-        "ms in %d launches, %.3f us a candidate; on %s"
+        "candidates; launches %s; traced on the first %d reads: %.6f s, "
+        "device %.4f ms (busy %.2f%%), diginorm_med %.4f ms in %d "
+        "launches, diginorm_scan %.4f ms in %d launches, %.3f us a "
+        "candidate; on %s"
         % (E["reads"], gen_s, wall, E["reads"] / wall, got[0], got[1],
            got[2], got[4], got[3], tables / 1e9, peak / 1e9,
            (peak - tables) / 1e6, 4 * tables / 1e9, runs, cand,
-           launches, t_wall, dev_ms, 100 * dev_ms / (t_wall * 1e3), e_ms,
-           e_n, f_ms, f_n, f_ms * 1e3 / max(int(t_norm.candidates), 1),
-           card))
+           launches, TRACED_READS, t_wall, dev_ms,
+           100 * dev_ms / (t_wall * 1e3), e_ms, e_n, f_ms, f_n,
+           f_ms * 1e3 / max(int(t_norm.candidates), 1), card))
     _bench_window(w, "-x 1e9", errs, card)
     torch.cuda.empty_cache()
 
@@ -2000,13 +2164,14 @@ def _trim_bench_window(w, label, errs, card):
     return w
 
 
-def run_config3_scale(torch, SK, dev, card, errs, reads):
+def run_config3_scale(torch, SK, dev, card, errs, reads, head):
     """trim-low-abund at a table size users run: -k 20 -C 2 -x 1e9 -N 4 -s
     --summary-info json (4 GB of u8 tables) on the 1,000,000 synthetic
     reads (50x coverage, 1% substitutions: the load trim-low-abund exists
     for), the JAX answers asserted, G and H seen to launch, the device
-    memory beside the tables read; then a traced run without -s, and G and
-    H on its window 6 against their plain versions, beside their bounds."""
+    memory beside the tables read; then a traced run without -s on the
+    first TRACED_READS of them (`head`), and G and H on window 6 against
+    their plain versions, beside their bounds."""
     from khmer_tpu_torch.cli import trim_low_abund
     from khmer_tpu_torch.scripts.trim_bench import time_window
 
@@ -2016,9 +2181,9 @@ def run_config3_scale(torch, SK, dev, card, errs, reads):
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
         run, traced = os.path.join(tmp, "run"), os.path.join(tmp, "trace")
-        for d in (run, traced):
+        for d, src in ((run, reads), (traced, head)):
             os.makedirs(d)
-            os.symlink(reads, os.path.join(d, "synth.fa"))
+            os.symlink(src, os.path.join(d, "synth.fa"))
         _trim_launch_counters(SK)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2058,6 +2223,307 @@ def run_config3_scale(torch, SK, dev, card, errs, reads):
            (peak - tables) / 1e6, launches, card))
     _trim_bench_window(w, "-x 1e9", errs, card)
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (kernels J and K) and phase 9: config 4, unique-kmers and
+# load-graph
+# ---------------------------------------------------------------------------
+
+# kernel J's launches in a trace: its templates over BitEvents and the
+# bucketed core's scan and finalize (no other update runs beside it)
+_J_TRACED = ("BitEvents", "scan_kernel", "finalize_kernel")
+
+
+def _j_traced(found):
+    """(device ms, kernel launches) of kernel J in a _traced_cli result."""
+    return (sum(found[n][0] for n in _J_TRACED),
+            sum(found[n][1] for n in _J_TRACED))
+
+
+def run_graph_cases(torch, dev, errs):
+    """Kernels J and K against their plain versions on the cases of
+    scripts/graph_cases.py."""
+    from khmer_tpu_torch.scripts import graph_cases
+
+    for name in graph_cases.BIT_CASES:
+        err = graph_cases.check_bit_case(name, dev)
+        errs["bit_update"] = max(errs["bit_update"], err)
+        expect(err == 0, "bit_update != plain on case %s" % name)
+        torch.cuda.empty_cache()
+    for name in graph_cases.HLL_CASES:
+        err = graph_cases.check_hll_case(name, dev)
+        errs["hll_add"] = max(errs["hll_add"], err)
+        expect(err == 0, "hll_add != plain on case %s" % name)
+    say("  graph cases: bit_update == plain on %s; hll_add == plain on %s"
+        % (", ".join(graph_cases.BIT_CASES),
+           ", ".join(graph_cases.HLL_CASES)))
+    return len(graph_cases.BIT_CASES), len(graph_cases.HLL_CASES)
+
+
+def run_config4(torch, SK, dev, card, errs, label, path, x, E,
+                keep_graph=False):
+    """Config 4 through the port's CLIs in this process: unique-kmers -k
+    20 -e 0.01 and load-graph -k 20 -x `x` -N 4 on `path`, the JAX
+    answers E asserted and kernels K and J seen to launch (launches set to
+    0 just before each CLI and read just after). Returns ({"bit_update":
+    J's launches in load-graph, "hll_add": K's in unique-kmers}, the first
+    native block of `path`); with keep_graph, in place of the launches, a
+    Nodegraph that took the tagged consume through the API."""
+    from khmer_tpu_torch.cli import load_graph, unique_kmers
+    from khmer_tpu_torch.core.sketch import Nodegraph
+    from khmer_tpu_torch.io import native
+
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        SK.hll_add_cuda.launches = 0
+        u_wall, u_err, _ = _run_cli(torch, unique_kmers.main, [
+            "-k", "20", "-e", "0.01", path], tmp)
+        k_launches = SK.hll_add_cuda.launches
+        SK.bit_update_cuda.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        g_wall, g_err, _ = _run_cli(torch, load_graph.main, [
+            "-k", "20", "-x", x, "-N", "4", "out.ng", path], tmp)
+        peak = torch.cuda.max_memory_allocated(dev)
+        j_launches = SK.bit_update_cuda.launches
+        ng_path = os.path.join(tmp, "out.ng")
+        got = {
+            "estimate": int(re.search(
+                r"Total estimated number of unique 20-mers: (\d+)",
+                u_err).group(1)),
+            "n_unique": int(g_err.split(
+                "Total number of unique k-mers:")[1].split()[0]),
+            "n_tags": (os.path.getsize(ng_path + ".tagset") - 22) // 8}
+        got["ng_sha256"], got["ng_bytes"] = _file_sha256(ng_path)
+        got["tagset_sha256"], _ = _file_sha256(ng_path + ".tagset")
+        got["info_sha256"], _ = _file_sha256(ng_path + ".info")
+        os.remove(ng_path)
+    want = {key: E[key] for key in got}
+    expect(got == want, "%s: %s, JAX gives %s" % (label, got, want))
+    expect(k_launches > 0 and j_launches > 0, "%s: hll_add launched %d "
+           "times, bit_update %d" % (label, k_launches, j_launches))
+    tables = SK.bit_flat_size(SK.get_n_primes_near_x(4, float(x)))
+    say("%s config 4: unique-kmers -k 20 -e 0.01 %.6f s = %.6g reads/s = "
+        "%.6g k-mers/s, estimate %d; load-graph -k 20 -x %s -N 4 %.6f s = "
+        "%.6g reads/s = %.6g k-mers/s, n_unique %d, %d tags, .ng %d B "
+        "sha256 %s, .tagset sha256 %s, .info sha256 %s (the JAX answers); "
+        "bit tables %.3f GB, peak device memory %.3f GB; launches hll_add "
+        "%d, bit_update %d; on %s"
+        % (label, u_wall, E["reads"] / u_wall, E["kmers"] / u_wall,
+           got["estimate"], x, g_wall, E["reads"] / g_wall,
+           E["kmers"] / g_wall, got["n_unique"], got["n_tags"],
+           got["ng_bytes"], got["ng_sha256"], got["tagset_sha256"],
+           got["info_sha256"], tables / 1e9, peak / 1e9, k_launches,
+           j_launches, card))
+
+    codes, meta, _ = next(native.pack_blocks(path))
+    first = (codes, meta[:, 0].copy(), len(codes))
+    if not keep_graph:
+        return {"bit_update": j_launches, "hll_add": k_launches}, first
+    ng = Nodegraph(20, float(x), 4, device=dev)
+    ng.consume_seqfile_and_tag(path)
+    expect(ng.n_unique_kmers() == E["n_unique"] and ng.n_tags()
+           == E["n_tags"], "%s: the tagged consume" % label)
+    return ng, first
+
+
+def trace_config4(torch, card, reads):
+    """scripts/trace_config4.py in its own process (traces taken late in
+    this one lost device events: none of an HLL consume's launches, in
+    runs of under a second): the HLL consume and the tagged consume of
+    phases 9, 9a and 9b, each once untraced and once traced; their wall,
+    device time, busy share and K's and J's device time, and whether the
+    trace holds every launch the wrappers counted."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "khmer_tpu_torch.scripts.trace_config4",
+         "--synth", reads], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    expect(proc.returncode == 0, "trace_config4 failed:\n" + proc.stderr)
+    phases = {"stamps-genomes": "phase 9", "stamps-reads": "phase 9a",
+              "synth": "phase 9b"}
+    kmers = {"stamps-genomes": EXPECT_C4["genomes"]["kmers"],
+             "stamps-reads": EXPECT_C4["stamps"]["kmers"],
+             "synth": EXPECT_C4["synth"]["kmers"]}
+    for line in proc.stdout.splitlines():
+        r = json.loads(line)
+        say("  %s %s traced: %.6f s = %.6g k-mers/s, device %.4f ms (busy "
+            "%.2f%%): hll_add %.4f ms in %d launches, bit_update %.4f ms "
+            "in %d kernel launches (%d calls; trace %s); the most device "
+            "time: %s; on %s"
+            % (phases[r["input"]], r["run"], r["wall_ms"] / 1e3,
+               kmers[r["input"]] / (r["wall_ms"] / 1e3), r["device_ms"],
+               100 * r["busy_share"], r["hll_add_ms"], r["hll_add_kernels"],
+               r["bit_update_ms"], r["bit_update_kernels"],
+               r["calls"]["bit_update"],
+               "whole" if r["whole"] else "short of the launches",
+               [(n[:40], round(ms, 4), c) for n, ms, c in r["top"][:4]],
+               card))
+
+
+def time_hll_block(torch, SK, dev, card, errs, block):
+    """Kernel K on one native block of the run (a flat chunk) against its
+    plain version, and the register half alone as one PyTorch call
+    (scatter_reduce_ amax of precomputed indices and values), at -e 0.01
+    (p 14), k 20; its bound by operations (graph_cases.hll_ops)."""
+    import numpy as np
+
+    from khmer_tpu_torch.ops.hashing import murmur_hash_windows
+    from khmer_tpu_torch.scripts import cuda_ms, device_ms
+    from khmer_tpu_torch.scripts.graph_cases import hll_ops
+
+    codes, starts, fill = block
+    k, p = 20, 14
+    cd = torch.from_numpy(codes).to(dev)
+    sd = torch.from_numpy(starts.astype(np.int64)).to(dev)
+    rk = torch.zeros(1 << p, dtype=torch.uint8, device=dev)
+    rp = rk.clone()
+    SK.hll_add_cuda(rk, cd, sd, fill, k)
+    SK.hll_add_plain(rp, cd, sd, fill, k)
+    err = int((rk.to(torch.int32) - rp.to(torch.int32)).abs().max())
+    errs["hll_add"] = max(errs["hll_add"], err)
+    expect(err == 0, "hll_add != plain on the first block")
+    h = murmur_hash_windows(cd[:fill], k)[0]
+    valid = SK._flat_window_mask(sd, fill, k, dev)
+    index, rho = SK.hll_index_rho(h[valid], p)
+    rho = rho.to(torch.uint8)
+    lib = torch.zeros_like(rk)
+    nwin = int(valid.sum())
+    reps = 20
+    t = {"ms": cuda_ms(lambda: SK.hll_add_cuda(rk, cd, sd, fill, k), reps),
+         "device": device_ms(lambda: SK.hll_add_cuda(rk, cd, sd, fill, k),
+                             reps),
+         "plain_ms": cuda_ms(lambda: SK.hll_add_plain(rp, cd, sd, fill, k),
+                             3),
+         "library_ms": cuda_ms(lambda: lib.scatter_reduce_(
+             0, index, rho, "amax"), reps)}
+    expect(torch.equal(lib, rk), "scatter_reduce_ registers != hll_add's")
+    b = bound(fill + 8 * starts.shape[0] + 2 * (1 << p), hll_ops(k, nwin))
+    say("  hll_add on the first native block (%d codes, %d reads, %d "
+        "windows, p %d): kernel %.4f ms (device %.4f ms) = %.4g windows/s, "
+        "plain %.4f ms, scatter_reduce_ amax of the registers alone %.4f "
+        "ms, bound %.4f ms (%s: %.4g operations); on %s"
+        % (fill, starts.shape[0], nwin, p, t["ms"], t["device"],
+           nwin / (t["device"] / 1e3), t["plain_ms"], t["library_ms"], b[0],
+           b[1], hll_ops(k, nwin), card))
+    return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": t["library_ms"]}
+
+
+def time_tracking_update(torch, SK, dev, primes, errs):
+    """Kernel J as abundance-dist's step calls it on its first batch
+    (scripts/hist_gather_bench.first_events: every window of the batch's
+    rows, with its valid mask) into the config-1 tracking tables, each
+    call on a fresh zeroed table (as the first batch finds it), against
+    its plain version; its byte bound: 8 B a hash, 1 B a flag and a mask
+    byte, each distinct table byte the valid events touch read and
+    written."""
+    from khmer_tpu_torch.scripts import cuda_ms, device_ms
+    from khmer_tpu_torch.scripts.hist_gather_bench import first_events
+
+    hashes, valid = first_events(dev)
+    n = hashes.shape[0]
+    reps = 20
+    fresh = [SK.init_tables("bit", primes, dev)
+             for _ in range(2 * reps + 3)]
+    nu = torch.zeros(1, dtype=torch.int64, device=dev)
+    flags = SK.bit_update_cuda(primes, fresh.pop(), nu, hashes, n, valid)
+    plain = SK.bit_update_plain(primes, fresh.pop(), nu.clone(), hashes, n,
+                                valid)
+    err = int((flags != plain).sum())
+    errs["bit_update"] = max(errs["bit_update"], err)
+    expect(err == 0, "bit_update != plain on the abundance batch")
+
+    def kernel():
+        return SK.bit_update_cuda(primes, fresh.pop(), nu, hashes, n, valid)
+
+    t = {"ms": cuda_ms(kernel, reps - 1), "device": device_ms(kernel,
+                                                             reps - 1)}
+    spare = [SK.init_tables("bit", primes, dev) for _ in range(4)]
+    t["plain_ms"] = cuda_ms(lambda: SK.bit_update_plain(
+        primes, spare.pop(), nu, hashes, n, valid), 3)
+    live = hashes[valid]
+    touched = torch.cat([SK.umod(live, p) // 8 + off for p, off in zip(
+        primes, SK.bit_offsets(primes))])
+    nbytes = int(torch.unique(touched).numel())
+    b = bound(10 * n + 2 * nbytes, live.shape[0] * len(primes))
+    t.update(bound_ms=b[0], bound_by=b[1], new=int(flags.sum()),
+             valid=int(valid.sum()))
+    del fresh, spare
+    torch.cuda.empty_cache()
+    return t
+
+
+def time_bit_chunk(torch, SK, dev, card, errs, ng, reads):
+    """Kernel J on the first 2^20 hashes of the stream (load-graph's first
+    chunk) against its plain version at phase 9b's size (4 tables, 4 GB):
+    first, as a side reading, into the tables as the whole stream left
+    them (every bit of the chunk set, no flag, the tables unchanged);
+    then into the tables zeroed, as the first chunk finds them, each call
+    timed alone after the tables are zeroed again. Its byte bound there:
+    8 B a hash, 1 B a flag, each distinct table byte the chunk touches
+    read and written. Leaves ng's tables zeroed."""
+    from khmer_tpu_torch.core.graphmixin import dense_hashes, read_blocks
+    from khmer_tpu_torch.core.sketch import _hashes_tensor
+    from khmer_tpu_torch.scripts import cuda_ms, reset_ms
+
+    codes, offs, lens = next(read_blocks(reads))
+    h = _hashes_tensor(dense_hashes(codes, offs, lens, 20)[0][:1 << 20],
+                       dev)
+    n = h.shape[0]
+    primes, tables = ng._primes, ng.tables
+    nu = torch.zeros(1, dtype=torch.int64, device=dev)
+    before = tables.flat[:1 << 20].clone()
+    fk = SK.bit_update_cuda(primes, tables, nu, h, n)
+    fp = SK.bit_update_plain(primes, tables, nu.clone(), h, n)
+    err = int((fk != fp).sum()) + int(nu) + int(fk.sum())
+    expect(err == 0 and torch.equal(before, tables.flat[:1 << 20]),
+           "bit_update on 9b's full tables: %d differences" % err)
+    errs["bit_update"] = max(errs["bit_update"], err)
+    set_ms = cuda_ms(lambda: SK.bit_update_cuda(primes, tables, nu, h, n),
+                     20)
+
+    def zero():
+        tables.flat.zero_()
+
+    zero()
+    fk = SK.bit_update_cuda(primes, tables, nu, h, n)
+    nk, kflat = int(nu), tables.flat.clone()
+    zero()
+    nu.zero_()
+    fp = SK.bit_update_plain(primes, tables, nu, h, n)
+    err = int((fk != fp).sum()) + abs(nk - int(nu)) + int(
+        (kflat != tables.flat).sum())
+    del kflat
+    torch.cuda.empty_cache()
+    expect(err == 0, "bit_update on 9b's zeroed tables: %d differences"
+           % err)
+    errs["bit_update"] = max(errs["bit_update"], err)
+    touched = torch.cat([SK.umod(h, p) // 8 + off for p, off in zip(
+        primes, SK.bit_offsets(primes))])
+    nbytes = int(torch.unique(touched).numel())
+    del touched
+
+    def kernel():
+        SK.bit_update_cuda(primes, tables, nu, h, n)
+
+    reps = 20
+    t = {"ms": reset_ms(zero, kernel, reps, False)[0],
+         "device": reset_ms(zero, kernel, reps, True)[0],
+         "plain_ms": reset_ms(zero, lambda: SK.bit_update_plain(
+             primes, tables, nu, h, n), 3, False)[0]}
+    zero()
+    b = bound(9 * n + 2 * nbytes, n * len(primes))
+    say("  bit_update on a %d-hash chunk, 4 tables of %.3f GB, zeroed: %d "
+        "new; kernel %.4f ms (device %.4f ms) = %.4g hashes/s, plain %.4f "
+        "ms, bound %.4f ms (%s; %d distinct table bytes); into the tables "
+        "after the whole stream (every bit set; a side reading) %.4f ms; "
+        "on %s"
+        % (n, tables.flat.shape[0] / 1e9, nk, t["ms"], t["device"],
+           n / (t["device"] / 1e3), t["plain_ms"], b[0], b[1], nbytes,
+           set_ms, card))
+    return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": None}
 
 
 if __name__ == "__main__":

@@ -6,14 +6,27 @@ kernels as hand-written CUDA for Hopper (csrc/). It imports no JAX.
 Ported so far: the counting path in the exact byte layout (Countgraph,
 bigcount, OXLI type-1 files, the default of load-into-counting) and in
 the blocked layout, the abundance histogram (abundance-dist,
-abundance-dist-single) and digital normalization (normalize-by-median).
+abundance-dist-single), digital normalization (normalize-by-median),
+trimming (trim-low-abund, filter-abund, filter-abund-single), the
+HyperLogLog counter (unique-kmers) and the Nodegraph with its tags
+(load-graph).
 Sketches are made on the card ("cuda") unless the caller names another
 device.
 """
 
 __version__ = "0.1.0"
 
+# Memory-per-bucket ratios per graph type (reference: khmer/__init__.py:86-92)
+_buckets_per_byte = {
+    # calculated by hand from settings in third-party/cqf/gqf.h
+    "qfcounttable": 1 / 1.26,
+    "countgraph": 1,
+    "smallcountgraph": 2,
+    "nodegraph": 8,
+}
+
 from khmer_tpu_torch.core.blocked import BlockedCountgraph  # noqa: E402
+from khmer_tpu_torch.core.hll import HLLCounter  # noqa: E402
 from khmer_tpu_torch.core.oxli_io import load_countgraph  # noqa: E402
 from khmer_tpu_torch.core.sketch import Countgraph, Nodegraph  # noqa: E402
 
@@ -53,6 +66,7 @@ def calc_expected_collisions(graph, force=False, max_false_pos=0.2):
 __all__ = [
     "BlockedCountgraph",
     "Countgraph",
+    "HLLCounter",
     "Nodegraph",
     "calc_expected_collisions",
     "load_countgraph",

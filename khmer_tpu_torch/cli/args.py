@@ -1,9 +1,11 @@
 """Argument parsing mirroring khmer_args (reference: khmer/khmer_args.py).
 
-A copy of the parts of khmer_tpu/cli/args.py that load-into-counting,
-abundance-dist, abundance-dist-single and normalize-by-median need: the
-same flags, memory model, sizing math and loadgraph checks, so the port's
-CLIs accept the same command lines, plus the device a sketch is made on.
+A copy of the parts of khmer_tpu/cli/args.py that the port's CLIs need
+(load-into-counting, abundance-dist, abundance-dist-single,
+normalize-by-median, the trim CLIs, unique-kmers, load-graph): the same
+flags, memory model, sizing math, loadgraph checks and sizing report, so
+the port's CLIs accept the same command lines, plus the device a sketch
+is made on.
 """
 
 import argparse
@@ -13,6 +15,7 @@ import textwrap
 from collections import namedtuple
 
 import khmer_tpu_torch
+from khmer_tpu_torch import _buckets_per_byte
 from khmer_tpu_torch.utils.logger import (configure_logging, log_info,
                                           log_warn, print_error)
 
@@ -21,14 +24,6 @@ DEFAULT_N_TABLES = 4
 DEFAULT_MAX_TABLESIZE = 1e6
 DEFAULT_N_THREADS = 1
 
-# Memory-per-bucket ratios per graph type (reference: khmer/__init__.py:86-92)
-_buckets_per_byte = {
-    # calculated by hand from settings in third-party/cqf/gqf.h
-    "qfcounttable": 1 / 1.26,
-    "countgraph": 1,
-    "smallcountgraph": 2,
-    "nodegraph": 8,
-}
 
 ALGORITHMS = {
     'software': 'MR Crusoe et al., '
@@ -168,6 +163,51 @@ def estimate_optimal_with_K_and_f(num_kmers, des_fp_rate):
     res = namedtuple("result", ["num_htables", "htable_size", "mem_use",
                                 "fp_rate"])
     return res(int_n_tables, ht_size, mem_cap, fp_rate)
+
+
+def optimal_size(num_kmers, mem_cap=None, fp_rate=None):
+    if all((num_kmers is not None, mem_cap is not None, fp_rate is None)):
+        return estimate_optimal_with_K_and_M(num_kmers, mem_cap)
+    elif all((num_kmers is not None, mem_cap is None,
+              fp_rate is not None)):
+        return estimate_optimal_with_K_and_f(num_kmers, fp_rate)
+    else:
+        raise TypeError("num_kmers and either mem_cap or fp_rate"
+                        " must be defined.")
+
+
+def graphsize_args_report(unique_kmers, fp_rate):
+    """Optimal-argument report (reference khmer_args.py:333-372)."""
+    to_print = []
+
+    to_print.append('')  # blank line
+    to_print.append('number of unique k-mers: \t{0}'.format(unique_kmers))
+    to_print.append('false positive rate: \t{:>.3f}'.format(fp_rate))
+    to_print.append('')  # blank line
+    to_print.append('If you have expected false positive rate to achieve:')
+    to_print.append('expected_fp\tnumber_hashtable(Z)\tsize_hashtable(H)\t'
+                    'expected_memory_usage')
+
+    for fp_rate in range(1, 10):
+        num_tables, table_size, mem_cap, fp_rate = \
+            optimal_size(unique_kmers, fp_rate=fp_rate / 10.0)
+        to_print.append('{:11.3f}\t{:19}\t{:17e}\t{:21e}'.format(
+            fp_rate, num_tables, table_size, mem_cap))
+
+    mem_list = [1, 5, 10, 20, 50, 100, 200, 300, 400, 500, 1000, 2000,
+                5000]
+
+    to_print.append('')  # blank line
+    to_print.append('If you have expected memory to use:')
+    to_print.append('expected_memory_usage\tnumber_hashtable(Z)\t'
+                    'size_hashtable(H)\texpected_fp')
+
+    for mem in mem_list:
+        num_tables, table_size, mem_cap, fp_rate = \
+            optimal_size(unique_kmers, mem_cap=mem * 1000000000)
+        to_print.append('{:21e}\t{:19}\t{:17e}\t{:11.3f}'.format(
+            mem_cap, num_tables, table_size, fp_rate))
+    return "\n".join(to_print)
 
 
 def check_conflicting_args(args, hashtype):
@@ -314,6 +354,11 @@ def build_counting_args(descr=None, epilog=None, citations=None):
     return parser
 
 
+def build_nodegraph_args(descr=None, epilog=None, citations=None):
+    return build_graph_args(descr=descr, epilog=epilog,
+                            citations=citations)
+
+
 def add_loadgraph_args(parser):
     parser.add_argument('-l', '--loadgraph', metavar="filename",
                         default=None,
@@ -335,14 +380,9 @@ def calculate_graphsize(args, graphtype, multiplier=1.0):
     return tablesize
 
 
-def create_countgraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,
-                      device="cuda"):
-    """The Countgraph the arguments ask for, on `device`, with bigcount
-    set from --no-bigcount where the script has it."""
-    from khmer_tpu_torch.core.sketch import Countgraph
-
-    args = _check_fp_rate(args, fp_rate)
-
+def _check_table_args(args, ksize):
+    """The table-count and k-size limits of create_nodegraph and
+    create_countgraph; returns the k-size."""
     if hasattr(args, 'force'):
         if args.n_tables > 20:
             if not args.force:
@@ -358,6 +398,28 @@ def create_countgraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,
     if ksize > 32:
         print_error("\n** ERROR: khmer only supports k-mer sizes <= 32.\n")
         sys.exit(1)
+    return ksize
+
+
+def create_nodegraph(args, ksize=None, multiplier=1.0, fp_rate=0.01,
+                     device="cuda"):
+    """The Nodegraph the arguments ask for, on `device`."""
+    from khmer_tpu_torch.core.sketch import Nodegraph
+
+    args = _check_fp_rate(args, fp_rate)
+    ksize = _check_table_args(args, ksize)
+    tablesize = calculate_graphsize(args, 'nodegraph', multiplier)
+    return Nodegraph(ksize, tablesize, args.n_tables, device=device)
+
+
+def create_countgraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,
+                      device="cuda"):
+    """The Countgraph the arguments ask for, on `device`, with bigcount
+    set from --no-bigcount where the script has it."""
+    from khmer_tpu_torch.core.sketch import Countgraph
+
+    args = _check_fp_rate(args, fp_rate)
+    ksize = _check_table_args(args, ksize)
 
     if args.small_count:
         print_error("** ERROR: --small-count (the nibble SmallCountgraph) "

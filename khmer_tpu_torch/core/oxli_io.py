@@ -10,6 +10,8 @@ sketches (little-endian):
                      n_bigcounts:u64 {hash:u64 count:u16}*
   Nodegraph (.pt):   "OXLI" ver=4 type=2 ksize:u32 n_tables:u8 occupied:u64
                      {tablesize:u64 bins:u8[n/8+1]}*
+  Tagset (.tagset):  "OXLI" ver=4 type=3 ksize:u32 n_tags:u64 density:u32
+                     tags:u64[n_tags] (ascending)
 
 Gzip variants are sniffed on read and chosen by a ".gz" file name on
 write. The blocked table (private type 127) is written in
@@ -26,11 +28,13 @@ SAVED_SIGNATURE = b"OXLI"
 SAVED_FORMAT_VERSION = 4
 SAVED_COUNTING_HT = 1
 SAVED_HASHBITS = 2
+SAVED_TAGS = 3
 SAVED_SMALLCOUNT = 7
 
 _TYPE_NAMES = {
     SAVED_COUNTING_HT: "k-mer count graph",
     SAVED_HASHBITS: "k-mer graph",
+    SAVED_TAGS: "tagset",
 }
 _TYPE_OF_KIND = {"byte": SAVED_COUNTING_HT, "bit": SAVED_HASHBITS}
 
@@ -169,3 +173,30 @@ def extract_countgraph_info(path):
         raise ValueError("Count graph file '{}' is corrupt ".format(path))
     return CgInfo(ksize, n_tables, round(tablesize, -2), use_bigcount,
                   version, ht_type, occupied)
+
+
+def save_tagset(path, ksize, tags, tag_density):
+    """reference: Hashgraph::save_tagset (hashgraph.cc:55-88)."""
+    arr = np.array(sorted(tags), dtype=np.uint64)
+    with _open_write(path) as f:
+        f.write(SAVED_SIGNATURE)
+        f.write(bytes([SAVED_FORMAT_VERSION, SAVED_TAGS]))
+        f.write(struct.pack("<IQI", ksize, len(arr), tag_density))
+        f.write(arr.tobytes())
+
+
+def load_tagset(path, expect_ksize=None):
+    """Returns (tags set, tag_density)."""
+    with _open_read(path) as f:
+        _check_header(f, SAVED_TAGS, path, "tagset")
+        (ksize,) = struct.unpack("<I", f.read(4))
+        if expect_ksize is not None and ksize != expect_ksize:
+            raise OSError(
+                "Incorrect k-mer size %d while reading tagset from %s"
+                % (ksize, path))
+        n, density = struct.unpack("<QI", f.read(12))
+        data = f.read(8 * n)
+        if len(data) != 8 * n:
+            raise OSError("Error reading data from: " + path)
+        tags = set(int(x) for x in np.frombuffer(data, dtype=np.uint64))
+        return tags, density

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from khmer_tpu_torch.core import sketch_kernels as K
+from khmer_tpu_torch.core.graphmixin import HashgraphMixin
 from khmer_tpu_torch.ops import hashing as H
 
 MAX_KCOUNT = K.MAX_KCOUNT
@@ -306,8 +307,13 @@ class Countgraph(_Sketch):
         return seq[:pos], pos
 
 
-class Nodegraph(_Sketch):
-    """Bloom filter with the 2-bit hash (reference Nodegraph)."""
+class Nodegraph(HashgraphMixin, _Sketch):
+    """Bloom filter with the 2-bit hash (reference Nodegraph), with the
+    tagging part of the graph API (core/graphmixin.py).
+
+    The T bit tables are views into one flat buffer (sketch_kernels.
+    BitTables); on a CUDA device the update is kernel J, which keeps only
+    the chunk's scratch."""
 
     storage_kind = "bit"
 
@@ -316,13 +322,13 @@ class Nodegraph(_Sketch):
         if primes is None:
             primes = K.get_n_primes_near_x(int(n_tables), int(starting_size))
         super().__init__(ksize, primes, device=device)
+        self._init_graph()
 
     def _update(self, hashes, nvalid):
-        valid = torch.arange(hashes.shape[0], device=hashes.device) < nvalid
-        d = K._dedup_batch(hashes, valid)
-        any_credit = K._apply_update(self.storage_kind, self._primes,
-                                     self.tables, d)
-        self._n_unique += (d["uvalid"] & any_credit).sum()
+        return K.bit_update(self._primes, self.tables, self._n_unique,
+                            hashes, nvalid,
+                            scratch=self._update_scratch(
+                                nvalid, len(self._primes)))
 
     def _count_nonzero_t0(self):
         return int(K.bit_occupied(self.tables[0]))

@@ -2,8 +2,9 @@
 
 Counterpart of khmer_tpu/core/sketch_kernels.py, the subset the counting
 slices need: the exact byte layout (update with its bigcount report,
-gather, occupancy), the bit (Bloom) table update behind the tracking
-table of the abundance histogram, the count gathers, the histogram step,
+gather, occupancy), the bit (Bloom) table update with per-event new
+flags (kernel J: the Nodegraph and the abundance histogram's tracking
+table), the HLL add (kernel K), the count gathers, the histogram step,
 and diginorm's median test and keep/consume scan (the XLA functions of
 khmer_tpu/core/diginorm_scan.py). A whole batch is committed at once,
 exactly equivalent to the sequential order of the batch:
@@ -146,6 +147,261 @@ def _apply_update(kind, primes, tables, d):
     for t, p in enumerate(primes):
         any_credit = any_credit | _bit_table_update(tables[t], p, d)
     return any_credit
+
+
+# --------------------------------------------------------------------------
+# the bit layout (BitStorage, reference storage.hh:95-229): kernel J
+# --------------------------------------------------------------------------
+
+
+def bit_table_bytes(prime):
+    """Bytes of one bit table of `prime` bits, as khmer stores it."""
+    return int(prime) // 8 + 1
+
+
+def bit_offsets(primes):
+    """Start (in bytes) of each bit table in the joined buffer."""
+    return [int(o) for o in np.cumsum(
+        [0] + [bit_table_bytes(p) for p in primes[:-1]])]
+
+
+def bit_flat_size(primes):
+    """Length of the joined bit buffer: the tables' bytes, padded to
+    whole 32-bit words (kernel J sets bits with 32-bit atomics; nothing
+    reads or writes the padding)."""
+    return (sum(bit_table_bytes(p) for p in primes) + 3) // 4 * 4
+
+
+class BitTables(tuple):
+    """The T bit tables of a Nodegraph: views of exactly p_t // 8 + 1
+    bytes (what save and load write) into one flat u8 buffer, ``flat``.
+    Bit b of table t is bit b % 8 of its byte b // 8, so flat bit
+    8 * offset_t + b: kernel J names every bit of the sketch by one
+    64-bit index into the flat buffer."""
+
+    def __new__(cls, flat, primes):
+        views = [flat[o:o + bit_table_bytes(p)]
+                 for o, p in zip(bit_offsets(primes), primes)]
+        obj = super().__new__(cls, views)
+        obj.flat = flat
+        return obj
+
+
+def _event_mask(hashes, nvalid, valid):
+    live = torch.arange(hashes.shape[0], device=hashes.device) < int(nvalid)
+    return live if valid is None else live & valid
+
+
+def bit_update_plain(primes, tables, n_unique, hashes, nvalid, valid=None):
+    """Bloom-filter test-and-set of the events i < nvalid (and valid[i],
+    where a mask is given) over the T bit tables, in stream order, in
+    place (plain PyTorch, any device): JAX's bit path, _dedup_batch +
+    _apply_update, with the per-event flags of its _update_dispatch
+    (pipeline.py:242-254). An event is new iff, in some table, it is the
+    lowest-index event of the batch to touch a bit that was 0 before it:
+    sequential BitStorage::add. Returns the new flags, bool [M]; n_unique
+    (int64 [1]) grows by their count."""
+    M = hashes.shape[0]
+    d = _dedup_batch(hashes, _event_mask(hashes, nvalid, valid))
+    new_u = d["uvalid"] & _apply_update("bit", primes, tables, d)
+    n_unique += new_u.sum()
+    flags = torch.zeros(M + 1, dtype=torch.bool, device=hashes.device)
+    flags[torch.where(new_u, d["ufirst"].to(torch.int64), M)] = True
+    return flags[:M]
+
+
+def bit_update_cuda(primes, tables, n_unique, hashes, nvalid, valid=None,
+                    scratch=None):
+    """Kernel J (csrc/bit_update.cu): bit_update_plain on the card, for
+    the BitTables `tables`. `scratch` is as for byte_update_cuda
+    (update_plan(nvalid, T) bytes, sized by the events, never by the
+    tables). Returns the new flags, bool [M]. Counts its launches in
+    ``bit_update_cuda.launches``."""
+    flat = tables.flat
+    dev = flat.device
+    if dev.type != "cuda":
+        raise ValueError("the CUDA kernels take CUDA tensors, not %s" % dev)
+    if not 1 <= len(primes) <= MAX_TABLES:
+        raise ValueError("kernel J takes 1 to %d tables, not %d"
+                         % (MAX_TABLES, len(primes)))
+    if (flat.dtype != torch.uint8 or flat.dim() != 1
+            or not flat.is_contiguous() or flat.data_ptr() % 4 != 0
+            or flat.shape[0] != bit_flat_size(primes)):
+        raise ValueError("tables.flat must be the contiguous uint8 buffer "
+                         "of bit_flat_size(primes) = %d bytes"
+                         % bit_flat_size(primes))
+    if hashes.device != dev or hashes.dtype != torch.int64 \
+            or hashes.dim() != 1 or not hashes.is_contiguous():
+        raise ValueError("hashes must be a contiguous 1-D int64 tensor on %s"
+                         % dev)
+    M = hashes.shape[0]
+    n = int(nvalid)
+    if not 0 <= n <= M:
+        raise ValueError("nvalid %d outside [0, %d]" % (n, M))
+    if valid is not None and (valid.device != dev
+                              or valid.dtype != torch.bool
+                              or valid.shape != (M,)
+                              or not valid.is_contiguous()):
+        raise ValueError("valid must be a contiguous bool [%d] tensor on %s"
+                         % (M, dev))
+    if (n_unique.device != dev or n_unique.dtype != torch.int64
+            or n_unique.numel() != 1):
+        raise ValueError("n_unique must be an int64 [1] tensor on %s" % dev)
+    flags = torch.empty(M, dtype=torch.bool, device=dev)
+    # held until the launch: the allocator may not hand it out meanwhile
+    scratch = update_scratch(scratch, n, len(primes), dev)
+    nbuckets, ptr = _scratch_ptrs(scratch, n, len(primes))
+    primes_arr, offsets_arr = _layout(primes, bits=True)
+    err = cuda.library().khmer_bit_update(
+        flat.data_ptr(), flat.shape[0], len(primes),
+        ctypes.addressof(primes_arr), ctypes.addressof(offsets_arr),
+        hashes.data_ptr(), _ptr(valid), M, n, nbuckets, *ptr[:4],
+        flags.data_ptr(), n_unique.data_ptr(), dev.index, _stream(dev))
+    cuda.check(err, "bit_update")
+    bit_update_cuda.launches += 1
+    return flags
+
+
+bit_update_cuda.launches = 0
+
+
+def bit_update(primes, tables, n_unique, hashes, nvalid, valid=None,
+               scratch=None):
+    """Bloom-filter update of the events i < nvalid (and valid[i]), in
+    place; returns their new flags: kernel J on CUDA tables, the plain
+    version on CPU ones."""
+    if tables.flat.is_cuda:
+        return bit_update_cuda(primes, tables, n_unique, hashes, nvalid,
+                               valid, scratch)
+    if tables.flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % tables.flat.device)
+    return bit_update_plain(primes, tables, n_unique, hashes, nvalid, valid)
+
+
+# --------------------------------------------------------------------------
+# HyperLogLog: murmur + register max of a flat chunk (kernel K)
+# --------------------------------------------------------------------------
+
+# A flat chunk is reads' 2-bit codes back to back (int8/uint8 [n]), the
+# ascending start offsets of the reads that begin in it (int64; entries
+# >= fill are ignored) and its fill. Window i is valid iff i + k <= fill
+# and no start lies in (i, i + k - 1]: it lies inside one read.
+
+
+def flat_valid_windows(starts, fill, k):
+    """The number of valid windows of a flat chunk (numpy starts)."""
+    s = np.asarray(starts, dtype=np.int64)
+    edges = np.unique(np.concatenate([[0], s[s < fill], [fill]]))
+    return int(np.maximum(np.diff(edges) - k + 1, 0).sum())
+
+
+def _flat_window_mask(starts, fill, k, device):
+    W = fill - k + 1
+    rid = torch.zeros(fill + 1, dtype=torch.int64, device=device)
+    s = starts[starts < fill]
+    rid.index_add_(0, s, torch.ones_like(s))
+    rid = torch.cumsum(rid[:fill], 0)
+    return rid[:W] == rid[k - 1:fill]
+
+
+def _bit_length(x):
+    """Bits of non-negative int64 values (0 for 0), by halving."""
+    n = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        big = x >= (1 << s)
+        n = n + torch.where(big, s, 0)
+        x = torch.where(big, x >> s, x)
+    return n + (x > 0).to(torch.int64)
+
+
+def hll_index_rho(h, p):
+    """HLL register index (the low p bits) and value rho = clz64(h >> p)
+    - p + 1 (clz64(0) = 64) of u64 hashes (int64 bit patterns): JAX
+    hll.py _make_add_batch's arithmetic."""
+    rest = srl(h, p)
+    rho = 64 - _bit_length(rest) - p + 1
+    return h & ((1 << p) - 1), rho
+
+
+def _hll_check(registers):
+    nc = registers.shape[0]
+    if (registers.dtype != torch.uint8 or registers.dim() != 1
+            or nc < 16 or nc & (nc - 1) or not registers.is_contiguous()):
+        raise ValueError("registers must be a contiguous uint8 tensor of "
+                         "2^p >= 16 entries")
+    return nc.bit_length() - 1
+
+
+def hll_add_plain(registers, codes, starts, fill, k):
+    """Max each valid window's rho into the HLL registers, in place (plain
+    PyTorch, any device): the canonical murmur hash of every valid
+    k-window of the flat chunk (ops/hashing.murmur_hash_windows), its
+    register index and rho, then a scatter-max (JAX hll.py _make_add_batch
+    over _hll_flat_hash)."""
+    p = _hll_check(registers)
+    fill = int(fill)
+    if fill < k:
+        return registers
+    from khmer_tpu_torch.ops.hashing import murmur_hash_windows
+
+    h = murmur_hash_windows(codes[:fill], k)[0]
+    valid = _flat_window_mask(starts, fill, k, codes.device)
+    index, rho = hll_index_rho(h[valid], p)
+    registers.scatter_reduce_(0, index, rho.to(torch.uint8), "amax")
+    return registers
+
+
+HLL_THREADS = 256
+HLL_TILE = 2048          # windows a block takes at a time (csrc kTile)
+HLL_SMEM_P = 14          # p up to which a block keeps its own registers
+HLL_BLOCKS_PER_SM = 2
+
+
+def hll_add_cuda(registers, codes, starts, fill, k):
+    """Kernel K (csrc/hll_add.cu): hll_add_plain on the card, murmur and
+    register max fused in one launch. Counts its launches in
+    ``hll_add_cuda.launches``."""
+    p = _hll_check(registers)
+    dev = registers.device
+    if dev.type != "cuda":
+        raise ValueError("the CUDA kernels take CUDA tensors, not %s" % dev)
+    if codes.device != dev or codes.dtype != torch.uint8 \
+            or codes.dim() != 1 or not codes.is_contiguous():
+        raise ValueError("codes must be a contiguous uint8 tensor on %s"
+                         % dev)
+    if starts.device != dev or starts.dtype != torch.int64 \
+            or starts.dim() != 1 or not starts.is_contiguous():
+        raise ValueError("starts must be a contiguous int64 tensor on %s"
+                         % dev)
+    fill = int(fill)
+    if not 0 <= fill <= codes.shape[0]:
+        raise ValueError("fill %d outside [0, %d]" % (fill, codes.shape[0]))
+    if not 1 <= k <= HLL_TILE:
+        raise ValueError("kernel K takes 1 <= k <= %d" % HLL_TILE)
+    nwin = fill - k + 1
+    if nwin <= 0:
+        return registers
+    blocks = max(1, min(_sm_count(dev.index) * HLL_BLOCKS_PER_SM,
+                        -(-nwin // HLL_TILE)))
+    err = cuda.library().khmer_hll_add(
+        codes.data_ptr(), fill, starts.data_ptr(), starts.shape[0], k, p,
+        registers.data_ptr(), blocks, dev.index, _stream(dev))
+    cuda.check(err, "hll_add")
+    hll_add_cuda.launches += 1
+    return registers
+
+
+hll_add_cuda.launches = 0
+
+
+def hll_add(registers, codes, starts, fill, k):
+    """Max the flat chunk's valid windows into the HLL registers, in
+    place: kernel K on CUDA tensors, the plain version on CPU ones."""
+    if registers.is_cuda:
+        return hll_add_cuda(registers, codes, starts, fill, k)
+    if registers.device.type != "cpu":
+        raise ValueError("unsupported device %s" % registers.device)
+    return hll_add_plain(registers, codes, starts, fill, k)
 
 
 # --------------------------------------------------------------------------
@@ -331,16 +587,20 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _layout(primes):
-    """Host int64 arrays of the primes and offsets for a C entry point,
-    made once for each set of primes (the entry points copy them)."""
-    return _layout_arrays(tuple(int(p) for p in primes))
+def _layout(primes, bits=False):
+    """Host int64 arrays of the primes and of the tables' offsets for a C
+    entry point: in bytes (the byte layout) or, with `bits`, in bits (the
+    bit layout), made once for each set of primes (the entry points copy
+    them)."""
+    return _layout_arrays(tuple(int(p) for p in primes), bits)
 
 
 @functools.lru_cache(maxsize=16)
-def _layout_arrays(primes):
+def _layout_arrays(primes, bits):
     arr = ctypes.c_int64 * len(primes)
-    return (arr(*primes), arr(*byte_offsets(primes)))
+    offsets = ([8 * o for o in bit_offsets(primes)] if bits
+               else byte_offsets(primes))
+    return (arr(*primes), arr(*offsets))
 
 
 def _check_byte_args(primes, flat, hashes):
@@ -1709,19 +1969,23 @@ ABUND_BINS = MAX_BIGCOUNT + 1
 def abund_batch(track_kind, track_primes, track_tables, main_kind,
                 main_primes, main_tables, hashes, valid):
     """One batch of the abundance-distribution step up to its histogram:
-    dedup, the tracking update (in place), the main sketch's counts.
-    Returns a dict of per-slot tensors: uh (unique hashes), uvalid,
-    counted (new to tracking), counts (int64), is_sat (counted at
-    MAX_KCOUNT) and idx, the histogram index: the count where counted and
-    not saturated, else ABUND_BINS."""
-    d = _dedup_batch(hashes, valid)
-    counted = d["uvalid"] & _apply_update(track_kind, track_primes,
-                                          track_tables, d)
+    the tracking update (in place) with its per-event new flags, and the
+    main sketch's count of each event. An event is counted iff it is new
+    to tracking; only a hash's first event can be new, so no dedup is
+    needed. Returns a dict of per-event tensors: counted, counts (int64),
+    is_sat (counted at MAX_KCOUNT) and idx, the histogram index: the count
+    where counted and not saturated, else ABUND_BINS."""
+    if track_kind != "bit":
+        raise NotImplementedError("%s tracking tables are not yet ported"
+                                  % track_kind)
+    counted = bit_update(track_primes, track_tables,
+                         torch.zeros(1, dtype=torch.int64,
+                                     device=hashes.device),
+                         hashes, hashes.shape[0], valid)
     counts = _gather_counts(main_kind, main_primes, main_tables,
-                            d["uh"]).to(torch.int64)
+                            hashes).to(torch.int64)
     is_sat = counted & (counts == MAX_KCOUNT)
-    return {"uh": d["uh"], "uvalid": d["uvalid"], "counted": counted,
-            "counts": counts, "is_sat": is_sat,
+    return {"counted": counted, "counts": counts, "is_sat": is_sat,
             "idx": torch.where(counted & ~is_sat, counts, ABUND_BINS)}
 
 
@@ -1746,14 +2010,20 @@ def make_abund_dist(track_kind, track_primes, main_kind, main_primes,
                         main_primes, main_tables, hashes, valid)
         histogram_add(dist, b["idx"])
         is_sat = b["is_sat"]
-        return is_sat.sum(), (b["uh"][is_sat] if collect_sat else None)
+        return is_sat.sum(), (hashes[is_sat] if collect_sat else None)
 
     return step
 
 
 def bit_occupied(table0):
-    """Set bits of a bit table (a device scalar)."""
-    return _POPCOUNT.to(table0.device)[table0.to(torch.int64)].sum()
+    """Set bits of a bit table (a device scalar), counted a slice of
+    OCCUPIED_SLICE bytes at a time, as byte_occupied: one int64 copy of
+    a 1 GB table (-x 8e9) would take 8 GB of device memory."""
+    pop = _POPCOUNT.to(table0.device)
+    total = torch.zeros((), dtype=torch.int64, device=table0.device)
+    for lo in range(0, table0.shape[0], OCCUPIED_SLICE):
+        total += pop[table0[lo:lo + OCCUPIED_SLICE].to(torch.int64)].sum()
+    return total
 
 
 def init_tables(kind, primes, device):
@@ -1764,8 +2034,9 @@ def init_tables(kind, primes, device):
         return tuple(torch.zeros((int(p), blocked.LANES), dtype=torch.uint8,
                                  device=device) for p in primes)
     if kind == "bit":
-        return tuple(torch.zeros(int(p) // 8 + 1, dtype=torch.uint8,
-                                 device=device) for p in primes)
+        return BitTables(torch.zeros(bit_flat_size(primes),
+                                     dtype=torch.uint8, device=device),
+                         primes)
     if kind == "byte":
         return ByteTables(torch.zeros(byte_flat_size(primes),
                                       dtype=torch.uint8, device=device),

@@ -3,8 +3,10 @@
 // the chunk.
 //
 // Shared by the blocked update (kernel 1, blocked_update.cu), the byte
-// update (kernel A, byte_update.cu) and the decoded-event update (kernel
-// D, proto_rmw.cu). They differ only in how an event names its counters,
+// update (kernel A, byte_update.cu), the decoded-event update (kernel
+// D, proto_rmw.cu) and, with bits for counters, the Bloom-filter update
+// (kernel J, bit_update.cu: a Store other than CounterStore, below). They
+// differ only in how an event names its counters,
 // so each supplies an event source `Ev` with
 //
 //   using Item = ...;
@@ -95,6 +97,24 @@ constexpr unsigned long long kEmpty = kNone;  // a free map slot
 constexpr uint32_t kNewBit = 1u << 31;  // per-event word: new
 constexpr uint32_t kSatMask = 0xFFu;    //   and saturated lanes, below
 constexpr uint32_t kSatBit = 1u << 8;   // map entry after commit: at 255
+
+// What a bucket commits to: u8 counters saturating at 255 (kernels 1, A
+// and D). read(key) is the counter before the chunk; add(key, old, occ)
+// applies the chunk's occ adds to it, writes it where it changed (a
+// counter lies in one bucket, so no other block writes it) and returns it.
+struct CounterStore {
+  uint8_t* table;
+
+  __device__ __forceinline__ uint32_t read(uint64_t key) const {
+    return table[key];
+  }
+  __device__ __forceinline__ uint32_t add(uint64_t key, uint32_t old,
+                                          uint32_t occ) const {
+    const uint32_t post = min(old + occ, static_cast<uint32_t>(kMaxCount));
+    if (post != old) table[key] = static_cast<uint8_t>(post);
+    return post;
+  }
+};
 
 // The chunk's scratch (core/sketch_kernels.py update_plan): lane-event
 // ids [n * ntables], bucket starts [nbuckets + 1], scatter cursors
@@ -262,10 +282,10 @@ constexpr size_t kMapBytes = kSlots * (sizeof(unsigned long long)
 
 // Step 4: one block of kMapThreads per bucket (grid = nbuckets), kMapBytes
 // of dynamic shared memory.
-template <class Ev>
+template <class Ev, class Store>
 __global__ void __launch_bounds__(kMapThreads)
 bucket_kernel(Ev ev, int ntables, uint64_t q, bool narrow, Scratch sc,
-              uint8_t* __restrict__ table, bool report) {
+              Store store, bool report) {
   extern __shared__ unsigned long long map_mem[];
   const Map map{map_mem, reinterpret_cast<uint32_t*>(map_mem + kSlots),
                 reinterpret_cast<uint32_t*>(map_mem + kSlots) + kSlots, q,
@@ -381,16 +401,14 @@ bucket_kernel(Ev ev, int ntables, uint64_t q, bool narrow, Scratch sc,
     for (int k = 0; k < kPerThread; ++k) {
       const unsigned long long key =
           map.key[threadIdx.x + k * kMapThreads];
-      old[k] = key != kEmpty ? table[key] : 0;
+      old[k] = key != kEmpty ? store.read(key) : 0;
     }
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
       const int s = threadIdx.x + k * kMapThreads;
       const unsigned long long key = map.key[s];
       if (key == kEmpty) continue;
-      const uint32_t post = min(old[k] + map.occ[s],
-                                static_cast<uint32_t>(kMaxCount));
-      if (post != old[k]) table[key] = static_cast<uint8_t>(post);
+      const uint32_t post = store.add(key, old[k], map.occ[s]);
       if (old[k] == 0) atomicOr(&sc.ev_word[map.first[s]], kNewBit);
       if (post == kMaxCount) {
         map.occ[s] = old[k] | kSatBit;
@@ -450,13 +468,15 @@ __global__ void finalize_kernel(int64_t m_total, int64_t nvalid,
 // cand_hash non-null the bigcount report of the events, whose hashes are
 // hashes [nvalid], goes to cand_hash/cand_old [nvalid], its length added
 // to *n_cand (zeroed by the caller).
-template <class Ev>
-cudaError_t launch_update(const Ev& ev, int ntables, uint64_t size,
-                          int64_t m_total, int64_t nvalid, uint32_t nbuckets,
-                          const Scratch& sc, uint8_t* table, bool* flags,
-                          unsigned long long* n_new, const uint64_t* hashes,
-                          int64_t* cand_hash, int32_t* cand_old,
-                          unsigned int* n_cand, cudaStream_t s) {
+template <class Ev, class Store>
+cudaError_t launch_store_update(const Ev& ev, int ntables, uint64_t size,
+                                int64_t m_total, int64_t nvalid,
+                                uint32_t nbuckets, const Scratch& sc,
+                                const Store& store, bool* flags,
+                                unsigned long long* n_new,
+                                const uint64_t* hashes, int64_t* cand_hash,
+                                int32_t* cand_old, unsigned int* n_cand,
+                                cudaStream_t s) {
   if (size == 0 || nbuckets < 1 || nbuckets > kMaxBuckets || ntables < 1
       || nvalid < 0 || nvalid * ntables >= (int64_t{1} << 31)
       || (cand_hash != nullptr && hashes == nullptr)) {
@@ -487,7 +507,8 @@ cudaError_t launch_update(const Ev& ev, int ntables, uint64_t size,
               cudaFuncAttributeMaxDynamicSharedMemorySize, tile_smem))
              != cudaSuccess
       || (err = cudaFuncSetAttribute(
-              bucket_kernel<Ev>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+              bucket_kernel<Ev, Store>,
+              cudaFuncAttributeMaxDynamicSharedMemorySize,
               static_cast<int>(kMapBytes))) != cudaSuccess) {
     return err;
   }
@@ -503,14 +524,27 @@ cudaError_t launch_update(const Ev& ev, int ntables, uint64_t size,
       ev, ntables, nvalid, q, nbuckets, sc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const bool narrow = size / nbuckets + 2 <= (uint64_t{1} << 32);
-  bucket_kernel<Ev><<<nbuckets, kMapThreads, kMapBytes, s>>>(
-      ev, ntables, q, narrow, sc, table, report);
+  bucket_kernel<Ev, Store><<<nbuckets, kMapThreads, kMapBytes, s>>>(
+      ev, ntables, q, narrow, sc, store, report);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int64_t span = m_total > nvalid ? m_total : nvalid;
   finalize_kernel<<<grid_for(span), kThreads, 0, s>>>(
       m_total, nvalid, ntables, sc.ev_word, sc.min_old, flags, n_new,
       hashes, cand_hash, cand_old, n_cand);
   return cudaGetLastError();
+}
+
+// launch_store_update on u8 counters (kernels 1, A and D).
+template <class Ev>
+cudaError_t launch_update(const Ev& ev, int ntables, uint64_t size,
+                          int64_t m_total, int64_t nvalid, uint32_t nbuckets,
+                          const Scratch& sc, uint8_t* table, bool* flags,
+                          unsigned long long* n_new, const uint64_t* hashes,
+                          int64_t* cand_hash, int32_t* cand_old,
+                          unsigned int* n_cand, cudaStream_t s) {
+  return launch_store_update(ev, ntables, size, m_total, nvalid, nbuckets,
+                             sc, CounterStore{table}, flags, n_new, hashes,
+                             cand_hash, cand_old, n_cand, s);
 }
 
 }  // namespace

@@ -37,6 +37,29 @@ def device_ms(fn, reps=1):
     return _events_ms(fn, reps, hold=True)
 
 
+def reset_ms(reset, fn, reps, hold):
+    """Mean CUDA-event ms of fn() over `reps` calls, each after reset()
+    (outside the events); with `hold`, a sleep kernel holds the stream
+    while the call is issued, so only the device's time counts. Returns the
+    last call's result too."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        reset()
+        torch.cuda.synchronize()
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps, out
+
+
 def host_us(fn, reps=1):
     """Host microseconds per call of fn(), the stream held by a sleep
     kernel so that no call waits on the device."""

@@ -6,8 +6,8 @@ The shapes, config 1 (k = 20, 4 x 5e7 bytes, data/25k.fq.gz) built here
 through the package's own entry points:
 
   * the first batch of the abundance histogram, in the exact layout (C's
-    indices) and in the blocked layout (kernel 2's unique hashes, then
-    C's indices);
+    indices) and in the blocked layout (kernel 2 over the batch's
+    hashes, then C's indices);
   * chip_smoke phase 5's chunk: the stream's first 2^20 hashes on the
     config-1 blocked table (kernel 2), and 2^20 random hashes;
   * scripts/profile_scatter2.py's 2^21 uniform indices into 2^17 bins (C).
@@ -51,11 +51,10 @@ def timed(fn, reps):
             "host_us": host_us(fn, reps)}
 
 
-def first_batch(main, dev):
-    """The first abundance batch of `main` (a config-1 sketch) through
-    sketch_kernels.abund_batch, as abundance-dist's step builds it: the
-    unique hash slots and their histogram indices."""
-    from khmer_tpu_torch import Nodegraph
+def first_events(dev):
+    """The events of abundance-dist's first batch over data/25k.fq.gz, as
+    its step builds them (pipeline.Batcher, hash_batch): (hashes, valid),
+    one of each a window of the batch's [B, L] rows."""
     from khmer_tpu_torch.core.pipeline import Batcher, hash_batch
     from khmer_tpu_torch.io.fastx import FastxParser
 
@@ -68,11 +67,21 @@ def first_batch(main, dev):
     codes, lengths = batch
     hashes, valid = hash_batch(torch.from_numpy(codes).to(dev),
                                torch.from_numpy(lengths).to(dev), KSIZE)
+    return hashes.reshape(-1), valid.reshape(-1)
+
+
+def first_batch(main, dev):
+    """The first abundance batch of `main` (a config-1 sketch) through
+    sketch_kernels.abund_batch, as abundance-dist's step builds it: the
+    events' hashes and their histogram indices."""
+    from khmer_tpu_torch import Nodegraph
+
+    hashes, valid = first_events(dev)
     tracking = Nodegraph(KSIZE, 1, 1, primes=main.hashsizes(), device=dev)
     b = K.abund_batch("bit", tracking._primes, tracking.tables,
                       main.storage_kind, main._primes, main.tables,
-                      hashes.reshape(-1), valid.reshape(-1))
-    return b["uh"], b["idx"]
+                      hashes, valid)
+    return hashes, b["idx"]
 
 
 def bincount(idx, nbins):

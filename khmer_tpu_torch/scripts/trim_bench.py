@@ -88,7 +88,7 @@ from khmer_tpu_torch.core.sketch import Countgraph
 from khmer_tpu_torch.io.fastx import ReadParser
 from khmer_tpu_torch.io.pairing import broken_paired_reader
 from khmer_tpu_torch.ops.u64 import umod
-from khmer_tpu_torch.scripts import HOLD_CYCLES, cuda_ms, device_ms
+from khmer_tpu_torch.scripts import cuda_ms, device_ms, reset_ms
 from khmer_tpu_torch.scripts.byte_gather_bench import PEAK_BYTES_S
 from khmer_tpu_torch.scripts.diginorm_bench import SECTOR, STAMPS, bound_ms
 
@@ -256,31 +256,10 @@ def time_shape(dev, shape, reads=None, k=20, cutoff=2, trim_cov=20,
                 device=torch.cuda.get_device_name(dev), **out)
 
 
-def _timed(reset, fn, reps, hold):
-    """Mean CUDA-event ms of fn() over `reps` calls, each after reset()
-    (outside the events); with `hold`, a sleep kernel holds the stream
-    while the call is issued, so only the device's time counts. Returns the
-    last call's result too."""
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    total = 0.0
-    for _ in range(reps):
-        reset()
-        torch.cuda.synchronize()
-        if hold:
-            torch.cuda._sleep(HOLD_CYCLES)
-        start.record()
-        out = fn()
-        stop.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(stop)
-    return total / reps, out
-
-
 def _both(reset, fn, reps):
-    """(ms as issued, ms on the device, the last result) of _timed."""
-    issued, _ = _timed(reset, fn, reps, False)
-    device, out = _timed(reset, fn, reps, True)
+    """(ms as issued, ms on the device, the last result) of reset_ms."""
+    issued, _ = reset_ms(reset, fn, reps, False)
+    device, out = reset_ms(reset, fn, reps, True)
     return issued, device, out
 
 
@@ -321,10 +300,10 @@ def time_window(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
     mark_ms, mark_dev, marked = _both(lambda: None, lambda: K.trim_mark_cuda(
         *args, trim_cov, None, flat, codes, lengths, marks), reps)
     marks_p = torch.zeros_like(marks)
-    mark_plain, marked_p = _timed(lambda: marks_p.zero_(),
-                                  lambda: K.trim_mark_plain(
-                                      *args, trim_cov, None, flat, codes,
-                                      lengths, marks_p), 1, False)
+    mark_plain, marked_p = reset_ms(lambda: marks_p.zero_(),
+                                    lambda: K.trim_mark_plain(
+                                        *args, trim_cov, None, flat, codes,
+                                        lengths, marks_p), 1, False)
     mark_err = (_mismatch(marked, marked_p)
                 + int((marks != marks_p).sum()))
     state0 = marked[0].clone()
@@ -333,10 +312,10 @@ def time_window(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
         lambda: state.copy_(state0), lambda: K.trim_probe_cuda(
             *args, None, flat, codes, lengths, marks, state), reps)
     state_p = state0.clone()
-    probe_plain, _ = _timed(lambda: state_p.copy_(state0),
-                            lambda: K.trim_probe_plain(
-                                *args, None, flat, codes, lengths, marks,
-                                state_p), 1, False)
+    probe_plain, _ = reset_ms(lambda: state_p.copy_(state0),
+                              lambda: K.trim_probe_plain(
+                                  *args, None, flat, codes, lengths, marks,
+                                  state_p), 1, False)
     probe_err = int((state != state_p).sum())
 
     # the walk from the pre-pass's outputs, then G whole
@@ -351,7 +330,7 @@ def time_window(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
                      branch, trim_at, n_live, n_groups)
     walk_tables, walk_nu = flat.clone(), int(nu)
     branch_w, trim_w = (t.clone() for t in marked_p[1:])
-    walk_plain, _ = _timed(restore, lambda: K.trim_walk_plain(
+    walk_plain, _ = reset_ms(restore, lambda: K.trim_walk_plain(
         *args, trim_cov, None, flat, nu, codes, lengths, state_p, branch_w,
         trim_w), 1, False)
     walk_err = (_mismatch((branch, trim_at), (branch_w, trim_w))
@@ -369,8 +348,9 @@ def time_window(dev, path=STAMPS, k=20, cutoff=2, trim_cov=20, x=5e7,
                   for a in pack_reads(consumed, L))
         counts["staging_pass2"] = staging_share(primes, k, cutoff, trim_cov,
                                                 flat, c2, n2)
-    g_plain, (branch_p, trim_p) = _timed(restore, lambda: K.trim_window_plain(
-        *args, trim_cov, None, flat, nu, codes, lengths), 1, False)
+    g_plain, (branch_p, trim_p) = reset_ms(
+        restore, lambda: K.trim_window_plain(
+            *args, trim_cov, None, flat, nu, codes, lengths), 1, False)
     scan_err = (_mismatch((g_branch, g_trim), (branch_p, trim_p))
                 + abs(g_nu - int(nu))
                 + (0 if torch.equal(g_tables, flat) else 1))

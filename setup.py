@@ -72,7 +72,9 @@ setup(
                 "(khmer-compatible)",
     packages=find_packages(exclude=["tests"]),
     package_data={"khmer_tpu.core": ["data/*.npz"],
-                  "khmer_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "khmer_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                      "csrc/*.cc"],
+                  "khmer_tpu_torch.core": ["data/*.npz"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     entry_points={

@@ -156,6 +156,13 @@ def test_port_imports_no_jax():
             "khmer_tpu_torch.cli.trim_low_abund, "
             "khmer_tpu_torch.cli.filter_abund, "
             "khmer_tpu_torch.cli.filter_abund_single, "
+            "khmer_tpu_torch.cli.unique_kmers, "
+            "khmer_tpu_torch.cli.load_graph, "
+            "khmer_tpu_torch.core.hll, "
+            "khmer_tpu_torch.core.graphmixin, "
+            "khmer_tpu_torch.ops.host, "
+            "khmer_tpu_torch.scripts.graph_cases, "
+            "khmer_tpu_torch.scripts.trace_config4, "
             "khmer_tpu_torch.utils.trimming, "
             "khmer_tpu_torch.scripts.trim_cases, "
             "khmer_tpu_torch.scripts.trim_bench, "

@@ -15,7 +15,7 @@ import torch
 from khmer_tpu_torch.core import blocked as B
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.core.sketch import Countgraph
-from khmer_tpu_torch.scripts import diginorm_cases, trim_cases
+from khmer_tpu_torch.scripts import diginorm_cases, graph_cases, trim_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -533,3 +533,61 @@ def test_trim_entry_points_launch_kernels_on_cuda(cuda_device):
         assert cg.trim_on_abundance(r.sequence, 2) == \
             ref.trim_on_abundance(r.sequence, 2)
     assert K.read_counts_cuda.launches > before[3] + 1
+
+
+@pytest.mark.parametrize("name", list(graph_cases.BIT_CASES))
+def test_bit_update_matches_plain(cuda_device, name):
+    """Kernel J against its plain version: flags, n_unique and tables."""
+    assert graph_cases.check_bit_case(name, cuda_device) == 0
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("name", list(graph_cases.HLL_CASES))
+def test_hll_add_matches_plain(cuda_device, name):
+    """Kernel K against its plain version: the registers."""
+    assert graph_cases.check_hll_case(name, cuda_device) == 0
+
+
+def test_graph_entry_points_launch_kernels_on_cuda(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """HLLCounter, the Nodegraph's consumes and the abundance histogram on
+    the card launch kernels K and J and answer as on the CPU."""
+    import os
+
+    from khmer_tpu_torch.core import pipeline
+    from khmer_tpu_torch.core.hll import HLLCounter
+    from khmer_tpu_torch.core.sketch import Nodegraph
+    from khmer_tpu_torch.io.fastx import FastxParser
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    genomes = os.path.join(repo, "data", "stamps-genomes.fa")
+    before = (K.hll_add_cuda.launches, K.bit_update_cuda.launches)
+    monkeypatch.setattr(pipeline, "DENSE_CHUNK", 1000)
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        h = HLLCounter(0.01, 20, device=dev)
+        h2 = HLLCounter(0.01, 20, device=dev)
+        h2.consume_seqfile(FastxParser(genomes))
+        ng = Nodegraph(20, 2.5e7, 4, device=dev)
+        plain = Nodegraph(20, 2.5e7, 4, device=dev)
+        got[str(dev)] = (h.consume_seqfile(genomes), h.counters,
+                         h2.counters, ng.consume_seqfile_and_tag(
+                             genomes), ng.all_tags,
+                         ng.tables.flat.cpu(), ng.n_unique_kmers(),
+                         plain.consume_seqfile(genomes),
+                         plain.n_unique_kmers())
+    k, c = got[str(cuda_device)], got["cpu"]
+    assert k[:5] == c[:5] and torch.equal(k[5], c[5]) and k[6:] == c[6:]
+    assert K.hll_add_cuda.launches >= before[0] + 2
+    assert K.bit_update_cuda.launches > before[1] + 8
+    cg = Countgraph(20, 1e5, 4, device=cuda_device)
+    cg.consume_seqfile(genomes)
+    tracking = Nodegraph(20, 1, 1, primes=cg.hashsizes(),
+                         device=cuda_device)
+    n = K.bit_update_cuda.launches
+    hist = cg.abundance_distribution(genomes, tracking)
+    assert K.bit_update_cuda.launches > n
+    ref = Countgraph(20, 1e5, 4, device="cpu")
+    ref.consume_seqfile(genomes)
+    assert hist == ref.abundance_distribution(
+        genomes, Nodegraph(20, 1, 1, primes=ref.hashsizes(), device="cpu"))

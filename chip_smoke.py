@@ -57,13 +57,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
      at_least 0, equal and in either order; bad windows at window 0, in a
      later segment only, or nowhere), and the port's ScanTrimmerState on
      the card against the CPU's over the long-read windows; the Bloom-
-     filter update (kernel J) and the murmur + HLL register max (kernel
-     K) on the cases of scripts/graph_cases.py (crowded bins that split a
-     bucket, one hash x 2^20, hashes >= 2^63 on 8 tables, bits already
-     set, a valid mask with nvalid < m, empty batches, bit indices past
-     2^32; p 4, 14 and 18, k 4, 17, 20, 31 and 32, palindromes, reads
-     shorter than k and across read boundaries, a continued first read, a
-     fill short of the codes, a read over eight tiles);
+     filter update (kernel J, its probe's open lanes held to the tables'
+     count) and the murmur + HLL register max (kernel K) on the cases of
+     scripts/graph_cases.py (crowded bins that split a bucket, one hash x
+     2^20, hashes >= 2^63 on 8 tables, bits already set, some or half of
+     them, a valid mask with nvalid < m, also over set bits, empty
+     batches, bit indices past 2^32, 32 tables, a mid-stream chunk that
+     repeats seen and unseen k-mers; p 4, 14 and 18, k 4, 17, 20, 25, 31,
+     32, 33 and 64, palindromes, reads shorter than k and across read
+     boundaries, runs of a thread across read starts, a continued first
+     read, a fill short of the codes, a read over eight tiles, read starts
+     on a tile's first and last windows and a run's edges, a last tile of
+     one window, a chunk of one window);
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
      blocked, k=20, 4 x 5e7 bytes) on data/25k.fq.gz, then the abundance
      histogram; results must equal the JAX package's and the blocked
@@ -139,12 +144,16 @@ Phases (each prints a line; any failure raises and exits non-zero):
      and scatter_reduce_ on the run's first native block;
   9b. load-graph -k 20 -x 8e9 -N 4 (4 GB of bit tables) and unique-kmers
      -k 20 on phase 7b's 1,000,000 synthetic reads; J against its plain
-     version on the stream's first 2^20 hashes, into those tables zeroed
+     version on the stream's first 2^20 hashes into those tables zeroed
      (as the first chunk finds them: the time in the per-kernel line) and
-     into them as the whole stream left them (a side reading).
+     as the whole stream left them, and on the stream's chunk 40 into the
+     tables as chunks 0-39 left them (the shape of most of its calls),
+     each beside its byte bound, its sector floor and the share of lanes
+     its probe settled.
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees (J's at 9b each call
-alone after its tables are zeroed, scripts.reset_ms); the phase lines of
+alone after its tables are zeroed or restored, scripts.reset_ms); the
+phase lines of
 the histogram and the gathers also print their device time alone
 (scripts.device_ms: the stream held while the calls are issued) and the
 host's time to issue one call. It prints the card's name and power
@@ -2230,9 +2239,11 @@ def run_config3_scale(torch, SK, dev, card, errs, reads, head):
 # load-graph
 # ---------------------------------------------------------------------------
 
-# kernel J's launches in a trace: its templates over BitEvents and the
-# bucketed core's scan and finalize (no other update runs beside it)
-_J_TRACED = ("BitEvents", "scan_kernel", "finalize_kernel")
+# kernel J's launches in a trace: its sample and probe, its templates over
+# BitEvents and the bucketed core's scan and finalize (no other update runs
+# beside it)
+_J_TRACED = ("bit_sample_kernel", "bit_probe_kernel", "BitEvents",
+             "scan_kernel", "finalize_kernel")
 
 
 def _j_traced(found):
@@ -2455,75 +2466,140 @@ def time_tracking_update(torch, SK, dev, primes, errs):
 
 
 def time_bit_chunk(torch, SK, dev, card, errs, ng, reads):
-    """Kernel J on the first 2^20 hashes of the stream (load-graph's first
-    chunk) against its plain version at phase 9b's size (4 tables, 4 GB):
-    first, as a side reading, into the tables as the whole stream left
-    them (every bit of the chunk set, no flag, the tables unchanged);
-    then into the tables zeroed, as the first chunk finds them, each call
-    timed alone after the tables are zeroed again. Its byte bound there:
-    8 B a hash, 1 B a flag, each distinct table byte the chunk touches
-    read and written. Leaves ng's tables zeroed."""
-    from khmer_tpu_torch.core.graphmixin import dense_hashes, read_blocks
-    from khmer_tpu_torch.core.sketch import _hashes_tensor
-    from khmer_tpu_torch.scripts import cuda_ms, reset_ms
+    """Kernel J on load-graph's calls at phase 9b's size (4 tables, 4 GB;
+    scripts/graph_bench.py's shapes) against its plain version, each
+    bit-exact, with the lanes its probe left open (its lane masks, left in
+    the scratch) held to a count from the tables: (c) the stream's first
+    chunk into the tables as the whole stream left them (every bit of it
+    set, no flag, the tables unchanged); (a) the same chunk into the
+    tables zeroed, as it finds them, each call timed alone after they are
+    zeroed again (the time in the kernels line); (b) chunk 40 into the
+    tables as chunks 0-39 left them, restored from a device copy before
+    each call (the shape of most of the stream's calls). Bounds at each:
+    bytes (8 B a hash, 1 B a flag, each distinct table byte the chunk
+    touches read and written) and the sector floor (32 B for each
+    distinct sector read, and again for each one in which a bit is set).
+    Leaves ng's tables zeroed."""
+    from khmer_tpu_torch.scripts import cuda_ms, device_ms, reset_ms
+    from khmer_tpu_torch.scripts.graph_bench import (MID_CHUNK, SECTOR,
+                                                     bit_lanes,
+                                                     stream_chunks)
+    from khmer_tpu_torch.scripts.graph_cases import probe_mask
 
-    codes, offs, lens = next(read_blocks(reads))
-    h = _hashes_tensor(dense_hashes(codes, offs, lens, 20)[0][:1 << 20],
-                       dev)
-    n = h.shape[0]
+    chunks = stream_chunks(reads, dev, upto=MID_CHUNK + 1)
     primes, tables = ng._primes, ng.tables
     nu = torch.zeros(1, dtype=torch.int64, device=dev)
-    before = tables.flat[:1 << 20].clone()
-    fk = SK.bit_update_cuda(primes, tables, nu, h, n)
-    fp = SK.bit_update_plain(primes, tables, nu.clone(), h, n)
-    err = int((fk != fp).sum()) + int(nu) + int(fk.sum())
-    expect(err == 0 and torch.equal(before, tables.flat[:1 << 20]),
-           "bit_update on 9b's full tables: %d differences" % err)
-    errs["bit_update"] = max(errs["bit_update"], err)
-    set_ms = cuda_ms(lambda: SK.bit_update_cuda(primes, tables, nu, h, n),
-                     20)
+    T = len(primes)
+    # the chunk's scratch, kept between calls as the Nodegraph keeps it
+    scratch = SK.update_scratch(None, 1 << 20, T, dev)
+    reps = 20
 
+    def floors(n, lanes):
+        _, nbytes, sectors, _, written = lanes
+        return (bound(9 * n + 2 * nbytes, n * T),
+                bound(9 * n + SECTOR * (sectors + written), n * T)[0])
+
+    def check(h, reset, label):
+        """Kernel and plain version from the same state: their flags,
+        n_unique and tables equal, and the lanes the probe left open those
+        of bit_probe_plain; the state restored after. Returns bit_lanes
+        and whether the sample let the probe run."""
+        n = h.shape[0]
+        reset()
+        lanes = bit_lanes(SK, primes, tables.flat, h, n)
+        probed = SK.bit_sample_plain(primes, tables.flat, h, n)
+        want_open = SK.bit_open_lanes(SK.bit_probe_plain(primes, tables.flat,
+                                                         h, n))
+        nu.zero_()
+        fk = SK.bit_update_cuda(primes, tables, nu, h, n, scratch=scratch)
+        # the probe's lane masks, left in the scratch
+        opened = SK.bit_open_lanes(probe_mask(scratch, n, T))
+        nk, kflat = int(nu), tables.flat.clone()
+        reset()
+        nu.zero_()
+        fp = SK.bit_update_plain(primes, tables, nu, h, n)
+        err = int((fk != fp).sum()) + abs(nk - int(nu)) + int(
+            (kflat != tables.flat).sum()) + abs(opened - want_open)
+        del kflat
+        torch.cuda.empty_cache()
+        expect(err == 0, "bit_update on 9b's %s: %d differences"
+               % (label, err))
+        errs["bit_update"] = max(errs["bit_update"], err)
+        reset()
+        return lanes, probed, 1 - opened / lanes[0]
+
+    def share(lanes):
+        """On bits set before the call: the data's share; the lanes the
+        probe settled, or "unprobed" where the sample left it out."""
+        (_, _, _, zero, _), probed, settled = lanes
+        return "%.4f on set bits, %s" % (
+            1 - zero / lanes[0][0],
+            "%.4f settled by the probe" % settled if probed
+            else "unprobed")
+
+    h = chunks[0]
+    n = h.shape[0]
+    # (c): the tables as the whole stream left them
+    full = tables.flat.clone()
+
+    def refill():
+        tables.flat.copy_(full)
+    lanes_c = check(h, refill, "full tables")
+    del full
+    expect(lanes_c[0][3] == 0, "9b's first chunk left lanes open after "
+           "the whole stream")
+
+    def kernel(h=h):
+        return SK.bit_update_cuda(primes, tables, nu, h, h.shape[0],
+                                  scratch=scratch)
+    set_ms = cuda_ms(kernel, reps)
+    set_dev = device_ms(kernel, reps)
+
+    # (a): zeroed
     def zero():
         tables.flat.zero_()
-
-    zero()
-    fk = SK.bit_update_cuda(primes, tables, nu, h, n)
-    nk, kflat = int(nu), tables.flat.clone()
-    zero()
-    nu.zero_()
-    fp = SK.bit_update_plain(primes, tables, nu, h, n)
-    err = int((fk != fp).sum()) + abs(nk - int(nu)) + int(
-        (kflat != tables.flat).sum())
-    del kflat
-    torch.cuda.empty_cache()
-    expect(err == 0, "bit_update on 9b's zeroed tables: %d differences"
-           % err)
-    errs["bit_update"] = max(errs["bit_update"], err)
-    touched = torch.cat([SK.umod(h, p) // 8 + off for p, off in zip(
-        primes, SK.bit_offsets(primes))])
-    nbytes = int(torch.unique(touched).numel())
-    del touched
-
-    def kernel():
-        SK.bit_update_cuda(primes, tables, nu, h, n)
-
-    reps = 20
+    lanes_a = check(h, zero, "zeroed tables")
     t = {"ms": reset_ms(zero, kernel, reps, False)[0],
          "device": reset_ms(zero, kernel, reps, True)[0],
          "plain_ms": reset_ms(zero, lambda: SK.bit_update_plain(
              primes, tables, nu, h, n), 3, False)[0]}
+
+    # (b): chunk MID_CHUNK into the tables as the chunks before it left them
     zero()
-    b = bound(9 * n + 2 * nbytes, n * len(primes))
-    say("  bit_update on a %d-hash chunk, 4 tables of %.3f GB, zeroed: %d "
-        "new; kernel %.4f ms (device %.4f ms) = %.4g hashes/s, plain %.4f "
-        "ms, bound %.4f ms (%s; %d distinct table bytes); into the tables "
-        "after the whole stream (every bit set; a side reading) %.4f ms; "
-        "on %s"
-        % (n, tables.flat.shape[0] / 1e9, nk, t["ms"], t["device"],
-           n / (t["device"] / 1e3), t["plain_ms"], b[0], b[1], nbytes,
-           set_ms, card))
-    return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b[0],
-            "bound_by": b[1], "library_ms": None}
+    for c in chunks[:MID_CHUNK]:
+        kernel(c)
+    mid = tables.flat.clone()
+    hb = chunks[MID_CHUNK]
+
+    def restore():
+        tables.flat.copy_(mid)
+    lanes_b = check(hb, restore, "chunk %d" % MID_CHUNK)
+    mid_ms = reset_ms(restore, lambda: kernel(hb), reps, False)[0]
+    mid_dev = reset_ms(restore, lambda: kernel(hb), reps, True)[0]
+    mid_plain = reset_ms(restore, lambda: SK.bit_update_plain(
+        primes, tables, nu, hb, hb.shape[0]), 3, False)[0]
+    del mid, chunks
+    zero()
+    torch.cuda.empty_cache()
+    (b_a, f_a), (b_b, f_b), (b_c, f_c) = (
+        floors(n, lanes_a[0]), floors(hb.shape[0], lanes_b[0]),
+        floors(n, lanes_c[0]))
+    say("  bit_update on 4 tables of %.3f GB (kernel as issued, device, "
+        "plain; bound by %s; sector floor; its lanes): (a) the first "
+        "%d-hash chunk zeroed %.4f ms, %.4f ms, %.4f ms; bound %.4f ms; "
+        "floor %.4f ms; %s; (b) chunk %d (%d hashes) into the tables as "
+        "chunks 0-%d left them %.4f ms, %.4f ms, %.4f ms; bound %.4f ms; "
+        "floor %.4f ms; %s; (c) the first chunk into the tables after the "
+        "whole stream %.4f ms, %.4f ms; bound %.4f ms; floor %.4f ms; %s; "
+        "kernel == plain (flags, n_unique, tables) and open lanes == "
+        "bit_probe_plain's at each; on %s"
+        % (tables.flat.shape[0] / 1e9, b_a[1], n, t["ms"], t["device"],
+           t["plain_ms"], b_a[0], f_a, share(lanes_a), MID_CHUNK,
+           hb.shape[0], MID_CHUNK - 1, mid_ms, mid_dev, mid_plain, b_b[0],
+           f_b, share(lanes_b), set_ms, set_dev, b_c[0], f_c,
+           share(lanes_c), card))
+    return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b_a[0],
+            "bound_by": b_a[1], "library_ms": None}
 
 
 if __name__ == "__main__":

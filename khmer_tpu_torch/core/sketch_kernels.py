@@ -210,13 +210,107 @@ def bit_update_plain(primes, tables, n_unique, hashes, nvalid, valid=None):
     return flags[:M]
 
 
+BIT_SAMPLE = 1024  # events kernel J's sample probes (csrc kSample)
+# the probe runs where at most this percent of the sample's lanes are open
+# (csrc kProbeMaxOpen)
+BIT_PROBE_MAX_OPEN = 57
+
+
+def _zero_lanes(primes, flat, h):
+    """int64 [n]: bit t set iff hash h[i]'s bit in table t of the joined
+    bit buffer `flat` is 0."""
+    out = torch.zeros(h.shape[0], dtype=torch.int64, device=h.device)
+    for t, (p, off) in enumerate(zip(primes, bit_offsets(primes))):
+        b = umod(h, p) + 8 * off
+        bit = (flat[b // 8].to(torch.int64) >> (b % 8)) & 1
+        out |= (bit == 0).to(torch.int64) << t
+    return out
+
+
+def bit_open_lanes(mask):
+    """The open lanes of bit_probe_plain's lane masks."""
+    return int(_popcount(mask).sum())
+
+
+def _popcount(mask):
+    return sum((mask >> t) & 1 for t in range(MAX_TABLES))
+
+
+def bit_sample_plain(primes, flat, hashes, nvalid, valid=None):
+    """Kernel J's sample (plain PyTorch, any device): whether the probe
+    runs. It looks at events j * nvalid // BIT_SAMPLE, j < BIT_SAMPLE,
+    and runs iff at most BIT_PROBE_MAX_OPEN percent of their lanes are
+    open (their bit is 0)."""
+    n = int(nvalid)
+    if n == 0:
+        return True
+    i = torch.arange(BIT_SAMPLE, device=hashes.device) * n // BIT_SAMPLE
+    live = _event_mask(hashes, n, valid)[i]
+    opened = _popcount(_zero_lanes(primes, flat, hashes[i][live])).sum()
+    return (100 * int(opened)
+            <= BIT_PROBE_MAX_OPEN * len(primes) * int(live.sum()))
+
+
+def bit_probe_plain(primes, flat, hashes, nvalid, valid=None):
+    """Kernel J's sample and probe (plain PyTorch, any device): the lane
+    mask of each event i < nvalid, int64 [nvalid], 0 for an event that
+    takes no part (valid[i] false, where a mask is given). Where the
+    sample lets the probe run (bit_sample_plain), bit t of an event's mask
+    is set iff its bit in table t is 0; else every bit of the T is (every
+    lane goes to the commit)."""
+    n = int(nvalid)
+    live = _event_mask(hashes, n, valid)[:n]
+    if bit_sample_plain(primes, flat, hashes, n, valid):
+        lanes = _zero_lanes(primes, flat, hashes[:n])
+    else:
+        lanes = torch.full((n,), (1 << len(primes)) - 1, dtype=torch.int64,
+                           device=hashes.device)
+    return torch.where(live, lanes, 0)
+
+
+def bit_commit_plain(primes, flat, n_unique, hashes, mask):
+    """Kernel J's commit after its probe (plain PyTorch, any device): over
+    the lanes of `mask` (bit_probe_plain) alone, each distinct bit they
+    touch that is 0 is set and credits its lowest event, in place; events
+    with no such lane are not new. Returns the new flags, bool [M];
+    n_unique grows by their count. With the probe's mask from the same
+    tables it equals bit_update_plain: every lane on a bit that was 0
+    before the chunk is in the mask."""
+    M = hashes.shape[0]
+    n = mask.shape[0]
+    dev = hashes.device
+    idx = torch.arange(n, device=dev)
+    fresh = torch.zeros(n, dtype=torch.bool, device=dev)
+    for t, (p, off) in enumerate(zip(primes, bit_offsets(primes))):
+        lane = ((mask >> t) & 1) == 1
+        b = umod(hashes[:n][lane], p) + 8 * off
+        was0 = ((flat[b // 8].to(torch.int64) >> (b % 8)) & 1) == 0
+        b, ev = b[was0], idx[lane][was0]
+        ub, inv = torch.unique(b, return_inverse=True)
+        first = torch.full(ub.shape, n, dtype=torch.int64,
+                           device=dev).scatter_reduce_(0, inv, ev, "amin")
+        fresh[first] = True
+        # the bits were 0, so their sum in a byte is their OR
+        byte, binv = torch.unique(ub // 8, return_inverse=True)
+        add = torch.zeros(byte.shape, dtype=torch.int64,
+                          device=dev).index_add_(0, binv, 1 << (ub % 8))
+        flat[byte] = (flat[byte].to(torch.int64) | add).to(torch.uint8)
+    n_unique += fresh.sum()
+    flags = torch.zeros(M, dtype=torch.bool, device=dev)
+    flags[:n] = fresh
+    return flags
+
+
 def bit_update_cuda(primes, tables, n_unique, hashes, nvalid, valid=None,
                     scratch=None):
     """Kernel J (csrc/bit_update.cu): bit_update_plain on the card, for
-    the BitTables `tables`. `scratch` is as for byte_update_cuda
-    (update_plan(nvalid, T) bytes, sized by the events, never by the
-    tables). Returns the new flags, bool [M]. Counts its launches in
-    ``bit_update_cuda.launches``."""
+    the BitTables `tables`: its sample and probe, then the bucketed commit
+    of the lanes the probe leaves open (bit_probe_plain,
+    bit_commit_plain).
+    `scratch` is as for byte_update_cuda (update_plan(nvalid, T) bytes,
+    sized by the events, never by the tables; the probe's lane masks take
+    its min_old part, and stay there after the call). Returns the new
+    flags, bool [M]. Counts its launches in ``bit_update_cuda.launches``."""
     flat = tables.flat
     dev = flat.device
     if dev.type != "cuda":
@@ -255,7 +349,7 @@ def bit_update_cuda(primes, tables, n_unique, hashes, nvalid, valid=None,
     err = cuda.library().khmer_bit_update(
         flat.data_ptr(), flat.shape[0], len(primes),
         ctypes.addressof(primes_arr), ctypes.addressof(offsets_arr),
-        hashes.data_ptr(), _ptr(valid), M, n, nbuckets, *ptr[:4],
+        hashes.data_ptr(), _ptr(valid), M, n, nbuckets, *ptr,
         flags.data_ptr(), n_unique.data_ptr(), dev.index, _stream(dev))
     cuda.check(err, "bit_update")
     bit_update_cuda.launches += 1
@@ -351,16 +445,17 @@ def hll_add_plain(registers, codes, starts, fill, k):
     return registers
 
 
-HLL_THREADS = 256
-HLL_TILE = 2048          # windows a block takes at a time (csrc kTile)
+HLL_THREADS = 512        # threads a block (csrc kThreads)
+HLL_RUN = 28             # windows a thread slides over (kRun)
+HLL_TILE = HLL_THREADS * HLL_RUN  # windows a block stages at a time (kTile)
 HLL_SMEM_P = 14          # p up to which a block keeps its own registers
-HLL_BLOCKS_PER_SM = 2
+HLL_BLOCKS_PER_SM = 2    # blocks an SM (the kernel's launch bounds)
 
 
 def hll_add_cuda(registers, codes, starts, fill, k):
     """Kernel K (csrc/hll_add.cu): hll_add_plain on the card, murmur and
-    register max fused in one launch. Counts its launches in
-    ``hll_add_cuda.launches``."""
+    register max fused in one launch, HLL_BLOCKS_PER_SM blocks an SM at
+    most. Counts its launches in ``hll_add_cuda.launches``."""
     p = _hll_check(registers)
     dev = registers.device
     if dev.type != "cuda":
@@ -525,8 +620,9 @@ def update_plan(n, ntables):
     (nbuckets, {part: (byte offset, bytes)}, total bytes), parts in the
     order of _PLAN_PARTS, each 8-byte aligned: the lane-event ids (4 bytes
     each), the bucket starts and cursors (4 bytes per bucket), and two
-    4-byte words per event. It depends on the chunk alone, never on the
-    table."""
+    4-byte words per event (its flag word, and the least old counter of
+    the bigcount report or, in kernel J, its probe's lane mask). It
+    depends on the chunk alone, never on the table."""
     n, ntables = int(n), int(ntables)
     lanes = n * ntables
     if lanes >= MAX_LANE_EVENTS:

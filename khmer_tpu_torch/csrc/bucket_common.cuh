@@ -14,9 +14,12 @@
 //   __device__ uint64_t key(const Item& x, int t) const;
 //
 // where load(i) reads event i once (a hash, or a block id and its packed
-// offsets) and key(load(i), t), t < ntables, is the flat counter of
+// offsets; an event source may add bucket_load(i), the item a bucket reads
+// for a lane that takes part) and key(load(i), t), t < ntables, is the
+// flat counter of
 // lane-event (i, t), or kNone when that lane-event takes no part: an
-// invalid event, or a lane that repeats an earlier lane of the same event.
+// invalid event, a lane that repeats an earlier lane of the same event
+// (kernel D), or a lane whose bit its probe found already set (kernel J).
 // The counters of one event that take part are distinct. Kernels 1 and A
 // never return kNone; events i >= nvalid take no part in any kernel.
 //
@@ -152,13 +155,27 @@ __device__ __forceinline__ bool in_part(uint64_t key, uint64_t part,
   return depth == 0 || (mix(key) >> (64 - depth)) == part;
 }
 
-// The counter and event of lane-event `id`.
+// Event i's item for a lane that reached a bucket, so takes part:
+// Ev::bucket_load(i) where the event source has one (kernel J's skips its
+// probe's mask), else Ev::load(i).
+template <class Ev>
+__device__ __forceinline__ auto bucket_item(const Ev& ev, int64_t i, int)
+    -> decltype(ev.bucket_load(i)) {
+  return ev.bucket_load(i);
+}
+template <class Ev>
+__device__ __forceinline__ auto bucket_item(const Ev& ev, int64_t i, long)
+    -> decltype(ev.load(i)) {
+  return ev.load(i);
+}
+
+// The counter and event of lane-event `id`, which takes part.
 template <class Ev>
 __device__ __forceinline__ uint64_t key_of(const Ev& ev, uint32_t id,
                                            int ntables, uint32_t* event) {
   const uint32_t i = id / static_cast<uint32_t>(ntables);
   *event = i;
-  return ev.key(ev.load(i), static_cast<int>(id - i * ntables));
+  return ev.key(bucket_item(ev, i, 0), static_cast<int>(id - i * ntables));
 }
 
 // Steps 1 and 3: one block per tile of kThreads * kTileEvents events.

@@ -86,10 +86,10 @@ _ENTRY_POINTS = {
                           _I32, _I32, _I32, _P, _P, _I64, _P, _P, _P, _I32,
                           _P],
     # flat, size, ntables, primes (host), bit offsets (host), hashes,
-    # valid, m_total, nvalid, nbuckets, ids, start, cursor, ev_word,
+    # valid, m_total, nvalid, nbuckets, ids, start, cursor, ev_word, mask,
     # flags, n_unique, device, stream
     "khmer_bit_update": [_P, _I64, _I32, _P, _P, _P, _P, _I64, _I64, _I32,
-                         _P, _P, _P, _P, _P, _P, _I32, _P],
+                         _P, _P, _P, _P, _P, _P, _P, _I32, _P],
     # codes, fill, starts, nstarts, k, p, registers, blocks, device, stream
     "khmer_hll_add": [_P, _I64, _P, _I64, _I32, _I32, _P, _I32, _I32, _P],
 }

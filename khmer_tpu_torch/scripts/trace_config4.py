@@ -38,10 +38,11 @@ INPUTS = [("stamps-genomes", os.path.join(DATA, "stamps-genomes.fa"),
            2.5e7),
           ("stamps-reads", os.path.join(DATA, "stamps-reads.fa.gz"),
            12.5e6)]
-# kernel J's device entries: its templates over BitEvents (two tile
-# passes and the bucket pass a call) and the bucketed core's scan and
-# finalize, which no other kernel of these runs uses
-J_NAMES = ("BitEvents", "scan_kernel", "finalize_kernel")
+# kernel J's device entries: its sample and probe, its templates over
+# BitEvents (two tile passes and the bucket pass a call) and the bucketed
+# core's scan and finalize, which no other kernel of these runs uses
+J_NAMES = ("bit_sample_kernel", "bit_probe_kernel", "BitEvents",
+           "scan_kernel", "finalize_kernel")
 J_BIT_EVENTS = 3
 
 

@@ -162,6 +162,8 @@ def test_port_imports_no_jax():
             "khmer_tpu_torch.core.graphmixin, "
             "khmer_tpu_torch.ops.host, "
             "khmer_tpu_torch.scripts.graph_cases, "
+            "khmer_tpu_torch.scripts.graph_bench, "
+            "khmer_tpu_torch.scripts.hll_variants, "
             "khmer_tpu_torch.scripts.trace_config4, "
             "khmer_tpu_torch.utils.trimming, "
             "khmer_tpu_torch.scripts.trim_cases, "

@@ -84,7 +84,7 @@ def test_seeded_reads_match_jax(k, error_rate, engine, reads, monkeypatch):
         assert len(h) == jest
 
 
-@pytest.mark.parametrize("k", [4, 17, 20, 31, 32])
+@pytest.mark.parametrize("k", [4, 17, 20, 31, 32, 33, 64])
 def test_hll_add_plain_matches_jax_flat_step(k):
     """One flat chunk as JAX's device path sees it (a small FlatPacker
     chunk, so reads split across chunks): hll_add_plain against

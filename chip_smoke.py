@@ -149,7 +149,31 @@ Phases (each prints a line; any failure raises and exits non-zero):
      as the whole stream left them, and on the stream's chunk 40 into the
      tables as chunks 0-39 left them (the shape of most of its calls),
      each beside its byte bound, its sector floor and the share of lanes
-     its probe settled.
+     its probe settled;
+  10. config 5 as BASELINE runs it: the port's do-partition -k 20 -x
+     12.5e6 -N 4 --no-big-traverse --keep-subsets on data/stamps-reads.fa.gz;
+     the JAX answers asserted (16,121 tags, count_partitions (51, 16,025)
+     on the subset, every tag's id in the reference's golden map
+     tests/golden/stamps_ref_pmap.txt.gz, the .info, subset .pmap and .part
+     sha256, "output 50 partitions"), kernel L (the 8-neighbour probe)
+     seen to launch and held to its plain version on every frontier it
+     probed; the wall split into the tagged consume, the walk (its C++
+     passes, L's launches, L's device time), the union-find, the merge and
+     the annotation; the host's peak resident set over the CLI and the
+     walk's batches with their keeper bytes;
+  10a. the same without --no-big-traverse, the CLI's default walk that no
+     size cuts ("output 1 partitions", the .pmap and .part sha256), its
+     keepers the largest;
+  10b. do-partition -k 20 -x 8e9 -N 4 --no-big-traverse --keep-subsets (4
+     GB of bit tables) on phase 7b's 1,000,000 synthetic reads: 527,780
+     tags in 6 subsets, each subset .pmap's sha256, "output 25451
+     partitions" and the .part's sha256 with its partition ids renamed by
+     first appearance (the merge numbers them in the order glob lists the
+     .pmap files); L held to its plain version on every eighth launch;
+     then L on the largest frontiers of 10 and 10b against its plain
+     version, beside its byte bound (17 B a node) and its sector floor
+     (32 B a distinct sector read): L's time in the per-kernel line is
+     10b's.
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees (J's at 9b each call
 alone after its tables are zeroed or restored, scripts.reset_ms); the
@@ -170,6 +194,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -367,6 +392,49 @@ EXPECT_C4 = {
 }
 GENOMES = os.path.join(REPO, "data", "stamps-genomes.fa")
 
+# Config 5 through the JAX package (khmer_tpu, CPU, KHMER_TPU_ENGINE=auto):
+# do-partition -k 20 -N 4 with --keep-subsets, at -x 12.5e6 on
+# data/stamps-reads.fa.gz with --no-big-traverse (phase 10) and without
+# (10a), and at -x 8e9 with --no-big-traverse on phase 7b's reads (10b;
+# its .part with the partition ids renamed by first appearance).
+EXPECT_C5 = {
+    "stamps": {
+        "n_tags": 16121, "counts": (51, 16025), "subsets": 1, "output": 50,
+        "info_sha256": "2382dde94fe52b75ba75f08bcf32631c"
+                       "ee392e2557bd8ed9193a9f7dba99d309",
+        "pmap_sha256": ["c6c2d8a3174f40b7a8850b7b0a77fb54"
+                        "86857917099a3cb048b8e56104ed1d8e"],
+        "part_sha256": "c067e37e35bccd0127998d83b6b6e18b"
+                       "50db094fc0c4dad5fa2cfb313d986aaf"},
+    "stamps_default": {
+        "n_tags": 16121, "subsets": 1, "output": 1,
+        "info_sha256": "2382dde94fe52b75ba75f08bcf32631c"
+                       "ee392e2557bd8ed9193a9f7dba99d309",
+        "pmap_sha256": ["d31a2d3d3459bcdefa1bcb8cb521fb8e"
+                        "14013a17225d58e612ba7f006e007584"],
+        "part_sha256": "3ed3a00c8b25a7b2407d416fd12624c3"
+                       "db24c21126e31f4ce94123096b33d974"},
+    "synth": {
+        "n_tags": 527780, "subsets": 6, "output": 25451,
+        "info_sha256": "68ac2e9bad52a42ca06b6b2a12458c34"
+                       "2e714140255f5fd2fb8d24d1ac8ed074",
+        "pmap_sha256": ["47f4e23abba8c4cb707231005300691b"
+                        "56f7458650a6d0f002ec232c147ffeab",
+                        "fefb158721a689f22d2020ce625503dc"
+                        "ed7be2b9c93405019cc9521bc38dbd2e",
+                        "15964cfce44c4c3776999ac22adc39de"
+                        "3c595ebbf570e7fe856b056972cf1a82",
+                        "81b2170f18ad2022b34e27b4f753e686"
+                        "0f52ec5e20e33c496598197d96ecfb21",
+                        "8666fd0fb85a2f9fad38bded44e94eef"
+                        "2d05a5e8ec650b1ad9a7566b1d297fea",
+                        "fc67a22520466654caf9c74383784c7c"
+                        "f6aab55e93ad0d0418e2cf483de08ac1"],
+        "renamed_part_sha256": "d45416e56258d788abd56c789929f70a"
+                               "6d281100faa479269b6cb7cbb43a2f2e"},
+}
+GOLDEN_PMAP = os.path.join(REPO, "tests", "golden", "stamps_ref_pmap.txt.gz")
+
 
 class SmokeFailure(AssertionError):
     pass
@@ -446,7 +514,8 @@ def main():
                                  "histogram_add", "proto_rmw",
                                  "diginorm_med", "diginorm_scan",
                                  "trim_mark", "trim_probe", "trim_scan",
-                                 "read_counts", "bit_update", "hll_add")}
+                                 "read_counts", "bit_update", "hll_add",
+                                 "neighbors")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
         run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs)
@@ -460,13 +529,15 @@ def main():
     n_digi = run_diginorm_cases(torch, dev, errs)
     n_trim = run_trim_cases(torch, dev, errs)
     n_bit, n_hll = run_graph_cases(torch, dev, errs)
+    n_nbr = run_neighbor_cases(torch, dev, errs)
     say("phase 3 exact: kernel == plain on %d blocked, %d byte, %d "
         "histogram, %d decoded-event, %d byte-gather-reduction, %d "
-        "blocked-gather-reduction, %d diginorm, %d trim, %d bit-table and "
-        "%d HLL cases (tables, flags, n_unique, bigcount reports, counts, "
-        "keep flags, branches, trim positions, registers)"
+        "blocked-gather-reduction, %d diginorm, %d trim, %d bit-table, "
+        "%d HLL and %d neighbour-probe cases (tables, flags, n_unique, "
+        "bigcount reports, counts, keep flags, branches, trim positions, "
+        "registers, neighbour bytes)"
         % (len(cases), len(byte_cases), n_hist, n_proto, n_edges, n_edges2,
-           n_digi, n_trim, n_bit, n_hll))
+           n_digi, n_trim, n_bit, n_hll, n_nbr))
     lap("phase 3")
 
     # -- phase 4: config 1, blocked, through the port's entry points -------
@@ -544,6 +615,30 @@ def main():
         trace_config4(torch, card, reads)
         lap("phase 9's traces")
 
+        # -- phase 10: config 5, do-partition, through the CLI ---------------
+        l_launches, stamps_frontier = run_config5(
+            torch, SK, dev, card, errs, "phase 10", STAMPS, "12.5e6",
+            ["--no-big-traverse"], EXPECT_C5["stamps"], every=1)
+        lap("phase 10")
+
+        # -- phase 10a: the CLI's default walk ------------------------------
+        run_config5(torch, SK, dev, card, errs, "phase 10a", STAMPS,
+                    "12.5e6", [], EXPECT_C5["stamps_default"], every=1)
+        lap("phase 10a")
+
+        # -- phase 10b: do-partition on 4 GB of bit tables -------------------
+        _, synth_frontier = run_config5(
+            torch, SK, dev, card, errs, "phase 10b", reads, "8e9",
+            ["--no-big-traverse"], EXPECT_C5["synth"], every=8)
+        launches["neighbors"] = l_launches
+        time_neighbors(torch, SK, card, errs, "phase 10", stamps_frontier)
+        del stamps_frontier
+        timings["neighbors"] = time_neighbors(torch, SK, card, errs,
+                                              "phase 10b", synth_frontier)
+        del synth_frontier
+        torch.cuda.empty_cache()
+        lap("phase 10b")
+
     kernels = []
     for name, source, replaces in (
             ("blocked_update", "blocked_update.cu",
@@ -571,7 +666,9 @@ def main():
              "khmer_tpu/core/pipeline.py:755"),
             ("bit_update", "bit_update.cu",
              "khmer_tpu/core/sketch_kernels.py:204"),
-            ("hll_add", "hll_add.cu", "khmer_tpu/core/hll.py:65")):
+            ("hll_add", "hll_add.cu", "khmer_tpu/core/hll.py:65"),
+            ("neighbors", "neighbors.cu",
+             "khmer_tpu/core/graphmixin.py:30")):
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -2600,6 +2697,315 @@ def time_bit_chunk(torch, SK, dev, card, errs, ng, reads):
            share(lanes_c), card))
     return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b_a[0],
             "bound_by": b_a[1], "library_ms": None}
+
+
+
+# ---------------------------------------------------------------------------
+# phase 10: config 5, do-partition
+# ---------------------------------------------------------------------------
+
+
+def run_neighbor_cases(torch, dev, errs):
+    """Kernel L (probe and gather) against its plain versions on the cases
+    of scripts/partition_cases.py."""
+    from khmer_tpu_torch.scripts import partition_cases
+
+    for name in partition_cases.NEIGHBOR_CASES:
+        err = partition_cases.check_neighbor_case(name, dev)
+        errs["neighbors"] = max(errs["neighbors"], err)
+        expect(err == 0, "neighbors != plain on case %s" % name)
+    say("  neighbour cases: neighbors and bit_gather == plain on %s"
+        % ", ".join(partition_cases.NEIGHBOR_CASES))
+    return len(partition_cases.NEIGHBOR_CASES)
+
+
+class _ProbeCheck:
+    """Kernel L as the partition walk calls it in phases 10-10b
+    (sketch_kernels.neighbors, wrapped by install() while the CLI runs):
+    its device time by CUDA events; every `every`-th launch, its first
+    2^21 nodes held to neighbors_plain on the same frontier; the largest
+    frontier kept (with its tables) for timing; the seconds the check
+    takes, which the probes' time includes."""
+
+    def __init__(self, torch, SK, every):
+        self.torch, self.SK, self.every = torch, SK, every
+        self.calls = self.checked = self.err = 0
+        self.seconds = 0.0
+        self.largest = None
+        self.events = []
+
+    def install(self):
+        """Wrap SK.neighbors; returns a function that restores it."""
+        fn, event = self.SK.neighbors, self.torch.cuda.Event
+
+        def neighbors(primes, flat, f, r, k):
+            t0, t1 = event(enable_timing=True), event(enable_timing=True)
+            t0.record()
+            masks = fn(primes, flat, f, r, k)
+            t1.record()
+            self.events.append((t0, t1))
+            self.check(f, r, masks, primes, flat, k)
+            return masks
+        self.SK.neighbors = neighbors
+        return lambda: setattr(self.SK, "neighbors", fn)
+
+    def launch_ms(self):
+        """L's device time over the launches, once they have ended."""
+        return sum(t0.elapsed_time(t1) for t0, t1 in self.events)
+
+    def check(self, f, r, masks, primes, flat, k):
+        t0 = time.perf_counter()
+        if self.calls % self.every == 0:
+            m = min(f.shape[0], 1 << 21)
+            want = self.SK.neighbors_plain(primes, flat, f[:m], r[:m], k)
+            self.err += int((want != masks[:m]).sum())
+            self.checked += m
+        if self.largest is None or f.shape[0] > self.largest[0].shape[0]:
+            self.largest = (f.clone(), r.clone(), primes, flat, k)
+        self.calls += 1
+        self.seconds += time.perf_counter() - t0
+
+
+def _split_times(owner, names, times, keep):
+    """Wrap owner's methods `names` so that each adds its wall seconds to
+    times[name]; keep[name] gathers what each call of it returned, and
+    keep[name + " self"] the object of its first call. Returns a function
+    that restores them."""
+    saved = {name: getattr(owner, name) for name in names}
+
+    def wrap(name, fn):
+        def timed(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+            keep.setdefault(name, []).append(out)
+            keep.setdefault(name + " self", self)
+            return out
+        return timed
+
+    for name, fn in saved.items():
+        setattr(owner, name, wrap(name, fn))
+    return lambda: [setattr(owner, n, fn) for n, fn in saved.items()]
+
+
+def _host_rss():
+    """This process's resident set now, in bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in the process status")
+
+
+class _PeakRss:
+    """This process's resident set, read every `every` seconds on a thread
+    of its own inside a with block: .before and .peak, in bytes."""
+
+    def __init__(self, every=0.01):
+        self.every = every
+
+    def __enter__(self):
+        self.before = self.peak = _host_rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(self.every):
+            self.peak = max(self.peak, _host_rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _host_rss())
+
+
+def _renamed_part_sha256(path):
+    """sha256 of a .part with its partition ids renamed 1, 2, ... by first
+    appearance."""
+    ids = {}
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for line in f:
+            if line[:1] in (b">", b"@") and b"\t" in line:
+                head, pid = line.rstrip(b"\n").rsplit(b"\t", 1)
+                pid = int(pid)
+                if pid:
+                    pid = ids.setdefault(pid, len(ids) + 1)
+                line = head + b"\t%d\n" % pid
+            h.update(line)
+    return h.hexdigest()
+
+
+def _check_golden(pmap_path):
+    """Tags whose id in the subset .pmap differs from the reference's
+    golden map (0: not in the map)."""
+    import gzip
+
+    import numpy as np
+
+    with open(pmap_path, "rb") as f:
+        blob = f.read()
+    rec = np.frombuffer(blob[18:], dtype=[("tag", "<u8"), ("pid", "<u4")])
+    got = dict(zip(rec["tag"].tolist(), rec["pid"].tolist()))
+    ref = {}
+    with gzip.open(GOLDEN_PMAP, "rt") as f:
+        for line in f:
+            tag, pid = line.split()
+            ref[int(tag)] = int(pid)
+    bad = [t for t in ref if got.get(t, 0) != ref[t]]
+    return bad + [t for t in got if t not in ref], len(ref)
+
+
+def run_config5(torch, SK, dev, card, errs, label, path, x, flags, E,
+                every):
+    """Config 5 through the port's do-partition in this process: -k 20 -x
+    `x` -N 4 --keep-subsets `flags` on `path`, the JAX answers E asserted,
+    kernel L's launches counted (set to 0 just before the CLI and read
+    just after) and every `every`-th held to its plain version; the wall
+    split into its steps (the steps' methods, the walk's passes
+    (TagWalk.step) and probes (partition._Prober) timed by wrapping them
+    while the CLI runs), with the host's peak resident set over the CLI
+    and the walk's keeper bytes. Returns (L's launches, the largest
+    frontier L probed, with its tables: (f, r, primes, flat, k))."""
+    from khmer_tpu_torch.cli import do_partition
+    from khmer_tpu_torch.core import partition as P
+    from khmer_tpu_torch.core.graphmixin import HashgraphMixin
+    from khmer_tpu_torch.ops.host import TagWalk
+
+    check = _ProbeCheck(torch, SK, every)
+    times, keep = {}, {}
+    restores = [
+        _split_times(HashgraphMixin, (
+            "consume_seqfile_and_tag", "divide_tags_into_subsets",
+            "do_subset_partition", "merge_subset_from_disk",
+            "output_partitions"), times, keep),
+        _split_times(TagWalk, ("step", "keeper_bytes", "tags"), times,
+                     keep),
+        _split_times(P._Prober, ("__call__",), times, keep),
+        check.install()]
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            SK.neighbors_cuda.launches = 0
+            SK.bit_update_cuda.launches = 0
+            with _PeakRss() as rss:
+                wall, err, _ = _run_cli(torch, do_partition.main, [
+                    "-k", "20", "-x", x, "-N", "4", "--keep-subsets"]
+                    + flags + ["g", path], tmp)
+            l_launches = SK.neighbors_cuda.launches
+            j_launches = SK.bit_update_cuda.launches
+        finally:
+            for restore in restores:
+                restore()
+        peak = torch.cuda.max_memory_allocated(dev)
+        frontiers = [n for n in keep.pop("step") if n]
+        keepers = keep.pop("keeper_bytes")
+        batches = [len(found) for found in keep.pop("tags")]
+        del keep["__call__"]
+        graph = keep["divide_tags_into_subsets self"]
+        n_tags = graph.n_tags()
+        pmaps = [os.path.join(tmp, "g.subset.%d.pmap" % i)
+                 for i in range(len(keep["do_subset_partition"]))]
+        part = os.path.join(tmp, os.path.basename(path) + ".part")
+        got = {"n_tags": n_tags, "subsets": len(pmaps),
+               "output": int(re.search(r"output (\d+) partitions",
+                                       err).group(1)),
+               "info_sha256": _file_sha256(os.path.join(tmp, "g.info"))[0],
+               "pmap_sha256": [_file_sha256(p)[0] for p in pmaps]}
+        if "renamed_part_sha256" in E:
+            got["renamed_part_sha256"] = _renamed_part_sha256(part)
+        else:
+            got["part_sha256"] = _file_sha256(part)[0]
+        if "counts" in E:
+            got["counts"] = keep["do_subset_partition"][0].count_partitions()
+            bad, n_ref = _check_golden(pmaps[0])
+            expect(not bad, "%s: %d tags' ids differ from the golden map"
+                   % (label, len(bad)))
+        del graph, keep
+    want = {key: E[key] for key in got}
+    expect(got == want, "%s: %s, JAX gives %s" % (label, got, want))
+    expect(check.err == 0, "%s: neighbors != plain on %d of %d nodes"
+           % (label, check.err, check.checked))
+    errs["neighbors"] = max(errs["neighbors"], check.err)
+    expect(l_launches > 0 and j_launches > 0, "%s: neighbors launched %d "
+           "times, bit_update %d" % (label, l_launches, j_launches))
+    probes = times["__call__"] - check.seconds
+    union = (times["do_subset_partition"] - times["step"]
+             - times["__call__"])
+    say("%s config 5: do-partition -k 20 -x %s -N 4 %s %.6f s: tagged "
+        "consume %.6f s (%d tags), walk %.6f s (C++ passes %.6f s, probes "
+        "%.6f s, L's device time %.4f ms in %d launches, %d levels, %d "
+        "nodes probed; batches of %s traversals, their keepers at most "
+        "%.3f GB, %.3f GB in all the batches), "
+        "union-find %.6f s, merge %.6f s, annotate %.6f s; "
+        "%d subsets, output %d partitions%s (the JAX answers); .info %s, "
+        ".pmap %s, .part %s; bit_update launches %d; L held to its plain "
+        "version on %d nodes of %d launches in %.3f s (not in the walk's "
+        "time); the host's peak resident set %.3f GB over the CLI, read "
+        "every 10 ms (%.3f GB before it); peak device memory %.3f GB; on %s"
+        % (label, x, " ".join(flags), wall, times["consume_seqfile_and_tag"],
+           n_tags, times["step"] + probes, times["step"], probes,
+           check.launch_ms(), l_launches, len(frontiers), sum(frontiers),
+           batches, max(keepers) / 1e9, sum(keepers) / 1e9, union,
+           times["merge_subset_from_disk"],
+           times["output_partitions"], got["subsets"], got["output"],
+           ", count_partitions %s, every tag's id the golden map's (%d)"
+           % (got["counts"], n_ref) if "counts" in E else "",
+           got["info_sha256"][:16], [p[:16] for p in got["pmap_sha256"]],
+           (got.get("part_sha256") or "renamed "
+            + got["renamed_part_sha256"])[:24], j_launches, check.checked,
+           check.calls, check.seconds, rss.peak / 1e9, rss.before / 1e9,
+           peak / 1e9, card))
+    return l_launches, check.largest
+
+
+def neighbor_sectors(SK, primes, flat, f, r, k):
+    """Distinct 32-byte sectors of the tables that the probe of nodes (f,
+    r) reads."""
+    import torch
+
+    from khmer_tpu_torch.ops.u64 import umin, umod
+
+    nf, nr = SK.neighbor_kmers(f, r, k)
+    canon = umin(nf, nr).reshape(-1)
+    sectors = torch.cat([(umod(canon, p) + 8 * off) >> 8 for p, off in
+                         zip(primes, SK.bit_offsets(primes))])
+    return int(torch.unique(sectors).shape[0])
+
+
+def time_neighbors(torch, SK, card, errs, label, frontier):
+    """Kernel L on a phase's largest frontier against its plain version:
+    as issued and on the device, beside its byte bound (16 B up and 1 B
+    back a node) and its sector floor (32 B a distinct sector read)."""
+    from khmer_tpu_torch.scripts import cuda_ms, device_ms
+
+    f, r, primes, flat, k = frontier
+    n = f.shape[0]
+    got = SK.neighbors_cuda(primes, flat, f, r, k)
+    want = SK.neighbors_plain(primes, flat, f, r, k)
+    err = int((got != want).sum())
+    errs["neighbors"] = max(errs["neighbors"], err)
+    expect(err == 0, "%s: neighbors != plain on its largest frontier"
+           % label)
+    t = {"ms": cuda_ms(lambda: SK.neighbors_cuda(primes, flat, f, r, k),
+                       20),
+         "plain_ms": cuda_ms(lambda: SK.neighbors_plain(primes, flat, f, r,
+                                                       k), 3),
+         "library_ms": None}
+    dev_ms = device_ms(lambda: SK.neighbors_cuda(primes, flat, f, r, k), 20)
+    t["bound_ms"], t["bound_by"] = bound(17 * n, 8 * len(primes) * n)
+    sectors = neighbor_sectors(SK, primes, flat, f, r, k)
+    say("  %s neighbors on its largest frontier, %d nodes into %d tables "
+        "of %.3f GB: kernel %.4f ms (device %.4f ms), plain %.4f ms, bound "
+        "%.4f ms (%s), sector floor %.4f ms (%d sectors); == plain; on %s"
+        % (label, n, len(primes), flat.shape[0] / 1e9, t["ms"], dev_ms,
+           t["plain_ms"], t["bound_ms"], t["bound_by"],
+           sectors * 32 / PEAK_BYTES_S * 1e3, sectors, card))
+    return t
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ bigcount, OXLI type-1 files, the default of load-into-counting) and in
 the blocked layout, the abundance histogram (abundance-dist,
 abundance-dist-single), digital normalization (normalize-by-median),
 trimming (trim-low-abund, filter-abund, filter-abund-single), the
-HyperLogLog counter (unique-kmers) and the Nodegraph with its tags
-(load-graph).
+HyperLogLog counter (unique-kmers), the Nodegraph with its tags
+(load-graph) and the partitioning of its tag graph (do-partition,
+partition-graph, merge-partitions, annotate-partitions).
 Sketches are made on the card ("cuda") unless the caller names another
 device.
 """
@@ -27,7 +28,10 @@ _buckets_per_byte = {
 
 from khmer_tpu_torch.core.blocked import BlockedCountgraph  # noqa: E402
 from khmer_tpu_torch.core.hll import HLLCounter  # noqa: E402
-from khmer_tpu_torch.core.oxli_io import load_countgraph  # noqa: E402
+from khmer_tpu_torch.core.oxli_io import (  # noqa: E402
+    load_countgraph,
+    load_nodegraph,
+)
 from khmer_tpu_torch.core.sketch import Countgraph, Nodegraph  # noqa: E402
 
 
@@ -70,4 +74,5 @@ __all__ = [
     "Nodegraph",
     "calc_expected_collisions",
     "load_countgraph",
+    "load_nodegraph",
 ]

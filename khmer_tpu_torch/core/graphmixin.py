@@ -1,15 +1,18 @@
-"""The tagging part of the de Bruijn graph API — counterpart of
-khmer_tpu/core/graphmixin.py (HashgraphMixin :107-118, 198-350).
+"""The tagging and partitioning part of the de Bruijn graph API —
+counterpart of khmer_tpu/core/graphmixin.py (HashgraphMixin :62-150,
+198-350, 373-418, 520-528).
 
 A Nodegraph tags every _tag_density-th k-mer while it consumes reads
 (Hashgraph::consume_sequence_and_tag, reference src/oxli/hashgraph.cc:
 200-271). The host hashes the reads (the dense hasher of config 1,
-src/hostgraph.cc hg_hash_dense_reads) and keeps the hashes; the card
-commits each chunk through kernel J (sketch_kernels.bit_update), whose
-per-event new flags come back at one byte a k-mer; the spacing pass,
-sequential over the whole stream, runs on the host in C++
-(csrc/tag_spacing.cc, ops/host.py). Traversal, partitioning and labels
-are not ported yet.
+csrc/dense_hash.cc) and keeps the hashes; the card commits each chunk
+through kernel J (sketch_kernels.bit_update), whose per-event new flags
+come back at one byte a k-mer; the spacing pass, sequential over the
+whole stream, runs on the host in C++
+(csrc/tag_spacing.cc, ops/host.py). A node's neighbours are probed on
+the card by kernel L (sketch_kernels.neighbors), which partitioning
+(core/partition.py) drives a breadth level at a time. The other
+traversals and labels are not ported yet.
 """
 
 import numpy as np
@@ -44,12 +47,12 @@ def _pack(codes, lens):
 
 
 def read_blocks(source):
-    """(codes, offsets, lengths) blocks of a file (the native parser, when
-    it is available) or of a parser or record iterable, in stream order."""
+    """(codes, offsets, lengths) blocks of a file (the native parser) or
+    of a parser or record iterable, in stream order."""
     from khmer_tpu_torch.core.pipeline import records_from
     from khmer_tpu_torch.io import native
 
-    if isinstance(source, str) and native.available():
+    if isinstance(source, str):
         for codes, meta, _ in native.pack_blocks(source):
             yield codes, meta[:, 0], meta[:, 1]
         return
@@ -63,11 +66,6 @@ def dense_hashes(codes, offs, lens, k):
     from khmer_tpu_torch.core import hostengine
 
     hashes = hostengine.hash_dense_reads(codes, offs, lens, k, "twobit")
-    if hashes is None:
-        parts = [H.host_hash_windows(codes[o:o + n], k)
-                 for o, n in zip(offs, lens) if n >= k]
-        hashes = (np.concatenate(parts) if parts
-                  else np.zeros(0, np.uint64))
     nwin = np.maximum(np.asarray(lens, dtype=np.int64) - k + 1, 0)
     read_start = np.zeros(len(hashes), np.uint8)
     read_start[(np.cumsum(nwin) - nwin)[nwin > 0]] = 1
@@ -79,7 +77,41 @@ class HashgraphMixin:
 
     def _init_graph(self):
         self.all_tags = set()
+        self.stop_tags = set()
         self._tag_density = DEFAULT_TAG_DENSITY
+        self._partition = None
+
+    @property
+    def partition(self):
+        """The graph's own SubsetPartition (reference Hashgraph keeps
+        one for merge/annotate operations)."""
+        if self._partition is None:
+            from khmer_tpu_torch.core.partition import SubsetPartition
+
+            self._partition = SubsetPartition(self)
+        return self._partition
+
+    def merge_subset(self, subset):
+        self.partition.merge(subset)
+
+    def merge_subset_from_disk(self, filename):
+        self.partition.merge_from_disk(filename)
+
+    def output_partitions(self, infile, outfile, output_unassigned=False):
+        return self.partition.output_partitioned_file(
+            infile, outfile, output_unassigned)
+
+    def load_partitionmap(self, filename):
+        self.partition.load_partitionmap(filename)
+
+    def save_partitionmap(self, filename):
+        self.partition.save_partitionmap(filename)
+
+    def count_partitions(self):
+        return self.partition.count_partitions()
+
+    def assign_partition_id(self, kmer, tagged_kmers):
+        return self.partition.assign_partition_id(kmer, tagged_kmers)
 
     # -- tag density / sets ----------------------------------------------
 
@@ -104,6 +136,29 @@ class HashgraphMixin:
         if isinstance(kmer, str):
             return self.hash(kmer)
         return int(kmer)
+
+    def add_stop_tag(self, kmer):
+        self.stop_tags.add(self._tag_hash(kmer))
+
+    def n_stop_tags(self):
+        return len(self.stop_tags)
+
+    def get_stop_tags(self):
+        return [self.reverse_hash(t) for t in sorted(self.stop_tags)]
+
+    def load_stop_tags(self, path, clear_tags=True):
+        from khmer_tpu_torch.core import oxli_io
+
+        st = oxli_io.load_stoptags(path, self._ksize)
+        if clear_tags:
+            self.stop_tags = st
+        else:
+            self.stop_tags |= st
+
+    def divide_tags_into_subsets(self, subset_size):
+        """Every subset_size-th tag, in sorted order (reference
+        Hashgraph::divide_tags_into_subsets, hashgraph.cc:349-362)."""
+        return sorted(self.all_tags)[::subset_size]
 
     def reverse_hash(self, hashval):
         return H.reverse_hash(int(hashval), self._ksize)
@@ -203,3 +258,68 @@ class HashgraphMixin:
         else:
             self.all_tags |= tags
         self._tag_density = density
+
+    # -- neighbours (kernel L) -----------------------------------------------
+
+    def neighbors_batch(self, f_arr, r_arr):
+        """(nf, nr, ncanon, present) numpy arrays [N, 8] for arrays of
+        (f, r) k-mers, as JAX's make_neighbors_fn gives them: the
+        neighbours rebuilt on the host from (f, r), their presence from
+        kernel L's byte a node."""
+        from khmer_tpu_torch.core import sketch_kernels as K
+        from khmer_tpu_torch.core.sketch import _hashes_tensor
+
+        f = _hashes_tensor(f_arr, self.device)
+        r = _hashes_tensor(r_arr, self.device)
+        masks = K.neighbors(self._primes, self.tables.flat, f, r,
+                            self._ksize).cpu().numpy()
+        nf, nr = K.neighbor_kmers(f.cpu(), r.cpu(), self._ksize)
+        nf = nf.numpy().view(np.uint64)
+        nr = nr.numpy().view(np.uint64)
+        present = ((masks[:, None] >> np.arange(8)) & 1).astype(bool)
+        return nf, nr, np.minimum(nf, nr), present
+
+    def neighbors(self, kmer):
+        """Present neighbor canonical hashes of one k-mer (str or hash)."""
+        f, r = self._fr_for(kmer)
+        _, _, nc, present = self.neighbors_batch(
+            np.array([f], np.uint64), np.array([r], np.uint64))
+        return [int(nc[0, i]) for i in range(8) if present[0, i]]
+
+    def _fr_for(self, kmer):
+        if isinstance(kmer, str):
+            if len(kmer) != self._ksize:
+                raise ValueError(
+                    "Expected k-mer length %d but got %d."
+                    % (self._ksize, len(kmer)))
+            _, f, r = H._hash_scalar(kmer, self._ksize)
+            return f, r
+        # hash given: reconstruct the sequence (reversible hash)
+        s = H.reverse_hash(int(kmer), self._ksize)
+        _, f, r = H._hash_scalar(s, self._ksize)
+        return f, r
+
+    def kmer_degree(self, kmer_f, kmer_r=None):
+        """Number of present neighbors (hashgraph.cc:473-485)."""
+        if isinstance(kmer_f, str) and kmer_r is None:
+            f, r = self._fr_for(kmer_f)
+        elif isinstance(kmer_f, str):
+            _, f, _ = H._hash_scalar(kmer_f, self._ksize)
+            _, r, _ = H._hash_scalar(kmer_r, self._ksize)
+        else:
+            f, r = int(kmer_f), int(kmer_r)
+        _, _, _, present = self.neighbors_batch(
+            np.array([f], np.uint64), np.array([r], np.uint64))
+        return int(present[0].sum())
+
+    # -- partitioning --------------------------------------------------------
+
+    def do_subset_partition(self, start_kmer=0, end_kmer=0,
+                            break_on_stoptags=False,
+                            stop_big_traversals=False):
+        from khmer_tpu_torch.core.partition import SubsetPartition
+
+        subset = SubsetPartition(self)
+        subset.do_partition(start_kmer, end_kmer, break_on_stoptags,
+                            stop_big_traversals)
+        return subset

@@ -180,8 +180,7 @@ class HLLCounter:
         self._touched = True
         total_reads = 0
         n_consumed = 0
-        if (isinstance(source, str) and not stream_records
-                and native.available()):
+        if isinstance(source, str) and not stream_records:
             for codes, meta, _ in native.pack_blocks(source):
                 total_reads += len(meta)
                 n_consumed += int(np.maximum(meta[:, 1] - k + 1, 0).sum())

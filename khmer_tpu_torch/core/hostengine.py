@@ -1,92 +1,49 @@
-"""ctypes bindings of the native host hasher (src/hostgraph.cc).
+"""The dense k-mer hasher of the host side (csrc/dense_hash.cc).
 
-Counterpart of khmer_tpu/core/hostengine.py, binding only the two dense
-hash entry points of the counting path. It loads the same
-``src/libkhmer_tpu_host.so`` that ``src/Makefile`` builds, building it
-once when it is missing; callers fall back to numpy when the library is
-unavailable (the result is identical).
+Counterpart of khmer_tpu/core/hostengine.py, binding only its two dense
+hash entry points, those of the counting and tagging paths, copied into
+the port's own C++ (2-bit family only) and built with the rest of it by
+ops/host.py. A failed build raises.
 """
-
-import ctypes
-import functools
-import os
-import subprocess
 
 import numpy as np
 
-_SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "src")
-_LIB_PATH = os.path.join(_SRC_DIR, "libkhmer_tpu_host.so")
-
-_u64p = ctypes.POINTER(ctypes.c_uint64)
-_i64p = ctypes.POINTER(ctypes.c_int64)
-_u8p = ctypes.POINTER(ctypes.c_uint8)
-_i32p = ctypes.POINTER(ctypes.c_int32)
+from khmer_tpu_torch.ops import host
 
 
-@functools.cache
-def _load():
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(["make", "-C", _SRC_DIR,
-                            os.path.basename(_LIB_PATH)], check=True,
-                           capture_output=True, timeout=180)
-        except (OSError, subprocess.SubprocessError):
-            return None
-    try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
-        return None
-    lib.hg_hash_dense.restype = ctypes.c_longlong
-    lib.hg_hash_dense.argtypes = [
-        _u8p, ctypes.c_longlong, _i32p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, _u64p]
-    lib.hg_hash_dense_reads.restype = ctypes.c_longlong
-    lib.hg_hash_dense_reads.argtypes = [
-        _u8p, _i64p, _i64p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, _u64p]
-    return lib
-
-
-def available():
-    return _load() is not None
+def _check_family(hash_family):
+    if hash_family != "twobit":
+        raise NotImplementedError("the %s hash is not yet ported"
+                                  % hash_family)
 
 
 def hash_dense(codes, starts, nfill, k, hash_family):
     """Dense canonical window hashes of a FlatPacker chunk, in stream
-    order (native hg_hash_dense; None when the library is unavailable).
+    order.
 
     `starts` are the ascending read-start offsets (int32, pad entries
     >= nfill ignored); boundary-spanning windows are skipped, so the
     result has one hash per real k-mer.
     """
-    lib = _load()
-    if lib is None:
-        return None
-    family = 0 if hash_family == "twobit" else 1
+    _check_family(hash_family)
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     starts = np.ascontiguousarray(starts, dtype=np.int32)
     out = np.empty(max(int(nfill), 1), dtype=np.uint64)
-    n = lib.hg_hash_dense(
-        codes.ctypes.data_as(_u8p), int(nfill),
-        starts.ctypes.data_as(_i32p), len(starts),
-        int(k), family, out.ctypes.data_as(_u64p))
+    n = host.library().kt_hash_dense(
+        codes.ctypes.data, int(nfill), starts.ctypes.data, len(starts),
+        int(k), out.ctypes.data)
     return out[:n]
 
 
 def hash_dense_reads(codes, offs, lens, k, hash_family):
     """Dense canonical hashes for a native-parser block, in read order
-    (one C call per block; None when the library is unavailable)."""
-    lib = _load()
-    if lib is None:
-        return None
-    family = 0 if hash_family == "twobit" else 1
+    (one C call per block)."""
+    _check_family(hash_family)
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     offs = np.ascontiguousarray(offs, dtype=np.int64)
     lens = np.ascontiguousarray(lens, dtype=np.int64)
     out = np.empty(max(int(lens.sum()), 1), dtype=np.uint64)
-    n = lib.hg_hash_dense_reads(
-        codes.ctypes.data_as(_u8p), offs.ctypes.data_as(_i64p),
-        lens.ctypes.data_as(_i64p), len(lens),
-        int(k), family, out.ctypes.data_as(_u64p))
+    n = host.library().kt_hash_dense_reads(
+        codes.ctypes.data, offs.ctypes.data, lens.ctypes.data, len(lens),
+        int(k), out.ctypes.data)
     return out[:n]

@@ -12,6 +12,10 @@ sketches (little-endian):
                      {tablesize:u64 bins:u8[n/8+1]}*
   Tagset (.tagset):  "OXLI" ver=4 type=3 ksize:u32 n_tags:u64 density:u32
                      tags:u64[n_tags] (ascending)
+  Stoptags:          "OXLI" ver=4 type=4 ksize:u32 n_tags:u64 tags:u64[n]
+  Subset (.pmap):    "OXLI" ver=4 type=5 ksize:u32 n_entries:u64
+                     {tag:u64 partition:u32}* (written and read in
+                     core/partition.py)
 
 Gzip variants are sniffed on read and chosen by a ".gz" file name on
 write. The blocked table (private type 127) is written in
@@ -29,12 +33,16 @@ SAVED_FORMAT_VERSION = 4
 SAVED_COUNTING_HT = 1
 SAVED_HASHBITS = 2
 SAVED_TAGS = 3
+SAVED_STOPTAGS = 4
+SAVED_SUBSET = 5
 SAVED_SMALLCOUNT = 7
 
 _TYPE_NAMES = {
     SAVED_COUNTING_HT: "k-mer count graph",
     SAVED_HASHBITS: "k-mer graph",
     SAVED_TAGS: "tagset",
+    SAVED_STOPTAGS: "stoptags",
+    SAVED_SUBSET: "subset",
 }
 _TYPE_OF_KIND = {"byte": SAVED_COUNTING_HT, "bit": SAVED_HASHBITS}
 
@@ -144,6 +152,13 @@ def load_countgraph(path, device="cuda"):
     return load_sketch(Countgraph, path, device)
 
 
+def load_nodegraph(path, device="cuda"):
+    """Load a Nodegraph (.ng / .pt, type 2) onto `device`."""
+    from khmer_tpu_torch.core.sketch import Nodegraph
+
+    return load_sketch(Nodegraph, path, device)
+
+
 CgInfo = collections.namedtuple(
     "CgInfo", ["ksize", "n_tables", "table_size", "use_bigcount",
                "version", "ht_type", "n_occupied"])
@@ -200,3 +215,17 @@ def load_tagset(path, expect_ksize=None):
             raise OSError("Error reading data from: " + path)
         tags = set(int(x) for x in np.frombuffer(data, dtype=np.uint64))
         return tags, density
+
+
+def load_stoptags(path, expect_ksize=None):
+    """The stop tags of a stoptags file (type 4), as a set."""
+    with _open_read(path) as f:
+        _check_header(f, SAVED_STOPTAGS, path, "stoptags")
+        (ksize,) = struct.unpack("<I", f.read(4))
+        if expect_ksize is not None and ksize != expect_ksize:
+            raise OSError(
+                "Incorrect k-mer size %d while reading stoptags from %s"
+                % (ksize, path))
+        (n,) = struct.unpack("<Q", f.read(8))
+        data = f.read(8 * n)
+        return set(int(x) for x in np.frombuffer(data, dtype=np.uint64))

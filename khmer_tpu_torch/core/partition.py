@@ -1,0 +1,516 @@
+"""Tag-graph partitioning — counterpart of khmer_tpu/core/partition.py
+(reference src/oxli/subset.cc, include/oxli/subset.hh).
+
+A partition walks the implicit de Bruijn graph from each tag, in breadth
+levels up to 2 * tag_density + 1, and records the other tags it meets
+(find_all_tags); a union-find over the tags then joins those that met
+(SubsetPartition). Work is cut into tag-range subsets whose partition
+maps (.pmap, OXLI type 5) merge afterwards; reads are then annotated
+with the partition of their first tag.
+
+The graph is read-only while it is walked, so a batch of traversals
+advances one level a pass: the host's C++ (csrc/tag_walk.cc, ops/host.py
+TagWalk) walks a level of every traversal and hands out the survivors,
+and kernel L (csrc/neighbors.cu, sketch_kernels.neighbors) probes all
+their neighbours at once in the tables on the card, one byte a node.
+Python loops over levels only. The union-find mirrors the reference's
+pointer aliasing (subset.cc:630-788), so partition ids come out the same
+as in JAX and in khmer.
+
+The walk follows the reference's queue rule, as JAX's native engine
+(KHMER_TPU_ENGINE=auto) does; find_all_tags_plain, the queue walk one node
+at a time in Python, is its plain reference, which only the tests run.
+"""
+
+import struct
+
+import numpy as np
+import torch
+
+from khmer_tpu_torch.ops import hashing as H
+
+BIG_TRAVERSALS_ARE = 200  # reference: subset.cc:54
+# A TagWalk takes a batch of at most WALK_BATCH start tags, the first
+# batch at most FIRST_BATCH; its traversals' keepers stay in host memory
+# until the batch ends, so each later batch takes as many as KEEPER_BYTES
+# holds at the keeper bytes a traversal of the batch before it reached.
+WALK_BATCH = 1 << 14
+FIRST_BATCH = 1 << 11
+KEEPER_BYTES = 1 << 30
+
+
+class _Box:
+    """A PartitionID 'pointer' (aliasable box)."""
+
+    __slots__ = ("pid",)
+
+    def __init__(self, pid):
+        self.pid = pid
+
+    def __repr__(self):
+        return "<pid %d>" % self.pid
+
+
+def _sorted_tags(tags):
+    arr = np.fromiter(tags, np.uint64, len(tags))
+    arr.sort()
+    return arr
+
+
+def _index(sorted_tags, tag):
+    """The position of `tag` in the ascending array (ValueError if it is
+    not there, as list.index raises)."""
+    i = int(np.searchsorted(sorted_tags, np.uint64(tag)))
+    if i == len(sorted_tags) or int(sorted_tags[i]) != int(tag):
+        raise ValueError("%d is not a tag" % int(tag))
+    return i
+
+
+def revcomp_bits(f, k):
+    """The reverse-complement word r of each forward 2-bit word f
+    (numpy u64): the start (f, r) of a walk from a canonical tag."""
+    f = np.asarray(f, dtype=np.uint64).copy()
+    r = np.zeros_like(f)
+    for _ in range(k):
+        r = (r << np.uint64(2)) | ((f & np.uint64(3)) ^ np.uint64(1))
+        f >>= np.uint64(2)
+    return r
+
+
+def find_all_tags_plain(graph, starts, break_on_stop_tags=False,
+                        stop_big_traversals=False):
+    """The plain reference of find_all_tags_batch: the reference's queue
+    walk (subset.cc:213-300, as JAX's native engine's find_all_tags_one
+    runs it), one traversal and one node at a time in Python, each
+    neighbour's bits read from the tables one by one. starts: (f, r)
+    pairs. Returns a list of tag sets."""
+    from collections import deque
+
+    from khmer_tpu_torch.core import sketch_kernels as K
+
+    k = graph.ksize()
+    mask = (1 << (2 * k)) - 1
+    shift = 2 * k - 2
+    flat = graph.tables.flat.cpu().numpy()
+    layout = [(int(p), 8 * o) for p, o in zip(graph._primes,
+                                              K.bit_offsets(graph._primes))]
+    max_breadth = 2 * graph._tag_density + 1
+
+    def present(c):
+        return all(flat[(o + c % p) >> 3] >> ((o + c % p) & 7) & 1
+                   for p, o in layout)
+
+    def children(f, r):
+        for b in (0, 2, 3, 1):  # A, C, G, T: to the right
+            yield ((f << 2) | b) & mask, (r >> 2) | ((b ^ 1) << shift)
+        for b in (0, 2, 3, 1):  # to the left
+            yield (f >> 2) | (b << shift), ((r << 2) | (b ^ 1)) & mask
+
+    out = []
+    for f0, r0 in starts:
+        queue = deque([(int(f0), int(r0), 0)])
+        keeper = set()
+        tagged = set()
+        first = True
+        while queue:
+            if stop_big_traversals and len(keeper) > BIG_TRAVERSALS_ARE:
+                tagged = set()
+                break
+            f, r, breadth = queue.popleft()
+            c = min(f, r)
+            if c in keeper:
+                continue
+            if break_on_stop_tags and c in graph.stop_tags:
+                continue
+            keeper.add(c)
+            if not first and c in graph.all_tags:
+                tagged.add(c)
+                continue
+            if breadth >= max_breadth:
+                continue
+            for nf, nr in children(f, r):
+                nc = min(nf, nr)
+                if present(nc) and nc not in keeper:
+                    queue.append((nf, nr, breadth + 1))
+            first = False
+        out.append(tagged)
+    return out
+
+
+class _Prober:
+    """Kernel L on each frontier of a walk: the frontier goes up as one
+    int64 tensor (f's then r's), the masks come back a byte a node,
+    through pinned host buffers that grow as frontiers do."""
+
+    def __init__(self, graph):
+        self.graph = graph
+        self.dev = graph.tables.flat.device
+        self.cuda = self.dev.type == "cuda"
+        self._up = self._down = None
+
+    def _buffers(self, n):
+        if self._up is None or self._up.shape[0] < 2 * n:
+            cap = max(2 * n, 1 << 16)
+            self._up = torch.empty(cap, dtype=torch.int64,
+                                   pin_memory=self.cuda)
+            self._down = torch.empty(cap // 2, dtype=torch.uint8,
+                                     pin_memory=self.cuda)
+        return self._up, self._down
+
+    def __call__(self, walk, n):
+        """The present-neighbour bytes of the walk's frontier of n
+        nodes (numpy uint8 [n])."""
+        from khmer_tpu_torch.core import sketch_kernels as K
+
+        g = self.graph
+        up, down = self._buffers(n)
+        walk.frontier(up.numpy().view(np.uint64))
+        fr = up[:2 * n].to(self.dev, non_blocking=True)
+        masks = K.neighbors(g._primes, g.tables.flat, fr[:n], fr[n:],
+                            g.ksize())
+        out = down[:n]
+        out.copy_(masks, non_blocking=True)
+        if self.cuda:
+            torch.cuda.current_stream(self.dev).synchronize()
+        return out.numpy()
+
+
+def find_all_tags_batch(graph, starts_f, starts_r, break_on_stop_tags=False,
+                        stop_big_traversals=False, tag_arrays=None):
+    """Run find_all_tags from many start k-mers (f, r): a list of
+    ascending u64 arrays, the tags each traversal found, equal to JAX's
+    find_all_tags_batch under its native engine (and to sequential
+    reference runs). The traversals go in batches, sized to KEEPER_BYTES
+    (see above); the answer does not depend on them. Each pass of the
+    C++ walk walks a breadth level of every traversal of a batch; kernel
+    L probes all their expanded nodes' neighbours in one launch.
+    tag_arrays: the graph's tags and stop tags as u64 arrays, where the
+    caller has them."""
+    from khmer_tpu_torch.ops.host import TagWalk
+
+    tags, stops = tag_arrays or (_sorted_tags(graph.all_tags),
+                                 _sorted_tags(graph.stop_tags))
+    starts_f = np.asarray(starts_f, dtype=np.uint64)
+    starts_r = np.asarray(starts_r, dtype=np.uint64)
+    probe = _Prober(graph)
+    out = []
+    size = min(WALK_BATCH, FIRST_BATCH)
+    while len(out) < len(starts_f):
+        lo = len(out)
+        walk = TagWalk(starts_f[lo:lo + size], starts_r[lo:lo + size],
+                       graph.ksize(), tags, stops,
+                       2 * graph._tag_density + 1, break_on_stop_tags,
+                       stop_big_traversals)
+        try:
+            n = walk.step()
+            while n:
+                n = walk.step(probe(walk, n))
+            out += walk.tags()
+            held = walk.keeper_bytes()
+        finally:
+            walk.close()
+        size = min(WALK_BATCH,
+                   max(1, walk.n * KEEPER_BYTES // max(held, 1)))
+    return out
+
+
+def find_all_tags(graph, f, r, break_on_stop_tags=False,
+                  stop_big_traversals=False):
+    """The tags one traversal from the k-mer (f, r) finds, as a set."""
+    tags = find_all_tags_batch(graph, [int(f)], [int(r)],
+                               break_on_stop_tags, stop_big_traversals)[0]
+    return set(int(t) for t in tags)
+
+
+class SubsetPartition:
+    """Union-find partition map over tags (reference subset.hh:59)."""
+
+    def __init__(self, graph):
+        self.graph = graph
+        self.next_partition_id = 2  # reference: subset.cc:85
+        self.partition_map = {}     # tag -> _Box or None
+        self.reverse_pmap = {}      # pid -> set of _Box (id-keyed)
+
+    # -- core union-find (mirrors subset.cc:630-788) ----------------------
+
+    def assign_partition_id(self, kmer, tagged_kmers):
+        if len(tagged_kmers):
+            pp = self._join_partitions_by_tags(tagged_kmers, kmer)
+            return pp.pid
+        self.partition_map.pop(kmer, None)
+        return 0
+
+    def _join_partitions_by_tags(self, tagged_kmers, kmer):
+        # iterate in sorted order: the reference's SeenSet is an
+        # ordered std::set, and the first ASSIGNED tag found decides
+        # which partition ID survives the joins (subset.cc:680-689)
+        tagged_kmers = sorted(int(t) for t in tagged_kmers)
+        this_pp = None
+        for t in tagged_kmers:
+            this_pp = self.partition_map.get(t)
+            if this_pp is not None:
+                break
+
+        if this_pp is None:
+            this_pp = _Box(self.next_partition_id)
+            self.next_partition_id += 1
+            self.reverse_pmap[this_pp.pid] = {this_pp}
+
+        for t in tagged_kmers:
+            if t not in self.partition_map:
+                self.partition_map[t] = this_pp
+            else:
+                pp_id = self.partition_map[t]
+                if pp_id is None:
+                    self.partition_map[t] = this_pp
+                elif pp_id.pid != this_pp.pid:
+                    this_pp = self._merge_two_partitions(this_pp, pp_id)
+
+        self.partition_map[kmer] = this_pp
+        return this_pp
+
+    def _merge_two_partitions(self, the_pp, merge_pp):
+        s = self.reverse_pmap[the_pp.pid]
+        t = self.reverse_pmap[merge_pp.pid]
+        if len(s) < len(t):
+            s, t = t, s
+            the_pp, merge_pp = merge_pp, the_pp
+        del self.reverse_pmap[merge_pp.pid]
+        for box in t:
+            box.pid = the_pp.pid
+            s.add(box)
+        return the_pp
+
+    def get_partition_id(self, kmer):
+        if isinstance(kmer, str):
+            kmer = self.graph.hash(kmer)
+        pp = self.partition_map.get(int(kmer))
+        return pp.pid if pp is not None else 0
+
+    def get_new_partition(self):
+        pp = _Box(self.next_partition_id)
+        self.next_partition_id += 1
+        return pp
+
+    # -- partitioning -----------------------------------------------------
+
+    def do_partition(self, first_kmer=0, last_kmer=0,
+                     break_on_stop_tags=False, stop_big_traversals=False):
+        """Walk + merge over a sorted tag range (subset.cc:501-553): the
+        tags from first_kmer (the first tag, if 0) up to last_kmer (the
+        end, if 0). The joins run in sorted tag order, so the walk's
+        batches change nothing."""
+        tags = _sorted_tags(self.graph.all_tags)
+        lo = _index(tags, first_kmer) if first_kmer else 0
+        hi = _index(tags, last_kmer) if last_kmer else len(tags)
+        span = tags[lo:hi]
+        k = self.graph.ksize()
+        arrays = (tags, _sorted_tags(self.graph.stop_tags))
+        found = find_all_tags_batch(
+            self.graph, span, revcomp_bits(span, k), break_on_stop_tags,
+            stop_big_traversals, arrays)
+        for tag, tagged in zip(span.tolist(), found):
+            self.assign_partition_id(tag, tagged.tolist())
+
+    # -- reporting --------------------------------------------------------
+
+    def count_partitions(self):
+        """(n_partitions, n_unassigned) — subset.cc:89-113.
+
+        Iterates the graph's tag set (not the map): tags never assigned
+        count as unassigned. The reference's operator[] lookup inserts
+        a NULL map entry for such tags as a side effect, which later
+        partition_sizes calls then see; reproduced for parity.
+        """
+        partitions = set()
+        n_unassigned = 0
+        for tag in self.graph.all_tags:
+            pp = self.partition_map.setdefault(int(tag), None)
+            if pp is not None:
+                partitions.add(pp.pid)
+            else:
+                n_unassigned += 1
+        return len(partitions), n_unassigned
+
+    def _sizes(self):
+        counts = {}
+        n_unassigned = 0
+        for pp in self.partition_map.values():
+            if pp is not None:
+                counts[pp.pid] = counts.get(pp.pid, 0) + 1
+            else:
+                n_unassigned += 1
+        return counts, n_unassigned
+
+    def partition_sizes(self, min_size=0):
+        counts, n_unassigned = self._sizes()
+        return ([(pid, n) for pid, n in sorted(counts.items())
+                 if n >= min_size], n_unassigned)
+
+    def partition_size_distribution(self):
+        counts, n_unassigned = self._sizes()
+        dist = {}
+        for n in counts.values():
+            dist[n] = dist.get(n, 0) + 1
+        return sorted(dist.items()), n_unassigned
+
+    # -- merging ----------------------------------------------------------
+
+    def merge(self, other):
+        if self is other:
+            return
+        diskp_to_pp = {}
+        for tag in sorted(other.partition_map):
+            pp = other.partition_map[tag]
+            if pp is not None:
+                self._merge_other(tag, pp.pid, diskp_to_pp)
+
+    def _merge_other(self, tag, other_partition, diskp_to_pp):
+        """subset.cc:832-880."""
+        if tag in self.graph.stop_tags:
+            return
+        pp_0 = self.partition_map.get(tag)
+        if pp_0 is None:
+            existing = diskp_to_pp.get(other_partition)
+            if existing is not None:
+                self.partition_map[tag] = existing
+            else:
+                pp_0 = self.get_new_partition()
+                self.reverse_pmap[pp_0.pid] = {pp_0}
+                self.partition_map[tag] = pp_0
+                diskp_to_pp[other_partition] = pp_0
+        else:
+            existing = diskp_to_pp.get(other_partition)
+            if existing is not None:
+                if pp_0.pid != existing.pid:
+                    pp_0 = self._merge_two_partitions(pp_0, existing)
+                    diskp_to_pp[other_partition] = pp_0
+            else:
+                diskp_to_pp[other_partition] = pp_0
+
+    def merge_from_disk(self, filename):
+        """Fold a saved .pmap file into this partition
+        (subset.cc:884-1034)."""
+        from khmer_tpu_torch.core.oxli_io import (SAVED_FORMAT_VERSION,
+                                                  SAVED_SIGNATURE,
+                                                  SAVED_SUBSET, _open_read)
+
+        with _open_read(filename) as f:
+            sig = f.read(4)
+            if sig != SAVED_SIGNATURE:
+                raise OSError(
+                    "Incorrect file signature 0x%s while reading subset "
+                    "pmap from %s; should be OXLI" % (sig.hex(), filename))
+            version = f.read(1)[0]
+            if version != SAVED_FORMAT_VERSION:
+                raise OSError(
+                    "Incorrect file format version %d while reading "
+                    "subset pmap from %s" % (version, filename))
+            ht_type = f.read(1)[0]
+            if ht_type != SAVED_SUBSET:
+                raise OSError(
+                    "Incorrect file format type %d while reading subset "
+                    "pmap from %s" % (ht_type, filename))
+            (ksize,) = struct.unpack("<I", f.read(4))
+            if ksize != self.graph.ksize():
+                raise OSError(
+                    "Incorrect k-mer size %d while reading subset pmap "
+                    "from %s" % (ksize, filename))
+            f.read(8)  # pmap_size header (includes null entries)
+            data = f.read()
+        n = len(data) // 12
+        rec = np.frombuffer(data[:12 * n], dtype=[("tag", "<u8"),
+                                                  ("pid", "<u4")])
+        diskp_to_pp = {}
+        for tag, pid in zip(rec["tag"].tolist(), rec["pid"].tolist()):
+            self._merge_other(tag, pid, diskp_to_pp)
+
+    def save_partitionmap(self, filename):
+        """subset.cc:1036-1097 (tags in sorted order)."""
+        from khmer_tpu_torch.core.oxli_io import (SAVED_FORMAT_VERSION,
+                                                  SAVED_SIGNATURE,
+                                                  SAVED_SUBSET)
+
+        tags = sorted(t for t, pp in self.partition_map.items()
+                      if pp is not None)
+        rec = np.empty(len(tags), dtype=[("tag", "<u8"), ("pid", "<u4")])
+        rec["tag"] = tags
+        rec["pid"] = [self.partition_map[t].pid for t in tags]
+        with open(filename, "wb") as f:
+            f.write(SAVED_SIGNATURE)
+            f.write(bytes([SAVED_FORMAT_VERSION, SAVED_SUBSET]))
+            f.write(struct.pack("<IQ", self.graph.ksize(),
+                                len(self.partition_map)))
+            f.write(rec.tobytes())
+
+    def load_partitionmap(self, filename):
+        self.merge_from_disk(filename)
+
+    @classmethod
+    def load(cls, filename, graph):
+        subset = cls(graph)
+        subset.merge_from_disk(filename)
+        return subset
+
+    # -- annotation -------------------------------------------------------
+
+    def output_partitioned_file(self, infilename, outputfile,
+                                output_unassigned=False):
+        """Annotate reads with partition IDs (subset.cc:115-208), as
+        JAX's host tier does (partition.py:846-904): the reads come in
+        windows of records, the dense hasher hashes a window in one C
+        call, and each read's first k-mer that is a tag of the map (a
+        C++ set lookup) gives its partition. Returns the partitions seen
+        plus the reads whose first mapped tag has none."""
+        from khmer_tpu_torch.core import hostengine, pipeline
+        from khmer_tpu_torch.ops.host import U64Set
+
+        n_singletons = 0
+        partitions = set()
+        k = self.graph.ksize()
+        pmap = self.partition_map
+        tags = U64Set(_sorted_tags(pmap))
+        try:
+            with open(outputfile, "w") as outfile:
+                for window in _windows(pipeline.records_from(infilename)):
+                    seqs = [read.cleaned_seq for read in window]
+                    lens = np.fromiter(map(len, seqs), np.int64, len(seqs))
+                    flat = hostengine.hash_dense_reads(
+                        H.encode_dna("".join(seqs)), np.cumsum(lens) - lens,
+                        lens, k, "twobit")
+                    first = tags.first_members(
+                        flat, np.maximum(lens - k + 1, 0)).tolist()
+                    lines = []
+                    for read, seq, at in zip(window, seqs, first):
+                        partition_id = 0
+                        if at >= 0:
+                            pp = pmap[int(flat[at])]
+                            if pp is None:
+                                n_singletons += 1
+                            else:
+                                partition_id = pp.pid
+                                partitions.add(partition_id)
+                        if partition_id > 0 or output_unassigned:
+                            if read.quality:
+                                lines.append("@%s\t%d\n%s\n+\n%s\n" % (
+                                    read.name, partition_id, seq,
+                                    read.quality))
+                            else:
+                                lines.append(">%s\t%d\n%s\n" % (
+                                    read.name, partition_id, seq))
+                    outfile.write("".join(lines))
+        finally:
+            tags.close()
+        return len(partitions) + n_singletons
+
+
+def _windows(records, size=16384):
+    """Lists of at most `size` records, in order."""
+    batch = []
+    for rec in records:
+        batch.append(rec)
+        if len(batch) >= size:
+            yield batch
+            batch = []
+    if batch:
+        yield batch

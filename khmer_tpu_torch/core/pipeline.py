@@ -108,21 +108,6 @@ class FlatPacker:
         return codes, starts, nfill
 
 
-def _dense_numpy(codes, starts, nfill, k):
-    """Numpy fallback for hostengine.hash_dense (same contract)."""
-    nfill = int(nfill)
-    if nfill < k:
-        return np.zeros(0, np.uint64)
-    codes = np.asarray(codes)[:nfill]
-    W = nfill - k + 1
-    rid = np.zeros(nfill, np.int32)
-    s = np.asarray(starts)
-    rid[s[s < nfill]] = 1
-    rid = np.cumsum(rid)
-    valid = rid[:W] == rid[k - 1:]
-    return H.host_hash_windows(codes, k)[valid]
-
-
 class DenseHasher:
     """Host side of the dense consume path: reads in, fixed-shape chunks
     of canonical k-mer hashes out, with no invalid entries before the
@@ -143,11 +128,8 @@ class DenseHasher:
 
     def _hash(self, flat):
         codes, starts, nfill = flat
-        dense = hostengine.hash_dense(codes, starts, nfill, self.k,
-                                      self.family)
-        if dense is None:
-            dense = _dense_numpy(codes, starts, nfill, self.k)
-        return dense
+        return hostengine.hash_dense(codes, starts, nfill, self.k,
+                                     self.family)
 
     def _push(self, dense):
         out = []
@@ -179,15 +161,8 @@ class DenseHasher:
         """Add a whole native-parser block (one C call, no per-read
         Python); returns full (hashes, n) chunks. Don't interleave with
         per-read add() mid-stream — the packer buffer would reorder."""
-        dense = hostengine.hash_dense_reads(codes, offs, lens, self.k,
-                                            self.family)
-        if dense is None:
-            out = []
-            for o, ln in zip(offs, lens):
-                if ln >= self.k:
-                    out.extend(self.add_codes(codes[o:o + ln]))
-            return out
-        return self._push(dense)
+        return self._push(hostengine.hash_dense_reads(codes, offs, lens,
+                                                      self.k, self.family))
 
     def flush(self):
         """Flush the tail as one zero-padded full-size (hashes, n)
@@ -217,8 +192,8 @@ def consume_seqfile(sketch, source):
     """Count every k-mer of every read; returns (n_reads, n_consumed).
 
     Mirrors Hashtable::consume_seqfile (src/oxli/hashtable.cc:125-150).
-    A path goes through the native parser when it is available; a parser
-    or record iterable goes read by read.
+    A path goes through the native parser; a parser or record iterable
+    goes read by read.
     """
     k = sketch.ksize()
     hasher = DenseHasher(k, sketch.hash_family)
@@ -231,7 +206,7 @@ def consume_seqfile(sketch, source):
             sketch._update(_hashes_tensor(harr, sketch.device), nvalid)
             n_consumed += nvalid
 
-    if isinstance(source, str) and native.available():
+    if isinstance(source, str):
         for codes_blk, meta, _ in native.pack_blocks(source):
             n_reads += len(meta)
             commit(hasher.add_block(codes_blk, meta[:, 0], meta[:, 1]))

@@ -333,9 +333,28 @@ class Nodegraph(HashgraphMixin, _Sketch):
     def _count_nonzero_t0(self):
         return int(K.bit_occupied(self.tables[0]))
 
+    @classmethod
+    def from_numpy_state(cls, ksize, primes, tables, n_unique,
+                         occupied_offset, device="cuda", bigcounts=None,
+                         use_bigcount=False, all_tags=(), stop_tags=(),
+                         tag_density=None):
+        """A Nodegraph holding the given state (see
+        _Sketch.from_numpy_state), with its tags, stop tags and, where
+        given, tag density (e.g. a JAX Nodegraph's)."""
+        obj = super().from_numpy_state(ksize, primes, tables, n_unique,
+                                       occupied_offset, device, bigcounts,
+                                       use_bigcount)
+        obj.all_tags = set(int(t) for t in all_tags)
+        obj.stop_tags = set(int(t) for t in stop_tags)
+        if tag_density is not None:
+            obj._set_tag_density(int(tag_density))
+        return obj
+
 
 def from_numpy_state(ksize, primes, tables, n_unique, occupied_offset,
-                     device="cuda"):
-    """A Nodegraph holding the given state (see _Sketch.from_numpy_state)."""
+                     device="cuda", **graph_state):
+    """A Nodegraph holding the given state (see
+    Nodegraph.from_numpy_state)."""
     return Nodegraph.from_numpy_state(ksize, primes, tables, n_unique,
-                                      occupied_offset, device)
+                                      occupied_offset, device,
+                                      **graph_state)

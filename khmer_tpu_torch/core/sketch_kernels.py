@@ -4,7 +4,8 @@ Counterpart of khmer_tpu/core/sketch_kernels.py, the subset the counting
 slices need: the exact byte layout (update with its bigcount report,
 gather, occupancy), the bit (Bloom) table update with per-event new
 flags (kernel J: the Nodegraph and the abundance histogram's tracking
-table), the HLL add (kernel K), the count gathers, the histogram step,
+table), the HLL add (kernel K), the 8-neighbour probe of the bit tables
+and their gather (kernel L), the count gathers, the histogram step,
 and diginorm's median test and keep/consume scan (the XLA functions of
 khmer_tpu/core/diginorm_scan.py). A whole batch is committed at once,
 exactly equivalent to the sequential order of the batch:
@@ -28,7 +29,7 @@ import torch
 
 from khmer_tpu_torch.ops import cuda
 from khmer_tpu_torch.ops.hashing import rolling_hash_windows
-from khmer_tpu_torch.ops.u64 import _SIGN, srl, to_signed, umod
+from khmer_tpu_torch.ops.u64 import _SIGN, srl, to_signed, umin, umod
 
 MAX_KCOUNT = 255      # reference: include/oxli/oxli.hh:81
 MAX_BIGCOUNT = 65535  # reference: include/oxli/oxli.hh:82
@@ -370,6 +371,147 @@ def bit_update(primes, tables, n_unique, hashes, nvalid, valid=None,
     if tables.flat.device.type != "cpu":
         raise ValueError("unsupported device %s" % tables.flat.device)
     return bit_update_plain(primes, tables, n_unique, hashes, nvalid, valid)
+
+
+# --------------------------------------------------------------------------
+# the 8-neighbour probe of the bit tables and their gather (kernel L)
+# --------------------------------------------------------------------------
+
+
+def neighbor_kmers(f, r, k):
+    """The 8 neighbours (nf, nr), int64 [N, 8] of u64 bit patterns, of the
+    k-mers (f, r) [N]: 0-3 to the right with base j, 4-7 to the left with
+    base j - 4 (JAX graphmixin.py make_neighbors_fn :41-52)."""
+    mask = to_signed((1 << (2 * k)) - 1)
+    shift = 2 * k - 2
+    b = torch.arange(4, dtype=torch.int64, device=f.device)[None, :]
+    comp = b ^ 1
+    f, r = f[:, None], r[:, None]
+    nf = torch.cat([((f << 2) | b) & mask, srl(f, 2) | (b << shift)], 1)
+    nr = torch.cat([srl(r, 2) | (comp << shift), ((r << 2) | comp) & mask],
+                   1)
+    return nf, nr
+
+
+def bit_present_plain(primes, flat, hashes):
+    """Whether each hash (any shape) has its bit set in every one of the T
+    bit tables of the joined buffer `flat` -> bool (plain PyTorch, any
+    device)."""
+    present = torch.ones(hashes.shape, dtype=torch.bool,
+                         device=hashes.device)
+    for p, off in zip(primes, bit_offsets(primes)):
+        b = umod(hashes, p) + 8 * off
+        present &= ((flat[b >> 3].to(torch.int64) >> (b & 7)) & 1) == 1
+    return present
+
+
+def neighbors_plain(primes, flat, f, r, k):
+    """Kernel L's probe (plain PyTorch, any device): uint8 [N], bit j set
+    iff neighbour j (neighbor_kmers) of node (f[i], r[i]) is in the bit
+    tables, its canonical value min(nf, nr) present in every table."""
+    nf, nr = neighbor_kmers(f, r, k)
+    present = bit_present_plain(primes, flat, umin(nf, nr)).to(torch.int64)
+    shifts = torch.arange(8, dtype=torch.int64, device=f.device)
+    return (present << shifts).sum(1).to(torch.uint8)
+
+
+def bit_gather_plain(primes, flat, hashes):
+    """Kernel L's gather (plain PyTorch, any device): 1 where a hash (any
+    shape) is in the bit tables, else 0 -> int32."""
+    return bit_present_plain(primes, flat, hashes).to(torch.int32)
+
+
+def _check_bit_args(primes, flat, *hashes):
+    dev = flat.device
+    if dev.type != "cuda":
+        raise ValueError("the CUDA kernels take CUDA tensors, not %s" % dev)
+    if not 1 <= len(primes) <= MAX_TABLES:
+        raise ValueError("kernel L takes 1 to %d tables, not %d"
+                         % (MAX_TABLES, len(primes)))
+    if (flat.dtype != torch.uint8 or flat.dim() != 1
+            or not flat.is_contiguous()
+            or flat.shape[0] != bit_flat_size(primes)):
+        raise ValueError("flat must be the contiguous uint8 buffer of "
+                         "bit_flat_size(primes) = %d bytes"
+                         % bit_flat_size(primes))
+    for h in hashes:
+        if h.device != dev or h.dtype != torch.int64 or h.dim() != 1 \
+                or not h.is_contiguous():
+            raise ValueError("k-mers must be contiguous 1-D int64 tensors "
+                             "on %s" % dev)
+    if len(hashes) == 2 and hashes[0].shape != hashes[1].shape:
+        raise ValueError("f and r differ in length")
+
+
+def neighbors_cuda(primes, flat, f, r, k):
+    """Kernel L (csrc/neighbors.cu): neighbors_plain on the card, for the
+    joined bit buffer `flat` -> uint8 [N]. Counts its launches in
+    ``neighbors_cuda.launches``."""
+    _check_bit_args(primes, flat, f, r)
+    if not 1 <= int(k) <= 32:
+        raise ValueError("k %d outside [1, 32]" % k)
+    n = f.shape[0]
+    dev = flat.device
+    out = torch.empty(n, dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    primes_arr, offsets_arr = _layout(primes, bits=True)
+    err = cuda.library().khmer_neighbors(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), f.data_ptr(), r.data_ptr(), n,
+        int(k), out.data_ptr(), dev.index, _stream(dev))
+    cuda.check(err, "neighbors")
+    neighbors_cuda.launches += 1
+    return out
+
+
+neighbors_cuda.launches = 0
+
+
+def neighbors(primes, flat, f, r, k):
+    """Present-neighbour bytes of the nodes (f, r) (int64 [N] tensors on
+    the tables' device): kernel L on a CUDA buffer, the plain version on
+    a CPU one."""
+    if flat.is_cuda:
+        return neighbors_cuda(primes, flat, f, r, k)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return neighbors_plain(primes, flat, f, r, k)
+
+
+def bit_gather_cuda(primes, flat, hashes):
+    """Kernel L's gather mode (csrc/neighbors.cu) of a 1-D int64 hash
+    tensor -> int32 [n]. Counts its launches in
+    ``bit_gather_cuda.launches``."""
+    _check_bit_args(primes, flat, hashes)
+    n = hashes.shape[0]
+    dev = flat.device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    primes_arr, offsets_arr = _layout(primes, bits=True)
+    err = cuda.library().khmer_bit_gather(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), hashes.data_ptr(), n, out.data_ptr(),
+        dev.index, _stream(dev))
+    cuda.check(err, "bit_gather")
+    bit_gather_cuda.launches += 1
+    return out
+
+
+bit_gather_cuda.launches = 0
+
+
+def bit_gather(primes, flat, hashes):
+    """Presence (0/1, int32) of a hash tensor of any shape in the bit
+    tables: kernel L's gather mode on a CUDA buffer, the plain version on
+    a CPU one."""
+    if flat.is_cuda:
+        flat_h = hashes.reshape(-1).contiguous()
+        return bit_gather_cuda(primes, flat, flat_h).reshape(hashes.shape)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return bit_gather_plain(primes, flat, hashes)
 
 
 # --------------------------------------------------------------------------
@@ -2044,15 +2186,7 @@ def _gather_counts(kind, primes, tables, hashes):
     if kind == "byte":
         return byte_gather(primes, tables.flat, hashes)
     if kind == "bit":
-        present = torch.ones(hashes.shape, dtype=torch.bool,
-                             device=hashes.device)
-        for t, p in enumerate(primes):
-            bins = umod(hashes, p)
-            byte = tables[t][bins // 8].to(torch.int32)
-            bit = torch.bitwise_left_shift(
-                torch.ones_like(byte), (bins % 8).to(torch.int32))
-            present = present & ((byte & bit) != 0)
-        return present.to(torch.int32)
+        return bit_gather(primes, tables.flat, hashes)
     raise NotImplementedError("%s tables are not yet ported" % kind)
 
 

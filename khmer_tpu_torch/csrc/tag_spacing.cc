@@ -7,82 +7,17 @@
 // read or an earlier one. The device gives each k-mer's new flag (kernel
 // J); this pass walks the k-mers in stream order and places the tags. It
 // is built with g++ at first use (khmer_tpu_torch/ops/host.py) and keeps
-// the tags in an open-addressing set of u64 (linear probing, at most 70%
-// full, a splitmix64 finalizer to spread the hashes).
+// the tags in an open-addressing set of u64 (u64_set.h).
 
 #include <cstdint>
 #include <cstring>
 #include <vector>
 
+#include "u64_set.h"
+
 namespace {
 
-class U64Set {
- public:
-  explicit U64Set(size_t hint) { resize(capacity_for(hint)); }
-
-  bool contains(uint64_t v) const {
-    for (size_t i = slot(v);; i = (i + 1) & mask_) {
-      if (!used_[i]) return false;
-      if (keys_[i] == v) return true;
-    }
-  }
-
-  void insert(uint64_t v) {
-    if ((n_ + 1) * 10 >= keys_.size() * 7) resize(keys_.size() * 2);
-    for (size_t i = slot(v);; i = (i + 1) & mask_) {
-      if (!used_[i]) {
-        used_[i] = 1;
-        keys_[i] = v;
-        ++n_;
-        return;
-      }
-      if (keys_[i] == v) return;
-    }
-  }
-
-  size_t size() const { return n_; }
-
-  // the members, in no order; out holds at least size() values
-  void export_to(uint64_t* out) const {
-    size_t j = 0;
-    for (size_t i = 0; i < keys_.size(); ++i) {
-      if (used_[i]) out[j++] = keys_[i];
-    }
-  }
-
- private:
-  static size_t capacity_for(size_t n) {
-    size_t cap = 64;
-    while (cap * 7 <= n * 10 + 10) cap <<= 1;
-    return cap;
-  }
-
-  size_t slot(uint64_t h) const {
-    h ^= h >> 33;
-    h *= 0xFF51AFD7ED558CCDULL;
-    h ^= h >> 33;
-    h *= 0xC4CEB9FE1A85EC53ULL;
-    h ^= h >> 33;
-    return static_cast<size_t>(h) & mask_;
-  }
-
-  void resize(size_t cap) {
-    std::vector<uint64_t> keys = std::move(keys_);
-    std::vector<uint8_t> used = std::move(used_);
-    keys_.assign(cap, 0);
-    used_.assign(cap, 0);
-    mask_ = cap - 1;
-    n_ = 0;
-    for (size_t i = 0; i < keys.size(); ++i) {
-      if (used[i]) insert(keys[i]);
-    }
-  }
-
-  std::vector<uint64_t> keys_;
-  std::vector<uint8_t> used_;
-  size_t mask_ = 0;
-  size_t n_ = 0;
-};
+using khmer_host::U64Set;
 
 // The spacing state carried across chunks: the k-mers since the last tag,
 // the last k-mer of the current read, and whether a read is open.
@@ -117,6 +52,25 @@ long long kt_set_size(void* set) {
 
 void kt_set_export(void* set, uint64_t* out) {
   static_cast<U64Set*>(set)->export_to(out);
+}
+
+// For each of n groups of consecutive values (counts[i] values each), the
+// index in `values` of its first member of the set, -1 if none: each read's
+// first tagged k-mer in the annotation of partitions.
+void kt_set_first_member(void* set, const uint64_t* values,
+                         const int64_t* counts, long long n, int64_t* out) {
+  const U64Set* s = static_cast<const U64Set*>(set);
+  int64_t at = 0;
+  for (long long i = 0; i < n; ++i) {
+    out[i] = -1;
+    for (int64_t j = at; j < at + counts[i]; ++j) {
+      if (s->contains(values[j])) {
+        out[i] = j;
+        break;
+      }
+    }
+    at += counts[i];
+  }
 }
 
 // The spacing pass over n k-mers in stream order: hashes, their new flags

@@ -3,9 +3,8 @@
 
 Transparent gzip/bzip2 decompression is sniffed from magic bytes.
 Sequence cleaning follows oxli::_to_valid_dna (read_parsers.cc:53-69):
-acgt -> upper, other -> A. The native parser (io/native.py) is the fast
-path for file paths; this module is the always-available fallback and
-the behavioral specification.
+acgt -> upper, other -> A. The native parser (io/native.py) reads file
+paths; this module reads the rest and is the behavioral specification.
 """
 
 import bz2

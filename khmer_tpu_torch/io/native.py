@@ -1,54 +1,17 @@
 """ctypes bindings for the native FASTA/FASTQ parser + 2-bit packer.
 
-Counterpart of khmer_tpu/io/native.py. It loads the same
-``src/libkhmer_tpu_io.so`` that ``src/Makefile`` builds (src/fastx_io.cc),
-building it once when it is missing, and streams decompressed byte
-blocks through it. io/fastx.py is the behavioral reference.
+Counterpart of khmer_tpu/io/native.py, on the port's own copy of the
+parser (csrc/fastx_io.cc), built with the rest of its host C++ by
+ops/host.py (a failed build raises). It streams decompressed byte blocks
+through it. io/fastx.py is the behavioral reference.
 """
 
 import ctypes
-import functools
-import os
-import subprocess
 
 import numpy as np
 
 from khmer_tpu_torch.io.fastx import open_maybe_compressed
-
-_SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "src")
-_LIB_PATH = os.path.join(_SRC_DIR, "libkhmer_tpu_io.so")
-
-
-@functools.cache
-def _load():
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(["make", "-C", _SRC_DIR,
-                            os.path.basename(_LIB_PATH)], check=True,
-                           capture_output=True, timeout=120)
-        except (OSError, subprocess.SubprocessError):
-            return None
-    try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
-        return None
-    for fn in (lib.fastq_pack, lib.fasta_pack):
-        fn.restype = ctypes.c_longlong
-        fn.argtypes = [
-            ctypes.c_char_p, ctypes.c_longlong,
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_longlong),
-            ctypes.c_longlong,
-            ctypes.POINTER(ctypes.c_longlong),
-            ctypes.POINTER(ctypes.c_longlong),
-        ]
-    return lib
-
-
-def available():
-    return _load() is not None
-
+from khmer_tpu_torch.ops import host
 
 BLOCK = 8 << 20
 
@@ -59,10 +22,7 @@ def pack_blocks(path):
     meta rows are (seq_code_offset, seq_len, name_offset, name_len);
     offsets reference the codes array / name blob of the same block.
     """
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native fastx library unavailable")
-
+    lib = host.library()
     fh = open_maybe_compressed(path)
     first = fh.read(1)
     if not first:
@@ -95,11 +55,8 @@ def pack_blocks(path):
                 pending = data
                 continue
             buf = data[: cut + 1]
-        n = fn(buf, len(buf),
-               codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-               meta.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
-               max_rec, ctypes.byref(consumed),
-               ctypes.byref(codes_used))
+        n = fn(buf, len(buf), codes.ctypes.data, meta.ctypes.data,
+               max_rec, ctypes.byref(consumed), ctypes.byref(codes_used))
         if n < 0:
             raise ValueError("malformed %s input in %s"
                              % ("FASTQ" if is_fastq else "FASTA", path))

@@ -92,6 +92,12 @@ _ENTRY_POINTS = {
                          _P, _P, _P, _P, _P, _P, _P, _I32, _P],
     # codes, fill, starts, nstarts, k, p, registers, blocks, device, stream
     "khmer_hll_add": [_P, _I64, _P, _I64, _I32, _I32, _P, _I32, _I32, _P],
+    # flat, ntables, primes (host), bit offsets (host), f, r, n, k, out,
+    # device, stream
+    "khmer_neighbors": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _P, _I32, _P],
+    # flat, ntables, primes (host), bit offsets (host), hashes, n, out,
+    # device, stream
+    "khmer_bit_gather": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
 }
 
 

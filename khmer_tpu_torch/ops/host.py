@@ -1,10 +1,15 @@
 """Build and load the port's C++ host library (csrc/*.cc).
 
-The tag-spacing pass of load-graph's tagged consume and its tag set
-(csrc/tag_spacing.cc) run on the host: the pass is sequential over the
-whole stream. The library is compiled with g++ at first use into
-``khmer_tpu_torch/_build/`` (not committed), and again whenever a source
-is newer than it. A failed build raises; nothing falls back to Python.
+What runs on the host runs in the port's own C++: the FASTA/FASTQ parser
+and 2-bit packer (csrc/fastx_io.cc, bound in io/native.py), the dense
+k-mer hasher (csrc/dense_hash.cc, core/hostengine.py), the tag-spacing
+pass of load-graph's tagged consume with its tag set
+(csrc/tag_spacing.cc: the pass is sequential over the whole stream) and
+the partition walk, a level of a batch of traversals a pass
+(csrc/tag_walk.cc, TagWalk below). The library is compiled with g++ at
+first use into ``khmer_tpu_torch/_build/`` (not committed), and again
+whenever a source is newer than it. A failed build raises; nothing falls
+back to Python.
 """
 
 import ctypes
@@ -19,29 +24,36 @@ from khmer_tpu_torch.ops.cuda import BUILD_DIR, CSRC
 
 LIB_PATH = os.path.join(BUILD_DIR, "libkhmer_tpu_torch_host.so")
 
+CXX = "g++"
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
 
 
 def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cc")))
 
 
-def build():
-    """Compile csrc/*.cc into LIB_PATH when it is missing or stale."""
-    if os.path.exists(LIB_PATH) and all(
-            os.path.getmtime(s) <= os.path.getmtime(LIB_PATH)
-            for s in _sources()):
+def build(lib_path=None):
+    """Compile csrc/*.cc into `lib_path` (LIB_PATH), for the machine it
+    runs on, when it is missing or older than a source or header; raises
+    if g++ fails."""
+    lib_path = lib_path or LIB_PATH
+    deps = _sources() + glob.glob(os.path.join(CSRC, "*.h"))
+    if os.path.exists(lib_path) and all(
+            os.path.getmtime(s) <= os.path.getmtime(lib_path)
+            for s in deps):
         return
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (LIB_PATH, os.getpid())
-    cmd = (["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp]
-           + _sources())
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    tmp = "%s.%d.tmp" % (lib_path, os.getpid())
+    cmd = ([CXX, "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+            "-pthread", "-o", tmp] + _sources())
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError("g++ failed (%d):\n%s\n%s" % (
             proc.returncode, " ".join(cmd), proc.stderr))
-    os.replace(tmp, LIB_PATH)
+    os.replace(tmp, lib_path)
 
 
 @functools.cache
@@ -55,9 +67,22 @@ def library():
             ("kt_set_add", [_P, _P, _I64], None),
             ("kt_set_size", [_P], _I64),
             ("kt_set_export", [_P, _P], None),
-            ("kt_tag_spacing", [_P, _P, _P, _P, _I64, ctypes.c_int, _P],
+            ("kt_set_first_member", [_P, _P, _P, _I64, _P], None),
+            ("kt_tag_spacing", [_P, _P, _P, _P, _I64, _I32, _P],
              _I64),
-            ("kt_tag_spacing_end", [_P, ctypes.c_int, _P], None)):
+            ("kt_tag_spacing_end", [_P, _I32, _P], None),
+            ("fastq_pack", [_P, _I64, _P, _P, _I64, _P, _P], _I64),
+            ("fasta_pack", [_P, _I64, _P, _P, _I64, _P, _P], _I64),
+            ("kt_hash_dense", [_P, _I64, _P, _I64, _I32, _P], _I64),
+            ("kt_hash_dense_reads", [_P, _P, _P, _I64, _I32, _P], _I64),
+            ("kt_walk_new", [_P, _P, _I64, _I32, _P, _I64, _P, _I64, _I32,
+                             _I32, _I32, _I32], _P),
+            ("kt_walk_free", [_P], None),
+            ("kt_walk_pass", [_P, _P], _I64),
+            ("kt_walk_frontier", [_P, _P], None),
+            ("kt_walk_keeper_bytes", [_P], _I64),
+            ("kt_walk_counts", [_P, _P], None),
+            ("kt_walk_tags", [_P, _P], None)):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = res
@@ -68,6 +93,42 @@ def _u64(values):
     return np.ascontiguousarray(values, dtype=np.uint64)
 
 
+class U64Set:
+    """A set of u64 in the host library (csrc/u64_set.h)."""
+
+    def __init__(self, values):
+        self._lib = library()
+        values = _u64(values)
+        self.handle = self._lib.kt_set_new(max(64, len(values)))
+        self._lib.kt_set_add(self.handle, values.ctypes.data, len(values))
+
+    def values(self):
+        """Its members, u64, in no order."""
+        out = np.empty(int(self._lib.kt_set_size(self.handle)), np.uint64)
+        self._lib.kt_set_export(self.handle, out.ctypes.data)
+        return out
+
+    def first_members(self, values, counts):
+        """For each group of counts[i] consecutive `values`, the index of
+        its first member of the set, -1 where none is (int64 [groups])."""
+        values = _u64(values)
+        counts = np.ascontiguousarray(counts, dtype=np.int64)
+        if counts.sum() > len(values):
+            raise ValueError("the groups hold more values than given")
+        out = np.empty(len(counts), np.int64)
+        self._lib.kt_set_first_member(self.handle, values.ctypes.data,
+                                      counts.ctypes.data, len(counts),
+                                      out.ctypes.data)
+        return out
+
+    def close(self):
+        if getattr(self, "handle", None):
+            self._lib.kt_set_free(self.handle)
+            self.handle = None
+
+    __del__ = close
+
+
 class TagSpacing:
     """A tag set and the spacing state of one tagged consume
     (csrc/tag_spacing.cc): feed it each chunk's k-mers in stream order,
@@ -76,9 +137,7 @@ class TagSpacing:
     def __init__(self, tags, density):
         self._lib = library()
         self._density = int(density)
-        tags = _u64(sorted(tags))
-        self._set = self._lib.kt_set_new(max(64, len(tags)))
-        self._lib.kt_set_add(self._set, tags.ctypes.data, len(tags))
+        self._tags = U64Set(sorted(tags))
         # since, last k-mer, whether a read is open
         self._state = np.array([self._density // 2 + 1, 0, 0], np.int64)
 
@@ -92,21 +151,81 @@ class TagSpacing:
         if len(is_new) != n or len(read_start) != n:
             raise ValueError("hashes, is_new and read_start differ in length")
         return int(self._lib.kt_tag_spacing(
-            self._set, hashes.ctypes.data, is_new.ctypes.data,
+            self._tags.handle, hashes.ctypes.data, is_new.ctypes.data,
             read_start.ctypes.data, n, self._density,
             self._state.ctypes.data))
 
     def end(self):
         """Close the stream's last read; returns the tags as a set."""
-        self._lib.kt_tag_spacing_end(self._set, self._density,
+        self._lib.kt_tag_spacing_end(self._tags.handle, self._density,
                                      self._state.ctypes.data)
-        out = np.empty(int(self._lib.kt_set_size(self._set)), np.uint64)
-        self._lib.kt_set_export(self._set, out.ctypes.data)
-        return set(int(t) for t in out)
+        return set(int(t) for t in self._tags.values())
 
     def close(self):
-        if getattr(self, "_set", None):
-            self._lib.kt_set_free(self._set)
-            self._set = None
+        self._tags.close()
+
+
+def walk_threads():
+    """Threads of a TagWalk pass: the host's cores, at most 16."""
+    return max(1, min(16, os.cpu_count() or 1))
+
+
+class TagWalk:
+    """The partition walk of a batch of traversals (csrc/tag_walk.cc), a
+    breadth level of each a pass. Start it from the k-mers (f, r) of the
+    start tags, with the graph's tags and stop tags; step() walks a level
+    and frontier() hands out its survivors' (f, r); the next step() takes
+    their neighbour masks (kernel L's byte a node) and walks their present
+    children. An empty frontier ends the walk; then tags() holds what
+    each traversal found. A pass runs on walk_threads() threads."""
+
+    def __init__(self, start_f, start_r, k, tags, stop_tags, max_breadth,
+                 break_on_stop_tags, stop_big_traversals):
+        self._lib = library()
+        start_f, start_r = _u64(start_f), _u64(start_r)
+        tags, stop_tags = _u64(tags), _u64(stop_tags)
+        self.n = len(start_f)
+        self._walk = self._lib.kt_walk_new(
+            start_f.ctypes.data, start_r.ctypes.data, self.n, int(k),
+            tags.ctypes.data, len(tags), stop_tags.ctypes.data,
+            len(stop_tags), int(max_breadth), int(bool(break_on_stop_tags)),
+            int(bool(stop_big_traversals)), walk_threads())
+
+    def step(self, masks=None):
+        """Walk a level: of the children that `masks` (uint8, a byte for
+        each node of the last frontier) allows, or of the start k-mers on
+        the first step. Returns the new frontier's length, 0 once the
+        walk has ended."""
+        if masks is not None:
+            masks = np.ascontiguousarray(masks, dtype=np.uint8)
+        return int(self._lib.kt_walk_pass(
+            self._walk, None if masks is None else masks.ctypes.data))
+
+    def frontier(self, out):
+        """Write the frontier's k-mers into `out`, a u64 buffer of at
+        least twice its length (e.g. a view of pinned memory): f of each
+        node, then r of each."""
+        if out.dtype != np.uint64 or not out.flags.c_contiguous:
+            raise ValueError("out must be a contiguous u64 array")
+        self._lib.kt_walk_frontier(self._walk, out.ctypes.data)
+
+    def keeper_bytes(self):
+        """The most host bytes the traversals' keepers held at the end of
+        a pass so far."""
+        return int(self._lib.kt_walk_keeper_bytes(self._walk))
+
+    def tags(self):
+        """The tags each traversal found: a list of ascending u64
+        arrays."""
+        counts = np.empty(self.n, np.int64)
+        self._lib.kt_walk_counts(self._walk, counts.ctypes.data)
+        flat = np.empty(int(counts.sum()), np.uint64)
+        self._lib.kt_walk_tags(self._walk, flat.ctypes.data)
+        return np.split(flat, np.cumsum(counts)[:-1])
+
+    def close(self):
+        if getattr(self, "_walk", None):
+            self._lib.kt_walk_free(self._walk)
+            self._walk = None
 
     __del__ = close

@@ -37,6 +37,12 @@ from 0 to 1), with the share of its lanes on bits set before the call
 (those its probe settles where it runs), counted from the tables, and
 whether its sample lets the probe run (sketch_kernels.bit_sample_plain);
 K's operations (graph_cases.hll_ops).
+The host's share of phase 9b, on the synthetic reads, each timed
+HOST_REPS times on the host's clock after one run that is not timed:
+  (Pa) the native parser alone (io/native.pack_blocks over the file);
+  (Pb) the parser and the dense hasher (core/hostengine.hash_dense_reads
+       of each block, k 20), the tagged consume's host half;
+  (Pc) unique-kmers -k 20 -e 0.01 in process, as chip_smoke runs it.
 
 Needs a CUDA card. From the root of the repo:
 
@@ -49,8 +55,9 @@ repo root (removed after) and prints one JSON line a shape (a chunk of
 (b), a batch of (d)). The second
 times the shapes in turns with another checkout of the repo at DIR,
 parent, this one, this one, parent: each side a process of its own,
-running this file's timing code on its own checkout's kernels (J's and
-K's wrappers take the same arguments in both), one JSON line a shape
+running this file's timing code on its own checkout's kernels and host
+code (J's and K's wrappers, the parser, the hasher and the CLI take the
+same arguments in both), one JSON line a shape
 tagged with its side. The third times J with its sample's rule replaced,
 in turns: the probe always runs (side "probe"), or never (side "commit",
 every lane to the bucketed commit), each a copy of this checkout's
@@ -71,7 +78,8 @@ import tempfile
 import numpy as np
 import torch
 
-SHAPES = ("Ja", "Jb", "Jc", "Jd", "Je", "Ka", "Kb", "Kc")
+SHAPES = ("Ja", "Jb", "Jc", "Jd", "Je", "Ka", "Kb", "Kc", "Pa", "Pb", "Pc")
+HOST_REPS = 5
 MID_CHUNK = 40   # shape (b): the call whose tables chunks 0..39 made
 MID_CHUNKS = (1, 2, 3, 4, 5, MID_CHUNK)  # shape (b)'s chunks
 # the sample's rule in csrc/bit_update.cu, and the values that replace it
@@ -307,6 +315,45 @@ def time_hll(dev, reads, shapes, reps=20):
     return out
 
 
+def time_host(reads, shapes):
+    """The host shapes of `shapes` (Pa..Pc): one record each, with the
+    seconds of each timed run."""
+    import contextlib
+    import io
+    import time
+
+    from khmer_tpu_torch.cli import unique_kmers
+    from khmer_tpu_torch.core import hostengine
+    from khmer_tpu_torch.io import native
+
+    def parse():
+        for _ in native.pack_blocks(reads):
+            pass
+
+    def parse_hash():
+        for codes, meta, _ in native.pack_blocks(reads):
+            hostengine.hash_dense_reads(codes, meta[:, 0], meta[:, 1], 20,
+                                        "twobit")
+
+    def count():
+        with contextlib.redirect_stderr(io.StringIO()):
+            unique_kmers.main(["-k", "20", "-e", "0.01", reads])
+        torch.cuda.synchronize()
+
+    out = []
+    for shape, fn in (("Pa", parse), ("Pb", parse_hash), ("Pc", count)):
+        if shape not in shapes:
+            continue
+        fn()
+        seconds = []
+        for _ in range(HOST_REPS):
+            t0 = time.perf_counter()
+            fn()
+            seconds.append(time.perf_counter() - t0)
+        out.append({"shape": shape, "seconds": seconds})
+    return out
+
+
 def run(dev, reads, shapes):
     """Every shape of `shapes` on this checkout's kernels, in SHAPES'
     order: one record each (each chunk of (b) and batch of (d)), with the
@@ -315,7 +362,8 @@ def run(dev, reads, shapes):
 
     cuda.library()  # built before anything is timed
     name = torch.cuda.get_device_name(dev)
-    recs = time_hll(dev, reads, shapes) + time_bits(dev, reads, shapes)
+    recs = (time_hll(dev, reads, shapes) + time_bits(dev, reads, shapes)
+            + time_host(reads, shapes))
     order = {s: i for i, s in enumerate(SHAPES)}
     return [dict(r, device=name)
             for r in sorted(recs, key=lambda r: order[r["shape"]])]
@@ -347,13 +395,11 @@ def in_turns(sides, reads, shapes):
 
 def rule_copy(tmp, name):
     """A copy of this checkout's package under tmp/name whose kernel J
-    takes the sample's rule RULES[name] (the repo's src/ linked in, for
-    the host library): the root to run it from."""
+    takes the sample's rule RULES[name]: the root to run it from."""
     root = os.path.join(tmp, name)
     pkg = os.path.join(root, "khmer_tpu_torch")
     shutil.copytree(os.path.join(_REPO, "khmer_tpu_torch"), pkg,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    os.symlink(os.path.join(_REPO, "src"), os.path.join(root, "src"))
     cu = os.path.join(pkg, "csrc", "bit_update.cu")
     with open(cu) as f:
         src = f.read()

@@ -15,7 +15,8 @@ import torch
 from khmer_tpu_torch.core import blocked as B
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.core.sketch import Countgraph
-from khmer_tpu_torch.scripts import diginorm_cases, graph_cases, trim_cases
+from khmer_tpu_torch.scripts import (diginorm_cases, graph_cases,
+                                     partition_cases, trim_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -591,3 +592,43 @@ def test_graph_entry_points_launch_kernels_on_cuda(cuda_device, tmp_path,
     ref.consume_seqfile(genomes)
     assert hist == ref.abundance_distribution(
         genomes, Nodegraph(20, 1, 1, primes=ref.hashsizes(), device="cpu"))
+
+
+@pytest.mark.parametrize("name", list(partition_cases.NEIGHBOR_CASES))
+def test_neighbors_match_plain(cuda_device, name):
+    """Kernel L's probe and gather against their plain versions."""
+    assert partition_cases.check_neighbor_case(name, cuda_device) == 0
+
+
+def test_partition_on_cuda_launches_neighbors(cuda_device, tmp_path):
+    """A Nodegraph on the card partitions (with and without the cut of
+    big traversals) and annotates as on the CPU, its walk probing through
+    kernel L, and its bit gather going through L's gather mode."""
+    import os
+
+    from khmer_tpu_torch.core.sketch import Nodegraph
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    genomes = os.path.join(repo, "data", "stamps-genomes.fa")
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        ng = Nodegraph(20, 2.5e7, 4, device=dev)
+        ng._set_tag_density(10)
+        ng.consume_seqfile_and_tag(genomes)
+        before = (K.neighbors_cuda.launches, K.bit_gather_cuda.launches)
+        out = []
+        for stop_big in (True, False):
+            subset = ng.do_subset_partition(0, 0, True, stop_big)
+            ids = {t: subset.get_partition_id(t) for t in ng.all_tags}
+            part = str(tmp_path / ("%s.part" % dev))
+            n = subset.output_partitioned_file(genomes, part)
+            with open(part, "rb") as f:
+                out.append((ids, subset.count_partitions(), n, f.read()))
+        probe = np.array(sorted(ng.all_tags), np.uint64)
+        out.append(ng.get_counts_for_hashes(probe).tolist())
+        out.append(ng.get_counts_for_hashes(probe + np.uint64(1)).tolist())
+        got[str(dev)] = out
+        if dev == cuda_device:
+            assert K.neighbors_cuda.launches > before[0]
+            assert K.bit_gather_cuda.launches > before[1]
+    assert got[str(cuda_device)] == got["cpu"]

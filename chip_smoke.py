@@ -158,9 +158,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
      sha256, "output 50 partitions"), kernel L (the 8-neighbour probe)
      seen to launch and held to its plain version on every frontier it
      probed; the wall split into the tagged consume, the walk (its C++
-     passes, L's launches, L's device time), the union-find, the merge and
-     the annotation; the host's peak resident set over the CLI and the
-     walk's batches with their keeper bytes;
+     passes, L's launches; L's time on the card, its frontiers replayed
+     in order after the CLI from a file, each launch between CUDA events
+     while a sleep kernel holds the stream (the card's gap between
+     launches included), beside the events around each of the walk's
+     calls, which include the host's launch), the union-find, the merge
+     and the annotation; the host's peak resident set and the card's peak
+     memory over the CLI and the walk's batches with their keeper bytes;
   10a. the same without --no-big-traverse, the CLI's default walk that no
      size cuts ("output 1 partitions", the .pmap and .part sha256), its
      keepers the largest;
@@ -171,9 +175,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      first appearance (the merge numbers them in the order glob lists the
      .pmap files); L held to its plain version on every eighth launch;
      then L on the largest frontiers of 10 and 10b against its plain
-     version, beside its byte bound (17 B a node) and its sector floor
-     (32 B a distinct sector read): L's time in the per-kernel line is
-     10b's.
+     version, beside its byte bound (17 B a node) and its two sector
+     floors (32 B a distinct sector read: of every table of every
+     neighbour, and of what a probe that stops at a neighbour's first
+     unset bit needs), with the loads of L's rule a stage: L's time in
+     the per-kernel line is 10b's.
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees (J's at 9b each call
 alone after its tables are zeroed or restored, scripts.reset_ms); the
@@ -2722,21 +2728,27 @@ def run_neighbor_cases(torch, dev, errs):
 class _ProbeCheck:
     """Kernel L as the partition walk calls it in phases 10-10b
     (sketch_kernels.neighbors, wrapped by install() while the CLI runs):
-    its device time by CUDA events; every `every`-th launch, its first
-    2^21 nodes held to neighbors_plain on the same frontier; the largest
-    frontier kept (with its tables) for timing; the seconds the check
-    takes, which the probes' time includes."""
+    CUDA events around each call (the host's launch included: the card
+    waits on the host at every level); every `every`-th launch, its first
+    2^21 nodes held to neighbors_plain on the same frontier; every
+    frontier written to a file, for replay_ms after the CLI (on disk, so
+    that neither the host's nor the card's peak memory over the CLI counts
+    it); the largest kept on the card (with its tables) for timing; the
+    seconds the check takes, which the probes' time includes."""
 
     def __init__(self, torch, SK, every):
         self.torch, self.SK, self.every = torch, SK, every
         self.calls = self.checked = self.err = 0
         self.seconds = 0.0
         self.largest = None
+        self.sizes = []
         self.events = []
 
-    def install(self):
-        """Wrap SK.neighbors; returns a function that restores it."""
+    def install(self, spool):
+        """Wrap SK.neighbors, the frontiers written to the file `spool`;
+        returns a function that restores it and closes the file."""
         fn, event = self.SK.neighbors, self.torch.cuda.Event
+        self.spool, self.out = spool, open(spool, "wb")
 
         def neighbors(primes, flat, f, r, k):
             t0, t1 = event(enable_timing=True), event(enable_timing=True)
@@ -2747,11 +2759,38 @@ class _ProbeCheck:
             self.check(f, r, masks, primes, flat, k)
             return masks
         self.SK.neighbors = neighbors
-        return lambda: setattr(self.SK, "neighbors", fn)
+
+        def restore():
+            self.SK.neighbors = fn
+            self.out.close()
+        return restore
 
     def launch_ms(self):
-        """L's device time over the launches, once they have ended."""
+        """The events' time over the walk's calls, once they have ended."""
         return sum(t0.elapsed_time(t1) for t0, t1 in self.events)
+
+    def replay_ms(self):
+        """L over the walk as the card sees it: the frontiers read back
+        onto the card and probed again in order, timed by scripts.held_ms
+        (CUDA events around each launch while a sleep kernel holds the
+        stream, so that none waits on the host; the card's gap between
+        launches included, which a profiler's kernel time leaves out)."""
+        import functools
+
+        import numpy as np
+
+        from khmer_tpu_torch.scripts import held_ms
+
+        _, _, primes, flat, k = self.largest
+        walk = self.torch.from_numpy(np.fromfile(self.spool, np.int64)).to(
+            flat.device)
+        calls, o = [], 0
+        for n in self.sizes:
+            calls.append(functools.partial(
+                self.SK.neighbors_cuda, primes, flat, walk[o:o + n],
+                walk[o + n:o + 2 * n], k))
+            o += 2 * n
+        return sum(held_ms(calls))
 
     def check(self, f, r, masks, primes, flat, k):
         t0 = time.perf_counter()
@@ -2760,6 +2799,9 @@ class _ProbeCheck:
             want = self.SK.neighbors_plain(primes, flat, f[:m], r[:m], k)
             self.err += int((want != masks[:m]).sum())
             self.checked += m
+        f.cpu().numpy().tofile(self.out)
+        r.cpu().numpy().tofile(self.out)
+        self.sizes.append(f.shape[0])
         if self.largest is None or f.shape[0] > self.largest[0].shape[0]:
             self.largest = (f.clone(), r.clone(), primes, flat, k)
         self.calls += 1
@@ -2883,10 +2925,10 @@ def run_config5(torch, SK, dev, card, errs, label, path, x, flags, E,
             "output_partitions"), times, keep),
         _split_times(TagWalk, ("step", "keeper_bytes", "tags"), times,
                      keep),
-        _split_times(P._Prober, ("__call__",), times, keep),
-        check.install()]
+        _split_times(P._Prober, ("__call__",), times, keep)]
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
+        restores.append(check.install(os.path.join(tmp, "frontiers.i64")))
         try:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -2902,6 +2944,7 @@ def run_config5(torch, SK, dev, card, errs, label, path, x, flags, E,
             for restore in restores:
                 restore()
         peak = torch.cuda.max_memory_allocated(dev)
+        replay_ms = check.replay_ms()
         frontiers = [n for n in keep.pop("step") if n]
         keepers = keep.pop("keeper_bytes")
         batches = [len(found) for found in keep.pop("tags")]
@@ -2938,17 +2981,25 @@ def run_config5(torch, SK, dev, card, errs, label, path, x, flags, E,
              - times["__call__"])
     say("%s config 5: do-partition -k 20 -x %s -N 4 %s %.6f s: tagged "
         "consume %.6f s (%d tags), walk %.6f s (C++ passes %.6f s, probes "
-        "%.6f s, L's device time %.4f ms in %d launches, %d levels, %d "
+        "%.6f s; L replayed %.4f ms, %.3f ns a node: the walk's frontiers "
+        "probed again in order after the CLI, CUDA events around each "
+        "launch while a sleep kernel holds the stream, the card's gap "
+        "between launches included (probe_bench's walk shape gives the "
+        "profiler's kernel time); CUDA events around each of the walk's "
+        "calls, the host's launch included, %.4f ms; %d launches, %d "
+        "levels, %d "
         "nodes probed; batches of %s traversals, their keepers at most "
         "%.3f GB, %.3f GB in all the batches), "
         "union-find %.6f s, merge %.6f s, annotate %.6f s; "
         "%d subsets, output %d partitions%s (the JAX answers); .info %s, "
         ".pmap %s, .part %s; bit_update launches %d; L held to its plain "
-        "version on %d nodes of %d launches in %.3f s (not in the walk's "
-        "time); the host's peak resident set %.3f GB over the CLI, read "
+        "version on %d nodes of %d launches, their frontiers written to "
+        "a file, in %.3f s (in the wall, not in the walk's time); the "
+        "host's peak resident set %.3f GB over the CLI, read "
         "every 10 ms (%.3f GB before it); peak device memory %.3f GB; on %s"
         % (label, x, " ".join(flags), wall, times["consume_seqfile_and_tag"],
            n_tags, times["step"] + probes, times["step"], probes,
+           replay_ms, replay_ms * 1e6 / max(sum(frontiers), 1),
            check.launch_ms(), l_launches, len(frontiers), sum(frontiers),
            batches, max(keepers) / 1e9, sum(keepers) / 1e9, union,
            times["merge_subset_from_disk"],
@@ -2963,25 +3014,12 @@ def run_config5(torch, SK, dev, card, errs, label, path, x, flags, E,
     return l_launches, check.largest
 
 
-def neighbor_sectors(SK, primes, flat, f, r, k):
-    """Distinct 32-byte sectors of the tables that the probe of nodes (f,
-    r) reads."""
-    import torch
-
-    from khmer_tpu_torch.ops.u64 import umin, umod
-
-    nf, nr = SK.neighbor_kmers(f, r, k)
-    canon = umin(nf, nr).reshape(-1)
-    sectors = torch.cat([(umod(canon, p) + 8 * off) >> 8 for p, off in
-                         zip(primes, SK.bit_offsets(primes))])
-    return int(torch.unique(sectors).shape[0])
-
-
 def time_neighbors(torch, SK, card, errs, label, frontier):
     """Kernel L on a phase's largest frontier against its plain version:
     as issued and on the device, beside its byte bound (16 B up and 1 B
-    back a node) and its sector floor (32 B a distinct sector read)."""
-    from khmer_tpu_torch.scripts import cuda_ms, device_ms
+    back a node) and its two sector floors (32 B a distinct sector read),
+    with the loads and sectors of each stage of L's rule."""
+    from khmer_tpu_torch.scripts import cuda_ms, device_ms, partition_cases
 
     f, r, primes, flat, k = frontier
     n = f.shape[0]
@@ -2998,13 +3036,22 @@ def time_neighbors(torch, SK, card, errs, label, frontier):
          "library_ms": None}
     dev_ms = device_ms(lambda: SK.neighbors_cuda(primes, flat, f, r, k), 20)
     t["bound_ms"], t["bound_by"] = bound(17 * n, 8 * len(primes) * n)
-    sectors = neighbor_sectors(SK, primes, flat, f, r, k)
+    every, needed = partition_cases.probe_floors(primes, flat, f, r, k)
+    _, stages = partition_cases.neighbor_stages(primes, flat, f, r, k)
     say("  %s neighbors on its largest frontier, %d nodes into %d tables "
         "of %.3f GB: kernel %.4f ms (device %.4f ms), plain %.4f ms, bound "
-        "%.4f ms (%s), sector floor %.4f ms (%d sectors); == plain; on %s"
+        "%.4f ms (%s); sector floors (32 B a distinct sector): every "
+        "table of every neighbour %.4f ms (%d sectors), what a probe that "
+        "stops at the first unset bit needs %.4f ms (%d); L's rule loads "
+        "%s bytes (stages' tables, rows, loads, distinct sectors: %s); == "
+        "plain; on %s"
         % (label, n, len(primes), flat.shape[0] / 1e9, t["ms"], dev_ms,
            t["plain_ms"], t["bound_ms"], t["bound_by"],
-           sectors * 32 / PEAK_BYTES_S * 1e3, sectors, card))
+           every * 32 / PEAK_BYTES_S * 1e3, every,
+           needed * 32 / PEAK_BYTES_S * 1e3, needed,
+           sum(s["loads"] for s in stages),
+           [(s["tables"], s["rows"], s["loads"], s["sectors"])
+            for s in stages], card))
     return t
 
 

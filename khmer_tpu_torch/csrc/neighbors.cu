@@ -22,17 +22,32 @@
 // writes, for each hash, 1 iff its own bit is set in every table (int32,
 // as _gather_counts returns it).
 //
-// What bounds it: random bit reads. Each of the 8 T probes of a node reads
-// one 32-byte sector of its own in tables far larger than L2 (4 GB at -x
-// 8e9 -N 4), so the floor is the distinct sectors a launch reads, well
-// above its 17 B a node.
+// What bounds it: random bit reads. A probe of the 8 neighbours in T
+// tables far larger than L2 (4 GB at -x 8e9 -N 4) reads a 32-byte sector
+// for each bit it loads, so the floor is the distinct sectors a launch
+// must read, well above its 17 B a node. A Bloom-filter probe is an AND
+// over the tables, so the function needs table t only for the neighbours
+// set in tables 0..t-1 (khmer's BitStorage stops at the first 0 bit):
+// in a de Bruijn graph 2-3 of a node's 8 neighbours are present, so table
+// 0 is most of it (on 10b's largest frontier 11 distinct sectors a node,
+// against 22 for every table). And the partition walk probes a level at
+// a time: a third of 10b's 3,078 launches probe fewer than 4,096 nodes,
+// too few threads to keep the card's loads in flight.
 //
-// Design: one thread per node, which computes the eight canonical values
-// and issues the loads of all eight in kGroup tables before it uses any
-// (32 reads in flight a thread at T = 4); a later group of tables loads
-// only the neighbours still present. h % p_t is by the reciprocal the host
-// computes (byte_common.cuh counter_index), the joined buffer's bit offsets
-// passed in place of its byte offsets, as kernel J does.
+// Design: eight lanes a node, one a neighbour (so a frontier of n nodes
+// runs 8n threads), each probing its canonical value in stages: table 0
+// first (kFirst tables), then, while set, kGroup more tables at a time,
+// all loads of a stage issued before any is used; at T = 4 a lane waits
+// at most two round trips and loads tables 1-3 only where table 0's bit
+// is set. The node's byte is assembled by __ballot_sync; the four lanes
+// of a node whose bits share a sector (the right neighbours' forward
+// values are consecutive, as are the left ones' reverse values) load it
+// in one warp request. The gather mode is one lane a hash, by the same
+// rule. h % p_t is by the reciprocal the host computes (byte_common.cuh
+// counter_index), the joined buffer's bit offsets passed in place of its
+// byte offsets, as kernel J does. scripts/partition_cases.py probe_stages
+// mirrors the rule; scripts/probe_bench.py builds the designs measured
+// against it (PERF.md, kernel L).
 
 #include "byte_common.cuh"
 
@@ -44,67 +59,66 @@ using khmer_byte::counter_index;
 using khmer_cuda::kThreads;
 using khmer_cuda::thread_index;
 
-constexpr int kGroup = 4;  // tables whose loads a thread issues together
+constexpr int kFirst = 1;  // tables the first stage loads
+constexpr int kGroup = 4;  // tables each later stage loads, while set
 
-// Bits of `canon` present in tables [t0, t0 + kGroup) (all where absent).
-template <int kN>
-__device__ __forceinline__ unsigned group_bits(const ByteLayout& layout,
-                                               const uint8_t* flat,
-                                               const uint64_t* canon,
-                                               unsigned live, int t0) {
-  uint8_t v[kGroup][kN];
+// Whether h's bit is set in tables [t0, t0 + kWidth) (a bit of an absent
+// table reads 1), every load issued before any is used.
+template <int kWidth>
+__device__ __forceinline__ bool stage_set(const ByteLayout& layout,
+                                          const uint8_t* flat, uint64_t h,
+                                          int t0) {
+  uint8_t v[kWidth];
 #pragma unroll
-  for (int g = 0; g < kGroup; ++g) {
-#pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      v[g][j] = 1;
-      if (t0 + g < layout.ntables && (live >> j & 1)) {
-        const uint64_t b = counter_index(layout, canon[j], t0 + g);
-        v[g][j] = flat[b >> 3] >> (b & 7) & 1;
-      }
+  for (int g = 0; g < kWidth; ++g) {
+    v[g] = 1;
+    if (t0 + g < layout.ntables) {
+      const uint64_t b = counter_index(layout, h, t0 + g);
+      v[g] = flat[b >> 3] >> (b & 7) & 1;
     }
   }
-  unsigned out = live;
+  bool set = true;
 #pragma unroll
-  for (int g = 0; g < kGroup; ++g) {
-#pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      if (!v[g][j]) out &= ~(1u << j);
-    }
-  }
-  return out;
+  for (int g = 0; g < kWidth; ++g) set = set && v[g];
+  return set;
 }
 
-template <int kN>
-__device__ __forceinline__ unsigned present_bits(const ByteLayout& layout,
-                                                 const uint8_t* flat,
-                                                 const uint64_t* canon) {
-  unsigned live = (1u << kN) - 1;
-  for (int t0 = 0; t0 < layout.ntables && live; t0 += kGroup) {
-    live = group_bits<kN>(layout, flat, canon, live, t0);
+// Whether h's bit is set in every table, the tables in stages.
+__device__ __forceinline__ bool present(const ByteLayout& layout,
+                                        const uint8_t* flat, uint64_t h) {
+  if (!stage_set<kFirst>(layout, flat, h, 0)) return false;
+  for (int t0 = kFirst; t0 < layout.ntables; t0 += kGroup) {
+    if (!stage_set<kGroup>(layout, flat, h, t0)) return false;
   }
-  return live;
+  return true;
 }
 
+// Thread 8 i + j probes neighbour j of node i; lane 8 q of each warp
+// writes node q's byte.
 __global__ void __launch_bounds__(kThreads)
 neighbors_kernel(const uint64_t* __restrict__ f,
                  const uint64_t* __restrict__ r, int64_t n, uint64_t mask,
                  int shift, const __grid_constant__ ByteLayout layout,
                  const uint8_t* __restrict__ flat, uint8_t* __restrict__ out) {
-  const int64_t i = thread_index();
-  if (i >= n) return;
-  const uint64_t fi = f[i], ri = r[i];
-  uint64_t canon[8];
-#pragma unroll
-  for (uint64_t b = 0; b < 4; ++b) {
-    const uint64_t rf = ((fi << 2) | b) & mask;
-    const uint64_t rr = (ri >> 2) | ((b ^ 1) << shift);
-    canon[b] = rf < rr ? rf : rr;
-    const uint64_t lf = (fi >> 2) | (b << shift);
-    const uint64_t lr = ((ri << 2) | (b ^ 1)) & mask;
-    canon[4 + b] = lf < lr ? lf : lr;
+  const int64_t i = thread_index() >> 3;
+  const int j = threadIdx.x & 7;
+  bool set = false;
+  if (i < n) {
+    const uint64_t fi = f[i], ri = r[i], b = j & 3;
+    uint64_t nf, nr;
+    if (j < 4) {  // to the right with base b
+      nf = ((fi << 2) | b) & mask;
+      nr = (ri >> 2) | ((b ^ 1) << shift);
+    } else {  // to the left
+      nf = (fi >> 2) | (b << shift);
+      nr = ((ri << 2) | (b ^ 1)) & mask;
+    }
+    set = present(layout, flat, nf < nr ? nf : nr);
   }
-  out[i] = static_cast<uint8_t>(present_bits<8>(layout, flat, canon));
+  const unsigned bits = __ballot_sync(~0u, set);
+  if (i < n && j == 0) {
+    out[i] = static_cast<uint8_t>(bits >> (threadIdx.x & 24));
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -114,7 +128,7 @@ bit_gather_kernel(const uint64_t* __restrict__ hashes, int64_t n,
   const int64_t i = thread_index();
   if (i >= n) return;
   const uint64_t h = hashes[i];
-  out[i] = static_cast<int32_t>(present_bits<1>(layout, flat, &h));
+  out[i] = static_cast<int32_t>(present(layout, flat, h));
 }
 
 }  // namespace
@@ -138,7 +152,7 @@ extern "C" int khmer_neighbors(const uint8_t* flat, int ntables,
   if (err != cudaSuccess) return err;
   if (n == 0) return cudaSuccess;
   const uint64_t mask = k == 32 ? ~0ULL : (1ULL << (2 * k)) - 1;
-  neighbors_kernel<<<khmer_cuda::grid_for(n), kThreads, 0,
+  neighbors_kernel<<<khmer_cuda::grid_for(8 * n), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const uint64_t*>(f),
       reinterpret_cast<const uint64_t*>(r), n, mask, 2 * k - 2, layout, flat,

@@ -60,6 +60,35 @@ def reset_ms(reset, fn, reps, hold):
     return total / reps, out
 
 
+def held_ms(calls, run=256):
+    """Each of `calls` (functions of no argument) in ms by CUDA events
+    around it, issued in order in runs of `run` while a sleep kernel holds
+    the stream, so that no event waits on the host: the device's time from
+    one event to the next, its gap between launches included (a profiler's
+    kernel time leaves that out). Raises if the hold ended before a run
+    was issued."""
+    import torch
+
+    pairs = []
+    for lo in range(0, len(calls), run):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
+        held = torch.cuda.Event()
+        held.record()
+        for fn in calls[lo:lo + run]:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            pairs.append((start, stop))
+        if held.query():
+            raise RuntimeError("the stream's hold ended before calls %d-%d "
+                               "were issued" % (lo, lo + run - 1))
+    torch.cuda.synchronize()
+    return [start.elapsed_time(stop) for start, stop in pairs]
+
+
 def host_us(fn, reps=1):
     """Host microseconds per call of fn(), the stream held by a sleep
     kernel so that no call waits on the device."""

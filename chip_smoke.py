@@ -68,7 +68,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
      boundaries, runs of a thread across read starts, a continued first
      read, a fill short of the codes, a read over eight tiles, read starts
      on a tile's first and last windows and a run's edges, a last tile of
-     one window, a chunk of one window);
+     one window, a chunk of one window); the per-table gather (kernel M)
+     on the cases of scripts/pertable_cases.py (no hash, one, 2^20 + 3,
+     the reduction's edges, hashes near 2^64, one table, three, eight and
+     thirty-two, counters at 254 and 255, tables over 2^31 bytes);
   4. config 1, blocked: the port's load-into-counting (--tpu-layout
      blocked, k=20, 4 x 5e7 bytes) on data/25k.fq.gz, then the abundance
      histogram; results must equal the JAX package's and the blocked
@@ -179,7 +182,26 @@ Phases (each prints a line; any failure raises and exits non-zero):
      floors (32 B a distinct sector read: of every table of every
      neighbour, and of what a probe that stops at a neighbour's first
      unset bit needs), with the loads of L's rule a stage: L's time in
-     the per-kernel line is 10b's.
+     the per-kernel line is 10b's;
+  11. the knot pipeline of khmer's partitioning guide through the port's
+     CLIs on data/stamps-reads.fa.gz at -k 20: load-graph -x 12.5e6 -N 4,
+     make-initial-stoptags -x 2e8 -N 4, partition-graph -S (the default
+     walk), find-knots -x 2e8 -N 4, filter-stoptags, do-partition of the
+     filtered reads, extract-partitions of its .part and of phase 10's;
+     the JAX answers asserted (the sha256 of every .stoptags, .pmap,
+     .stopfilt, .part, .dist and group file, the stop tags, the
+     repartitioned sizes, the partitions); kernels M (the per-table
+     gather), L and A seen to launch, M held to its plain version on
+     every call; each CLI's wall, the repartitions' split into the
+     excursions' walk, M, the host's evaluation, A's commits and the tags'
+     walk again, with the tags walked again, also as one JSON line; then
+     M on its largest call
+     against its plain version and torch.take at precomputed indices,
+     beside its byte bound and sector floor;
+  11b. find-knots -x 2e8 -N 4 on phase 9b's graph (4 GB of bit tables)
+     with phase 10b's six subsets, read in sorted order: the stop tags'
+     sha256 and the repartitioned sizes asserted, the wall split (and its
+     JSON line).
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees (J's at 9b each call
 alone after its tables are zeroed or restored, scripts.reset_ms); the
@@ -441,6 +463,40 @@ EXPECT_C5 = {
 }
 GOLDEN_PMAP = os.path.join(REPO, "tests", "golden", "stamps_ref_pmap.txt.gz")
 
+# The knot pipeline through the JAX package (khmer_tpu, CPU,
+# KHMER_TPU_ENGINE=auto): phase 11's CLIs on data/stamps-reads.fa.gz, and
+# phase 11b's find-knots on phase 9b's graph with phase 10b's subsets
+# (their .pmap files in sorted order).
+EXPECT_C11 = {
+    "stamps": {
+        "graph_sha256": [EXPECT_C4["stamps"]["ng_sha256"],
+                         EXPECT_C4["stamps"]["tagset_sha256"]],
+        "initial": (453465, "538adfd7b35e8a0890b39ac14790a020"
+                            "7945c6c2c7a9f9c6e69e2a7b6629b58a"),
+        "pmap_sha256": "0d599d9c29c7f9242155e4630a054002"
+                       "eb3ddf7d13d37ea0639f7303ef12a7d3",
+        "stoptags": (453465, "538adfd7b35e8a0890b39ac14790a020"
+                             "7945c6c2c7a9f9c6e69e2a7b6629b58a"),
+        "repartitioned": [15],
+        "stopfilt_sha256": "7fafb2cf0e28f25036aa821c3a454cb1"
+                           "a17d5cc12120b566f52b36499ad91f5d",
+        "output": 241,
+        "part_sha256": "23a0801ad82490805042f6799f5747d7"
+                       "7e8ba239805ef3c7644ccb8e36d7216b",
+        "extract": {"dist": "5d99a1d5409500be627fbc63ef198469"
+                            "9356131b82eb9b4bfc396ba97bfb6790",
+                    "groups": ["e09d4d8a505e191db197064d2b2c3356"
+                               "ae2bbdf0d151bb0da81fefdb3daf020f"]},
+        "extract10": {"dist": "d843ea312277840dfb6592afb1d91fb3"
+                              "2463bf093177da754474f823ccb901cd",
+                      "groups": ["d73ed13c4c13d198c9b064e5bcf8af56"
+                                 "f4827e793362c4739a85cdc6549e275b"]}},
+    "synth": {
+        "stoptags": (10063, "16b0ac5c1007c8d7c3a25e97d2448bf8"
+                            "52dbeb470ffb96c5beb981cc9f84dad0"),
+        "repartitioned": [35, 43, 51, 56, 56, 56]},
+}
+
 
 class SmokeFailure(AssertionError):
     pass
@@ -521,7 +577,7 @@ def main():
                                  "diginorm_med", "diginorm_scan",
                                  "trim_mark", "trim_probe", "trim_scan",
                                  "read_counts", "bit_update", "hll_add",
-                                 "neighbors")}
+                                 "neighbors", "byte_pertable")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
         run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs)
@@ -536,14 +592,15 @@ def main():
     n_trim = run_trim_cases(torch, dev, errs)
     n_bit, n_hll = run_graph_cases(torch, dev, errs)
     n_nbr = run_neighbor_cases(torch, dev, errs)
+    n_pert = run_pertable_cases(torch, dev, errs)
     say("phase 3 exact: kernel == plain on %d blocked, %d byte, %d "
         "histogram, %d decoded-event, %d byte-gather-reduction, %d "
         "blocked-gather-reduction, %d diginorm, %d trim, %d bit-table, "
-        "%d HLL and %d neighbour-probe cases (tables, flags, n_unique, "
-        "bigcount reports, counts, keep flags, branches, trim positions, "
-        "registers, neighbour bytes)"
+        "%d HLL, %d neighbour-probe and %d per-table-gather cases (tables, "
+        "flags, n_unique, bigcount reports, counts, keep flags, branches, "
+        "trim positions, registers, neighbour bytes, counters)"
         % (len(cases), len(byte_cases), n_hist, n_proto, n_edges, n_edges2,
-           n_digi, n_trim, n_bit, n_hll, n_nbr))
+           n_digi, n_trim, n_bit, n_hll, n_nbr, n_pert))
     lap("phase 3")
 
     # -- phase 4: config 1, blocked, through the port's entry points -------
@@ -580,6 +637,10 @@ def main():
                                      dir=REPO) as tmp:
         reads, gen_s = synth_reads(tmp)
         head = synth_head(reads)
+        # what phases 9b, 10 and 10b leave for phases 11 and 11b
+        kept = os.path.join(tmp, "kept")
+        synth_kept = os.path.join(kept, "synth")
+        os.makedirs(synth_kept)
 
         # -- phase 7b: config 2 at 4 GB of tables ----------------------------
         run_config2_scale(torch, SK, dev, card, errs, reads, head, gen_s)
@@ -612,7 +673,8 @@ def main():
 
         # -- phase 9b: load-graph on 4 GB of bit tables ----------------------
         ng, _ = run_config4(torch, SK, dev, card, errs, "phase 9b", reads,
-                            "8e9", EXPECT_C4["synth"], keep_graph=True)
+                            "8e9", EXPECT_C4["synth"], keep_graph=True,
+                            keep_dir=synth_kept)
         timings["bit_update"] = time_bit_chunk(torch, SK, dev, card, errs,
                                                ng, reads)
         del ng
@@ -624,7 +686,9 @@ def main():
         # -- phase 10: config 5, do-partition, through the CLI ---------------
         l_launches, stamps_frontier = run_config5(
             torch, SK, dev, card, errs, "phase 10", STAMPS, "12.5e6",
-            ["--no-big-traverse"], EXPECT_C5["stamps"], every=1)
+            ["--no-big-traverse"], EXPECT_C5["stamps"], every=1,
+            keep_files=[("stamps-reads.fa.gz.part",
+                         os.path.join(kept, "p10.part"))])
         lap("phase 10")
 
         # -- phase 10a: the CLI's default walk ------------------------------
@@ -635,7 +699,9 @@ def main():
         # -- phase 10b: do-partition on 4 GB of bit tables -------------------
         _, synth_frontier = run_config5(
             torch, SK, dev, card, errs, "phase 10b", reads, "8e9",
-            ["--no-big-traverse"], EXPECT_C5["synth"], every=8)
+            ["--no-big-traverse"], EXPECT_C5["synth"], every=8,
+            keep_files=[("g.subset.%d.pmap" % i, os.path.join(
+                synth_kept, "g.subset.%d.pmap" % i)) for i in range(6)])
         launches["neighbors"] = l_launches
         time_neighbors(torch, SK, card, errs, "phase 10", stamps_frontier)
         del stamps_frontier
@@ -644,6 +710,17 @@ def main():
         del synth_frontier
         torch.cuda.empty_cache()
         lap("phase 10b")
+
+        # -- phase 11: the knot pipeline on the stamps reads -----------------
+        launches["byte_pertable"], timings["byte_pertable"] = run_knots(
+            torch, SK, dev, card, errs, kept)
+        torch.cuda.empty_cache()
+        lap("phase 11")
+
+        # -- phase 11b: find-knots on phase 10b's graph and subsets ----------
+        run_knots_scale(torch, SK, dev, card, errs, synth_kept)
+        torch.cuda.empty_cache()
+        lap("phase 11b")
 
     kernels = []
     for name, source, replaces in (
@@ -674,7 +751,9 @@ def main():
              "khmer_tpu/core/sketch_kernels.py:204"),
             ("hll_add", "hll_add.cu", "khmer_tpu/core/hll.py:65"),
             ("neighbors", "neighbors.cu",
-             "khmer_tpu/core/graphmixin.py:30")):
+             "khmer_tpu/core/graphmixin.py:30"),
+            ("byte_pertable", "byte_gather.cu",
+             "khmer_tpu/core/sketch_kernels.py:681")):
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -2376,14 +2455,15 @@ def run_graph_cases(torch, dev, errs):
 
 
 def run_config4(torch, SK, dev, card, errs, label, path, x, E,
-                keep_graph=False):
+                keep_graph=False, keep_dir=None):
     """Config 4 through the port's CLIs in this process: unique-kmers -k
     20 -e 0.01 and load-graph -k 20 -x `x` -N 4 on `path`, the JAX
     answers E asserted and kernels K and J seen to launch (launches set to
     0 just before each CLI and read just after). Returns ({"bit_update":
     J's launches in load-graph, "hll_add": K's in unique-kmers}, the first
     native block of `path`); with keep_graph, in place of the launches, a
-    Nodegraph that took the tagged consume through the API."""
+    Nodegraph that took the tagged consume through the API. keep_dir: a
+    directory that keeps load-graph's graph and tagset as g, g.tagset."""
     from khmer_tpu_torch.cli import load_graph, unique_kmers
     from khmer_tpu_torch.core.sketch import Nodegraph
     from khmer_tpu_torch.io import native
@@ -2412,7 +2492,12 @@ def run_config4(torch, SK, dev, card, errs, label, path, x, E,
         got["ng_sha256"], got["ng_bytes"] = _file_sha256(ng_path)
         got["tagset_sha256"], _ = _file_sha256(ng_path + ".tagset")
         got["info_sha256"], _ = _file_sha256(ng_path + ".info")
-        os.remove(ng_path)
+        if keep_dir:
+            os.replace(ng_path, os.path.join(keep_dir, "g"))
+            os.replace(ng_path + ".tagset",
+                       os.path.join(keep_dir, "g.tagset"))
+        else:
+            os.remove(ng_path)
     want = {key: E[key] for key in got}
     expect(got == want, "%s: %s, JAX gives %s" % (label, got, want))
     expect(k_launches > 0 and j_launches > 0, "%s: hll_add launched %d "
@@ -2808,10 +2893,11 @@ class _ProbeCheck:
         self.seconds += time.perf_counter() - t0
 
 
-def _split_times(owner, names, times, keep):
-    """Wrap owner's methods `names` so that each adds its wall seconds to
-    times[name]; keep[name] gathers what each call of it returned, and
-    keep[name + " self"] the object of its first call. Returns a function
+def _split_times(owner, names, times, keep=None):
+    """Wrap owner's methods (or a module's functions) `names` so that each
+    adds its wall seconds to times[name]; keep[name] gathers what each
+    call of it returned, and keep[name + " self"] the object of its first
+    call (its first argument), where keep is given. Returns a function
     that restores them."""
     saved = {name: getattr(owner, name) for name in names}
 
@@ -2820,8 +2906,9 @@ def _split_times(owner, names, times, keep):
             t0 = time.perf_counter()
             out = fn(self, *args, **kwargs)
             times[name] = times.get(name, 0.0) + time.perf_counter() - t0
-            keep.setdefault(name, []).append(out)
-            keep.setdefault(name + " self", self)
+            if keep is not None:
+                keep.setdefault(name, []).append(out)
+                keep.setdefault(name + " self", self)
             return out
         return timed
 
@@ -2901,7 +2988,7 @@ def _check_golden(pmap_path):
 
 
 def run_config5(torch, SK, dev, card, errs, label, path, x, flags, E,
-                every):
+                every, keep_files=()):
     """Config 5 through the port's do-partition in this process: -k 20 -x
     `x` -N 4 --keep-subsets `flags` on `path`, the JAX answers E asserted,
     kernel L's launches counted (set to 0 just before the CLI and read
@@ -2909,8 +2996,9 @@ def run_config5(torch, SK, dev, card, errs, label, path, x, flags, E,
     split into its steps (the steps' methods, the walk's passes
     (TagWalk.step) and probes (partition._Prober) timed by wrapping them
     while the CLI runs), with the host's peak resident set over the CLI
-    and the walk's keeper bytes. Returns (L's launches, the largest
-    frontier L probed, with its tables: (f, r, primes, flat, k))."""
+    and the walk's keeper bytes; keep_files: (file the CLI wrote, path
+    to move it to) pairs. Returns (L's launches, the largest frontier L probed,
+    with its tables: (f, r, primes, flat, k))."""
     from khmer_tpu_torch.cli import do_partition
     from khmer_tpu_torch.core import partition as P
     from khmer_tpu_torch.core.graphmixin import HashgraphMixin
@@ -2969,6 +3057,8 @@ def run_config5(torch, SK, dev, card, errs, label, path, x, flags, E,
             expect(not bad, "%s: %d tags' ids differ from the golden map"
                    % (label, len(bad)))
         del graph, keep
+        for name, to in keep_files:
+            os.replace(os.path.join(tmp, name), to)
     want = {key: E[key] for key in got}
     expect(got == want, "%s: %s, JAX gives %s" % (label, got, want))
     expect(check.err == 0, "%s: neighbors != plain on %d of %d nodes"
@@ -3052,6 +3142,369 @@ def time_neighbors(torch, SK, card, errs, label, frontier):
            sum(s["loads"] for s in stages),
            [(s["tables"], s["rows"], s["loads"], s["sectors"])
             for s in stages], card))
+    return t
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the knot pipeline
+# ---------------------------------------------------------------------------
+
+
+def run_pertable_cases(torch, dev, errs):
+    """Kernel M against its plain version on the cases of
+    scripts/pertable_cases.py."""
+    from khmer_tpu_torch.scripts import pertable_cases
+
+    for name in pertable_cases.PERTABLE_CASES:
+        err = pertable_cases.check_pertable_case(name, dev)
+        errs["byte_pertable"] = max(errs["byte_pertable"], err)
+        expect(err == 0, "byte_pertable != plain on case %s" % name)
+        torch.cuda.empty_cache()
+    say("  per-table gather cases: byte_pertable == plain on %s"
+        % ", ".join(pertable_cases.PERTABLE_CASES))
+    return len(pertable_cases.PERTABLE_CASES)
+
+
+class _PertableCheck:
+    """Kernel M as the repartition calls it (sketch_kernels.byte_pertable,
+    wrapped by install() while the CLIs run): CUDA events around each
+    call; every call held to byte_pertable_plain on the same inputs; the
+    largest call's inputs kept (with its tables) for timing; the seconds
+    the check takes."""
+
+    def __init__(self, torch, SK):
+        self.torch, self.SK = torch, SK
+        self.calls = self.checked = self.err = 0
+        self.seconds = 0.0
+        self.largest = None
+        self.events = []
+
+    def install(self):
+        """Wrap SK.byte_pertable; returns a function that restores it."""
+        fn, event = self.SK.byte_pertable, self.torch.cuda.Event
+
+        def byte_pertable(primes, flat, hashes):
+            t0, t1 = event(enable_timing=True), event(enable_timing=True)
+            t0.record()
+            out = fn(primes, flat, hashes)
+            t1.record()
+            self.events.append((t0, t1))
+            c0 = time.perf_counter()
+            want = self.SK.byte_pertable_plain(primes, flat, hashes)
+            if want.numel():
+                self.err = max(self.err,
+                               int((want.int() - out.int()).abs().max()))
+            self.checked += hashes.shape[0]
+            self.calls += 1
+            if self.largest is None or \
+                    hashes.shape[0] > self.largest[2].shape[0]:
+                self.largest = (primes, flat, hashes.clone())
+            self.seconds += time.perf_counter() - c0
+            return out
+        self.SK.byte_pertable = byte_pertable
+        return lambda: setattr(self.SK, "byte_pertable", fn)
+
+    def launch_ms(self):
+        return sum(t0.elapsed_time(t1) for t0, t1 in self.events)
+
+
+def _knot_splits(torch, SK):
+    """Wrap the repartition's steps while a knot CLI runs: the excursions'
+    walk (traversal.walk_excursions, kernel L's probes included), kernel
+    M (sketch_kernels.pertable_counts, the host's upload and copy back
+    included), the host's evaluation (ExcursionWalk.evaluate, the
+    re-walks included), kernel A's commits (Countgraph._commit_hashes) and
+    the tags' walk again (SubsetPartition.repartition_a_partition).
+    Returns (times, the evaluations' outputs, a function that restores
+    them)."""
+    from khmer_tpu_torch.core import partition as P
+    from khmer_tpu_torch.core import traversal as TR
+    from khmer_tpu_torch.core.sketch import Countgraph
+    from khmer_tpu_torch.ops.host import ExcursionWalk
+
+    times, keep = {}, {}
+    restores = [
+        _split_times(TR, ("walk_excursions",), times),
+        _split_times(SK, ("pertable_counts",), times),
+        _split_times(ExcursionWalk, ("evaluate",), times, keep),
+        _split_times(Countgraph, ("_commit_hashes",), times),
+        _split_times(P.SubsetPartition, ("repartition_a_partition",),
+                     times)]
+    return times, keep, lambda: [r() for r in restores]
+
+
+def _say_split(label, wall, times, keep, check_s, card):
+    """Print a knot CLI's wall split (see _knot_splits); returns it as a
+    dict of seconds, with the tags walked again."""
+    evals = keep.get("evaluate", [])
+    split = {"wall": wall,
+             "excursions_walk": times.get("walk_excursions", 0.0),
+             "M": times.get("pertable_counts", 0.0) - check_s,
+             "evaluation": times.get("evaluate", 0.0),
+             "A_commits": times.get("_commit_hashes", 0.0),
+             "tags_walk_again": times.get("repartition_a_partition", 0.0)}
+    split["rest"] = (wall - check_s
+                     - sum(v for k, v in split.items() if k != "wall"))
+    split["tags"] = sum(len(out[2]) for out in evals)
+    split["batches"] = len(evals)
+    split["tags_walked_again"] = sum(int(out[3].sum()) for out in evals)
+    say("  %s %.6f s: excursions' walk %.6f s (%d tags, %d batches), M "
+        "%.6f s (the host's upload and copy back included, its check "
+        "%.3f s left out), the host's evaluation %.6f s (%d tags walked "
+        "again), A's commits %.6f s, the tags' walk again (break on stop "
+        "tags) %.6f s, the rest %.6f s; on %s"
+        % (label, wall, split["excursions_walk"], split["tags"],
+           split["batches"], split["M"], check_s, split["evaluation"],
+           split["tags_walked_again"], split["A_commits"],
+           split["tags_walk_again"], split["rest"], card))
+    return split
+
+
+def _stoptags(path):
+    """(number of stop tags, sha256) of a .stoptags file."""
+    import struct
+
+    with open(path, "rb") as f:
+        n = struct.unpack("<Q", f.read(18)[10:18])[0]
+    return n, _file_sha256(path)[0]
+
+
+def _extract_sha256(d, prefix):
+    """sha256 of extract-partitions' .dist and of each group file, in name
+    order."""
+    import glob
+
+    groups = sorted(glob.glob(os.path.join(d, prefix + ".group*")))
+    return {"dist": _file_sha256(os.path.join(d, prefix + ".dist"))[0],
+            "groups": [_file_sha256(g)[0] for g in groups]}
+
+
+def _sorted_glob():
+    """Make glob.glob list in sorted order (the .pmap files find-knots
+    reads in turn; JAX's answers were taken so); returns a function that
+    restores it."""
+    import glob
+
+    real = glob.glob
+    glob.glob = lambda pattern, *a, **kw: sorted(real(pattern, *a, **kw))
+    return lambda: setattr(glob, "glob", real)
+
+
+def run_knots(torch, SK, dev, card, errs, kept):
+    """Phase 11, the knot pipeline of khmer's partitioning guide through
+    the port's CLIs in this process, on data/stamps-reads.fa.gz at -k 20
+    (BASELINE row 5's graph, -x 12.5e6 -N 4; find-knots' and
+    make-initial-stoptags' countgraph at -x 2e8 -N 4): load-graph,
+    make-initial-stoptags, partition-graph -S (the default walk),
+    find-knots, filter-stoptags, do-partition of the filtered reads and
+    extract-partitions of its .part and of phase 10's (kept/p10.part); the
+    JAX answers EXPECT_C11 asserted; kernels M, L and A seen to launch
+    (their counts set to 0 just before the first CLI and read after the
+    last); M held to its plain version on every call. Returns (M's
+    launches, its timing on the largest call)."""
+    from khmer_tpu_torch.cli import (do_partition, extract_partitions,
+                                     filter_stoptags, find_knots,
+                                     load_graph, make_initial_stoptags,
+                                     partition_graph)
+
+    E = EXPECT_C11["stamps"]
+    check = _PertableCheck(torch, SK)
+    walls, got, splits = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        restore = check.install()
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            SK.byte_pertable_cuda.launches = 0
+            SK.neighbors_cuda.launches = 0
+            SK.byte_update_cuda.launches = 0
+            walls["load-graph"], _, _ = _run_cli(torch, load_graph.main, [
+                "-k", "20", "-x", "12.5e6", "-N", "4", "g", STAMPS], tmp)
+            got["graph_sha256"] = [
+                _file_sha256(os.path.join(tmp, f))[0]
+                for f in ("g", "g.tagset")]
+            for step, main, args in (
+                    ("make-initial-stoptags", make_initial_stoptags.main,
+                     ["-k", "20", "-x", "2e8", "-N", "4", "g"]),
+                    ("partition-graph", partition_graph.main,
+                     ["-S", "g.stoptags", "g"]),
+                    ("find-knots", find_knots.main,
+                     ["-x", "2e8", "-N", "4", "g"])):
+                times, keep, unwrap = _knot_splits(torch, SK)
+                check_s = check.seconds
+                try:
+                    walls[step], err, _ = _run_cli(torch, main, args, tmp)
+                finally:
+                    unwrap()
+                if step != "partition-graph":
+                    splits[step] = (times, keep, check.seconds - check_s)
+                if step == "make-initial-stoptags":
+                    got["initial"] = _stoptags(os.path.join(
+                        tmp, "g.stoptags"))
+                elif step == "partition-graph":
+                    got["pmap_sha256"] = _file_sha256(os.path.join(
+                        tmp, "g.subset.0.pmap"))[0]
+                else:
+                    got["stoptags"] = _stoptags(os.path.join(
+                        tmp, "g.stoptags"))
+                    got["repartitioned"] = [int(v) for v in re.findall(
+                        r"\*\* repartitioned size: (\d+)", err)]
+            walls["filter-stoptags"], _, _ = _run_cli(
+                torch, filter_stoptags.main,
+                ["-k", "20", "g.stoptags", STAMPS], tmp)
+            stopfilt = os.path.join(tmp, "stamps-reads.fa.gz.stopfilt")
+            got["stopfilt_sha256"] = _file_sha256(stopfilt)[0]
+            with open(stopfilt, "rb") as f:
+                n_kept = f.read().count(b">")
+            walls["do-partition"], err, _ = _run_cli(
+                torch, do_partition.main,
+                ["-k", "20", "-x", "12.5e6", "-N", "4", "--keep-subsets",
+                 "g2", stopfilt], tmp)
+            got["output"] = int(re.search(r"output (\d+) partitions",
+                                          err).group(1))
+            got["part_sha256"] = _file_sha256(stopfilt + ".part")[0]
+            walls["extract-partitions"], _, _ = _run_cli(
+                torch, extract_partitions.main,
+                ["ex", stopfilt + ".part"], tmp)
+            got["extract"] = _extract_sha256(tmp, "ex")
+            walls["extract-partitions (phase 10's .part)"], _, _ = _run_cli(
+                torch, extract_partitions.main,
+                ["ex10", os.path.join(kept, "p10.part")], tmp)
+            got["extract10"] = _extract_sha256(tmp, "ex10")
+            m_launches = SK.byte_pertable_cuda.launches
+            l_launches = SK.neighbors_cuda.launches
+            a_launches = SK.byte_update_cuda.launches
+        finally:
+            restore()
+        peak = torch.cuda.max_memory_allocated(dev)
+    want = {key: E[key] for key in got}
+    expect(got == want, "phase 11: %s, JAX gives %s" % (got, want))
+    expect(check.err == 0, "phase 11: byte_pertable != plain on %d of %d "
+           "hashes" % (check.err, check.checked))
+    errs["byte_pertable"] = max(errs["byte_pertable"], check.err)
+    expect(m_launches > 0 and l_launches > 0 and a_launches > 0,
+           "phase 11: byte_pertable launched %d times, neighbors %d, "
+           "byte_update %d" % (m_launches, l_launches, a_launches))
+    say("phase 11 the knot pipeline on data/stamps-reads.fa.gz -k 20 "
+        "(graph -x 12.5e6 -N 4, countgraph -x 2e8 -N 4): walls %s s, "
+        "%.6f s in all; %d initial stop tags (sha256 %s), partition-graph "
+        "-S .pmap %s, find-knots %d stop tags (sha256 %s), repartitioned "
+        "sizes %s; filter-stoptags kept %d reads (.stopfilt %s); "
+        "do-partition output %d partitions (.part %s); extract-partitions "
+        ".dist %s with %d group files, of phase 10's .part .dist %s with "
+        "%d (the JAX answers); launches byte_pertable %d, neighbors %d, "
+        "byte_update %d; M held to its plain version on %d hashes of %d "
+        "calls, CUDA events around its calls %.4f ms; peak device memory "
+        "%.3f GB; on %s"
+        % (json.dumps({k: round(v, 6) for k, v in walls.items()}),
+           sum(walls.values()), got["initial"][0], got["initial"][1][:16],
+           got["pmap_sha256"][:16], got["stoptags"][0],
+           got["stoptags"][1][:16], got["repartitioned"], n_kept,
+           got["stopfilt_sha256"][:16], got["output"],
+           got["part_sha256"][:16], got["extract"]["dist"][:16],
+           len(got["extract"]["groups"]), got["extract10"]["dist"][:16],
+           len(got["extract10"]["groups"]), m_launches, l_launches,
+           a_launches, check.checked, check.calls, check.launch_ms(),
+           peak / 1e9, card))
+    split = {step: _say_split("phase 11 " + step, walls[step], times, keep,
+                              check_s, card)
+             for step, (times, keep, check_s) in splits.items()}
+    say(json.dumps({"phase": "11", "walls_s": walls, "split_s": split,
+                    "card": card}))
+    t = time_pertable(torch, SK, card, errs, check.largest)
+    return m_launches, t
+
+
+def run_knots_scale(torch, SK, dev, card, errs, kept):
+    """Phase 11b: find-knots -x 2e8 -N 4 in this process on phase 9b's
+    graph (4 GB of bit tables, 527,780 tags; kept/g) with phase 10b's six
+    subset .pmap files, read in sorted order; the JAX answers EXPECT_C11
+    asserted, M held to its plain version on every call, the wall
+    split."""
+    from khmer_tpu_torch.cli import find_knots
+
+    E = EXPECT_C11["synth"]
+    check = _PertableCheck(torch, SK)
+    restores = [check.install(), _sorted_glob()]
+    times, keep, unwrap = _knot_splits(torch, SK)
+    restores.append(unwrap)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        SK.byte_pertable_cuda.launches = 0
+        SK.neighbors_cuda.launches = 0
+        SK.byte_update_cuda.launches = 0
+        with _PeakRss() as rss:
+            wall, err, _ = _run_cli(torch, find_knots.main,
+                                    ["-x", "2e8", "-N", "4", "g"], kept)
+        launches = (SK.byte_pertable_cuda.launches,
+                    SK.neighbors_cuda.launches, SK.byte_update_cuda.launches)
+    finally:
+        for restore in restores:
+            restore()
+    peak = torch.cuda.max_memory_allocated(dev)
+    got = {"stoptags": _stoptags(os.path.join(kept, "g.stoptags")),
+           "repartitioned": [int(v) for v in re.findall(
+               r"\*\* repartitioned size: (\d+)", err)]}
+    want = {key: E[key] for key in got}
+    expect(got == want, "phase 11b: %s, JAX gives %s" % (got, want))
+    expect(check.err == 0, "phase 11b: byte_pertable != plain")
+    errs["byte_pertable"] = max(errs["byte_pertable"], check.err)
+    say("phase 11b find-knots -x 2e8 -N 4 on phase 10b's graph (-x 8e9 -N "
+        "4, 4 GB of bit tables, 527,780 tags) and its 6 subsets %.6f s: %d "
+        "stop tags (sha256 %s), repartitioned sizes %s (the JAX answers); "
+        "launches byte_pertable %d, neighbors %d, byte_update %d; M held "
+        "to its plain version on %d hashes of %d calls; the host's peak "
+        "resident set %.3f GB (%.3f GB before); peak device memory %.3f "
+        "GB; on %s"
+        % (wall, got["stoptags"][0], got["stoptags"][1][:16],
+           got["repartitioned"], launches[0], launches[1], launches[2],
+           check.checked, check.calls, rss.peak / 1e9, rss.before / 1e9,
+           peak / 1e9, card))
+    split = _say_split("phase 11b find-knots", wall, times, keep,
+                       check.seconds, card)
+    say(json.dumps({"phase": "11b", "walls_s": {"find-knots": wall},
+                    "split_s": {"find-knots": split}, "card": card}))
+
+
+def time_pertable(torch, SK, card, errs, largest):
+    """Kernel M on the largest call of phase 11's path against its plain
+    version and against torch.take of the joined tables at precomputed
+    indices (the gather alone, the library call), beside its bound: 8 B
+    in a hash and T B out, and a sector floor of 32 B for each distinct
+    sector of each table the call touches."""
+    from khmer_tpu_torch.ops.u64 import umod
+    from khmer_tpu_torch.scripts import cuda_ms, device_ms
+
+    primes, flat, hashes = largest
+    n, T = hashes.shape[0], len(primes)
+    got = SK.byte_pertable_cuda(primes, flat, hashes)
+    want = SK.byte_pertable_plain(primes, flat, hashes)
+    err = int((got.int() - want.int()).abs().max())
+    errs["byte_pertable"] = max(errs["byte_pertable"], err)
+    expect(err == 0, "phase 11: byte_pertable != plain on its largest call")
+    idx = torch.stack([umod(hashes, p) + off for off, p in
+                       zip(SK.byte_offsets(primes), primes)])
+    expect(torch.equal(torch.take(flat, idx), got),
+           "phase 11: torch.take differs from byte_pertable")
+    sectors = int(torch.unique(idx >> 5).shape[0])
+    t = {"ms": cuda_ms(lambda: SK.byte_pertable_cuda(primes, flat, hashes),
+                       20),
+         "plain_ms": cuda_ms(lambda: SK.byte_pertable_plain(primes, flat,
+                                                            hashes), 5),
+         "library_ms": cuda_ms(lambda: torch.take(flat, idx), 20)}
+    dev_ms = device_ms(lambda: SK.byte_pertable_cuda(primes, flat, hashes),
+                       20)
+    by_bytes, _ = bound((8 + T) * n, 0)
+    floor = sectors * 32 / PEAK_BYTES_S * 1e3
+    t["bound_ms"], t["bound_by"] = max(by_bytes, floor), "bytes"
+    say("  phase 11 byte_pertable on its largest call, %d hashes into %d "
+        "tables of %.3f GB: kernel %.4f ms (device %.4f ms), plain %.4f "
+        "ms, torch.take at precomputed indices %.4f ms; bound %.5f ms: "
+        "bytes (8 B in, %d B out a hash) %.5f ms, sector floor (32 B a "
+        "distinct sector, %d sectors) %.5f ms; == plain; on %s"
+        % (n, T, flat.shape[0] / 1e9, t["ms"], dev_ms, t["plain_ms"],
+           t["library_ms"], t["bound_ms"], T, by_bytes, sectors, floor,
+           card))
     return t
 
 

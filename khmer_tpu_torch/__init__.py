@@ -9,8 +9,10 @@ the blocked layout, the abundance histogram (abundance-dist,
 abundance-dist-single), digital normalization (normalize-by-median),
 trimming (trim-low-abund, filter-abund, filter-abund-single), the
 HyperLogLog counter (unique-kmers), the Nodegraph with its tags
-(load-graph) and the partitioning of its tag graph (do-partition,
-partition-graph, merge-partitions, annotate-partitions).
+(load-graph), the partitioning of its tag graph (do-partition,
+partition-graph, merge-partitions, annotate-partitions, extract-partitions)
+and the knot pipeline (make-initial-stoptags, find-knots,
+filter-stoptags).
 Sketches are made on the card ("cuda") unless the caller names another
 device.
 """

@@ -11,8 +11,10 @@ come back at one byte a k-mer; the spacing pass, sequential over the
 whole stream, runs on the host in C++
 (csrc/tag_spacing.cc, ops/host.py). A node's neighbours are probed on
 the card by kernel L (sketch_kernels.neighbors), which partitioning
-(core/partition.py) drives a breadth level at a time. The other
-traversals and labels are not ported yet.
+(core/partition.py) drives a breadth level at a time, as do the knot
+pipeline's excursions (core/traversal.py), whose repartition turns the
+highly connected k-mers into stop tags. The other traversals and labels
+are not ported yet.
 """
 
 import numpy as np
@@ -80,6 +82,8 @@ class HashgraphMixin:
         self.stop_tags = set()
         self._tag_density = DEFAULT_TAG_DENSITY
         self._partition = None
+        # tags whose excursion was small: repartition skips them after
+        self.repart_small_tags = set()
 
     @property
     def partition(self):
@@ -154,6 +158,42 @@ class HashgraphMixin:
             self.stop_tags = st
         else:
             self.stop_tags |= st
+
+    def save_stop_tags(self, path):
+        from khmer_tpu_torch.core import oxli_io
+
+        oxli_io.save_stoptags(path, self._ksize, self.stop_tags)
+
+    def print_tagset(self, path):
+        with open(path, "w") as f:
+            for t in sorted(self.all_tags):
+                f.write(self.reverse_hash(t) + "\n")
+
+    def print_stop_tags(self, path):
+        with open(path, "w") as f:
+            for t in sorted(self.stop_tags):
+                f.write(self.reverse_hash(t) + "\n")
+
+    def trim_on_stoptags(self, seq):
+        """Trim at the first stop tag k-mer (hashgraph.cc:487-501): at
+        k - 2 + i for a stop tag at window i. Returns (seq, position)."""
+        hashes = self._hashes_for_sequence(seq)
+        for i, h in enumerate(hashes.tolist()):
+            if h in self.stop_tags:
+                pos = self._ksize - 2 + i
+                return seq[:pos], pos
+        return seq, len(seq)
+
+    def repartition_largest_partition(self, counts, distance, threshold,
+                                      frequency, subs=None):
+        """Make the highly connected k-mers of the largest partition of
+        `subs` (the graph's own partition, if None) stop tags and
+        partition its tags again (reference graphs.pyx:755,
+        subset.cc:1218; core/partition.py). Returns the size of the
+        next-largest partition."""
+        target = subs if subs is not None else self.partition
+        return target.repartition_largest_partition(
+            distance, threshold, frequency, counts)
 
     def divide_tags_into_subsets(self, subset_size):
         """Every subset_size-th tag, in sorted order (reference

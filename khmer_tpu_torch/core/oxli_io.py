@@ -217,6 +217,17 @@ def load_tagset(path, expect_ksize=None):
         return tags, density
 
 
+def save_stoptags(path, ksize, stop_tags):
+    """Write the stop tags as a type-4 file, ascending (reference
+    Hashgraph::save_stop_tags, hashgraph.cc:572-600)."""
+    arr = np.array(sorted(stop_tags), dtype=np.uint64)
+    with _open_write(path) as f:
+        f.write(SAVED_SIGNATURE)
+        f.write(bytes([SAVED_FORMAT_VERSION, SAVED_STOPTAGS]))
+        f.write(struct.pack("<IQ", ksize, len(arr)))
+        f.write(arr.tobytes())
+
+
 def load_stoptags(path, expect_ksize=None):
     """The stop tags of a stoptags file (type 4), as a set."""
     with _open_read(path) as f:

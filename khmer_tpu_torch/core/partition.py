@@ -20,6 +20,20 @@ as in JAX and in khmer.
 The walk follows the reference's queue rule, as JAX's native engine
 (KHMER_TPU_ENGINE=auto) does; find_all_tags_plain, the queue walk one node
 at a time in Python, is its plain reference, which only the tests run.
+
+The knot pipeline's repartition (repartition_largest_partition, the
+reference's subset.cc:1218-1359) walks an excursion of bounded radius from
+each tag of the largest partition, in JAX one tag after another: a tag's
+walk skips the stop tags the tags before it added, and its counts hold
+their adds. Here the excursions go in batches (core/traversal.py
+walk_excursions, csrc/excursion_walk.cc) walked against the stop tags as
+they stood when the batch began; the host then evaluates the batch's tags
+in order, walking again (from the neighbour bytes it recorded, without the
+card) each tag whose walk kept a stop tag that an earlier tag of the batch
+added, and reading each k-mer's counters from one gather of the tables
+(kernel M, sketch_kernels.pertable_counts) plus the batch's earlier adds;
+kernel A commits the batch's adds in one call, in JAX's order. The answer
+does not depend on the batch.
 """
 
 import struct
@@ -37,6 +51,11 @@ BIG_TRAVERSALS_ARE = 200  # reference: subset.cc:54
 WALK_BATCH = 1 << 14
 FIRST_BATCH = 1 << 11
 KEEPER_BYTES = 1 << 30
+# The excursions of a repartition go in batches of at most REPART_BATCH
+# tags, the first at most REPART_FIRST, each later one sized to
+# KEEPER_BYTES as the walk's batches are.
+REPART_BATCH = 1 << 12
+REPART_FIRST = 1 << 9
 
 
 class _Box:
@@ -451,6 +470,94 @@ class SubsetPartition:
         subset = cls(graph)
         subset.merge_from_disk(filename)
         return subset
+
+    # -- knot detection ---------------------------------------------------
+
+    def _clear_partition(self, the_partition):
+        """Remove a partition; returns its tags (subset.cc:1398-1424)."""
+        partition_tags = set()
+        for tag, pp in self.partition_map.items():
+            if pp is not None and pp.pid == the_partition:
+                partition_tags.add(tag)
+        for tag in partition_tags:
+            del self.partition_map[tag]
+        self.reverse_pmap.pop(the_partition, None)
+        return partition_tags
+
+    def repartition_largest_partition(self, distance, threshold,
+                                      frequency, counting):
+        """Find the highly connected k-mers of the largest partition and
+        make them stop tags, then partition its tags again
+        (subset.cc:1218-1359; see above). `counting` (a Countgraph) counts
+        the k-mers of every excursion of at least `threshold` nodes, within
+        `distance` of its tag; a k-mer counted more than `frequency` times
+        becomes a stop tag. Returns the size of the next-largest
+        partition."""
+        from khmer_tpu_torch.core import sketch_kernels as K
+        from khmer_tpu_torch.core.sketch import _hashes_tensor
+        from khmer_tpu_torch.core.traversal import walk_excursions
+
+        cm = {}
+        for tag, pp in self.partition_map.items():
+            if pp is not None:
+                cm[pp.pid] = cm.get(pp.pid, 0) + 1
+        if not cm:
+            raise RuntimeError("no partitions to repartition")
+        biggest_size = max(cm.values())
+        biggest_p = 0
+        for pid, size in cm.items():
+            if size == biggest_size:
+                biggest_p = pid
+        sizes = sorted(set(cm.values()))
+        next_largest = sizes[-2] if len(sizes) > 1 else 0
+
+        bigtags = self._clear_partition(biggest_p)
+        graph = self.graph
+        k = graph.ksize()
+        todo = _sorted_tags([t for t in bigtags
+                             if t not in graph.repart_small_tags])
+        size = min(REPART_BATCH, REPART_FIRST)
+        at = 0
+        while at < len(todo):
+            batch = todo[at:at + size]
+            walk = walk_excursions(graph, batch, revcomp_bits(batch, k),
+                                   distance)
+            try:
+                kms = walk.keepers(threshold)
+                base = K.pertable_counts(
+                    counting.storage_kind, counting._primes,
+                    counting.tables, _hashes_tensor(kms, counting.device))
+                stops, adds, small, _ = walk.evaluate(
+                    base.cpu().numpy(), counting._primes, threshold,
+                    frequency)
+                held = walk.keeper_bytes()
+            finally:
+                walk.close()
+            graph.stop_tags.update(stops.tolist())
+            graph.repart_small_tags.update(batch[small].tolist())
+            if len(adds):
+                counting._commit_hashes(adds)
+            at += len(batch)
+            size = min(REPART_BATCH,
+                       max(1, len(batch) * KEEPER_BYTES // max(held, 1)))
+
+        self.repartition_a_partition(bigtags)
+        return next_largest
+
+    def repartition_a_partition(self, partition_tags):
+        """Partition a tag set again, each walk breaking on stop tags
+        (subset.cc:1361-1392): each tag joins the tags of the set that
+        its walk finds, in sorted tag order."""
+        tags = _sorted_tags(partition_tags)
+        k = self.graph.ksize()
+        found = find_all_tags_batch(self.graph, tags, revcomp_bits(tags, k),
+                                    break_on_stop_tags=True,
+                                    stop_big_traversals=False)
+        for tag, tagged in zip(tags.tolist(), found):
+            at = np.searchsorted(tags, tagged)
+            inside = at < len(tags)
+            inside[inside] = tags[at[inside]] == tagged[inside]
+            self.assign_partition_id(tag, tagged[inside].tolist())
 
     # -- annotation -------------------------------------------------------
 

@@ -2,13 +2,14 @@
 
 Counterpart of khmer_tpu/core/sketch_kernels.py, the subset the counting
 slices need: the exact byte layout (update with its bigcount report,
-gather, occupancy), the bit (Bloom) table update with per-event new
-flags (kernel J: the Nodegraph and the abundance histogram's tracking
-table), the HLL add (kernel K), the 8-neighbour probe of the bit tables
-and their gather (kernel L), the count gathers, the histogram step,
-and diginorm's median test and keep/consume scan (the XLA functions of
-khmer_tpu/core/diginorm_scan.py). A whole batch is committed at once,
-exactly equivalent to the sequential order of the batch:
+gather, the per-table gather (kernel M), occupancy), the bit (Bloom)
+table update with per-event new flags (kernel J: the Nodegraph and the
+abundance histogram's tracking table), the HLL add (kernel K), the
+8-neighbour probe of the bit tables and their gather (kernel L), the
+count gathers, the histogram step, and diginorm's median test and
+keep/consume scan (the XLA functions of khmer_tpu/core/diginorm_scan.py).
+A whole batch is committed at once, exactly equivalent to the sequential
+order of the batch:
 
 - per-event "is new": the reference counts an add as new iff some
   table's bin was zero at that moment (storage.hh:571-624); within a
@@ -968,6 +969,46 @@ def byte_gather(primes, flat, hashes):
     if flat.device.type != "cpu":
         raise ValueError("unsupported device %s" % flat.device)
     return byte_gather_plain(primes, flat, hashes)
+
+
+def byte_pertable_plain(primes, flat, hashes):
+    """Every table's counter table_t[h % p_t] of a 1-D hash tensor ->
+    uint8 [T, n] (plain PyTorch, any device)."""
+    return torch.stack([flat[umod(hashes, p) + off]
+                        for off, p in zip(byte_offsets(primes), primes)])
+
+
+def byte_pertable_cuda(primes, flat, hashes):
+    """Kernel M (csrc/byte_gather.cu): byte_pertable_plain of a 1-D int64
+    hash tensor -> uint8 [T, n]. Counts its launches in
+    ``byte_pertable_cuda.launches``."""
+    dev = flat.device
+    _check_byte_args(primes, flat, hashes)
+    n = hashes.shape[0]
+    out = torch.empty((len(primes), n), dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    primes_arr, offsets_arr = _layout(primes)
+    err = cuda.library().khmer_byte_pertable(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), hashes.data_ptr(), n, out.data_ptr(),
+        dev.index, _stream(dev))
+    cuda.check(err, "byte_pertable")
+    byte_pertable_cuda.launches += 1
+    return out
+
+
+byte_pertable_cuda.launches = 0
+
+
+def byte_pertable(primes, flat, hashes):
+    """Every table's counter of a 1-D int64 hash tensor -> uint8 [T, n]:
+    kernel M on a CUDA buffer, the plain version on a CPU one."""
+    if flat.is_cuda:
+        return byte_pertable_cuda(primes, flat, hashes)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return byte_pertable_plain(primes, flat, hashes)
 
 
 # bytes of a table that byte_occupied counts at a time
@@ -2188,6 +2229,14 @@ def _gather_counts(kind, primes, tables, hashes):
     if kind == "bit":
         return bit_gather(primes, tables.flat, hashes)
     raise NotImplementedError("%s tables are not yet ported" % kind)
+
+
+def pertable_counts(kind, primes, tables, hashes):
+    """Every table's raw counter of a 1-D int64 hash tensor -> uint8
+    [T, n] (JAX's make_pertable_get): byte tables only so far."""
+    if kind != "byte":
+        raise NotImplementedError("%s tables are not yet ported" % kind)
+    return byte_pertable(primes, tables.flat, hashes)
 
 
 # abundance-dist's histogram: bins 0..MAX_BIGCOUNT. A slot it does not

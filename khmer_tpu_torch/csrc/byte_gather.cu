@@ -1,4 +1,5 @@
-// Kernel B: the byte-layout count gather, min over T prime tables.
+// Kernel B: the byte-layout count gather, min over T prime tables; and
+// kernel M, the same gather without the min: every table's counter.
 //
 // Replaces khmer_tpu/core/sketch_kernels.py:649 (_gather_counts, byte
 // branch :654-659), an XLA gather on the TPU; its plain PyTorch version is
@@ -106,8 +107,56 @@ void launch(const uint64_t* hashes, int64_t n, bool paired,
          s>>>(hashes, n, paired, layout, flat, out);
 }
 
+// Kernel M replaces khmer_tpu/core/sketch_kernels.py:681
+// (make_pertable_get, byte branch), an XLA gather on the TPU; its plain
+// PyTorch version is core/sketch_kernels.py:byte_pertable_plain. It serves
+// the repartition of the knot pipeline (core/partition.py), which walks
+// each excursion's k-mers with every table's counter. The same random
+// byte reads as kernel B, a thread a (hash, table): block row y of the
+// grid takes table y, so that the blocks of one table run together and
+// the counters they read share L2 (a batch's keepers repeat k-mers, and a
+// table's share of them fits L2 where all tables' may not); a warp reads
+// 32 consecutive hashes and writes 32 consecutive bytes of its row.
+constexpr int kPerTableBlock = 256;
+
+__global__ void __launch_bounds__(kPerTableBlock)
+pertable_kernel(const uint64_t* __restrict__ hashes, int64_t n,
+                const __grid_constant__ ByteLayout layout,
+                const uint8_t* __restrict__ flat,
+                uint8_t* __restrict__ out) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x)
+                    + threadIdx.x;
+  if (i >= n) return;
+  const int t = blockIdx.y;
+  out[t * n + i] = flat[counter_index(layout, hashes[i], t)];
+}
+
 }  // namespace
 }  // namespace khmer_byte
+
+// out[t * n + i] = flat[offsets[t] + hashes[i] % primes[t]], for t <
+// ntables and i < n: kernel M. primes/offsets are HOST arrays of ntables.
+extern "C" int khmer_byte_pertable(const uint8_t* flat, int ntables,
+                                   const int64_t* primes,
+                                   const int64_t* offsets,
+                                   const int64_t* hashes, int64_t n,
+                                   uint8_t* out, int device, void* stream) {
+  using namespace khmer_byte;
+  ByteLayout layout;
+  if (!make_layout(ntables, primes, offsets, &layout) || n < 0) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n == 0) return cudaSuccess;
+  const dim3 grid(static_cast<unsigned>((n + kPerTableBlock - 1)
+                                       / kPerTableBlock),
+                  static_cast<unsigned>(ntables));
+  pertable_kernel<<<grid, kPerTableBlock, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint64_t*>(hashes), n, layout, flat, out);
+  return cudaGetLastError();
+}
 
 // out[i] = min over tables t of flat[offsets[t] + hashes[i] % primes[t]],
 // for i < n. primes/offsets are HOST arrays of ntables.

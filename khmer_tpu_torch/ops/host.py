@@ -4,12 +4,13 @@ What runs on the host runs in the port's own C++: the FASTA/FASTQ parser
 and 2-bit packer (csrc/fastx_io.cc, bound in io/native.py), the dense
 k-mer hasher (csrc/dense_hash.cc, core/hostengine.py), the tag-spacing
 pass of load-graph's tagged consume with its tag set
-(csrc/tag_spacing.cc: the pass is sequential over the whole stream) and
-the partition walk, a level of a batch of traversals a pass
-(csrc/tag_walk.cc, TagWalk below). The library is compiled with g++ at
-first use into ``khmer_tpu_torch/_build/`` (not committed), and again
-whenever a source is newer than it. A failed build raises; nothing falls
-back to Python.
+(csrc/tag_spacing.cc: the pass is sequential over the whole stream), the
+partition walk, a level of a batch of traversals a pass
+(csrc/tag_walk.cc, TagWalk below), and the knot pipeline's excursions,
+likewise, with their evaluation (csrc/excursion_walk.cc, ExcursionWalk).
+The library is compiled with g++ at first use into
+``khmer_tpu_torch/_build/`` (not committed), and again whenever a source
+is newer than it. A failed build raises; nothing falls back to Python.
 """
 
 import ctypes
@@ -75,14 +76,20 @@ def library():
             ("fasta_pack", [_P, _I64, _P, _P, _I64, _P, _P], _I64),
             ("kt_hash_dense", [_P, _I64, _P, _I64, _I32, _P], _I64),
             ("kt_hash_dense_reads", [_P, _P, _P, _I64, _I32, _P], _I64),
+            ("kt_level_pass", [_P, _P], _I64),
+            ("kt_level_frontier", [_P, _P], None),
+            ("kt_level_keeper_bytes", [_P], _I64),
+            ("kt_level_free", [_P], None),
             ("kt_walk_new", [_P, _P, _I64, _I32, _P, _I64, _P, _I64, _I32,
                              _I32, _I32, _I32], _P),
-            ("kt_walk_free", [_P], None),
-            ("kt_walk_pass", [_P, _P], _I64),
-            ("kt_walk_frontier", [_P, _P], None),
-            ("kt_walk_keeper_bytes", [_P], _I64),
             ("kt_walk_counts", [_P, _P], None),
-            ("kt_walk_tags", [_P, _P], None)):
+            ("kt_walk_tags", [_P, _P], None),
+            ("kt_exc_new", [_P, _P, _I64, _I32, _P, _I64, _I32, _I64,
+                            _I32], _P),
+            ("kt_exc_counts", [_P, _P], None),
+            ("kt_exc_keepers", [_P, _I64, _P], None),
+            ("kt_exc_evaluate", [_P, _P, _I64, _P, _I32, _I64, _I64, _P, _P,
+                                 _P, _P], None)):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = res
@@ -166,18 +173,55 @@ class TagSpacing:
 
 
 def walk_threads():
-    """Threads of a TagWalk pass: the host's cores, at most 16."""
+    """Threads of a walk's pass: the host's cores, at most 16."""
     return max(1, min(16, os.cpu_count() or 1))
 
 
-class TagWalk:
+class _LevelWalk:
+    """What TagWalk and ExcursionWalk share (csrc/level_walk.h): step()
+    walks a level of every traversal and frontier() hands out the nodes to
+    probe; the next step() takes their neighbour bytes (kernel L's byte a
+    node) and walks their present children. An empty frontier ends the
+    walk. A pass runs on walk_threads() threads."""
+
+    _walk = None
+
+    def step(self, masks=None):
+        """Walk a level: of the children that `masks` (uint8, a byte for
+        each node of the last frontier) allows, or of the start k-mers on
+        the first step. Returns the new frontier's length, 0 once the
+        walk has ended."""
+        if masks is not None:
+            masks = np.ascontiguousarray(masks, dtype=np.uint8)
+        return int(self._lib.kt_level_pass(
+            self._walk, None if masks is None else masks.ctypes.data))
+
+    def frontier(self, out):
+        """Write the frontier's k-mers into `out`, a u64 buffer of at
+        least twice its length (e.g. a view of pinned memory): f of each
+        node, then r of each."""
+        if out.dtype != np.uint64 or not out.flags.c_contiguous:
+            raise ValueError("out must be a contiguous u64 array")
+        self._lib.kt_level_frontier(self._walk, out.ctypes.data)
+
+    def keeper_bytes(self):
+        """The most host bytes the traversals held at the end of a pass so
+        far."""
+        return int(self._lib.kt_level_keeper_bytes(self._walk))
+
+    def close(self):
+        if self._walk:
+            self._lib.kt_level_free(self._walk)
+            self._walk = None
+
+    __del__ = close
+
+
+class TagWalk(_LevelWalk):
     """The partition walk of a batch of traversals (csrc/tag_walk.cc), a
     breadth level of each a pass. Start it from the k-mers (f, r) of the
-    start tags, with the graph's tags and stop tags; step() walks a level
-    and frontier() hands out its survivors' (f, r); the next step() takes
-    their neighbour masks (kernel L's byte a node) and walks their present
-    children. An empty frontier ends the walk; then tags() holds what
-    each traversal found. A pass runs on walk_threads() threads."""
+    start tags, with the graph's tags and stop tags; once the walk has
+    ended, tags() holds what each traversal found."""
 
     def __init__(self, start_f, start_r, k, tags, stop_tags, max_breadth,
                  break_on_stop_tags, stop_big_traversals):
@@ -191,29 +235,6 @@ class TagWalk:
             len(stop_tags), int(max_breadth), int(bool(break_on_stop_tags)),
             int(bool(stop_big_traversals)), walk_threads())
 
-    def step(self, masks=None):
-        """Walk a level: of the children that `masks` (uint8, a byte for
-        each node of the last frontier) allows, or of the start k-mers on
-        the first step. Returns the new frontier's length, 0 once the
-        walk has ended."""
-        if masks is not None:
-            masks = np.ascontiguousarray(masks, dtype=np.uint8)
-        return int(self._lib.kt_walk_pass(
-            self._walk, None if masks is None else masks.ctypes.data))
-
-    def frontier(self, out):
-        """Write the frontier's k-mers into `out`, a u64 buffer of at
-        least twice its length (e.g. a view of pinned memory): f of each
-        node, then r of each."""
-        if out.dtype != np.uint64 or not out.flags.c_contiguous:
-            raise ValueError("out must be a contiguous u64 array")
-        self._lib.kt_walk_frontier(self._walk, out.ctypes.data)
-
-    def keeper_bytes(self):
-        """The most host bytes the traversals' keepers held at the end of
-        a pass so far."""
-        return int(self._lib.kt_walk_keeper_bytes(self._walk))
-
     def tags(self):
         """The tags each traversal found: a list of ascending u64
         arrays."""
@@ -223,9 +244,63 @@ class TagWalk:
         self._lib.kt_walk_tags(self._walk, flat.ctypes.data)
         return np.split(flat, np.cumsum(counts)[:-1])
 
-    def close(self):
-        if getattr(self, "_walk", None):
-            self._lib.kt_walk_free(self._walk)
-            self._walk = None
 
-    __del__ = close
+class ExcursionWalk(_LevelWalk):
+    """Bounded-radius traversals of a batch of start k-mers
+    (csrc/excursion_walk.cc), a breadth level of each a pass. Once the
+    walk has ended, counts() and keepers() give what each traversal kept,
+    and evaluate() runs repartition's evaluation of the batch."""
+
+    def __init__(self, start_f, start_r, k, stop_tags, radius, max_count=0):
+        if radius < 0:
+            raise ValueError("radius must be >= 0")
+        self._lib = library()
+        start_f, start_r = _u64(start_f), _u64(start_r)
+        stop_tags = _u64(stop_tags)
+        self.n = len(start_f)
+        self.max_count = int(max_count)
+        self._walk = self._lib.kt_exc_new(
+            start_f.ctypes.data, start_r.ctypes.data, self.n, int(k),
+            stop_tags.ctypes.data, len(stop_tags), int(radius),
+            self.max_count, walk_threads())
+
+    def counts(self):
+        """The nodes each traversal kept (int64 [n])."""
+        out = np.empty(self.n, np.int64)
+        self._lib.kt_exc_counts(self._walk, out.ctypes.data)
+        return out
+
+    def keepers(self, least=0):
+        """The keepers of the traversals that kept at least `least` nodes,
+        each ascending, one after another (u64)."""
+        counts = self.counts()
+        out = np.empty(int(counts[counts >= least].sum()), np.uint64)
+        self._lib.kt_exc_keepers(self._walk, int(least), out.ctypes.data)
+        return out
+
+    def evaluate(self, base, primes, threshold, frequency):
+        """Repartition's evaluation of the batch (see
+        csrc/excursion_walk.cc), the traversals in order: base, uint8
+        [T, m], each table's counter of keepers(threshold) when the batch
+        began. Returns (the new stop tags, the adds, in the order to
+        commit them, whether each traversal's start is a small tag,
+        whether each was walked again)."""
+        if self.max_count:
+            raise ValueError("an evaluation takes walks with no max_count")
+        base = np.ascontiguousarray(base, dtype=np.uint8)
+        counts = self.counts()
+        m = int(counts[counts >= threshold].sum())
+        if base.shape != (len(primes), m):
+            raise ValueError("base is %s, not [%d tables, %d k-mers]"
+                             % (base.shape, len(primes), m))
+        primes = np.ascontiguousarray(primes, dtype=np.int64)
+        stops = np.empty(m, np.uint64)
+        adds = np.empty(m, np.uint64)
+        flags = np.empty(self.n, np.uint8)
+        got = np.zeros(2, np.int64)
+        self._lib.kt_exc_evaluate(
+            self._walk, base.ctypes.data, m, primes.ctypes.data,
+            len(primes), int(threshold), int(frequency), stops.ctypes.data,
+            adds.ctypes.data, flags.ctypes.data, got.ctypes.data)
+        return (stops[:got[0]], adds[:got[1]], (flags & 1).astype(bool),
+                (flags & 2).astype(bool))

@@ -60,31 +60,39 @@ def reset_ms(reset, fn, reps, hold):
     return total / reps, out
 
 
-def held_ms(calls, run=256):
+def held_ms(calls):
     """Each of `calls` (functions of no argument) in ms by CUDA events
-    around it, issued in order in runs of `run` while a sleep kernel holds
+    around it, issued in order in runs of 256 while a sleep kernel holds
     the stream, so that no event waits on the host: the device's time from
     one event to the next, its gap between launches included (a profiler's
-    kernel time leaves that out). Raises if the hold ended before a run
-    was issued."""
+    kernel time leaves that out). A run whose hold ended before it was
+    issued is issued again under a hold twice as long, at most 4 times in
+    all; then it raises."""
     import torch
 
+    run, tries = 256, 4
     pairs = []
     for lo in range(0, len(calls), run):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(HOLD_CYCLES)
-        held = torch.cuda.Event()
-        held.record()
-        for fn in calls[lo:lo + run]:
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            stop.record()
-            pairs.append((start, stop))
-        if held.query():
+        for attempt in range(tries):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(HOLD_CYCLES << attempt)
+            held = torch.cuda.Event()
+            held.record()
+            timed = []
+            for fn in calls[lo:lo + run]:
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                stop.record()
+                timed.append((start, stop))
+            if not held.query():
+                break
+        else:
             raise RuntimeError("the stream's hold ended before calls %d-%d "
-                               "were issued" % (lo, lo + run - 1))
+                               "were issued, %d times" % (
+                                   lo, lo + run - 1, tries))
+        pairs += timed
     torch.cuda.synchronize()
     return [start.elapsed_time(stop) for start, stop in pairs]
 

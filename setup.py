@@ -73,7 +73,7 @@ setup(
     packages=find_packages(exclude=["tests"]),
     package_data={"khmer_tpu.core": ["data/*.npz"],
                   "khmer_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
-                                      "csrc/*.cc"],
+                                      "csrc/*.cc", "csrc/*.h"],
                   "khmer_tpu_torch.core": ["data/*.npz"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],

@@ -11,6 +11,9 @@ from khmer_tpu.core import blocked as JB
 from khmer_tpu_torch.core import blocked as TB
 from khmer_tpu_torch.core import sketch_kernels as TK
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 M = 8192
 
 

@@ -20,6 +20,9 @@ from khmer_tpu_torch.core.blocked import BlockedCountgraph
 
 from tests.script_utils import runscript
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "data", "25k.fq.gz")
 ARGS = ["-k", "20", "-x", "4e5", "-N", "4", "--tpu-layout", "blocked"]
@@ -178,7 +181,8 @@ def test_port_imports_no_jax():
             "khmer_tpu_torch.scripts.peak_rss, "
             "khmer_tpu_torch.core.pipeline, khmer_tpu_torch.ops.cuda, "
             "khmer_tpu_torch.scripts.pallas_proto, "
-            "khmer_tpu_torch.scripts.profile_scatter2; "
+            "khmer_tpu_torch.scripts.profile_scatter2, "
+            "khmer_tpu_torch.scripts.pertable_cases; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'khmer_tpu.'))"
             " or m == 'khmer_tpu']; "

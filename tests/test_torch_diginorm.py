@@ -31,6 +31,9 @@ from khmer_tpu_torch.ops.u64 import umod
 from khmer_tpu_torch.scripts import diginorm_cases
 from khmer_tpu_torch.scripts.diginorm_cases import window as _window
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may have (H100)
 
 

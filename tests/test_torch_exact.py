@@ -17,6 +17,9 @@ from khmer_tpu_torch import BlockedCountgraph, Countgraph, Nodegraph
 from khmer_tpu_torch import load_countgraph
 from khmer_tpu_torch.core import sketch_kernels as TK
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 K = 20
 
 

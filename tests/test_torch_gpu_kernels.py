@@ -16,7 +16,8 @@ from khmer_tpu_torch.core import blocked as B
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.core.sketch import Countgraph
 from khmer_tpu_torch.scripts import (diginorm_cases, graph_cases,
-                                     partition_cases, trim_cases)
+                                     partition_cases, pertable_cases,
+                                     trim_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -632,3 +633,43 @@ def test_partition_on_cuda_launches_neighbors(cuda_device, tmp_path):
             assert K.neighbors_cuda.launches > before[0]
             assert K.bit_gather_cuda.launches > before[1]
     assert got[str(cuda_device)] == got["cpu"]
+
+
+@pytest.mark.parametrize("name", list(pertable_cases.PERTABLE_CASES))
+def test_byte_pertable_matches_plain(cuda_device, name):
+    """Kernel M against its plain version."""
+    assert pertable_cases.check_pertable_case(name, cuda_device) == 0
+
+
+def test_repartition_on_cuda_launches_pertable(cuda_device):
+    """The knot pipeline's repartition on the card gives the CPU's stop
+    tags, small tags and counting tables, its excursions probed by kernel
+    L, their counters gathered by kernel M and the adds committed by
+    kernel A."""
+    import os
+
+    from khmer_tpu_torch.core.sketch import Nodegraph
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    reads = os.path.join(repo, "data", "stamps-reads.fa.gz")
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        ng = Nodegraph(20, 12.5e6, 4, device=dev)
+        ng.consume_seqfile_and_tag(reads)
+        ng.all_tags = set(sorted(ng.all_tags)[:2000])
+        counting = Countgraph(20, 2e6, 4, device=dev)
+        before = (K.neighbors_cuda.launches, K.byte_pertable_cuda.launches,
+                  K.byte_update_cuda.launches)
+        subset = ng.do_subset_partition(0, 0)
+        size = ng.repartition_largest_partition(counting, 40, 200, 5,
+                                                subs=subset)
+        got[str(dev)] = (size, sorted(ng.stop_tags),
+                         sorted(ng.repart_small_tags),
+                         {t: subset.get_partition_id(t) for t in ng.all_tags},
+                         [t.cpu().numpy().tobytes() for t in counting.tables])
+        if dev == cuda_device:
+            assert K.neighbors_cuda.launches > before[0]
+            assert K.byte_pertable_cuda.launches > before[1]
+            assert K.byte_update_cuda.launches > before[2]
+    assert got[str(cuda_device)] == got["cpu"]
+    assert got["cpu"][1]

@@ -17,6 +17,9 @@ from khmer_tpu.ops import hashing as JH
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.scripts import graph_cases
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 # csrc/hll_add.cu kAsciiComp: byte c is the ASCII of code c ^ 1
 ASCII_COMP = 0x43474154
 M64 = (1 << 64) - 1

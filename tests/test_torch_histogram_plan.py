@@ -16,6 +16,9 @@ from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.ops import u64
 from khmer_tpu_torch.scripts.byte_gather_bench import reduction_edges
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 H100_SMS = 132
 
 

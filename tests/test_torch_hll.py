@@ -24,6 +24,9 @@ from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.core.hll import HLLCounter
 from khmer_tpu_torch.io.fastx import FastxParser
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GENOMES = os.path.join(REPO, "data", "stamps-genomes.fa")
 ENGINES = ["auto", "device"]

@@ -18,6 +18,9 @@ from khmer_tpu_torch.core import blocked as B
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.scripts import pallas_proto, profile_scatter2
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -10,6 +10,9 @@ import torch
 from khmer_tpu.ops import hashing as J
 from khmer_tpu_torch.ops import hashing as H
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 KS = [1, 4, 8, 16, 17, 20, 31, 32]
 
 

@@ -23,6 +23,9 @@ from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.core.partition import revcomp_bits
 from khmer_tpu_torch.scripts import partition_cases as PC
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILLS = {"empty": 0.0, "sparse": 0.003, "forty": 0.4, "full": 1.0}
 N = 400

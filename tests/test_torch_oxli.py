@@ -8,12 +8,16 @@ import gzip
 
 import numpy as np
 import pytest
+import torch
 
 from khmer_tpu import Countgraph as JaxCountgraph
 from khmer_tpu import Nodegraph as JaxNodegraph
 from khmer_tpu.core import oxli_io as jax_io
 from khmer_tpu_torch import Countgraph, Nodegraph
 from khmer_tpu_torch.core import oxli_io
+
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
 
 K = 20
 

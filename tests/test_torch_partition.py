@@ -35,10 +35,21 @@ from khmer_tpu_torch.core.sketch import Nodegraph
 from khmer_tpu_torch.io import native
 from khmer_tpu_torch.ops import host
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAMPS = os.path.join(REPO, "data", "stamps-reads.fa.gz")
 GOLDEN = os.path.join(REPO, "tests", "golden", "stamps_ref_pmap.txt.gz")
 ENGINES = ["device", "auto"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_walk_threads():
+    """Two threads a walk pass: the workers share the cores."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(host, "walk_threads", lambda: 2)
+        yield
 
 
 def _t(a):
@@ -528,7 +539,7 @@ def test_packer_and_hasher_match_jax(path):
 def test_port_names_no_jax_library_and_imports_no_jax():
     """No module of the port, and not chip_smoke.py, names the JAX
     package's native sources or libraries or builds them; importing the
-    partition modules and CLIs pulls in no JAX."""
+    partition and knot modules and CLIs pulls in no JAX."""
     banned = re.compile(r"libkhmer_tpu_(host|io)|hostgraph\.cc|make -C|"
                         r"\"make\"|[\"']src[\"']|(?<![\w/])src/(?!oxli)")
     files = [os.path.join(REPO, "chip_smoke.py")]
@@ -546,7 +557,12 @@ def test_port_names_no_jax_library_and_imports_no_jax():
             "khmer_tpu_torch.cli.do_partition, "
             "khmer_tpu_torch.cli.partition_graph, "
             "khmer_tpu_torch.cli.merge_partitions, "
-            "khmer_tpu_torch.cli.annotate_partitions; "
+            "khmer_tpu_torch.cli.annotate_partitions, "
+            "khmer_tpu_torch.core.traversal, "
+            "khmer_tpu_torch.cli.make_initial_stoptags, "
+            "khmer_tpu_torch.cli.find_knots, "
+            "khmer_tpu_torch.cli.filter_stoptags, "
+            "khmer_tpu_torch.cli.extract_partitions; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'khmer_tpu.')) "
             "or m == 'khmer_tpu' for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -28,9 +28,14 @@ import traceback
 
 import numpy as np
 import pytest
+import torch
 
 from khmer_tpu.core import oxli_io as jax_oxli
 from khmer_tpu_torch.cli import load_graph, merge_partitions, partition_graph
+from khmer_tpu_torch.ops import host
+
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAMPS = os.path.join(REPO, "data", "stamps-reads.fa.gz")
@@ -38,6 +43,14 @@ TABLES = ["-k", "20", "-x", "2e6", "-N", "4"]
 INPUTS = ("head.fa", "seeded.fa", "mixed.fq", "graph", "graph.tagset",
           "graph.stoptags", "sub", "sub.tagset", "sub.subset.0.pmap",
           "sub.subset.1.pmap", "sub.subset.2.pmap", "sub.pmap.merged")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_walk_threads():
+    """Two threads a walk pass: the workers share the cores."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(host, "walk_threads", lambda: 2)
+        yield
 
 
 def _seeded(rng, n, genome_len, length=100):

@@ -22,6 +22,9 @@ from khmer_tpu_torch.io import native
 from khmer_tpu_torch.io.fastx import FastxParser
 from khmer_tpu_torch.ops import hashing as H
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data", "25k.fq.gz")
 K = 20

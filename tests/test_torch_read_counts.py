@@ -29,6 +29,9 @@ from khmer_tpu_torch.core.diginorm_scan import pack_reads
 from khmer_tpu_torch.core.sketch import Countgraph
 from khmer_tpu_torch.scripts import trim_cases
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 LENGTHS = (1, 2, 31, 32, 33, 64, 77, 128, 133, 1000, 1023, 1024, 1025,
            1056, 2048, 4096, 5003, 15000, 1_000_000)
 

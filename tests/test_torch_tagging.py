@@ -27,6 +27,9 @@ from khmer_tpu_torch.core.sketch import Nodegraph
 from khmer_tpu_torch.io.fastx import FastxParser
 from khmer_tpu_torch.ops.host import TagSpacing
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GENOMES = os.path.join(REPO, "data", "stamps-genomes.fa")
 STAMPS = os.path.join(REPO, "data", "stamps-reads.fa.gz")

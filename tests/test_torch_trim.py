@@ -31,6 +31,9 @@ from khmer_tpu_torch.scripts import trim_cases
 from khmer_tpu_torch.scripts.diginorm_cases import window as _window
 from khmer_tpu_torch.utils import trimming
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 
 def _flat(primes, tables):
     """The port's joined byte buffer of per-table u8 arrays."""

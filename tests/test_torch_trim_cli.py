@@ -21,8 +21,12 @@ import traceback
 
 import numpy as np
 import pytest
+import torch
 
 from khmer_tpu_torch.cli import load_into_counting
+
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAMPS = os.path.join(REPO, "data", "stamps-reads.fa.gz")

@@ -29,6 +29,9 @@ from khmer_tpu_torch.scripts import trim_cases
 from khmer_tpu_torch.scripts.diginorm_cases import SMALL, fill_tables
 from khmer_tpu_torch.scripts.diginorm_cases import window as _window
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 
 def _jax_window(primes, k, C, Z, D, flat, codes, lengths, n_unique=5):
     """JAX make_trim1_window from tables `flat`: (the port's u8 buffer

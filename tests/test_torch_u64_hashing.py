@@ -13,6 +13,9 @@ from khmer_tpu_torch.ops import u64
 from khmer_tpu_torch.scripts.byte_gather_bench import (PRIME_SETS,
                                                        reduction_edges)
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 EDGES = np.array([0, 1, 2, 3, 2**31 - 1, 2**32, 2**62, 2**63 - 1, 2**63,
                   2**63 + 1, 2**64 - 2, 2**64 - 1], dtype=np.uint64)
 

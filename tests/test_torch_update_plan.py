@@ -14,6 +14,9 @@ from khmer_tpu_torch import BlockedCountgraph, Countgraph
 from khmer_tpu_torch.core import blocked as B
 from khmer_tpu_torch.core import sketch_kernels as K
 
+# six xdist workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("n,ntables", [(1, 1), (4096, 3), (1 << 20, 4),
                                        (1 << 20, 32), (200_320, 4)])

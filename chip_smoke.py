@@ -2893,18 +2893,24 @@ class _ProbeCheck:
         self.seconds += time.perf_counter() - t0
 
 
-def _split_times(owner, names, times, keep=None):
+def _split_times(owner, names, times, keep=None, sync=None):
     """Wrap owner's methods (or a module's functions) `names` so that each
     adds its wall seconds to times[name]; keep[name] gathers what each
     call of it returned, and keep[name + " self"] the object of its first
-    call (its first argument), where keep is given. Returns a function
-    that restores them."""
+    call (its first argument), where keep is given; sync() is called
+    before and after each call (inside its time), where it is given, so
+    that the time holds the device's work the call issued. Returns a
+    function that restores them."""
     saved = {name: getattr(owner, name) for name in names}
 
     def wrap(name, fn):
         def timed(self, *args, **kwargs):
+            if sync is not None:
+                sync()
             t0 = time.perf_counter()
             out = fn(self, *args, **kwargs)
+            if sync is not None:
+                sync()
             times[name] = times.get(name, 0.0) + time.perf_counter() - t0
             if keep is not None:
                 keep.setdefault(name, []).append(out)
@@ -3204,19 +3210,23 @@ class _PertableCheck:
         self.SK.byte_pertable = byte_pertable
         return lambda: setattr(self.SK, "byte_pertable", fn)
 
-    def launch_ms(self):
-        return sum(t0.elapsed_time(t1) for t0, t1 in self.events)
+    def launch_ms(self, since=0):
+        """ms by the CUDA events around the calls from call `since` on."""
+        return sum(t0.elapsed_time(t1) for t0, t1 in self.events[since:])
 
 
 def _knot_splits(torch, SK):
     """Wrap the repartition's steps while a knot CLI runs: the excursions'
-    walk (traversal.walk_excursions, kernel L's probes included), kernel
-    M (sketch_kernels.pertable_counts, the host's upload and copy back
-    included), the host's evaluation (ExcursionWalk.evaluate, the
-    re-walks included), kernel A's commits (Countgraph._commit_hashes) and
-    the tags' walk again (SubsetPartition.repartition_a_partition).
-    Returns (times, the evaluations' outputs, a function that restores
-    them)."""
+    walk (traversal.walk_excursions, kernel L's probes included), the
+    keepers' upload (partition._Staging.upload; of it, the C++ walk
+    writing the keepers out, ExcursionWalk.keepers), kernel M's call
+    (sketch_kernels.pertable_counts), the counters' copy back
+    (_Staging.download), the host's evaluation (ExcursionWalk.evaluate,
+    the re-walks included), kernel A's commits (Countgraph._commit_hashes)
+    and the tags' walk again (SubsetPartition.repartition_a_partition).
+    The upload, M's call and the copy back are each timed between two
+    synchronises of the card. Returns (times, the evaluations' outputs, a
+    function that restores them)."""
     from khmer_tpu_torch.core import partition as P
     from khmer_tpu_torch.core import traversal as TR
     from khmer_tpu_torch.core.sketch import Countgraph
@@ -3225,38 +3235,53 @@ def _knot_splits(torch, SK):
     times, keep = {}, {}
     restores = [
         _split_times(TR, ("walk_excursions",), times),
-        _split_times(SK, ("pertable_counts",), times),
+        _split_times(P._Staging, ("upload", "download"), times,
+                     sync=torch.cuda.synchronize),
+        _split_times(SK, ("pertable_counts",), times,
+                     sync=torch.cuda.synchronize),
         _split_times(ExcursionWalk, ("evaluate",), times, keep),
+        _split_times(ExcursionWalk, ("keepers",), times),
         _split_times(Countgraph, ("_commit_hashes",), times),
         _split_times(P.SubsetPartition, ("repartition_a_partition",),
                      times)]
     return times, keep, lambda: [r() for r in restores]
 
 
-def _say_split(label, wall, times, keep, check_s, card):
-    """Print a knot CLI's wall split (see _knot_splits); returns it as a
-    dict of seconds, with the tags walked again."""
+def _say_split(label, wall, times, keep, check_s, m_ms, card):
+    """Print a knot CLI's wall split (see _knot_splits; m_ms: M's kernel
+    time, CUDA events around its calls); returns it as a dict of seconds,
+    with the tags walked again."""
     evals = keep.get("evaluate", [])
     split = {"wall": wall,
              "excursions_walk": times.get("walk_excursions", 0.0),
+             "keepers_out": times.get("keepers", 0.0),
+             "upload": times.get("upload", 0.0) - times.get("keepers", 0.0),
              "M": times.get("pertable_counts", 0.0) - check_s,
+             "copy_back": times.get("download", 0.0),
              "evaluation": times.get("evaluate", 0.0),
              "A_commits": times.get("_commit_hashes", 0.0),
              "tags_walk_again": times.get("repartition_a_partition", 0.0)}
     split["rest"] = (wall - check_s
                      - sum(v for k, v in split.items() if k != "wall"))
+    split["M_kernel_s"] = m_ms / 1e3
     split["tags"] = sum(len(out[2]) for out in evals)
     split["batches"] = len(evals)
     split["tags_walked_again"] = sum(int(out[3].sum()) for out in evals)
-    say("  %s %.6f s: excursions' walk %.6f s (%d tags, %d batches), M "
-        "%.6f s (the host's upload and copy back included, its check "
-        "%.3f s left out), the host's evaluation %.6f s (%d tags walked "
-        "again), A's commits %.6f s, the tags' walk again (break on stop "
-        "tags) %.6f s, the rest %.6f s; on %s"
+    say("  %s %.6f s: excursions' walk %.6f s (%d tags, %d batches), the "
+        "walk writing the keepers out %.6f s, their upload %.6f s, M's "
+        "calls %.6f s (kernel %.6f s by CUDA "
+        "events; its check %.3f s left out), the counters' copy back %.6f "
+        "s (upload, calls and copy back each between two synchronises), "
+        "the host's evaluation %.6f s (%d tags walked again), A's commits "
+        "%.6f s, the tags' walk again (break on stop tags) %.6f s, the "
+        "rest %.6f s; on %s"
         % (label, wall, split["excursions_walk"], split["tags"],
-           split["batches"], split["M"], check_s, split["evaluation"],
-           split["tags_walked_again"], split["A_commits"],
-           split["tags_walk_again"], split["rest"], card))
+           split["batches"], split["keepers_out"], split["upload"],
+           split["M"],
+           split["M_kernel_s"], check_s, split["copy_back"],
+           split["evaluation"], split["tags_walked_again"],
+           split["A_commits"], split["tags_walk_again"], split["rest"],
+           card))
     return split
 
 
@@ -3331,13 +3356,14 @@ def run_knots(torch, SK, dev, card, errs, kept):
                     ("find-knots", find_knots.main,
                      ["-x", "2e8", "-N", "4", "g"])):
                 times, keep, unwrap = _knot_splits(torch, SK)
-                check_s = check.seconds
+                check_s, calls = check.seconds, check.calls
                 try:
                     walls[step], err, _ = _run_cli(torch, main, args, tmp)
                 finally:
                     unwrap()
                 if step != "partition-graph":
-                    splits[step] = (times, keep, check.seconds - check_s)
+                    splits[step] = (times, keep, check.seconds - check_s,
+                                    check.launch_ms(calls))
                 if step == "make-initial-stoptags":
                     got["initial"] = _stoptags(os.path.join(
                         tmp, "g.stoptags"))
@@ -3407,8 +3433,8 @@ def run_knots(torch, SK, dev, card, errs, kept):
            a_launches, check.checked, check.calls, check.launch_ms(),
            peak / 1e9, card))
     split = {step: _say_split("phase 11 " + step, walls[step], times, keep,
-                              check_s, card)
-             for step, (times, keep, check_s) in splits.items()}
+                              check_s, m_ms, card)
+             for step, (times, keep, check_s, m_ms) in splits.items()}
     say(json.dumps({"phase": "11", "walls_s": walls, "split_s": split,
                     "card": card}))
     t = time_pertable(torch, SK, card, errs, check.largest)
@@ -3461,7 +3487,7 @@ def run_knots_scale(torch, SK, dev, card, errs, kept):
            check.checked, check.calls, rss.peak / 1e9, rss.before / 1e9,
            peak / 1e9, card))
     split = _say_split("phase 11b find-knots", wall, times, keep,
-                       check.seconds, card)
+                       check.seconds, check.launch_ms(), card)
     say(json.dumps({"phase": "11b", "walls_s": {"find-knots": wall},
                     "split_s": {"find-knots": split}, "card": card}))
 
@@ -3469,42 +3495,58 @@ def run_knots_scale(torch, SK, dev, card, errs, kept):
 def time_pertable(torch, SK, card, errs, largest):
     """Kernel M on the largest call of phase 11's path against its plain
     version and against torch.take of the joined tables at precomputed
-    indices (the gather alone, the library call), beside its bound: 8 B
-    in a hash and T B out, and a sector floor of 32 B for each distinct
-    sector of each table the call touches."""
-    from khmer_tpu_torch.ops.u64 import umod
-    from khmer_tpu_torch.scripts import cuda_ms, device_ms
+    indices (the gather alone, the library call), each hot (back to back)
+    and cold (each call after a write of 100 MB, which flushes L2), beside
+    its bound: 8 B in a hash and T B out, and a sector floor of 32 B for
+    each distinct sector of each table the call touches. Then the same on
+    scripts/pertable_bench.py's shape (b): 8,775,042 distinct hashes into
+    4 tables of 200 MB of random bytes, every read a DRAM sector."""
+    import numpy as np
+
+    from khmer_tpu_torch.scripts import cuda_ms
+    from khmer_tpu_torch.scripts import pertable_bench as PB
 
     primes, flat, hashes = largest
-    n, T = hashes.shape[0], len(primes)
-    got = SK.byte_pertable_cuda(primes, flat, hashes)
-    want = SK.byte_pertable_plain(primes, flat, hashes)
-    err = int((got.int() - want.int()).abs().max())
-    errs["byte_pertable"] = max(errs["byte_pertable"], err)
-    expect(err == 0, "phase 11: byte_pertable != plain on its largest call")
-    idx = torch.stack([umod(hashes, p) + off for off, p in
-                       zip(SK.byte_offsets(primes), primes)])
-    expect(torch.equal(torch.take(flat, idx), got),
-           "phase 11: torch.take differs from byte_pertable")
-    sectors = int(torch.unique(idx >> 5).shape[0])
-    t = {"ms": cuda_ms(lambda: SK.byte_pertable_cuda(primes, flat, hashes),
-                       20),
-         "plain_ms": cuda_ms(lambda: SK.byte_pertable_plain(primes, flat,
-                                                            hashes), 5),
-         "library_ms": cuda_ms(lambda: torch.take(flat, idx), 20)}
-    dev_ms = device_ms(lambda: SK.byte_pertable_cuda(primes, flat, hashes),
-                       20)
-    by_bytes, _ = bound((8 + T) * n, 0)
-    floor = sectors * 32 / PEAK_BYTES_S * 1e3
-    t["bound_ms"], t["bound_by"] = max(by_bytes, floor), "bytes"
-    say("  phase 11 byte_pertable on its largest call, %d hashes into %d "
-        "tables of %.3f GB: kernel %.4f ms (device %.4f ms), plain %.4f "
-        "ms, torch.take at precomputed indices %.4f ms; bound %.5f ms: "
-        "bytes (8 B in, %d B out a hash) %.5f ms, sector floor (32 B a "
-        "distinct sector, %d sectors) %.5f ms; == plain; on %s"
-        % (n, T, flat.shape[0] / 1e9, t["ms"], dev_ms, t["plain_ms"],
-           t["library_ms"], t["bound_ms"], T, by_bytes, sectors, floor,
-           card))
+    dev = flat.device
+    scratch = torch.empty(PB.FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def read(label, primes, flat, hashes):
+        got = SK.byte_pertable_cuda(primes, flat, hashes)
+        want = SK.byte_pertable_plain(primes, flat, hashes)
+        err = int((got.int() - want.int()).abs().max())
+        errs["byte_pertable"] = max(errs["byte_pertable"], err)
+        expect(err == 0, "%s: byte_pertable != plain" % label)
+        idx = PB.flat_indices(primes, hashes)
+        expect(torch.equal(torch.take(flat, idx), got),
+               "%s: torch.take differs from byte_pertable" % label)
+        c = PB.shape_counts(primes, flat, hashes, idx)
+        m = PB.readings(lambda: SK.byte_pertable_cuda(primes, flat, hashes),
+                        scratch.zero_, idx.numel())
+        take = PB.readings(lambda: torch.take(flat, idx), scratch.zero_,
+                           idx.numel())
+        plain_ms = cuda_ms(lambda: SK.byte_pertable_plain(primes, flat,
+                                                          hashes), 5)
+        say("  %s: byte_pertable, %d hashes into %d tables of %.3f GB: hot "
+            "%.4f ms as issued (device %.4f ms, %.4g lookups/s), cold %.4f "
+            "ms (device %.4f ms); torch.take at precomputed indices hot "
+            "%.4f ms (device %.4f), cold %.4f (device %.4f); plain %.4f ms; "
+            "bytes bound (8 B in, %d B out a hash) %.5f ms, sector floor "
+            "(32 B a distinct sector, %d sectors) %.5f ms; == plain; on %s"
+            % (label, c["hashes"], c["tables"], c["table_bytes"] / 1e9,
+               m["ms"], m["device_ms"], m["lookups_s"], m["cold_ms"],
+               m["cold_device_ms"], take["ms"], take["device_ms"],
+               take["cold_ms"], take["cold_device_ms"], plain_ms,
+               c["tables"], c["bound_ms"], c["sectors"], c["floor_ms"],
+               card))
+        return {"ms": m["ms"], "plain_ms": plain_ms,
+                "library_ms": take["ms"],
+                "bound_ms": max(c["bound_ms"], c["floor_ms"]),
+                "bound_by": "bytes"}
+
+    t = read("phase 11's largest call", primes, flat, hashes)
+    bp = PB.shape_primes("b")
+    read("shape (b), distinct hashes", bp, PB.random_tables(bp, dev),
+         torch.from_numpy(PB.synth_hashes(PB.NHASH).view(np.int64)).to(dev))
     return t
 
 

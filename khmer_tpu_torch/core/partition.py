@@ -31,7 +31,8 @@ they stood when the batch began; the host then evaluates the batch's tags
 in order, walking again (from the neighbour bytes it recorded, without the
 card) each tag whose walk kept a stop tag that an earlier tag of the batch
 added, and reading each k-mer's counters from one gather of the tables
-(kernel M, sketch_kernels.pertable_counts) plus the batch's earlier adds;
+(kernel M, sketch_kernels.pertable_counts, its keepers up and counters
+back through pinned buffers, _Staging) plus the batch's earlier adds;
 kernel A commits the batch's adds in one call, in JAX's order. The answer
 does not depend on the batch.
 """
@@ -192,6 +193,42 @@ class _Prober:
         if self.cuda:
             torch.cuda.current_stream(self.dev).synchronize()
         return out.numpy()
+
+
+class _Staging:
+    """Kernel M's round trip for each batch of a repartition: the walk
+    writes the keepers straight into a pinned host buffer, which goes up
+    in one copy; the [T, m] counters come back into another pinned buffer.
+    Both grow as batches do, as _Prober's."""
+
+    def __init__(self, device):
+        self.dev = device
+        self.cuda = device.type == "cuda"
+        self._up = self._down = None
+
+    def upload(self, walk, threshold):
+        """The keepers of the walk's traversals of at least `threshold`
+        nodes, an int64 tensor on the device (its copy may still run)."""
+        m = walk.n_keepers(threshold)
+        if self._up is None or self._up.shape[0] < m:
+            self._up = torch.empty(max(m, 1 << 16), dtype=torch.int64,
+                                   pin_memory=self.cuda)
+        up = self._up[:m]
+        walk.keepers(threshold, out=up.numpy().view(np.uint64))
+        return up.to(self.dev, non_blocking=True)
+
+    def download(self, base):
+        """The counters `base` (uint8 [T, m] on the device) in host
+        memory (numpy), once their copy has ended."""
+        size = base.numel()
+        if self._down is None or self._down.shape[0] < size:
+            self._down = torch.empty(max(size, 1 << 16), dtype=torch.uint8,
+                                     pin_memory=self.cuda)
+        down = self._down[:size].view(base.shape)
+        down.copy_(base, non_blocking=True)
+        if self.cuda:
+            torch.cuda.current_stream(self.dev).synchronize()
+        return down.numpy()
 
 
 def find_all_tags_batch(graph, starts_f, starts_r, break_on_stop_tags=False,
@@ -494,7 +531,6 @@ class SubsetPartition:
         becomes a stop tag. Returns the size of the next-largest
         partition."""
         from khmer_tpu_torch.core import sketch_kernels as K
-        from khmer_tpu_torch.core.sketch import _hashes_tensor
         from khmer_tpu_torch.core.traversal import walk_excursions
 
         cm = {}
@@ -516,6 +552,7 @@ class SubsetPartition:
         k = graph.ksize()
         todo = _sorted_tags([t for t in bigtags
                              if t not in graph.repart_small_tags])
+        staging = _Staging(counting.device)
         size = min(REPART_BATCH, REPART_FIRST)
         at = 0
         while at < len(todo):
@@ -523,12 +560,11 @@ class SubsetPartition:
             walk = walk_excursions(graph, batch, revcomp_bits(batch, k),
                                    distance)
             try:
-                kms = walk.keepers(threshold)
                 base = K.pertable_counts(
                     counting.storage_kind, counting._primes,
-                    counting.tables, _hashes_tensor(kms, counting.device))
+                    counting.tables, staging.upload(walk, threshold))
                 stops, adds, small, _ = walk.evaluate(
-                    base.cpu().numpy(), counting._primes, threshold,
+                    staging.download(base), counting._primes, threshold,
                     frequency)
                 held = walk.keeper_bytes()
             finally:

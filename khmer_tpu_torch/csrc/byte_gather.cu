@@ -111,24 +111,76 @@ void launch(const uint64_t* hashes, int64_t n, bool paired,
 // (make_pertable_get, byte branch), an XLA gather on the TPU; its plain
 // PyTorch version is core/sketch_kernels.py:byte_pertable_plain. It serves
 // the repartition of the knot pipeline (core/partition.py), which walks
-// each excursion's k-mers with every table's counter. The same random
-// byte reads as kernel B, a thread a (hash, table): block row y of the
-// grid takes table y, so that the blocks of one table run together and
-// the counters they read share L2 (a batch's keepers repeat k-mers, and a
-// table's share of them fits L2 where all tables' may not); a warp reads
-// 32 consecutive hashes and writes 32 consecutive bytes of its row.
+// each excursion's k-mers with every table's counter.
+//
+// What bounds it: the same random byte reads as kernel B, T a hash, and
+// 8 B of hash read for each T B written. A batch's keepers repeat k-mers
+// (phase 11's largest call: 35 M reads on 1.2 M distinct sectors), so most
+// reads hit L2 while a table's touched sectors stay there: the 9 MB of one
+// table fit the 50 MB L2, the 37 MB of four do not. Then the rate at which
+// L2 serves random sectors bounds it (about 111 G reads/s on an H100);
+// reads in flight do not: 2, 4 or 8 hashes a thread, their loads issued
+// together, were no faster (scripts/pertable_bench.py).
+//
+// Design. A thread a (hash, table): grid row y takes table y, so that
+// the blocks of a table run together and its counters share L2, and a
+// warp loads 256 contiguous bytes of hashes and stores 32 contiguous bytes
+// of its row. Cache hints (kCacheHints): the hashes load and the counters
+// store as streaming (evict first), the counters load under an L2
+// evict-last policy, so that a table's repeated sectors outlive the 70 MB
+// of hashes and the output that stream past in its pass (5% on phase
+// 11's largest call; equal on distinct hashes). pertable_bench.py also
+// builds this kernel as a loop with more hashes a thread, several tables
+// on one load of the hashes, chunk-major order and a grid sized to the
+// card, and times each against it.
 constexpr int kPerTableBlock = 256;
+constexpr bool kCacheHints = true;
+
+__device__ __forceinline__ uint64_t keep_policy() {
+  uint64_t policy = 0;
+  if (kCacheHints) {
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+        : "=l"(policy));
+  }
+  return policy;
+}
+
+__device__ __forceinline__ uint64_t load_hash(const uint64_t* p) {
+  if (!kCacheHints) return *p;
+  uint64_t v;
+  asm("ld.global.cs.u64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ unsigned load_counter(const uint8_t* p,
+                                                 uint64_t policy) {
+  if (!kCacheHints) return *p;
+  unsigned v;
+  asm("ld.global.nc.L2::cache_hint.u8 %0, [%1], %2;" : "=r"(v)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+__device__ __forceinline__ void store_counter(uint8_t* p, unsigned v) {
+  if (!kCacheHints) {
+    *p = static_cast<uint8_t>(v);
+    return;
+  }
+  asm volatile("st.global.cs.u8 [%0], %1;" : : "l"(p), "r"(v) : "memory");
+}
 
 __global__ void __launch_bounds__(kPerTableBlock)
 pertable_kernel(const uint64_t* __restrict__ hashes, int64_t n,
                 const __grid_constant__ ByteLayout layout,
                 const uint8_t* __restrict__ flat,
                 uint8_t* __restrict__ out) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x)
-                    + threadIdx.x;
+  const int64_t i = khmer_cuda::thread_index();
   if (i >= n) return;
   const int t = blockIdx.y;
-  out[t * n + i] = flat[counter_index(layout, hashes[i], t)];
+  const uint64_t h = load_hash(hashes + i);
+  store_counter(out + t * n + i,
+                load_counter(flat + counter_index(layout, h, t),
+                             keep_policy()));
 }
 
 }  // namespace

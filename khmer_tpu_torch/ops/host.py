@@ -270,11 +270,23 @@ class ExcursionWalk(_LevelWalk):
         self._lib.kt_exc_counts(self._walk, out.ctypes.data)
         return out
 
-    def keepers(self, least=0):
-        """The keepers of the traversals that kept at least `least` nodes,
-        each ascending, one after another (u64)."""
+    def n_keepers(self, least=0):
+        """How many nodes the traversals that kept at least `least` kept."""
         counts = self.counts()
-        out = np.empty(int(counts[counts >= least].sum()), np.uint64)
+        return int(counts[counts >= least].sum())
+
+    def keepers(self, least=0, out=None):
+        """The keepers of the traversals that kept at least `least` nodes,
+        each ascending, one after another (u64): into the head of `out`
+        where it is given (a contiguous u64 array at least that long)."""
+        m = self.n_keepers(least)
+        if out is None:
+            out = np.empty(m, np.uint64)
+        elif out.dtype != np.uint64 or out.ndim != 1 or len(out) < m \
+                or not out.flags.c_contiguous:
+            raise ValueError("out must be a contiguous u64 array of at "
+                             "least %d" % m)
+        out = out[:m]
         self._lib.kt_exc_keepers(self._walk, int(least), out.ctypes.data)
         return out
 
@@ -288,8 +300,7 @@ class ExcursionWalk(_LevelWalk):
         if self.max_count:
             raise ValueError("an evaluation takes walks with no max_count")
         base = np.ascontiguousarray(base, dtype=np.uint8)
-        counts = self.counts()
-        m = int(counts[counts >= threshold].sum())
+        m = self.n_keepers(threshold)
         if base.shape != (len(primes), m):
             raise ValueError("base is %s, not [%d tables, %d k-mers]"
                              % (base.shape, len(primes), m))

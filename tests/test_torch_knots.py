@@ -239,15 +239,44 @@ def test_excursion_walk_batches_and_threads_change_nothing(lump,
     assert counts.max() >= THRESHOLD > counts.min()
 
 
+def test_keepers_into_a_buffer_and_the_staging(lump):
+    """The walk writes the keepers into the head of a given buffer, as
+    keepers() returns them, and refuses one too short; partition._Staging
+    hands them to M and the counters back unchanged."""
+    _, jg = lump
+    pg = _port_graph(jg, set())
+    tags = np.array(sorted(jg.all_tags)[:60], np.uint64)
+    walk = T.walk_excursions(pg, tags, P.revcomp_bits(tags, K_SIZE), RADIUS)
+    try:
+        want = walk.keepers(THRESHOLD)
+        m = walk.n_keepers(THRESHOLD)
+        assert m == len(want) > 0
+        buf = np.full(m + 5, 7, np.uint64)
+        got = walk.keepers(THRESHOLD, out=buf)
+        assert (got == want).all() and (buf[:m] == want).all()
+        assert (buf[m:] == 7).all()
+        with pytest.raises(ValueError, match="at least"):
+            walk.keepers(THRESHOLD, out=np.empty(m - 1, np.uint64))
+        staging = P._Staging(torch.device("cpu"))
+        up = staging.upload(walk, THRESHOLD)
+        assert up.dtype == torch.int64
+        assert (up.numpy().view(np.uint64) == want).all()
+        base = torch.from_numpy(np.arange(3 * m, dtype=np.uint8).reshape(
+            3, m))
+        assert (staging.download(base) == base.numpy()).all()
+    finally:
+        walk.close()
+
+
 # -- (c) kernel M's plain version --------------------------------------------
 
 
 @pytest.mark.parametrize("ntables", [1, 4, 8])
-@pytest.mark.parametrize("n", [0, 1, 1000])
+@pytest.mark.parametrize("n", [0, 1, 1000, 2047, 2048, 2049])
 def test_byte_pertable_plain_matches_jax(ntables, n):
     """Every table's counter of hashes of every range (past 2^63
     included), against make_pertable_get("byte"), with saturated
-    counters."""
+    counters; n around kernel M's hashes a block (2048)."""
     rng = np.random.default_rng(10 * ntables + n)
     primes = tuple(K.get_n_primes_near_x(ntables, 7000))
     flat = rng.integers(0, 256, K.byte_flat_size(primes), dtype=np.uint8)
@@ -266,6 +295,26 @@ def test_byte_pertable_plain_matches_jax(ntables, n):
     cg.tables.flat.copy_(torch.from_numpy(flat))
     assert (K.pertable_counts("byte", primes, cg.tables, tensor).numpy()
             == want).all()
+
+
+@pytest.mark.parametrize("n,offset", [(2049, 1), (2048, 3),
+                                      ((1 << 21) + 3, 1)])
+def test_byte_pertable_plain_matches_jax_on_views(n, offset):
+    """A hash view at an odd element offset (not 16-byte aligned), as
+    kernel M's edge cases take it, and n over a chunk of 2^21 hashes,
+    against make_pertable_get("byte") on the same hashes."""
+    rng = np.random.default_rng(n + offset)
+    primes = tuple(K.get_n_primes_near_x(4, 70000))
+    flat = rng.integers(0, 256, K.byte_flat_size(primes), dtype=np.uint8)
+    whole = rng.integers(0, 2**64, n + offset, dtype=np.uint64)
+    views = tuple(jnp.asarray(flat[o:o + p])
+                  for o, p in zip(K.byte_offsets(primes), primes))
+    want = np.asarray(JK.make_pertable_get("byte", primes)(
+        views, jnp.asarray(whole[offset:])))
+    tensor = torch.from_numpy(whole.view(np.int64))[offset:]
+    assert tensor.storage_offset() == offset and tensor.is_contiguous()
+    got = K.byte_pertable_plain(primes, torch.from_numpy(flat), tensor)
+    assert got.shape == (4, n) and (got.numpy() == want).all()
 
 
 def test_pertable_counts_other_tables_are_not_yet_ported():

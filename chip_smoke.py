@@ -202,6 +202,23 @@ Phases (each prints a line; any failure raises and exits non-zero):
      with phase 10b's six subsets, read in sorted order: the stop tags'
      sha256 and the repartitioned sizes asserted, the wall split (and its
      JSON line).
+  12. the Countgraph as a de Bruijn graph at config 5's shape:
+     Countgraph(20, 12.5e6, 4) with bigcount tagged from
+     data/stamps-reads.fa.gz (kernel A with its new flags), partitioned
+     with and without the abundance band (2, 200) (kernel N probes each
+     level), the first 1,000 reads swept at ranges 0 and 81,
+     consume-partitioned-fasta of phase 10's .part, and count-median on
+     phase 4b's .ct (kernel H's counts mode); the JAX answers asserted
+     (EXPECT_C12), every call of A, N and H held to its plain version;
+     then N (presence and band), H's counts mode and A with and without
+     its flags on the phase's largest call, beside N's bound and sector
+     floors;
+  12b. the same graph at -x 1e9 (4 GB of byte tables) on phase 7b's
+     reads: the tagged consume, the abundance partition over every tag
+     and count-median against phase 7b's .ct, the JAX answers asserted,
+     the wall split (tagged consume, the walk's C++ passes and probes, N
+     by CUDA events, union-find, count-median), and the kernels on its
+     largest calls as in phase 12.
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees (J's at 9b each call
 alone after its tables are zeroed or restored, scripts.reset_ms); the
@@ -498,6 +515,46 @@ EXPECT_C11 = {
 }
 
 
+# The Countgraph graph through the JAX package (khmer_tpu, CPU,
+# KHMER_TPU_ENGINE=auto; count-median under =device, whose float32 sums
+# the port follows, ROADMAP section 3): phase 12 on data/stamps-reads.fa.gz
+# with Countgraph(20, 12.5e6, 4) and bigcount on (consume: reads, new
+# k-mers, n_unique, tags, .tagset and .ct sha256; partition and abundance:
+# count_partitions and the .pmap sha256; sweeps of the first 1,000 reads:
+# the tags found and the sha256 of _tag_lists_sha256; cpf: consume_
+# partitioned_fasta of phase 10's .part into a fresh graph: reads, k-mers,
+# tags and the .pmap sha256; median: count-median's CSV on phase 4b's .ct
+# over data/25k.fq.gz), and phase 12b at -x 1e9 on phase 7b's reads.
+EXPECT_C12 = {
+    "stamps": {
+        "consume": [200000, 536430, 536430, 16121,
+                    "9a6c123f03eae3a72c29ed517aa0ec44"
+                    "b85e9576a9e132d481fd1e2c9c869329",
+                    "0133f147186ad91816c1c86bc18892fd"
+                    "4d2a5420e500a3123f188bc70fb35b92"],
+        "partition": [[51, 16025], "c6c2d8a3174f40b7a8850b7b0a77fb54"
+                                   "86857917099a3cb048b8e56104ed1d8e"],
+        "abundance": [[450, 12140], "ea8c8cbb3dc813db21911d3ba4f53eef"
+                                    "7d5d1258b953279ac9db25324f0d8998"],
+        "sweep 0": [42475, "1f9dd5d1839641dddf132ebe3382888a"
+                           "1c9fb4715f898549d4b6897824be0368"],
+        "sweep 81": [714784, "7d52422ff380c554e58260f086addbaa"
+                             "5ed9c5b671520dc9732746883f4a62bc"],
+        "cpf": [5723, 463563, 1889, "83b582d1a7493769b47000865c2ba1a9"
+                                    "0dac86725185afcc49ac9b469e2170c1"],
+        "median": "8c801eaaa7b00d857917a71501069b9c"
+                  "699568785ff1aad79a4b8c3f92e41e8f"},
+    "synth": {
+        "consume": [1000000, 16031414, 16031414, 527780,
+                    "ca41862106ef6d7da1287ba21efaf6bc"
+                    "c5b94c5e39f13344e4187a38c61c294b"],
+        "abundance": [[61, 227949], "da3fcce3c8cd5a8847a2bff1eea3b5d5"
+                                    "d7e1ddec2441c566eba4a8cc985f63e0"],
+        "median": "4af79cb431ae8e94e73c3624fc215793"
+                  "4dbd5e0b4f7210116cef3f6521db6e88"},
+}
+
+
 class SmokeFailure(AssertionError):
     pass
 
@@ -577,7 +634,8 @@ def main():
                                  "diginorm_med", "diginorm_scan",
                                  "trim_mark", "trim_probe", "trim_scan",
                                  "read_counts", "bit_update", "hll_add",
-                                 "neighbors", "byte_pertable")}
+                                 "neighbors", "byte_pertable",
+                                 "byte_neighbors")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
         run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs)
@@ -593,14 +651,16 @@ def main():
     n_bit, n_hll = run_graph_cases(torch, dev, errs)
     n_nbr = run_neighbor_cases(torch, dev, errs)
     n_pert = run_pertable_cases(torch, dev, errs)
+    n_cg = run_countgraph_cases(torch, dev, errs)
     say("phase 3 exact: kernel == plain on %d blocked, %d byte, %d "
         "histogram, %d decoded-event, %d byte-gather-reduction, %d "
         "blocked-gather-reduction, %d diginorm, %d trim, %d bit-table, "
-        "%d HLL, %d neighbour-probe and %d per-table-gather cases (tables, "
-        "flags, n_unique, bigcount reports, counts, keep flags, branches, "
-        "trim positions, registers, neighbour bytes, counters)"
+        "%d HLL, %d neighbour-probe, %d per-table-gather and %d Countgraph "
+        "graph cases (tables, flags, n_unique, bigcount reports, counts, "
+        "keep flags, branches, trim positions, registers, neighbour bytes, "
+        "counters)"
         % (len(cases), len(byte_cases), n_hist, n_proto, n_edges, n_edges2,
-           n_digi, n_trim, n_bit, n_hll, n_nbr, n_pert))
+           n_digi, n_trim, n_bit, n_hll, n_nbr, n_pert, n_cg))
     lap("phase 3")
 
     # -- phase 4: config 1, blocked, through the port's entry points -------
@@ -643,7 +703,9 @@ def main():
         os.makedirs(synth_kept)
 
         # -- phase 7b: config 2 at 4 GB of tables ----------------------------
-        run_config2_scale(torch, SK, dev, card, errs, reads, head, gen_s)
+        ct_7b = os.path.join(kept, "synth.ct")
+        run_config2_scale(torch, SK, dev, card, errs, reads, head, gen_s,
+                          ct_7b)
         lap("phase 7b")
 
         # -- phase 8: config 3 through the CLIs ------------------------------
@@ -722,6 +784,23 @@ def main():
         torch.cuda.empty_cache()
         lap("phase 11b")
 
+        # -- phase 12: the Countgraph graph at config 5's shape --------------
+        cg_launches, checks = run_countgraph(torch, SK, dev, card, errs,
+                                             kept)
+        launches["byte_neighbors"] = cg_launches["byte_neighbors"]
+        timings["byte_neighbors"] = time_countgraph_kernels(
+            torch, SK, card, errs, checks, "phase 12")
+        del checks
+        lap("phase 12")
+
+        # -- phase 12b: the same graph at 4 GB --------------------------------
+        checks = run_countgraph_scale(torch, SK, dev, card, errs, reads,
+                                      ct_7b)
+        time_countgraph_kernels(torch, SK, card, errs, checks, "phase 12b")
+        del checks
+        torch.cuda.empty_cache()
+        lap("phase 12b")
+
     kernels = []
     for name, source, replaces in (
             ("blocked_update", "blocked_update.cu",
@@ -753,7 +832,9 @@ def main():
             ("neighbors", "neighbors.cu",
              "khmer_tpu/core/graphmixin.py:30"),
             ("byte_pertable", "byte_gather.cu",
-             "khmer_tpu/core/sketch_kernels.py:681")):
+             "khmer_tpu/core/sketch_kernels.py:681"),
+            ("byte_neighbors", "neighbors.cu",
+             "khmer_tpu/core/graphmixin.py:30")):
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -2001,10 +2082,12 @@ def synth_reads(tmp):
     return reads, gen_s
 
 
-def run_config2_scale(torch, SK, dev, card, errs, reads, head, gen_s):
+def run_config2_scale(torch, SK, dev, card, errs, reads, head, gen_s,
+                      keep_ct):
     """Config 2 at a table size users run: normalize-by-median -k 20 -C 20
     -x 1e9 -N 4 -s (4 GB of u8 tables) on 1,000,000 seeded synthetic
-    reads (synth_reads), the JAX answers asserted, E and F seen to launch,
+    reads (synth_reads), its .ct moved to `keep_ct` for phase 12b's
+    count-median, the JAX answers asserted, E and F seen to launch,
     the device memory beside the tables read; then a traced run without -s
     on the first TRACED_READS of them (`head`) for F's time a candidate,
     and E and F on window 6 against their plain versions, timed beside
@@ -2031,7 +2114,7 @@ def run_config2_scale(torch, SK, dev, card, errs, reads, head, gen_s):
                     SK.diginorm_scan_cuda.launches)
         got = _check_normalize(E, err, os.path.join(run, "synth.fa.keep"),
                                os.path.join(run, "out.ct"), "config 2 at 4 GB")
-        os.remove(os.path.join(run, "out.ct"))
+        os.replace(os.path.join(run, "out.ct"), keep_ct)
         runs, cand = norm.scan_runs, int(norm.candidates)
         groups = int(norm.groups)
         t_wall, dev_ms, (e_ms, e_n), (f_ms, f_n), t_norm = _traced_normalize(
@@ -3171,48 +3254,17 @@ def run_pertable_cases(torch, dev, errs):
     return len(pertable_cases.PERTABLE_CASES)
 
 
-class _PertableCheck:
-    """Kernel M as the repartition calls it (sketch_kernels.byte_pertable,
-    wrapped by install() while the CLIs run): CUDA events around each
-    call; every call held to byte_pertable_plain on the same inputs; the
-    largest call's inputs kept (with its tables) for timing; the seconds
-    the check takes."""
-
-    def __init__(self, torch, SK):
-        self.torch, self.SK = torch, SK
-        self.calls = self.checked = self.err = 0
-        self.seconds = 0.0
-        self.largest = None
-        self.events = []
-
-    def install(self):
-        """Wrap SK.byte_pertable; returns a function that restores it."""
-        fn, event = self.SK.byte_pertable, self.torch.cuda.Event
-
-        def byte_pertable(primes, flat, hashes):
-            t0, t1 = event(enable_timing=True), event(enable_timing=True)
-            t0.record()
-            out = fn(primes, flat, hashes)
-            t1.record()
-            self.events.append((t0, t1))
-            c0 = time.perf_counter()
-            want = self.SK.byte_pertable_plain(primes, flat, hashes)
-            if want.numel():
-                self.err = max(self.err,
-                               int((want.int() - out.int()).abs().max()))
-            self.checked += hashes.shape[0]
-            self.calls += 1
-            if self.largest is None or \
-                    hashes.shape[0] > self.largest[2].shape[0]:
-                self.largest = (primes, flat, hashes.clone())
-            self.seconds += time.perf_counter() - c0
-            return out
-        self.SK.byte_pertable = byte_pertable
-        return lambda: setattr(self.SK, "byte_pertable", fn)
-
-    def launch_ms(self, since=0):
-        """ms by the CUDA events around the calls from call `since` on."""
-        return sum(t0.elapsed_time(t1) for t0, t1 in self.events[since:])
+def _pertable_check(torch, SK):
+    """Kernel M as the repartition calls it (see _CallCheck): every call
+    held to byte_pertable_plain, the largest call's hashes cloned (the
+    staging reuses its buffer)."""
+    def check(fn, args, kwargs):
+        got = fn(*args)
+        return got, _max_abs(got, SK.byte_pertable_plain(*args)), \
+            args[2].shape[0]
+    return _CallCheck(torch, SK, "byte_pertable", check,
+                      lambda a: a[2].shape[0],
+                      keep=lambda a: (a[0], a[1], a[2].clone()))
 
 
 def _knot_splits(torch, SK):
@@ -3333,7 +3385,7 @@ def run_knots(torch, SK, dev, card, errs, kept):
                                      partition_graph)
 
     E = EXPECT_C11["stamps"]
-    check = _PertableCheck(torch, SK)
+    check = _pertable_check(torch, SK)
     walls, got, splits = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
@@ -3405,8 +3457,8 @@ def run_knots(torch, SK, dev, card, errs, kept):
         peak = torch.cuda.max_memory_allocated(dev)
     want = {key: E[key] for key in got}
     expect(got == want, "phase 11: %s, JAX gives %s" % (got, want))
-    expect(check.err == 0, "phase 11: byte_pertable != plain on %d of %d "
-           "hashes" % (check.err, check.checked))
+    expect(check.err == 0, "phase 11: byte_pertable differs from plain by "
+           "up to %d over %d hashes" % (check.err, check.checked))
     errs["byte_pertable"] = max(errs["byte_pertable"], check.err)
     expect(m_launches > 0 and l_launches > 0 and a_launches > 0,
            "phase 11: byte_pertable launched %d times, neighbors %d, "
@@ -3437,7 +3489,7 @@ def run_knots(torch, SK, dev, card, errs, kept):
              for step, (times, keep, check_s, m_ms) in splits.items()}
     say(json.dumps({"phase": "11", "walls_s": walls, "split_s": split,
                     "card": card}))
-    t = time_pertable(torch, SK, card, errs, check.largest)
+    t = time_pertable(torch, SK, card, errs, check.largest[1])
     return m_launches, t
 
 
@@ -3450,7 +3502,7 @@ def run_knots_scale(torch, SK, dev, card, errs, kept):
     from khmer_tpu_torch.cli import find_knots
 
     E = EXPECT_C11["synth"]
-    check = _PertableCheck(torch, SK)
+    check = _pertable_check(torch, SK)
     restores = [check.install(), _sorted_glob()]
     times, keep, unwrap = _knot_splits(torch, SK)
     restores.append(unwrap)
@@ -3548,6 +3600,529 @@ def time_pertable(torch, SK, card, errs, largest):
     read("shape (b), distinct hashes", bp, PB.random_tables(bp, dev),
          torch.from_numpy(PB.synth_hashes(PB.NHASH).view(np.int64)).to(dev))
     return t
+
+
+# ---------------------------------------------------------------------------
+# phases 12 and 12b: the Countgraph as a de Bruijn graph
+# ---------------------------------------------------------------------------
+
+
+def _tag_lists_sha256(lists):
+    """sha256 of tag lists, a line each: the tags ascending, as decimal
+    numbers joined by commas."""
+    h = hashlib.sha256()
+    for tags in lists:
+        h.update((",".join(str(int(t)) for t in sorted(int(x) for x in tags))
+                  + "\n").encode())
+    return h.hexdigest()
+
+
+class _CallCheck:
+    """A kernel's dispatcher (SK.<name>) as a phase's main path calls it,
+    wrapped while the phase runs: CUDA events around each call of the
+    kernel (the host's launch included); every `every`-th call (the first
+    included) held by `check(fn, args, kwargs)`, which runs it and returns
+    (its result, the largest absolute difference from its plain version,
+    the values compared); the values of all calls by `size(args)`; and the
+    arguments of the largest call (as `keep(args)` gives them) for
+    timing."""
+
+    def __init__(self, torch, SK, name, check, size, every=1,
+                 keep=lambda a: a):
+        self.torch, self.SK, self.name = torch, SK, name
+        self.check, self.size, self.every, self.keep = check, size, every, \
+            keep
+        self.calls = self.checked = self.err = self.values = 0
+        self.seconds = 0.0
+        self.events = []
+        self.largest = None
+
+    def install(self):
+        """Wrap SK.<name>; returns a function that restores it."""
+        fn, event = getattr(self.SK, self.name), self.torch.cuda.Event
+
+        def timed(*args, **kwargs):
+            t0, t1 = event(enable_timing=True), event(enable_timing=True)
+            t0.record()
+            out = fn(*args, **kwargs)
+            t1.record()
+            self.events.append((t0, t1))
+            return out
+
+        def wrapped(*args, **kwargs):
+            if self.calls % self.every:
+                out = timed(*args, **kwargs)
+            else:
+                t = time.perf_counter()
+                out, err, n = self.check(timed, args, kwargs)
+                self.err = max(self.err, err)
+                self.checked += n
+                self.seconds += time.perf_counter() - t
+            n = self.size(args)
+            self.values += n
+            if self.largest is None or n > self.largest[0]:
+                self.largest = (n, self.keep(args), kwargs)
+            self.calls += 1
+            return out
+        setattr(self.SK, self.name, wrapped)
+        return lambda: setattr(self.SK, self.name, fn)
+
+    def launch_ms(self, since=0):
+        """ms by the CUDA events around the calls from call `since` on."""
+        return sum(t0.elapsed_time(t1) for t0, t1 in self.events[since:])
+
+
+def _record_args(owner, name, calls):
+    """Wrap owner.<name> so that each call's positional arguments go to
+    `calls`; returns a function that restores it."""
+    fn = getattr(owner, name)
+
+    def recorded(*args):
+        calls.append(args)
+        return fn(*args)
+    setattr(owner, name, recorded)
+    return lambda: setattr(owner, name, fn)
+
+
+def _max_abs(a, b):
+    """The largest absolute difference of two tensors (0 when empty)."""
+    return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+
+
+def _pairs(got, want):
+    """Kernel N's outputs beside its plain version's: the presence bytes,
+    and with a band the band bytes too."""
+    return zip(got, want) if isinstance(got, tuple) else [(got, want)]
+
+
+def _check_byte_neighbors(SK):
+    def check(fn, args, kwargs):
+        got = fn(*args, **kwargs)
+        want = SK.byte_neighbors_plain(*args, **kwargs)
+        err = max(_max_abs(a, b) for a, b in _pairs(got, want))
+        return got, err, args[2].shape[0]
+    return check
+
+
+def _check_window_counts(SK):
+    def check(fn, args, kwargs):
+        got = fn(*args, **kwargs)
+        return got, _max_abs(got, SK.read_window_counts_plain(*args)), \
+            got.numel()
+    return check
+
+
+def _check_byte_update(torch, SK):
+    """Kernel A with its new flags held to byte_update_plain on copies of
+    the tables and the unique count as they stood before the call: the
+    flags, every counter, the count and the bigcount triggers (1 where
+    they differ)."""
+    def triggers(report):
+        if report is None:
+            return {}
+        n = int(report[2][0])
+        return SK.bigcount_triggers(
+            report[0][:n].cpu().numpy().view("uint64"),
+            report[1][:n].cpu().numpy())
+
+    def check(fn, args, kwargs):
+        primes, flat, n_unique, hashes, nvalid = args[:5]
+        flat0, nu0 = flat.clone(), n_unique.clone()
+        got = fn(*args, **kwargs)
+        kw = {key: v for key, v in kwargs.items() if key != "scratch"}
+        want = SK.byte_update_plain(primes, flat0, nu0, hashes, nvalid,
+                                    *args[5:6], **kw)
+        err = max(_max_abs(flat, flat0), abs(int(n_unique) - int(nu0)))
+        if kwargs.get("with_event_new"):
+            err = max(err, _max_abs(got[1], want[1]))
+            got_r, want_r = got[0], want[0]
+        else:
+            got_r, want_r = got, want
+        err = max(err, int(triggers(got_r) != triggers(want_r)))
+        del flat0
+        return got, err, int(nvalid)
+    return check
+
+
+def _countgraph_checks(torch, SK, every_probe, every_update):
+    """The three kernels of the Countgraph's path, wrapped (see
+    _CallCheck): A (SK.byte_update), N (SK.byte_neighbors) and H's counts
+    mode (SK.read_window_counts)."""
+    return {
+        "byte_update": _CallCheck(torch, SK, "byte_update",
+                                  _check_byte_update(torch, SK),
+                                  lambda a: int(a[4]), every_update),
+        "byte_neighbors": _CallCheck(torch, SK, "byte_neighbors",
+                                     _check_byte_neighbors(SK),
+                                     lambda a: a[2].shape[0], every_probe),
+        "read_window_counts": _CallCheck(torch, SK, "read_window_counts",
+                                         _check_window_counts(SK),
+                                         lambda a: a[3].numel())}
+
+
+def _reset_launches(SK):
+    for fn in (SK.byte_update_cuda, SK.byte_neighbors_cuda,
+               SK.read_window_counts_cuda, SK.byte_gather_cuda):
+        fn.launches = 0
+
+
+def _launches(SK):
+    return {"byte_update": SK.byte_update_cuda.launches,
+            "byte_neighbors": SK.byte_neighbors_cuda.launches,
+            "read_counts": SK.read_window_counts_cuda.launches,
+            "byte_gather": SK.byte_gather_cuda.launches}
+
+
+def _timed_step(torch, fn, checks, walls, checked, name):
+    """fn(), its wall seconds (the device's work included) in walls[name]
+    and those of the checks' plain versions within it in checked[name]."""
+    held = sum(c.seconds for c in checks.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    checked[name] = sum(c.seconds for c in checks.values()) - held
+    return out
+
+
+def run_countgraph(torch, SK, dev, card, errs, kept):
+    """Phase 12: a Countgraph(20, 12.5e6, 4) (50 MB of byte tables,
+    bigcount on) on the card as a de Bruijn graph through the port's entry
+    points: the tagged consume of data/stamps-reads.fa.gz, do_subset_
+    partition and do_subset_partition_with_abundance(2, 200) (both cutting
+    big traversals), the sweep of the first 1,000 reads at ranges 0 and
+    81, consume_partitioned_fasta of phase 10's .part into a fresh graph,
+    and count-median on phase 4b's .ct over data/25k.fq.gz; the JAX
+    answers EXPECT_C12 asserted, the launches of A, N and H's counts mode
+    counted over the path, and every call of each held to its plain
+    version. Returns (launches, the three checks)."""
+    from khmer_tpu_torch.cli import count_median, load_into_counting
+    from khmer_tpu_torch.core import partition as P
+    from khmer_tpu_torch.core.sketch import Countgraph
+    from khmer_tpu_torch.io.fastx import FastxParser
+
+    E = EXPECT_C12["stamps"]
+    checks = _countgraph_checks(torch, SK, 1, 1)
+    walls, checked, got = {}, {}, {}
+    step = lambda name, fn: _timed_step(torch, fn, checks, walls, checked,
+                                        name)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        path = lambda name: os.path.join(tmp, name)
+        seqs = [rec.sequence for _, rec in zip(range(1000),
+                                               FastxParser(STAMPS))]
+        restores = [c.install() for c in checks.values()]
+        try:
+            _reset_launches(SK)
+
+            def make():
+                g = Countgraph(20, 12.5e6, 4, device=dev)
+                g.set_use_bigcount(True)
+                return g, g.consume_seqfile_and_tag(STAMPS)
+            g, (total, n_consumed) = step("tagged consume", make)
+            g.save_tagset(path("g.tagset"))
+            g.save(path("g.ct"))
+            got["consume"] = [total, n_consumed, g.n_unique_kmers(),
+                              g.n_tags(), _file_sha256(path("g.tagset"))[0],
+                              _file_sha256(path("g.ct"))[0]]
+            for key, call in (
+                    ("partition", lambda: g.do_subset_partition(
+                        0, 0, stop_big_traversals=True)),
+                    ("abundance", lambda: g.do_subset_partition_with_abundance(
+                        2, 200, stop_big_traversals=True))):
+                subset = step(key, call)
+                subset.save_partitionmap(path(key + ".pmap"))
+                got[key] = [list(subset.count_partitions()),
+                            _file_sha256(path(key + ".pmap"))[0]]
+            for rr in (0, 81):
+                found, _ = step("sweep %d" % rr,
+                                lambda: P.sweep_for_tags_batch(g, seqs, rr))
+                got["sweep %d" % rr] = [sum(map(len, found)),
+                                        _tag_lists_sha256(found)]
+            for q, f in zip(seqs[:20], found):
+                expect(g.sweep_tag_neighborhood(q, 81) == set(f.tolist()),
+                       "phase 12: sweep_tag_neighborhood differs from the "
+                       "batch's sweep")
+
+            def rebuild():
+                fresh = Countgraph(20, 12.5e6, 4, device=dev)
+                return fresh, fresh.consume_partitioned_fasta(
+                    os.path.join(kept, "p10.part"))
+            fresh, (n_reads, n_kmers) = step("consume-partitioned-fasta",
+                                             rebuild)
+            fresh.save_partitionmap(path("cpf.pmap"))
+            got["cpf"] = [n_reads, n_kmers, fresh.n_tags(),
+                          _file_sha256(path("cpf.pmap"))[0]]
+            del fresh
+            launches = _launches(SK)
+            _run_cli(torch, load_into_counting.main,
+                     ["-q", "-k", str(K), "-x", "5e7", "-N", "4", "--device",
+                      str(dev), "out.ct", DATA], tmp)
+            expect(_file_sha256(path("out.ct"))[0]
+                   == EXPECT_EXACT["ct_sha256"], "phase 12: phase 4b's .ct "
+                   "differs")
+            SK.read_window_counts_cuda.launches = 0
+            step("count-median", lambda: _run_cli(
+                torch, count_median.main,
+                ["--device", str(dev), "out.ct", DATA, "median.csv"], tmp))
+            launches["read_counts"] += SK.read_window_counts_cuda.launches
+            got["median"] = _file_sha256(path("median.csv"))[0]
+        finally:
+            for restore in restores:
+                restore()
+    want = {key: E[key] for key in got}
+    expect(got == want, "phase 12: %s, JAX gives %s" % (got, want))
+    _expect_checks("phase 12", checks, errs)
+    expect(min(launches["byte_update"], launches["byte_neighbors"],
+               launches["read_counts"]) > 0,
+           "phase 12: a kernel of the path never launched: %s" % launches)
+    say("phase 12 the Countgraph graph at config 5's shape, Countgraph(20, "
+        "12.5e6, 4) with bigcount, on the stamps reads: %s; n_unique %d, %d "
+        "tags, bigcount entries %d; partitions %s, with abundance (2, 200) "
+        "%s; sweeps of 1,000 reads found %d tags at range 0, %d at 81; "
+        "consume-partitioned-fasta %d reads, %d k-mers, %d tags; "
+        "count-median CSV %s (the JAX answers); walls (s) %s, of which the "
+        "plain versions' checks took %s; launches %s; on %s"
+        % (got["consume"][:2], got["consume"][2], got["consume"][3],
+           len(g._bigcounts), got["partition"][0], got["abundance"][0],
+           got["sweep 0"][0], got["sweep 81"][0], got["cpf"][0],
+           got["cpf"][1], got["cpf"][2], got["median"][:16],
+           {k: round(v, 6) for k, v in walls.items()},
+           {k: round(v, 6) for k, v in checked.items()}, launches, card))
+    say(json.dumps({"phase": "12", "walls_s": walls, "checks_s": checked,
+                    "card": card}))
+    del g
+    torch.cuda.empty_cache()
+    return launches, checks
+
+
+def _expect_checks(label, checks, errs):
+    for name, c in checks.items():
+        key = "read_counts" if name == "read_window_counts" else name
+        expect(c.err == 0, "%s: %s differs from plain by up to %d over "
+               "its %d values" % (label, name, c.err, c.checked))
+        expect(c.calls > 0 and c.checked > 0, "%s: %s was not held to its "
+               "plain version" % (label, name))
+        errs[key] = max(errs[key], c.err)
+    say("  %s: A's flags, N and H's counts mode == plain on %s values "
+        "of %s calls" % (label, [c.checked for c in checks.values()],
+                         [c.calls for c in checks.values()]))
+
+
+def run_countgraph_scale(torch, SK, dev, card, errs, reads, ct_7b):
+    """Phase 12b: Countgraph(20, 1e9, 4) (4 GB of byte tables, far past L2,
+    bigcount on) tagged from phase 7b's 1,000,000 synthetic reads,
+    do_subset_partition_with_abundance(2, 200) over every tag cutting big
+    traversals, and count-median of the reads against phase 7b's .ct; the
+    JAX answers EXPECT_C12["synth"] asserted; the wall split into the
+    tagged consume, the walk (its C++ passes, its probes and N's time by
+    CUDA events around each call), the union-find and count-median; and N
+    over the walk replayed after it, every call on its own frontier in
+    order, by held events (scripts.held_ms: the device's time, its gap
+    between launches included). Returns the checks."""
+    from khmer_tpu_torch.cli import count_median
+    from khmer_tpu_torch.core import partition as P
+    from khmer_tpu_torch.core.sketch import Countgraph
+    from khmer_tpu_torch.ops.host import TagWalk
+    from khmer_tpu_torch.scripts import held_ms
+
+    E = EXPECT_C12["synth"]
+    checks = _countgraph_checks(torch, SK, 8, 40)
+    walls, checked, got, times = {}, {}, {}, {}
+    frontiers = []
+    step = lambda name, fn: _timed_step(torch, fn, checks, walls, checked,
+                                        name)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        path = lambda name: os.path.join(tmp, name)
+        restores = [c.install() for c in checks.values()]
+        restores += [_split_times(TagWalk, ("step",), times),
+                     _split_times(P._Prober, ("__call__",), times),
+                     _record_args(SK, "byte_neighbors", frontiers)]
+        try:
+            _reset_launches(SK)
+            torch.cuda.reset_peak_memory_stats(dev)
+
+            def make():
+                g = Countgraph(20, 1e9, 4, device=dev)
+                g.set_use_bigcount(True)
+                return g, g.consume_seqfile_and_tag(reads)
+            g, (total, n_consumed) = step("tagged consume", make)
+            g.save_tagset(path("g.tagset"))
+            got["consume"] = [total, n_consumed, g.n_unique_kmers(),
+                              g.n_tags(), _file_sha256(path("g.tagset"))[0]]
+            subset = step("abundance",
+                          lambda: g.do_subset_partition_with_abundance(
+                              2, 200, stop_big_traversals=True))
+            subset.save_partitionmap(path("band.pmap"))
+            got["abundance"] = [list(subset.count_partitions()),
+                                _file_sha256(path("band.pmap"))[0]]
+            peak = torch.cuda.max_memory_allocated(dev)
+            launches = _launches(SK)
+            replay = held_ms([
+                lambda a=a: SK.byte_neighbors_cuda(*a) for a in frontiers])
+            replay_nodes = sum(a[2].shape[0] for a in frontiers)
+            frontiers.clear()
+            del g, subset
+            torch.cuda.empty_cache()
+            SK.read_window_counts_cuda.launches = 0
+            step("count-median", lambda: _run_cli(
+                torch, count_median.main,
+                ["--device", str(dev), ct_7b, reads, "median.csv"], tmp))
+            launches["read_counts"] = SK.read_window_counts_cuda.launches
+            got["median"] = _file_sha256(path("median.csv"))[0]
+        finally:
+            for restore in reversed(restores):
+                restore()
+    want = {key: E[key] for key in got}
+    expect(got == want, "phase 12b: %s, JAX gives %s" % (got, want))
+    _expect_checks("phase 12b", checks, errs)
+    expect(min(launches["byte_update"], launches["byte_neighbors"],
+               launches["read_counts"]) > 0,
+           "phase 12b: a kernel of the path never launched: %s" % launches)
+    n = checks["byte_neighbors"]
+    probes = times["__call__"] - n.seconds
+    walk = times["step"] + probes
+    split = {"tagged consume": walls["tagged consume"]
+             - checked["tagged consume"], "walk": walk,
+             "walk C++ passes": times["step"], "walk probes": probes,
+             "N by CUDA events around each call": n.launch_ms() / 1e3,
+             "union-find": walls["abundance"] - times["step"]
+             - times["__call__"],
+             "count-median": walls["count-median"] - checked["count-median"],
+             "plain versions' checks (outside the split)": sum(
+                 checked.values())}
+    say("phase 12b the Countgraph graph at 4 GB, Countgraph(20, 1e9, 4) with "
+        "bigcount, on phase 7b's 1,000,000 reads: %s, n_unique %d, %d tags; "
+        "partitions with abundance (2, 200) %s; count-median CSV %s (the "
+        "JAX answers); wall split (s) %s; %d N calls on %d nodes in all "
+        "(%d held to plain, every 8th), N over the whole walk %.4f ms by "
+        "CUDA events around each call (as issued), %.4f ns a node; N over "
+        "the walk replayed (%d calls, %d nodes) %.4f ms by held events (the "
+        "device), %.4f ns a node; launches %s; peak device memory %.3f GB; "
+        "on %s"
+        % (got["consume"][:2], got["consume"][2], got["consume"][3],
+           got["abundance"][0], got["median"][:16],
+           {k: round(v, 6) for k, v in split.items()}, n.calls, n.values,
+           -(-n.calls // n.every), n.launch_ms(),
+           n.launch_ms() * 1e6 / max(n.values, 1), len(replay),
+           replay_nodes, sum(replay),
+           sum(replay) * 1e6 / max(replay_nodes, 1), launches, peak / 1e9,
+           card))
+    say(json.dumps({"phase": "12b", "walls_s": walls, "checks_s": checked,
+                    "split_s": split, "n_walk_replayed_ms": sum(replay),
+                    "card": card}))
+    torch.cuda.empty_cache()
+    return checks
+
+
+def time_countgraph_kernels(torch, SK, card, errs, checks, label):
+    """A with and without its flags, N (presence, and the band of its
+    walk) and H's counts mode on the largest call of a phase's path,
+    against their plain versions: as issued (scripts.cuda_ms) and on the
+    device (scripts.device_ms), beside their bounds; N also cold, each call
+    after a write of 100 MB that flushes L2 (pertable_bench.readings), with
+    its sector floors (countgraph_cases.byte_probe_floors). Returns the
+    kernels-line times of N: its largest call, in the call's own mode,
+    cold and as issued."""
+    from khmer_tpu_torch.scripts import cuda_ms, device_ms
+    from khmer_tpu_torch.scripts import pertable_bench as PB
+    from khmer_tpu_torch.scripts.countgraph_cases import byte_probe_floors
+
+    out = {}
+    _, args, kwargs = checks["byte_neighbors"].largest
+    primes, flat, f, r, k = args[:5]
+    n = f.shape[0]
+    scratch = torch.empty(PB.FLUSH_BYTES, dtype=torch.uint8,
+                          device=flat.device)
+    every, needed, loads = byte_probe_floors(primes, flat, f, r, k)
+    modes = [("presence", ())] + ([("band", args[5:])] if args[5:] else [])
+    for mode, extra in modes:
+        call = lambda: SK.byte_neighbors_cuda(primes, flat, f, r, k, *extra)
+        plain = lambda: SK.byte_neighbors_plain(primes, flat, f, r, k,
+                                                *extra)
+        err = max(_max_abs(a, b) for a, b in _pairs(call(), plain()))
+        errs["byte_neighbors"] = max(errs["byte_neighbors"], err)
+        expect(err == 0, "%s: N != plain on its largest frontier" % label)
+        m = PB.readings(call, scratch.zero_, 8 * n)
+        t = {"ms": m["cold_ms"], "plain_ms": cuda_ms(plain, 3),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = bound(
+            (16 + (2 if mode == "band" else 1)) * n, 8 * len(primes) * n)
+        say("  %s N (%s) on its largest frontier, %d nodes into %d byte "
+            "tables of %.3f GB: hot %.4f ms as issued (device %.4f ms), "
+            "cold %.4f ms as issued (device %.4f ms, %.3f ns a node), plain "
+            "%.4f ms, bound %.4f ms (%s); sector floors (32 B a distinct "
+            "sector): every table of every neighbour %.4f ms (%d sectors), "
+            "the counters N's rule loads %.4f ms (%d sectors, %d loads); == "
+            "plain; on %s"
+            % (label, mode, n, len(primes), flat.shape[0] / 1e9, m["ms"],
+               m["device_ms"], m["cold_ms"], m["cold_device_ms"],
+               m["cold_device_ms"] * 1e6 / max(n, 1), t["plain_ms"],
+               t["bound_ms"], t["bound_by"],
+               every * 32 / PEAK_BYTES_S * 1e3, every,
+               needed * 32 / PEAK_BYTES_S * 1e3, needed, loads, card))
+        out[mode] = t
+    del scratch
+    _, args, kwargs = checks["read_window_counts"].largest
+    call = lambda: SK.read_window_counts_cuda(*args)
+    plain = lambda: SK.read_window_counts_plain(*args)
+    err = _max_abs(call(), plain())
+    errs["read_counts"] = max(errs["read_counts"], err)
+    expect(err == 0, "%s: H's counts mode != plain" % label)
+    codes = args[3]
+    ms, dev_ms, plain_ms = cuda_ms(call, 20), device_ms(call, 20), \
+        cuda_ms(plain, 3)
+    trim = lambda: SK.read_counts_cuda(args[0], args[1], 2, 20, *args[2:])
+    trim_ms, trim_dev = cuda_ms(trim, 20), device_ms(trim, 20)
+    W = codes.shape[1] - args[1] + 1
+    hb, _ = bound(codes.numel() + 4 * codes.shape[0] + codes.shape[0] * W,
+                  0)
+    say("  %s H's counts mode on its largest call, %d rows of %d codes: "
+        "kernel %.4f ms (device %.4f ms), plain %.4f ms, byte bound %.4f "
+        "ms (codes and lengths in, a byte a window out); H's two "
+        "reductions on the same rows %.4f ms (device %.4f ms); on %s"
+        % (label, codes.shape[0], codes.shape[1], ms, dev_ms, plain_ms, hb,
+           trim_ms, trim_dev, card))
+    _, args, kwargs = checks["byte_update"].largest
+    primes, flat, n_unique, hashes, nvalid = args[:5]
+    for flags in (False, True, True, False):
+        ms = cuda_ms(lambda: SK.byte_update_cuda(
+            primes, flat, n_unique, hashes, nvalid, True,
+            with_event_new=flags), 10)
+        say("  %s A on its largest call (%d events into %.3f GB), bigcount "
+            "report on, %s flags: %.4f ms; on %s"
+            % (label, int(nvalid), flat.shape[0] / 1e9,
+               "with" if flags else "without", ms, card))
+    return out[modes[-1][0]]
+
+
+def run_countgraph_cases(torch, dev, errs):
+    """Kernel N, A's flags and H's counts mode against their plain versions
+    on the cases of scripts/countgraph_cases.py."""
+    from khmer_tpu_torch.scripts import countgraph_cases as C
+    from khmer_tpu_torch.scripts.trim_cases import COUNT_CASES
+
+    n = 0
+    for key, cases, check in (("byte_neighbors", C.NBR_CASES,
+                               C.check_nbr_case),
+                              ("byte_update", C.FLAG_CASES,
+                               C.check_flag_case),
+                              ("read_counts", COUNT_CASES,
+                               C.check_counts_case)):
+        for name in cases:
+            err = check(name, dev)
+            errs[key] = max(errs[key], err)
+            expect(err == 0, "%s != plain on Countgraph case %s"
+                   % (key, name))
+            n += 1
+    torch.cuda.empty_cache()
+    say("  Countgraph graph cases: byte_neighbors (N without a band and at "
+        "%d bands), byte_update with its flags and read_window_counts == "
+        "plain on %d cases"
+        % (len(C.BANDS), n))
+    return n
 
 
 if __name__ == "__main__":

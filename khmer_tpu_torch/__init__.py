@@ -12,7 +12,9 @@ HyperLogLog counter (unique-kmers), the Nodegraph with its tags
 (load-graph), the partitioning of its tag graph (do-partition,
 partition-graph, merge-partitions, annotate-partitions, extract-partitions)
 and the knot pipeline (make-initial-stoptags, find-knots,
-filter-stoptags).
+filter-stoptags); the Countgraph's graph half (tagging, neighbours,
+partitioning with and without an abundance band, the perimeter sweep,
+consume_partitioned_fasta), its sequence API and count-median.
 Sketches are made on the card ("cuda") unless the caller names another
 device.
 """

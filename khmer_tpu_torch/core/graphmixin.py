@@ -1,20 +1,22 @@
 """The tagging and partitioning part of the de Bruijn graph API —
-counterpart of khmer_tpu/core/graphmixin.py (HashgraphMixin :62-150,
-198-350, 373-418, 520-528).
+counterpart of khmer_tpu/core/graphmixin.py (HashgraphMixin :62-350,
+373-418, 437-554).
 
-A Nodegraph tags every _tag_density-th k-mer while it consumes reads
-(Hashgraph::consume_sequence_and_tag, reference src/oxli/hashgraph.cc:
-200-271). The host hashes the reads (the dense hasher of config 1,
-csrc/dense_hash.cc) and keeps the hashes; the card commits each chunk
-through kernel J (sketch_kernels.bit_update), whose per-event new flags
-come back at one byte a k-mer; the spacing pass, sequential over the
-whole stream, runs on the host in C++
-(csrc/tag_spacing.cc, ops/host.py). A node's neighbours are probed on
-the card by kernel L (sketch_kernels.neighbors), which partitioning
-(core/partition.py) drives a breadth level at a time, as do the knot
-pipeline's excursions (core/traversal.py), whose repartition turns the
-highly connected k-mers into stop tags. The other traversals and labels
-are not ported yet.
+A Nodegraph or a Countgraph tags every _tag_density-th k-mer while it
+consumes reads (Hashgraph::consume_sequence_and_tag, reference
+src/oxli/hashgraph.cc:200-271). The host hashes the reads (the dense
+hasher of config 1, csrc/dense_hash.cc) and keeps the hashes; the card
+commits each chunk through kernel J (sketch_kernels.bit_update) on a
+Nodegraph or kernel A (sketch_kernels.byte_update, with the bigcount map)
+on a Countgraph, whose per-event new flags come back at one byte a k-mer;
+the spacing pass, sequential over the whole stream, runs on the host in
+C++ (csrc/tag_spacing.cc, ops/host.py). A node's neighbours are probed on
+the card by kernel L (sketch_kernels.neighbors) in bit tables and kernel
+N (sketch_kernels.byte_neighbors) in byte tables, which partitioning and
+the perimeter sweep (core/partition.py) drive a breadth level at a time,
+as do the knot pipeline's excursions (core/traversal.py), whose
+repartition turns the highly connected k-mers into stop tags. The other
+traversals and labels are not ported yet.
 """
 
 import numpy as np
@@ -75,7 +77,24 @@ def dense_hashes(codes, offs, lens, k):
 
 
 class HashgraphMixin:
-    """Tagging mixed into Nodegraph."""
+    """The graph API mixed into Countgraph and Nodegraph."""
+
+    @classmethod
+    def from_numpy_state(cls, ksize, primes, tables, n_unique,
+                         occupied_offset, device="cuda", bigcounts=None,
+                         use_bigcount=False, all_tags=(), stop_tags=(),
+                         tag_density=None):
+        """A graph holding the given state (see _Sketch.from_numpy_state),
+        with its tags, stop tags and, where given, tag density (e.g. a JAX
+        graph's)."""
+        obj = super().from_numpy_state(ksize, primes, tables, n_unique,
+                                       occupied_offset, device, bigcounts,
+                                       use_bigcount)
+        obj.all_tags = set(int(t) for t in all_tags)
+        obj.stop_tags = set(int(t) for t in stop_tags)
+        if tag_density is not None:
+            obj._set_tag_density(int(tag_density))
+        return obj
 
     def _init_graph(self):
         self.all_tags = set()
@@ -203,12 +222,6 @@ class HashgraphMixin:
     def reverse_hash(self, hashval):
         return H.reverse_hash(int(hashval), self._ksize)
 
-    def _hashes_for_sequence(self, seq):
-        """All canonical window hashes of one sequence (numpy uint64)."""
-        if len(seq) < self._ksize:
-            return np.zeros(0, dtype=np.uint64)
-        return H.host_hash_windows(H.encode_dna(seq), self._ksize)
-
     def get_tags_for_sequence(self, seq):
         """Tags present among the sequence's k-mers
         (hashgraph.cc:324-342)."""
@@ -272,13 +285,48 @@ class HashgraphMixin:
                 hashes, read_start = dense_hashes(codes, offs, lens, k)
                 for lo in range(0, len(hashes), chunk):
                     h = hashes[lo:lo + chunk]
-                    flags = self._update(_hashes_tensor(h, self.device),
-                                         len(h))
+                    flags = self._update_with_flags(
+                        _hashes_tensor(h, self.device), len(h))
                     n_consumed += spacing.step(
                         h, flags.cpu().numpy(), read_start[lo:lo + chunk])
             self.all_tags = spacing.end()
         finally:
             spacing.close()
+        return total_reads, n_consumed
+
+    def consume_seqfile_and_tag_with_reads_parser(self, parser):
+        return self.consume_seqfile_and_tag(parser)
+
+    def consume_and_tag(self, seq):
+        """Count and tag one sequence; returns its new k-mers (reference
+        Hashgraph::consume_sequence_and_tag, hashgraph.cc:200-271)."""
+        n, _ = self._consume_and_tag_seq(seq)
+        return n
+
+    def _consume_and_tag_seq(self, seq, found_tags=None):
+        from khmer_tpu_torch.core.sketch import _hashes_tensor
+
+        hashes = self._hashes_for_sequence(seq)
+        if hashes.size == 0:
+            return 0, found_tags
+        flags = self._update_with_flags(_hashes_tensor(hashes, self.device),
+                                        len(hashes))
+        since = self._tag_density // 2 + 1
+        n_consumed, since, kmer = self._tag_spacing_step(
+            hashes, flags.cpu().numpy(), since, found_tags)
+        self._tag_spacing_tail(since, kmer, found_tags)
+        return n_consumed, found_tags
+
+    def consume_partitioned_fasta(self, filename):
+        """Tag each read's first k-mer in the partition its name gives and
+        count every read (core/partition.py consume_partitioned_fasta); the
+        graph's partition becomes the file's. Returns (total reads, new
+        k-mers)."""
+        from khmer_tpu_torch.core.partition import consume_partitioned_fasta
+
+        total_reads, n_consumed, subset = consume_partitioned_fasta(
+            self, filename)
+        self._partition = subset
         return total_reads, n_consumed
 
     # -- tagset persistence ---------------------------------------------------
@@ -299,20 +347,45 @@ class HashgraphMixin:
             self.all_tags |= tags
         self._tag_density = density
 
-    # -- neighbours (kernel L) -----------------------------------------------
+    def get_tags_and_positions(self, seq):
+        """(k + i, tag) for each window i of the sequence that is a tag."""
+        return [(i + self._ksize, int(h))
+                for i, h in enumerate(self._hashes_for_sequence(seq))
+                if int(h) in self.all_tags]
+
+    def find_all_tags_list(self, kmer):
+        """The tags the partition walk from one k-mer finds, as a list."""
+        from khmer_tpu_torch.core import partition as P
+
+        _, f, r = H._hash_scalar(kmer, self._ksize)
+        return [int(t) for t in P.find_all_tags(self, f, r)]
+
+    def sweep_tag_neighborhood(self, seq, range=0,
+                               break_on_stop_tags=False,
+                               stop_big_traversals=False):
+        """The tags within `range` of the sequence's k-mers
+        (SubsetPartition::sweep_for_tags, subset.cc:305-394), as a set."""
+        from khmer_tpu_torch.core.partition import sweep_for_tags
+
+        return sweep_for_tags(self, seq, range, break_on_stop_tags,
+                              stop_big_traversals)[0]
+
+    # -- neighbours (kernels L and N) -----------------------------------------
 
     def neighbors_batch(self, f_arr, r_arr):
         """(nf, nr, ncanon, present) numpy arrays [N, 8] for arrays of
         (f, r) k-mers, as JAX's make_neighbors_fn gives them: the
         neighbours rebuilt on the host from (f, r), their presence from
-        kernel L's byte a node."""
+        kernel L's (N's on a Countgraph) byte a node."""
         from khmer_tpu_torch.core import sketch_kernels as K
         from khmer_tpu_torch.core.sketch import _hashes_tensor
 
         f = _hashes_tensor(f_arr, self.device)
         r = _hashes_tensor(r_arr, self.device)
-        masks = K.neighbors(self._primes, self.tables.flat, f, r,
-                            self._ksize).cpu().numpy()
+        probe = (K.byte_neighbors if self.storage_kind == "byte"
+                 else K.neighbors)
+        masks = probe(self._primes, self.tables.flat, f, r,
+                      self._ksize).cpu().numpy()
         nf, nr = K.neighbor_kmers(f.cpu(), r.cpu(), self._ksize)
         nf = nf.numpy().view(np.uint64)
         nr = nr.numpy().view(np.uint64)
@@ -352,6 +425,58 @@ class HashgraphMixin:
             np.array([f], np.uint64), np.array([r], np.uint64))
         return int(present[0].sum())
 
+    def find_high_degree_nodes(self, seq):
+        """The sequence's k-mers with more than two present neighbours
+        (hashgraph.cc:820-841), as a set."""
+        import torch
+
+        if len(seq) < self._ksize:
+            return set()
+        canon, f, r = H.rolling_hash_windows(
+            torch.from_numpy(H.encode_dna(seq)), self._ksize)
+        _, _, _, present = self.neighbors_batch(
+            f.numpy().view(np.uint64), r.numpy().view(np.uint64))
+        deg = present.sum(axis=1)
+        return set(int(h) for h, d in zip(canon.numpy().view(np.uint64), deg)
+                   if d > 2)
+
+    def extract_unique_paths(self, seq, min_length, min_unique_f):
+        """The maximal windows of the sequence whose k-mers are mostly
+        unseen (reference hashgraph.cc:723-817, its endpoint adjustments
+        too)."""
+        if len(seq) < min_length:
+            return []
+        max_seen = 1.0 - min_unique_f
+        min_length = min_length - self._ksize + 1
+        counts = self.get_counts_for_hashes(self._hashes_for_sequence(seq))
+        seen = [bool(c) for c in counts]
+        n_kmers = len(seen)
+        results = []
+        i = 0
+        while i < n_kmers - min_length:
+            seen_counter = sum(1 for j in range(min_length) if seen[i + j])
+            if (seen_counter / float(min_length)) <= max_seen:
+                start = i
+                while (start + min_length) < n_kmers:
+                    if seen[start]:
+                        seen_counter -= 1
+                    if seen[start + min_length]:
+                        seen_counter += 1
+                    start += 1
+                    if (seen_counter / float(min_length)) > max_seen:
+                        break
+                if start + min_length == n_kmers:
+                    if (seen_counter / float(min_length)) > max_seen:
+                        start -= 1
+                    start -= 1
+                else:
+                    start -= 2
+                results.append(seq[i: start + min_length + self._ksize])
+                i = start + min_length + 1
+            else:
+                i += 1
+        return results
+
     # -- partitioning --------------------------------------------------------
 
     def do_subset_partition(self, start_kmer=0, end_kmer=0,
@@ -362,4 +487,19 @@ class HashgraphMixin:
         subset = SubsetPartition(self)
         subset.do_partition(start_kmer, end_kmer, break_on_stoptags,
                             stop_big_traversals)
+        return subset
+
+    def do_subset_partition_with_abundance(self, min_count, max_count,
+                                           start_kmer=0, end_kmer=0,
+                                           break_on_stop_tags=False,
+                                           stop_big_traversals=False):
+        """Partition only through the k-mers whose count lies in
+        [min_count, max_count] (reference graphs.pyx:833-855,
+        subset.cc:557-613)."""
+        from khmer_tpu_torch.core.partition import SubsetPartition
+
+        subset = SubsetPartition(self)
+        subset.do_partition_with_abundance(
+            start_kmer, end_kmer, min_count, max_count, break_on_stop_tags,
+            stop_big_traversals)
         return subset

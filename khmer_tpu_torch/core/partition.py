@@ -19,7 +19,14 @@ as in JAX and in khmer.
 
 The walk follows the reference's queue rule, as JAX's native engine
 (KHMER_TPU_ENGINE=auto) does; find_all_tags_plain, the queue walk one node
-at a time in Python, is its plain reference, which only the tests run.
+at a time in Python, is its plain reference, which only the tests run. On
+a Countgraph the probe is kernel N (csrc/neighbors.cu,
+sketch_kernels.byte_neighbors), which also gives the abundance-truncated
+walk (do_partition_with_abundance) each neighbour's verdict against the
+band; each start's count comes from kernel B with the bigcount map. The
+perimeter sweep (sweep_for_tags) runs a batch of sequences the same way,
+a level a pass (csrc/sweep_walk.cc), with sweep_for_tags_plain as its
+plain reference.
 
 The knot pipeline's repartition (repartition_largest_partition, the
 reference's subset.cc:1218-1359) walks an excursion of bounded radius from
@@ -37,6 +44,7 @@ kernel A commits the batch's adds in one call, in JAX's order. The answer
 does not depend on the batch.
 """
 
+import re
 import struct
 
 import numpy as np
@@ -97,34 +105,57 @@ def revcomp_bits(f, k):
     return r
 
 
+def plain_count(graph):
+    """A function of a canonical k-mer to its count in the graph's tables,
+    read one table at a time in Python: on a Nodegraph 1 where every
+    table's bit is set, else 0; on a Countgraph the least counter, a 255
+    read through the bigcount map where the graph uses one."""
+    from khmer_tpu_torch.core import sketch_kernels as K
+
+    flat = graph.tables.flat.cpu().numpy()
+    primes = [int(p) for p in graph._primes]
+    if graph.storage_kind == "bit":
+        layout = [(p, 8 * o) for p, o in zip(primes, K.bit_offsets(primes))]
+
+        def count(c):
+            return int(all(flat[(o + c % p) >> 3] >> ((o + c % p) & 7) & 1
+                           for p, o in layout))
+        return count
+    layout = list(zip(primes, K.byte_offsets(primes)))
+    big = graph._bigcounts if graph._use_bigcount else {}
+
+    def count(c):
+        m = min(int(flat[o + c % p]) for p, o in layout)
+        return big.get(c, m) if m == K.MAX_KCOUNT else m
+    return count
+
+
+def _children(f, r, k):
+    """The neighbours (nf, nr) of (f, r), in the reference's queue order:
+    to the right, then to the left, the bases A, C, G, T."""
+    mask = (1 << (2 * k)) - 1
+    shift = 2 * k - 2
+    for b in (0, 2, 3, 1):
+        yield ((f << 2) | b) & mask, (r >> 2) | ((b ^ 1) << shift)
+    for b in (0, 2, 3, 1):
+        yield (f >> 2) | (b << shift), ((r << 2) | (b ^ 1)) & mask
+
+
 def find_all_tags_plain(graph, starts, break_on_stop_tags=False,
-                        stop_big_traversals=False):
+                        stop_big_traversals=False, count_range=None):
     """The plain reference of find_all_tags_batch: the reference's queue
     walk (subset.cc:213-300, as JAX's native engine's find_all_tags_one
     runs it), one traversal and one node at a time in Python, each
-    neighbour's bits read from the tables one by one. starts: (f, r)
-    pairs. Returns a list of tag sets."""
+    neighbour's count read from the tables one by one (plain_count).
+    starts: (f, r) pairs. count_range=(lo, hi): the abundance-truncated
+    walk (subset.cc:399-496), a popped node whose count lies outside the
+    closed band is dropped before it is kept. Returns a list of tag
+    sets."""
     from collections import deque
 
-    from khmer_tpu_torch.core import sketch_kernels as K
-
     k = graph.ksize()
-    mask = (1 << (2 * k)) - 1
-    shift = 2 * k - 2
-    flat = graph.tables.flat.cpu().numpy()
-    layout = [(int(p), 8 * o) for p, o in zip(graph._primes,
-                                              K.bit_offsets(graph._primes))]
+    count = plain_count(graph)
     max_breadth = 2 * graph._tag_density + 1
-
-    def present(c):
-        return all(flat[(o + c % p) >> 3] >> ((o + c % p) & 7) & 1
-                   for p, o in layout)
-
-    def children(f, r):
-        for b in (0, 2, 3, 1):  # A, C, G, T: to the right
-            yield ((f << 2) | b) & mask, (r >> 2) | ((b ^ 1) << shift)
-        for b in (0, 2, 3, 1):  # to the left
-            yield (f >> 2) | (b << shift), ((r << 2) | (b ^ 1)) & mask
 
     out = []
     for f0, r0 in starts:
@@ -142,30 +173,101 @@ def find_all_tags_plain(graph, starts, break_on_stop_tags=False,
                 continue
             if break_on_stop_tags and c in graph.stop_tags:
                 continue
+            if count_range is not None and not (
+                    count_range[0] <= count(c) <= count_range[1]):
+                continue
             keeper.add(c)
             if not first and c in graph.all_tags:
                 tagged.add(c)
                 continue
             if breadth >= max_breadth:
                 continue
-            for nf, nr in children(f, r):
+            for nf, nr in _children(f, r, k):
                 nc = min(nf, nr)
-                if present(nc) and nc not in keeper:
+                if count(nc) > 0 and nc not in keeper:
                     queue.append((nf, nr, breadth + 1))
             first = False
         out.append(tagged)
     return out
 
 
-class _Prober:
-    """Kernel L on each frontier of a walk: the frontier goes up as one
-    int64 tensor (f's then r's), the masks come back a byte a node,
-    through pinned host buffers that grow as frontiers do."""
+def sweep_for_tags_plain(graph, seq, sweep_range=0, break_on_stop_tags=False,
+                         stop_big_traversals=False):
+    """The plain reference of sweep_for_tags: the reference's perimeter
+    sweep (subset.cc:305-394) as JAX's native engine runs it
+    (hg_sweep_for_tags), one node at a time in Python, each neighbour's
+    count read from the tables one by one. Returns (the tags found, as a
+    set, the nodes counted)."""
+    from collections import deque
 
-    def __init__(self, graph):
+    k = graph.ksize()
+    count = plain_count(graph)
+    traversed = set()
+    tagged = set()
+    queue = deque()
+    if len(seq) >= k:
+        _, f, r = H.rolling_hash_windows(
+            torch.from_numpy(H.encode_dna(seq)), k)
+        for f, r in zip(f.numpy().view(np.uint64).tolist(),
+                        r.numpy().view(np.uint64).tolist()):
+            traversed.add(min(f, r))
+            queue.append((f, r, 0))
+    big_perimeter = BIG_TRAVERSALS_ARE * (len(queue) // 2)
+    total = 0
+    while True:
+        if stop_big_traversals and len(traversed) > big_perimeter:
+            tagged = set()
+            break
+        node = None
+        while queue:
+            f, r, breadth = queue.popleft()
+            c = min(f, r)
+            if break_on_stop_tags and c in graph.stop_tags:
+                continue
+            traversed.add(c)
+            total += 1
+            if c in graph.all_tags:
+                tagged.add(c)
+                continue
+            if breadth == sweep_range:
+                continue
+            if breadth > sweep_range:
+                return tagged, total
+            node = (f, r, breadth)
+            break
+        if node is None:
+            break
+        f, r, breadth = node
+        for nf, nr in _children(f, r, k):
+            nc = min(nf, nr)
+            if count(nc) > 0 and nc not in traversed:
+                queue.append((nf, nr, breadth + 1))
+    return tagged, total
+
+
+class _Prober:
+    """The neighbour probe of each frontier of a walk: kernel L on a
+    Nodegraph's bit tables, kernel N on a Countgraph's byte tables. The
+    frontier goes up as one int64 tensor (f's then r's), the masks come
+    back a byte a node, through pinned host buffers that grow as frontiers
+    do. With a band (lo, hi), each call also gives each node's band byte
+    (bit j set iff neighbour j's count lies in [lo, hi]): from kernel N's
+    band mode, with the bigcount map where the graph uses one; on a
+    Nodegraph, whose present k-mers count 1, the presence byte where the
+    band holds 1, else 0."""
+
+    def __init__(self, graph, band=None):
+        from khmer_tpu_torch.core import sketch_kernels as K
+
         self.graph = graph
         self.dev = graph.tables.flat.device
         self.cuda = self.dev.type == "cuda"
+        self.band = band
+        self.byte = graph.storage_kind == "byte"
+        self.big = None
+        if self.byte and band is not None and graph._use_bigcount \
+                and graph._bigcounts:
+            self.big = K.bigcount_table(graph._bigcounts, self.dev)
         self._up = self._down = None
 
     def _buffers(self, n):
@@ -173,26 +275,44 @@ class _Prober:
             cap = max(2 * n, 1 << 16)
             self._up = torch.empty(cap, dtype=torch.int64,
                                    pin_memory=self.cuda)
-            self._down = torch.empty(cap // 2, dtype=torch.uint8,
+            self._down = torch.empty(cap, dtype=torch.uint8,
                                      pin_memory=self.cuda)
         return self._up, self._down
 
-    def __call__(self, walk, n):
-        """The present-neighbour bytes of the walk's frontier of n
-        nodes (numpy uint8 [n])."""
+    def _probe(self, f, r):
+        """The presence bytes of the nodes (f, r) on the device, and with a
+        band their band bytes (None without)."""
         from khmer_tpu_torch.core import sketch_kernels as K
 
         g = self.graph
+        k = g.ksize()
+        if not self.byte:
+            masks = K.neighbors(g._primes, g.tables.flat, f, r, k)
+            if self.band is None:
+                return masks, None
+            lo, hi = self.band
+            return masks, masks if lo <= 1 <= hi else torch.zeros_like(masks)
+        if self.band is None:
+            return K.byte_neighbors(g._primes, g.tables.flat, f, r, k), None
+        return K.byte_neighbors(g._primes, g.tables.flat, f, r, k, self.band,
+                                self.big)
+
+    def __call__(self, walk, n):
+        """The present-neighbour bytes of the walk's frontier of n
+        nodes (numpy uint8 [n]); with a band, (those, the band bytes)."""
         up, down = self._buffers(n)
         walk.frontier(up.numpy().view(np.uint64))
         fr = up[:2 * n].to(self.dev, non_blocking=True)
-        masks = K.neighbors(g._primes, g.tables.flat, fr[:n], fr[n:],
-                            g.ksize())
+        masks, band = self._probe(fr[:n], fr[n:])
         out = down[:n]
         out.copy_(masks, non_blocking=True)
+        if band is not None:
+            down[n:2 * n].copy_(band, non_blocking=True)
         if self.cuda:
             torch.cuda.current_stream(self.dev).synchronize()
-        return out.numpy()
+        if band is None:
+            return out.numpy()
+        return out.numpy(), down[n:2 * n].numpy()
 
 
 class _Staging:
@@ -232,23 +352,29 @@ class _Staging:
 
 
 def find_all_tags_batch(graph, starts_f, starts_r, break_on_stop_tags=False,
-                        stop_big_traversals=False, tag_arrays=None):
+                        stop_big_traversals=False, tag_arrays=None,
+                        count_range=None):
     """Run find_all_tags from many start k-mers (f, r): a list of
     ascending u64 arrays, the tags each traversal found, equal to JAX's
     find_all_tags_batch under its native engine (and to sequential
     reference runs). The traversals go in batches, sized to KEEPER_BYTES
     (see above); the answer does not depend on them. Each pass of the
     C++ walk walks a breadth level of every traversal of a batch; kernel
-    L probes all their expanded nodes' neighbours in one launch.
-    tag_arrays: the graph's tags and stop tags as u64 arrays, where the
-    caller has them."""
+    L (N on a Countgraph) probes all their expanded nodes' neighbours in
+    one launch. tag_arrays: the graph's tags and stop tags as u64 arrays,
+    where the caller has them. count_range=(lo, hi): the
+    abundance-truncated walk (find_all_tags_truncate_on_abundance)."""
     from khmer_tpu_torch.ops.host import TagWalk
 
     tags, stops = tag_arrays or (_sorted_tags(graph.all_tags),
                                  _sorted_tags(graph.stop_tags))
     starts_f = np.asarray(starts_f, dtype=np.uint64)
     starts_r = np.asarray(starts_r, dtype=np.uint64)
-    probe = _Prober(graph)
+    start_ok = None
+    if count_range is not None:  # each start's count: kernel B, bigcount
+        counts = graph.get_counts_for_hashes(np.minimum(starts_f, starts_r))
+        start_ok = (counts >= count_range[0]) & (counts <= count_range[1])
+    probe = _Prober(graph, count_range)
     out = []
     size = min(WALK_BATCH, FIRST_BATCH)
     while len(out) < len(starts_f):
@@ -256,11 +382,14 @@ def find_all_tags_batch(graph, starts_f, starts_r, break_on_stop_tags=False,
         walk = TagWalk(starts_f[lo:lo + size], starts_r[lo:lo + size],
                        graph.ksize(), tags, stops,
                        2 * graph._tag_density + 1, break_on_stop_tags,
-                       stop_big_traversals)
+                       stop_big_traversals,
+                       None if start_ok is None else start_ok[lo:lo + size])
         try:
             n = walk.step()
             while n:
-                n = walk.step(probe(walk, n))
+                got = probe(walk, n)
+                n = walk.step(*got) if start_ok is not None \
+                    else walk.step(got)
             out += walk.tags()
             held = walk.keeper_bytes()
         finally:
@@ -276,6 +405,66 @@ def find_all_tags(graph, f, r, break_on_stop_tags=False,
     tags = find_all_tags_batch(graph, [int(f)], [int(r)],
                                break_on_stop_tags, stop_big_traversals)[0]
     return set(int(t) for t in tags)
+
+
+def find_all_tags_truncate_on_abundance(graph, f, r, min_count, max_count,
+                                        break_on_stop_tags=False,
+                                        stop_big_traversals=False):
+    """The tags one abundance-truncated traversal from the k-mer (f, r)
+    finds (subset.cc:399-496), as a set."""
+    tags = find_all_tags_batch(graph, [int(f)], [int(r)],
+                               break_on_stop_tags, stop_big_traversals,
+                               count_range=(min_count, max_count))[0]
+    return set(int(t) for t in tags)
+
+
+def sweep_for_tags_batch(graph, seqs, sweep_range=0, break_on_stop_tags=False,
+                         stop_big_traversals=False):
+    """The perimeter sweep of each sequence (sweep_for_tags) in one walk,
+    a breadth level of every sweep a pass, each level's expanded nodes
+    probed in one launch of kernel L (N on a Countgraph): (a list of
+    ascending u64 arrays, the tags each sweep found; int64 [n], the nodes
+    each counted), equal to JAX's sweep_for_tags under its native engine."""
+    from khmer_tpu_torch.ops.host import SweepWalk
+
+    k = graph.ksize()
+    seeds_f, seeds_r, lens = [], [], [0]
+    for seq in seqs:
+        if len(seq) < k:
+            lens.append(0)
+            continue
+        _, f, r = H.rolling_hash_windows(
+            torch.from_numpy(H.encode_dna(seq)), k)
+        seeds_f.append(f.numpy().view(np.uint64))
+        seeds_r.append(r.numpy().view(np.uint64))
+        lens.append(f.shape[0])
+    if len(lens) == 1:
+        return [], np.zeros(0, np.int64)
+    walk = SweepWalk(
+        np.concatenate(seeds_f) if seeds_f else np.zeros(0, np.uint64),
+        np.concatenate(seeds_r) if seeds_r else np.zeros(0, np.uint64),
+        np.cumsum(lens), k, _sorted_tags(graph.all_tags),
+        _sorted_tags(graph.stop_tags), sweep_range, break_on_stop_tags,
+        stop_big_traversals)
+    try:
+        probe = _Prober(graph)
+        n = walk.step()
+        while n:
+            n = walk.step(probe(walk, n))
+        return walk.result()
+    finally:
+        walk.close()
+
+
+def sweep_for_tags(graph, seq, sweep_range=0, break_on_stop_tags=False,
+                   stop_big_traversals=False):
+    """The tags within `sweep_range` of the sequence's k-mers
+    (SubsetPartition::sweep_for_tags, subset.cc:305-394): (a set, the
+    nodes counted), as JAX's sweep_for_tags gives them."""
+    found, totals = sweep_for_tags_batch(graph, [seq], sweep_range,
+                                         break_on_stop_tags,
+                                         stop_big_traversals)
+    return set(int(t) for t in found[0]), int(totals[0])
 
 
 class SubsetPartition:
@@ -348,14 +537,31 @@ class SubsetPartition:
         self.next_partition_id += 1
         return pp
 
+    def set_partition_id(self, kmer, pid):
+        """Put a tag (k-mer or hash) in partition `pid`, the partition's
+        box shared by its tags (subset.cc set_partition_id)."""
+        if isinstance(kmer, str):
+            kmer = self.graph.hash(kmer)
+        s = self.reverse_pmap.get(pid)
+        if s is None:
+            pp = _Box(pid)
+            self.reverse_pmap[pid] = {pp}
+        else:
+            pp = next(iter(s))
+        self.partition_map[int(kmer)] = pp
+        if self.next_partition_id <= pid:
+            self.next_partition_id = pid + 1
+
     # -- partitioning -----------------------------------------------------
 
     def do_partition(self, first_kmer=0, last_kmer=0,
-                     break_on_stop_tags=False, stop_big_traversals=False):
+                     break_on_stop_tags=False, stop_big_traversals=False,
+                     count_range=None):
         """Walk + merge over a sorted tag range (subset.cc:501-553): the
         tags from first_kmer (the first tag, if 0) up to last_kmer (the
-        end, if 0). The joins run in sorted tag order, so the walk's
-        batches change nothing."""
+        end, if 0); count_range=(lo, hi) truncates each walk on abundance.
+        The joins run in sorted tag order, so the walk's batches change
+        nothing."""
         tags = _sorted_tags(self.graph.all_tags)
         lo = _index(tags, first_kmer) if first_kmer else 0
         hi = _index(tags, last_kmer) if last_kmer else len(tags)
@@ -364,9 +570,20 @@ class SubsetPartition:
         arrays = (tags, _sorted_tags(self.graph.stop_tags))
         found = find_all_tags_batch(
             self.graph, span, revcomp_bits(span, k), break_on_stop_tags,
-            stop_big_traversals, arrays)
+            stop_big_traversals, arrays, count_range)
         for tag, tagged in zip(span.tolist(), found):
             self.assign_partition_id(tag, tagged.tolist())
+
+    def do_partition_with_abundance(self, first_kmer=0, last_kmer=0,
+                                    min_count=0, max_count=0,
+                                    break_on_stop_tags=False,
+                                    stop_big_traversals=False):
+        """Partition through the k-mers whose count lies in [min_count,
+        max_count] alone (SubsetPartition::do_partition_with_abundance,
+        subset.cc:557-613)."""
+        self.do_partition(first_kmer, last_kmer, break_on_stop_tags,
+                          stop_big_traversals,
+                          count_range=(min_count, max_count))
 
     # -- reporting --------------------------------------------------------
 
@@ -657,3 +874,48 @@ def _windows(records, size=16384):
             batch = []
     if batch:
         yield batch
+
+
+_ATOI = re.compile(r"^\s*[+-]?\d+")
+
+
+def _atoi_prefix(s):
+    """C atoi(): the leading integer of s, 0 if it has none, so '35 foo'
+    and '35abc' give 35 (the reference's partition id parse,
+    include/oxli/read_parsers.hh:210-233)."""
+    m = _ATOI.match(s)
+    return int(m.group(0)) if m else 0
+
+
+def consume_partitioned_fasta(graph, filename):
+    """Load a partition-annotated FASTA (reference hashgraph.cc:368-418):
+    each read's name ends in a tab and its partition id; its first k-mer
+    becomes a tag in that partition. Then every read is counted through
+    the sketch's consume (kernel A on a Countgraph, J on a Nodegraph).
+    Returns (total reads, new k-mers, the SubsetPartition). A name with no
+    tab raises ValueError."""
+    from khmer_tpu_torch.core import pipeline
+
+    subset = SubsetPartition(graph)
+    k = graph.ksize()
+    total_reads = 0
+    if isinstance(filename, str):
+        records, second_pass = pipeline.records_from(filename), filename
+    else:
+        records = list(pipeline.records_from(filename))
+        second_pass = records
+    for record in records:
+        seq = record.cleaned_seq
+        parts = record.name.rsplit("\t", 1)
+        if len(parts) != 2:
+            raise ValueError("consume_partitioned_fasta cannot find "
+                             "partition ID for read " + record.name)
+        pid = _atoi_prefix(parts[1])
+        total_reads += 1
+        if len(seq) < k:
+            continue
+        tag = graph.hash(seq[:k])
+        graph.all_tags.add(tag)
+        subset.set_partition_id(tag, pid)
+    _, n_consumed = pipeline.consume_seqfile(graph, second_pass)
+    return total_reads, n_consumed, subset

@@ -1,6 +1,7 @@
 """Host->device streaming pipeline — counterpart of
-khmer_tpu/core/pipeline.py for the dense counting path and the
-abundance histogram.
+khmer_tpu/core/pipeline.py for the dense counting path, the abundance
+histogram and the per-read counts (counts_for_records, kernel H's counts
+mode).
 
 Counting: the host packs reads (FlatPacker or the native parser) and
 hashes them into fixed-size chunks of canonical k-mer hashes
@@ -287,6 +288,57 @@ class Batcher:
         self._kmers = 0
         self._maxlen = 0
         return codes, lengths
+
+
+# records counts_for_records reads in one window (kernel H's launches and
+# host reads)
+COUNTS_WINDOW = 16384
+
+
+def counts_for_records(sketch, records, window=COUNTS_WINDOW):
+    """Each record's k-mer counts, in order: (record, numpy uint32 counts
+    of its cleaned sequence's windows; empty for one shorter than k), as
+    JAX's pipeline.counts_for_records gives them (:755-817). A window of
+    records goes up as 2-bit codes, a byte a base, packed in runs of one
+    row length (diginorm_scan.row_runs); kernel H's counts mode returns
+    each window's least counter, a byte a k-mer, and the host reads a 255
+    through the bigcount map (Countgraph._bigcount_fix)."""
+    if sketch.storage_kind != "byte":
+        raise ValueError("counts_for_records reads a Countgraph's byte "
+                         "tables, not %s ones" % sketch.storage_kind)
+    batch = []
+    for record in records_from(records):
+        batch.append(record)
+        if len(batch) >= window:
+            yield from _window_counts(sketch, batch)
+            batch = []
+    yield from _window_counts(sketch, batch)
+
+
+def _window_counts(sketch, records):
+    from khmer_tpu_torch.core import sketch_kernels as K
+    from khmer_tpu_torch.core.diginorm_scan import pack_reads, row_runs
+
+    k = sketch.ksize()
+    seqs = [r.cleaned_seq for r in records]
+    live = [i for i, s in enumerate(seqs) if len(s) >= k]
+    counts = [np.zeros(0, dtype=np.uint32)] * len(records)
+    for start, stop, L in row_runs([[records[i]] for i in live], k):
+        rows = live[start:stop]
+        codes, lengths = pack_reads([seqs[i] for i in rows], L)
+        got = K.read_window_counts(
+            sketch._primes, k, sketch.tables.flat,
+            torch.from_numpy(codes).to(sketch.device),
+            torch.from_numpy(lengths).to(sketch.device)).cpu().numpy()
+        got = got.astype(np.uint32)
+        for j, i in enumerate(rows):
+            counts[i] = got[j, :len(seqs[i]) - k + 1]
+    big = sketch._use_bigcount and sketch._bigcounts
+    for i, record in enumerate(records):
+        if big and len(counts[i]):
+            sketch._bigcount_fix(counts[i], lambda: H.host_hash_windows(
+                H.encode_dna(seqs[i]), k))
+        yield record, counts[i]
 
 
 def hash_batch(codes, lengths, k):

@@ -8,7 +8,9 @@ asks for another; with no CUDA device that raises, and never falls back
 to the CPU. Ported here: the base class, the byte-storage Countgraph
 (with the host-side bigcount map, reference storage.hh:513), and the
 bit-storage Nodegraph, the tracking table of the abundance histogram;
-the blocked countgraph is in core/blocked.py.
+the blocked countgraph is in core/blocked.py. The Countgraph and the
+Nodegraph are de Bruijn graphs (core/graphmixin.py): tagged as they
+consume, probed for neighbours (kernels N and L), partitioned and swept.
 """
 
 import numpy as np
@@ -106,6 +108,12 @@ class _Sketch:
                              % (self._ksize, len(kmer)))
         return H._hash_scalar(kmer, self._ksize)[0]
 
+    def _hashes_for_sequence(self, seq):
+        """All canonical window hashes of one sequence (numpy uint64)."""
+        if len(seq) < self._ksize:
+            return np.zeros(0, dtype=np.uint64)
+        return H.host_hash_windows(H.encode_dna(seq), self._ksize)
+
     def _coerce_hashes(self, item):
         """str kmer | int hash | array -> uint64 numpy array."""
         if isinstance(item, str):
@@ -134,6 +142,24 @@ class _Sketch:
         return 1
 
     add = count
+
+    # -- sequence-level ops ------------------------------------------------
+
+    def consume(self, seq):
+        """Count all k-mers in a sequence; returns how many."""
+        if len(seq) < self._ksize:
+            raise ValueError("sequence length must >= the hashtable k-size")
+        return self._commit_hashes(self._hashes_for_sequence(seq))
+
+    def get_kmers(self, seq):
+        return [seq[i:i + self._ksize]
+                for i in range(len(seq) - self._ksize + 1)]
+
+    def get_kmer_hashes(self, seq):
+        return [int(h) for h in self._hashes_for_sequence(seq)]
+
+    def get_kmer_hashes_as_hashset(self, seq):
+        return set(self.get_kmer_hashes(seq))
 
     def get(self, kmer):
         """Retrieve the count for one k-mer (str or hash)."""
@@ -221,11 +247,11 @@ class _Sketch:
         return obj
 
 
-class Countgraph(_Sketch):
+class Countgraph(HashgraphMixin, _Sketch):
     """Count-Min sketch of 8-bit saturating counters over T prime tables,
-    with the 2-bit hash (reference Countgraph; JAX khmer_tpu Countgraph,
-    sketch.py:704-714). Counts past 255 live in the host-side bigcount
-    map when bigcount is on (set_use_bigcount).
+    with the 2-bit hash, and a de Bruijn graph (reference Countgraph; JAX
+    khmer_tpu Countgraph, sketch.py:704-714). Counts past 255 live in the
+    host-side bigcount map when bigcount is on (set_use_bigcount).
 
     The T tables are views into one flat buffer (sketch_kernels.
     ByteTables); on a CUDA device the update keeps only the chunk's
@@ -240,14 +266,25 @@ class Countgraph(_Sketch):
         if primes is None:
             primes = K.get_n_primes_near_x(int(n_tables), int(starting_size))
         super().__init__(ksize, primes, device=device)
+        self._init_graph()
 
-    def _update(self, hashes, nvalid):
-        report = K.byte_update(
+    def _update(self, hashes, nvalid, with_event_new=False):
+        """Kernel A (or its plain version) on hashes[:nvalid], the bigcount
+        report folded into the map; with with_event_new, returns each
+        event's new flag (bool [nvalid] on the device)."""
+        out = K.byte_update(
             self._primes, self.tables.flat, self._n_unique, hashes, nvalid,
             with_bigcount=self._use_bigcount,
-            scratch=self._update_scratch(nvalid, len(self._primes)))
+            scratch=self._update_scratch(nvalid, len(self._primes)),
+            with_event_new=with_event_new)
+        report, flags = out if with_event_new else (out, None)
         if report is not None:
             self._absorb_saturation(*report)
+        return flags
+
+    def _update_with_flags(self, hashes, nvalid):
+        """_update, returning each event's new flag (the tagged consume)."""
+        return self._update(hashes, nvalid, with_event_new=True)
 
     def _absorb_saturation(self, cand_hash, cand_old, n_cand):
         """Fold an update's bigcount report into the map. Reading its
@@ -269,6 +306,52 @@ class Countgraph(_Sketch):
         return int(K.byte_occupied(self.tables[0]))
 
     # -- sequence-level queries (kernel H) ----------------------------------
+
+    def _bigcount_fix(self, counts, hashes_of):
+        """Read each count of 255 (numpy uint32, in place) through the
+        bigcount map where the sketch uses one; hashes_of() gives the
+        counts' hashes."""
+        if self._use_bigcount and self._bigcounts:
+            sat = np.nonzero(counts == MAX_KCOUNT)[0]
+            if sat.size:
+                hashes = hashes_of()
+                for i in sat:
+                    counts[i] = self._bigcounts.get(int(hashes[i]),
+                                                    MAX_KCOUNT)
+        return counts
+
+    def get_kmer_counts(self, seq):
+        """Each k-mer's count (kernel H's counts mode, with the bigcount
+        map), a list of ints; [] for a sequence shorter than k."""
+        if len(seq) < self._ksize:
+            return []
+        codes = H.encode_dna(seq)
+        row = torch.from_numpy(codes[None, :].copy()).to(self.device)
+        length = torch.tensor([codes.shape[0]], dtype=torch.int32,
+                              device=self.device)
+        counts = K.read_window_counts(self._primes, self._ksize,
+                                      self.tables.flat, row, length)
+        counts = counts[0].cpu().numpy().astype(np.uint32)
+        self._bigcount_fix(counts, lambda: H.host_hash_windows(
+            codes, self._ksize))
+        return [int(c) for c in counts]
+
+    def get_min_count(self, seq):
+        counts = self.get_kmer_counts(seq)
+        return min(min(counts), MAX_KCOUNT) if counts else MAX_KCOUNT
+
+    def get_max_count(self, seq):
+        counts = self.get_kmer_counts(seq)
+        return max(counts) if counts else 0
+
+    def get_median_count(self, seq):
+        """(median, average, stddev) of the k-mer counts of a sequence: the
+        medioid, and the float32 average and deviation summed in order
+        (median_avg_stddev; reference hashtable.cc:299-328)."""
+        counts = np.asarray(self.get_kmer_counts(seq), dtype=np.uint32)
+        if counts.size == 0:
+            raise ValueError("no k-mer counts for this string; too short?")
+        return median_avg_stddev(counts)
 
     def _read_counts(self, seq, cutoff, at_least):
         """Kernel H (sketch_kernels.read_counts) on one sequence of at
@@ -307,6 +390,31 @@ class Countgraph(_Sketch):
         return seq[:pos], pos
 
 
+def median_avg_stddev_rows(counts):
+    """(median int64 [R], average float32 [R], stddev float32 [R]) of each
+    row of a count matrix [R, n], n >= 1, as the reference computes them
+    for a sequence (hashtable.cc:299-328; JAX sketch.py
+    _median_avg_stddev): the sorted middle element (rounding down), and
+    the average and the standard deviation summed in float32 one count
+    after another (np.cumsum in float32 adds in order along the row;
+    np.sum would add pairwise)."""
+    counts = np.asarray(counts)
+    n = np.float32(counts.shape[1])
+    c = counts.astype(np.float32)
+    average = np.cumsum(c, axis=1, dtype=np.float32)[:, -1] / n
+    d = c - average[:, None]
+    var = np.cumsum(d * d, axis=1, dtype=np.float32)[:, -1] / n
+    median = np.sort(counts, axis=1)[:, counts.shape[1] // 2]
+    return median.astype(np.int64), average, np.sqrt(var)
+
+
+def median_avg_stddev(counts):
+    """(median, average, stddev) of one sequence's counts (numpy [n], n >=
+    1): median_avg_stddev_rows of one row, as Python numbers."""
+    med, avg, std = median_avg_stddev_rows(np.asarray(counts)[None, :])
+    return int(med[0]), float(avg[0]), float(std[0])
+
+
 class Nodegraph(HashgraphMixin, _Sketch):
     """Bloom filter with the 2-bit hash (reference Nodegraph), with the
     tagging part of the graph API (core/graphmixin.py).
@@ -325,30 +433,17 @@ class Nodegraph(HashgraphMixin, _Sketch):
         self._init_graph()
 
     def _update(self, hashes, nvalid):
+        """Kernel J (or its plain version) on hashes[:nvalid]; returns each
+        event's new flag, which J gives at no cost."""
         return K.bit_update(self._primes, self.tables, self._n_unique,
                             hashes, nvalid,
                             scratch=self._update_scratch(
                                 nvalid, len(self._primes)))
 
+    _update_with_flags = _update
+
     def _count_nonzero_t0(self):
         return int(K.bit_occupied(self.tables[0]))
-
-    @classmethod
-    def from_numpy_state(cls, ksize, primes, tables, n_unique,
-                         occupied_offset, device="cuda", bigcounts=None,
-                         use_bigcount=False, all_tags=(), stop_tags=(),
-                         tag_density=None):
-        """A Nodegraph holding the given state (see
-        _Sketch.from_numpy_state), with its tags, stop tags and, where
-        given, tag density (e.g. a JAX Nodegraph's)."""
-        obj = super().from_numpy_state(ksize, primes, tables, n_unique,
-                                       occupied_offset, device, bigcounts,
-                                       use_bigcount)
-        obj.all_tags = set(int(t) for t in all_tags)
-        obj.stop_tags = set(int(t) for t in stop_tags)
-        if tag_density is not None:
-            obj._set_tag_density(int(tag_density))
-        return obj
 
 
 def from_numpy_state(ksize, primes, tables, n_unique, occupied_offset,

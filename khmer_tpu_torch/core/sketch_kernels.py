@@ -406,14 +406,18 @@ def bit_present_plain(primes, flat, hashes):
     return present
 
 
+def _pack_bits(bits):
+    """bool [N, 8] -> uint8 [N], bit j from column j."""
+    shifts = torch.arange(8, dtype=torch.int64, device=bits.device)
+    return (bits.to(torch.int64) << shifts).sum(1).to(torch.uint8)
+
+
 def neighbors_plain(primes, flat, f, r, k):
     """Kernel L's probe (plain PyTorch, any device): uint8 [N], bit j set
     iff neighbour j (neighbor_kmers) of node (f[i], r[i]) is in the bit
     tables, its canonical value min(nf, nr) present in every table."""
     nf, nr = neighbor_kmers(f, r, k)
-    present = bit_present_plain(primes, flat, umin(nf, nr)).to(torch.int64)
-    shifts = torch.arange(8, dtype=torch.int64, device=f.device)
-    return (present << shifts).sum(1).to(torch.uint8)
+    return _pack_bits(bit_present_plain(primes, flat, umin(nf, nr)))
 
 
 def bit_gather_plain(primes, flat, hashes):
@@ -513,6 +517,85 @@ def bit_gather(primes, flat, hashes):
     if flat.device.type != "cpu":
         raise ValueError("unsupported device %s" % flat.device)
     return bit_gather_plain(primes, flat, hashes)
+
+
+# --------------------------------------------------------------------------
+# the 8-neighbour probe of the byte tables, with an abundance band (kernel N)
+# --------------------------------------------------------------------------
+
+
+def byte_neighbors_plain(primes, flat, f, r, k, band=None, big=None):
+    """Kernel N's probe (plain PyTorch, any device): the presence byte
+    uint8 [N] of the nodes (f[i], r[i]), bit j set iff the least counter m
+    of neighbour j (neighbor_kmers) over the T byte tables joined in `flat`
+    is at least 1 (JAX's make_neighbors_fn, byte kind). With a band (lo,
+    hi), (presence, band byte): bit j of the band byte is set iff max(lo,
+    1) <= m <= hi, a count of 255 read through `big` (bigcount_table) where
+    the map has its hash."""
+    nf, nr = neighbor_kmers(f, r, k)
+    counts = byte_counts_plain(primes, flat, umin(nf, nr),
+                               None if band is None else big)
+    present = _pack_bits(counts >= 1)
+    if band is None:
+        return present
+    lo, hi = band
+    return present, _pack_bits((counts >= max(int(lo), 1))
+                               & (counts <= int(hi)))
+
+
+def byte_neighbors_cuda(primes, flat, f, r, k, band=None, big=None):
+    """Kernel N (csrc/neighbors.cu): byte_neighbors_plain on the card, for
+    the joined byte buffer `flat`. Counts its launches in
+    ``byte_neighbors_cuda.launches``."""
+    _check_byte_layout(primes, flat)
+    dev = flat.device
+    for h in (f, r):
+        if h.device != dev or h.dtype != torch.int64 or h.dim() != 1 \
+                or not h.is_contiguous():
+            raise ValueError("k-mers must be contiguous 1-D int64 tensors "
+                             "on %s" % dev)
+    if f.shape != r.shape:
+        raise ValueError("f and r differ in length")
+    if not 1 <= int(k) <= 32:
+        raise ValueError("k %d outside [1, 32]" % k)
+    n = f.shape[0]
+    present = torch.empty(n, dtype=torch.uint8, device=dev)
+    if band is None:
+        lo, hi, big, in_band = 1, MAX_KCOUNT, None, None
+    else:
+        lo, hi = band
+        big = _big_arg(big, dev)
+        in_band = torch.empty(n, dtype=torch.uint8, device=dev)
+    result = present if band is None else (present, in_band)
+    if n == 0:
+        return result
+    keys, values = big or (None, None)
+    primes_arr, offsets_arr = _layout(primes)
+    err = cuda.library().khmer_byte_neighbors(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), f.data_ptr(), r.data_ptr(), n,
+        int(k), max(_cutoff_arg(lo, MAX_BIGCOUNT), 0),
+        min(_cutoff_arg(hi, MAX_BIGCOUNT), MAX_BIGCOUNT), _ptr(keys),
+        _ptr(values), 0 if keys is None else keys.shape[0],
+        present.data_ptr(), _ptr(in_band), dev.index, _stream(dev))
+    cuda.check(err, "byte_neighbors")
+    byte_neighbors_cuda.launches += 1
+    return result
+
+
+byte_neighbors_cuda.launches = 0
+
+
+def byte_neighbors(primes, flat, f, r, k, band=None, big=None):
+    """Presence bytes of the nodes (f, r) (int64 [N] tensors on the
+    tables' device) in the byte tables, with a band (presence, band
+    bytes): kernel N on a CUDA buffer, the plain version on a CPU one (see
+    byte_neighbors_plain)."""
+    if flat.is_cuda:
+        return byte_neighbors_cuda(primes, flat, f, r, k, band, big)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return byte_neighbors_plain(primes, flat, f, r, k, band, big)
 
 
 # --------------------------------------------------------------------------
@@ -675,7 +758,7 @@ class ByteTables(tuple):
 
 
 def byte_update_plain(primes, flat, n_unique, hashes, nvalid,
-                      with_bigcount=False):
+                      with_bigcount=False, with_event_new=False):
     """Exact byte update of hashes[:nvalid] in stream order, in place
     (plain PyTorch, any device).
 
@@ -695,6 +778,10 @@ def byte_update_plain(primes, flat, n_unique, hashes, nvalid,
     [n], n_cand i32 [1]): each event whose counters are all 255 after the
     chunk, with its least counter before the chunk, in no fixed order;
     bigcount_triggers turns it into per-hash triggers. Else None.
+
+    With with_event_new, returns (that report or None, flags bool
+    [nvalid]): each event's new flag, JAX's event_new (sketch_kernels.py
+    :559-561), the first event of each hash that is new.
     """
     n = int(nvalid)
     dev = flat.device
@@ -716,14 +803,15 @@ def byte_update_plain(primes, flat, n_unique, hashes, nvalid,
             max=MAX_KCOUNT).to(torch.uint8)
         counters.append(c)
     n_unique += fresh.sum()
-    if not with_bigcount:
-        return None
-    post = torch.stack([flat[c] for c in counters]).amin(dim=0)
-    cand = post == MAX_KCOUNT
-    cand_hash = h[cand]
-    return (cand_hash, min_old[cand],
-            torch.tensor([cand_hash.shape[0]], dtype=torch.int32,
-                         device=dev))
+    report = None
+    if with_bigcount:
+        post = torch.stack([flat[c] for c in counters]).amin(dim=0)
+        cand = post == MAX_KCOUNT
+        cand_hash = h[cand]
+        report = (cand_hash, min_old[cand],
+                  torch.tensor([cand_hash.shape[0]], dtype=torch.int32,
+                               device=dev))
+    return (report, fresh) if with_event_new else report
 
 
 def bigcount_triggers(cand_hash, cand_old):
@@ -867,15 +955,15 @@ def _check_byte_layout(primes, flat):
 
 
 def byte_update_cuda(primes, flat, n_unique, hashes, nvalid,
-                     with_bigcount=False, scratch=None):
+                     with_bigcount=False, scratch=None, with_event_new=False):
     """Kernel A (csrc/byte_update.cu): byte_update_plain on the card.
 
     `scratch` is a uint8 buffer on the card of at least
     update_plan(nvalid, T) bytes (update_scratch; a sketch keeps one
     between chunks), or None for a new one: nothing the size of the
     tables. Returns the bigcount report as device tensors (its count read
-    by nobody here), or None. Counts its launches in
-    ``byte_update_cuda.launches``.
+    by nobody here), or None; with with_event_new, (that, the new flags
+    bool [nvalid]). Counts its launches in ``byte_update_cuda.launches``.
     """
     dev = flat.device
     _check_byte_args(primes, flat, hashes)
@@ -893,37 +981,41 @@ def byte_update_cuda(primes, flat, n_unique, hashes, nvalid,
         report = (torch.empty(n, dtype=torch.int64, device=dev),
                   torch.empty(n, dtype=torch.int32, device=dev),
                   torch.zeros(1, dtype=torch.int32, device=dev))
+    flags = None
+    if with_event_new:
+        flags = torch.empty(n, dtype=torch.bool, device=dev)
+    out = (report, flags) if with_event_new else report
     if n == 0:
-        return report
+        return out
     primes_arr, offsets_arr = _layout(primes)
     cand_hash, cand_old, n_cand = report or (None, None, None)
     err = cuda.library().khmer_byte_update(
         flat.data_ptr(), flat.shape[0], len(primes),
         ctypes.addressof(primes_arr), ctypes.addressof(offsets_arr),
         hashes.data_ptr(), n, nbuckets, *ptr, n_unique.data_ptr(),
-        _ptr(cand_hash), _ptr(cand_old), _ptr(n_cand), dev.index,
-        _stream(dev))
+        _ptr(cand_hash), _ptr(cand_old), _ptr(n_cand), _ptr(flags),
+        dev.index, _stream(dev))
     cuda.check(err, "byte_update")
     byte_update_cuda.launches += 1
-    return report
+    return out
 
 
 byte_update_cuda.launches = 0
 
 
 def byte_update(primes, flat, n_unique, hashes, nvalid,
-                with_bigcount=False, scratch=None):
+                with_bigcount=False, scratch=None, with_event_new=False):
     """Exact byte update of hashes[:nvalid], in place: kernel A on a CUDA
     buffer (with the sketch's `scratch`, see byte_update_cuda), the plain
-    version on a CPU one. Returns the bigcount report or None (see
-    byte_update_plain)."""
+    version on a CPU one. Returns the bigcount report or None and, with
+    with_event_new, the new flags (see byte_update_plain)."""
     if flat.is_cuda:
         return byte_update_cuda(primes, flat, n_unique, hashes, nvalid,
-                                with_bigcount, scratch)
+                                with_bigcount, scratch, with_event_new)
     if flat.device.type != "cpu":
         raise ValueError("unsupported device %s" % flat.device)
     return byte_update_plain(primes, flat, n_unique, hashes, nvalid,
-                             with_bigcount)
+                             with_bigcount, with_event_new)
 
 
 def byte_gather_plain(primes, flat, hashes):
@@ -1966,22 +2058,31 @@ def _big_arg(big, dev):
     return big if keys.shape[0] else None
 
 
-def _read_window_counts(primes, k, flat, codes, lengths, big):
-    """(counts [R, W], valid [R, W], nvalid [R]) of kernel H's rows: the
-    minimum over the tables of each window's counter, a count of 255 read
-    through `big` (bigcount_table) where the map has its hash."""
-    hashes, valid, nvalid = _window_hashes(codes, lengths, k)
+def byte_counts_plain(primes, flat, hashes, big=None, valid=None):
+    """byte_gather_plain's counts of `hashes` (any shape), a count of 255
+    read through `big` (bigcount_table) where the map has its hash (only
+    where `valid`, where given) -> int32."""
     counts = byte_gather_plain(primes, flat, hashes)
     big = _big_arg(big, flat.device)
     if big is not None:
         keys, values = big
-        sat = valid & (counts == MAX_KCOUNT)
+        sat = counts == MAX_KCOUNT
+        if valid is not None:
+            sat &= valid
         h = hashes[sat]
         pos = torch.searchsorted(keys ^ _SIGN, h ^ _SIGN).clamp_(
             max=keys.shape[0] - 1)
         counts[sat] = torch.where(keys[pos] == h, values[pos],
                                   torch.full_like(values[pos], MAX_KCOUNT))
-    return counts, valid, nvalid
+    return counts
+
+
+def _read_window_counts(primes, k, flat, codes, lengths, big):
+    """(counts [R, W], valid [R, W], nvalid [R]) of kernel H's rows: the
+    minimum over the tables of each window's counter, a count of 255 read
+    through `big` (bigcount_table) where the map has its hash."""
+    hashes, valid, nvalid = _window_hashes(codes, lengths, k)
+    return byte_counts_plain(primes, flat, hashes, big, valid), valid, nvalid
 
 
 def read_counts_plain(primes, k, cutoff, at_least, flat, codes, lengths,
@@ -2110,7 +2211,7 @@ def read_counts_cuda(primes, k, cutoff, at_least, flat, codes, lengths,
         R, codes.shape[1], int(k), _cutoff_arg(cutoff, MAX_BIGCOUNT),
         _cutoff_arg(at_least, MAX_BIGCOUNT), plan["rows"], plan["seg"],
         _ptr(keys), _ptr(values), 0 if keys is None else keys.shape[0],
-        trim_at.data_ptr(), n_ge.data_ptr(), _ptr(scratch), dev.index,
+        trim_at.data_ptr(), n_ge.data_ptr(), _ptr(scratch), None, dev.index,
         _stream(dev))
     cuda.check(err, "read_counts")
     read_counts_cuda.launches += 1
@@ -2118,6 +2219,53 @@ def read_counts_cuda(primes, k, cutoff, at_least, flat, codes, lengths,
 
 
 read_counts_cuda.launches = 0
+
+
+def read_window_counts_plain(primes, k, flat, codes, lengths):
+    """Kernel H's counts mode (plain PyTorch, any device): uint8 [R, L - k +
+    1], each valid window's least counter over the tables (255 where
+    saturated; the caller reads the bigcount map), 0 past a read's
+    windows."""
+    hashes, valid, _ = _window_hashes(codes, lengths, k)
+    counts = byte_gather_plain(primes, flat, hashes)
+    return torch.where(valid, counts, 0).to(torch.uint8)
+
+
+def read_window_counts_cuda(primes, k, flat, codes, lengths):
+    """Kernel H in its counts mode (csrc/read_counts.cu):
+    read_window_counts_plain on the card -> uint8 [R, L - k + 1]. Counts
+    its launches in ``read_window_counts_cuda.launches``."""
+    dev = flat.device
+    _check_byte_layout(primes, flat)
+    _check_rows(codes, lengths, k, dev)
+    R, L = codes.shape
+    counts = torch.zeros((R, L - int(k) + 1), dtype=torch.uint8, device=dev)
+    if R == 0:
+        return counts
+    plan = read_plan(L, k)
+    primes_arr, offsets_arr = _layout(primes)
+    err = cuda.library().khmer_read_counts(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), codes.data_ptr(), lengths.data_ptr(),
+        R, L, int(k), 0, 0, plan["rows"], plan["seg"], None, None, 0, None,
+        None, None, counts.data_ptr(), dev.index, _stream(dev))
+    cuda.check(err, "read_counts")
+    read_window_counts_cuda.launches += 1
+    return counts
+
+
+read_window_counts_cuda.launches = 0
+
+
+def read_window_counts(primes, k, flat, codes, lengths):
+    """Each window's least counter of rows of codes (uint8 [R, L - k + 1]):
+    kernel H's counts mode on a CUDA buffer, the plain version on a CPU
+    one."""
+    if flat.is_cuda:
+        return read_window_counts_cuda(primes, k, flat, codes, lengths)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return read_window_counts_plain(primes, k, flat, codes, lengths)
 
 
 def read_counts(primes, k, cutoff, at_least, flat, codes, lengths, big=None):

@@ -45,4 +45,18 @@ __device__ __forceinline__ uint64_t counter_index(const ByteLayout& layout,
          + khmer_cuda::reduce(h, layout.primes[t], layout.recips[t]);
 }
 
+// The bigcount table's count for hash h (its u64 keys ascending, n of
+// them; sketch_kernels.py bigcount_table), or 255 where it has none.
+__device__ __forceinline__ int big_count(const uint64_t* __restrict__ keys,
+                                         const int32_t* __restrict__ values,
+                                         int64_t n, uint64_t h) {
+  int64_t lo = 0;
+  int64_t hi = n;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) / 2;
+    if (keys[mid] < h) lo = mid + 1; else hi = mid;
+  }
+  return lo < n && keys[lo] == h ? values[lo] : khmer_cuda::kMaxCount;
+}
+
 }  // namespace khmer_byte

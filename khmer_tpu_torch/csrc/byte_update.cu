@@ -1,5 +1,5 @@
 // Kernel A: the exact byte-layout Count-Min update over T prime tables,
-// with the bigcount report.
+// with the bigcount report and, where asked, each event's new flag.
 //
 // Replaces the TPU's byte update paths, which XLA compiled and no Pallas
 // kernel covered: khmer_tpu/core/sketch_kernels.py:496 (v2_update_core),
@@ -31,6 +31,15 @@
 // image path (khmer_tpu/core/sketch.py:267-295), equal to v2's per-hash
 // ucnt - max(255 - min_old, 0). Counts saturate at 255 whether bigcount
 // is on or off; bigcount lives only in the host map.
+//
+// The new flags (the tagged consume of a Countgraph, JAX's
+// with_event_new, khmer_tpu/core/sketch_kernels.py:559-561) are the
+// per-event words' new bit, which the last launch already reads to count
+// n_unique: an event is new iff it is the lowest-index event of the chunk
+// to touch some counter that was 0 before the chunk (the bucket kernel
+// sets the bit on that event), which is the first event of a hash that
+// the reference's sequential adds would count as new. They cost one byte
+// an event written, nothing else.
 
 #include "bucket_common.cuh"
 #include "byte_common.cuh"
@@ -58,7 +67,8 @@ struct ByteEvents {
 // HOST arrays of ntables. ids .. min_old are the chunk's scratch of
 // nbuckets buckets (core/sketch_kernels.py update_plan). With cand_hash
 // non-null (bigcount on) the candidates go to cand_hash/cand_old [nvalid],
-// their number added to *n_cand (zeroed by the caller).
+// their number added to *n_cand (zeroed by the caller). With flags
+// non-null, flags[i] is event i's new flag for i < nvalid.
 extern "C" int khmer_byte_update(uint8_t* flat, int64_t size, int ntables,
                                  const int64_t* primes,
                                  const int64_t* offsets,
@@ -67,7 +77,8 @@ extern "C" int khmer_byte_update(uint8_t* flat, int64_t size, int ntables,
                                  void* cursor, void* ev_word, void* min_old,
                                  int64_t* n_unique,
                                  int64_t* cand_hash, int32_t* cand_old,
-                                 int32_t* n_cand, int device, void* stream) {
+                                 int32_t* n_cand, bool* flags, int device,
+                                 void* stream) {
   using namespace khmer_byte;
   ByteLayout layout;
   if (!make_layout(ntables, primes, offsets, &layout) || size <= 0) {
@@ -82,7 +93,7 @@ extern "C" int khmer_byte_update(uint8_t* flat, int64_t size, int ntables,
   const uint64_t* h = reinterpret_cast<const uint64_t*>(hashes);
   return khmer_bucket::launch_update(
       ByteEvents{h, layout}, ntables, static_cast<uint64_t>(size), nvalid,
-      nvalid, static_cast<uint32_t>(nbuckets), sc, flat, nullptr,
+      nvalid, static_cast<uint32_t>(nbuckets), sc, flat, flags,
       reinterpret_cast<unsigned long long*>(n_unique), h, cand_hash,
       cand_old, reinterpret_cast<unsigned int*>(n_cand),
       static_cast<cudaStream_t>(stream));

@@ -124,8 +124,8 @@ class Walk : public LevelWalk<Excursion, PassPart> {
   }
 
  protected:
-  void walk_run(const uint8_t* masks, int64_t lo, int64_t hi,
-                PassPart& p) override {
+  void walk_run(const uint8_t* masks, const uint8_t*, int64_t lo,
+                int64_t hi, PassPart& p) override {
     for (int64_t i = lo; i < hi; ++i) {
       Excursion& t = trav[live[i]];
       const bool goes_on = walk_level(t, masks);

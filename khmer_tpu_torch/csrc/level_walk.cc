@@ -12,10 +12,12 @@ using khmer_host::WalkBase;
 extern "C" {
 
 // One pass: masks, a byte a node of the last frontier (null on the first
-// pass). Returns the nodes to probe next, 0 when the walk has ended;
-// kt_level_frontier hands them out.
-long long kt_level_pass(void* walk, const uint8_t* masks) {
-  return static_cast<WalkBase*>(walk)->pass(masks);
+// pass), and band (nullable), the banded tag walk's band bytes of the same
+// nodes (csrc/tag_walk.cc). Returns the nodes to probe next, 0 when the
+// walk has ended; kt_level_frontier hands them out.
+long long kt_level_pass(void* walk, const uint8_t* masks,
+                        const uint8_t* band) {
+  return static_cast<WalkBase*>(walk)->pass(masks, band);
 }
 
 // The frontier of the last pass: f of each node, then r of each (2 n u64).

@@ -21,6 +21,7 @@
 #include <cstdint>
 #include <cstring>
 #include <thread>
+#include <type_traits>
 #include <vector>
 
 #include "u64_set.h"
@@ -35,17 +36,27 @@ struct KmerShift {
   explicit KmerShift(int k)
       : mask(k >= 32 ? ~0ULL : (1ULL << (2 * k)) - 1), shift(2 * k - 2) {}
 
-  // calls fn(nf, nr) for each neighbour that the byte m says is present,
-  // to the right then to the left, with the bases in kBaseOrder
+  // calls fn(nf, nr) (or fn(nf, nr, j), j the neighbour's bit) for each
+  // neighbour that the byte m says is present, to the right then to the
+  // left, with the bases in kBaseOrder
   template <typename Fn>
   void each_child(uint64_t f, uint64_t r, unsigned m, Fn fn) const {
     for (int side = 0; side < 2; ++side) {
       for (uint64_t b : kBaseOrder) {
-        if (!(m >> (4 * side + b) & 1)) continue;
+        const int j = 4 * side + static_cast<int>(b);
+        if (!(m >> j & 1)) continue;
+        uint64_t nf, nr;
         if (side == 0) {
-          fn(((f << 2) | b) & mask, (r >> 2) | ((b ^ 1) << shift));
+          nf = ((f << 2) | b) & mask;
+          nr = (r >> 2) | ((b ^ 1) << shift);
         } else {
-          fn((f >> 2) | (b << shift), ((r << 2) | (b ^ 1)) & mask);
+          nf = (f >> 2) | (b << shift);
+          nr = ((r << 2) | (b ^ 1)) & mask;
+        }
+        if constexpr (std::is_invocable_v<Fn, uint64_t, uint64_t, int>) {
+          fn(nf, nr, j);
+        } else {
+          fn(nf, nr);
         }
       }
     }
@@ -76,9 +87,10 @@ class WalkBase {
   virtual ~WalkBase() = default;
 
   // One pass: masks holds the byte of each node of the last frontier (null
-  // on the first pass). Returns the frontier's length, 0 once every
-  // traversal has ended.
-  virtual int64_t pass(const uint8_t* masks) = 0;
+  // on the first pass), band (nullable) a second byte a node for a walk
+  // that reads one. Returns the frontier's length, 0 once every traversal
+  // has ended.
+  virtual int64_t pass(const uint8_t* masks, const uint8_t* band) = 0;
 
   std::vector<uint64_t> frontier;  // f of each node to probe, then r
   size_t peak_keeper_bytes = 0;    // the most a pass's traversals held
@@ -99,14 +111,14 @@ class LevelWalk : public WalkBase {
     }
   }
 
-  int64_t pass(const uint8_t* masks) override {
+  int64_t pass(const uint8_t* masks, const uint8_t* band) override {
     constexpr int64_t kGrain = 64;  // traversals a thread takes at least
     const int64_t nlive = static_cast<int64_t>(live.size());
     const int nt = static_cast<int>(std::max<int64_t>(
         1, std::min<int64_t>(parts.size(), nlive / kGrain)));
     auto run = [&](int p) {
       parts[p].clear();
-      walk_run(masks, nlive * p / nt, nlive * (p + 1) / nt, parts[p]);
+      walk_run(masks, band, nlive * p / nt, nlive * (p + 1) / nt, parts[p]);
     };
     std::vector<std::thread> pool;
     for (int p = 1; p < nt; ++p) pool.emplace_back(run, p);
@@ -146,8 +158,8 @@ class LevelWalk : public WalkBase {
   // Walk the traversals live[lo, hi) a level into the cleared part p: the
   // nodes each will have probed go to the end of p.sf, p.sr, its lo set to
   // the first of them within p, and those that go on to p.live.
-  virtual void walk_run(const uint8_t* masks, int64_t lo, int64_t hi,
-                        Part& p) = 0;
+  virtual void walk_run(const uint8_t* masks, const uint8_t* band,
+                        int64_t lo, int64_t hi, Part& p) = 0;
 
   // Copy a part's own arrays, a value a node, to [at, at + its nodes) of
   // the frontier's n nodes.

@@ -1,4 +1,5 @@
-// Kernel L: the 8-neighbour probe of the bit tables, and their gather.
+// Kernel L: the 8-neighbour probe of the bit tables, and their gather;
+// kernel N: the same probe of the byte tables, with an abundance band.
 //
 // Replaces khmer_tpu/core/graphmixin.py:30-59 (make_neighbors_fn), an XLA
 // function on the TPU, which builds each k-mer's four right and four left
@@ -48,14 +49,41 @@
 // byte offsets, as kernel J does. scripts/partition_cases.py probe_stages
 // mirrors the rule; scripts/probe_bench.py builds the designs measured
 // against it (PERF.md, kernel L).
+//
+// Kernel N replaces the byte branch of the same XLA function
+// (khmer_tpu/core/graphmixin.py:30 make_neighbors_fn on a Countgraph, its
+// presence from khmer_tpu/core/sketch_kernels.py:649 _gather_counts, byte
+// branch: a neighbour is present where its least counter is above 0) and
+// the count filter of the abundance-truncated walk
+// (khmer_tpu/core/partition.py:186-193: the count, with the bigcount
+// fix-up, in [min_count, max_count]). Its plain PyTorch version is
+// khmer_tpu_torch/core/sketch_kernels.py byte_neighbors_plain. Bit j of
+// out[i] is set iff neighbour j's least counter m over the T byte tables
+// (sketch_kernels.py ByteTables) is at least 1. Given `band_out`, bit j of
+// band_out[i] is set iff max(lo, 1) <= m <= hi, where a count of 255 is
+// the bigcount table's count for the hash where the table has it
+// (sketch_kernels.py bigcount_table, as kernel H reads it): the abundance
+// walk queues every present child and rejects an out-of-band one when it
+// pops it (csrc/tag_walk.cc), as the reference does.
+//
+// What bounds it: random byte reads, a 32-byte sector each, as for L; its
+// byte bound is L's 17 B a node (with the band byte, 18). Design: L's
+// lanes and staging. Since m <= c0, a lane whose table-0 counter is 0
+// stops there; the others load kGroup more tables a stage while their
+// least stays above 0. In a de Bruijn graph most of a node's 8 neighbours
+// are absent, so table 0 is most of the loads. Where hi < 255 a saturated
+// counter fails the band without a lookup; the bigcount table is searched
+// only for a lane whose least is 255.
 
 #include "byte_common.cuh"
 
 namespace khmer_nbr {
 namespace {
 
+using khmer_byte::big_count;
 using khmer_byte::ByteLayout;
 using khmer_byte::counter_index;
+using khmer_cuda::kMaxCount;
 using khmer_cuda::kThreads;
 using khmer_cuda::thread_index;
 
@@ -93,6 +121,22 @@ __device__ __forceinline__ bool present(const ByteLayout& layout,
   return true;
 }
 
+// The canonical value of neighbour j of the node (fi, ri).
+__device__ __forceinline__ uint64_t neighbor_canon(uint64_t fi, uint64_t ri,
+                                                   int j, uint64_t mask,
+                                                   int shift) {
+  const uint64_t b = j & 3;
+  uint64_t nf, nr;
+  if (j < 4) {  // to the right with base b
+    nf = ((fi << 2) | b) & mask;
+    nr = (ri >> 2) | ((b ^ 1) << shift);
+  } else {  // to the left
+    nf = (fi >> 2) | (b << shift);
+    nr = ((ri << 2) | (b ^ 1)) & mask;
+  }
+  return nf < nr ? nf : nr;
+}
+
 // Thread 8 i + j probes neighbour j of node i; lane 8 q of each warp
 // writes node q's byte.
 __global__ void __launch_bounds__(kThreads)
@@ -104,16 +148,7 @@ neighbors_kernel(const uint64_t* __restrict__ f,
   const int j = threadIdx.x & 7;
   bool set = false;
   if (i < n) {
-    const uint64_t fi = f[i], ri = r[i], b = j & 3;
-    uint64_t nf, nr;
-    if (j < 4) {  // to the right with base b
-      nf = ((fi << 2) | b) & mask;
-      nr = (ri >> 2) | ((b ^ 1) << shift);
-    } else {  // to the left
-      nf = (fi >> 2) | (b << shift);
-      nr = ((ri << 2) | (b ^ 1)) & mask;
-    }
-    set = present(layout, flat, nf < nr ? nf : nr);
+    set = present(layout, flat, neighbor_canon(f[i], r[i], j, mask, shift));
   }
   const unsigned bits = __ballot_sync(~0u, set);
   if (i < n && j == 0) {
@@ -129,6 +164,64 @@ bit_gather_kernel(const uint64_t* __restrict__ hashes, int64_t n,
   if (i >= n) return;
   const uint64_t h = hashes[i];
   out[i] = static_cast<int32_t>(present(layout, flat, h));
+}
+
+// Kernel N's counter rule: the least of h's counters over the byte
+// tables, table 0 first, then kGroup tables a stage while the least so far
+// is above 0.
+__device__ __forceinline__ int least_count(const ByteLayout& layout,
+                                           const uint8_t* flat, uint64_t h) {
+  int m = flat[counter_index(layout, h, 0)];
+  for (int t0 = kFirst; t0 < layout.ntables && m > 0; t0 += kGroup) {
+    int v[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      v[g] = kMaxCount;
+      if (t0 + g < layout.ntables) {
+        v[g] = flat[counter_index(layout, h, t0 + g)];
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) m = min(m, v[g]);
+  }
+  return m;
+}
+
+// Kernel N: thread 8 i + j tests neighbour j of node i; lane 8 q of each
+// warp writes node q's presence byte and, where asked, its band byte.
+__global__ void __launch_bounds__(kThreads)
+byte_neighbors_kernel(const uint64_t* __restrict__ f,
+                      const uint64_t* __restrict__ r, int64_t n,
+                      uint64_t mask, int shift,
+                      const __grid_constant__ ByteLayout layout,
+                      const uint8_t* __restrict__ flat, int lo, int hi,
+                      const uint64_t* __restrict__ big_keys,
+                      const int32_t* __restrict__ big_values, int64_t nbig,
+                      uint8_t* __restrict__ out,
+                      uint8_t* __restrict__ band_out) {
+  const int64_t i = thread_index() >> 3;
+  const int j = threadIdx.x & 7;
+  bool present = false;
+  bool in_band = false;
+  if (i < n) {
+    const uint64_t c = neighbor_canon(f[i], r[i], j, mask, shift);
+    int m = least_count(layout, flat, c);
+    present = m > 0;
+    if (present && band_out != nullptr) {
+      if (m == kMaxCount && nbig > 0) {
+        m = big_count(big_keys, big_values, nbig, c);
+      }
+      in_band = m >= max(lo, 1) && m <= hi;
+    }
+  }
+  const unsigned present_bits = __ballot_sync(~0u, present);
+  const unsigned band_bits = __ballot_sync(~0u, in_band);
+  if (i < n && j == 0) {
+    out[i] = static_cast<uint8_t>(present_bits >> (threadIdx.x & 24));
+    if (band_out != nullptr) {
+      band_out[i] = static_cast<uint8_t>(band_bits >> (threadIdx.x & 24));
+    }
+  }
 }
 
 }  // namespace
@@ -178,5 +271,39 @@ extern "C" int khmer_bit_gather(const uint8_t* flat, int ntables,
   bit_gather_kernel<<<khmer_cuda::grid_for(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const uint64_t*>(hashes), n, layout, flat, out);
+  return cudaGetLastError();
+}
+
+// Kernel N: out[i] = the present-neighbour byte of node (f[i], r[i]) for
+// i < n in the byte tables; band_out (nullable) gets the in-band byte (lo,
+// hi: the band, clamped by the caller to [0, 65536] and [-1, 65535]).
+// big_keys / big_values (device, nbig entries, keys ascending as u64) may
+// be null with nbig 0. primes/offsets are HOST arrays of ntables (the
+// tables' offsets in the joined buffer, in bytes).
+extern "C" int khmer_byte_neighbors(const uint8_t* flat, int ntables,
+                                    const int64_t* primes,
+                                    const int64_t* offsets, const int64_t* f,
+                                    const int64_t* r, int64_t n, int k,
+                                    int lo, int hi, const void* big_keys,
+                                    const int32_t* big_values, int64_t nbig,
+                                    uint8_t* out, uint8_t* band_out,
+                                    int device, void* stream) {
+  using namespace khmer_nbr;
+  ByteLayout layout;
+  if (!khmer_byte::make_layout(ntables, primes, offsets, &layout) || n < 0
+      || k < 1 || k > 32 || nbig < 0
+      || (nbig > 0 && (big_keys == nullptr || big_values == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n == 0) return cudaSuccess;
+  const uint64_t mask = k == 32 ? ~0ULL : (1ULL << (2 * k)) - 1;
+  byte_neighbors_kernel<<<khmer_cuda::grid_for(8 * n), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint64_t*>(f),
+      reinterpret_cast<const uint64_t*>(r), n, mask, 2 * k - 2, layout, flat,
+      lo, hi, static_cast<const uint64_t*>(big_keys), big_values, nbig, out,
+      band_out);
   return cudaGetLastError();
 }

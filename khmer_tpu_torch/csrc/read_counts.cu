@@ -64,6 +64,14 @@
 // - No staging by table 0: a window is settled by table 0 alone only
 //   below min(cutoff, at_least), and on config 3's windows that saves
 //   under 30% of the loads (PERF.md section 6, row H).
+//
+// Counts mode (counts non-null; count-median, the Countgraph's
+// get_kmer_counts and get_median_count, khmer_tpu/core/pipeline.py:755
+// counts_for_records): each item writes its window's least counter, 255
+// where saturated, to counts[row][window] (u8 [nrows, L - k + 1]) in place
+// of the two reductions, and the block writes no trim_at or n_ge; the host
+// reads a 255 through the bigcount map. Only the codes go up (1 B a base)
+// and a byte a window comes back, not 8 B hashes a k-mer.
 
 #include "byte_common.cuh"
 #include "twobit_common.cuh"
@@ -71,6 +79,7 @@
 namespace khmer_read_trim {
 namespace {
 
+using khmer_byte::big_count;
 using khmer_byte::ByteLayout;
 using khmer_byte::counter_index;
 using khmer_cuda::kMaxCount;
@@ -85,19 +94,6 @@ constexpr int kBatch = 2;   // items a thread takes at once
 constexpr int kTables = 4;  // tables whose loads it issues at once
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNone = 0x7fffffff;  // no window below cutoff; no row
-
-// The bigcount table's count for hash h, or 255 where it has none.
-__device__ __forceinline__ int big_count(const uint64_t* __restrict__ keys,
-                                         const int32_t* __restrict__ values,
-                                         int64_t n, uint64_t h) {
-  int64_t lo = 0;
-  int64_t hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) / 2;
-    if (keys[mid] < h) lo = mid + 1; else hi = mid;
-  }
-  return lo < n && keys[lo] == h ? values[lo] : kMaxCount;
-}
 
 // trim_at of a read of `len` codes with `nw` windows whose first window
 // below cutoff is `first` (kNone: none).
@@ -123,7 +119,7 @@ counts_kernel(const uint8_t* __restrict__ codes,
               const uint64_t* __restrict__ big_keys,
               const int32_t* __restrict__ big_values, int64_t nbig,
               int32_t* __restrict__ trim_at, int32_t* __restrict__ n_ge,
-              int32_t* __restrict__ scratch) {
+              int32_t* __restrict__ scratch, uint8_t* __restrict__ counts) {
   __shared__ Tile s;
   extern __shared__ uint64_t smem[];
   const int pw = seg / 32 + 1;
@@ -233,6 +229,16 @@ counts_kernel(const uint8_t* __restrict__ codes,
           for (int u = 0; u < kBatch; ++u) m[u] = min(m[u], v[dt][u]);
         }
       }
+      if (counts != nullptr) {  // counts mode: the same for the block
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (act[u]) {
+            counts[(row0 + key[u]) * (L - k + 1) + win[u]] =
+                static_cast<uint8_t>(m[u]);
+          }
+        }
+        continue;
+      }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         if (act[u] && m[u] == kMaxCount && nbig > 0) {
@@ -262,6 +268,7 @@ counts_kernel(const uint8_t* __restrict__ codes,
     }
   }
   __syncthreads();
+  if (counts != nullptr) return;
   if (nsegs == 1) {
     if (tid < rows) {
       n_ge[row0 + tid] = s.ge[tid];
@@ -312,7 +319,9 @@ inline int64_t smem_bytes(int rows, int seg) {
 // words (the wrapper's torch.empty; cleared here on the stream), else it
 // may be null. big_keys / big_values (device, nbig entries, keys ascending
 // as u64) may be null with nbig 0. primes/offsets are HOST arrays of
-// ntables.
+// ntables. With counts non-null (counts mode, u8 [nrows, L - k + 1]), each
+// valid window's least counter goes there instead; trim_at, n_ge, scratch
+// and the bigcount table are then not used and may be null.
 extern "C" int khmer_read_counts(const uint8_t* flat, int ntables,
                                  const int64_t* primes,
                                  const int64_t* offsets,
@@ -322,8 +331,8 @@ extern "C" int khmer_read_counts(const uint8_t* flat, int ntables,
                                  int rows, int seg, const void* big_keys,
                                  const int32_t* big_values, int64_t nbig,
                                  int32_t* trim_at, int32_t* n_ge,
-                                 int32_t* scratch, int device,
-                                 void* stream) {
+                                 int32_t* scratch, uint8_t* counts,
+                                 int device, void* stream) {
   using namespace khmer_read_trim;
   khmer_byte::ByteLayout layout;
   if (!khmer_byte::make_layout(ntables, primes, offsets, &layout)
@@ -334,13 +343,16 @@ extern "C" int khmer_read_counts(const uint8_t* flat, int ntables,
   }
   const int64_t nsegs = (int64_t{L} - k + seg) / seg;
   const int64_t tiles = (nrows + rows - 1) / rows;
-  if (nsegs > 1 && scratch == nullptr) return cudaErrorInvalidValue;
+  if (counts != nullptr) nbig = 0;
+  if (nsegs > 1 && scratch == nullptr && counts == nullptr) {
+    return cudaErrorInvalidValue;
+  }
   if (tiles * nsegs > 0x7fffffff) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nrows == 0) return cudaSuccess;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (nsegs > 1) {
+  if (nsegs > 1 && counts == nullptr) {
     err = cudaMemsetAsync(scratch, 0, sizeof(int32_t) * (2 * nrows + tiles),
                           s);
     if (err != cudaSuccess) return err;
@@ -357,6 +369,6 @@ extern "C" int khmer_read_counts(const uint8_t* flat, int ntables,
       codes, lengths, nrows, L, k, cutoff, at_least, rows, seg,
       static_cast<int>(nsegs), layout, flat,
       static_cast<const uint64_t*>(big_keys), big_values, nbig, trim_at,
-      n_ge, scratch);
+      n_ge, scratch, counts);
   return cudaGetLastError();
 }

@@ -24,6 +24,17 @@
 // children without that test and drops repeats within a level, and so
 // cuts some traversals that the reference and the native engine let
 // finish.) Each traversal keeps its own keeper, freed when it ends.
+//
+// The abundance-truncated walk (the reference's
+// find_all_tags_truncate_on_abundance, subset.cc:399-496, as JAX's
+// native engine's find_all_tags_one runs it) tests each popped node's count
+// against a band after the keeper and stop-tag tests and before it is
+// kept: a node out of the band is popped (so it meets the size test) but
+// never kept, and the tag test never sees it. The caller gives the band's
+// verdict on each start when the walk is made and, with each level's
+// neighbour bytes, a second byte a node, bit j set iff neighbour j is in
+// the band (kernel N); a child is queued by the presence byte alone, as in
+// the reference.
 // Built with g++ at first use by khmer_tpu_torch/ops/host.py (TagWalk).
 
 #include <algorithm>
@@ -55,6 +66,7 @@ struct Traversal {
 // traversals' expanded nodes (sf, sr) and their keeping order.
 struct Part : PassPart {
   std::vector<uint64_t> f, r;  // the queued level
+  std::vector<uint8_t> ok;     // whether each is in the band (banded walk)
   std::vector<uint32_t> so;
 
   void clear() {
@@ -73,19 +85,25 @@ class Walk : public LevelWalk<Traversal, Part> {
   bool break_on_stop = false;
   bool stop_big = false;
   std::vector<uint32_t> order;  // the keeping order of each frontier node
+  // the banded walk: each start's verdict (each later pass takes the band
+  // bytes of the last frontier)
+  bool banded = false;
+  std::vector<uint8_t> start_ok;
 
  protected:
-  void walk_run(const uint8_t* masks, int64_t lo, int64_t hi,
-                Part& p) override {
+  void walk_run(const uint8_t* masks, const uint8_t* band, int64_t lo,
+                int64_t hi, Part& p) override {
     for (int64_t i = lo; i < hi; ++i) {
       Traversal& t = trav[live[i]];
       p.f.clear();
       p.r.clear();
+      p.ok.clear();
       if (masks == nullptr) {
         p.f.push_back(t.f0);
         p.r.push_back(t.r0);
+        if (banded) p.ok.push_back(start_ok[live[i]]);
       } else {
-        queue_children(t, masks, p);
+        queue_children(t, masks, band, p);
         ++t.breadth;
       }
       const bool goes_on = walk_level(t, p);
@@ -105,18 +123,20 @@ class Walk : public LevelWalk<Traversal, Part> {
 
  private:
   // Queue into p.f, p.r the present children of t's expanded nodes (in
-  // the frontier, each with its byte of `masks`) that were not kept when
-  // their parent was expanded, in the reference's order.
+  // the frontier, each with its byte of `masks`, and of `band` in a banded
+  // walk) that were not kept when their parent was expanded, in the
+  // reference's order.
   void queue_children(const Traversal& t, const uint8_t* masks,
-                      Part& p) const {
+                      const uint8_t* band, Part& p) const {
     const int64_t n = static_cast<int64_t>(order.size());
     for (int64_t i = t.lo; i < t.lo + t.n; ++i) {
       kmer.each_child(frontier[i], frontier[n + i], masks[i],
-                      [&](uint64_t nf, uint64_t nr) {
+                      [&](uint64_t nf, uint64_t nr, int j) {
         const uint32_t kept = t.keeper.order(nf < nr ? nf : nr);
         if (kept == 0 || kept > order[i]) {
           p.f.push_back(nf);
           p.r.push_back(nr);
+          if (banded) p.ok.push_back(band[i] >> j & 1);
         }
       });
     }
@@ -139,6 +159,7 @@ class Walk : public LevelWalk<Traversal, Part> {
       const uint64_t c = f < r ? f : r;
       if (t.keeper.order(c) != 0) continue;
       if (break_on_stop && stops.contains(c)) continue;
+      if (banded && !p.ok[i]) continue;
       const uint32_t kept = t.keeper.keep(c);
       if (!t.first && tags.contains(c)) {
         t.tagged.push_back(c);
@@ -165,12 +186,19 @@ Walk& walk_of(void* walk) {
 extern "C" {
 
 // A walk from n start k-mers (f, r), with the graph's tags and stop tags;
-// level_walk.cc runs its passes.
+// level_walk.cc runs its passes. start_ok (n bytes, nullable): the banded
+// walk, whether each start is in the band; each later kt_level_pass then
+// takes the band bytes beside the masks.
 void* kt_walk_new(const uint64_t* start_f, const uint64_t* start_r,
                   long long n, int k, const uint64_t* tags, long long n_tags,
                   const uint64_t* stops, long long n_stops, int max_breadth,
-                  int break_on_stop, int stop_big, int threads) {
+                  int break_on_stop, int stop_big, int threads,
+                  const uint8_t* start_ok) {
   Walk* w = new Walk(start_f, start_r, n, k, threads);
+  if (start_ok != nullptr) {
+    w->banded = true;
+    w->start_ok.assign(start_ok, start_ok + n);
+  }
   w->tags = U64Set(static_cast<size_t>(n_tags));
   for (long long i = 0; i < n_tags; ++i) w->tags.insert(tags[i]);
   w->stops = U64Set(static_cast<size_t>(n_stops));

@@ -41,9 +41,9 @@ _ENTRY_POINTS = {
     "khmer_blocked_gather": [_P, _I64, _P, _I64, _P, _I32, _P],
     # flat, size, ntables, primes (host), offsets (host), hashes, nvalid,
     # nbuckets, ids, start, cursor, ev_word, min_old, n_unique,
-    # cand_hash, cand_old, n_cand, device, stream
+    # cand_hash, cand_old, n_cand, flags, device, stream
     "khmer_byte_update": [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _P,
-                          _P, _P, _P, _P, _P, _P, _P, _I32, _P],
+                          _P, _P, _P, _P, _P, _P, _P, _P, _I32, _P],
     # flat, ntables, primes (host), offsets (host), hashes, n, out,
     # device, stream
     "khmer_byte_gather": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
@@ -84,10 +84,10 @@ _ENTRY_POINTS = {
                         _P, _I32, _P],
     # flat, ntables, primes (host), offsets (host), codes, lengths, nrows,
     # L, k, cutoff, at_least, rows, seg, big_keys, big_values, nbig,
-    # trim_at, n_ge, scratch, device, stream
+    # trim_at, n_ge, scratch, counts, device, stream
     "khmer_read_counts": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
-                          _I32, _I32, _I32, _P, _P, _I64, _P, _P, _P, _I32,
-                          _P],
+                          _I32, _I32, _I32, _P, _P, _I64, _P, _P, _P, _P,
+                          _I32, _P],
     # flat, size, ntables, primes (host), bit offsets (host), hashes,
     # valid, m_total, nvalid, nbuckets, ids, start, cursor, ev_word, mask,
     # flags, n_unique, device, stream
@@ -101,6 +101,10 @@ _ENTRY_POINTS = {
     # flat, ntables, primes (host), bit offsets (host), hashes, n, out,
     # device, stream
     "khmer_bit_gather": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
+    # flat, ntables, primes (host), offsets (host), f, r, n, k, lo, hi,
+    # big_keys, big_values, nbig, out, present, device, stream
+    "khmer_byte_neighbors": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32,
+                             _I32, _P, _P, _I64, _P, _P, _I32, _P],
 }
 
 

@@ -6,7 +6,8 @@ k-mer hasher (csrc/dense_hash.cc, core/hostengine.py), the tag-spacing
 pass of load-graph's tagged consume with its tag set
 (csrc/tag_spacing.cc: the pass is sequential over the whole stream), the
 partition walk, a level of a batch of traversals a pass
-(csrc/tag_walk.cc, TagWalk below), and the knot pipeline's excursions,
+(csrc/tag_walk.cc, TagWalk below), the perimeter sweep likewise
+(csrc/sweep_walk.cc, SweepWalk), and the knot pipeline's excursions,
 likewise, with their evaluation (csrc/excursion_walk.cc, ExcursionWalk).
 The library is compiled with g++ at first use into
 ``khmer_tpu_torch/_build/`` (not committed), and again whenever a source
@@ -76,13 +77,17 @@ def library():
             ("fasta_pack", [_P, _I64, _P, _P, _I64, _P, _P], _I64),
             ("kt_hash_dense", [_P, _I64, _P, _I64, _I32, _P], _I64),
             ("kt_hash_dense_reads", [_P, _P, _P, _I64, _I32, _P], _I64),
-            ("kt_level_pass", [_P, _P], _I64),
+            ("kt_level_pass", [_P, _P, _P], _I64),
             ("kt_level_frontier", [_P, _P], None),
             ("kt_level_keeper_bytes", [_P], _I64),
             ("kt_level_free", [_P], None),
             ("kt_walk_new", [_P, _P, _I64, _I32, _P, _I64, _P, _I64, _I32,
-                             _I32, _I32, _I32], _P),
+                             _I32, _I32, _I32, _P], _P),
             ("kt_walk_counts", [_P, _P], None),
+            ("kt_sweep_new", [_P, _P, _P, _I64, _I32, _P, _I64, _P, _I64,
+                              _I64, _I32, _I32, _I32], _P),
+            ("kt_sweep_counts", [_P, _P, _P], None),
+            ("kt_sweep_tags", [_P, _P], None),
             ("kt_walk_tags", [_P, _P], None),
             ("kt_exc_new", [_P, _P, _I64, _I32, _P, _I64, _I32, _I64,
                             _I32], _P),
@@ -191,10 +196,17 @@ class _LevelWalk:
         each node of the last frontier) allows, or of the start k-mers on
         the first step. Returns the new frontier's length, 0 once the
         walk has ended."""
+        return self._pass(masks, None)
+
+    def _pass(self, masks, band):
+        """kt_level_pass on masks and band (uint8 arrays, or None)."""
         if masks is not None:
             masks = np.ascontiguousarray(masks, dtype=np.uint8)
+        if band is not None:
+            band = np.ascontiguousarray(band, dtype=np.uint8)
         return int(self._lib.kt_level_pass(
-            self._walk, None if masks is None else masks.ctypes.data))
+            self._walk, None if masks is None else masks.ctypes.data,
+            None if band is None else band.ctypes.data))
 
     def frontier(self, out):
         """Write the frontier's k-mers into `out`, a u64 buffer of at
@@ -221,19 +233,40 @@ class TagWalk(_LevelWalk):
     """The partition walk of a batch of traversals (csrc/tag_walk.cc), a
     breadth level of each a pass. Start it from the k-mers (f, r) of the
     start tags, with the graph's tags and stop tags; once the walk has
-    ended, tags() holds what each traversal found."""
+    ended, tags() holds what each traversal found. start_ok (a bool a
+    start, or None) makes it the abundance-truncated walk: whether each
+    start is in the band; each later step then takes the band bytes of the
+    last frontier beside its neighbour bytes."""
 
     def __init__(self, start_f, start_r, k, tags, stop_tags, max_breadth,
-                 break_on_stop_tags, stop_big_traversals):
+                 break_on_stop_tags, stop_big_traversals, start_ok=None):
         self._lib = library()
         start_f, start_r = _u64(start_f), _u64(start_r)
         tags, stop_tags = _u64(tags), _u64(stop_tags)
         self.n = len(start_f)
+        self.banded = start_ok is not None
+        if self.banded:
+            start_ok = np.ascontiguousarray(start_ok, dtype=np.uint8)
+            if len(start_ok) != self.n:
+                raise ValueError("start_ok holds %d starts, not %d"
+                                 % (len(start_ok), self.n))
         self._walk = self._lib.kt_walk_new(
             start_f.ctypes.data, start_r.ctypes.data, self.n, int(k),
             tags.ctypes.data, len(tags), stop_tags.ctypes.data,
             len(stop_tags), int(max_breadth), int(bool(break_on_stop_tags)),
-            int(bool(stop_big_traversals)), walk_threads())
+            int(bool(stop_big_traversals)), walk_threads(),
+            start_ok.ctypes.data if self.banded else None)
+
+    def step(self, masks=None, band=None):
+        """_LevelWalk.step; a banded walk's later steps also take `band`,
+        a byte a node of the last frontier, bit j set iff neighbour j is in
+        the band."""
+        if masks is not None and self.banded != (band is not None):
+            raise ValueError("a banded walk takes band bytes with its "
+                             "masks, any other walk none")
+        if band is not None and len(band) != len(masks):
+            raise ValueError("band and masks differ in length")
+        return self._pass(masks, band)
 
     def tags(self):
         """The tags each traversal found: a list of ascending u64
@@ -243,6 +276,43 @@ class TagWalk(_LevelWalk):
         flat = np.empty(int(counts.sum()), np.uint64)
         self._lib.kt_walk_tags(self._walk, flat.ctypes.data)
         return np.split(flat, np.cumsum(counts)[:-1])
+
+
+class SweepWalk(_LevelWalk):
+    """The perimeter sweeps of a batch of sequences (csrc/sweep_walk.cc), a
+    breadth level of each a pass: sweep i starts from the k-mers (f, r)
+    seed_f/seed_r[offsets[i]:offsets[i + 1]], with the graph's tags and
+    stop tags, out to `max_breadth`; once the walk has ended, result()
+    holds what each found."""
+
+    def __init__(self, seed_f, seed_r, offsets, k, tags, stop_tags,
+                 max_breadth, break_on_stop_tags, stop_big_traversals):
+        self._lib = library()
+        seed_f, seed_r = _u64(seed_f), _u64(seed_r)
+        offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+        if (len(offsets) < 1 or offsets[0] != 0 or offsets[-1] != len(seed_f)
+                or len(seed_r) != len(seed_f)
+                or (np.diff(offsets) < 0).any()):
+            raise ValueError("offsets must rise from 0 to the seeds' length")
+        tags, stop_tags = _u64(tags), _u64(stop_tags)
+        self.n = len(offsets) - 1
+        self._walk = self._lib.kt_sweep_new(
+            seed_f.ctypes.data, seed_r.ctypes.data, offsets.ctypes.data,
+            self.n, int(k), tags.ctypes.data, len(tags),
+            stop_tags.ctypes.data, len(stop_tags), int(max_breadth),
+            int(bool(break_on_stop_tags)), int(bool(stop_big_traversals)),
+            walk_threads())
+
+    def result(self):
+        """(the distinct tags each sweep found: a list of ascending u64
+        arrays, the nodes each counted: int64 [n])."""
+        counts = np.empty(self.n, np.int64)
+        totals = np.empty(self.n, np.int64)
+        self._lib.kt_sweep_counts(self._walk, counts.ctypes.data,
+                                  totals.ctypes.data)
+        flat = np.empty(int(counts.sum()), np.uint64)
+        self._lib.kt_sweep_tags(self._walk, flat.ctypes.data)
+        return np.split(flat, np.cumsum(counts)[:-1]), totals
 
 
 class ExcursionWalk(_LevelWalk):

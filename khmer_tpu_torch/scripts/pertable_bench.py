@@ -8,7 +8,7 @@ Shapes:
       make-initial-stoptags -k 20 -x 2e8 -N 4 on the stamps reads, run
       here; the largest call's hashes (a batch's keepers, which repeat
       k-mers) into the 4 x 200 MB counting tables as the CLI leaves them
-      (as chip_smoke.py's _PertableCheck keeps it).
+      (as chip_smoke.py's _pertable_check keeps it).
   (b) NHASH distinct hashes from a seed (synth_hashes) into 4 tables of
       200 MB (primes near 2e8) of seeded random bytes (random_tables): no
       repeats, every read a DRAM sector.

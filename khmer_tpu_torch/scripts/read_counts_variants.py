@@ -105,7 +105,7 @@ def launcher(fn, primes, k, cutoff, at_least, flat, rows, lengths, plan):
                       ctypes.addressof(offsets_arr), rows.data_ptr(),
                       lengths.data_ptr(), R, L, k, cutoff, at_least, *plan,
                       None, None, 0, trim_at.data_ptr(), n_ge.data_ptr(),
-                      scratch.data_ptr(), dev.index, K._stream(dev)),
+                      scratch.data_ptr(), None, dev.index, K._stream(dev)),
                    "read_counts variant")
         return trim_at, n_ge
     return call

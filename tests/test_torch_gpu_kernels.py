@@ -15,9 +15,9 @@ import torch
 from khmer_tpu_torch.core import blocked as B
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.core.sketch import Countgraph
-from khmer_tpu_torch.scripts import (diginorm_cases, graph_cases,
-                                     partition_cases, pertable_cases,
-                                     trim_cases)
+from khmer_tpu_torch.scripts import (countgraph_cases, diginorm_cases,
+                                     graph_cases, partition_cases,
+                                     pertable_cases, trim_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -673,3 +673,72 @@ def test_repartition_on_cuda_launches_pertable(cuda_device):
             assert K.byte_update_cuda.launches > before[2]
     assert got[str(cuda_device)] == got["cpu"]
     assert got["cpu"][1]
+
+
+# -- the Countgraph graph: kernel N, A's new flags, H's counts mode ----------
+
+
+@pytest.mark.parametrize("name", list(countgraph_cases.NBR_CASES))
+def test_byte_neighbors_match_plain(cuda_device, name):
+    """Kernel N against its plain version without a band and at every
+    band."""
+    assert countgraph_cases.check_nbr_case(name, cuda_device) == 0
+
+
+@pytest.mark.parametrize("name", list(countgraph_cases.FLAG_CASES))
+def test_byte_update_flags_match_plain(cuda_device, name):
+    """Kernel A's per-event new flags, tables, n_unique and bigcount
+    triggers against its plain version."""
+    assert countgraph_cases.check_flag_case(name, cuda_device) == 0
+
+
+@pytest.mark.parametrize("name", list(trim_cases.COUNT_CASES))
+def test_read_window_counts_match_plain(cuda_device, name):
+    """Kernel H's counts mode against its plain version."""
+    assert countgraph_cases.check_counts_case(name, cuda_device) == 0
+
+
+def test_countgraph_graph_on_cuda_launches_kernels(cuda_device, tmp_path):
+    """A Countgraph on the card tags as it consumes, partitions with and
+    without an abundance band, sweeps, gives its k-mer counts and rebuilds
+    from a partitioned FASTA as on the CPU, through kernels A (with its
+    flags), N and H's counts mode."""
+    import os
+
+    from khmer_tpu_torch.io.fastx import FastxParser
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    reads = os.path.join(repo, "data", "stamps-reads.fa.gz")
+    head = str(tmp_path / "head.fa")
+    with open(head, "w") as f:
+        for i, rec in enumerate(FastxParser(reads)):
+            if i == 3000:
+                break
+            f.write(">%s\n%s\n" % (rec.name, rec.sequence))
+    seqs = [rec.sequence for _, rec in zip(range(100), FastxParser(head))]
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        cg = Countgraph(20, 1e6, 4, device=dev)
+        cg.set_use_bigcount(True)
+        before = (K.byte_update_cuda.launches, K.byte_neighbors_cuda.launches,
+                  K.read_window_counts_cuda.launches)
+        out = [cg.consume_seqfile_and_tag(head), sorted(cg.all_tags)]
+        for band in (None, (2, 200), (1, 65535)):
+            subset = (cg.do_subset_partition(0, 0, False, True) if band is None
+                      else cg.do_subset_partition_with_abundance(
+                          band[0], band[1], stop_big_traversals=True))
+            out.append({t: subset.get_partition_id(t) for t in cg.all_tags})
+        out.append([sorted(cg.sweep_tag_neighborhood(s, 40)) for s in seqs])
+        out.append([cg.get_median_count(s) for s in seqs])
+        part = str(tmp_path / ("%s.part" % dev))
+        cg.do_subset_partition(0, 0).output_partitioned_file(head, part)
+        fresh = Countgraph(20, 1e6, 4, device=dev)
+        out.append(fresh.consume_partitioned_fasta(part))
+        out.append(sorted(fresh.all_tags))
+        out.append([t.cpu().numpy().tobytes() for t in fresh.tables])
+        got[str(dev)] = out
+        if dev == cuda_device:
+            assert K.byte_update_cuda.launches > before[0]
+            assert K.byte_neighbors_cuda.launches > before[1]
+            assert K.read_window_counts_cuda.launches > before[2]
+    assert got[str(cuda_device)] == got["cpu"]

@@ -159,15 +159,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
      on the subset, every tag's id in the reference's golden map
      tests/golden/stamps_ref_pmap.txt.gz, the .info, subset .pmap and .part
      sha256, "output 50 partitions"), kernel L (the 8-neighbour probe)
-     seen to launch and held to its plain version on every frontier it
-     probed; the wall split into the tagged consume, the walk (its C++
-     passes, L's launches; L's time on the card, its frontiers replayed
-     in order after the CLI from a file, each launch between CUDA events
-     while a sleep kernel holds the stream (the card's gap between
-     launches included), beside the events around each of the walk's
-     calls, which include the host's launch), the union-find, the merge
-     and the annotation; the host's peak resident set and the card's peak
-     memory over the CLI and the walk's batches with their keeper bytes;
+     seen to launch once a level and held to its plain version on every
+     level (scripts/level_tap.py: the walk's C++ loop, csrc/level_walk.cc
+     kt_level_run, calls the card's probe through a callback that checks
+     after it); the wall split into the tagged consume, the walk (its C++
+     passes, writing the frontiers, and the probes: issuing the uploads,
+     L's launches and the copies back, waiting in the syncs; L's time on
+     the card, its frontiers replayed in order after the CLI from a file,
+     each launch between CUDA events while a sleep kernel holds the
+     stream, the card's gap between launches included), the union-find,
+     the merge and the annotation; the host's peak resident set and the
+     card's peak memory over the CLI and the walk's batches with their
+     keeper bytes;
   10a. the same without --no-big-traverse, the CLI's default walk that no
      size cuts ("output 1 partitions", the .pmap and .part sha256), its
      keepers the largest;
@@ -176,7 +179,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
      tags in 6 subsets, each subset .pmap's sha256, "output 25451
      partitions" and the .part's sha256 with its partition ids renamed by
      first appearance (the merge numbers them in the order glob lists the
-     .pmap files); L held to its plain version on every eighth launch;
+     .pmap files); L held to its plain version on every eighth level;
      then L on the largest frontiers of 10 and 10b against its plain
      version, beside its byte bound (17 B a node) and its two sector
      floors (32 B a distinct sector read: of every table of every
@@ -206,19 +209,29 @@ Phases (each prints a line; any failure raises and exits non-zero):
      Countgraph(20, 12.5e6, 4) with bigcount tagged from
      data/stamps-reads.fa.gz (kernel A with its new flags), partitioned
      with and without the abundance band (2, 200) (kernel N probes each
-     level), the first 1,000 reads swept at ranges 0 and 81,
+     level of the walks' C++ loop, in its small-level mode below
+     sketch_kernels.NBR_SMALL_NODES nodes, else its staged mode), the
+     first 1,000 reads swept at ranges 0 and 81,
      consume-partitioned-fasta of phase 10's .part, and count-median on
      phase 4b's .ct (kernel H's counts mode); the JAX answers asserted
-     (EXPECT_C12), every call of A, N and H held to its plain version;
-     then N (presence and band), H's counts mode and A with and without
+     (EXPECT_C12), every call of A and H and every level of N held to its
+     plain version (N by the level tap, as L in phase 10), N launched
+     once a level; each step's wall with its walk's probes and passes;
+     then N in both its modes on the phase's largest level and its
+     largest below the crossover, H's counts mode and A with and without
      its flags on the phase's largest call, beside N's bound and sector
      floors;
   12b. the same graph at -x 1e9 (4 GB of byte tables) on phase 7b's
      reads: the tagged consume, the abundance partition over every tag
      and count-median against phase 7b's .ct, the JAX answers asserted,
-     the wall split (tagged consume, the walk's C++ passes and probes, N
-     by CUDA events, union-find, count-median), and the kernels on its
-     largest calls as in phase 12.
+     N held to plain on every eighth level; the wall split (tagged
+     consume, the walk, union-find, count-median); the walk run again
+     with no tap and split by its clocks (the C++ passes, writing the
+     frontiers, issuing the uploads, N's launches and the copies back,
+     waiting in the syncs); N over the walk replayed (held events); and
+     the kernels on its largest calls as in phase 12 (N's small-level
+     mode's time in the per-kernel line is 12b's, its staged mode's
+     phase 12's).
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees (J's at 9b each call
 alone after its tables are zeroed or restored, scripts.reset_ms); the
@@ -232,6 +245,7 @@ Without a CUDA device it exits 1 at once.
 """
 
 import csv
+import functools
 import hashlib
 import json
 import os
@@ -635,7 +649,7 @@ def main():
                                  "trim_mark", "trim_probe", "trim_scan",
                                  "read_counts", "bit_update", "hll_add",
                                  "neighbors", "byte_pertable",
-                                 "byte_neighbors")}
+                                 "byte_neighbors", "byte_neighbors_small")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
         run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs)
@@ -787,18 +801,25 @@ def main():
         # -- phase 12: the Countgraph graph at config 5's shape --------------
         cg_launches, checks = run_countgraph(torch, SK, dev, card, errs,
                                              kept)
-        launches["byte_neighbors"] = cg_launches["byte_neighbors"]
-        timings["byte_neighbors"] = time_countgraph_kernels(
-            torch, SK, card, errs, checks, "phase 12")
+        n_times = time_countgraph_kernels(torch, SK, card, errs, checks,
+                                          "phase 12")
         del checks
         lap("phase 12")
 
         # -- phase 12b: the same graph at 4 GB --------------------------------
-        checks = run_countgraph_scale(torch, SK, dev, card, errs, reads,
-                                      ct_7b)
-        time_countgraph_kernels(torch, SK, card, errs, checks, "phase 12b")
+        checks, scale_launches = run_countgraph_scale(torch, SK, dev, card,
+                                                      errs, reads, ct_7b)
+        scale_times = time_countgraph_kernels(torch, SK, card, errs, checks,
+                                              "phase 12b")
         del checks
         torch.cuda.empty_cache()
+        # N's kernels-line times: the staged mode on phase 12's largest
+        # level, the small-level mode on 12b's largest below the crossover
+        timings["byte_neighbors"] = n_times["byte_neighbors"]
+        timings["byte_neighbors_small"] = scale_times.get(
+            "byte_neighbors_small", n_times.get("byte_neighbors_small"))
+        for key in ("byte_neighbors", "byte_neighbors_small"):
+            launches[key] = cg_launches[key] + scale_launches[key]
         lap("phase 12b")
 
     kernels = []
@@ -834,6 +855,8 @@ def main():
             ("byte_pertable", "byte_gather.cu",
              "khmer_tpu/core/sketch_kernels.py:681"),
             ("byte_neighbors", "neighbors.cu",
+             "khmer_tpu/core/graphmixin.py:30"),
+            ("byte_neighbors_small", "neighbors.cu",
              "khmer_tpu/core/graphmixin.py:30")):
         t = timings[name]
         kernels.append({
@@ -2893,89 +2916,6 @@ def run_neighbor_cases(torch, dev, errs):
     return len(partition_cases.NEIGHBOR_CASES)
 
 
-class _ProbeCheck:
-    """Kernel L as the partition walk calls it in phases 10-10b
-    (sketch_kernels.neighbors, wrapped by install() while the CLI runs):
-    CUDA events around each call (the host's launch included: the card
-    waits on the host at every level); every `every`-th launch, its first
-    2^21 nodes held to neighbors_plain on the same frontier; every
-    frontier written to a file, for replay_ms after the CLI (on disk, so
-    that neither the host's nor the card's peak memory over the CLI counts
-    it); the largest kept on the card (with its tables) for timing; the
-    seconds the check takes, which the probes' time includes."""
-
-    def __init__(self, torch, SK, every):
-        self.torch, self.SK, self.every = torch, SK, every
-        self.calls = self.checked = self.err = 0
-        self.seconds = 0.0
-        self.largest = None
-        self.sizes = []
-        self.events = []
-
-    def install(self, spool):
-        """Wrap SK.neighbors, the frontiers written to the file `spool`;
-        returns a function that restores it and closes the file."""
-        fn, event = self.SK.neighbors, self.torch.cuda.Event
-        self.spool, self.out = spool, open(spool, "wb")
-
-        def neighbors(primes, flat, f, r, k):
-            t0, t1 = event(enable_timing=True), event(enable_timing=True)
-            t0.record()
-            masks = fn(primes, flat, f, r, k)
-            t1.record()
-            self.events.append((t0, t1))
-            self.check(f, r, masks, primes, flat, k)
-            return masks
-        self.SK.neighbors = neighbors
-
-        def restore():
-            self.SK.neighbors = fn
-            self.out.close()
-        return restore
-
-    def launch_ms(self):
-        """The events' time over the walk's calls, once they have ended."""
-        return sum(t0.elapsed_time(t1) for t0, t1 in self.events)
-
-    def replay_ms(self):
-        """L over the walk as the card sees it: the frontiers read back
-        onto the card and probed again in order, timed by scripts.held_ms
-        (CUDA events around each launch while a sleep kernel holds the
-        stream, so that none waits on the host; the card's gap between
-        launches included, which a profiler's kernel time leaves out)."""
-        import functools
-
-        import numpy as np
-
-        from khmer_tpu_torch.scripts import held_ms
-
-        _, _, primes, flat, k = self.largest
-        walk = self.torch.from_numpy(np.fromfile(self.spool, np.int64)).to(
-            flat.device)
-        calls, o = [], 0
-        for n in self.sizes:
-            calls.append(functools.partial(
-                self.SK.neighbors_cuda, primes, flat, walk[o:o + n],
-                walk[o + n:o + 2 * n], k))
-            o += 2 * n
-        return sum(held_ms(calls))
-
-    def check(self, f, r, masks, primes, flat, k):
-        t0 = time.perf_counter()
-        if self.calls % self.every == 0:
-            m = min(f.shape[0], 1 << 21)
-            want = self.SK.neighbors_plain(primes, flat, f[:m], r[:m], k)
-            self.err += int((want != masks[:m]).sum())
-            self.checked += m
-        f.cpu().numpy().tofile(self.out)
-        r.cpu().numpy().tofile(self.out)
-        self.sizes.append(f.shape[0])
-        if self.largest is None or f.shape[0] > self.largest[0].shape[0]:
-            self.largest = (f.clone(), r.clone(), primes, flat, k)
-        self.calls += 1
-        self.seconds += time.perf_counter() - t0
-
-
 def _split_times(owner, names, times, keep=None, sync=None):
     """Wrap owner's methods (or a module's functions) `names` so that each
     adds its wall seconds to times[name]; keep[name] gathers what each
@@ -3081,31 +3021,32 @@ def run_config5(torch, SK, dev, card, errs, label, path, x, flags, E,
     """Config 5 through the port's do-partition in this process: -k 20 -x
     `x` -N 4 --keep-subsets `flags` on `path`, the JAX answers E asserted,
     kernel L's launches counted (set to 0 just before the CLI and read
-    just after) and every `every`-th held to its plain version; the wall
-    split into its steps (the steps' methods, the walk's passes
-    (TagWalk.step) and probes (partition._Prober) timed by wrapping them
-    while the CLI runs), with the host's peak resident set over the CLI
-    and the walk's keeper bytes; keep_files: (file the CLI wrote, path
-    to move it to) pairs. Returns (L's launches, the largest frontier L probed,
-    with its tables: (f, r, primes, flat, k))."""
+    just after) and every `every`-th level held to its plain version
+    (scripts/level_tap.py: the walk's C++ loop calls the card's probe
+    through a callback that checks after it, outside the probe's time);
+    the wall split into its steps (the steps' methods timed by wrapping
+    them while the CLI runs; the walk by its own clocks, kt_level_stats,
+    and the probe context's), with the host's peak resident set over the
+    CLI and the walk's keeper bytes; keep_files: (file the CLI wrote, path
+    to move it to) pairs. Returns (L's launches, the largest frontier L
+    probed, with its tables: (f, r, primes, flat, k))."""
     from khmer_tpu_torch.cli import do_partition
-    from khmer_tpu_torch.core import partition as P
     from khmer_tpu_torch.core.graphmixin import HashgraphMixin
     from khmer_tpu_torch.ops.host import TagWalk
+    from khmer_tpu_torch.scripts import held_ms
+    from khmer_tpu_torch.scripts.level_tap import LevelTap
 
-    check = _ProbeCheck(torch, SK, every)
     times, keep = {}, {}
     restores = [
         _split_times(HashgraphMixin, (
             "consume_seqfile_and_tag", "divide_tags_into_subsets",
             "do_subset_partition", "merge_subset_from_disk",
             "output_partitions"), times, keep),
-        _split_times(TagWalk, ("step", "keeper_bytes", "tags"), times,
-                     keep),
-        _split_times(P._Prober, ("__call__",), times, keep)]
+        _split_times(TagWalk, ("keeper_bytes", "tags"), times, keep)]
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
-        restores.append(check.install(os.path.join(tmp, "frontiers.i64")))
+        tap = LevelTap("bit", every, os.path.join(tmp, "frontiers.i64"))
+        restores.append(tap.install())
         try:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -3121,12 +3062,13 @@ def run_config5(torch, SK, dev, card, errs, label, path, x, flags, E,
             for restore in restores:
                 restore()
         peak = torch.cuda.max_memory_allocated(dev)
-        replay_ms = check.replay_ms()
-        frontiers = [n for n in keep.pop("step") if n]
+        graph = keep["divide_tags_into_subsets self"]
+        replay_ms = sum(held_ms([
+            functools.partial(SK.neighbors_cuda, graph._primes,
+                              graph.tables.flat, f, r, graph.ksize())
+            for f, r in tap.replay(dev)]))
         keepers = keep.pop("keeper_bytes")
         batches = [len(found) for found in keep.pop("tags")]
-        del keep["__call__"]
-        graph = keep["divide_tags_into_subsets self"]
         n_tags = graph.n_tags()
         pmaps = [os.path.join(tmp, "g.subset.%d.pmap" % i)
                  for i in range(len(keep["do_subset_partition"]))]
@@ -3145,52 +3087,58 @@ def run_config5(torch, SK, dev, card, errs, label, path, x, flags, E,
             bad, n_ref = _check_golden(pmaps[0])
             expect(not bad, "%s: %d tags' ids differ from the golden map"
                    % (label, len(bad)))
-        del graph, keep
+        f, r, prober = tap.largest
+        largest = (f, r, graph._primes, graph.tables.flat, graph.ksize())
+        del graph, keep, prober
         for name, to in keep_files:
             os.replace(os.path.join(tmp, name), to)
     want = {key: E[key] for key in got}
     expect(got == want, "%s: %s, JAX gives %s" % (label, got, want))
-    expect(check.err == 0, "%s: neighbors != plain on %d of %d nodes"
-           % (label, check.err, check.checked))
-    errs["neighbors"] = max(errs["neighbors"], check.err)
+    expect(tap.err == 0, "%s: neighbors != plain on %d of %d nodes"
+           % (label, tap.err, tap.checked))
+    errs["neighbors"] = max(errs["neighbors"], tap.err)
     expect(l_launches > 0 and j_launches > 0, "%s: neighbors launched %d "
            "times, bit_update %d" % (label, l_launches, j_launches))
-    probes = times["__call__"] - check.seconds
-    union = (times["do_subset_partition"] - times["step"]
-             - times["__call__"])
+    expect(l_launches == tap.calls, "%s: %d launches of L, %d levels"
+           % (label, l_launches, tap.calls))
+    c = tap.totals
+    passes = c["walk_s"] + c["frontier_s"]
+    probes = c["probe_s"] - tap.seconds
+    walk = passes + probes
+    union = times["do_subset_partition"] - walk - tap.seconds
     say("%s config 5: do-partition -k 20 -x %s -N 4 %s %.6f s: tagged "
-        "consume %.6f s (%d tags), walk %.6f s (C++ passes %.6f s, probes "
-        "%.6f s; L replayed %.4f ms, %.3f ns a node: the walk's frontiers "
-        "probed again in order after the CLI, CUDA events around each "
-        "launch while a sleep kernel holds the stream, the card's gap "
-        "between launches included (probe_bench's walk shape gives the "
-        "profiler's kernel time); CUDA events around each of the walk's "
-        "calls, the host's launch included, %.4f ms; %d launches, %d "
-        "levels, %d "
+        "consume %.6f s (%d tags), walk %.6f s (C++ passes %.6f s, of them "
+        "writing the frontiers %.6f s; probes %.6f s: issuing the uploads "
+        "%.6f s, L's launches %.6f s, the copies back %.6f s, waiting in "
+        "the syncs %.6f s; L replayed %.4f ms, %.3f ns a node: the walk's "
+        "frontiers probed again in order after the CLI, CUDA events "
+        "around each launch while a sleep kernel holds the stream, the "
+        "card's gap between launches included (probe_bench's walk shape "
+        "gives the profiler's kernel time); %d launches, %d levels, %d "
         "nodes probed; batches of %s traversals, their keepers at most "
         "%.3f GB, %.3f GB in all the batches), "
         "union-find %.6f s, merge %.6f s, annotate %.6f s; "
         "%d subsets, output %d partitions%s (the JAX answers); .info %s, "
         ".pmap %s, .part %s; bit_update launches %d; L held to its plain "
-        "version on %d nodes of %d launches, their frontiers written to "
+        "version on %d nodes of %d levels, every frontier written to "
         "a file, in %.3f s (in the wall, not in the walk's time); the "
         "host's peak resident set %.3f GB over the CLI, read "
         "every 10 ms (%.3f GB before it); peak device memory %.3f GB; on %s"
         % (label, x, " ".join(flags), wall, times["consume_seqfile_and_tag"],
-           n_tags, times["step"] + probes, times["step"], probes,
-           replay_ms, replay_ms * 1e6 / max(sum(frontiers), 1),
-           check.launch_ms(), l_launches, len(frontiers), sum(frontiers),
-           batches, max(keepers) / 1e9, sum(keepers) / 1e9, union,
-           times["merge_subset_from_disk"],
+           n_tags, walk, passes, c["frontier_s"], probes, c["upload_s"],
+           c["launch_s"], c["copy_back_s"], c["sync_s"], replay_ms,
+           replay_ms * 1e6 / max(sum(tap.sizes), 1), l_launches,
+           len(tap.sizes), sum(tap.sizes), batches, max(keepers) / 1e9,
+           sum(keepers) / 1e9, union, times["merge_subset_from_disk"],
            times["output_partitions"], got["subsets"], got["output"],
            ", count_partitions %s, every tag's id the golden map's (%d)"
            % (got["counts"], n_ref) if "counts" in E else "",
            got["info_sha256"][:16], [p[:16] for p in got["pmap_sha256"]],
            (got.get("part_sha256") or "renamed "
-            + got["renamed_part_sha256"])[:24], j_launches, check.checked,
-           check.calls, check.seconds, rss.peak / 1e9, rss.before / 1e9,
+            + got["renamed_part_sha256"])[:24], j_launches, tap.checked,
+           tap.calls, tap.seconds, rss.peak / 1e9, rss.before / 1e9,
            peak / 1e9, card))
-    return l_launches, check.largest
+    return l_launches, largest
 
 
 def time_neighbors(torch, SK, card, errs, label, frontier):
@@ -3672,18 +3620,6 @@ class _CallCheck:
         return sum(t0.elapsed_time(t1) for t0, t1 in self.events[since:])
 
 
-def _record_args(owner, name, calls):
-    """Wrap owner.<name> so that each call's positional arguments go to
-    `calls`; returns a function that restores it."""
-    fn = getattr(owner, name)
-
-    def recorded(*args):
-        calls.append(args)
-        return fn(*args)
-    setattr(owner, name, recorded)
-    return lambda: setattr(owner, name, fn)
-
-
 def _max_abs(a, b):
     """The largest absolute difference of two tensors (0 when empty)."""
     return int((a.int() - b.int()).abs().max()) if a.numel() else 0
@@ -3693,15 +3629,6 @@ def _pairs(got, want):
     """Kernel N's outputs beside its plain version's: the presence bytes,
     and with a band the band bytes too."""
     return zip(got, want) if isinstance(got, tuple) else [(got, want)]
-
-
-def _check_byte_neighbors(SK):
-    def check(fn, args, kwargs):
-        got = fn(*args, **kwargs)
-        want = SK.byte_neighbors_plain(*args, **kwargs)
-        err = max(_max_abs(a, b) for a, b in _pairs(got, want))
-        return got, err, args[2].shape[0]
-    return check
 
 
 def _check_window_counts(SK):
@@ -3744,17 +3671,23 @@ def _check_byte_update(torch, SK):
     return check
 
 
-def _countgraph_checks(torch, SK, every_probe, every_update):
-    """The three kernels of the Countgraph's path, wrapped (see
-    _CallCheck): A (SK.byte_update), N (SK.byte_neighbors) and H's counts
-    mode (SK.read_window_counts)."""
+def _countgraph_checks(torch, SK, every_probe, every_update, spool=None,
+                       max_check=1 << 21):
+    """The three kernels of the Countgraph's path, wrapped: A
+    (SK.byte_update) and H's counts mode (SK.read_window_counts) by
+    _CallCheck, every `every_update`-th call; N by a level tap on the
+    walks' C++ loop (scripts/level_tap.py), every `every_probe`-th level
+    (at most max_check nodes of a level), its frontiers spooled where
+    `spool` is given, the largest level and the largest below
+    SK.NBR_SMALL_NODES (N's small-level mode) kept."""
+    from khmer_tpu_torch.scripts.level_tap import LevelTap
+
     return {
         "byte_update": _CallCheck(torch, SK, "byte_update",
                                   _check_byte_update(torch, SK),
                                   lambda a: int(a[4]), every_update),
-        "byte_neighbors": _CallCheck(torch, SK, "byte_neighbors",
-                                     _check_byte_neighbors(SK),
-                                     lambda a: a[2].shape[0], every_probe),
+        "byte_neighbors": LevelTap("byte", every_probe, spool, max_check,
+                                   SK.NBR_SMALL_NODES),
         "read_window_counts": _CallCheck(torch, SK, "read_window_counts",
                                          _check_window_counts(SK),
                                          lambda a: a[3].numel())}
@@ -3764,11 +3697,13 @@ def _reset_launches(SK):
     for fn in (SK.byte_update_cuda, SK.byte_neighbors_cuda,
                SK.read_window_counts_cuda, SK.byte_gather_cuda):
         fn.launches = 0
+    SK.byte_neighbors_cuda.small_launches = 0
 
 
 def _launches(SK):
     return {"byte_update": SK.byte_update_cuda.launches,
             "byte_neighbors": SK.byte_neighbors_cuda.launches,
+            "byte_neighbors_small": SK.byte_neighbors_cuda.small_launches,
             "read_counts": SK.read_window_counts_cuda.launches,
             "byte_gather": SK.byte_gather_cuda.launches}
 
@@ -3803,10 +3738,20 @@ def run_countgraph(torch, SK, dev, card, errs, kept):
     from khmer_tpu_torch.io.fastx import FastxParser
 
     E = EXPECT_C12["stamps"]
-    checks = _countgraph_checks(torch, SK, 1, 1)
-    walls, checked, got = {}, {}, {}
-    step = lambda name, fn: _timed_step(torch, fn, checks, walls, checked,
-                                        name)
+    checks = _countgraph_checks(torch, SK, 1, 1, max_check=1 << 23)
+    tap = checks["byte_neighbors"]
+    walls, checked, got, probes = {}, {}, {}, {}
+
+    def step(name, fn):
+        """_timed_step, and the step's walk split: the probes' host
+        seconds (the tap's checks out) and the C++ passes'."""
+        before = dict(tap.totals, checks=tap.seconds)
+        out = _timed_step(torch, fn, checks, walls, checked, name)
+        d = {key: tap.totals[key] - before[key] for key in tap.totals}
+        probes[name] = {"probes": d["probe_s"] - tap.seconds
+                        + before["checks"],
+                        "passes": d["walk_s"] + d["frontier_s"]}
+        return out
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
         path = lambda name: os.path.join(tmp, name)
@@ -3875,23 +3820,33 @@ def run_countgraph(torch, SK, dev, card, errs, kept):
     expect(got == want, "phase 12: %s, JAX gives %s" % (got, want))
     _expect_checks("phase 12", checks, errs)
     expect(min(launches["byte_update"], launches["byte_neighbors"],
+               launches["byte_neighbors_small"],
                launches["read_counts"]) > 0,
            "phase 12: a kernel of the path never launched: %s" % launches)
+    expect(launches["byte_neighbors"] + launches["byte_neighbors_small"]
+           == tap.calls, "phase 12: N launched %d times on %d levels"
+           % (launches["byte_neighbors"] + launches["byte_neighbors_small"],
+              tap.calls))
     say("phase 12 the Countgraph graph at config 5's shape, Countgraph(20, "
         "12.5e6, 4) with bigcount, on the stamps reads: %s; n_unique %d, %d "
         "tags, bigcount entries %d; partitions %s, with abundance (2, 200) "
         "%s; sweeps of 1,000 reads found %d tags at range 0, %d at 81; "
         "consume-partitioned-fasta %d reads, %d k-mers, %d tags; "
         "count-median CSV %s (the JAX answers); walls (s) %s, of which the "
-        "plain versions' checks took %s; launches %s; on %s"
+        "plain versions' checks took %s; the walks' probes and C++ passes "
+        "in them (s; a Python callback a level, the level tap's, in the "
+        "probes) %s; launches %s; on %s"
         % (got["consume"][:2], got["consume"][2], got["consume"][3],
            len(g._bigcounts), got["partition"][0], got["abundance"][0],
            got["sweep 0"][0], got["sweep 81"][0], got["cpf"][0],
            got["cpf"][1], got["cpf"][2], got["median"][:16],
            {k: round(v, 6) for k, v in walls.items()},
-           {k: round(v, 6) for k, v in checked.items()}, launches, card))
+           {k: round(v, 6) for k, v in checked.items()},
+           {k: {kk: round(vv, 6) for kk, vv in v.items()}
+            for k, v in probes.items() if v["probes"] or v["passes"]},
+           launches, card))
     say(json.dumps({"phase": "12", "walls_s": walls, "checks_s": checked,
-                    "card": card}))
+                    "walk_split_s": probes, "card": card}))
     del g
     torch.cuda.empty_cache()
     return launches, checks
@@ -3899,15 +3854,19 @@ def run_countgraph(torch, SK, dev, card, errs, kept):
 
 def _expect_checks(label, checks, errs):
     for name, c in checks.items():
-        key = "read_counts" if name == "read_window_counts" else name
+        keys = {"read_window_counts": ["read_counts"],
+                "byte_neighbors": ["byte_neighbors",
+                                   "byte_neighbors_small"]}.get(name, [name])
         expect(c.err == 0, "%s: %s differs from plain by up to %d over "
                "its %d values" % (label, name, c.err, c.checked))
         expect(c.calls > 0 and c.checked > 0, "%s: %s was not held to its "
                "plain version" % (label, name))
-        errs[key] = max(errs[key], c.err)
-    say("  %s: A's flags, N and H's counts mode == plain on %s values "
-        "of %s calls" % (label, [c.checked for c in checks.values()],
-                         [c.calls for c in checks.values()]))
+        for key in keys:
+            errs[key] = max(errs[key], c.err)
+    say("  %s: A's flags, N (its levels) and H's counts mode == plain on "
+        "%s values of %s calls" % (
+            label, [c.checked for c in checks.values()],
+            [c.calls for c in checks.values()]))
 
 
 def run_countgraph_scale(torch, SK, dev, card, errs, reads, ct_7b):
@@ -3916,30 +3875,34 @@ def run_countgraph_scale(torch, SK, dev, card, errs, reads, ct_7b):
     do_subset_partition_with_abundance(2, 200) over every tag cutting big
     traversals, and count-median of the reads against phase 7b's .ct; the
     JAX answers EXPECT_C12["synth"] asserted; the wall split into the
-    tagged consume, the walk (its C++ passes, its probes and N's time by
-    CUDA events around each call), the union-find and count-median; and N
-    over the walk replayed after it, every call on its own frontier in
-    order, by held events (scripts.held_ms: the device's time, its gap
-    between launches included). Returns the checks."""
+    tagged consume, the walk, the union-find and count-median; the walk
+    run again as the partition ran it with no tap (its answer asserted
+    equal), split by the walk's and the probe context's clocks into
+    passes, frontiers, uploads, launches, copies back and syncs; and N over
+    the walk replayed after it, every level on its own frontier in order,
+    by held events (scripts.held_ms: the device's time, its gap between
+    launches included). Returns the checks."""
     from khmer_tpu_torch.cli import count_median
     from khmer_tpu_torch.core import partition as P
     from khmer_tpu_torch.core.sketch import Countgraph
-    from khmer_tpu_torch.ops.host import TagWalk
     from khmer_tpu_torch.scripts import held_ms
+    from khmer_tpu_torch.scripts.level_tap import add_clocks
 
     E = EXPECT_C12["synth"]
-    checks = _countgraph_checks(torch, SK, 8, 40)
-    walls, checked, got, times = {}, {}, {}, {}
-    frontiers = []
+    walls, checked, got, walks = {}, {}, {}, []
     step = lambda name, fn: _timed_step(torch, fn, checks, walls, checked,
                                         name)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as tmp:
         path = lambda name: os.path.join(tmp, name)
-        restores = [c.install() for c in checks.values()]
-        restores += [_split_times(TagWalk, ("step",), times),
-                     _split_times(P._Prober, ("__call__",), times),
-                     _record_args(SK, "byte_neighbors", frontiers)]
+        checks = _countgraph_checks(torch, SK, 8, 40, path("frontiers"))
+        tap = checks["byte_neighbors"]
+        # A's and H's checks stay on through count-median; the tap and
+        # the walk's record come off before the walk runs again
+        calls = [c.install() for name, c in checks.items()
+                 if name != "byte_neighbors"]
+        restores = [tap.install(),
+                    _keep_calls(P, "find_all_tags_batch", walks)]
         try:
             _reset_launches(SK)
             torch.cuda.reset_peak_memory_stats(dev)
@@ -3960,110 +3923,173 @@ def run_countgraph_scale(torch, SK, dev, card, errs, reads, ct_7b):
                                 _file_sha256(path("band.pmap"))[0]]
             peak = torch.cuda.max_memory_allocated(dev)
             launches = _launches(SK)
-            replay = held_ms([
-                lambda a=a: SK.byte_neighbors_cuda(*a) for a in frontiers])
-            replay_nodes = sum(a[2].shape[0] for a in frontiers)
-            frontiers.clear()
-            del g, subset
-            torch.cuda.empty_cache()
-            SK.read_window_counts_cuda.launches = 0
-            step("count-median", lambda: _run_cli(
-                torch, count_median.main,
-                ["--device", str(dev), ct_7b, reads, "median.csv"], tmp))
-            launches["read_counts"] = SK.read_window_counts_cuda.launches
-            got["median"] = _file_sha256(path("median.csv"))[0]
         finally:
             for restore in reversed(restores):
                 restore()
+        # the walk again, untapped, as the partition ran it
+        clocks = {}
+        restore = add_clocks(clocks)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = [P.find_all_tags_batch(*a, **kw) for a, kw, _ in walks]
+            plain_walk_s = time.perf_counter() - t0
+        finally:
+            restore()
+        expect([_tag_lists_sha256(x) for x in again]
+               == [_tag_lists_sha256(out) for _, _, out in walks],
+               "phase 12b: the walk run again gives other tags")
+        _, _, prober = tap.largest
+        band, big = prober.band, prober.big
+        replay = held_ms([
+            functools.partial(SK.byte_neighbors_cuda, g._primes,
+                              g.tables.flat, f, r, 20, band, big)
+            for f, r in tap.replay(dev)])
+        replay_nodes = sum(tap.sizes)
+        del g, subset, again, walks, prober
+        torch.cuda.empty_cache()
+        SK.read_window_counts_cuda.launches = 0
+        try:
+            step("count-median", lambda: _run_cli(
+                torch, count_median.main,
+                ["--device", str(dev), ct_7b, reads, "median.csv"], tmp))
+        finally:
+            for restore in calls:
+                restore()
+        launches["read_counts"] = SK.read_window_counts_cuda.launches
+        got["median"] = _file_sha256(path("median.csv"))[0]
     want = {key: E[key] for key in got}
     expect(got == want, "phase 12b: %s, JAX gives %s" % (got, want))
     _expect_checks("phase 12b", checks, errs)
-    expect(min(launches["byte_update"], launches["byte_neighbors"],
+    expect(min(launches["byte_update"], launches["byte_neighbors_small"],
                launches["read_counts"]) > 0,
            "phase 12b: a kernel of the path never launched: %s" % launches)
-    n = checks["byte_neighbors"]
-    probes = times["__call__"] - n.seconds
-    walk = times["step"] + probes
+    expect(launches["byte_neighbors"] + launches["byte_neighbors_small"]
+           == tap.calls, "phase 12b: N launched %d times on %d levels"
+           % (launches["byte_neighbors"] + launches["byte_neighbors_small"],
+              tap.calls))
+    c = tap.totals
+    tapped_walk = c["walk_s"] + c["frontier_s"] + c["probe_s"] - tap.seconds
     split = {"tagged consume": walls["tagged consume"]
-             - checked["tagged consume"], "walk": walk,
-             "walk C++ passes": times["step"], "walk probes": probes,
-             "N by CUDA events around each call": n.launch_ms() / 1e3,
-             "union-find": walls["abundance"] - times["step"]
-             - times["__call__"],
+             - checked["tagged consume"],
+             "walk (tapped, checks out)": tapped_walk,
+             "union-find": walls["abundance"] - checked["abundance"]
+             - tapped_walk,
              "count-median": walls["count-median"] - checked["count-median"],
              "plain versions' checks (outside the split)": sum(
                  checked.values())}
+    walk_split = {"walk": plain_walk_s,
+                  "passes (walking the levels)": clocks["walk_s"],
+                  "writing the frontiers": clocks["frontier_s"],
+                  "probes": clocks["probe_s"],
+                  "issuing the uploads": clocks["upload_s"],
+                  "launching N": clocks["launch_s"],
+                  "issuing the copies back": clocks["copy_back_s"],
+                  "waiting in the syncs": clocks["sync_s"]}
     say("phase 12b the Countgraph graph at 4 GB, Countgraph(20, 1e9, 4) with "
         "bigcount, on phase 7b's 1,000,000 reads: %s, n_unique %d, %d tags; "
         "partitions with abundance (2, 200) %s; count-median CSV %s (the "
-        "JAX answers); wall split (s) %s; %d N calls on %d nodes in all "
-        "(%d held to plain, every 8th), N over the whole walk %.4f ms by "
-        "CUDA events around each call (as issued), %.4f ns a node; N over "
-        "the walk replayed (%d calls, %d nodes) %.4f ms by held events (the "
-        "device), %.4f ns a node; launches %s; peak device memory %.3f GB; "
-        "on %s"
+        "JAX answers); wall split (s) %s; the walk again with no tap, "
+        "split by its clocks (s) %s; %d levels, %d nodes (%d held to plain, "
+        "every 8th level); N launched %d times in its staged mode, %d in "
+        "its small-level mode (below %d nodes); N over the walk replayed "
+        "(%d levels, %d nodes) %.4f ms by held events (the device), %.4f "
+        "ns a node; launches %s; peak device memory %.3f GB; on %s"
         % (got["consume"][:2], got["consume"][2], got["consume"][3],
            got["abundance"][0], got["median"][:16],
-           {k: round(v, 6) for k, v in split.items()}, n.calls, n.values,
-           -(-n.calls // n.every), n.launch_ms(),
-           n.launch_ms() * 1e6 / max(n.values, 1), len(replay),
-           replay_nodes, sum(replay),
+           {k: round(v, 6) for k, v in split.items()},
+           {k: round(v, 6) for k, v in walk_split.items()}, tap.calls,
+           replay_nodes, tap.checked, launches["byte_neighbors"],
+           launches["byte_neighbors_small"], SK.NBR_SMALL_NODES,
+           len(replay), replay_nodes, sum(replay),
            sum(replay) * 1e6 / max(replay_nodes, 1), launches, peak / 1e9,
            card))
     say(json.dumps({"phase": "12b", "walls_s": walls, "checks_s": checked,
-                    "split_s": split, "n_walk_replayed_ms": sum(replay),
-                    "card": card}))
+                    "split_s": split, "walk_split_s": walk_split,
+                    "n_walk_replayed_ms": sum(replay), "card": card}))
     torch.cuda.empty_cache()
-    return checks
+    return checks, launches
+
+
+def _keep_calls(owner, name, calls):
+    """Wrap owner.<name> so that each call's (args, kwargs, result) goes
+    to `calls`; returns a function that restores it."""
+    fn = getattr(owner, name)
+
+    def kept(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+    setattr(owner, name, kept)
+    return lambda: setattr(owner, name, fn)
 
 
 def time_countgraph_kernels(torch, SK, card, errs, checks, label):
-    """A with and without its flags, N (presence, and the band of its
-    walk) and H's counts mode on the largest call of a phase's path,
-    against their plain versions: as issued (scripts.cuda_ms) and on the
-    device (scripts.device_ms), beside their bounds; N also cold, each call
-    after a write of 100 MB that flushes L2 (pertable_bench.readings), with
-    its sector floors (countgraph_cases.byte_probe_floors). Returns the
-    kernels-line times of N: its largest call, in the call's own mode,
-    cold and as issued."""
+    """N, H's counts mode and A with and without its flags on the largest
+    calls of a phase's path, against their plain versions. N on the
+    phase's largest level and its largest below SK.NBR_SMALL_NODES, each
+    in both its modes (staged, small-level) with the walk's band, held to
+    plain and timed hot and cold (each call after a write of 100 MB that
+    flushes L2, pertable_bench.readings), beside its bound and sector
+    floors (countgraph_cases.byte_probe_floors); H and A as issued
+    (scripts.cuda_ms) and on the device (scripts.device_ms). Returns the
+    kernels-line times of N: {mode: its time cold, as issued, on the
+    largest level the walk runs in that mode}."""
     from khmer_tpu_torch.scripts import cuda_ms, device_ms
     from khmer_tpu_torch.scripts import pertable_bench as PB
     from khmer_tpu_torch.scripts.countgraph_cases import byte_probe_floors
 
     out = {}
-    _, args, kwargs = checks["byte_neighbors"].largest
-    primes, flat, f, r, k = args[:5]
-    n = f.shape[0]
+    tap = checks["byte_neighbors"]
+    picks = [("largest", tap.largest)]
+    if tap.largest_below is not None \
+            and tap.largest_below[0].shape[0] != tap.largest[0].shape[0]:
+        picks.append(("largest below %d nodes" % SK.NBR_SMALL_NODES,
+                      tap.largest_below))
     scratch = torch.empty(PB.FLUSH_BYTES, dtype=torch.uint8,
-                          device=flat.device)
-    every, needed, loads = byte_probe_floors(primes, flat, f, r, k)
-    modes = [("presence", ())] + ([("band", args[5:])] if args[5:] else [])
-    for mode, extra in modes:
-        call = lambda: SK.byte_neighbors_cuda(primes, flat, f, r, k, *extra)
-        plain = lambda: SK.byte_neighbors_plain(primes, flat, f, r, k,
-                                                *extra)
-        err = max(_max_abs(a, b) for a, b in _pairs(call(), plain()))
-        errs["byte_neighbors"] = max(errs["byte_neighbors"], err)
-        expect(err == 0, "%s: N != plain on its largest frontier" % label)
-        m = PB.readings(call, scratch.zero_, 8 * n)
-        t = {"ms": m["cold_ms"], "plain_ms": cuda_ms(plain, 3),
-             "library_ms": None}
-        t["bound_ms"], t["bound_by"] = bound(
-            (16 + (2 if mode == "band" else 1)) * n, 8 * len(primes) * n)
-        say("  %s N (%s) on its largest frontier, %d nodes into %d byte "
-            "tables of %.3f GB: hot %.4f ms as issued (device %.4f ms), "
-            "cold %.4f ms as issued (device %.4f ms, %.3f ns a node), plain "
-            "%.4f ms, bound %.4f ms (%s); sector floors (32 B a distinct "
-            "sector): every table of every neighbour %.4f ms (%d sectors), "
-            "the counters N's rule loads %.4f ms (%d sectors, %d loads); == "
-            "plain; on %s"
-            % (label, mode, n, len(primes), flat.shape[0] / 1e9, m["ms"],
-               m["device_ms"], m["cold_ms"], m["cold_device_ms"],
-               m["cold_device_ms"] * 1e6 / max(n, 1), t["plain_ms"],
-               t["bound_ms"], t["bound_by"],
-               every * 32 / PEAK_BYTES_S * 1e3, every,
-               needed * 32 / PEAK_BYTES_S * 1e3, needed, loads, card))
-        out[mode] = t
+                          device=tap.largest[0].device)
+    for which, (f, r, prober) in picks:
+        g = prober.graph
+        primes, flat, k = g._primes, g.tables.flat, g.ksize()
+        band, big = prober.band, prober.big
+        n = f.shape[0]
+        every, needed, loads = byte_probe_floors(primes, flat, f, r, k)
+        plain = lambda: SK.byte_neighbors_plain(primes, flat, f, r, k, band,
+                                                big)
+        want = plain()
+        plain_ms = cuda_ms(plain, 3)
+        for small in (False, True):
+            key = "byte_neighbors_small" if small else "byte_neighbors"
+            call = lambda: SK.byte_neighbors_cuda(primes, flat, f, r, k,
+                                                  band, big, small)
+            err = max(_max_abs(a, b) for a, b in _pairs(call(), want))
+            errs[key] = max(errs[key], err)
+            expect(err == 0, "%s: N (%s) != plain on its %s level"
+                   % (label, key, which))
+            m = PB.readings(call, scratch.zero_, 8 * n)
+            t = {"ms": m["cold_ms"], "plain_ms": plain_ms,
+                 "library_ms": None}
+            t["bound_ms"], t["bound_by"] = bound(
+                (16 + (1 if band is None else 2)) * n, 8 * len(primes) * n)
+            walks_mode = small == (n < SK.NBR_SMALL_NODES)
+            say("  %s N in its %s mode%s on the %s level (%d nodes, %s) "
+                "into %d byte tables of %.3f GB: hot %.4f ms as issued "
+                "(device %.4f ms), cold %.4f ms as issued (device %.4f ms, "
+                "%.3f ns a node), plain %.4f ms, bound %.4f ms (%s); sector "
+                "floors (32 B a distinct sector): every table of every "
+                "neighbour %.4f ms (%d sectors), the counters the staged "
+                "rule loads %.4f ms (%d sectors, %d loads); == plain; on %s"
+                % (label, "small-level" if small else "staged",
+                   " (the walk's)" if walks_mode else "", which, n,
+                   "band %s" % (band,) if band else "presence",
+                   len(primes), flat.shape[0] / 1e9, m["ms"],
+                   m["device_ms"], m["cold_ms"], m["cold_device_ms"],
+                   m["cold_device_ms"] * 1e6 / max(n, 1), plain_ms,
+                   t["bound_ms"], t["bound_by"],
+                   every * 32 / PEAK_BYTES_S * 1e3, every,
+                   needed * 32 / PEAK_BYTES_S * 1e3, needed, loads, card))
+            if walks_mode and key not in out:
+                out[key] = t
     del scratch
     _, args, kwargs = checks["read_window_counts"].largest
     call = lambda: SK.read_window_counts_cuda(*args)
@@ -4095,7 +4121,7 @@ def time_countgraph_kernels(torch, SK, card, errs, checks, label):
             "report on, %s flags: %.4f ms; on %s"
             % (label, int(nvalid), flat.shape[0] / 1e9,
                "with" if flags else "without", ms, card))
-    return out[modes[-1][0]]
+    return out
 
 
 def run_countgraph_cases(torch, dev, errs):

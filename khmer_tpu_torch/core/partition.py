@@ -11,9 +11,12 @@ with the partition of their first tag.
 The graph is read-only while it is walked, so a batch of traversals
 advances one level a pass: the host's C++ (csrc/tag_walk.cc, ops/host.py
 TagWalk) walks a level of every traversal and hands out the survivors,
-and kernel L (csrc/neighbors.cu, sketch_kernels.neighbors) probes all
-their neighbours at once in the tables on the card, one byte a node.
-Python loops over levels only. The union-find mirrors the reference's
+and kernel L (csrc/neighbors.cu) probes all their neighbours at once in
+the tables on the card, one byte a node. The loop over levels runs in C++
+too (csrc/level_walk.cc kt_level_run, _Prober.run), each level's probe a C
+call on a context made once a walk (sketch_kernels.LevelProbe); on the
+CPU the probe is a callback that runs the plain version. The union-find
+mirrors the reference's
 pointer aliasing (subset.cc:630-788), so partition ids come out the same
 as in JAX and in khmer.
 
@@ -44,6 +47,7 @@ kernel A commits the batch's adds in one call, in JAX's order. The answer
 does not depend on the batch.
 """
 
+import ctypes
 import re
 import struct
 
@@ -246,18 +250,26 @@ def sweep_for_tags_plain(graph, seq, sweep_range=0, break_on_stop_tags=False,
 
 
 class _Prober:
-    """The neighbour probe of each frontier of a walk: kernel L on a
-    Nodegraph's bit tables, kernel N on a Countgraph's byte tables. The
-    frontier goes up as one int64 tensor (f's then r's), the masks come
-    back a byte a node, through pinned host buffers that grow as frontiers
-    do. With a band (lo, hi), each call also gives each node's band byte
-    (bit j set iff neighbour j's count lies in [lo, hi]): from kernel N's
-    band mode, with the bigcount map where the graph uses one; on a
-    Nodegraph, whose present k-mers count 1, the presence byte where the
-    band holds 1, else 0."""
+    """The neighbour probe of each level of a walk: kernel L on a
+    Nodegraph's bit tables, kernel N on a Countgraph's byte tables. With a
+    band (lo, hi), each level also gives each node's band byte (bit j set
+    iff neighbour j's count lies in [lo, hi]): from kernel N's band mode,
+    with the bigcount map where the graph uses one; on a Nodegraph, whose
+    present k-mers count 1, the presence byte where the band holds 1, else
+    0.
+
+    run(walk) walks a TagWalk or SweepWalk to its end in C++ against the
+    entry (probe, block, ctx): on the card the C probe of a
+    sketch_kernels.LevelProbe made once, on the CPU a callback that runs
+    the plain versions (chosen by the tables' device). A call (walk, n)
+    probes one frontier from Python instead, for a walk stepped a level at
+    a time (traversal.walk_excursions): the frontier up as one int64
+    tensor (f's then r's), the masks back a byte a node, through pinned
+    host buffers that grow as frontiers do."""
 
     def __init__(self, graph, band=None):
         from khmer_tpu_torch.core import sketch_kernels as K
+        from khmer_tpu_torch.ops.host import PROBE_FN
 
         self.graph = graph
         self.dev = graph.tables.flat.device
@@ -269,6 +281,60 @@ class _Prober:
                 and graph._bigcounts:
             self.big = K.bigcount_table(graph._bigcounts, self.dev)
         self._up = self._down = None
+        self.card = None
+        self._error = None
+        if self.cuda:
+            self.card = K.LevelProbe(graph._primes, graph.tables.flat,
+                                     graph.ksize(), not self.byte, band,
+                                     self.big)
+            self.probe = self.card.probe
+            self.block = self.card.block
+            self.ctx = self.card.ctx
+        elif self.dev.type == "cpu":
+            self.probe = PROBE_FN(self._plain_level)
+            self.block = self.ctx = None
+        else:
+            raise ValueError("unsupported device %s" % self.dev)
+
+    def run(self, walk):
+        """Walk `walk` to its end, each level probed by the entry (probe,
+        block, ctx); raises if a probe fails."""
+        from khmer_tpu_torch.ops import cuda
+        from khmer_tpu_torch.ops.host import ProbeError
+
+        self._error = None
+        try:
+            walk.run(self.probe, self.block, self.ctx)
+        except ProbeError as e:
+            if self._error is not None:
+                raise self._error from e
+            if self.cuda and e.code > 0:
+                cuda.check(e.code, "the walk's probe")
+            raise
+        finally:
+            if self.card is not None:
+                self.card.count()
+
+    def _plain_level(self, ctx, fr, n, masks, band):
+        """The CPU's probe of a level (ops/host.PROBE_FN): the plain
+        versions on the frontier at `fr`, the bytes into `masks` and, in a
+        banded walk, `band`. An exception ends the walk (run raises it)."""
+        try:
+            front = torch.frombuffer((ctypes.c_int64 * (2 * n)).from_address(
+                fr), dtype=torch.int64)
+            got, got_band = self._probe(front[:n], front[n:])
+            for out, part in ((masks, got), (band, got_band)):
+                if out:
+                    np.frombuffer((ctypes.c_uint8 * n).from_address(out),
+                                  np.uint8)[:] = part.numpy()
+            return 0
+        except Exception as e:  # the C++ loop's boundary: stop the walk
+            self._error = e
+            return 1
+
+    def close(self):
+        if self.card is not None:
+            self.card.close()
 
     def _buffers(self, n):
         if self._up is None or self._up.shape[0] < 2 * n:
@@ -361,9 +427,10 @@ def find_all_tags_batch(graph, starts_f, starts_r, break_on_stop_tags=False,
     (see above); the answer does not depend on them. Each pass of the
     C++ walk walks a breadth level of every traversal of a batch; kernel
     L (N on a Countgraph) probes all their expanded nodes' neighbours in
-    one launch. tag_arrays: the graph's tags and stop tags as u64 arrays,
-    where the caller has them. count_range=(lo, hi): the
-    abundance-truncated walk (find_all_tags_truncate_on_abundance)."""
+    one launch; the loop over levels runs in C++ (_Prober.run).
+    tag_arrays: the graph's tags and stop tags as u64 arrays, where the
+    caller has them. count_range=(lo, hi): the abundance-truncated walk
+    (find_all_tags_truncate_on_abundance)."""
     from khmer_tpu_torch.ops.host import TagWalk
 
     tags, stops = tag_arrays or (_sorted_tags(graph.all_tags),
@@ -377,25 +444,25 @@ def find_all_tags_batch(graph, starts_f, starts_r, break_on_stop_tags=False,
     probe = _Prober(graph, count_range)
     out = []
     size = min(WALK_BATCH, FIRST_BATCH)
-    while len(out) < len(starts_f):
-        lo = len(out)
-        walk = TagWalk(starts_f[lo:lo + size], starts_r[lo:lo + size],
-                       graph.ksize(), tags, stops,
-                       2 * graph._tag_density + 1, break_on_stop_tags,
-                       stop_big_traversals,
-                       None if start_ok is None else start_ok[lo:lo + size])
-        try:
-            n = walk.step()
-            while n:
-                got = probe(walk, n)
-                n = walk.step(*got) if start_ok is not None \
-                    else walk.step(got)
-            out += walk.tags()
-            held = walk.keeper_bytes()
-        finally:
-            walk.close()
-        size = min(WALK_BATCH,
-                   max(1, walk.n * KEEPER_BYTES // max(held, 1)))
+    try:
+        while len(out) < len(starts_f):
+            lo = len(out)
+            walk = TagWalk(starts_f[lo:lo + size], starts_r[lo:lo + size],
+                           graph.ksize(), tags, stops,
+                           2 * graph._tag_density + 1, break_on_stop_tags,
+                           stop_big_traversals,
+                           None if start_ok is None
+                           else start_ok[lo:lo + size])
+            try:
+                probe.run(walk)
+                out += walk.tags()
+                held = walk.keeper_bytes()
+            finally:
+                walk.close()
+            size = min(WALK_BATCH,
+                       max(1, walk.n * KEEPER_BYTES // max(held, 1)))
+    finally:
+        probe.close()
     return out
 
 
@@ -446,14 +513,15 @@ def sweep_for_tags_batch(graph, seqs, sweep_range=0, break_on_stop_tags=False,
         np.cumsum(lens), k, _sorted_tags(graph.all_tags),
         _sorted_tags(graph.stop_tags), sweep_range, break_on_stop_tags,
         stop_big_traversals)
+    probe = None
     try:
         probe = _Prober(graph)
-        n = walk.step()
-        while n:
-            n = walk.step(probe(walk, n))
+        probe.run(walk)
         return walk.result()
     finally:
         walk.close()
+        if probe is not None:
+            probe.close()
 
 
 def sweep_for_tags(graph, seq, sweep_range=0, break_on_stop_tags=False,

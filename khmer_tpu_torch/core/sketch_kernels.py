@@ -543,10 +543,21 @@ def byte_neighbors_plain(primes, flat, f, r, k, band=None, big=None):
                                & (counts <= int(hi)))
 
 
-def byte_neighbors_cuda(primes, flat, f, r, k, band=None, big=None):
+# Levels of fewer nodes than this go through kernel N's small-level mode
+# (a lane a (neighbour, table) pair, one round trip), larger ones through
+# its staged mode (eight lanes a node, table 0 first, fewer loads): where
+# the two cross on the walks' levels of phases 12 (in L2) and 12b (4 GB,
+# cold) replayed on an H100 (scripts/nbr_bench.py, PERF.md).
+NBR_SMALL_NODES = 1024
+
+
+def byte_neighbors_cuda(primes, flat, f, r, k, band=None, big=None,
+                        small=None):
     """Kernel N (csrc/neighbors.cu): byte_neighbors_plain on the card, for
-    the joined byte buffer `flat`. Counts its launches in
-    ``byte_neighbors_cuda.launches``."""
+    the joined byte buffer `flat`, in its small-level mode where `small`
+    (None: below NBR_SMALL_NODES nodes), else its staged mode. Counts its
+    launches in ``byte_neighbors_cuda.launches`` (staged) and
+    ``byte_neighbors_cuda.small_launches``."""
     _check_byte_layout(primes, flat)
     dev = flat.device
     for h in (f, r):
@@ -571,19 +582,30 @@ def byte_neighbors_cuda(primes, flat, f, r, k, band=None, big=None):
         return result
     keys, values = big or (None, None)
     primes_arr, offsets_arr = _layout(primes)
+    if small is None:
+        small = n < NBR_SMALL_NODES
     err = cuda.library().khmer_byte_neighbors(
         flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
         ctypes.addressof(offsets_arr), f.data_ptr(), r.data_ptr(), n,
-        int(k), max(_cutoff_arg(lo, MAX_BIGCOUNT), 0),
-        min(_cutoff_arg(hi, MAX_BIGCOUNT), MAX_BIGCOUNT), _ptr(keys),
-        _ptr(values), 0 if keys is None else keys.shape[0],
-        present.data_ptr(), _ptr(in_band), dev.index, _stream(dev))
+        int(k), *_band_args(lo, hi), _ptr(keys), _ptr(values),
+        0 if keys is None else keys.shape[0], present.data_ptr(),
+        _ptr(in_band), int(bool(small)), dev.index, _stream(dev))
     cuda.check(err, "byte_neighbors")
-    byte_neighbors_cuda.launches += 1
+    if small:
+        byte_neighbors_cuda.small_launches += 1
+    else:
+        byte_neighbors_cuda.launches += 1
     return result
 
 
 byte_neighbors_cuda.launches = 0
+byte_neighbors_cuda.small_launches = 0
+
+
+def _band_args(lo, hi):
+    """A band [lo, hi] clamped as the C entry points take it."""
+    return (max(_cutoff_arg(lo, MAX_BIGCOUNT), 0),
+            min(_cutoff_arg(hi, MAX_BIGCOUNT), MAX_BIGCOUNT))
 
 
 def byte_neighbors(primes, flat, f, r, k, band=None, big=None):
@@ -596,6 +618,81 @@ def byte_neighbors(primes, flat, f, r, k, band=None, big=None):
     if flat.device.type != "cpu":
         raise ValueError("unsupported device %s" % flat.device)
     return byte_neighbors_plain(primes, flat, f, r, k, band, big)
+
+
+class LevelProbe:
+    """A walk's probe of its levels on the card (csrc/neighbors.cu
+    khmer_probe_ctx_new): kernel L on the joined bit buffer `flat`
+    (`bits`), else kernel N on the joined byte buffer, k-mers of size k,
+    with a band (lo, hi) and N's bigcount table `big` (bigcount_table)
+    where given; N's small-level mode below NBR_SMALL_NODES nodes. Hand
+    (probe, block, ctx) to ops/host.py _LevelWalk.run: each level then
+    costs one copy up from the context's pinned block, the kernel, one
+    copy back and a stream sync, all in C. count() adds the launches since
+    its last call to the wrappers' counts (neighbors_cuda.launches;
+    byte_neighbors_cuda.launches and .small_launches); stats() gives the
+    context's clocks. close() frees the context."""
+
+    STATS = ("launches", "small_launches", "upload_s", "launch_s",
+             "copy_back_s", "sync_s")
+
+    def __init__(self, primes, flat, k, bits, band=None, big=None):
+        if bits:
+            _check_bit_args(primes, flat)
+        else:
+            _check_byte_layout(primes, flat)
+        if not 1 <= int(k) <= 32:
+            raise ValueError("k %d outside [1, 32]" % k)
+        dev = flat.device
+        big = None if bits or band is None else _big_arg(big, dev)
+        keys, values = big or (None, None)
+        lo, hi = _band_args(*band) if band is not None else (1, MAX_KCOUNT)
+        primes_arr, offsets_arr = _layout(primes, bits=bits)
+        self._lib = cuda.library()
+        self.ctx = self._lib.khmer_probe_ctx_new(
+            flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+            ctypes.addressof(offsets_arr), int(bool(bits)), int(k),
+            int(band is not None), lo, hi, _ptr(keys), _ptr(values),
+            0 if keys is None else keys.shape[0], NBR_SMALL_NODES,
+            dev.index, _stream(dev))
+        if not self.ctx:
+            raise ValueError("khmer_probe_ctx_new refused its arguments")
+        # the tensors the context reads
+        self._held = (flat, big)
+        self.bits = bool(bits)
+        self.probe = ctypes.cast(
+            self._lib.khmer_bit_probe_level if bits
+            else self._lib.khmer_byte_probe_level, ctypes.c_void_p).value
+        self.block = ctypes.cast(self._lib.khmer_probe_block,
+                                 ctypes.c_void_p).value
+        self._counted = (0, 0)
+
+    def stats(self):
+        """{launches (L, or N's staged mode), small_launches (N's), and
+        host seconds issuing the uploads, the launches and the copies back,
+        and waiting in the syncs}."""
+        out = (ctypes.c_double * len(self.STATS))()
+        self._lib.khmer_probe_ctx_stats(self.ctx, out)
+        return dict(zip(self.STATS, out))
+
+    def count(self):
+        """Add the launches since the last count to the wrappers'."""
+        s = self.stats()
+        now = (int(s["launches"]), int(s["small_launches"]))
+        staged, small = (a - b for a, b in zip(now, self._counted))
+        self._counted = now
+        if self.bits:
+            neighbors_cuda.launches += staged
+        else:
+            byte_neighbors_cuda.launches += staged
+            byte_neighbors_cuda.small_launches += small
+
+    def close(self):
+        if getattr(self, "ctx", None):
+            self._lib.khmer_probe_ctx_free(self.ctx)
+            self.ctx = None
+
+    __del__ = close
 
 
 # --------------------------------------------------------------------------

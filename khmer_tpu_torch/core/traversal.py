@@ -95,6 +95,7 @@ def walk_excursions(graph, starts_f, starts_r, radius, max_count=0):
 
     walk = ExcursionWalk(starts_f, starts_r, graph.ksize(),
                          _sorted_tags(graph.stop_tags), radius, max_count)
+    probe = None
     try:
         probe = _Prober(graph)
         n = walk.step()
@@ -103,6 +104,9 @@ def walk_excursions(graph, starts_f, starts_r, radius, max_count=0):
     except BaseException:
         walk.close()
         raise
+    finally:
+        if probe is not None:
+            probe.close()
     return walk
 
 

@@ -8,22 +8,29 @@
 // its own and writes their nodes to probe one after another, so that a
 // level's nodes and the frontier lie in a few long arrays (the levels are
 // short: a few nodes a traversal). The caller probes the frontier's
-// neighbours on the card (kernel L, csrc/neighbors.cu): up go (f, r) of
-// each node, back comes a byte, bit j set iff neighbour j is present (0-3:
-// to the right with base code j, 4-7: to the left; codes A=0, T=1, C=2,
-// G=3), which the next pass reads. The walk records the most bytes its
-// traversals held at the end of a pass, so that the caller can size its
-// next batch to its memory. level_walk.cc binds a walk's pass and frontier
-// for the caller.
+// neighbours on the card (kernel L or N, csrc/neighbors.cu): up go (f, r)
+// of each node, back comes a byte, bit j set iff neighbour j is present
+// (0-3: to the right with base code j, 4-7: to the left; codes A=0, T=1,
+// C=2, G=3), which the next pass reads. The walk records the most bytes
+// its traversals held at the end of a pass, so that the caller can size
+// its next batch to its memory. level_walk.cc binds a walk's pass and
+// frontier for the caller, and runs the whole walk against a probe
+// (kt_level_run).
+//
+// A level lives in one block (level_block.h), which the walk keeps in
+// storage of its own or in a buffer that the probe hands out (pinned host
+// memory that goes up to the card in one copy, csrc/neighbors.cu).
 #pragma once
 
 #include <algorithm>
+#include <chrono>
 #include <cstdint>
 #include <cstring>
 #include <thread>
 #include <type_traits>
 #include <vector>
 
+#include "level_block.h"
 #include "u64_set.h"
 
 namespace khmer_host {
@@ -81,6 +88,11 @@ struct PassPart {
   }
 };
 
+// Hands out a block for a level of n nodes, at least level_block_bytes(n)
+// and 8-byte aligned (null if it cannot); the block of the level before is
+// no longer read when it is called.
+using BlockFn = void* (*)(void* ctx, int64_t n);
+
 // What the C interface (level_walk.cc) reads of a walk.
 class WalkBase {
  public:
@@ -89,12 +101,41 @@ class WalkBase {
   // One pass: masks holds the byte of each node of the last frontier (null
   // on the first pass), band (nullable) a second byte a node for a walk
   // that reads one. Returns the frontier's length, 0 once every traversal
-  // has ended.
+  // has ended, -1 if no block could be had for it.
   virtual int64_t pass(const uint8_t* masks, const uint8_t* band) = 0;
 
-  std::vector<uint64_t> frontier;  // f of each node to probe, then r
-  size_t peak_keeper_bytes = 0;    // the most a pass's traversals held
+  // The last pass's level: its frontier of n nodes and, after it, room
+  // for the probe's bytes (the block above).
+  uint64_t* frontier = nullptr;
+  int64_t n = 0;
+  size_t peak_keeper_bytes = 0;  // the most a pass's traversals held
+  // whether each pass after the first takes band bytes (the banded tag walk)
+  bool banded = false;
+  // where the blocks come from: the walk's own storage while block_fn is
+  // null
+  BlockFn block_fn = nullptr;
+  void* block_ctx = nullptr;
+  // host seconds: walking the levels (the passes' threads), writing the
+  // frontiers into their blocks, and in the probe (kt_level_run)
+  double walk_s = 0, frontier_s = 0, probe_s = 0;
+  int64_t levels = 0, nodes = 0;
+
+ protected:
+  // A block for a level of n nodes (see BlockFn).
+  void* block(int64_t n) {
+    if (block_fn != nullptr) return block_fn(block_ctx, n);
+    own.resize((level_block_bytes(n) + 7) / 8);
+    return own.data();
+  }
+
+ private:
+  std::vector<uint64_t> own;
 };
+
+inline double seconds_since(std::chrono::steady_clock::time_point t0) {
+  return std::chrono::duration<double>(std::chrono::steady_clock::now() - t0)
+      .count();
+}
 
 // The pass driver, over traversals Trav (with the start f0, r0 and lo,
 // its first node in the frontier) and thread parts Part (a PassPart).
@@ -113,6 +154,7 @@ class LevelWalk : public WalkBase {
 
   int64_t pass(const uint8_t* masks, const uint8_t* band) override {
     constexpr int64_t kGrain = 64;  // traversals a thread takes at least
+    const auto t0 = std::chrono::steady_clock::now();
     const int64_t nlive = static_cast<int64_t>(live.size());
     const int nt = static_cast<int>(std::max<int64_t>(
         1, std::min<int64_t>(parts.size(), nlive / kGrain)));
@@ -124,30 +166,39 @@ class LevelWalk : public WalkBase {
     for (int p = 1; p < nt; ++p) pool.emplace_back(run, p);
     run(0);
     for (auto& th : pool) th.join();
+    const auto t1 = std::chrono::steady_clock::now();
+    walk_s += std::chrono::duration<double>(t1 - t0).count();
     // the parts' nodes, one after another, into the frontier
-    int64_t n = 0;
+    int64_t m = 0;
     size_t keeper_bytes = 0;
     for (int p = 0; p < nt; ++p) {
-      n += static_cast<int64_t>(parts[p].sf.size());
+      m += static_cast<int64_t>(parts[p].sf.size());
       keeper_bytes += parts[p].keeper_bytes;
     }
     peak_keeper_bytes = std::max(peak_keeper_bytes, keeper_bytes);
-    frontier.resize(2 * n);
+    if (m > 0) {
+      frontier = static_cast<uint64_t*>(block(m));
+      if (frontier == nullptr) return -1;
+    }
+    n = m;
     live.clear();
     int64_t at = 0;
     for (int p = 0; p < nt; ++p) {
       const Part& q = parts[p];
-      const size_t m = q.sf.size();
-      std::memcpy(&frontier[at], q.sf.data(), 8 * m);
-      std::memcpy(&frontier[n + at], q.sr.data(), 8 * m);
-      gather(q, at, n);
+      const size_t size = q.sf.size();
+      std::memcpy(&frontier[at], q.sf.data(), 8 * size);
+      std::memcpy(&frontier[m + at], q.sr.data(), 8 * size);
+      gather(q, at, m);
       for (int64_t ti : q.live) {
         trav[ti].lo += at;
         live.push_back(ti);
       }
-      at += static_cast<int64_t>(m);
+      at += static_cast<int64_t>(size);
     }
-    return n;
+    frontier_s += seconds_since(t1);
+    levels += m > 0;
+    nodes += m;
+    return m;
   }
 
   const KmerShift kmer;

@@ -67,15 +67,41 @@
 // pops it (csrc/tag_walk.cc), as the reference does.
 //
 // What bounds it: random byte reads, a 32-byte sector each, as for L; its
-// byte bound is L's 17 B a node (with the band byte, 18). Design: L's
-// lanes and staging. Since m <= c0, a lane whose table-0 counter is 0
+// byte bound is L's 17 B a node (with the band byte, 18). It has two
+// modes, chosen by the level's size (the caller's crossover,
+// sketch_kernels.NBR_SMALL_NODES). The staged mode, for large levels, is
+// L's lanes and staging: since m <= c0, a lane whose table-0 counter is 0
 // stops there; the others load kGroup more tables a stage while their
 // least stays above 0. In a de Bruijn graph most of a node's 8 neighbours
-// are absent, so table 0 is most of the loads. Where hi < 255 a saturated
-// counter fails the band without a lookup; the bigcount table is searched
-// only for a lane whose least is 255.
+// are absent, so table 0 is most of the loads, and a large level (phase
+// 12's 2,977,731 nodes) runs at L2's random-request rate, where fewer
+// requests is what counts. A walk's levels are mostly small (12b's
+// average 2,230 nodes): eight lanes a node then fill a fraction of the
+// card, and each lane waits on two dependent round trips (table 0, then
+// tables 1-3). The small mode loads all 8 x T counters of a node at once,
+// a lane a (neighbour, table) pair (a warp a node at T = 4; beyond four
+// tables, T / 4 tables a lane), takes each neighbour's least by
+// __shfl_xor_sync over its lanes, and so waits one round trip, in blocks
+// of kSmallThreads that spread a 2,000-node level over every SM. In both
+// modes the bytes are assembled by __ballot_sync, a saturated counter
+// fails a band with hi < 255 without a lookup, and the bigcount table is
+// searched only by a lane whose least is 255.
+//
+// The walks' round trip. A level walk (csrc/level_walk.cc kt_level_run)
+// calls khmer_byte_probe_level (N) or khmer_bit_probe_level (L) on a
+// probe context made once a walk (khmer_probe_ctx_new): the layout with
+// its reciprocals, the band and the bigcount table, grow-only pinned host
+// and device blocks and the stream. The walk writes each frontier into the
+// pinned block (khmer_probe_block); a level then costs one copy up, the
+// kernel, one copy back and a stream sync, with no allocation and no
+// Python.
+
+#include <algorithm>
+#include <chrono>
+#include <cstring>
 
 #include "byte_common.cuh"
+#include "level_block.h"
 
 namespace khmer_nbr {
 namespace {
@@ -224,6 +250,211 @@ byte_neighbors_kernel(const uint64_t* __restrict__ f,
   }
 }
 
+// Kernel N's small-level mode: lanes kLanes * i + 8 s + j (j < 8, s <
+// kLanes / 8) load neighbour j's counters in tables s, s + kLanes / 8, ...
+// of node i, all at once; the least goes round the neighbour's lanes by
+// __shfl_xor_sync, and lane kLanes * i (of its warp) writes node i's
+// presence byte and, where asked, its band byte.
+constexpr int kSmallThreads = 128;
+
+template <int kLanes>
+__global__ void __launch_bounds__(kSmallThreads)
+byte_neighbors_small_kernel(const uint64_t* __restrict__ f,
+                            const uint64_t* __restrict__ r, int64_t n,
+                            uint64_t mask, int shift,
+                            const __grid_constant__ ByteLayout layout,
+                            const uint8_t* __restrict__ flat, int lo, int hi,
+                            const uint64_t* __restrict__ big_keys,
+                            const int32_t* __restrict__ big_values,
+                            int64_t nbig, uint8_t* __restrict__ out,
+                            uint8_t* __restrict__ band_out) {
+  constexpr int kSlots = kLanes / 8;  // lanes of a neighbour
+  // tables a lane loads at most: T / 4 beyond four tables, else one
+  constexpr int kPer = kSlots == 4 ? khmer_byte::kMaxTables / 4 : 1;
+  const int64_t i = thread_index() / kLanes;
+  const int lane = threadIdx.x & 31;
+  const int j = lane & 7;
+  const int s = (lane & (kLanes - 1)) >> 3;
+  int m = 0;
+  uint64_t c = 0;
+  if (i < n) {
+    c = neighbor_canon(f[i], r[i], j, mask, shift);
+    int v[kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int t = s + q * kSlots;
+      v[q] = t < layout.ntables ? flat[counter_index(layout, c, t)]
+                                : kMaxCount;
+    }
+    m = kMaxCount;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) m = min(m, v[q]);
+  }
+#pragma unroll
+  for (int o = 8; o < kLanes; o <<= 1) {
+    m = min(m, __shfl_xor_sync(~0u, m, o));
+  }
+  const bool present = i < n && s == 0 && m > 0;
+  bool in_band = false;
+  if (present && band_out != nullptr) {
+    if (m == kMaxCount && nbig > 0) m = big_count(big_keys, big_values, nbig, c);
+    in_band = m >= max(lo, 1) && m <= hi;
+  }
+  const unsigned present_bits = __ballot_sync(~0u, present);
+  const unsigned band_bits = __ballot_sync(~0u, in_band);
+  if (i < n && (lane & (kLanes - 1)) == 0) {
+    out[i] = static_cast<uint8_t>(present_bits >> lane);
+    if (band_out != nullptr) {
+      band_out[i] = static_cast<uint8_t>(band_bits >> lane);
+    }
+  }
+}
+
+// The lanes the small mode gives a node: 8 a table, 32 from three tables.
+inline int small_lanes(int ntables) { return ntables >= 3 ? 32 : 8 * ntables; }
+
+// Kernel N on n > 0 nodes in the small-level mode where `small`, else the
+// staged mode; returns the launch's error.
+cudaError_t launch_byte_neighbors(const uint64_t* f, const uint64_t* r,
+                                  int64_t n, int k, const ByteLayout& layout,
+                                  const uint8_t* flat, int lo, int hi,
+                                  const uint64_t* big_keys,
+                                  const int32_t* big_values, int64_t nbig,
+                                  uint8_t* out, uint8_t* band_out, bool small,
+                                  cudaStream_t stream) {
+  const uint64_t mask = k == 32 ? ~0ULL : (1ULL << (2 * k)) - 1;
+  const int shift = 2 * k - 2;
+  if (!small) {
+    byte_neighbors_kernel<<<khmer_cuda::grid_for(8 * n), kThreads, 0,
+                            stream>>>(f, r, n, mask, shift, layout, flat, lo,
+                                      hi, big_keys, big_values, nbig, out,
+                                      band_out);
+    return cudaGetLastError();
+  }
+  const int lanes = small_lanes(layout.ntables);
+  const unsigned grid = static_cast<unsigned>(
+      (n * lanes + kSmallThreads - 1) / kSmallThreads);
+  switch (lanes) {
+    case 8:
+      byte_neighbors_small_kernel<8><<<grid, kSmallThreads, 0, stream>>>(
+          f, r, n, mask, shift, layout, flat, lo, hi, big_keys, big_values,
+          nbig, out, band_out);
+      break;
+    case 16:
+      byte_neighbors_small_kernel<16><<<grid, kSmallThreads, 0, stream>>>(
+          f, r, n, mask, shift, layout, flat, lo, hi, big_keys, big_values,
+          nbig, out, band_out);
+      break;
+    default:
+      byte_neighbors_small_kernel<32><<<grid, kSmallThreads, 0, stream>>>(
+          f, r, n, mask, shift, layout, flat, lo, hi, big_keys, big_values,
+          nbig, out, band_out);
+  }
+  return cudaGetLastError();
+}
+
+// A walk's probe context (khmer_probe_ctx_new).
+struct ProbeCtx {
+  ByteLayout layout;
+  const uint8_t* flat;
+  bool bits;  // L on bit tables, else N on byte tables
+  int k;
+  bool band;  // a band [lo, hi] was given
+  int lo, hi;
+  const uint64_t* big_keys;
+  const int32_t* big_values;
+  int64_t nbig;
+  int64_t small_below;  // N's small-level mode below this many nodes
+  int device;
+  cudaStream_t stream;
+  void* host = nullptr;  // pinned, a level's block (level_walk.h)
+  size_t host_bytes = 0;
+  uint8_t* dev = nullptr;  // the same block on the card
+  size_t dev_bytes = 0;
+  long long launches[2] = {0, 0};  // N staged (or L), N small
+  double seconds[4] = {0, 0, 0, 0};  // upload, launch, copy back, sync
+};
+
+// Grow-only room for `bytes`: at least twice the last, from 1 MiB.
+size_t grown(size_t have, size_t bytes) {
+  return std::max(bytes, std::max<size_t>(2 * have, 1 << 20));
+}
+
+double since(std::chrono::steady_clock::time_point* t) {
+  const auto now = std::chrono::steady_clock::now();
+  const double s = std::chrono::duration<double>(now - *t).count();
+  *t = now;
+  return s;
+}
+
+// One level: the frontier fr (f of each of n nodes, then r) up, the
+// kernel, the bytes back into masks (and band, where given), a sync.
+int probe_level(ProbeCtx* c, const uint64_t* fr, int64_t n, uint8_t* masks,
+                uint8_t* band) {
+  if (n < 0 || (band != nullptr && !c->band)) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  cudaError_t err = cudaSetDevice(c->device);
+  if (err != cudaSuccess) return err;
+  const size_t need = khmer_host::level_block_bytes(n);
+  if (c->dev_bytes < need) {
+    const size_t bytes = grown(c->dev_bytes, need);
+    if (c->dev != nullptr) cudaFree(c->dev);
+    c->dev = nullptr;
+    c->dev_bytes = 0;
+    err = cudaMalloc(&c->dev, bytes);
+    if (err != cudaSuccess) return err;
+    c->dev_bytes = bytes;
+  }
+  uint64_t* d_fr = reinterpret_cast<uint64_t*>(c->dev);
+  uint8_t* d_out = c->dev + 16 * n;
+  uint8_t* d_band = c->bits || band == nullptr ? nullptr : d_out + n;
+  auto t = std::chrono::steady_clock::now();
+  err = cudaMemcpyAsync(d_fr, fr, 16 * n, cudaMemcpyHostToDevice, c->stream);
+  if (err != cudaSuccess) return err;
+  c->seconds[0] += since(&t);
+  int mode = 0;
+  if (c->bits) {
+    const uint64_t mask = c->k == 32 ? ~0ULL : (1ULL << (2 * c->k)) - 1;
+    neighbors_kernel<<<khmer_cuda::grid_for(8 * n), kThreads, 0,
+                       c->stream>>>(d_fr, d_fr + n, n, mask, 2 * c->k - 2,
+                                    c->layout, c->flat, d_out);
+    err = cudaGetLastError();
+  } else {
+    mode = n < c->small_below;
+    err = launch_byte_neighbors(d_fr, d_fr + n, n, c->k, c->layout, c->flat,
+                                c->lo, c->hi, c->big_keys, c->big_values,
+                                c->nbig, d_out, d_band, mode, c->stream);
+  }
+  if (err != cudaSuccess) return err;
+  ++c->launches[mode];
+  c->seconds[1] += since(&t);
+  if (d_band != nullptr && band == masks + n) {
+    err = cudaMemcpyAsync(masks, d_out, 2 * n, cudaMemcpyDeviceToHost,
+                          c->stream);
+  } else {
+    err = cudaMemcpyAsync(masks, d_out, n, cudaMemcpyDeviceToHost,
+                          c->stream);
+    if (err == cudaSuccess && d_band != nullptr) {
+      err = cudaMemcpyAsync(band, d_band, n, cudaMemcpyDeviceToHost,
+                            c->stream);
+    }
+  }
+  if (err != cudaSuccess) return err;
+  c->seconds[2] += since(&t);
+  err = cudaStreamSynchronize(c->stream);
+  c->seconds[3] += since(&t);
+  if (err != cudaSuccess) return err;
+  if (c->bits && band != nullptr) {
+    // a Nodegraph's present k-mers count 1
+    if (c->lo <= 1 && 1 <= c->hi) {
+      std::memcpy(band, masks, n);
+    } else {
+      std::memset(band, 0, n);
+    }
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 }  // namespace khmer_nbr
 
@@ -279,7 +510,8 @@ extern "C" int khmer_bit_gather(const uint8_t* flat, int ntables,
 // hi: the band, clamped by the caller to [0, 65536] and [-1, 65535]).
 // big_keys / big_values (device, nbig entries, keys ascending as u64) may
 // be null with nbig 0. primes/offsets are HOST arrays of ntables (the
-// tables' offsets in the joined buffer, in bytes).
+// tables' offsets in the joined buffer, in bytes). small: the small-level
+// mode, else the staged one.
 extern "C" int khmer_byte_neighbors(const uint8_t* flat, int ntables,
                                     const int64_t* primes,
                                     const int64_t* offsets, const int64_t* f,
@@ -287,7 +519,7 @@ extern "C" int khmer_byte_neighbors(const uint8_t* flat, int ntables,
                                     int lo, int hi, const void* big_keys,
                                     const int32_t* big_values, int64_t nbig,
                                     uint8_t* out, uint8_t* band_out,
-                                    int device, void* stream) {
+                                    int small, int device, void* stream) {
   using namespace khmer_nbr;
   ByteLayout layout;
   if (!khmer_byte::make_layout(ntables, primes, offsets, &layout) || n < 0
@@ -298,12 +530,110 @@ extern "C" int khmer_byte_neighbors(const uint8_t* flat, int ntables,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n == 0) return cudaSuccess;
-  const uint64_t mask = k == 32 ? ~0ULL : (1ULL << (2 * k)) - 1;
-  byte_neighbors_kernel<<<khmer_cuda::grid_for(8 * n), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  return launch_byte_neighbors(
       reinterpret_cast<const uint64_t*>(f),
-      reinterpret_cast<const uint64_t*>(r), n, mask, 2 * k - 2, layout, flat,
-      lo, hi, static_cast<const uint64_t*>(big_keys), big_values, nbig, out,
-      band_out);
-  return cudaGetLastError();
+      reinterpret_cast<const uint64_t*>(r), n, k, layout, flat, lo, hi,
+      static_cast<const uint64_t*>(big_keys), big_values, nbig, out,
+      band_out, small != 0, static_cast<cudaStream_t>(stream));
+}
+
+// A walk's probe context: kernel N on the byte tables (bits 0; primes and
+// offsets as khmer_byte_neighbors takes them, its small-level mode below
+// small_below nodes) or kernel L on the bit tables (bits 1; offsets in
+// bits), k-mers of size k; with band 1, [lo, hi] (clamped as for
+// khmer_byte_neighbors) and the bigcount table (device, may be null with
+// nbig 0; N only). Launches on `stream`. Null if an argument is out of
+// range. The context owns its pinned and device blocks.
+extern "C" void* khmer_probe_ctx_new(const uint8_t* flat, int ntables,
+                                     const int64_t* primes,
+                                     const int64_t* offsets, int bits, int k,
+                                     int band, int lo, int hi,
+                                     const void* big_keys,
+                                     const int32_t* big_values, int64_t nbig,
+                                     int64_t small_below, int device,
+                                     void* stream) {
+  using namespace khmer_nbr;
+  ProbeCtx* c = new ProbeCtx;
+  if (!khmer_byte::make_layout(ntables, primes, offsets, &c->layout)
+      || k < 1 || k > 32 || nbig < 0
+      || (nbig > 0 && (big_keys == nullptr || big_values == nullptr))) {
+    delete c;
+    return nullptr;
+  }
+  c->flat = flat;
+  c->bits = bits != 0;
+  c->k = k;
+  c->band = band != 0;
+  c->lo = lo;
+  c->hi = hi;
+  c->big_keys = static_cast<const uint64_t*>(big_keys);
+  c->big_values = big_values;
+  c->nbig = nbig;
+  c->small_below = small_below;
+  c->device = device;
+  c->stream = static_cast<cudaStream_t>(stream);
+  return c;
+}
+
+extern "C" void khmer_probe_ctx_free(void* ctx) {
+  auto* c = static_cast<khmer_nbr::ProbeCtx*>(ctx);
+  if (c == nullptr) return;
+  cudaSetDevice(c->device);
+  if (c->host != nullptr) cudaFreeHost(c->host);
+  if (c->dev != nullptr) cudaFree(c->dev);
+  delete c;
+}
+
+// A pinned host block for a level of n nodes (level_walk.h: the frontier,
+// then its bytes), grow-only; null if it cannot be had.
+extern "C" void* khmer_probe_block(void* ctx, int64_t n) {
+  using namespace khmer_nbr;
+  auto* c = static_cast<ProbeCtx*>(ctx);
+  const size_t need = khmer_host::level_block_bytes(n);
+  if (c->host_bytes < need) {
+    if (cudaSetDevice(c->device) != cudaSuccess) return nullptr;
+    if (c->host != nullptr) cudaFreeHost(c->host);
+    c->host = nullptr;
+    const size_t bytes = grown(c->host_bytes, need);
+    c->host_bytes = 0;
+    if (cudaHostAlloc(&c->host, bytes, cudaHostAllocDefault)
+        != cudaSuccess) {
+      c->host = nullptr;
+      return nullptr;
+    }
+    c->host_bytes = bytes;
+  }
+  return c->host;
+}
+
+// Kernel N on a level (csrc/level_walk.cc's probe): the frontier fr (host;
+// the context's block or any host memory) of n nodes up, the presence
+// bytes back into masks and, for a banded walk, the band bytes into band
+// (the context must have a band), then a sync. Returns a CUDA error code.
+extern "C" int khmer_byte_probe_level(void* ctx, const uint64_t* fr,
+                                      int64_t n, uint8_t* masks,
+                                      uint8_t* band) {
+  auto* c = static_cast<khmer_nbr::ProbeCtx*>(ctx);
+  if (c->bits) return cudaErrorInvalidValue;
+  return khmer_nbr::probe_level(c, fr, n, masks, band);
+}
+
+// Kernel L on a level, as khmer_byte_probe_level; a banded walk's band
+// bytes are the presence bytes where the band holds 1, else 0.
+extern "C" int khmer_bit_probe_level(void* ctx, const uint64_t* fr,
+                                     int64_t n, uint8_t* masks,
+                                     uint8_t* band) {
+  auto* c = static_cast<khmer_nbr::ProbeCtx*>(ctx);
+  if (!c->bits) return cudaErrorInvalidValue;
+  return khmer_nbr::probe_level(c, fr, n, masks, band);
+}
+
+// The context's counts and clocks: launches (L, or N's staged mode), N's
+// small-mode launches, and host seconds issuing the uploads, the launches
+// and the copies back, and waiting in the syncs.
+extern "C" void khmer_probe_ctx_stats(void* ctx, double* out) {
+  const auto* c = static_cast<khmer_nbr::ProbeCtx*>(ctx);
+  out[0] = static_cast<double>(c->launches[0]);
+  out[1] = static_cast<double>(c->launches[1]);
+  for (int i = 0; i < 4; ++i) out[2 + i] = c->seconds[i];
 }

@@ -85,9 +85,8 @@ class Walk : public LevelWalk<Traversal, Part> {
   bool break_on_stop = false;
   bool stop_big = false;
   std::vector<uint32_t> order;  // the keeping order of each frontier node
-  // the banded walk: each start's verdict (each later pass takes the band
-  // bytes of the last frontier)
-  bool banded = false;
+  // the banded walk (WalkBase::banded): each start's verdict (each later
+  // pass takes the band bytes of the last frontier)
   std::vector<uint8_t> start_ok;
 
  protected:
@@ -187,8 +186,8 @@ extern "C" {
 
 // A walk from n start k-mers (f, r), with the graph's tags and stop tags;
 // level_walk.cc runs its passes. start_ok (n bytes, nullable): the banded
-// walk, whether each start is in the band; each later kt_level_pass then
-// takes the band bytes beside the masks.
+// walk, whether each start is in the band; each later pass then takes the
+// band bytes beside the masks.
 void* kt_walk_new(const uint64_t* start_f, const uint64_t* start_r,
                   long long n, int k, const uint64_t* tags, long long n_tags,
                   const uint64_t* stops, long long n_stops, int max_breadth,

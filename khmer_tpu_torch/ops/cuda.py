@@ -7,7 +7,9 @@ build runs at first use, into ``khmer_tpu_torch/_build/`` (not
 committed), and again whenever a source is newer than the library.
 Each C entry point launches on the stream it is given, allocates
 nothing and returns ``cudaGetLastError()``; ``check`` turns a non-zero
-code into an exception.
+code into an exception. The one exception is a walk's probe context
+(csrc/neighbors.cu ``khmer_probe_ctx_new``), which owns grow-only pinned
+and device blocks for the walk's levels.
 """
 
 import ctypes
@@ -102,9 +104,26 @@ _ENTRY_POINTS = {
     # device, stream
     "khmer_bit_gather": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
     # flat, ntables, primes (host), offsets (host), f, r, n, k, lo, hi,
-    # big_keys, big_values, nbig, out, present, device, stream
+    # big_keys, big_values, nbig, out, band_out, small, device, stream
     "khmer_byte_neighbors": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32,
-                             _I32, _P, _P, _I64, _P, _P, _I32, _P],
+                             _I32, _P, _P, _I64, _P, _P, _I32, _I32, _P],
+    # ctx, frontier (host), n, masks (host), band (host)
+    "khmer_byte_probe_level": [_P, _P, _I64, _P, _P],
+    "khmer_bit_probe_level": [_P, _P, _I64, _P, _P],
+}
+
+# name -> (argtypes, restype) of the entry points that return no error
+# code: a walk's probe context (csrc/neighbors.cu)
+_CONTEXT_POINTS = {
+    # flat, ntables, primes (host), offsets (host), bits, k, band, lo, hi,
+    # big_keys, big_values, nbig, small_below, device, stream
+    "khmer_probe_ctx_new": ([_P, _I32, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                             _P, _P, _I64, _I64, _I32, _P], _P),
+    "khmer_probe_ctx_free": ([_P], None),
+    # ctx, n -> a pinned block (csrc/level_block.h)
+    "khmer_probe_block": ([_P, _I64], _P),
+    # ctx, out (6 doubles)
+    "khmer_probe_ctx_stats": ([_P, _P], None),
 }
 
 
@@ -118,7 +137,8 @@ def _nvcc():
 
 def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
-                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+                  + glob.glob(os.path.join(CSRC, "*.cuh"))
+                  + [os.path.join(CSRC, "level_block.h")])
 
 
 def _stale():
@@ -178,6 +198,10 @@ def library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, (argtypes, restype) in _CONTEXT_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     lib.khmer_cuda_error_string.argtypes = [ctypes.c_int]
     lib.khmer_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -8,7 +8,9 @@ pass of load-graph's tagged consume with its tag set
 partition walk, a level of a batch of traversals a pass
 (csrc/tag_walk.cc, TagWalk below), the perimeter sweep likewise
 (csrc/sweep_walk.cc, SweepWalk), and the knot pipeline's excursions,
-likewise, with their evaluation (csrc/excursion_walk.cc, ExcursionWalk).
+likewise, with their evaluation (csrc/excursion_walk.cc, ExcursionWalk);
+a walk runs to its end in C++ against a probe of its levels
+(csrc/level_walk.cc kt_level_run, _LevelWalk.run).
 The library is compiled with g++ at first use into
 ``khmer_tpu_torch/_build/`` (not committed), and again whenever a source
 is newer than it. A failed build raises; nothing falls back to Python.
@@ -77,9 +79,11 @@ def library():
             ("fasta_pack", [_P, _I64, _P, _P, _I64, _P, _P], _I64),
             ("kt_hash_dense", [_P, _I64, _P, _I64, _I32, _P], _I64),
             ("kt_hash_dense_reads", [_P, _P, _P, _I64, _I32, _P], _I64),
-            ("kt_level_pass", [_P, _P, _P], _I64),
+            ("kt_level_pass", [_P, _P], _I64),
             ("kt_level_frontier", [_P, _P], None),
+            ("kt_level_run", [_P, _P, _P, _P], _I32),
             ("kt_level_keeper_bytes", [_P], _I64),
+            ("kt_level_stats", [_P, _P], None),
             ("kt_level_free", [_P], None),
             ("kt_walk_new", [_P, _P, _I64, _I32, _P, _I64, _P, _I64, _I32,
                              _I32, _I32, _I32, _P], _P),
@@ -182,8 +186,34 @@ def walk_threads():
     return max(1, min(16, os.cpu_count() or 1))
 
 
+# A probe of a walk's levels (csrc/level_walk.cc): (ctx, the frontier: f of
+# each of n nodes, then r (u64 [2 n]), n, the masks out (u8 [n]), the band
+# bytes out (u8 [n]; null but in a banded walk)) -> 0, or a code that ends
+# the walk.
+PROBE_FN = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p)
+
+# kt_level_stats' fields
+LEVEL_STATS = ("levels", "nodes", "walk_s", "frontier_s", "probe_s")
+
+
+class ProbeError(RuntimeError):
+    """A walk's probe failed: the walk stopped where it was and holds no
+    answer. `code` is the probe's (a CUDA error on the card), or -1 where
+    no block could be had for a level."""
+
+    def __init__(self, code):
+        super().__init__("the walk's probe failed with code %d; the walk "
+                         "holds no answer" % code if code != -1 else
+                         "no block could be had for a level of the walk")
+        self.code = code
+
+
 class _LevelWalk:
-    """What TagWalk and ExcursionWalk share (csrc/level_walk.h): step()
+    """What TagWalk, SweepWalk and ExcursionWalk share (csrc/level_walk.h).
+    run() walks every level to the end in C++, each frontier probed by a C
+    function (the card's, csrc/neighbors.cu) or a PROBE_FN callback (the
+    plain versions on the CPU). Or, a level at a time from Python: step()
     walks a level of every traversal and frontier() hands out the nodes to
     probe; the next step() takes their neighbour bytes (kernel L's byte a
     node) and walks their present children. An empty frontier ends the
@@ -191,22 +221,33 @@ class _LevelWalk:
 
     _walk = None
 
+    def run(self, probe, block=None, ctx=None):
+        """Walk to the end (kt_level_run): `probe` (a C function's address,
+        or a PROBE_FN) probes each level, `block` (a C function's address,
+        or None: the walk's own storage) hands out each level's block
+        (csrc/level_block.h), both with `ctx`. Raises ProbeError if the
+        probe fails."""
+        code = self._lib.kt_level_run(self._walk, probe, block, ctx)
+        if code:
+            raise ProbeError(code)
+
+    def stats(self):
+        """The walk's clocks so far (kt_level_stats): {levels, nodes, and
+        host seconds walking the levels, writing the frontiers, in the
+        probes}."""
+        out = np.zeros(len(LEVEL_STATS))
+        self._lib.kt_level_stats(self._walk, out.ctypes.data)
+        return dict(zip(LEVEL_STATS, out.tolist()))
+
     def step(self, masks=None):
         """Walk a level: of the children that `masks` (uint8, a byte for
         each node of the last frontier) allows, or of the start k-mers on
         the first step. Returns the new frontier's length, 0 once the
         walk has ended."""
-        return self._pass(masks, None)
-
-    def _pass(self, masks, band):
-        """kt_level_pass on masks and band (uint8 arrays, or None)."""
         if masks is not None:
             masks = np.ascontiguousarray(masks, dtype=np.uint8)
-        if band is not None:
-            band = np.ascontiguousarray(band, dtype=np.uint8)
         return int(self._lib.kt_level_pass(
-            self._walk, None if masks is None else masks.ctypes.data,
-            None if band is None else band.ctypes.data))
+            self._walk, None if masks is None else masks.ctypes.data))
 
     def frontier(self, out):
         """Write the frontier's k-mers into `out`, a u64 buffer of at
@@ -235,8 +276,8 @@ class TagWalk(_LevelWalk):
     start tags, with the graph's tags and stop tags; once the walk has
     ended, tags() holds what each traversal found. start_ok (a bool a
     start, or None) makes it the abundance-truncated walk: whether each
-    start is in the band; each later step then takes the band bytes of the
-    last frontier beside its neighbour bytes."""
+    start is in the band; its probe then gives the band bytes of each
+    frontier beside its neighbour bytes."""
 
     def __init__(self, start_f, start_r, k, tags, stop_tags, max_breadth,
                  break_on_stop_tags, stop_big_traversals, start_ok=None):
@@ -256,17 +297,6 @@ class TagWalk(_LevelWalk):
             len(stop_tags), int(max_breadth), int(bool(break_on_stop_tags)),
             int(bool(stop_big_traversals)), walk_threads(),
             start_ok.ctypes.data if self.banded else None)
-
-    def step(self, masks=None, band=None):
-        """_LevelWalk.step; a banded walk's later steps also take `band`,
-        a byte a node of the last frontier, bit j set iff neighbour j is in
-        the band."""
-        if masks is not None and self.banded != (band is not None):
-            raise ValueError("a banded walk takes band bytes with its "
-                             "masks, any other walk none")
-        if band is not None and len(band) != len(masks):
-            raise ValueError("band and masks differ in length")
-        return self._pass(masks, band)
 
     def tags(self):
         """The tags each traversal found: a list of ascending u64

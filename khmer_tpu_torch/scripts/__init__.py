@@ -60,17 +60,19 @@ def reset_ms(reset, fn, reps, hold):
     return total / reps, out
 
 
-def held_ms(calls):
+def held_ms(calls, before=None):
     """Each of `calls` (functions of no argument) in ms by CUDA events
     around it, issued in order in runs of 256 while a sleep kernel holds
     the stream, so that no event waits on the host: the device's time from
     one event to the next, its gap between launches included (a profiler's
-    kernel time leaves that out). A run whose hold ended before it was
-    issued is issued again under a hold twice as long, at most 4 times in
-    all; then it raises."""
+    kernel time leaves that out). before() (e.g. a write that flushes L2),
+    where given, is issued ahead of each call, outside its events (in runs
+    of 128: the card queues about a thousand launches before the host
+    waits). A run whose hold ended before it was issued is issued again
+    under a hold twice as long, at most 4 times in all; then it raises."""
     import torch
 
-    run, tries = 256, 4
+    run, tries = 256 if before is None else 128, 4
     pairs = []
     for lo in range(0, len(calls), run):
         for attempt in range(tries):
@@ -80,6 +82,8 @@ def held_ms(calls):
             held.record()
             timed = []
             for fn in calls[lo:lo + run]:
+                if before is not None:
+                    before()
                 start = torch.cuda.Event(enable_timing=True)
                 stop = torch.cuda.Event(enable_timing=True)
                 start.record()

@@ -10,8 +10,12 @@ at 32), 1, 4 and 32 tables, tiny primes on which every neighbour
 collides, a batch of one node, an empty one and 100,003 nodes (not a
 whole number of blocks); counters 60% set (98% in 32 tables: presence
 varies), 0.4% set (table 0 settles most lanes), at 250-255 under a bigcount table, all 255, and a graph of the k-mers of seeded
-reads counted into the tables. Each is probed without a band and at every
-band of BANDS. A's cases are chunk sequences: hashes
+reads counted into the tables; and levels of 1, 31, 33 and 2,048 nodes
+(a warp's edge, a block's) at 1, 4 and 7 tables (8, 32 lanes a node; two
+tables a lane), 60% set, and 90% set, most at 255, under a bigcount
+table.
+Each is probed in both of N's modes (small-level and staged), without a
+band and at every band of BANDS. A's cases are chunk sequences: hashes
 sharing counters inside a chunk (tiny primes), a few hashes whose
 counters saturate within a chunk, full-range hashes, and a full 2^20
 chunk. H's cases are trim_cases.COUNT_CASES. On the card:
@@ -48,6 +52,11 @@ NBR_CASES = {
     "k20-T4-all-255": (20, 1e5, 4, 20000, "full"),
     "k20-T4-graph": (20, 2e6, 4, 2000, "graph"),
 }
+# the levels of a walk that N's two modes split, both held to plain
+NBR_CASES.update({
+    "k20-T%d-n%d-%s" % (t, n, fill): (20, 1e5, t, n, fill)
+    for t in (1, 4, 7) for n in (1, 31, 33, 2048) for fill in ("dense",
+                                                              "high")})
 
 # name -> (primes, chunks, events a chunk, distinct hashes)
 FLAG_CASES = {
@@ -93,6 +102,10 @@ def nbr_inputs(name, dev, seed=0):
     elif fill == "saturated":
         flat = np.where(rng.random(size) < 0.5,
                         rng.integers(250, 256, size), 0).astype(np.uint8)
+    elif fill == "high":  # 85% at 255, 10% 0, the rest 1-254
+        u = rng.random(size)
+        flat = np.where(u < 0.85, 255, np.where(
+            u < 0.95, 0, rng.integers(1, 255, size))).astype(np.uint8)
     elif fill == "full":
         flat = np.full(size, 255, np.uint8)
     else:  # the graph of seeded reads, each k-mer counted 1 to 3 times
@@ -111,7 +124,7 @@ def nbr_inputs(name, dev, seed=0):
             f |= np.uint64(1 << 63)
     r = revcomp_bits(f, k)
     big = None
-    if fill in ("saturated", "full", "graph"):
+    if fill in ("saturated", "high", "full", "graph"):
         # a bigcount entry for a third of the saturated neighbours
         nf, nr = K.neighbor_kmers(_t(f), _t(r), k)
         canon = umin(nf, nr)
@@ -131,16 +144,17 @@ def _t(a):
 
 
 def check_nbr_case(name, dev):
-    """N against byte_neighbors_plain on case `name`, without a band and
-    at every band: the differing bytes."""
+    """N against byte_neighbors_plain on case `name`, in both modes,
+    without a band and at every band: the differing bytes."""
     primes, k, flat, f, r, big = nbr_inputs(name, dev)
     err = 0
     for band in (None,) + BANDS:
-        got = K.byte_neighbors_cuda(primes, flat, f, r, k, band, big)
         want = K.byte_neighbors_plain(primes, flat, f, r, k, band, big)
-        if band is None:
-            got, want = (got,), (want,)
-        err += sum(int((a != b).sum()) for a, b in zip(got, want))
+        for small in (False, True):
+            got = K.byte_neighbors_cuda(primes, flat, f, r, k, band, big,
+                                        small)
+            pairs = zip(got, want) if band is not None else [(got, want)]
+            err += sum(int((a != b).sum()) for a, b in pairs)
     return err
 
 

@@ -483,12 +483,12 @@ def test_nbr_cases_probe_what_they_name(name):
     present, band = K.byte_neighbors_plain(primes, flat, f, r, k, (2, 200),
                                            big)
     bits = np.unpackbits(present.numpy()).mean() if nodes else 0
-    if fill in ("dense", "near-full", "saturated", "graph") and k > 1 \
-            and nodes > 1:
+    if fill in ("dense", "near-full", "saturated", "high", "graph") \
+            and k > 1 and nodes > 1:
         assert 0 < bits < 1
     if fill == "full":
         assert bits == 1 and not band.any()
-    if fill in ("saturated", "full"):
+    if fill in ("saturated", "high", "full"):
         assert big is not None and big[0].shape[0] > 0
 
 

@@ -232,6 +232,27 @@ Phases (each prints a line; any failure raises and exits non-zero):
      the kernels on its largest calls as in phase 12 (N's small-level
      mode's time in the per-kernel line is 12b's, its staged mode's
      phase 12's).
+  13. configs 1-3 and the knot pipeline with --small-count (a
+     SmallCountgraph: 4-bit counters, two a byte, OXLI type 7) through
+     the CLIs at their phases' shapes: load-into-counting and
+     abundance-dist-single -k 20 -x 5e7 -N 4 and filter-abund-single -k 20
+     -x 5e7 -C 2 on data/25k.fq.gz, normalize-by-median -C 20 -s and
+     trim-low-abund -k 20 -x 5e7 -N 4 -C 2 -s (with and without -V) on
+     data/stamps-reads.fa.gz, make-initial-stoptags and find-knots -x 2e8
+     -N 4 on phase 11's graph; the JAX answers asserted (EXPECT_C13),
+     kernels P, Q and R (the nibble update and gathers) and J, C and L
+     launched, every call of P, Q and R held to its plain version, each
+     CLI's wall; phase 3 also holds P, Q and R to plain on
+     scripts/nibble_cases.py (both nibbles of a byte in one chunk and in
+     two of the update's buckets, counters past 15, tiny odd primes, a
+     crowded bucket, nibble tables of 0.1, 2 and 4 GB);
+  13b. load-into-counting and abundance-dist-single -k 20 -x 2e9 -N 4
+     --small-count (4 GB of nibble tables) on phase 7b's reads and
+     normalize-by-median -C 20 -x 2e9 -N 4 --small-count on their first
+     250,000, the JAX answers asserted, every call of P, Q and R held to
+     plain, the device memory beside the tables; then P, Q and R on their
+     largest calls against their bounds and sector floors, R beside
+     torch.take at precomputed byte indices.
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees (J's at 9b each call
 alone after its tables are zeroed or restored, scripts.reset_ms); the
@@ -569,6 +590,53 @@ EXPECT_C12 = {
 }
 
 
+# Phases 13 and 13b through the JAX package (khmer_tpu, CPU,
+# KHMER_TPU_ENGINE=auto; the CPU tests hold the port to both engines on
+# smaller inputs, tests/test_torch_small_count_cli.py), --small-count: the
+# sha256 of each output, n_unique, kept reads, and for trim-low-abund the
+# reads written and (removed, trimmed). Phase 13: load-into-counting and
+# abundance-dist-single -k 20 -x 5e7 -N 4 and filter-abund-single -k 20
+# -x 5e7 -C 2 on data/25k.fq.gz; normalize-by-median -C 20 -s (a nibble
+# never reaches 20: every read is kept) and trim-low-abund -k 20 -x 5e7
+# -N 4 -C 2 -s, with and without -V, on data/stamps-reads.fa.gz; load-graph
+# -k 20 -x 12.5e6 -N 4 of those reads, make-initial-stoptags -x 2e8 -N 4
+# (the .stoptags), partition-graph -S and find-knots -x 2e8 -N 4. Phase
+# 13b: load-into-counting and abundance-dist-single -k 20 -x 2e9 -N 4 on
+# phase 7b's reads, normalize-by-median -C 20 -x 2e9 -N 4 on their first
+# 250,000.
+EXPECT_C13 = {
+    "load": ["e621a312bd5ed06d4adc09b0bb746dd1"
+             "cf16d4b2bed69ae0c5bafc39c5633444", 1246182],
+    "single": "49b1e623b01c09e421de7678b5d5369a"
+              "49c41d95eb45d7db9d8f74da5d76e059",
+    "filter_single": "9f577c7ab26cfd6eb8b31cd665c9a8d0"
+                     "3b7ea4f82f656f2cba500702d36843a6",
+    "normalize": [200000, 868524, "fe07588c3b783881e1ec426b1056bb31"
+                                  "c0b9d6f680a4159ad3ce99b12bff4cdd",
+                  "14921fc7e70c07909b2c8dc0004349ce"
+                  "069b2fae635a294e664348b70320adc5"],
+    "trim": [196955, [3045, 20730], "1cf61e04e1623700540e41388a93a65a"
+                                    "7cb1e91aceb98da4f66082fb7bdba638",
+             "99e9fddbf9f89ecdf7b31d566f36363d"
+             "2e64e1e9e24235150f5b9f7caff78979"],
+    "trim-V": [200000, [0, 0], "fe07588c3b783881e1ec426b1056bb31"
+                               "c0b9d6f680a4159ad3ce99b12bff4cdd",
+               "99e9fddbf9f89ecdf7b31d566f36363d"
+               "2e64e1e9e24235150f5b9f7caff78979"],
+    "initial": "538adfd7b35e8a0890b39ac14790a020"
+               "7945c6c2c7a9f9c6e69e2a7b6629b58a",
+    "knots": ["538adfd7b35e8a0890b39ac14790a020"
+              "7945c6c2c7a9f9c6e69e2a7b6629b58a", [15]],
+    "synth": {
+        "load": ["ae3eea903917c2befdbdb50681413b5b"
+                 "2db038bc69dd12b2d34efe8cec0e2b89", 16031415],
+        "single": "1adf59b8e1beaa30d272a733deb61630"
+                  "a513f544e85355cd6355ccfe406da2f3",
+        "normalize": [250000, 6705606, "0910d469976dc4f30c0960a57486850f"
+                                       "901032b320a8e83127bdb7b7f730b220"]},
+}
+
+
 class SmokeFailure(AssertionError):
     pass
 
@@ -649,7 +717,9 @@ def main():
                                  "trim_mark", "trim_probe", "trim_scan",
                                  "read_counts", "bit_update", "hll_add",
                                  "neighbors", "byte_pertable",
-                                 "byte_neighbors", "byte_neighbors_small")}
+                                 "byte_neighbors", "byte_neighbors_small",
+                                 "nibble_update", "nibble_gather",
+                                 "nibble_pertable")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
         run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs)
@@ -666,15 +736,16 @@ def main():
     n_nbr = run_neighbor_cases(torch, dev, errs)
     n_pert = run_pertable_cases(torch, dev, errs)
     n_cg = run_countgraph_cases(torch, dev, errs)
+    n_nib = run_nibble_cases(torch, dev, errs)
     say("phase 3 exact: kernel == plain on %d blocked, %d byte, %d "
         "histogram, %d decoded-event, %d byte-gather-reduction, %d "
         "blocked-gather-reduction, %d diginorm, %d trim, %d bit-table, "
-        "%d HLL, %d neighbour-probe, %d per-table-gather and %d Countgraph "
-        "graph cases (tables, flags, n_unique, bigcount reports, counts, "
-        "keep flags, branches, trim positions, registers, neighbour bytes, "
-        "counters)"
+        "%d HLL, %d neighbour-probe, %d per-table-gather, %d Countgraph "
+        "graph and %d nibble-table cases (tables, flags, n_unique, bigcount "
+        "reports, counts, keep flags, branches, trim positions, registers, "
+        "neighbour bytes, counters)"
         % (len(cases), len(byte_cases), n_hist, n_proto, n_edges, n_edges2,
-           n_digi, n_trim, n_bit, n_hll, n_nbr, n_pert, n_cg))
+           n_digi, n_trim, n_bit, n_hll, n_nbr, n_pert, n_cg, n_nib))
     lap("phase 3")
 
     # -- phase 4: config 1, blocked, through the port's entry points -------
@@ -822,6 +893,21 @@ def main():
             launches[key] = cg_launches[key] + scale_launches[key]
         lap("phase 12b")
 
+        # -- phase 13: --small-count (nibble tables) through the CLIs --------
+        nib_launches, _ = run_small_count(torch, SK, dev, card, errs)
+        lap("phase 13")
+
+        # -- phase 13b: --small-count at 4 GB of nibble tables ---------------
+        scale_launches, nib_checks = run_small_count_scale(
+            torch, SK, dev, card, errs, reads, head)
+        timings.update(time_nibble_kernels(torch, SK, card, errs,
+                                           nib_checks))
+        del nib_checks
+        torch.cuda.empty_cache()
+        for key, n in nib_launches.items():
+            launches[key] = n + scale_launches[key]
+        lap("phase 13b")
+
     kernels = []
     for name, source, replaces in (
             ("blocked_update", "blocked_update.cu",
@@ -857,7 +943,13 @@ def main():
             ("byte_neighbors", "neighbors.cu",
              "khmer_tpu/core/graphmixin.py:30"),
             ("byte_neighbors_small", "neighbors.cu",
-             "khmer_tpu/core/graphmixin.py:30")):
+             "khmer_tpu/core/graphmixin.py:30"),
+            ("nibble_update", "nibble_update.cu",
+             "khmer_tpu/core/sketch_kernels.py:198"),
+            ("nibble_gather", "nibble_gather.cu",
+             "khmer_tpu/core/sketch_kernels.py:649"),
+            ("nibble_pertable", "nibble_gather.cu",
+             "khmer_tpu/core/sketch_kernels.py:681")):
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -4149,6 +4241,406 @@ def run_countgraph_cases(torch, dev, errs):
         "plain on %d cases"
         % (len(C.BANDS), n))
     return n
+
+
+# ---------------------------------------------------------------------------
+# phases 13 and 13b: --small-count (the nibble tables, kernels P, Q and R)
+# ---------------------------------------------------------------------------
+
+
+def run_nibble_cases(torch, dev, errs):
+    """Kernels P, Q and R against their plain versions on the cases of
+    scripts/nibble_cases.py."""
+    from khmer_tpu_torch.scripts import nibble_cases
+
+    for name in nibble_cases.NIBBLE_CASES:
+        for key, err in nibble_cases.check_nibble_case(name, dev).items():
+            errs[key] = max(errs[key], err)
+            expect(err == 0, "%s != plain on nibble case %s" % (key, name))
+        torch.cuda.empty_cache()
+    say("  nibble cases: nibble_update (tables, n_unique, new flags), "
+        "nibble_gather and nibble_pertable == plain on %s"
+        % ", ".join(nibble_cases.NIBBLE_CASES))
+    return len(nibble_cases.NIBBLE_CASES)
+
+
+def _nibble_checks(torch, SK):
+    """Kernels P, Q and R as a phase's main path calls them (_CallCheck on
+    the dispatchers sketch_kernels.nibble_update, nibble_gather and
+    nibble_pertable): every call held to its plain version on the same
+    inputs, P's from a copy of the tables before the call (tables,
+    n_unique and, where the caller asks, the new flags); the largest
+    call's hashes cloned for timing."""
+    def check_update(fn, args, kwargs):
+        primes, flat, n_unique, hashes, nvalid = args[:5]
+        flat_p, nu_p = flat.clone(), n_unique.clone()
+        want = SK.nibble_update_plain(primes, flat_p, nu_p, hashes, nvalid,
+                                      with_event_new=True)
+        got = fn(*args, **kwargs)
+        err = abs(int(n_unique) - int(nu_p))
+        if got is not None:
+            err = max(err, _max_abs(got, want))
+        if not torch.equal(flat, flat_p):
+            err = max(err, 1)
+        del flat_p
+        return got, err, int(nvalid)
+
+    def check_gather(fn, args, kwargs):
+        got = fn(*args)
+        return got, _max_abs(got, SK.nibble_gather_plain(*args)), \
+            got.numel()
+
+    def check_pertable(fn, args, kwargs):
+        got = fn(*args)
+        return got, _max_abs(got, SK.nibble_pertable_plain(*args)), \
+            got.numel()
+
+    keep = lambda a: (a[0], a[1]) + tuple(
+        x.clone() if hasattr(x, "clone") and x.dtype == torch.int64
+        and x.numel() > 1 else x for x in a[2:])
+    return {"nibble_update": _CallCheck(torch, SK, "nibble_update",
+                                        check_update, lambda a: int(a[4]),
+                                        keep=keep),
+            "nibble_gather": _CallCheck(torch, SK, "nibble_gather",
+                                        check_gather,
+                                        lambda a: a[2].numel(), keep=keep),
+            "nibble_pertable": _CallCheck(torch, SK, "nibble_pertable",
+                                          check_pertable,
+                                          lambda a: a[2].numel(),
+                                          keep=keep)}
+
+
+def _install(checks):
+    restores = [c.install() for c in checks.values()]
+    return lambda: [r() for r in restores]
+
+
+def _nibble_launches(SK):
+    return {"nibble_update": SK.nibble_update_cuda.launches,
+            "nibble_gather": SK.nibble_gather_cuda.launches,
+            "nibble_pertable": SK.nibble_pertable_cuda.launches}
+
+
+def _zero_launches(SK):
+    for fn in (SK.nibble_update_cuda, SK.nibble_gather_cuda,
+               SK.nibble_pertable_cuda, SK.bit_update_cuda,
+               SK.histogram_add_cuda, SK.neighbors_cuda):
+        fn.launches = 0
+
+
+def _count(path, byte=b">"):
+    with open(path, "rb") as f:
+        return sum(block.count(byte) for block in iter(
+            lambda: f.read(1 << 26), b""))
+
+
+def _fold_checks(checks, errs, label):
+    for key, c in checks.items():
+        errs[key] = max(errs[key], c.err)
+        expect(c.err == 0, "%s: %s differs from its plain version by up "
+               "to %d" % (label, key, c.err))
+
+
+def run_small_count(torch, SK, dev, card, errs):
+    """Phase 13: configs 1-3 and the knot pipeline with --small-count
+    through the port's CLIs in this process, at their phases' shapes:
+    load-into-counting and abundance-dist-single -k 20 -x 5e7 -N 4 (4 x 25
+    MB of nibble tables, beyond L2) on data/25k.fq.gz; normalize-by-median
+    -C 20 -s on data/stamps-reads.fa.gz; trim-low-abund -k 20 -x 5e7 -N 4
+    -C 2 -s on it, with and without -V; filter-abund-single -k 20 -x 5e7
+    -C 2 on data/25k.fq.gz; load-graph -k 20 -x 12.5e6 -N 4 of the stamps
+    reads (phase 11's graph), make-initial-stoptags -x 2e8 -N 4,
+    partition-graph -S and find-knots -x 2e8 -N 4. The JAX answers
+    (EXPECT_C13) asserted; the launch counts set to 0 before the first CLI
+    and read after the last: P, Q, R, J (the histogram's tracking table),
+    C (its histogram) and L (the knots' walks) launched; every call of P,
+    Q and R held to its plain version. Returns (P's, Q's and R's launches,
+    their checks)."""
+    from khmer_tpu_torch.cli import (abundance_dist_single,
+                                     filter_abund_single, find_knots,
+                                     load_graph, load_into_counting,
+                                     make_initial_stoptags,
+                                     normalize_by_median, partition_graph,
+                                     trim_low_abund)
+
+    E = EXPECT_C13
+    checks = _nibble_checks(torch, SK)
+    walls, got = {}, {}
+    tables = ["-k", "20", "-x", "5e7", "-N", "4", "--small-count"]
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        restore = _install(checks)
+        try:
+            _zero_launches(SK)
+            walls["load-into-counting"], err, _ = _run_cli(
+                torch, load_into_counting.main, tables + ["sc.ct", DATA],
+                tmp)
+            got["load"] = [_file_sha256(os.path.join(tmp, "sc.ct"))[0],
+                           _unique(err)]
+            walls["abundance-dist-single"], err, _ = _run_cli(
+                torch, abundance_dist_single.main,
+                tables + [DATA, "sc.dist"], tmp)
+            got["single"] = _file_sha256(os.path.join(tmp, "sc.dist"))[0]
+            walls["filter-abund-single"], _, _ = _run_cli(
+                torch, filter_abund_single.main,
+                ["-k", "20", "-x", "5e7", "-C", "2", "--small-count", DATA],
+                tmp)
+            got["filter_single"] = _file_sha256(
+                os.path.join(tmp, os.path.basename(DATA) + ".abundfilt"))[0]
+            walls["normalize-by-median"], err, _ = _run_cli(
+                torch, normalize_by_median.main,
+                ["-C", "20", "-s", "norm.ct", "--small-count", STAMPS], tmp)
+            keep = os.path.join(tmp, os.path.basename(STAMPS) + ".keep")
+            got["normalize"] = [_count(keep), _unique(err),
+                                _file_sha256(keep)[0],
+                                _file_sha256(os.path.join(tmp,
+                                                          "norm.ct"))[0]]
+            for v in ("", "-V"):
+                d = os.path.join(tmp, "trim" + v)
+                os.makedirs(d)
+                walls["trim-low-abund" + (" " + v if v else "")], err, _ = \
+                    _run_cli(torch, trim_low_abund.main,
+                             tables[:6] + ["-C", "2", "-s", "trim.ct",
+                                           "--small-count"]
+                             + ([v] if v else []) + [STAMPS], d)
+                at = os.path.join(d, os.path.basename(STAMPS) + ".abundtrim")
+                got["trim" + v] = [_count(at), [int(n) for n in re.search(
+                    r"removed (\d+) reads and trimmed (\d+) reads",
+                    err).groups()], _file_sha256(at)[0],
+                    _file_sha256(os.path.join(d, "trim.ct"))[0]]
+            walls["load-graph"], _, _ = _run_cli(torch, load_graph.main, [
+                "-k", "20", "-x", "12.5e6", "-N", "4", "g", STAMPS], tmp)
+            walls["make-initial-stoptags"], _, _ = _run_cli(
+                torch, make_initial_stoptags.main,
+                ["-k", "20", "-x", "2e8", "-N", "4", "--small-count", "g"],
+                tmp)
+            got["initial"] = _file_sha256(os.path.join(tmp,
+                                                       "g.stoptags"))[0]
+            walls["partition-graph"], _, _ = _run_cli(
+                torch, partition_graph.main, ["-S", "g.stoptags", "g"], tmp)
+            walls["find-knots"], err, _ = _run_cli(
+                torch, find_knots.main,
+                ["-x", "2e8", "-N", "4", "--small-count", "g"], tmp)
+            got["knots"] = [_file_sha256(os.path.join(tmp,
+                                                      "g.stoptags"))[0],
+                            [int(v) for v in re.findall(
+                                r"\*\* repartitioned size: (\d+)", err)]]
+            launches = _nibble_launches(SK)
+            others = {"bit_update": SK.bit_update_cuda.launches,
+                      "histogram_add": SK.histogram_add_cuda.launches,
+                      "neighbors": SK.neighbors_cuda.launches}
+        finally:
+            restore()
+    want = {key: E[key] for key in got}
+    expect(got == want, "phase 13: %s, JAX gives %s" % (got, want))
+    _fold_checks(checks, errs, "phase 13")
+    for name, n in dict(launches, **others).items():
+        expect(n > 0, "phase 13: %s never launched" % name)
+    say("phase 13 --small-count through the CLIs (nibble tables): walls %s "
+        "s; load-into-counting n_unique %d, .ct %s; abundance-dist-single "
+        ".dist %s; filter-abund-single %s; normalize-by-median kept %d "
+        "(n_unique %d); trim-low-abund wrote %d (removed, trimmed %s), "
+        "with -V %d; "
+        "make-initial-stoptags %s, find-knots %s, repartitioned %s (the JAX "
+        "answers); launches %s, J %d, C %d, L %d; every call of P, Q, R "
+        "held to its plain version (%d, %d and %d calls, %d, %d and %d "
+        "values); on %s"
+        % (json.dumps({k: round(v, 6) for k, v in walls.items()}),
+           got["load"][1], got["load"][0][:16], got["single"][:16],
+           got["filter_single"][:16], got["normalize"][0],
+           got["normalize"][1], got["trim"][0], got["trim"][1],
+           got["trim-V"][0], got["initial"][:16], got["knots"][0][:16],
+           got["knots"][1], launches, others["bit_update"],
+           others["histogram_add"], others["neighbors"],
+           checks["nibble_update"].calls, checks["nibble_gather"].calls,
+           checks["nibble_pertable"].calls, checks["nibble_update"].values,
+           checks["nibble_gather"].values,
+           checks["nibble_pertable"].values, card))
+    return launches, checks
+
+
+def _unique(err):
+    return int(err.split("Total number of unique k-mers:")[1].split()[0])
+
+
+def run_small_count_scale(torch, SK, dev, card, errs, reads, head):
+    """Phase 13b, --small-count at scale: load-into-counting -k 20 -x 2e9
+    -N 4 --small-count on phase 7b's 1,000,000 reads (4 x 1 GB of nibble
+    tables: the 4 GB that 7b's byte tables take, holding twice the
+    counters) and abundance-dist-single at the same flags, then
+    normalize-by-median -C 20 -x 2e9 -N 4 --small-count on the first
+    250,000 of those reads. That cut keeps the script's time:
+    BatchedNormalizer walks each window's reads in Python, as JAX's does.
+    The JAX answers (EXPECT_C13["synth"], from its native engine) asserted,
+    every call of P, Q and R held to its plain version, the device memory
+    printed beside the tables. Returns (launches, checks)."""
+    from khmer_tpu_torch.cli import (abundance_dist_single,
+                                     load_into_counting, normalize_by_median)
+
+    E = EXPECT_C13["synth"]
+    checks = _nibble_checks(torch, SK)
+    walls, got, peaks = {}, {}, {}
+    tables = ["-k", "20", "-x", "2e9", "-N", "4", "--small-count"]
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        restore = _install(checks)
+        try:
+            _zero_launches(SK)
+            for step, main, args in (
+                    ("load-into-counting", load_into_counting.main,
+                     tables + ["sc.ct", reads]),
+                    ("abundance-dist-single", abundance_dist_single.main,
+                     tables + [reads, "sc.dist"]),
+                    ("normalize-by-median", normalize_by_median.main,
+                     ["-C", "20", "-x", "2e9", "-N", "4", "--small-count",
+                      head])):
+                torch.cuda.reset_peak_memory_stats(dev)
+                walls[step], err, _ = _run_cli(torch, main, args, tmp)
+                peaks[step] = torch.cuda.max_memory_allocated(dev)
+                if step == "load-into-counting":
+                    ct = os.path.join(tmp, "sc.ct")
+                    got["load"] = [_file_sha256(ct)[0], _unique(err)]
+                    os.remove(ct)
+                elif step == "abundance-dist-single":
+                    got["single"] = _file_sha256(os.path.join(
+                        tmp, "sc.dist"))[0]
+                else:
+                    keep = os.path.join(tmp, os.path.basename(head)
+                                        + ".keep")
+                    got["normalize"] = [_count(keep), _unique(err),
+                                        _file_sha256(keep)[0]]
+            launches = _nibble_launches(SK)
+        finally:
+            restore()
+    want = {key: E[key] for key in got}
+    expect(got == want, "phase 13b: %s, JAX gives %s" % (got, want))
+    _fold_checks(checks, errs, "phase 13b")
+    for name, n in launches.items():
+        expect(n > 0, "phase 13b: %s never launched" % name)
+    nib = sum(SK.nibble_table_bytes(p)
+              for p in SK.get_n_primes_near_x(4, 2e9))
+    say("phase 13b --small-count at -x 2e9 -N 4 (%.3f GB of nibble tables) "
+        "on phase 7b's reads: walls %s s; peak device memory %s GB; "
+        "load-into-counting n_unique %d, .ct %s; abundance-dist-single "
+        ".dist %s; normalize-by-median of the first %d reads kept %d "
+        "(n_unique %d) (the JAX answers); launches %s; every call of P, Q, "
+        "R held to its plain version (%d, %d and %d calls); on %s"
+        % (nib / 1e9, json.dumps({k: round(v, 6) for k, v in walls.items()}),
+           json.dumps({k: round(v / 1e9, 3) for k, v in peaks.items()}),
+           got["load"][1], got["load"][0][:16], got["single"][:16],
+           TRACED_READS, got["normalize"][0], got["normalize"][1],
+           launches, checks["nibble_update"].calls,
+           checks["nibble_gather"].calls, checks["nibble_pertable"].calls,
+           card))
+    return launches, checks
+
+
+def _sectors(torch, SK, primes, hashes):
+    """(distinct 32-byte sectors, distinct bytes) of the nibble tables of
+    `primes` that the counters of `hashes` (1-D) lie in."""
+    from khmer_tpu_torch.ops.u64 import umod
+
+    byte = torch.cat([(umod(hashes, p) + 2 * off) >> 1 for p, off in zip(
+        primes, SK.nibble_offsets(primes))]).unique()
+    return int((byte >> 5).unique().numel()), int(byte.numel())
+
+
+def time_nibble_kernels(torch, SK, card, errs, checks):
+    """P, Q and R on the largest calls of phase 13b's path, against their
+    plain versions (max_abs_err 0 asserted again), beside their byte
+    bound and sector floor: P on its largest call into its 4 GB of
+    tables zeroed before each call (scripts.reset_ms: as issued and the
+    device alone); Q and R hot (as issued, device) and cold (each call
+    after a 100 MB write that flushes L2), R beside torch.take of the
+    flat tables at precomputed byte indices (the gather alone). Returns
+    the kernels-line times of the three."""
+    from khmer_tpu_torch.scripts import cuda_ms, reset_ms
+    from khmer_tpu_torch.scripts import pertable_bench as PB
+
+    out = {}
+    flush = torch.empty(PB.FLUSH_BYTES, dtype=torch.uint8,
+                        device=checks["nibble_gather"].largest[1][1].device)
+    for key in ("nibble_gather", "nibble_pertable"):
+        _, args, _ = checks[key].largest
+        primes, flat, hashes = args
+        n = hashes.numel()
+        T = len(primes)
+        sectors, nbytes = _sectors(torch, SK, primes, hashes.reshape(-1))
+        kernel = getattr(SK, key + "_cuda")
+        plain = getattr(SK, key + "_plain")
+        call = lambda: kernel(primes, flat, hashes.reshape(-1))
+        err = _max_abs(call(), plain(primes, flat, hashes.reshape(-1)))
+        errs[key] = max(errs[key], err)
+        expect(err == 0, "phase 13b: %s != plain on its largest call" % key)
+        m = PB.readings(call, flush.zero_, T * n)
+        t = {"ms": m["ms"], "plain_ms": cuda_ms(
+            lambda: plain(primes, flat, hashes.reshape(-1)), 3),
+            "library_ms": None}
+        out_bytes = 4 * n if key == "nibble_gather" else T * n
+        t["bound_ms"], t["bound_by"] = bound(8 * n + out_bytes + nbytes,
+                                             T * n)
+        line = ""
+        if key == "nibble_pertable":
+            from khmer_tpu_torch.ops.u64 import umod
+
+            idx = torch.cat([(umod(hashes.reshape(-1), p) + 2 * off) >> 1
+                             for p, off in zip(primes,
+                                               SK.nibble_offsets(primes))])
+            take = lambda: torch.take(flat, idx)
+            tm = PB.readings(take, flush.zero_, T * n)
+            t["library_ms"] = tm["ms"]
+            line = ("; torch.take of the flat tables at the %d precomputed "
+                    "byte indices (the gather alone) %.4f ms, device %.4f "
+                    "ms, cold %.4f ms (device %.4f ms)"
+                    % (T * n, tm["ms"], tm["device_ms"], tm["cold_ms"],
+                       tm["cold_device_ms"]))
+            del idx
+        say("  phase 13b %s on its largest call (%d hashes into %d nibble "
+            "tables of %.3f GB): hot %.4f ms as issued (device %.4f ms), "
+            "cold %.4f ms (device %.4f ms), %.3g lookups/s hot on the "
+            "device, plain %.4f ms; bound %.5f ms (%s), sector floor %.4f ms "
+            "(%d distinct 32-B sectors)%s; == plain; on %s"
+            % ("Q" if key == "nibble_gather" else "R", n, T,
+               flat.shape[0] / 1e9, m["ms"], m["device_ms"], m["cold_ms"],
+               m["cold_device_ms"], m["lookups_s"], t["plain_ms"],
+               t["bound_ms"], t["bound_by"],
+               32 * sectors / PEAK_BYTES_S * 1e3, sectors, line, card))
+        out[key] = t
+    del flush
+    # P last: it zeroes the tables that R's largest call may share
+    _, args, kwargs = checks["nibble_update"].largest
+    primes, flat, n_unique, hashes, nvalid = args[:5]
+    n = int(nvalid)
+    h = hashes[:n]
+    sectors, nbytes = _sectors(torch, SK, primes, h)
+    zero = flat.zero_
+    scratch = SK.update_scratch(None, n, len(primes), flat.device)
+    call = lambda: SK.nibble_update_cuda(primes, flat, n_unique, hashes, n,
+                                         scratch)
+    ms, _ = reset_ms(zero, call, 10, False)
+    dev_ms, _ = reset_ms(zero, call, 10, True)
+    flat_k = flat.clone()
+    zero()
+    SK.nibble_update_plain(primes, flat, n_unique.clone(), hashes, n)
+    err = 0 if torch.equal(flat, flat_k) else 1
+    del flat_k
+    errs["nibble_update"] = max(errs["nibble_update"], err)
+    expect(err == 0, "phase 13b: P != plain on its largest call")
+    plain_ms, _ = reset_ms(zero, lambda: SK.nibble_update_plain(
+        primes, flat, n_unique.clone(), hashes, n), 3, False)
+    t = {"ms": ms, "plain_ms": plain_ms, "library_ms": None}
+    t["bound_ms"], t["bound_by"] = bound(8 * n + 2 * nbytes,
+                                         n * len(primes))
+    floor = 2 * 32 * sectors / PEAK_BYTES_S * 1e3
+    say("  phase 13b P on its largest call (%d events into %d nibble tables "
+        "of %.3f GB, zeroed before each call): %.4f ms as issued, device "
+        "%.4f ms, plain %.4f ms; bound %.5f ms (%s: 8 B a hash, each of its "
+        "%d distinct table bytes read and written), sector floor %.4f ms "
+        "(%d distinct 32-B sectors read and written); == plain; on %s"
+        % (n, len(primes), flat.shape[0] / 1e9, ms, dev_ms, plain_ms,
+           t["bound_ms"], t["bound_by"], nbytes, floor, sectors, card))
+    out["nibble_update"] = t
+    return out
 
 
 if __name__ == "__main__":

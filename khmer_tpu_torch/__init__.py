@@ -4,7 +4,8 @@ The JAX package ``khmer_tpu`` is the reference; this package computes
 the same tables, counts and files with PyTorch, and runs the hot
 kernels as hand-written CUDA for Hopper (csrc/). It imports no JAX.
 Ported so far: the counting path in the exact byte layout (Countgraph,
-bigcount, OXLI type-1 files, the default of load-into-counting) and in
+bigcount, OXLI type-1 files, the default of load-into-counting), in the
+nibble layout (SmallCountgraph, OXLI type 7, --small-count) and in
 the blocked layout, the abundance histogram (abundance-dist,
 abundance-dist-single), digital normalization (normalize-by-median),
 trimming (trim-low-abund, filter-abund, filter-abund-single), the
@@ -36,7 +37,11 @@ from khmer_tpu_torch.core.oxli_io import (  # noqa: E402
     load_countgraph,
     load_nodegraph,
 )
-from khmer_tpu_torch.core.sketch import Countgraph, Nodegraph  # noqa: E402
+from khmer_tpu_torch.core.sketch import (  # noqa: E402
+    Countgraph,
+    Nodegraph,
+    SmallCountgraph,
+)
 
 
 def calc_expected_collisions(graph, force=False, max_false_pos=0.2):

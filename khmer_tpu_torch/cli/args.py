@@ -415,16 +415,18 @@ def create_nodegraph(args, ksize=None, multiplier=1.0, fp_rate=0.01,
 def create_countgraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,
                       device="cuda"):
     """The Countgraph the arguments ask for, on `device`, with bigcount
-    set from --no-bigcount where the script has it."""
-    from khmer_tpu_torch.core.sketch import Countgraph
+    set from --no-bigcount where the script has it; with --small-count a
+    SmallCountgraph (4-bit counters, two a byte, no bigcount)."""
+    from khmer_tpu_torch.core.sketch import Countgraph, SmallCountgraph
 
     args = _check_fp_rate(args, fp_rate)
     ksize = _check_table_args(args, ksize)
 
     if args.small_count:
-        print_error("** ERROR: --small-count (the nibble SmallCountgraph) "
-                    "is not yet ported to khmer_tpu_torch.")
-        sys.exit(1)
+        tablesize = calculate_graphsize(args, 'smallcountgraph',
+                                        multiplier=multiplier)
+        return SmallCountgraph(ksize, tablesize, args.n_tables,
+                               device=device)
     tablesize = calculate_graphsize(args, 'countgraph',
                                     multiplier=multiplier)
     cg = Countgraph(ksize, tablesize, args.n_tables, device=device)

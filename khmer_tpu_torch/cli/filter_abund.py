@@ -5,7 +5,9 @@ PyTorch port of khmer_tpu/cli/filter_abund.py (reference
 scripts/filter-abund.py): the same flags and outputs, plus --device. The
 per-read counts are read on the countgraph's device a window of reads at
 a time (kernel H on the card, core/diginorm_scan.py read_counts_window),
-the bigcount map included, as JAX's pipeline.counts_for_records reads it.
+the bigcount map included, as JAX's pipeline.counts_for_records reads it;
+a SmallCountgraph's (filter-abund-single --small-count) through the
+port's pipeline.counts_for_records (kernel Q on the card).
 
 % python -m khmer_tpu_torch.cli.filter_abund <counting.ct> <data1> [ ... ]
 """
@@ -19,6 +21,7 @@ from khmer_tpu_torch.cli.args import (FileType as khFileType,
                                       KhmerArgumentParser,
                                       add_threading_args,
                                       check_argument_range, sanitize_help)
+from khmer_tpu_torch.core import pipeline
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.core.diginorm_scan import read_counts_window
 from khmer_tpu_torch.io.fastx import ReadParser, write_record
@@ -28,7 +31,7 @@ from khmer_tpu_torch.utils.kfile import (add_output_compression_type,
                                          get_file_writer)
 from khmer_tpu_torch.utils.logger import (configure_logging, log_error,
                                           log_info)
-from khmer_tpu_torch.utils.trimming import _apply_trim
+from khmer_tpu_torch.utils.trimming import _apply_trim, trim_pos_from_counts
 
 DEFAULT_NORMALIZE_LIMIT = 20
 DEFAULT_CUTOFF = 2
@@ -116,8 +119,17 @@ def filter_file(graph, filename, outfp, cutoff, variable_coverage,
 def _filter_window(graph, window, outfp, cutoff, variable_coverage,
                    normalize_to, big):
     ksize = graph.ksize()
-    trims, n_ge = read_counts_window(graph, window, cutoff, normalize_to,
-                                     big)
+    if graph.storage_kind != "byte":
+        # a SmallCountgraph: each read's counts from kernel Q
+        # (pipeline.counts_for_records), as JAX's device path reads them
+        trims, n_ge = [], []
+        for record, counts in pipeline.counts_for_records(graph, window):
+            n = len(record.cleaned_seq)
+            trims.append(trim_pos_from_counts(counts, ksize, cutoff, n))
+            n_ge.append(int((counts >= normalize_to).sum()))
+    else:
+        trims, n_ge = read_counts_window(graph, window, cutoff,
+                                         normalize_to, big)
     for record, trim_at, ge in zip(window, trims, n_ge):
         # median_at_least_from_counts (utils/trimming.py)
         min_req = int(0.5 + (len(record.cleaned_seq) - ksize + 1) / 2.0)

@@ -3,10 +3,13 @@
 
 PyTorch port of khmer_tpu/cli/normalize_by_median.py (reference
 scripts/normalize-by-median.py): the same flags and .keep outputs, plus
---device. The sequential keep/discard loop always runs on the sketch's
-device, a window of bundles at a time (core/diginorm_scan.py
-ScanNormalizer): on the card, the median test is kernel E and the
-keep/consume scan kernel F, which update the u8 tables in place. -R
+--device. The sequential keep/discard loop runs on the sketch's device, a
+window of bundles at a time (core/diginorm_scan.py ScanNormalizer): on
+the card, the median test is kernel E and the keep/consume scan kernel
+F, which update the u8 tables in place. With --small-count (a
+SmallCountgraph's nibble tables) the host walks each window over one
+gather of its counters (core/diginorm.py BatchedNormalizer: kernel R,
+then kernel P's commit), as JAX's does. -R
 report rows carry the same (total, kept) values as the reference —
 accounting is per bundle — but rows are emitted when a window flushes.
 
@@ -28,6 +31,7 @@ from khmer_tpu_torch.cli.args import (FileType as khFileType,
                                       calculate_graphsize,
                                       check_argument_range, report_on_config,
                                       sanitize_help)
+from khmer_tpu_torch.core.diginorm import BatchedNormalizer
 from khmer_tpu_torch.core.diginorm_scan import ScanNormalizer
 from khmer_tpu_torch.io.fastx import FastxParser, write_record
 from khmer_tpu_torch.io.pairing import (broken_paired_reader,
@@ -197,8 +201,9 @@ def get_parser():
 
 
 def main(argv=None):  # pylint: disable=too-many-branches,too-many-statements
-    """Run the command; returns the ScanNormalizer it ran, whose counters
-    (scan_runs, candidates) say what the scan did."""
+    """Run the command; returns the normalizer it ran: a ScanNormalizer,
+    whose counters (scan_runs, candidates) say what the scan did, or on
+    nibble tables a BatchedNormalizer."""
     parser = sanitize_help(get_parser())
     args = parser.parse_args(argv)
 
@@ -235,7 +240,12 @@ def main(argv=None):  # pylint: disable=too-many-branches,too-many-statements
         log_info('making countgraph on {device}', device=args.device)
         countgraph = khmer_args.create_countgraph(args, device=args.device)
 
-    norm = ScanNormalizer(countgraph, args.cutoff)
+    if countgraph.storage_kind == "byte":
+        norm = ScanNormalizer(countgraph, args.cutoff)
+    else:
+        # a SmallCountgraph (--small-count): the window walked on the
+        # host over kernel R's counters, its consumes committed by P
+        norm = BatchedNormalizer(countgraph, args.cutoff)
     diag = WithDiagnostics(report_fp, args.report_frequency)
 
     files = []

@@ -8,7 +8,10 @@ coverage and --diginorm): the same flags and outputs, plus --device. Pass
 runs on the countgraph's device a window of bundles at a time
 (core/diginorm_scan.py ScanTrimmerState: kernel G on the card, updating
 the u8 tables in place). Pass 2 reads the finished countgraph (kernel H,
-one launch a window). Outputs do not depend on the window size; only the
+one launch a window). With --small-count (a SmallCountgraph's nibble
+tables) both passes walk a window's bundles on the host over one gather
+of its counters (core/diginorm.py SeqWindow: kernel R, then kernel P's
+commit), as JAX's do. Outputs do not depend on the window size; only the
 "..." progress lines come at other reads than the JAX CLI's.
 
 % python -m khmer_tpu_torch.cli.trim_low_abund [ <data1> [ <data2> ... ] ]
@@ -29,6 +32,7 @@ from khmer_tpu_torch.cli.args import (FileType as khFileType,
                                       build_counting_args,
                                       calculate_graphsize, report_on_config,
                                       sanitize_help)
+from khmer_tpu_torch.core.diginorm import SeqWindow
 from khmer_tpu_torch.core.diginorm_scan import (ScanTrimmerState,
                                                 read_counts_window)
 from khmer_tpu_torch.io.fastx import ReadParser, write_record
@@ -38,8 +42,10 @@ from khmer_tpu_torch.utils.kfile import (add_output_compression_type,
                                          check_valid_file_exists,
                                          get_file_writer)
 from khmer_tpu_torch.utils.logger import (configure_logging, log_error,
-                                          log_info, print_error)
-from khmer_tpu_torch.utils.trimming import _apply_trim
+                                          log_info)
+from khmer_tpu_torch.utils.trimming import (_apply_trim,
+                                            median_at_least_from_counts,
+                                            trim_pos_from_counts)
 
 DEFAULT_TRIM_AT_COVERAGE = 20
 DEFAULT_CUTOFF = 2
@@ -153,8 +159,9 @@ def _at_least(n_ge, record, k):
 
 
 class Trimmer:
-    """Two-pass trimmer (reference Trimmer, :162-280): pass 1 on the scan
-    (ScanTrimmerState), pass 2 on the read-only count kernel."""
+    """Two-pass trimmer (reference Trimmer, :162-280): on byte tables pass
+    1 on the scan (ScanTrimmerState) and pass 2 on the read-only count
+    kernel; on nibble tables both over SeqWindow."""
 
     def __init__(self, graph, do_trim_low_abund, cutoff,
                  trim_at_coverage):
@@ -177,6 +184,10 @@ class Trimmer:
         self.diginorm_coverage = coverage
 
     def pass1(self, reader, saver):
+        if self.graph.storage_kind != "byte":
+            for window in _windows(reader):
+                yield from self._pass1_host_window(window, saver)
+            return
         k = self.graph.ksize()
         if self.scan is None:
             self.scan = ScanTrimmerState(
@@ -202,9 +213,45 @@ class Trimmer:
                         write_record(read, saver)
                         self.n_saved += 1
 
+    def _pass1_host_window(self, window, saver):
+        """Pass 1 of a window on a SmallCountgraph, as JAX's does
+        (cli/trim_low_abund.py _pass1_host_window): kernel R gathers the
+        window's counters once, the host walks its bundles in order with
+        the adds of the consumed ones (core/diginorm.py SeqWindow), and
+        kernel P commits those at the window's end."""
+        k = self.graph.ksize()
+        seqs = [r.cleaned_seq for b in window for r in b]
+        win = SeqWindow(self.graph, seqs)
+        si = 0
+        for bundle in window:
+            idxs = list(range(si, si + len(bundle)))
+            si += len(bundle)
+            self.n_reads += len(bundle)
+            self.n_bp += sum(len(r.sequence) for r in bundle)
+            min_coverage = min(win.median(i) for i in idxs)
+            if self.do_normalize and min_coverage >= self.diginorm_coverage:
+                continue
+            if min_coverage >= self.trim_at_coverage:
+                for i, read in zip(idxs, bundle):
+                    record, did_trim = _apply_trim(k, read, _trim_at(
+                        win.counts(i), k, self.cutoff, read))
+                    if did_trim:
+                        self.trimmed_reads += 1
+                    if record:
+                        yield record
+            else:
+                for i, read in zip(idxs, bundle):
+                    win.consume(i)
+                    write_record(read, saver)
+                    self.n_saved += 1
+        win.flush()
+
     def pass2(self, reader):
         """The reads kept aside, against the finished countgraph (no
         bigcount, as the JAX pass 2 reads the tables)."""
+        if self.graph.storage_kind != "byte":
+            yield from self._pass2_windows(reader)
+            return
         k = self.graph.ksize()
         for window in _windows(reader):
             recs = [r for b in window for r in b]
@@ -230,6 +277,43 @@ class Trimmer:
                         self.n_skipped += 1
                         self.bp_skipped += 1
                         yield read
+
+    def _pass2_windows(self, reader):
+        """Pass 2 on a SmallCountgraph, as JAX's device engine runs it: a
+        window's counts from one gather of kernel R (SeqWindow, nothing
+        consumed)."""
+        k = self.graph.ksize()
+        for window in _windows(reader):
+            win = SeqWindow(self.graph,
+                            [r.cleaned_seq for b in window for r in b])
+            si = 0
+            for bundle in window:
+                idxs = range(si, si + len(bundle))
+                si += len(bundle)
+                self.n_reads += len(bundle)
+                self.n_bp += sum(len(r.sequence) for r in bundle)
+                if self.do_trim_low_abund or all(
+                        median_at_least_from_counts(
+                            win.counts(i), k, self.trim_at_coverage,
+                            len(read.cleaned_seq))
+                        for i, read in zip(idxs, bundle)):
+                    for i, read in zip(idxs, bundle):
+                        record, did_trim = _apply_trim(k, read, _trim_at(
+                            win.counts(i), k, self.cutoff, read))
+                        if did_trim:
+                            self.trimmed_reads += 1
+                        if record:
+                            yield record
+                else:
+                    for read in bundle:
+                        self.n_skipped += 1
+                        self.bp_skipped += 1
+                        yield read
+
+
+def _trim_at(counts, k, cutoff, read):
+    """A read's trim position from its window counts (trim_on_abundance)."""
+    return trim_pos_from_counts(counts, k, cutoff, len(read.cleaned_seq))
 
 
 def store_provenance_info(info, fname, format='json'):
@@ -296,13 +380,10 @@ def main(argv=None):  # pylint: disable=too-many-branches,too-many-statements
                   "be provided with -o.")
         sys.exit(1)
 
-    if args.small_count:
-        print_error("** ERROR: --small-count (the nibble SmallCountgraph) "
-                    "is not yet ported to khmer_tpu_torch.")
-        sys.exit(1)
     if args.loadgraph:
         log_info('loading countgraph from {graph}', graph=args.loadgraph)
-        ct = load_countgraph(args.loadgraph, device=args.device)
+        ct = load_countgraph(args.loadgraph, device=args.device,
+                             small=args.small_count)
     else:
         log_info('making countgraph on {device}', device=args.device)
         ct = khmer_args.create_countgraph(args, device=args.device)

@@ -19,8 +19,9 @@ bundles:
 
 On byte tables the kernels run the whole scan instead
 (core/diginorm_scan.py ScanNormalizer, which the normalize-by-median CLI
-uses); this engine serves the other storage kinds and is the tests'
-second reference.
+uses); this engine serves the other storage kinds (a SmallCountgraph's
+nibble tables: kernel R gathers the window's counters, kernel P commits
+its consumes) and is the tests' second reference.
 """
 
 import numpy as np
@@ -37,8 +38,11 @@ MAX_KCOUNT = K.MAX_KCOUNT
 def make_pertable_counts(kind, primes, k, hash_family):
     """fn(tables, codes [B, L], lengths [B]) -> (hashes [B, W] int64,
     per-table counter values [T, B, W] int32, valid [B, W] bool), on the
-    tables' device."""
-    if kind not in ("byte", "bit"):
+    tables' device. Nibble tables take the per-table gather of
+    sketch_kernels.pertable_counts (kernel R on the card); byte and bit
+    tables are read here in plain PyTorch (only tests take them: the CLIs
+    run kernels E-H on byte tables)."""
+    if kind not in ("byte", "nibble", "bit"):
         raise NotImplementedError("%s tables are not yet ported" % kind)
     primes = tuple(int(p) for p in primes)
 
@@ -47,6 +51,11 @@ def make_pertable_counts(kind, primes, k, hash_family):
         hashes = H.hash_windows(codes, k, hash_family)
         win = torch.arange(W, device=codes.device)[None, :]
         valid = win <= (lengths.to(torch.int64)[:, None] - k)
+        if kind == "nibble":
+            per = K.pertable_counts(kind, primes, tables,
+                                    hashes.reshape(-1).contiguous())
+            return (hashes, per.reshape(len(primes), *hashes.shape).to(
+                torch.int32), valid)
         per = []
         for t, p in enumerate(primes):
             bins = umod(hashes, p)
@@ -68,8 +77,12 @@ class SeqWindow:
 
     One device pass gathers per-table base counts for every sequence;
     effective counts (reflecting consumes committed earlier within the
-    window, tracked via a (table, counter) -> adds delta map) then equal
-    what the sequential reference would observe at each stream point.
+    window, tracked as adds per (table, counter)) then equal what the
+    sequential reference would observe at each stream point. The
+    window's distinct (table, counter) pairs are numbered on the device
+    once (torch.unique), so the adds are one numpy array indexed by those
+    numbers: a read's counts and consume are each one vectorized step on
+    the host.
     """
 
     def __init__(self, graph, seqs):
@@ -78,26 +91,27 @@ class SeqWindow:
         self._primes = tuple(graph._primes)
         self._sat = {"nibble": 15, "bit": 1}.get(
             graph.storage_kind, MAX_KCOUNT)
-        self._delta = {}
+        self._delta = None
+        self._consumed = False
         self._commit = []
         self._data = []
         if seqs:
-            hashes, per, lengths = self._eval(seqs)
-            T = len(self._primes)
+            hashes, per, ids, repeats, lengths = self._eval(seqs)
+            self._delta = np.zeros(int(ids.max()) + 1, dtype=np.int32)
             for s in range(len(seqs)):
                 nwin = int(lengths[s]) - self.k + 1
                 if nwin <= 0:
-                    self._data.append((None, None, None, 0))
+                    self._data.append((None, None, None, 0, False))
                     continue
-                h = hashes[s, :nwin]
-                base = per[:, s, :nwin].astype(np.int32)
-                keys = np.empty((T, nwin), dtype=np.uint64)
-                for t in range(T):
-                    keys[t] = (h % np.uint64(self._primes[t])
-                               + (np.uint64(t) << np.uint64(60)))
-                self._data.append((h, base, keys, nwin))
+                self._data.append((hashes[s, :nwin], per[:, s, :nwin],
+                                   ids[:, s, :nwin], nwin,
+                                   bool(repeats[s])))
 
     def _eval(self, seqs):
+        """(hashes u64 [B, W], base counters int32 [T, B, W], the number
+        of each (table, counter) pair among the window's, int64 [T, B, W],
+        whether a sequence's windows touch one pair more than once, bool
+        [B], lengths [B]) of the window's sequences."""
         k = self.k
         fn = make_pertable_counts(self.graph.storage_kind, self._primes,
                                   k, self.graph.hash_family)
@@ -113,40 +127,53 @@ class SeqWindow:
             codes[i, : len(c)] = c
             lengths[i] = len(c)
         dev = self.graph.device
-        hashes, per, _ = fn(self.graph.tables,
-                            torch.from_numpy(codes).to(dev),
-                            torch.from_numpy(lengths).to(dev))
+        hashes, per, valid = fn(self.graph.tables,
+                                torch.from_numpy(codes).to(dev),
+                                torch.from_numpy(lengths).to(dev))
+        T = len(self._primes)
+        keys = torch.stack([umod(hashes, p) * T + t
+                            for t, p in enumerate(self._primes)])
+        ids = torch.unique(keys, return_inverse=True)[1]
+        # the rows whose valid windows touch one pair twice
+        npairs = int(ids.max()) + 1
+        row = torch.arange(B, device=dev)[None, :, None]
+        seen, n = torch.unique((row * npairs + ids)[valid.expand_as(ids)],
+                               return_counts=True)
+        repeats = torch.zeros(B, dtype=torch.bool, device=dev)
+        repeats[seen[n > 1] // npairs] = True
         return (hashes.cpu().numpy().view(np.uint64), per.cpu().numpy(),
-                lengths)
+                ids.cpu().numpy(), repeats.cpu().numpy(), lengths)
 
     def counts(self, idx):
         """Effective min-over-tables counts of sequence idx, as the
         sequential reference would see them right now."""
-        h, base, keys, nwin = self._data[idx]
+        h, base, ids, nwin, _ = self._data[idx]
         if nwin == 0:
             return np.zeros(0, np.int32)
         counts = base
-        if self._delta:
-            adj = np.zeros_like(base)
-            delta = self._delta
-            flat = keys.ravel()
-            for j in range(flat.shape[0]):
-                d = delta.get(int(flat[j]))
-                if d:
-                    adj.flat[j] = d
-            counts = np.minimum(base + adj, self._sat)
+        if self._consumed:
+            counts = np.minimum(base + self._delta[ids], self._sat)
         return counts.min(axis=0)
+
+    def median(self, idx):
+        """Medioid effective count of sequence idx (reference
+        get_median_count); raises for one shorter than k, as JAX's does."""
+        eff = self.counts(idx)
+        if eff.size == 0:
+            raise ValueError("no k-mer counts for this string; too short?")
+        return int(np.sort(eff)[eff.size // 2])
 
     def consume(self, idx):
         """Record sequence idx as consumed (affects later counts)."""
-        h, base, keys, nwin = self._data[idx]
+        h, base, ids, nwin, repeats = self._data[idx]
         if nwin == 0:
             return
         self._commit.append(h)
-        delta = self._delta
-        for key in keys.ravel():
-            key = int(key)
-            delta[key] = delta.get(key, 0) + 1
+        if repeats:  # a pair that it touches twice takes both adds
+            np.add.at(self._delta, ids.ravel(), 1)
+        else:
+            self._delta[ids] += 1
+        self._consumed = True
 
     def flush(self):
         """Apply all consumes to the sketch, in stream order."""

@@ -76,6 +76,16 @@ def dense_hashes(codes, offs, lens, k):
     return hashes, read_start
 
 
+def check_probe_kind(graph):
+    """Raise unless the graph's tables have a neighbour probe: kernel L
+    (bit tables) or N (byte tables). A SmallCountgraph's nibble tables
+    have none yet."""
+    if graph.storage_kind not in ("bit", "byte"):
+        raise NotImplementedError(
+            "the neighbour probe of %s tables (a %s's graph) is not yet "
+            "ported" % (graph.storage_kind, type(graph).__name__))
+
+
 class HashgraphMixin:
     """The graph API mixed into Countgraph and Nodegraph."""
 
@@ -380,6 +390,7 @@ class HashgraphMixin:
         from khmer_tpu_torch.core import sketch_kernels as K
         from khmer_tpu_torch.core.sketch import _hashes_tensor
 
+        check_probe_kind(self)
         f = _hashes_tensor(f_arr, self.device)
         r = _hashes_tensor(r_arr, self.device)
         probe = (K.byte_neighbors if self.storage_kind == "byte"

@@ -10,6 +10,9 @@ sketches (little-endian):
                      n_bigcounts:u64 {hash:u64 count:u16}*
   Nodegraph (.pt):   "OXLI" ver=4 type=2 ksize:u32 n_tables:u8 occupied:u64
                      {tablesize:u64 bins:u8[n/8+1]}*
+  SmallCountgraph:   "OXLI" ver=4 type=7 ksize:u32 n_tables:u8 occupied:u64
+                     {tablesize:u64 bins:u8[n/2+1]}* (no bigcount byte or
+                     trailer)
   Tagset (.tagset):  "OXLI" ver=4 type=3 ksize:u32 n_tags:u64 density:u32
                      tags:u64[n_tags] (ascending)
   Stoptags:          "OXLI" ver=4 type=4 ksize:u32 n_tags:u64 tags:u64[n]
@@ -43,8 +46,13 @@ _TYPE_NAMES = {
     SAVED_TAGS: "tagset",
     SAVED_STOPTAGS: "stoptags",
     SAVED_SUBSET: "subset",
+    SAVED_SMALLCOUNT: "small k-mer count graph",
 }
-_TYPE_OF_KIND = {"byte": SAVED_COUNTING_HT, "bit": SAVED_HASHBITS}
+_TYPE_OF_KIND = {"byte": SAVED_COUNTING_HT, "nibble": SAVED_SMALLCOUNT,
+                 "bit": SAVED_HASHBITS}
+# bytes a table of `tablesize` counters takes on disk, by storage kind
+_TABLE_BYTES = {"byte": lambda n: n, "nibble": lambda n: n // 2 + 1,
+                "bit": lambda n: n // 8 + 1}
 
 
 def _open_read(path):
@@ -83,7 +91,8 @@ def _check_header(f, expect_type, path, what):
 
 
 def save_sketch(sketch, path):
-    """Save a Countgraph (type 1) or Nodegraph (type 2) in OXLI v4."""
+    """Save a Countgraph (type 1), Nodegraph (type 2) or SmallCountgraph
+    (type 7) in OXLI v4."""
     kind = sketch.storage_kind
     if kind not in _TYPE_OF_KIND:
         raise ValueError("cannot save storage kind %r" % kind)
@@ -111,7 +120,7 @@ def _read_tables(f, path, kind):
     tables = []
     for _ in range(n_tables):
         (tablesize,) = struct.unpack("<Q", f.read(8))
-        nbytes = tablesize if kind == "byte" else tablesize // 8 + 1
+        nbytes = _TABLE_BYTES[kind](tablesize)
         data = f.read(nbytes)
         if len(data) != nbytes:
             raise OSError("Error reading from: " + path)
@@ -145,11 +154,14 @@ def load_sketch(cls, path, device="cuda"):
     return obj
 
 
-def load_countgraph(path, device="cuda"):
-    """Load a Countgraph (.ct, type 1) onto `device`."""
-    from khmer_tpu_torch.core.sketch import Countgraph
+def load_countgraph(path, device="cuda", small=False):
+    """Load a Countgraph (.ct, type 1), or with `small` a SmallCountgraph
+    (type 7), onto `device`; a file of the other type raises, as in the
+    JAX package."""
+    from khmer_tpu_torch.core.sketch import Countgraph, SmallCountgraph
 
-    return load_sketch(Countgraph, path, device)
+    return load_sketch(SmallCountgraph if small else Countgraph, path,
+                       device)
 
 
 def load_nodegraph(path, device="cuda"):

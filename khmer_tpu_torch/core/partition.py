@@ -54,6 +54,7 @@ import struct
 import numpy as np
 import torch
 
+from khmer_tpu_torch.core.graphmixin import check_probe_kind
 from khmer_tpu_torch.ops import hashing as H
 
 BIG_TRAVERSALS_ARE = 200  # reference: subset.cc:54
@@ -271,6 +272,7 @@ class _Prober:
         from khmer_tpu_torch.core import sketch_kernels as K
         from khmer_tpu_torch.ops.host import PROBE_FN
 
+        check_probe_kind(graph)
         self.graph = graph
         self.dev = graph.tables.flat.device
         self.cuda = self.dev.type == "cuda"
@@ -810,7 +812,8 @@ class SubsetPartition:
                                       frequency, counting):
         """Find the highly connected k-mers of the largest partition and
         make them stop tags, then partition its tags again
-        (subset.cc:1218-1359; see above). `counting` (a Countgraph) counts
+        (subset.cc:1218-1359; see above). `counting` (a Countgraph or a
+        SmallCountgraph) counts
         the k-mers of every excursion of at least `threshold` nodes, within
         `distance` of its tag; a k-mer counted more than `frequency` times
         becomes a stop tag. Returns the size of the next-largest
@@ -838,6 +841,10 @@ class SubsetPartition:
         todo = _sorted_tags([t for t in bigtags
                              if t not in graph.repart_small_tags])
         staging = _Staging(counting.device)
+        # the most a counter holds: the evaluation saturates the batch's
+        # earlier adds there, as the table does
+        saturation = (K.NIBBLE_MAX if counting.storage_kind == "nibble"
+                      else K.MAX_KCOUNT)
         size = min(REPART_BATCH, REPART_FIRST)
         at = 0
         while at < len(todo):
@@ -850,7 +857,7 @@ class SubsetPartition:
                     counting.tables, staging.upload(walk, threshold))
                 stops, adds, small, _ = walk.evaluate(
                     staging.download(base), counting._primes, threshold,
-                    frequency)
+                    frequency, saturation)
                 held = walk.keeper_bytes()
             finally:
                 walk.close()

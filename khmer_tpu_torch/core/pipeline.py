@@ -1,7 +1,7 @@
 """Host->device streaming pipeline — counterpart of
 khmer_tpu/core/pipeline.py for the dense counting path, the abundance
-histogram and the per-read counts (counts_for_records, kernel H's counts
-mode).
+histogram and the per-read counts (counts_for_records: kernel H's counts
+mode on byte tables, kernel Q on nibble ones).
 
 Counting: the host packs reads (FlatPacker or the native parser) and
 hashes them into fixed-size chunks of canonical k-mer hashes
@@ -300,12 +300,17 @@ def counts_for_records(sketch, records, window=COUNTS_WINDOW):
     of its cleaned sequence's windows; empty for one shorter than k), as
     JAX's pipeline.counts_for_records gives them (:755-817). A window of
     records goes up as 2-bit codes, a byte a base, packed in runs of one
-    row length (diginorm_scan.row_runs); kernel H's counts mode returns
-    each window's least counter, a byte a k-mer, and the host reads a 255
-    through the bigcount map (Countgraph._bigcount_fix)."""
-    if sketch.storage_kind != "byte":
+    row length (diginorm_scan.row_runs). On a Countgraph's byte tables
+    kernel H's counts mode returns each window's least counter, a byte a
+    k-mer, and the host reads a 255 through the bigcount map
+    (Countgraph._bigcount_fix); on a SmallCountgraph's nibble tables the
+    windows are hashed on the device (hash_batch) and kernel Q gathers
+    their counts, as JAX's device path does (make_hash_batch, then
+    _get_fn)."""
+    if sketch.storage_kind not in ("byte", "nibble"):
         raise ValueError("counts_for_records reads a Countgraph's byte "
-                         "tables, not %s ones" % sketch.storage_kind)
+                         "tables or a SmallCountgraph's nibble tables, not "
+                         "%s ones" % sketch.storage_kind)
     batch = []
     for record in records_from(records):
         batch.append(record)
@@ -326,11 +331,16 @@ def _window_counts(sketch, records):
     for start, stop, L in row_runs([[records[i]] for i in live], k):
         rows = live[start:stop]
         codes, lengths = pack_reads([seqs[i] for i in rows], L)
-        got = K.read_window_counts(
-            sketch._primes, k, sketch.tables.flat,
-            torch.from_numpy(codes).to(sketch.device),
-            torch.from_numpy(lengths).to(sketch.device)).cpu().numpy()
-        got = got.astype(np.uint32)
+        codes = torch.from_numpy(codes).to(sketch.device)
+        lengths = torch.from_numpy(lengths).to(sketch.device)
+        if sketch.storage_kind == "byte":
+            got = K.read_window_counts(sketch._primes, k, sketch.tables.flat,
+                                       codes, lengths)
+        else:
+            got = K._gather_counts(sketch.storage_kind, sketch._primes,
+                                   sketch.tables,
+                                   hash_batch(codes, lengths, k)[0])
+        got = got.cpu().numpy().astype(np.uint32)
         for j, i in enumerate(rows):
             counts[i] = got[j, :len(seqs[i]) - k + 1]
     big = sketch._use_bigcount and sketch._bigcounts

@@ -6,8 +6,9 @@ so a stream of updates never waits for the host. Updates run in place.
 Every constructor and loader takes ``device``, "cuda" unless the caller
 asks for another; with no CUDA device that raises, and never falls back
 to the CPU. Ported here: the base class, the byte-storage Countgraph
-(with the host-side bigcount map, reference storage.hh:513), and the
-bit-storage Nodegraph, the tracking table of the abundance histogram;
+(with the host-side bigcount map, reference storage.hh:513), the
+nibble-storage SmallCountgraph, and the bit-storage Nodegraph, the
+tracking table of the abundance histogram;
 the blocked countgraph is in core/blocked.py. The Countgraph and the
 Nodegraph are de Bruijn graphs (core/graphmixin.py): tagged as they
 consume, probed for neighbours (kernels N and L), partitioned and swept.
@@ -43,7 +44,7 @@ def _hashes_tensor(hashes, device):
 class _Sketch:
     """Base: k-mer hashing + batched sketch updates/queries."""
 
-    storage_kind = None   # "byte" | "blocked" | "bit"
+    storage_kind = None   # "byte" | "nibble" | "blocked" | "bit"
     hash_family = "twobit"
     supports_bigcount = False
 
@@ -415,6 +416,88 @@ def median_avg_stddev(counts):
     return int(med[0]), float(avg[0]), float(std[0])
 
 
+class SmallCountgraph(HashgraphMixin, _Sketch):
+    """Count-Min sketch of 4-bit saturating counters over T prime tables,
+    with the 2-bit hash (reference SmallCountgraph; JAX sketch.py:716-723):
+    half the memory of a Countgraph's tables for the same size, or twice
+    the counters in the same memory. No bigcount.
+
+    The T tables are views into one flat buffer (sketch_kernels.
+    NibbleTables); on a CUDA device the update is kernel P, which keeps
+    only the chunk's scratch, and the counts come from kernel Q. Its
+    tags and stop tags are the graph mixin's; a neighbour probe of nibble
+    tables is not ported yet and raises (HashgraphMixin.neighbors_batch,
+    partition._Prober)."""
+
+    storage_kind = "nibble"
+
+    def __init__(self, ksize, starting_size, n_tables, primes=None, *,
+                 device="cuda"):
+        if primes is None:
+            primes = K.get_n_primes_near_x(int(n_tables), int(starting_size))
+        super().__init__(ksize, primes, device=device)
+        self._init_graph()
+
+    def _update(self, hashes, nvalid, with_event_new=False):
+        """Kernel P (or its plain version) on hashes[:nvalid]; with
+        with_event_new, returns each event's new flag (bool [nvalid] on
+        the device)."""
+        return K.nibble_update(
+            self._primes, self.tables.flat, self._n_unique, hashes, nvalid,
+            scratch=self._update_scratch(nvalid, len(self._primes)),
+            with_event_new=with_event_new)
+
+    def _update_with_flags(self, hashes, nvalid):
+        """_update, returning each event's new flag (the tagged consume)."""
+        return self._update(hashes, nvalid, with_event_new=True)
+
+    def _count_nonzero_t0(self):
+        return int(K.nibble_occupied(self.tables[0]))
+
+    # -- sequence-level queries (kernel Q), as JAX's _Sketch defines them --
+
+    def get_kmer_counts(self, seq):
+        """Each k-mer's count, a list of ints; [] for a sequence shorter
+        than k."""
+        return [int(c) for c in self.get_counts_for_hashes(
+            self._hashes_for_sequence(seq))]
+
+    def get_min_count(self, seq):
+        counts = self.get_kmer_counts(seq)
+        return min(min(counts), MAX_KCOUNT) if counts else MAX_KCOUNT
+
+    def get_max_count(self, seq):
+        counts = self.get_kmer_counts(seq)
+        return max(counts) if counts else 0
+
+    def get_median_count(self, seq):
+        """(median, average, stddev) of the k-mer counts of a sequence
+        (median_avg_stddev)."""
+        counts = self.get_counts_for_hashes(self._hashes_for_sequence(seq))
+        if counts.size == 0:
+            raise ValueError("no k-mer counts for this string; too short?")
+        return median_avg_stddev(counts)
+
+    def median_at_least(self, seq, cutoff):
+        """True if the medioid count is >= cutoff (diginorm primitive;
+        reference hashtable.cc:333-364)."""
+        counts = self.get_counts_for_hashes(self._hashes_for_sequence(seq))
+        if counts.size == 0:
+            raise ValueError("no k-mer counts for this string; too short?")
+        min_req = int(0.5 + (len(seq) - self._ksize + 1) / 2.0)
+        return int((counts >= cutoff).sum()) >= min_req
+
+    def trim_on_abundance(self, seq, min_abund):
+        """Trim at the first k-mer below min_abund: (trimmed_seq, trim_at)
+        (reference hashtable.cc:504-533; a sequence of one k-mer trims to
+        0)."""
+        from khmer_tpu_torch.utils.trimming import trim_pos_from_counts
+
+        counts = self.get_counts_for_hashes(self._hashes_for_sequence(seq))
+        pos = trim_pos_from_counts(counts, self._ksize, min_abund, len(seq))
+        return seq[:pos], pos
+
+
 class Nodegraph(HashgraphMixin, _Sketch):
     """Bloom filter with the 2-bit hash (reference Nodegraph), with the
     tagging part of the graph API (core/graphmixin.py).
@@ -447,9 +530,11 @@ class Nodegraph(HashgraphMixin, _Sketch):
 
 
 def from_numpy_state(ksize, primes, tables, n_unique, occupied_offset,
-                     device="cuda", **graph_state):
-    """A Nodegraph holding the given state (see
-    Nodegraph.from_numpy_state)."""
-    return Nodegraph.from_numpy_state(ksize, primes, tables, n_unique,
-                                      occupied_offset, device,
-                                      **graph_state)
+                     device="cuda", kind="bit", **graph_state):
+    """A graph of storage kind `kind` ("bit": a Nodegraph, "byte": a
+    Countgraph, "nibble": a SmallCountgraph) holding the given state (see
+    _Sketch.from_numpy_state)."""
+    cls = {"bit": Nodegraph, "byte": Countgraph,
+           "nibble": SmallCountgraph}[kind]
+    return cls.from_numpy_state(ksize, primes, tables, n_unique,
+                                occupied_offset, device, **graph_state)

@@ -2,7 +2,8 @@
 
 Counterpart of khmer_tpu/core/sketch_kernels.py, the subset the counting
 slices need: the exact byte layout (update with its bigcount report,
-gather, the per-table gather (kernel M), occupancy), the bit (Bloom)
+gather, the per-table gather (kernel M), occupancy), the nibble layout
+(update, gather and per-table gather: kernels P, Q and R), the bit (Bloom)
 table update with per-event new flags (kernel J: the Nodegraph and the
 abundance histogram's tracking table), the HLL add (kernel K), the
 8-neighbour probe of the bit tables and their gather (kernel L), the
@@ -141,9 +142,12 @@ def _bit_table_update(table, prime, d):
 
 def _apply_update(kind, primes, tables, d):
     """Update all tables in place; returns any_credit_u [M]: whether the
-    unique slot was first to a fresh bin in any table."""
+    unique slot was first to a fresh bin in any table. Bit tables only: it
+    serves bit_update_plain, and the byte and nibble tables update through
+    byte_update and nibble_update, which take the events themselves."""
     if kind != "bit":
-        raise NotImplementedError("%s tables are not yet ported" % kind)
+        raise ValueError("%s tables update through their own entry point"
+                         % kind)
     any_credit = torch.zeros(d["uh"].shape[0], dtype=torch.bool,
                              device=d["uh"].device)
     for t, p in enumerate(primes):
@@ -1011,19 +1015,23 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _layout(primes, bits=False):
+def _layout(primes, bits=False, nibbles=False):
     """Host int64 arrays of the primes and of the tables' offsets for a C
-    entry point: in bytes (the byte layout) or, with `bits`, in bits (the
-    bit layout), made once for each set of primes (the entry points copy
-    them)."""
-    return _layout_arrays(tuple(int(p) for p in primes), bits)
+    entry point: in bytes (the byte layout), with `bits` in bits (the bit
+    layout) or with `nibbles` in nibbles (the nibble layout), made once
+    for each set of primes (the entry points copy them)."""
+    return _layout_arrays(tuple(int(p) for p in primes), bits, nibbles)
 
 
 @functools.lru_cache(maxsize=16)
-def _layout_arrays(primes, bits):
+def _layout_arrays(primes, bits, nibbles=False):
     arr = ctypes.c_int64 * len(primes)
-    offsets = ([8 * o for o in bit_offsets(primes)] if bits
-               else byte_offsets(primes))
+    if bits:
+        offsets = [8 * o for o in bit_offsets(primes)]
+    elif nibbles:
+        offsets = [2 * o for o in nibble_offsets(primes)]
+    else:
+        offsets = byte_offsets(primes)
     return (arr(*primes), arr(*offsets))
 
 
@@ -1212,6 +1220,266 @@ def byte_occupied(table0):
     total = torch.zeros((), dtype=torch.int64, device=table0.device)
     for lo in range(0, table0.shape[0], OCCUPIED_SLICE):
         total += (table0[lo:lo + OCCUPIED_SLICE] != 0).sum()
+    return total
+
+
+# --------------------------------------------------------------------------
+# the nibble layout (NibbleStorage, reference storage.hh:245-405): the
+# update (kernel P), the count gather (Q) and the per-table gather (R)
+# --------------------------------------------------------------------------
+
+NIBBLE_MAX = 15  # a 4-bit counter saturates here
+
+
+def nibble_table_bytes(prime):
+    """Bytes of one nibble table of `prime` counters, as khmer stores it."""
+    return int(prime) // 2 + 1
+
+
+def nibble_offsets(primes):
+    """Start (in bytes) of each nibble table in the joined buffer."""
+    return [int(o) for o in np.cumsum(
+        [0] + [nibble_table_bytes(p) for p in primes[:-1]])]
+
+
+def nibble_flat_size(primes):
+    """Length of the joined nibble buffer: the tables' bytes, padded to
+    whole 32-bit words (kernel P adds to nibbles with 32-bit atomics;
+    nothing reads or writes the padding)."""
+    return (sum(nibble_table_bytes(p) for p in primes) + 3) // 4 * 4
+
+
+class NibbleTables(tuple):
+    """The T nibble tables of a SmallCountgraph: views of exactly
+    p_t // 2 + 1 bytes (what save and load write) into one flat u8
+    buffer, ``flat``. Counter b of table t is the high nibble of its byte
+    b // 2 for an even b, the low one for an odd b, so flat nibble
+    2 * offset_t + b (even: high): kernel P names every counter of the
+    sketch by one 64-bit index into the flat buffer."""
+
+    def __new__(cls, flat, primes):
+        views = [flat[o:o + nibble_table_bytes(p)]
+                 for o, p in zip(nibble_offsets(primes), primes)]
+        obj = super().__new__(cls, views)
+        obj.flat = flat
+        return obj
+
+
+def _nibbles(flat, idx):
+    """The 4-bit counters at flat nibble indices idx -> int32."""
+    byte = flat[idx >> 1].to(torch.int32)
+    return torch.where((idx & 1) == 1, byte & 0xF, byte >> 4)
+
+
+def _set_nibbles(flat, idx, values):
+    """Write values (< 16) to the distinct flat nibble indices idx, in
+    place: the high nibbles first, then the low ones, each a
+    read-modify-write of its byte, so two nibbles of one byte both land."""
+    for odd, keep, shift in ((0, 0x0F, 4), (1, 0xF0, 0)):
+        sel = (idx & 1) == odd
+        b = idx[sel] >> 1
+        flat[b] = ((flat[b].to(torch.int32) & keep)
+                   | (values[sel].to(torch.int32) << shift)).to(torch.uint8)
+
+
+def nibble_update_plain(primes, flat, n_unique, hashes, nvalid,
+                        with_event_new=False):
+    """Nibble Count-Min update of hashes[:nvalid] in stream order, in
+    place (plain PyTorch, any device): JAX's _nibble_table_update
+    (sketch_kernels.py:167-201, via _apply_update and make_update) for the
+    T prime tables joined in `flat` (NibbleTables):
+      * each counter becomes min(old + occurrences in the chunk, 15);
+      * n_unique (i64 [1]) grows by the unique hashes that are new: a hash
+        is new iff its first event is the lowest-index event of the chunk
+        to touch some counter whose value before the chunk was 0 (JAX's
+        per-parity credits, cred_e | cred_o, name the same events).
+    No bigcount. With with_event_new, returns each event's new flag, bool
+    [nvalid]; else None."""
+    n = int(nvalid)
+    dev = flat.device
+    h = hashes[:n]
+    idx = torch.arange(n, device=dev)
+    fresh = torch.zeros(n, dtype=torch.bool, device=dev)
+    for off, p in zip(nibble_offsets(primes), primes):
+        c = umod(h, p) + 2 * off
+        old = _nibbles(flat, c)
+        uc, inv, cnt = torch.unique(c, return_inverse=True,
+                                    return_counts=True)
+        first = torch.full(uc.shape, n, dtype=torch.int64,
+                           device=dev).scatter_reduce_(0, inv, idx, "amin")
+        fresh |= (first[inv] == idx) & (old == 0)
+        _set_nibbles(flat, uc, (_nibbles(flat, uc) + cnt).clamp_(
+            max=NIBBLE_MAX))
+    n_unique += fresh.sum()
+    return fresh if with_event_new else None
+
+
+def nibble_gather_plain(primes, flat, hashes):
+    """Min over the T nibble tables of each hash's counter, for a hash
+    tensor of any shape -> int32, 15 where no table is lower (plain
+    PyTorch, any device): JAX's _gather_counts, nibble branch (:660)."""
+    counts = torch.full(hashes.shape, NIBBLE_MAX, dtype=torch.int32,
+                        device=hashes.device)
+    for off, p in zip(nibble_offsets(primes), primes):
+        counts = torch.minimum(counts,
+                               _nibbles(flat, umod(hashes, p) + 2 * off))
+    return counts
+
+
+def nibble_pertable_plain(primes, flat, hashes):
+    """Every nibble table's counter of a 1-D hash tensor -> uint8 [T, n]
+    (plain PyTorch, any device): JAX's make_pertable_get, nibble branch
+    (:692)."""
+    return torch.stack([
+        _nibbles(flat, umod(hashes, p) + 2 * off).to(torch.uint8)
+        for off, p in zip(nibble_offsets(primes), primes)])
+
+
+def _check_nibble_args(primes, flat, hashes):
+    dev = flat.device
+    if dev.type != "cuda":
+        raise ValueError("the CUDA kernels take CUDA tensors, not %s" % dev)
+    if not 1 <= len(primes) <= MAX_TABLES:
+        raise ValueError("the nibble kernels take 1 to %d tables, not %d"
+                         % (MAX_TABLES, len(primes)))
+    if (flat.dtype != torch.uint8 or flat.dim() != 1
+            or not flat.is_contiguous() or flat.data_ptr() % 4 != 0
+            or flat.shape[0] != nibble_flat_size(primes)):
+        raise ValueError("flat must be the contiguous, 4-byte aligned "
+                         "uint8 buffer of nibble_flat_size(primes) = %d "
+                         "bytes" % nibble_flat_size(primes))
+    if hashes.device != dev or hashes.dtype != torch.int64 \
+            or hashes.dim() != 1 or not hashes.is_contiguous():
+        raise ValueError("hashes must be a contiguous 1-D int64 tensor on %s"
+                         % dev)
+
+
+def nibble_update_cuda(primes, flat, n_unique, hashes, nvalid, scratch=None,
+                       with_event_new=False):
+    """Kernel P (csrc/nibble_update.cu): nibble_update_plain on the card.
+    `scratch` is as for byte_update_cuda (update_plan(nvalid, T) bytes,
+    sized by the chunk, never by the tables). Returns the new flags, bool
+    [nvalid], with with_event_new; else None. Counts its launches in
+    ``nibble_update_cuda.launches``."""
+    dev = flat.device
+    _check_nibble_args(primes, flat, hashes)
+    n = int(nvalid)
+    if not 0 <= n <= hashes.shape[0]:
+        raise ValueError("nvalid %d outside [0, %d]" % (n, hashes.shape[0]))
+    if (n_unique.device != dev or n_unique.dtype != torch.int64
+            or n_unique.numel() != 1):
+        raise ValueError("n_unique must be an int64 [1] tensor on %s" % dev)
+    flags = (torch.empty(n, dtype=torch.bool, device=dev)
+             if with_event_new else None)
+    if n == 0:
+        return flags
+    # held until the launch: the allocator may not hand it out meanwhile
+    scratch = update_scratch(scratch, n, len(primes), dev)
+    nbuckets, ptr = _scratch_ptrs(scratch, n, len(primes))
+    primes_arr, offsets_arr = _layout(primes, nibbles=True)
+    err = cuda.library().khmer_nibble_update(
+        flat.data_ptr(), flat.shape[0], len(primes),
+        ctypes.addressof(primes_arr), ctypes.addressof(offsets_arr),
+        hashes.data_ptr(), n, nbuckets, *ptr[:4], _ptr(flags),
+        n_unique.data_ptr(), dev.index, _stream(dev))
+    cuda.check(err, "nibble_update")
+    nibble_update_cuda.launches += 1
+    return flags
+
+
+nibble_update_cuda.launches = 0
+
+
+def nibble_update(primes, flat, n_unique, hashes, nvalid, scratch=None,
+                  with_event_new=False):
+    """Nibble update of hashes[:nvalid], in place: kernel P on a CUDA
+    buffer, the plain version on a CPU one. Returns the new flags with
+    with_event_new, else None."""
+    if flat.is_cuda:
+        return nibble_update_cuda(primes, flat, n_unique, hashes, nvalid,
+                                  scratch, with_event_new)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return nibble_update_plain(primes, flat, n_unique, hashes, nvalid,
+                               with_event_new)
+
+
+def nibble_gather_cuda(primes, flat, hashes):
+    """Kernel Q (csrc/nibble_gather.cu): nibble_gather_plain of a 1-D
+    int64 hash tensor -> int32 [n]. Counts its launches in
+    ``nibble_gather_cuda.launches``."""
+    dev = flat.device
+    _check_nibble_args(primes, flat, hashes)
+    n = hashes.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    primes_arr, offsets_arr = _layout(primes, nibbles=True)
+    err = cuda.library().khmer_nibble_gather(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), hashes.data_ptr(), n, out.data_ptr(),
+        dev.index, _stream(dev))
+    cuda.check(err, "nibble_gather")
+    nibble_gather_cuda.launches += 1
+    return out
+
+
+nibble_gather_cuda.launches = 0
+
+
+def nibble_gather(primes, flat, hashes):
+    """Counts of a hash tensor (any shape) in nibble tables -> int32:
+    kernel Q on a CUDA buffer, the plain version on a CPU one."""
+    if flat.is_cuda:
+        flat_h = hashes.reshape(-1).contiguous()
+        return nibble_gather_cuda(primes, flat, flat_h).reshape(hashes.shape)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return nibble_gather_plain(primes, flat, hashes)
+
+
+def nibble_pertable_cuda(primes, flat, hashes):
+    """Kernel R (csrc/nibble_gather.cu): nibble_pertable_plain of a 1-D
+    int64 hash tensor -> uint8 [T, n]. Counts its launches in
+    ``nibble_pertable_cuda.launches``."""
+    dev = flat.device
+    _check_nibble_args(primes, flat, hashes)
+    n = hashes.shape[0]
+    out = torch.empty((len(primes), n), dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    primes_arr, offsets_arr = _layout(primes, nibbles=True)
+    err = cuda.library().khmer_nibble_pertable(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), hashes.data_ptr(), n, out.data_ptr(),
+        dev.index, _stream(dev))
+    cuda.check(err, "nibble_pertable")
+    nibble_pertable_cuda.launches += 1
+    return out
+
+
+nibble_pertable_cuda.launches = 0
+
+
+def nibble_pertable(primes, flat, hashes):
+    """Every nibble table's counter of a 1-D int64 hash tensor -> uint8
+    [T, n]: kernel R on a CUDA buffer, the plain version on a CPU one."""
+    if flat.is_cuda:
+        return nibble_pertable_cuda(primes, flat, hashes)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return nibble_pertable_plain(primes, flat, hashes)
+
+
+def nibble_occupied(table0):
+    """Nonzero nibbles of a nibble table (a device scalar), counted a
+    slice of OCCUPIED_SLICE bytes at a time, as byte_occupied: JAX's
+    make_nibble_occupied (:768), whose count takes in the unused low
+    nibble of an odd prime's last byte, which stays 0."""
+    total = torch.zeros((), dtype=torch.int64, device=table0.device)
+    for lo in range(0, table0.shape[0], OCCUPIED_SLICE):
+        s = table0[lo:lo + OCCUPIED_SLICE]
+        total += ((s >> 4) != 0).sum() + ((s & 0xF) != 0).sum()
     return total
 
 
@@ -2463,8 +2731,8 @@ def histogram_add(out, idx):
 
 def _gather_counts(kind, primes, tables, hashes):
     """Count per hash (any shape) -> int32: the min over tables (byte
-    tables, a ByteTables), or over the four lanes of a blocked table; 0/1
-    presence for bit tables."""
+    tables, a ByteTables; nibble tables, a NibbleTables), or over the four
+    lanes of a blocked table; 0/1 presence for bit tables."""
     if kind == "blocked":
         from khmer_tpu_torch.core import blocked
 
@@ -2473,15 +2741,20 @@ def _gather_counts(kind, primes, tables, hashes):
         return byte_gather(primes, tables.flat, hashes)
     if kind == "bit":
         return bit_gather(primes, tables.flat, hashes)
+    if kind == "nibble":
+        return nibble_gather(primes, tables.flat, hashes)
     raise NotImplementedError("%s tables are not yet ported" % kind)
 
 
 def pertable_counts(kind, primes, tables, hashes):
     """Every table's raw counter of a 1-D int64 hash tensor -> uint8
-    [T, n] (JAX's make_pertable_get): byte tables only so far."""
-    if kind != "byte":
-        raise NotImplementedError("%s tables are not yet ported" % kind)
-    return byte_pertable(primes, tables.flat, hashes)
+    [T, n] (JAX's make_pertable_get): byte tables (kernel M) and nibble
+    tables (kernel R)."""
+    if kind == "byte":
+        return byte_pertable(primes, tables.flat, hashes)
+    if kind == "nibble":
+        return nibble_pertable(primes, tables.flat, hashes)
+    raise NotImplementedError("%s tables are not yet ported" % kind)
 
 
 # abundance-dist's histogram: bins 0..MAX_BIGCOUNT. A slot it does not
@@ -2565,6 +2838,10 @@ def init_tables(kind, primes, device):
         return ByteTables(torch.zeros(byte_flat_size(primes),
                                       dtype=torch.uint8, device=device),
                           primes)
+    if kind == "nibble":
+        return NibbleTables(torch.zeros(nibble_flat_size(primes),
+                                        dtype=torch.uint8, device=device),
+                            primes)
     raise NotImplementedError("%s tables are not yet ported" % kind)
 
 

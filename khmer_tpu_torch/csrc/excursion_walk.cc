@@ -30,12 +30,13 @@
 // when it kept none of the stop tags that the traversals before it in the
 // batch added; otherwise it is walked again. Each k-mer of a traversal of
 // at least `threshold` nodes, in ascending order, reads its counter in
-// every table: the table's byte when the batch began (kernel M), plus the
-// adds of the batch's earlier traversals (saturated at 255, as the card's
-// table byte is), plus the adds of its own traversal's earlier k-mers. A
-// k-mer whose least counter exceeds `frequency` becomes a stop tag; any
-// other is added, to be committed after the batch in the order JAX
-// commits them (kernel A). A traversal under `threshold` nodes makes its
+// every table: the table's counter when the batch began (kernel M, or R
+// in nibble tables), plus the adds of the batch's earlier traversals
+// (saturated where the card's counter is: 255 in a byte, 15 in a nibble),
+// plus the adds of its own traversal's earlier k-mers. A k-mer whose least
+// counter exceeds `frequency` becomes a stop tag; any other is added, to be
+// committed after the batch in the order JAX commits them (kernel A, or P
+// in nibble tables). A traversal under `threshold` nodes makes its
 // start a small tag.
 //
 // The pass driver, the neighbours' arithmetic and the tables (the keeper,
@@ -60,7 +61,6 @@ using khmer_host::PassPart;
 using khmer_host::U64Map;
 using khmer_host::U64Set;
 
-constexpr int kMaxCount = 255;  // a table byte saturates here
 
 struct Excursion {
   uint64_t f0, r0;  // the start
@@ -221,10 +221,13 @@ void kt_exc_keepers(void* walk, long long least, uint64_t* out) {
 // the new stop tags to out_stops and the adds to out_adds, each in the
 // order found, and a flag a traversal to out_small (1: its start is a
 // small tag; 2: it was walked again, at least `threshold` nodes; 3: both);
-// their counts to out_n[0], out_n[1]. Output buffers of m values do.
+// their counts to out_n[0], out_n[1]. Output buffers of m values do. A
+// counter saturates at `saturation` (255 in a byte table, 15 in a nibble
+// table): the earlier traversals' adds go onto the base as the table would
+// hold them, this traversal's on top.
 void kt_exc_evaluate(void* walk, const uint8_t* base, long long m,
                      const long long* primes, int ntables, long long threshold,
-                     long long frequency, uint64_t* out_stops,
+                     long long frequency, int saturation, uint64_t* out_stops,
                      uint64_t* out_adds, uint8_t* out_small,
                      long long* out_n) {
   const Walk& w = walk_of(walk);
@@ -272,7 +275,7 @@ void kt_exc_evaluate(void* walk, const uint8_t* base, long long m,
           const uint64_t kt = key(km, tb);
           long long v = base[tb * m + col + static_cast<long long>(i)]
                         + carried.get(kt);
-          v = std::min<long long>(v, kMaxCount) + local.get(kt);
+          v = std::min<long long>(v, saturation) + local.get(kt);
           cur = cur < 0 ? v : std::min(cur, v);
         }
         if (cur > frequency) {

@@ -52,6 +52,17 @@ _ENTRY_POINTS = {
     # flat, ntables, primes (host), offsets (host), hashes, n, out [T, n],
     # device, stream
     "khmer_byte_pertable": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
+    # flat, size, ntables, primes (host), nibble offsets (host), hashes,
+    # nvalid, nbuckets, ids, start, cursor, ev_word, flags, n_unique,
+    # device, stream
+    "khmer_nibble_update": [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _P,
+                            _P, _P, _P, _P, _I32, _P],
+    # flat, ntables, primes (host), nibble offsets (host), hashes, n, out,
+    # device, stream
+    "khmer_nibble_gather": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
+    # flat, ntables, primes (host), nibble offsets (host), hashes, n,
+    # out [T, n], device, stream
+    "khmer_nibble_pertable": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
     # idx, n, out, nbins, blocks, device, stream
     "khmer_histogram_add": [_P, _I64, _P, _I64, _I32, _I32, _P],
     # bids, offs, m, table, nblocks, nbuckets, ids, start, cursor,

@@ -97,8 +97,8 @@ def library():
                             _I32], _P),
             ("kt_exc_counts", [_P, _P], None),
             ("kt_exc_keepers", [_P, _I64, _P], None),
-            ("kt_exc_evaluate", [_P, _P, _I64, _P, _I32, _I64, _I64, _P, _P,
-                                 _P, _P], None)):
+            ("kt_exc_evaluate", [_P, _P, _I64, _P, _I32, _I64, _I64, _I32,
+                                 _P, _P, _P, _P], None)):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = res
@@ -390,13 +390,14 @@ class ExcursionWalk(_LevelWalk):
         self._lib.kt_exc_keepers(self._walk, int(least), out.ctypes.data)
         return out
 
-    def evaluate(self, base, primes, threshold, frequency):
+    def evaluate(self, base, primes, threshold, frequency, saturation=255):
         """Repartition's evaluation of the batch (see
         csrc/excursion_walk.cc), the traversals in order: base, uint8
         [T, m], each table's counter of keepers(threshold) when the batch
-        began. Returns (the new stop tags, the adds, in the order to
-        commit them, whether each traversal's start is a small tag,
-        whether each was walked again)."""
+        began, in tables whose counters saturate at `saturation` (255 in
+        byte tables, 15 in nibble ones). Returns (the new stop tags, the
+        adds, in the order to commit them, whether each traversal's start
+        is a small tag, whether each was walked again)."""
         if self.max_count:
             raise ValueError("an evaluation takes walks with no max_count")
         base = np.ascontiguousarray(base, dtype=np.uint8)
@@ -411,7 +412,8 @@ class ExcursionWalk(_LevelWalk):
         got = np.zeros(2, np.int64)
         self._lib.kt_exc_evaluate(
             self._walk, base.ctypes.data, m, primes.ctypes.data,
-            len(primes), int(threshold), int(frequency), stops.ctypes.data,
+            len(primes), int(threshold), int(frequency), int(saturation),
+            stops.ctypes.data,
             adds.ctypes.data, flags.ctypes.data, got.ctypes.data)
         return (stops[:got[0]], adds[:got[1]], (flags & 1).astype(bool),
                 (flags & 2).astype(bool))

@@ -1,0 +1,169 @@
+"""Kernels P, Q and R (csrc/nibble_update.cu khmer_nibble_update,
+csrc/nibble_gather.cu khmer_nibble_gather and khmer_nibble_pertable)
+against their plain versions (core/sketch_kernels.py nibble_update_plain,
+nibble_gather_plain, nibble_pertable_plain) on seeded adversarial cases,
+on the card: hashes >= 2^63 and at the edges of the reduction by a
+reciprocal; in-chunk duplicates and one hash 2^20 times, counters driven
+past 15; both nibbles of a byte in one chunk, and the two nibbles of a
+byte in two of the update's buckets; tiny odd primes (tables of two to
+four bytes); a crowded bucket that the update splits; one table and
+twenty; zero-padded tails; and nibble tables of 0.1, 2 and 4 GB. Each
+case commits its chunks through P and through the plain version from
+the same tables (tables, n_unique and each event's new flag compared
+after every chunk), then gathers its hashes and others through Q and R.
+chip_smoke.py phase 3 and tests/test_torch_gpu_kernels.py run them.
+
+    python -m khmer_tpu_torch.scripts.nibble_cases
+"""
+
+import numpy as np
+import torch
+
+from khmer_tpu_torch.core import sketch_kernels as K
+from khmer_tpu_torch.scripts.byte_gather_bench import reduction_edges
+
+CHUNK = 1 << 20  # core/pipeline.py DENSE_CHUNK
+
+# name -> (tables, each prime near, chunks, events a chunk, kind of hash)
+NIBBLE_CASES = {
+    "over-2^63": (4, 1e5, 3, 100_003, "top"),
+    "reduction-edges": (3, 1e6, 2, 65_536, "edges"),
+    "duplicates-past-15": (4, 1e4, 4, 65_536, "duplicates"),
+    "one-hash-x2^20": (4, 1e5, 2, CHUNK, "one"),
+    "both-nibbles-one-chunk": (2, 1e5, 3, 65_536, "pairs"),
+    "both-nibbles-two-buckets": (2, 2e5, 3, 1 << 17, "straddle"),
+    "tiny-odd-primes": (3, 8, 3, 4096, "random"),
+    "crowded-bucket": (2, 1e6, 2, 1 << 18, "crowded"),
+    "one-table": (1, 1e6, 2, 100_003, "random"),
+    "twenty-tables": (20, 1e4, 2, 30_001, "random"),
+    "zero-padded-tail": (4, 1e5, 3, 65_536, "tail"),
+    "0.1-GB": (4, 5e7, 2, CHUNK, "random"),
+    "2-GB": (4, 1e9, 2, CHUNK, "random"),
+    "4-GB": (4, 2e9, 2, CHUNK, "random"),
+}
+
+
+def _straddling(primes, n, ntables):
+    """Table-0 bins 2j + 1 whose nibble starts one of the update's
+    buckets (core/sketch_kernels.py bucket_of over the flat nibbles): the
+    byte's high nibble, bin 2j, lies in the bucket before."""
+    nbuckets = K.update_plan(n, ntables)[0]
+    size = 2 * K.nibble_flat_size(primes)
+    q = (2**64 - 1) // size
+    out = []
+    for b in range(1, nbuckets):
+        # the first nibble of bucket b: bucket_of is monotone
+        lo, hi = 0, size
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if (mid * q * nbuckets) >> 64 < b:
+                lo = mid + 1
+            else:
+                hi = mid
+        if lo % 2 == 1 and lo < primes[0]:
+            out.append(lo)
+    return np.asarray(out, dtype=np.uint64)
+
+
+def _chunk_hashes(name, primes, c, m, rng):
+    """(hashes u64 [m], nvalid) of chunk c of a case."""
+    kind = NIBBLE_CASES[name][4]
+    p0 = np.uint64(primes[0])
+    if kind == "top":
+        h = rng.integers(2**63, 2**64, m, dtype=np.uint64)
+        h[:8] = np.uint64(2**64 - 1) - np.arange(8, dtype=np.uint64)
+    elif kind == "edges":
+        e = reduction_edges(primes, 0)
+        h = np.concatenate([e, rng.integers(0, 2**64, m - len(e),
+                                            dtype=np.uint64)])
+    elif kind == "duplicates":
+        pool = rng.integers(0, 2**64, 500, dtype=np.uint64)
+        h = pool[rng.integers(0, 500, m)]
+    elif kind == "one":
+        h = np.full(m, np.uint64(0xC0FFEE) << np.uint64(40))
+    elif kind in ("pairs", "straddle"):
+        if kind == "pairs":
+            bins = 2 * rng.integers(0, int(p0) // 2, m // 2).astype(
+                np.uint64)
+            bins = np.stack([bins, bins + np.uint64(1)], 1).ravel()
+        else:
+            odd = _straddling(primes, m, len(primes))
+            pick = odd[rng.integers(0, len(odd), m // 2)]
+            bins = np.stack([pick - np.uint64(1), pick], 1).ravel()
+        j = rng.integers(0, 2**63 // int(p0), bins.shape[0],
+                         dtype=np.uint64)
+        h = bins + j * p0
+        h = h[rng.permutation(h.shape[0])]
+    elif kind == "crowded":
+        low = rng.integers(0, 4096, m, dtype=np.uint64)
+        j = rng.integers(0, 2**64 // int(p0) - 1, m, dtype=np.uint64)
+        h = low + j * p0
+    else:
+        h = rng.integers(0, 2**64, m, dtype=np.uint64)
+    nvalid = h.shape[0]
+    if kind == "tail":
+        nvalid = m - 4099 * (c + 1)
+        h[nvalid:] = 0
+    return h, nvalid
+
+
+def case_tables(name, dev):
+    """(primes, zeroed nibble tables on `dev`) of a case."""
+    ntables, x = NIBBLE_CASES[name][:2]
+    primes = tuple(K.get_n_primes_near_x(ntables, x))
+    return primes, K.init_tables("nibble", primes, dev)
+
+
+def _err(a, b):
+    return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+
+
+def check_nibble_case(name, dev):
+    """{"nibble_update", "nibble_gather", "nibble_pertable": the largest
+    difference between the kernel and its plain version} on a case (all
+    0 when they agree); the update's tables compared whole after each
+    chunk, its n_unique and new flags with them."""
+    primes, tables = case_tables(name, dev)
+    m = NIBBLE_CASES[name][3]
+    rng = np.random.default_rng(len(name) * 7919)
+    flat_p = tables.flat.clone()
+    nu_k = torch.zeros(1, dtype=torch.int64, device=dev)
+    nu_p = nu_k.clone()
+    errs = {"nibble_update": 0, "nibble_gather": 0, "nibble_pertable": 0}
+    seen = []
+    for c in range(NIBBLE_CASES[name][2]):
+        h, nvalid = _chunk_hashes(name, primes, c, m, rng)
+        ht = torch.from_numpy(h.view(np.int64).copy()).to(dev)
+        got = K.nibble_update_cuda(primes, tables.flat, nu_k, ht, nvalid,
+                                   with_event_new=True)
+        want = K.nibble_update_plain(primes, flat_p, nu_p, ht, nvalid,
+                                     with_event_new=True)
+        err = max(_err(got, want), abs(int(nu_k) - int(nu_p)))
+        if not torch.equal(tables.flat, flat_p):
+            diff = (tables.flat != flat_p).nonzero()[0]
+            err = max(err, _err(tables.flat[diff], flat_p[diff]), 1)
+        errs["nibble_update"] = max(errs["nibble_update"], err)
+        seen.append(h[:nvalid][:4096])
+        del flat_p
+        flat_p = tables.flat.clone()
+    q = np.concatenate(seen + [reduction_edges(primes, 20_000)])
+    qt = torch.from_numpy(q.view(np.int64).copy()).to(dev)
+    errs["nibble_gather"] = _err(
+        K.nibble_gather_cuda(primes, tables.flat, qt),
+        K.nibble_gather_plain(primes, tables.flat, qt))
+    errs["nibble_pertable"] = _err(
+        K.nibble_pertable_cuda(primes, tables.flat, qt),
+        K.nibble_pertable_plain(primes, tables.flat, qt))
+    del flat_p, tables
+    return errs
+
+
+def main():
+    dev = torch.device("cuda", 0)
+    for name in NIBBLE_CASES:
+        print(name, check_nibble_case(name, dev), flush=True)
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -132,18 +132,6 @@ def test_exact_layout_ct_loads_in_each_package(exact_outputs):
     assert mine._bigcounts == ref._bigcounts
 
 
-def test_exact_layout_is_refused_as_not_yet_ported(tmp_path, capsys):
-    """The exact layout is the default now; its nibble variant
-    (--small-count, the SmallCountgraph) is what stays unported."""
-    with pytest.raises(SystemExit) as exc:
-        load_into_counting.main(["-k", "20", "--small-count", "--device",
-                                 "cpu", str(tmp_path / "x.ct"), DATA])
-    assert exc.value.code == 1
-    assert "not yet ported" in capsys.readouterr().err
-    # the writability check leaves the output empty; no table is saved
-    assert os.path.getsize(tmp_path / "x.ct") == 0
-
-
 def test_cuda_device_without_a_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

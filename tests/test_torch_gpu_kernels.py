@@ -16,8 +16,9 @@ from khmer_tpu_torch.core import blocked as B
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.core.sketch import Countgraph
 from khmer_tpu_torch.scripts import (countgraph_cases, diginorm_cases,
-                                     graph_cases, partition_cases,
-                                     pertable_cases, trim_cases)
+                                     graph_cases, nibble_cases,
+                                     partition_cases, pertable_cases,
+                                     trim_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -747,4 +748,81 @@ def test_countgraph_graph_on_cuda_launches_kernels(cuda_device, tmp_path):
             assert K.byte_update_cuda.launches > before[0]
             assert _n_launches() > before[1]
             assert K.read_window_counts_cuda.launches > before[2]
+    assert got[str(cuda_device)] == got["cpu"]
+
+
+# -- the nibble tables: kernels P, Q and R -----------------------------------
+
+
+@pytest.mark.parametrize("name", list(nibble_cases.NIBBLE_CASES))
+def test_nibble_kernels_match_plain(cuda_device, name):
+    """Kernels P, Q and R against their plain versions: tables, n_unique,
+    new flags, counts and per-table counters."""
+    errs = nibble_cases.check_nibble_case(name, cuda_device)
+    torch.cuda.empty_cache()
+    assert errs == {"nibble_update": 0, "nibble_gather": 0,
+                    "nibble_pertable": 0}
+
+
+def test_small_count_clis_on_cuda_launch_nibble_kernels(cuda_device,
+                                                        tmp_path):
+    """load-into-counting, abundance-dist-single, normalize-by-median,
+    trim-low-abund and filter-abund-single with --small-count write on the
+    card what they write on the CPU, through kernels P, Q and R; the
+    repartition of make-initial-stoptags with a nibble counting table
+    gives the CPU's stop tags."""
+    import contextlib
+    import io
+    import os
+
+    from khmer_tpu_torch.cli import (abundance_dist_single,
+                                     filter_abund_single, load_graph,
+                                     load_into_counting,
+                                     make_initial_stoptags,
+                                     normalize_by_median, trim_low_abund)
+    from khmer_tpu_torch.io.fastx import FastxParser
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    reads = os.path.join(repo, "data", "stamps-reads.fa.gz")
+    head = str(tmp_path / "head.fa")
+    with open(head, "w") as f:
+        for i, rec in enumerate(FastxParser(reads)):
+            if i == 5000:
+                break
+            f.write(">%s\n%s\n" % (rec.name, rec.sequence))
+    tables = ["-k", "20", "-x", "1e5", "-N", "4", "--small-count"]
+    runs = [
+        (load_into_counting, tables + ["out.ct", head], ["out.ct"]),
+        (abundance_dist_single, tables + [head, "out.dist"], ["out.dist"]),
+        (normalize_by_median, tables + ["-C", "5", "-s", "n.ct", head],
+         ["head.fa.keep", "n.ct"]),
+        (trim_low_abund, tables + ["-V", "-Z", "10", "-s", "t.ct", head],
+         ["head.fa.abundtrim", "t.ct"]),
+        (filter_abund_single, tables + ["-C", "2", "-f", head],
+         ["head.fa.abundfilt"]),
+        (load_graph, ["-k", "20", "-x", "2e5", "-N", "4", "g", head], []),
+        (make_initial_stoptags, ["-k", "20", "-x", "3e3", "-N", "4",
+                                 "--small-count", "g"], ["g.stoptags"])]
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        d = tmp_path / str(dev).replace(":", "")
+        d.mkdir()
+        before = (K.nibble_update_cuda.launches,
+                  K.nibble_gather_cuda.launches,
+                  K.nibble_pertable_cuda.launches)
+        cwd = os.getcwd()
+        os.chdir(d)
+        try:
+            out = []
+            for mod, args, files in runs:
+                with contextlib.redirect_stderr(io.StringIO()):
+                    mod.main(args + ["--device", str(dev)])
+                out += [(d / f).read_bytes() for f in files]
+        finally:
+            os.chdir(cwd)
+        got[str(dev)] = out
+        if dev == cuda_device:
+            assert K.nibble_update_cuda.launches > before[0]
+            assert K.nibble_gather_cuda.launches > before[1]
+            assert K.nibble_pertable_cuda.launches > before[2]
     assert got[str(cuda_device)] == got["cpu"]

@@ -4253,15 +4253,19 @@ def run_nibble_cases(torch, dev, errs):
     scripts/nibble_cases.py."""
     from khmer_tpu_torch.scripts import nibble_cases
 
+    ran = []
     for name in nibble_cases.NIBBLE_CASES:
+        if not nibble_cases.case_fits(name, dev):
+            say("  nibble case %s skipped: the card lacks the memory" % name)
+            continue
         for key, err in nibble_cases.check_nibble_case(name, dev).items():
             errs[key] = max(errs[key], err)
             expect(err == 0, "%s != plain on nibble case %s" % (key, name))
+        ran.append(name)
         torch.cuda.empty_cache()
     say("  nibble cases: nibble_update (tables, n_unique, new flags), "
-        "nibble_gather and nibble_pertable == plain on %s"
-        % ", ".join(nibble_cases.NIBBLE_CASES))
-    return len(nibble_cases.NIBBLE_CASES)
+        "nibble_gather and nibble_pertable == plain on %s" % ", ".join(ran))
+    return len(ran)
 
 
 def _nibble_checks(torch, SK):
@@ -4550,11 +4554,14 @@ def time_nibble_kernels(torch, SK, card, errs, checks):
     plain versions (max_abs_err 0 asserted again), beside their byte
     bound and sector floor: P on its largest call into its 4 GB of
     tables zeroed before each call (scripts.reset_ms: as issued and the
-    device alone); Q and R hot (as issued, device) and cold (each call
+    device alone), each of its passes apart (torch.profiler,
+    nibble_update_bench.pass_split) and its scratch bytes beside; Q and R
+    hot (as issued, device) and cold (each call
     after a 100 MB write that flushes L2), R beside torch.take of the
     flat tables at precomputed byte indices (the gather alone). Returns
     the kernels-line times of the three."""
     from khmer_tpu_torch.scripts import cuda_ms, reset_ms
+    from khmer_tpu_torch.scripts import nibble_update_bench as NB
     from khmer_tpu_torch.scripts import pertable_bench as PB
 
     out = {}
@@ -4614,11 +4621,17 @@ def time_nibble_kernels(torch, SK, card, errs, checks):
     h = hashes[:n]
     sectors, nbytes = _sectors(torch, SK, primes, h)
     zero = flat.zero_
-    scratch = SK.update_scratch(None, n, len(primes), flat.device)
+    scratch = SK.nibble_update_scratch(None, n, len(primes), flat.device)
     call = lambda: SK.nibble_update_cuda(primes, flat, n_unique, hashes, n,
                                          scratch)
     ms, _ = reset_ms(zero, call, 10, False)
     dev_ms, _ = reset_ms(zero, call, 10, True)
+    # each pass's device time (torch.profiler), the tables zeroed by a
+    # copy, which the split leaves out
+    zeros = torch.zeros_like(flat)
+    split = NB.pass_split("design", lambda: flat.copy_(zeros), call)
+    del zeros
+    nbuckets = SK.nibble_update_plan(n, len(primes))[0]
     flat_k = flat.clone()
     zero()
     SK.nibble_update_plain(primes, flat, n_unique.clone(), hashes, n)
@@ -4634,11 +4647,17 @@ def time_nibble_kernels(torch, SK, card, errs, checks):
     floor = 2 * 32 * sectors / PEAK_BYTES_S * 1e3
     say("  phase 13b P on its largest call (%d events into %d nibble tables "
         "of %.3f GB, zeroed before each call): %.4f ms as issued, device "
-        "%.4f ms, plain %.4f ms; bound %.5f ms (%s: 8 B a hash, each of its "
+        "%.4f ms, plain %.4f ms; its passes on the device (torch.profiler, "
+        "ms a call) %s; scratch %d B (sketch_kernels.nibble_update_plan: "
+        "%d buckets, %d in use); bound %.5f ms (%s: 8 B a hash, each of its "
         "%d distinct table bytes read and written), sector floor %.4f ms "
         "(%d distinct 32-B sectors read and written); == plain; on %s"
         % (n, len(primes), flat.shape[0] / 1e9, ms, dev_ms, plain_ms,
-           t["bound_ms"], t["bound_by"], nbytes, floor, sectors, card))
+           json.dumps({k: (round(v, 5) if isinstance(v, float) else v)
+                       for k, v in split.items()}),
+           SK.nibble_update_plan(n, len(primes))[2], nbuckets,
+           SK.nibble_buckets(flat.shape[0], nbuckets)[1], t["bound_ms"],
+           t["bound_by"], nbytes, floor, sectors, card))
     out["nibble_update"] = t
     return out
 

@@ -438,6 +438,16 @@ class SmallCountgraph(HashgraphMixin, _Sketch):
         super().__init__(ksize, primes, device=device)
         self._init_graph()
 
+    def _update_scratch(self, nvalid, ntables):
+        """Kernel P's scratch for a chunk of nvalid events
+        (sketch_kernels.nibble_update_plan, sized by the chunk), kept
+        between chunks; None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        self._scratch = K.nibble_update_scratch(self._scratch, nvalid,
+                                                ntables, self.device)
+        return self._scratch
+
     def _update(self, hashes, nvalid, with_event_new=False):
         """Kernel P (or its plain version) on hashes[:nvalid]; with
         with_event_new, returns each event's new flag (bool [nvalid] on

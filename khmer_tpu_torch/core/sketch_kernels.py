@@ -982,7 +982,12 @@ def update_scratch(buf, n, ntables, device):
     """A uint8 buffer for update_plan(n, ntables) on `device`: `buf` when
     it is one and large enough (a sketch keeps its buffer between
     chunks), else a new one from torch.empty."""
-    need = update_plan(n, ntables)[2]
+    return _scratch_buffer(buf, update_plan(n, ntables)[2], device)
+
+
+def _scratch_buffer(buf, need, device):
+    """`buf` when it is an 8-byte aligned uint8 buffer of at least `need`
+    bytes on `device`, else a new one from torch.empty."""
     if (buf is not None and buf.device == device
             and buf.dtype == torch.uint8 and buf.dim() == 1
             and buf.is_contiguous() and buf.data_ptr() % 8 == 0
@@ -1244,8 +1249,8 @@ def nibble_offsets(primes):
 
 def nibble_flat_size(primes):
     """Length of the joined nibble buffer: the tables' bytes, padded to
-    whole 32-bit words (kernel P adds to nibbles with 32-bit atomics;
-    nothing reads or writes the padding)."""
+    whole 32-bit words (kernel P reads and stores whole words; the
+    padding's bits are stored as they were read)."""
     return (sum(nibble_table_bytes(p) for p in primes) + 3) // 4 * 4
 
 
@@ -1263,6 +1268,91 @@ class NibbleTables(tuple):
         obj = super().__new__(cls, views)
         obj.flat = flat
         return obj
+
+
+# Kernel P's scratch (csrc/nibble_update.cu): its own plan, not
+# update_plan's. It buckets a chunk's records by 32-bit word, about
+# NIBBLE_BUCKET_TARGET records to a bucket (a bucket block holds 4,096),
+# at least NIBBLE_MIN_BUCKETS and at most NIBBLE_MAX_BUCKETS buckets
+# (kMaxBuckets); a record keeps its event in 28 bits and its offset in its
+# bucket in 32, so a chunk has fewer than NIBBLE_MAX_EVENTS events and a
+# bucket spans at most NIBBLE_MAX_SPAN_WORDS words.
+NIBBLE_BUCKET_TARGET = 3584
+NIBBLE_MIN_BUCKETS = 64
+NIBBLE_MAX_BUCKETS = 8192
+NIBBLE_MAX_EVENTS = 2**28
+NIBBLE_MAX_SPAN_WORDS = 2**29
+# its count and scatter tiles: a block of NIBBLE_TILE_THREADS stages at most
+# NIBBLE_STAGE records (csrc kTileThreads, kStage)
+NIBBLE_TILE_THREADS = 256
+NIBBLE_STAGE = 6144
+
+_NIBBLE_PARTS = ("recs", "counts", "start", "offsets", "flags")
+
+
+def nibble_tiles(n, ntables):
+    """Kernel P's count and scatter tiles for n events of `ntables`
+    counters: (tiles, events a tile), as the kernel cuts them: per_thread
+    events for each of a block's NIBBLE_TILE_THREADS threads, the most that
+    keep a tile's records within NIBBLE_STAGE; or, with more tables than
+    that allows, one event for each of the first (NIBBLE_STAGE // ntables)
+    rounded down to 32 threads."""
+    n, ntables = int(n), int(ntables)
+    if NIBBLE_TILE_THREADS * ntables <= NIBBLE_STAGE:
+        per_tile = (NIBBLE_STAGE // (NIBBLE_TILE_THREADS * ntables)
+                    * NIBBLE_TILE_THREADS)
+    else:
+        per_tile = NIBBLE_STAGE // ntables // 32 * 32
+    return -(-n // per_tile), per_tile
+
+
+def nibble_update_plan(n, ntables):
+    """Kernel P's scratch for n events of `ntables` counters each:
+    (nbuckets, {part: (byte offset, bytes)}, total bytes), parts in the
+    order of _NIBBLE_PARTS, each 8-byte aligned: a 64-bit record a
+    lane-event, the bucket counts (4 bytes a bucket), the bucket starts
+    (nbuckets + 1), each tile's place in each bucket (4 bytes a tile and
+    bucket, nibble_tiles) and a flag byte an event (rounded up to whole
+    words; used where the caller wants no flags). It depends on the chunk
+    alone, never on the tables."""
+    n, ntables = int(n), int(ntables)
+    lanes = n * ntables
+    if n >= NIBBLE_MAX_EVENTS or lanes >= MAX_LANE_EVENTS:
+        raise ValueError("chunk too large: %d events x %d counters (the "
+                         "nibble update takes fewer than %d events and %d "
+                         "lane-events)" % (n, ntables, NIBBLE_MAX_EVENTS,
+                                           MAX_LANE_EVENTS))
+    nbuckets = min(max(-(-lanes // NIBBLE_BUCKET_TARGET), NIBBLE_MIN_BUCKETS),
+                   NIBBLE_MAX_BUCKETS)
+    tiles = nibble_tiles(n, ntables)[0]
+    sizes = (8 * lanes, 4 * nbuckets, 4 * (nbuckets + 1),
+             4 * tiles * nbuckets, -(-n // 4) * 4)
+    parts, off = {}, 0
+    for name, size in zip(_NIBBLE_PARTS, sizes):
+        parts[name] = (off, size)
+        off += -(-size // 8) * 8
+    return nbuckets, parts, off
+
+
+def nibble_buckets(size, nbuckets):
+    """(span, used) of kernel P's buckets over a flat buffer of `size`
+    bytes: bucket b holds 32-bit words [b * span, (b + 1) * span), span =
+    ceil(words / nbuckets), and `used` = ceil(words / span) <= nbuckets of
+    them hold a word. Raises where a bucket's nibble offsets would not fit
+    a record's 32 bits (beyond 128 GiB at NIBBLE_MIN_BUCKETS)."""
+    words = int(size) // 4
+    span = -(-words // int(nbuckets))
+    if span > NIBBLE_MAX_SPAN_WORDS:
+        raise ValueError("nibble tables of %d bytes too large for %d "
+                         "buckets" % (size, nbuckets))
+    return span, -(-words // span)
+
+
+def nibble_update_scratch(buf, n, ntables, device):
+    """A uint8 buffer for nibble_update_plan(n, ntables) on `device`: `buf`
+    when it is one and large enough (a SmallCountgraph keeps its buffer
+    between chunks), else a new one from torch.empty."""
+    return _scratch_buffer(buf, nibble_update_plan(n, ntables)[2], device)
 
 
 def _nibbles(flat, idx):
@@ -1357,8 +1447,9 @@ def _check_nibble_args(primes, flat, hashes):
 def nibble_update_cuda(primes, flat, n_unique, hashes, nvalid, scratch=None,
                        with_event_new=False):
     """Kernel P (csrc/nibble_update.cu): nibble_update_plain on the card.
-    `scratch` is as for byte_update_cuda (update_plan(nvalid, T) bytes,
-    sized by the chunk, never by the tables). Returns the new flags, bool
+    `scratch` is a uint8 buffer of at least nibble_update_plan(nvalid, T)
+    bytes on the card (nibble_update_scratch; sized by the chunk, never by
+    the tables), or None for a new one. Returns the new flags, bool
     [nvalid], with with_event_new; else None. Counts its launches in
     ``nibble_update_cuda.launches``."""
     dev = flat.device
@@ -1369,22 +1460,28 @@ def nibble_update_cuda(primes, flat, n_unique, hashes, nvalid, scratch=None,
     if (n_unique.device != dev or n_unique.dtype != torch.int64
             or n_unique.numel() != 1):
         raise ValueError("n_unique must be an int64 [1] tensor on %s" % dev)
-    flags = (torch.empty(n, dtype=torch.bool, device=dev)
-             if with_event_new else None)
     if n == 0:
-        return flags
+        return (torch.empty(0, dtype=torch.bool, device=dev)
+                if with_event_new else None)
     # held until the launch: the allocator may not hand it out meanwhile
-    scratch = update_scratch(scratch, n, len(primes), dev)
-    nbuckets, ptr = _scratch_ptrs(scratch, n, len(primes))
+    scratch = nibble_update_scratch(scratch, n, len(primes), dev)
+    nbuckets, parts, _ = nibble_update_plan(n, len(primes))
+    base = scratch.data_ptr()
+    # the kernel counts the flags a 32-bit word at a time: whole words
+    flags = (torch.empty(-(-n // 4) * 4, dtype=torch.bool, device=dev)
+             if with_event_new else None)
+    flag_ptr = (flags.data_ptr() if flags is not None
+                else base + parts["flags"][0])
     primes_arr, offsets_arr = _layout(primes, nibbles=True)
     err = cuda.library().khmer_nibble_update(
         flat.data_ptr(), flat.shape[0], len(primes),
         ctypes.addressof(primes_arr), ctypes.addressof(offsets_arr),
-        hashes.data_ptr(), n, nbuckets, *ptr[:4], _ptr(flags),
+        hashes.data_ptr(), n, nbuckets, nibble_tiles(n, len(primes))[0],
+        *[base + parts[name][0] for name in _NIBBLE_PARTS[:4]], flag_ptr,
         n_unique.data_ptr(), dev.index, _stream(dev))
     cuda.check(err, "nibble_update")
     nibble_update_cuda.launches += 1
-    return flags
+    return flags[:n] if flags is not None else None
 
 
 nibble_update_cuda.launches = 0

@@ -53,10 +53,10 @@ _ENTRY_POINTS = {
     # device, stream
     "khmer_byte_pertable": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
     # flat, size, ntables, primes (host), nibble offsets (host), hashes,
-    # nvalid, nbuckets, ids, start, cursor, ev_word, flags, n_unique,
-    # device, stream
-    "khmer_nibble_update": [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _P,
-                            _P, _P, _P, _P, _I32, _P],
+    # nvalid, nbuckets, max_tiles, recs, counts, start, offsets, flags,
+    # n_unique, device, stream
+    "khmer_nibble_update": [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _I64,
+                            _P, _P, _P, _P, _P, _P, _I32, _P],
     # flat, ntables, primes (host), nibble offsets (host), hashes, n, out,
     # device, stream
     "khmer_nibble_gather": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],

@@ -5,16 +5,24 @@ nibble_gather_plain, nibble_pertable_plain) on seeded adversarial cases,
 on the card: hashes >= 2^63 and at the edges of the reduction by a
 reciprocal; in-chunk duplicates and one hash 2^20 times, counters driven
 past 15; both nibbles of a byte in one chunk, and the two nibbles of a
-byte in two of the update's buckets; tiny odd primes (tables of two to
-four bytes); a crowded bucket that the update splits; one table and
-twenty; zero-padded tails; and nibble tables of 0.1, 2 and 4 GB. Each
-case commits its chunks through P and through the plain version from
-the same tables (tables, n_unique and each event's new flag compared
-after every chunk), then gathers its hashes and others through Q and R.
-chip_smoke.py phase 3 and tests/test_torch_gpu_kernels.py run them.
+byte on either side of an edge of kernel A's counter-range buckets; all
+8 nibbles of 32-bit words in one chunk; the first and last words of P's
+word buckets (sketch_kernels.nibble_buckets); tiny odd primes (tables of
+two to four bytes); a crowded bucket; a bucket whose records and
+distinct nibbles exceed a block's shared memory many times over, which P
+takes in parts and dense passes; one table and twenty; zero-padded tails;
+and nibble tables of 0.1, 2, 4 and 20 GB, the 20 GB case also with a call
+of 1,000 events (P's fewest buckets, so its widest bucket offsets) where
+the card has the memory. Each case commits its chunks through P and
+through the plain version from the same tables (tables, n_unique and
+each event's new flag compared after every chunk), then gathers its
+hashes and others through Q and R. chip_smoke.py phase 3 and
+tests/test_torch_gpu_kernels.py run them.
 
     python -m khmer_tpu_torch.scripts.nibble_cases
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -34,18 +42,25 @@ NIBBLE_CASES = {
     "both-nibbles-two-buckets": (2, 2e5, 3, 1 << 17, "straddle"),
     "tiny-odd-primes": (3, 8, 3, 4096, "random"),
     "crowded-bucket": (2, 1e6, 2, 1 << 18, "crowded"),
+    "all-8-nibbles-a-word": (2, 1e5, 3, 65_536, "octets"),
+    "words-at-bucket-edges": (2, 2e5, 3, 1 << 17, "word-edges"),
+    "overflowing-bucket": (4, 1e8, 2, 1 << 18, "spread"),
     "one-table": (1, 1e6, 2, 100_003, "random"),
     "twenty-tables": (20, 1e4, 2, 30_001, "random"),
     "zero-padded-tail": (4, 1e5, 3, 65_536, "tail"),
     "0.1-GB": (4, 5e7, 2, CHUNK, "random"),
     "2-GB": (4, 1e9, 2, CHUNK, "random"),
     "4-GB": (4, 2e9, 2, CHUNK, "random"),
+    "20-GB": (4, 1e10, 2, CHUNK, "small-last"),
 }
+SMALL_CALL = 1000  # events of the "small-last" cases' last call
+SPREAD = 1 << 16  # the "spread" case's table-0 counters lie below this
 
 
 def _straddling(primes, n, ntables):
-    """Table-0 bins 2j + 1 whose nibble starts one of the update's
-    buckets (core/sketch_kernels.py bucket_of over the flat nibbles): the
+    """Table-0 bins 2j + 1 whose nibble starts one of kernel A's buckets
+    (core/sketch_kernels.py update_plan and bucket_of over the flat
+    nibbles), which P used before its buckets were cut on words: the
     byte's high nibble, bin 2j, lies in the bucket before."""
     nbuckets = K.update_plan(n, ntables)[0]
     size = 2 * K.nibble_flat_size(primes)
@@ -63,6 +78,25 @@ def _straddling(primes, n, ntables):
         if lo % 2 == 1 and lo < primes[0]:
             out.append(lo)
     return np.asarray(out, dtype=np.uint64)
+
+
+def _word_edges(primes, n, ntables):
+    """Table-0 bins of every nibble of the first and the last word of each
+    of P's buckets (sketch_kernels.nibble_update_plan, nibble_buckets) that
+    lies in table 0."""
+    nbuckets = K.nibble_update_plan(n, ntables)[0]
+    span, used = K.nibble_buckets(K.nibble_flat_size(primes), nbuckets)
+    words = np.concatenate([np.arange(used) * span,
+                            np.arange(1, used + 1) * span - 1])
+    bins = (8 * words[:, None] + np.arange(8)).ravel()
+    return bins[bins < primes[0]].astype(np.uint64)
+
+
+def _on_bins(bins, p0, rng):
+    """A hash for each table-0 bin, shuffled."""
+    j = rng.integers(0, 2**63 // int(p0), bins.shape[0], dtype=np.uint64)
+    h = bins + j * p0
+    return h[rng.permutation(h.shape[0])]
 
 
 def _chunk_hashes(name, primes, c, m, rng):
@@ -94,6 +128,18 @@ def _chunk_hashes(name, primes, c, m, rng):
                          dtype=np.uint64)
         h = bins + j * p0
         h = h[rng.permutation(h.shape[0])]
+    elif kind == "octets":
+        words = rng.integers(0, (int(p0) - 7) // 8, m // 8).astype(
+            np.uint64)
+        h = _on_bins((8 * words[:, None]
+                      + np.arange(8, dtype=np.uint64)).ravel(), p0, rng)
+    elif kind == "word-edges":
+        edges = _word_edges(primes, m, len(primes))
+        h = _on_bins(edges[rng.integers(0, len(edges), m)], p0, rng)
+    elif kind == "spread":
+        low = rng.integers(0, SPREAD, m, dtype=np.uint64)
+        j = rng.integers(0, 2**64 // int(p0) - 1, m, dtype=np.uint64)
+        h = low + j * p0
     elif kind == "crowded":
         low = rng.integers(0, 4096, m, dtype=np.uint64)
         j = rng.integers(0, 2**64 // int(p0) - 1, m, dtype=np.uint64)
@@ -104,13 +150,30 @@ def _chunk_hashes(name, primes, c, m, rng):
     if kind == "tail":
         nvalid = m - 4099 * (c + 1)
         h[nvalid:] = 0
+    if kind == "small-last" and c == NIBBLE_CASES[name][2] - 1:
+        nvalid = SMALL_CALL
+        h[nvalid:] = 0
     return h, nvalid
+
+
+def case_fits(name, dev):
+    """Whether the card has the memory for a case: its tables, their copy
+    and room for the plain version (half the tables again, at least 4
+    GB)."""
+    size = K.nibble_flat_size(case_primes(name))
+    return torch.cuda.mem_get_info(dev)[0] >= 2 * size + max(size // 2,
+                                                             4 << 30)
+
+
+@functools.cache
+def case_primes(name):
+    """The primes of a case's tables."""
+    return tuple(K.get_n_primes_near_x(*NIBBLE_CASES[name][:2]))
 
 
 def case_tables(name, dev):
     """(primes, zeroed nibble tables on `dev`) of a case."""
-    ntables, x = NIBBLE_CASES[name][:2]
-    primes = tuple(K.get_n_primes_near_x(ntables, x))
+    primes = case_primes(name)
     return primes, K.init_tables("nibble", primes, dev)
 
 
@@ -161,6 +224,9 @@ def check_nibble_case(name, dev):
 def main():
     dev = torch.device("cuda", 0)
     for name in NIBBLE_CASES:
+        if not case_fits(name, dev):
+            print(name, "skipped: the card lacks the memory", flush=True)
+            continue
         print(name, check_nibble_case(name, dev), flush=True)
         torch.cuda.empty_cache()
 

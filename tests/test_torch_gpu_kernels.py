@@ -757,7 +757,10 @@ def test_countgraph_graph_on_cuda_launches_kernels(cuda_device, tmp_path):
 @pytest.mark.parametrize("name", list(nibble_cases.NIBBLE_CASES))
 def test_nibble_kernels_match_plain(cuda_device, name):
     """Kernels P, Q and R against their plain versions: tables, n_unique,
-    new flags, counts and per-table counters."""
+    new flags, counts and per-table counters; a case larger than the
+    card's free memory (the 20 GB one on a smaller card) is skipped."""
+    if not nibble_cases.case_fits(name, cuda_device):
+        pytest.skip("the card lacks the memory for nibble case " + name)
     errs = nibble_cases.check_nibble_case(name, cuda_device)
     torch.cuda.empty_cache()
     assert errs == {"nibble_update": 0, "nibble_gather": 0,

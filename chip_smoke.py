@@ -240,19 +240,26 @@ Phases (each prints a line; any failure raises and exits non-zero):
      trim-low-abund -k 20 -x 5e7 -N 4 -C 2 -s (with and without -V) on
      data/stamps-reads.fa.gz, make-initial-stoptags and find-knots -x 2e8
      -N 4 on phase 11's graph; the JAX answers asserted (EXPECT_C13),
-     kernels P, Q and R (the nibble update and gathers) and J, C and L
-     launched, every call of P, Q and R held to its plain version, each
-     CLI's wall; phase 3 also holds P, Q and R to plain on
-     scripts/nibble_cases.py (both nibbles of a byte in one chunk and in
-     two of the update's buckets, counters past 15, tiny odd primes, a
-     crowded bucket, nibble tables of 0.1, 2 and 4 GB);
+     kernels P, Q (under its mask in the histogram) and R (the nibble
+     update and gathers; R's hashes-in entry in the knots), R's rows mode
+     (normalize's and trim's windows), Q's rows mode (filter-abund-single)
+     and J, C and L launched, every call of P, Q, R and the rows modes
+     held to its plain version, each CLI's wall; phase 3 also holds them
+     to plain on scripts/nibble_cases.py (both nibbles of a byte in one
+     chunk and in two of the update's buckets, counters past 15, tiny odd
+     primes, a crowded bucket, nibble tables of 0.1, 2 and 4 GB, Q under
+     three masks; the rows modes at k 1, 20 and 32, on rows of L % 16 !=
+     0, a read over 4,096 bases, a row of 1,000,000 codes and a window
+     over 4 GB);
   13b. load-into-counting and abundance-dist-single -k 20 -x 2e9 -N 4
-     --small-count (4 GB of nibble tables) on phase 7b's reads and
-     normalize-by-median -C 20 -x 2e9 -N 4 --small-count on their first
-     250,000, the JAX answers asserted, every call of P, Q and R held to
-     plain, the device memory beside the tables; then P, Q and R on their
-     largest calls against their bounds and sector floors, R beside
-     torch.take at precomputed byte indices.
+     --small-count (4 GB of nibble tables) on phase 7b's reads, then
+     normalize-by-median -C 20 -x 2e9 -N 4 --small-count and
+     filter-abund-single -k 20 -x 2e9 -N 4 -C 2 --small-count on their
+     first 250,000, the JAX answers asserted, every call of P, Q and the
+     rows modes held to plain, the device memory beside the tables; then
+     P, Q (masked), R's rows mode and Q's rows mode on 13b's largest calls
+     and R on phase 13's against their bounds and sector floors, R and
+     R's rows mode beside torch.take at precomputed byte indices.
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees (J's at 9b each call
 alone after its tables are zeroed or restored, scripts.reset_ms); the
@@ -633,7 +640,11 @@ EXPECT_C13 = {
         "single": "1adf59b8e1beaa30d272a733deb61630"
                   "a513f544e85355cd6355ccfe406da2f3",
         "normalize": [250000, 6705606, "0910d469976dc4f30c0960a57486850f"
-                                       "901032b320a8e83127bdb7b7f730b220"]},
+                                       "901032b320a8e83127bdb7b7f730b220"],
+        # JAX auto, filter-abund-single of the first 250,000 reads at -k
+        # 20 -x 2e9 -N 4 -C 2 --small-count (20.3 GB of host memory)
+        "filter_single": "1121e7027f41f9fcd23b8f99443e8813"
+                         "c2027c3b68b0bcad0218d054c6bad26c"},
 }
 
 
@@ -719,7 +730,8 @@ def main():
                                  "neighbors", "byte_pertable",
                                  "byte_neighbors", "byte_neighbors_small",
                                  "nibble_update", "nibble_gather",
-                                 "nibble_pertable")}
+                                 "nibble_pertable", "nibble_pertable_rows",
+                                 "nibble_row_counts")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
         run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs)
@@ -894,15 +906,16 @@ def main():
         lap("phase 12b")
 
         # -- phase 13: --small-count (nibble tables) through the CLIs --------
-        nib_launches, _ = run_small_count(torch, SK, dev, card, errs)
+        nib_launches, knot_checks = run_small_count(torch, SK, dev, card,
+                                                    errs)
         lap("phase 13")
 
         # -- phase 13b: --small-count at 4 GB of nibble tables ---------------
         scale_launches, nib_checks = run_small_count_scale(
             torch, SK, dev, card, errs, reads, head)
         timings.update(time_nibble_kernels(torch, SK, card, errs,
-                                           nib_checks))
-        del nib_checks
+                                           nib_checks, knot_checks))
+        del nib_checks, knot_checks
         torch.cuda.empty_cache()
         for key, n in nib_launches.items():
             launches[key] = n + scale_launches[key]
@@ -949,7 +962,11 @@ def main():
             ("nibble_gather", "nibble_gather.cu",
              "khmer_tpu/core/sketch_kernels.py:649"),
             ("nibble_pertable", "nibble_gather.cu",
-             "khmer_tpu/core/sketch_kernels.py:681")):
+             "khmer_tpu/core/sketch_kernels.py:681"),
+            ("nibble_pertable_rows", "nibble_gather.cu",
+             "khmer_tpu/core/diginorm.py:36"),
+            ("nibble_row_counts", "nibble_gather.cu",
+             "khmer_tpu/core/pipeline.py:503")):
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -3717,6 +3734,16 @@ def _max_abs(a, b):
     return int((a.int() - b.int()).abs().max()) if a.numel() else 0
 
 
+def _max_abs_out(torch, a, b):
+    """_max_abs of two outputs, a tensor or a tuple of them; an int64
+    tensor (hashes, indices) counts 1 where the two are not equal."""
+    if isinstance(a, tuple):
+        return max(_max_abs_out(torch, x, y) for x, y in zip(a, b))
+    if a.dtype == torch.int64:
+        return int(not torch.equal(a, b))
+    return _max_abs(a, b)
+
+
 def _pairs(got, want):
     """Kernel N's outputs beside its plain version's: the presence bytes,
     and with a band the band bytes too."""
@@ -4250,31 +4277,40 @@ def run_countgraph_cases(torch, dev, errs):
 
 def run_nibble_cases(torch, dev, errs):
     """Kernels P, Q and R against their plain versions on the cases of
-    scripts/nibble_cases.py."""
+    scripts/nibble_cases.py: NIBBLE_CASES (P; Q unmasked and under three
+    masks; R's hashes-in entry) and ROW_CASES (R's and Q's rows modes)."""
     from khmer_tpu_torch.scripts import nibble_cases
 
     ran = []
-    for name in nibble_cases.NIBBLE_CASES:
-        if not nibble_cases.case_fits(name, dev):
+    for name, fits, check in (
+            [(n, nibble_cases.case_fits, nibble_cases.check_nibble_case)
+             for n in nibble_cases.NIBBLE_CASES]
+            + [(n, nibble_cases.row_case_fits, nibble_cases.check_row_case)
+               for n in nibble_cases.ROW_CASES]):
+        if not fits(name, dev):
             say("  nibble case %s skipped: the card lacks the memory" % name)
             continue
-        for key, err in nibble_cases.check_nibble_case(name, dev).items():
+        for key, err in check(name, dev).items():
             errs[key] = max(errs[key], err)
             expect(err == 0, "%s != plain on nibble case %s" % (key, name))
         ran.append(name)
         torch.cuda.empty_cache()
     say("  nibble cases: nibble_update (tables, n_unique, new flags), "
-        "nibble_gather and nibble_pertable == plain on %s" % ", ".join(ran))
+        "nibble_gather (unmasked, a random, an all-false and an all-true "
+        "mask), nibble_pertable, nibble_pertable_rows (hashes, counters, "
+        "flat nibble indices, the fill) and nibble_row_counts == plain on %s"
+        % ", ".join(ran))
     return len(ran)
 
 
 def _nibble_checks(torch, SK):
     """Kernels P, Q and R as a phase's main path calls them (_CallCheck on
-    the dispatchers sketch_kernels.nibble_update, nibble_gather and
-    nibble_pertable): every call held to its plain version on the same
+    the dispatchers sketch_kernels.nibble_update, nibble_gather (with its
+    mask), nibble_pertable and the rows modes nibble_pertable_rows and
+    nibble_row_counts): every call held to its plain version on the same
     inputs, P's from a copy of the tables before the call (tables,
     n_unique and, where the caller asks, the new flags); the largest
-    call's hashes cloned for timing."""
+    call's hashes, codes and lengths cloned for timing."""
     def check_update(fn, args, kwargs):
         primes, flat, n_unique, hashes, nvalid = args[:5]
         flat_p, nu_p = flat.clone(), n_unique.clone()
@@ -4290,8 +4326,8 @@ def _nibble_checks(torch, SK):
         return got, err, int(nvalid)
 
     def check_gather(fn, args, kwargs):
-        got = fn(*args)
-        return got, _max_abs(got, SK.nibble_gather_plain(*args)), \
+        got = fn(*args, **kwargs)
+        return got, _max_abs(got, SK.nibble_gather_plain(*args, **kwargs)), \
             got.numel()
 
     def check_pertable(fn, args, kwargs):
@@ -4299,9 +4335,24 @@ def _nibble_checks(torch, SK):
         return got, _max_abs(got, SK.nibble_pertable_plain(*args)), \
             got.numel()
 
+    def check_rows(fn, args, kwargs):
+        got = fn(*args)
+        want = SK.nibble_pertable_rows_plain(*args)
+        err = max(int(not torch.equal(got[0], want[0])),
+                  _max_abs(got[1], want[1]),
+                  int(not torch.equal(got[2], want[2])))
+        return got, err, got[1].numel()
+
+    def check_row_counts(fn, args, kwargs):
+        got = fn(*args)
+        return got, _max_abs(got, SK.nibble_row_counts_plain(*args)), \
+            got.numel()
+
     keep = lambda a: (a[0], a[1]) + tuple(
         x.clone() if hasattr(x, "clone") and x.dtype == torch.int64
         and x.numel() > 1 else x for x in a[2:])
+    keep_rows = lambda a: (a[0], a[1], a[2].clone(), a[3].clone(), a[4])
+    windows = lambda a: a[2].shape[0] * (a[2].shape[1] - int(a[4]) + 1)
     return {"nibble_update": _CallCheck(torch, SK, "nibble_update",
                                         check_update, lambda a: int(a[4]),
                                         keep=keep),
@@ -4311,7 +4362,14 @@ def _nibble_checks(torch, SK):
             "nibble_pertable": _CallCheck(torch, SK, "nibble_pertable",
                                           check_pertable,
                                           lambda a: a[2].numel(),
-                                          keep=keep)}
+                                          keep=keep),
+            "nibble_pertable_rows": _CallCheck(torch, SK,
+                                               "nibble_pertable_rows",
+                                               check_rows, windows,
+                                               keep=keep_rows),
+            "nibble_row_counts": _CallCheck(torch, SK, "nibble_row_counts",
+                                            check_row_counts, windows,
+                                            keep=keep_rows)}
 
 
 def _install(checks):
@@ -4322,12 +4380,15 @@ def _install(checks):
 def _nibble_launches(SK):
     return {"nibble_update": SK.nibble_update_cuda.launches,
             "nibble_gather": SK.nibble_gather_cuda.launches,
-            "nibble_pertable": SK.nibble_pertable_cuda.launches}
+            "nibble_pertable": SK.nibble_pertable_cuda.launches,
+            "nibble_pertable_rows": SK.nibble_pertable_rows_cuda.launches,
+            "nibble_row_counts": SK.nibble_row_counts_cuda.launches}
 
 
 def _zero_launches(SK):
     for fn in (SK.nibble_update_cuda, SK.nibble_gather_cuda,
-               SK.nibble_pertable_cuda, SK.bit_update_cuda,
+               SK.nibble_pertable_cuda, SK.nibble_pertable_rows_cuda,
+               SK.nibble_row_counts_cuda, SK.bit_update_cuda,
                SK.histogram_add_cuda, SK.neighbors_cuda):
         fn.launches = 0
 
@@ -4356,10 +4417,12 @@ def run_small_count(torch, SK, dev, card, errs):
     reads (phase 11's graph), make-initial-stoptags -x 2e8 -N 4,
     partition-graph -S and find-knots -x 2e8 -N 4. The JAX answers
     (EXPECT_C13) asserted; the launch counts set to 0 before the first CLI
-    and read after the last: P, Q, R, J (the histogram's tracking table),
-    C (its histogram) and L (the knots' walks) launched; every call of P,
-    Q and R held to its plain version. Returns (P's, Q's and R's launches,
-    their checks)."""
+    and read after the last: P, Q (under its mask, the histogram's count),
+    R (the knots' hashes-in gather), R's rows mode (normalize's and trim's
+    windows), Q's rows mode (filter-abund-single's counts), J (the
+    histogram's tracking table), C (its histogram) and L (the knots' walks)
+    launched; every call of P, Q and R held to its plain version. Returns
+    (their launches, their checks)."""
     from khmer_tpu_torch.cli import (abundance_dist_single,
                                      filter_abund_single, find_knots,
                                      load_graph, load_into_counting,
@@ -4447,8 +4510,8 @@ def run_small_count(torch, SK, dev, card, errs):
         "with -V %d; "
         "make-initial-stoptags %s, find-knots %s, repartitioned %s (the JAX "
         "answers); launches %s, J %d, C %d, L %d; every call of P, Q, R "
-        "held to its plain version (%d, %d and %d calls, %d, %d and %d "
-        "values); on %s"
+        "and the rows modes held to its plain version (calls %s, values "
+        "%s); on %s"
         % (json.dumps({k: round(v, 6) for k, v in walls.items()}),
            got["load"][1], got["load"][0][:16], got["single"][:16],
            got["filter_single"][:16], got["normalize"][0],
@@ -4456,10 +4519,8 @@ def run_small_count(torch, SK, dev, card, errs):
            got["trim-V"][0], got["initial"][:16], got["knots"][0][:16],
            got["knots"][1], launches, others["bit_update"],
            others["histogram_add"], others["neighbors"],
-           checks["nibble_update"].calls, checks["nibble_gather"].calls,
-           checks["nibble_pertable"].calls, checks["nibble_update"].values,
-           checks["nibble_gather"].values,
-           checks["nibble_pertable"].values, card))
+           json.dumps({k: c.calls for k, c in checks.items()}),
+           json.dumps({k: c.values for k, c in checks.items()}), card))
     return launches, checks
 
 
@@ -4472,14 +4533,18 @@ def run_small_count_scale(torch, SK, dev, card, errs, reads, head):
     -N 4 --small-count on phase 7b's 1,000,000 reads (4 x 1 GB of nibble
     tables: the 4 GB that 7b's byte tables take, holding twice the
     counters) and abundance-dist-single at the same flags, then
-    normalize-by-median -C 20 -x 2e9 -N 4 --small-count on the first
+    normalize-by-median -C 20 -x 2e9 -N 4 --small-count and
+    filter-abund-single -k 20 -x 2e9 -N 4 -C 2 --small-count on the first
     250,000 of those reads. That cut keeps the script's time:
-    BatchedNormalizer walks each window's reads in Python, as JAX's does.
-    The JAX answers (EXPECT_C13["synth"], from its native engine) asserted,
-    every call of P, Q and R held to its plain version, the device memory
+    BatchedNormalizer and the filter walk each window's reads in Python, as
+    JAX's do. The JAX answers (EXPECT_C13["synth"], from its native engine)
+    asserted, every call of P, Q and R and the rows modes held to its plain
+    version, P, Q (masked), R's rows mode and Q's rows mode launched (R's
+    hashes-in entry serves only the knots, phase 13), the device memory
     printed beside the tables. Returns (launches, checks)."""
     from khmer_tpu_torch.cli import (abundance_dist_single,
-                                     load_into_counting, normalize_by_median)
+                                     filter_abund_single, load_into_counting,
+                                     normalize_by_median)
 
     E = EXPECT_C13["synth"]
     checks = _nibble_checks(torch, SK)
@@ -4497,7 +4562,10 @@ def run_small_count_scale(torch, SK, dev, card, errs, reads, head):
                      tables + [reads, "sc.dist"]),
                     ("normalize-by-median", normalize_by_median.main,
                      ["-C", "20", "-x", "2e9", "-N", "4", "--small-count",
-                      head])):
+                      head]),
+                    ("filter-abund-single", filter_abund_single.main,
+                     ["-k", "20", "-x", "2e9", "-N", "4", "-C", "2",
+                      "--small-count", head])):
                 torch.cuda.reset_peak_memory_stats(dev)
                 walls[step], err, _ = _run_cli(torch, main, args, tmp)
                 peaks[step] = torch.cuda.max_memory_allocated(dev)
@@ -4508,6 +4576,9 @@ def run_small_count_scale(torch, SK, dev, card, errs, reads, head):
                 elif step == "abundance-dist-single":
                     got["single"] = _file_sha256(os.path.join(
                         tmp, "sc.dist"))[0]
+                elif step == "filter-abund-single":
+                    got["filter_single"] = _file_sha256(os.path.join(
+                        tmp, os.path.basename(head) + ".abundfilt"))[0]
                 else:
                     keep = os.path.join(tmp, os.path.basename(head)
                                         + ".keep")
@@ -4519,23 +4590,24 @@ def run_small_count_scale(torch, SK, dev, card, errs, reads, head):
     want = {key: E[key] for key in got}
     expect(got == want, "phase 13b: %s, JAX gives %s" % (got, want))
     _fold_checks(checks, errs, "phase 13b")
-    for name, n in launches.items():
-        expect(n > 0, "phase 13b: %s never launched" % name)
+    for name in ("nibble_update", "nibble_gather", "nibble_pertable_rows",
+                 "nibble_row_counts"):
+        expect(launches[name] > 0, "phase 13b: %s never launched" % name)
     nib = sum(SK.nibble_table_bytes(p)
               for p in SK.get_n_primes_near_x(4, 2e9))
     say("phase 13b --small-count at -x 2e9 -N 4 (%.3f GB of nibble tables) "
         "on phase 7b's reads: walls %s s; peak device memory %s GB; "
         "load-into-counting n_unique %d, .ct %s; abundance-dist-single "
         ".dist %s; normalize-by-median of the first %d reads kept %d "
-        "(n_unique %d) (the JAX answers); launches %s; every call of P, Q, "
-        "R held to its plain version (%d, %d and %d calls); on %s"
+        "(n_unique %d), filter-abund-single of them %s (the JAX answers); "
+        "launches %s; every call of P, Q, R and the rows modes held to its "
+        "plain version (calls %s); on %s"
         % (nib / 1e9, json.dumps({k: round(v, 6) for k, v in walls.items()}),
            json.dumps({k: round(v / 1e9, 3) for k, v in peaks.items()}),
            got["load"][1], got["load"][0][:16], got["single"][:16],
            TRACED_READS, got["normalize"][0], got["normalize"][1],
-           launches, checks["nibble_update"].calls,
-           checks["nibble_gather"].calls, checks["nibble_pertable"].calls,
-           card))
+           got["filter_single"][:16], launches,
+           json.dumps({k: c.calls for k, c in checks.items()}), card))
     return launches, checks
 
 
@@ -4549,17 +4621,22 @@ def _sectors(torch, SK, primes, hashes):
     return int((byte >> 5).unique().numel()), int(byte.numel())
 
 
-def time_nibble_kernels(torch, SK, card, errs, checks):
-    """P, Q and R on the largest calls of phase 13b's path, against their
-    plain versions (max_abs_err 0 asserted again), beside their byte
-    bound and sector floor: P on its largest call into its 4 GB of
-    tables zeroed before each call (scripts.reset_ms: as issued and the
-    device alone), each of its passes apart (torch.profiler,
-    nibble_update_bench.pass_split) and its scratch bytes beside; Q and R
-    hot (as issued, device) and cold (each call
-    after a 100 MB write that flushes L2), R beside torch.take of the
-    flat tables at precomputed byte indices (the gather alone). Returns
-    the kernels-line times of the three."""
+def time_nibble_kernels(torch, SK, card, errs, checks, knot_checks):
+    """P, Q and R on the largest calls of their paths, against their plain
+    versions (max_abs_err 0 asserted again), beside their byte bound and
+    sector floor (of the sectors each loads): Q under its mask on phase
+    13b's largest abundance batch, R's hashes-in entry on phase 13's
+    largest (the knots', `knot_checks`), R's rows mode on 13b's largest
+    normalize window and Q's rows mode on its largest filter-abund-single
+    window, each hot (as issued, device) and cold (each call after a 100
+    MB write that flushes L2), R and R's rows mode beside torch.take of the
+    flat tables at the precomputed byte indices of the counters they load
+    (the gather alone); P on its largest call into its 4 GB of tables
+    zeroed before each call (scripts.reset_ms: as issued and the device
+    alone), each of its passes apart (torch.profiler,
+    nibble_update_bench.pass_split) and its scratch bytes beside. Returns
+    the kernels-line times."""
+    from khmer_tpu_torch.ops.u64 import umod
     from khmer_tpu_torch.scripts import cuda_ms, reset_ms
     from khmer_tpu_torch.scripts import nibble_update_bench as NB
     from khmer_tpu_torch.scripts import pertable_bench as PB
@@ -4567,50 +4644,79 @@ def time_nibble_kernels(torch, SK, card, errs, checks):
     out = {}
     flush = torch.empty(PB.FLUSH_BYTES, dtype=torch.uint8,
                         device=checks["nibble_gather"].largest[1][1].device)
-    for key in ("nibble_gather", "nibble_pertable"):
-        _, args, _ = checks[key].largest
-        primes, flat, hashes = args
-        n = hashes.numel()
+    for key, src, what in (
+            ("nibble_gather", checks, "Q (masked) on phase 13b's largest "
+             "abundance batch"),
+            ("nibble_pertable", knot_checks, "R on phase 13's largest call "
+             "(the knots')"),
+            ("nibble_pertable_rows", checks, "R's rows mode on phase 13b's "
+             "largest normalize window"),
+            ("nibble_row_counts", checks, "Q's rows mode on phase 13b's "
+             "largest filter-abund-single window")):
+        _, args, kwargs = src[key].largest
+        primes, flat = args[0], args[1]
         T = len(primes)
-        sectors, nbytes = _sectors(torch, SK, primes, hashes.reshape(-1))
+        if key in ("nibble_gather", "nibble_pertable"):
+            hashes = args[2].reshape(-1)
+            mask = kwargs.get("mask")
+            call_args = (primes, flat, hashes)
+            n = hashes.numel()
+            loaded = hashes
+            in_bytes = 8 * n
+            if mask is not None:
+                mask = mask.reshape(-1).contiguous()
+                call_args += (mask,)
+                loaded = hashes[mask]
+                in_bytes += n
+            out_bytes = 4 * n if key == "nibble_gather" else T * n
+            items = "%d hashes (%d loaded)" % (n, loaded.numel())
+        else:
+            codes, lengths, k = args[2], args[3], int(args[4])
+            call_args = (primes, flat, codes, lengths, k)
+            wh, valid, _ = SK._window_hashes(codes, lengths, k)
+            loaded = wh[valid]
+            n = valid.numel()
+            in_bytes = codes.numel() + 4 * lengths.numel()
+            out_bytes = (8 + 9 * T) * n if key == "nibble_pertable_rows" \
+                else n
+            items = "%d rows of %d codes, k %d, %d windows (%d valid)" % (
+                codes.shape[0], codes.shape[1], k, n, loaded.numel())
+            del wh, valid
+        lookups = T * loaded.numel()
+        sectors, nbytes = _sectors(torch, SK, primes, loaded)
         kernel = getattr(SK, key + "_cuda")
         plain = getattr(SK, key + "_plain")
-        call = lambda: kernel(primes, flat, hashes.reshape(-1))
-        err = _max_abs(call(), plain(primes, flat, hashes.reshape(-1)))
+        call = lambda: kernel(*call_args)
+        err = _max_abs_out(torch, call(), plain(*call_args))
         errs[key] = max(errs[key], err)
-        expect(err == 0, "phase 13b: %s != plain on its largest call" % key)
-        m = PB.readings(call, flush.zero_, T * n)
-        t = {"ms": m["ms"], "plain_ms": cuda_ms(
-            lambda: plain(primes, flat, hashes.reshape(-1)), 3),
-            "library_ms": None}
-        out_bytes = 4 * n if key == "nibble_gather" else T * n
-        t["bound_ms"], t["bound_by"] = bound(8 * n + out_bytes + nbytes,
-                                             T * n)
+        expect(err == 0, "phase 13: %s != plain on its largest call" % key)
+        m = PB.readings(call, flush.zero_, lookups)
+        t = {"ms": m["ms"], "plain_ms": cuda_ms(lambda: plain(*call_args),
+                                                3), "library_ms": None}
+        t["bound_ms"], t["bound_by"] = bound(in_bytes + out_bytes + nbytes,
+                                             lookups)
         line = ""
-        if key == "nibble_pertable":
-            from khmer_tpu_torch.ops.u64 import umod
-
-            idx = torch.cat([(umod(hashes.reshape(-1), p) + 2 * off) >> 1
+        if key in ("nibble_pertable", "nibble_pertable_rows"):
+            idx = torch.cat([(umod(loaded, p) + 2 * off) >> 1
                              for p, off in zip(primes,
                                                SK.nibble_offsets(primes))])
             take = lambda: torch.take(flat, idx)
-            tm = PB.readings(take, flush.zero_, T * n)
+            tm = PB.readings(take, flush.zero_, lookups)
             t["library_ms"] = tm["ms"]
             line = ("; torch.take of the flat tables at the %d precomputed "
                     "byte indices (the gather alone) %.4f ms, device %.4f "
                     "ms, cold %.4f ms (device %.4f ms)"
-                    % (T * n, tm["ms"], tm["device_ms"], tm["cold_ms"],
+                    % (lookups, tm["ms"], tm["device_ms"], tm["cold_ms"],
                        tm["cold_device_ms"]))
             del idx
-        say("  phase 13b %s on its largest call (%d hashes into %d nibble "
-            "tables of %.3f GB): hot %.4f ms as issued (device %.4f ms), "
-            "cold %.4f ms (device %.4f ms), %.3g lookups/s hot on the "
-            "device, plain %.4f ms; bound %.5f ms (%s), sector floor %.4f ms "
-            "(%d distinct 32-B sectors)%s; == plain; on %s"
-            % ("Q" if key == "nibble_gather" else "R", n, T,
-               flat.shape[0] / 1e9, m["ms"], m["device_ms"], m["cold_ms"],
-               m["cold_device_ms"], m["lookups_s"], t["plain_ms"],
-               t["bound_ms"], t["bound_by"],
+        say("  %s (%s into %d nibble tables of %.3f GB): hot %.4f ms as "
+            "issued (device %.4f ms), cold %.4f ms (device %.4f ms), %.3g "
+            "lookups/s hot on the device, plain %.4f ms; bound %.5f ms (%s), "
+            "sector floor %.4f ms (%d distinct 32-B sectors)%s; == plain; "
+            "on %s"
+            % (what, items, T, flat.shape[0] / 1e9, m["ms"], m["device_ms"],
+               m["cold_ms"], m["cold_device_ms"], m["lookups_s"],
+               t["plain_ms"], t["bound_ms"], t["bound_by"],
                32 * sectors / PEAK_BYTES_S * 1e3, sectors, line, card))
         out[key] = t
     del flush

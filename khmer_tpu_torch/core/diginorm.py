@@ -20,8 +20,9 @@ bundles:
 On byte tables the kernels run the whole scan instead
 (core/diginorm_scan.py ScanNormalizer, which the normalize-by-median CLI
 uses); this engine serves the other storage kinds (a SmallCountgraph's
-nibble tables: kernel R gathers the window's counters, kernel P commits
-its consumes) and is the tests' second reference.
+nibble tables: kernel R's rows mode hashes the window's codes and gathers
+its valid windows' counters, kernel P commits its consumes) and is the
+tests' second reference.
 """
 
 import numpy as np
@@ -29,6 +30,7 @@ import torch
 
 from khmer_tpu_torch.core import pipeline
 from khmer_tpu_torch.core import sketch_kernels as K
+from khmer_tpu_torch.core.diginorm_scan import pack_reads
 from khmer_tpu_torch.ops import hashing as H
 from khmer_tpu_torch.ops.u64 import umod
 
@@ -37,11 +39,13 @@ MAX_KCOUNT = K.MAX_KCOUNT
 
 def make_pertable_counts(kind, primes, k, hash_family):
     """fn(tables, codes [B, L], lengths [B]) -> (hashes [B, W] int64,
-    per-table counter values [T, B, W] int32, valid [B, W] bool), on the
-    tables' device. Nibble tables take the per-table gather of
-    sketch_kernels.pertable_counts (kernel R on the card); byte and bit
-    tables are read here in plain PyTorch (only tests take them: the CLIs
-    run kernels E-H on byte tables)."""
+    per-table counter values [T, B, W], valid [B, W] bool), on the tables'
+    device, on every window as JAX's function gives them (SeqWindow reads
+    only the valid ones, and on nibble tables takes kernel R's rows mode,
+    which loads nothing past a read's end). Nibble tables take the
+    per-table gather of sketch_kernels.pertable_counts (uint8 counters);
+    byte and bit tables are read here in plain PyTorch (int32; only tests
+    take them: the CLIs run kernels E-H on byte tables)."""
     if kind not in ("byte", "nibble", "bit"):
         raise NotImplementedError("%s tables are not yet ported" % kind)
     primes = tuple(int(p) for p in primes)
@@ -54,8 +58,7 @@ def make_pertable_counts(kind, primes, k, hash_family):
         if kind == "nibble":
             per = K.pertable_counts(kind, primes, tables,
                                     hashes.reshape(-1).contiguous())
-            return (hashes, per.reshape(len(primes), *hashes.shape).to(
-                torch.int32), valid)
+            return hashes, per.reshape(len(primes), *hashes.shape), valid
         per = []
         for t, p in enumerate(primes):
             bins = umod(hashes, p)
@@ -72,6 +75,22 @@ def make_pertable_counts(kind, primes, k, hash_family):
     return fn
 
 
+def window_rows(seqs, k):
+    """(codes uint8 [B, L], lengths int32 [B]) of a window's sequences, one
+    a row, as JAX's SeqWindow packs them: B the row bucket of their number,
+    L the length bucket of the longest, and at least k + 1; but rows hold
+    the longest sequence whole (the JAX package caps them at MAX_ROW_LEN
+    and cannot take a longer read; ROADMAP section 3). Encoded in one numpy
+    pass over the joined sequences (diginorm_scan.pack_reads)."""
+    longest = max(len(s) for s in seqs)
+    L = max(pipeline._bucket_len(longest), longest, k + 1)
+    B = pipeline._bucket_rows(len(seqs))
+    codes = np.zeros((B, L), dtype=np.uint8)
+    lengths = np.zeros(B, dtype=np.int32)
+    codes[:len(seqs)], lengths[:len(seqs)] = pack_reads(seqs, L)
+    return codes, lengths
+
+
 class SeqWindow:
     """Sequential-exact count evaluation over a window of sequences.
 
@@ -82,7 +101,9 @@ class SeqWindow:
     window's distinct (table, counter) pairs are numbered on the device
     once (torch.unique), so the adds are one numpy array indexed by those
     numbers: a read's counts and consume are each one vectorized step on
-    the host.
+    the host. On nibble tables kernel R's rows mode gives the valid
+    windows' hashes, counters and flat nibble indices (which name the
+    pairs) from the codes in one launch.
     """
 
     def __init__(self, graph, seqs):
@@ -108,41 +129,43 @@ class SeqWindow:
                                    bool(repeats[s])))
 
     def _eval(self, seqs):
-        """(hashes u64 [B, W], base counters int32 [T, B, W], the number
-        of each (table, counter) pair among the window's, int64 [T, B, W],
-        whether a sequence's windows touch one pair more than once, bool
-        [B], lengths [B]) of the window's sequences."""
+        """(hashes u64 [B, W], base counters [T, B, W] (uint8 on nibble
+        tables), the number of each (table, counter) pair among the
+        window's, int32 [T, B, W], whether a sequence's valid windows
+        touch one pair more than once, bool [B], lengths [B]) of the
+        window's sequences."""
         k = self.k
-        fn = make_pertable_counts(self.graph.storage_kind, self._primes,
-                                  k, self.graph.hash_family)
-        longest = max(len(s) for s in seqs)
-        # rows hold the longest sequence whole (the JAX package caps them
-        # at MAX_ROW_LEN and cannot take a longer read; ROADMAP section 3)
-        L = max(pipeline._bucket_len(longest), longest, k + 1)
-        B = pipeline._bucket_rows(len(seqs))
-        codes = np.zeros((B, L), dtype=np.uint8)
-        lengths = np.zeros(B, dtype=np.int32)
-        for i, s in enumerate(seqs):
-            c = H.encode_dna(s)
-            codes[i, : len(c)] = c
-            lengths[i] = len(c)
+        codes, lengths = window_rows(seqs, k)
         dev = self.graph.device
-        hashes, per, valid = fn(self.graph.tables,
-                                torch.from_numpy(codes).to(dev),
-                                torch.from_numpy(lengths).to(dev))
-        T = len(self._primes)
-        keys = torch.stack([umod(hashes, p) * T + t
-                            for t, p in enumerate(self._primes)])
+        codes = torch.from_numpy(codes).to(dev)
+        lengths_t = torch.from_numpy(lengths).to(dev)
+        if self.graph.storage_kind == "nibble":
+            if self.graph.hash_family != "twobit":
+                raise NotImplementedError(
+                    "nibble windows hash the twobit family, not %s"
+                    % self.graph.hash_family)
+            hashes, per, keys = K.nibble_pertable_rows(
+                self._primes, self.graph.tables.flat, codes, lengths_t, k)
+            valid = keys[0] >= 0
+        else:
+            fn = make_pertable_counts(self.graph.storage_kind, self._primes,
+                                      k, self.graph.hash_family)
+            hashes, per, valid = fn(self.graph.tables, codes, lengths_t)
+            T = len(self._primes)
+            keys = torch.stack([umod(hashes, p) * T + t
+                                for t, p in enumerate(self._primes)])
         ids = torch.unique(keys, return_inverse=True)[1]
         # the rows whose valid windows touch one pair twice
         npairs = int(ids.max()) + 1
+        B = codes.shape[0]
         row = torch.arange(B, device=dev)[None, :, None]
         seen, n = torch.unique((row * npairs + ids)[valid.expand_as(ids)],
                                return_counts=True)
         repeats = torch.zeros(B, dtype=torch.bool, device=dev)
         repeats[seen[n > 1] // npairs] = True
         return (hashes.cpu().numpy().view(np.uint64), per.cpu().numpy(),
-                ids.cpu().numpy(), repeats.cpu().numpy(), lengths)
+                ids.to(torch.int32).cpu().numpy(), repeats.cpu().numpy(),
+                lengths)
 
     def counts(self, idx):
         """Effective min-over-tables counts of sequence idx, as the
@@ -150,10 +173,9 @@ class SeqWindow:
         h, base, ids, nwin, _ = self._data[idx]
         if nwin == 0:
             return np.zeros(0, np.int32)
-        counts = base
-        if self._consumed:
-            counts = np.minimum(base + self._delta[ids], self._sat)
-        return counts.min(axis=0)
+        if not self._consumed:
+            return base.min(axis=0).astype(np.int32)
+        return np.minimum(base + self._delta[ids], self._sat).min(axis=0)
 
     def median(self, idx):
         """Medioid effective count of sequence idx (reference

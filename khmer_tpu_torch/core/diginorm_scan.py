@@ -67,18 +67,14 @@ def pack_reads(seqs, L):
 
 
 def _pack(rows, seqs, nrows, L):
+    """Sequence i in row rows[i], the rows ascending: the joined codes fill
+    each row's first length cells in row-major order."""
     lengths = np.zeros(nrows, dtype=np.int32)
-    rows = np.asarray(rows, dtype=np.int64)
-    lengths[rows] = [len(s) for s in seqs]
+    lengths[np.asarray(rows, dtype=np.int64)] = [len(s) for s in seqs]
     codes = np.zeros((nrows, L), dtype=np.uint8)
     if seqs:
-        flat = ASCII_TO_CODE[np.frombuffer("".join(seqs).encode("ascii"),
-                                           dtype=np.uint8)]
-        per = lengths[rows].astype(np.int64)
-        starts = np.cumsum(per) - per
-        row = np.repeat(rows, per)
-        col = np.arange(flat.shape[0]) - np.repeat(starts, per)
-        codes[row, col] = flat
+        codes[np.arange(L)[None, :] < lengths[:, None]] = ASCII_TO_CODE[
+            np.frombuffer("".join(seqs).encode("ascii"), dtype=np.uint8)]
     return codes, lengths
 
 

@@ -303,10 +303,10 @@ def counts_for_records(sketch, records, window=COUNTS_WINDOW):
     row length (diginorm_scan.row_runs). On a Countgraph's byte tables
     kernel H's counts mode returns each window's least counter, a byte a
     k-mer, and the host reads a 255 through the bigcount map
-    (Countgraph._bigcount_fix); on a SmallCountgraph's nibble tables the
-    windows are hashed on the device (hash_batch) and kernel Q gathers
-    their counts, as JAX's device path does (make_hash_batch, then
-    _get_fn)."""
+    (Countgraph._bigcount_fix); on a SmallCountgraph's nibble tables kernel
+    Q's rows mode hashes the windows from the codes and returns each valid
+    window's least counter, a byte a k-mer (JAX's device path:
+    make_hash_batch, then _get_fn)."""
     if sketch.storage_kind not in ("byte", "nibble"):
         raise ValueError("counts_for_records reads a Countgraph's byte "
                          "tables or a SmallCountgraph's nibble tables, not "
@@ -337,9 +337,8 @@ def _window_counts(sketch, records):
             got = K.read_window_counts(sketch._primes, k, sketch.tables.flat,
                                        codes, lengths)
         else:
-            got = K._gather_counts(sketch.storage_kind, sketch._primes,
-                                   sketch.tables,
-                                   hash_batch(codes, lengths, k)[0])
+            got = K.nibble_row_counts(sketch._primes, sketch.tables.flat,
+                                      codes, lengths, k)
         got = got.cpu().numpy().astype(np.uint32)
         for j, i in enumerate(rows):
             counts[i] = got[j, :len(seqs[i]) - k + 1]

@@ -1404,16 +1404,17 @@ def nibble_update_plain(primes, flat, n_unique, hashes, nvalid,
     return fresh if with_event_new else None
 
 
-def nibble_gather_plain(primes, flat, hashes):
+def nibble_gather_plain(primes, flat, hashes, mask=None):
     """Min over the T nibble tables of each hash's counter, for a hash
     tensor of any shape -> int32, 15 where no table is lower (plain
-    PyTorch, any device): JAX's _gather_counts, nibble branch (:660)."""
+    PyTorch, any device): JAX's _gather_counts, nibble branch (:660).
+    With `mask` (bool, the shape of hashes), 0 where it is False."""
     counts = torch.full(hashes.shape, NIBBLE_MAX, dtype=torch.int32,
                         device=hashes.device)
     for off, p in zip(nibble_offsets(primes), primes):
         counts = torch.minimum(counts,
                                _nibbles(flat, umod(hashes, p) + 2 * off))
-    return counts
+    return counts if mask is None else torch.where(mask, counts, 0)
 
 
 def nibble_pertable_plain(primes, flat, hashes):
@@ -1425,7 +1426,33 @@ def nibble_pertable_plain(primes, flat, hashes):
         for off, p in zip(nibble_offsets(primes), primes)])
 
 
-def _check_nibble_args(primes, flat, hashes):
+def nibble_pertable_rows_plain(primes, flat, codes, lengths, k):
+    """Kernel R's rows mode (plain PyTorch, any device): for rows of 2-bit
+    codes [B, L] with lengths [B] and k-mers of k (1-32, the twobit
+    family), (hashes int64 [B, W], counters uint8 [T, B, W], index int64
+    [T, B, W]) with W = L - k + 1: on each valid window (w <= length - k)
+    its canonical hash, each table's counter of it and the flat nibble
+    index it lies at, 2 * nibble_offsets[t] + hash % primes[t] (disjoint
+    across tables, so it numbers the window's (table, counter) pairs);
+    hash 0, counter 0 and index -1 elsewhere. JAX's make_pertable_counts,
+    nibble branch (khmer_tpu/core/diginorm.py:51), on the valid windows."""
+    hashes, valid, _ = _window_hashes(codes, lengths, k)
+    index = torch.stack([torch.where(valid, umod(hashes, p) + 2 * off, -1)
+                         for off, p in zip(nibble_offsets(primes), primes)])
+    counters = torch.where(valid, _nibbles(flat, index.clamp(min=0)), 0)
+    return (torch.where(valid, hashes, 0), counters.to(torch.uint8), index)
+
+
+def nibble_row_counts_plain(primes, flat, codes, lengths, k):
+    """Kernel Q's rows mode (plain PyTorch, any device): uint8 [B, L - k +
+    1], each valid window's least counter over the nibble tables, 0 past a
+    read's windows. JAX's make_hash_batch then _get_fn on nibble tables
+    (khmer_tpu/core/pipeline.py:503)."""
+    hashes, valid, _ = _window_hashes(codes, lengths, k)
+    return nibble_gather_plain(primes, flat, hashes, valid).to(torch.uint8)
+
+
+def _check_nibble_layout(primes, flat):
     dev = flat.device
     if dev.type != "cuda":
         raise ValueError("the CUDA kernels take CUDA tensors, not %s" % dev)
@@ -1438,6 +1465,11 @@ def _check_nibble_args(primes, flat, hashes):
         raise ValueError("flat must be the contiguous, 4-byte aligned "
                          "uint8 buffer of nibble_flat_size(primes) = %d "
                          "bytes" % nibble_flat_size(primes))
+
+
+def _check_nibble_args(primes, flat, hashes):
+    _check_nibble_layout(primes, flat)
+    dev = flat.device
     if hashes.device != dev or hashes.dtype != torch.int64 \
             or hashes.dim() != 1 or not hashes.is_contiguous():
         raise ValueError("hashes must be a contiguous 1-D int64 tensor on %s"
@@ -1501,21 +1533,27 @@ def nibble_update(primes, flat, n_unique, hashes, nvalid, scratch=None,
                                with_event_new)
 
 
-def nibble_gather_cuda(primes, flat, hashes):
+def nibble_gather_cuda(primes, flat, hashes, mask=None):
     """Kernel Q (csrc/nibble_gather.cu): nibble_gather_plain of a 1-D
-    int64 hash tensor -> int32 [n]. Counts its launches in
+    int64 hash tensor -> int32 [n]; with `mask` (bool [n]), a masked-off
+    hash loads nothing and counts 0. Counts its launches in
     ``nibble_gather_cuda.launches``."""
     dev = flat.device
-    _check_nibble_args(primes, flat, hashes)
     n = hashes.shape[0]
+    if mask is not None and (mask.device != dev or mask.dtype != torch.bool
+                             or tuple(mask.shape) != (n,)
+                             or not mask.is_contiguous()):
+        raise ValueError("mask must be a contiguous bool [%d] tensor on %s"
+                         % (n, dev))
+    _check_nibble_args(primes, flat, hashes)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
     primes_arr, offsets_arr = _layout(primes, nibbles=True)
     err = cuda.library().khmer_nibble_gather(
         flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
-        ctypes.addressof(offsets_arr), hashes.data_ptr(), n, out.data_ptr(),
-        dev.index, _stream(dev))
+        ctypes.addressof(offsets_arr), hashes.data_ptr(), n, _ptr(mask),
+        out.data_ptr(), dev.index, _stream(dev))
     cuda.check(err, "nibble_gather")
     nibble_gather_cuda.launches += 1
     return out
@@ -1524,15 +1562,18 @@ def nibble_gather_cuda(primes, flat, hashes):
 nibble_gather_cuda.launches = 0
 
 
-def nibble_gather(primes, flat, hashes):
-    """Counts of a hash tensor (any shape) in nibble tables -> int32:
-    kernel Q on a CUDA buffer, the plain version on a CPU one."""
+def nibble_gather(primes, flat, hashes, mask=None):
+    """Counts of a hash tensor (any shape) in nibble tables -> int32, 0
+    where the optional bool `mask` (the shape of hashes) is False: kernel
+    Q on a CUDA buffer, the plain version on a CPU one."""
     if flat.is_cuda:
-        flat_h = hashes.reshape(-1).contiguous()
-        return nibble_gather_cuda(primes, flat, flat_h).reshape(hashes.shape)
+        flat_m = None if mask is None else mask.reshape(-1).contiguous()
+        return nibble_gather_cuda(primes, flat,
+                                  hashes.reshape(-1).contiguous(),
+                                  flat_m).reshape(hashes.shape)
     if flat.device.type != "cpu":
         raise ValueError("unsupported device %s" % flat.device)
-    return nibble_gather_plain(primes, flat, hashes)
+    return nibble_gather_plain(primes, flat, hashes, mask)
 
 
 def nibble_pertable_cuda(primes, flat, hashes):
@@ -1566,6 +1607,89 @@ def nibble_pertable(primes, flat, hashes):
     if flat.device.type != "cpu":
         raise ValueError("unsupported device %s" % flat.device)
     return nibble_pertable_plain(primes, flat, hashes)
+
+
+def _nibble_rows_launch(name, primes, flat, codes, lengths, k, *outs):
+    """Launch a rows mode of csrc/nibble_gather.cu (`name`) over codes
+    [R, L] / lengths [R], tiled by kernel H's read_plan."""
+    dev = flat.device
+    R, L = codes.shape
+    plan = read_plan(L, k)
+    primes_arr, offsets_arr = _layout(primes, nibbles=True)
+    err = getattr(cuda.library(), name)(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), codes.data_ptr(), lengths.data_ptr(),
+        R, L, int(k), plan["rows"], plan["seg"],
+        *[t.data_ptr() for t in outs], dev.index, _stream(dev))
+    cuda.check(err, name)
+
+
+def nibble_pertable_rows_cuda(primes, flat, codes, lengths, k):
+    """Kernel R's rows mode (csrc/nibble_gather.cu
+    khmer_nibble_pertable_rows): nibble_pertable_rows_plain on the card,
+    each window hashed from the codes in the kernel. Counts its launches
+    in ``nibble_pertable_rows_cuda.launches``."""
+    dev = flat.device
+    _check_rows(codes, lengths, k, dev)
+    _check_nibble_layout(primes, flat)
+    R, L = codes.shape
+    W = L - int(k) + 1
+    hashes = torch.empty((R, W), dtype=torch.int64, device=dev)
+    counters = torch.empty((len(primes), R, W), dtype=torch.uint8,
+                           device=dev)
+    index = torch.empty((len(primes), R, W), dtype=torch.int64, device=dev)
+    if R == 0:
+        return hashes, counters, index
+    _nibble_rows_launch("khmer_nibble_pertable_rows", primes, flat, codes,
+                        lengths, k, hashes, counters, index)
+    nibble_pertable_rows_cuda.launches += 1
+    return hashes, counters, index
+
+
+nibble_pertable_rows_cuda.launches = 0
+
+
+def nibble_pertable_rows(primes, flat, codes, lengths, k):
+    """(hashes [B, W], counters uint8 [T, B, W], flat nibble index [T, B,
+    W]) of each valid window of a [B, L] code matrix, the fill elsewhere
+    (nibble_pertable_rows_plain): kernel R's rows mode on a CUDA buffer,
+    the plain version on a CPU one."""
+    if flat.is_cuda:
+        return nibble_pertable_rows_cuda(primes, flat, codes, lengths, k)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return nibble_pertable_rows_plain(primes, flat, codes, lengths, k)
+
+
+def nibble_row_counts_cuda(primes, flat, codes, lengths, k):
+    """Kernel Q's rows mode (csrc/nibble_gather.cu khmer_nibble_row_counts):
+    nibble_row_counts_plain on the card -> uint8 [R, L - k + 1]. Counts its
+    launches in ``nibble_row_counts_cuda.launches``."""
+    dev = flat.device
+    _check_rows(codes, lengths, k, dev)
+    _check_nibble_layout(primes, flat)
+    R, L = codes.shape
+    counts = torch.empty((R, L - int(k) + 1), dtype=torch.uint8, device=dev)
+    if R == 0:
+        return counts
+    _nibble_rows_launch("khmer_nibble_row_counts", primes, flat, codes,
+                        lengths, k, counts)
+    nibble_row_counts_cuda.launches += 1
+    return counts
+
+
+nibble_row_counts_cuda.launches = 0
+
+
+def nibble_row_counts(primes, flat, codes, lengths, k):
+    """Each valid window's least counter in nibble tables, uint8 [B, L - k
+    + 1], 0 elsewhere: kernel Q's rows mode on a CUDA buffer, the plain
+    version on a CPU one."""
+    if flat.is_cuda:
+        return nibble_row_counts_cuda(primes, flat, codes, lengths, k)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return nibble_row_counts_plain(primes, flat, codes, lengths, k)
 
 
 def nibble_occupied(table0):
@@ -2876,8 +3000,12 @@ def abund_batch(track_kind, track_primes, track_tables, main_kind,
                          torch.zeros(1, dtype=torch.int64,
                                      device=hashes.device),
                          hashes, hashes.shape[0], valid)
-    counts = _gather_counts(main_kind, main_primes, main_tables,
-                            hashes).to(torch.int64)
+    if main_kind == "nibble":  # only the counted events load (kernel Q)
+        counts = nibble_gather(main_primes, main_tables.flat, hashes,
+                               mask=counted)
+    else:
+        counts = _gather_counts(main_kind, main_primes, main_tables, hashes)
+    counts = counts.to(torch.int64)
     is_sat = counted & (counts == MAX_KCOUNT)
     return {"counted": counted, "counts": counts, "is_sat": is_sat,
             "idx": torch.where(counted & ~is_sat, counts, ABUND_BINS)}

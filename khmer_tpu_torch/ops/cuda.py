@@ -57,12 +57,20 @@ _ENTRY_POINTS = {
     # n_unique, device, stream
     "khmer_nibble_update": [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _I64,
                             _P, _P, _P, _P, _P, _P, _I32, _P],
-    # flat, ntables, primes (host), nibble offsets (host), hashes, n, out,
-    # device, stream
-    "khmer_nibble_gather": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
+    # flat, ntables, primes (host), nibble offsets (host), hashes, n, mask
+    # (or null), out, device, stream
+    "khmer_nibble_gather": [_P, _I32, _P, _P, _P, _I64, _P, _P, _I32, _P],
     # flat, ntables, primes (host), nibble offsets (host), hashes, n,
     # out [T, n], device, stream
     "khmer_nibble_pertable": [_P, _I32, _P, _P, _P, _I64, _P, _I32, _P],
+    # flat, ntables, primes (host), nibble offsets (host), codes, lengths,
+    # nrows, L, k, rows, seg, hashes, counters, index, device, stream
+    "khmer_nibble_pertable_rows": [_P, _I32, _P, _P, _P, _P, _I64, _I32,
+                                   _I32, _I32, _I32, _P, _P, _P, _I32, _P],
+    # flat, ntables, primes (host), nibble offsets (host), codes, lengths,
+    # nrows, L, k, rows, seg, counts, device, stream
+    "khmer_nibble_row_counts": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32,
+                                _I32, _I32, _P, _I32, _P],
     # idx, n, out, nbins, blocks, device, stream
     "khmer_histogram_add": [_P, _I64, _P, _I64, _I32, _I32, _P],
     # bids, offs, m, table, nblocks, nbuckets, ids, start, cursor,

@@ -1,23 +1,30 @@
 """Kernels P, Q and R (csrc/nibble_update.cu khmer_nibble_update,
-csrc/nibble_gather.cu khmer_nibble_gather and khmer_nibble_pertable)
+csrc/nibble_gather.cu khmer_nibble_gather, khmer_nibble_pertable and
+their rows modes khmer_nibble_row_counts and khmer_nibble_pertable_rows)
 against their plain versions (core/sketch_kernels.py nibble_update_plain,
-nibble_gather_plain, nibble_pertable_plain) on seeded adversarial cases,
-on the card: hashes >= 2^63 and at the edges of the reduction by a
-reciprocal; in-chunk duplicates and one hash 2^20 times, counters driven
-past 15; both nibbles of a byte in one chunk, and the two nibbles of a
-byte on either side of an edge of kernel A's counter-range buckets; all
-8 nibbles of 32-bit words in one chunk; the first and last words of P's
-word buckets (sketch_kernels.nibble_buckets); tiny odd primes (tables of
-two to four bytes); a crowded bucket; a bucket whose records and
-distinct nibbles exceed a block's shared memory many times over, which P
-takes in parts and dense passes; one table and twenty; zero-padded tails;
-and nibble tables of 0.1, 2, 4 and 20 GB, the 20 GB case also with a call
-of 1,000 events (P's fewest buckets, so its widest bucket offsets) where
-the card has the memory. Each case commits its chunks through P and
-through the plain version from the same tables (tables, n_unique and
-each event's new flag compared after every chunk), then gathers its
-hashes and others through Q and R. chip_smoke.py phase 3 and
-tests/test_torch_gpu_kernels.py run them.
+nibble_gather_plain, nibble_pertable_plain, nibble_row_counts_plain,
+nibble_pertable_rows_plain) on seeded adversarial cases, on the card:
+hashes >= 2^63 and at the edges of the reduction by a reciprocal;
+in-chunk duplicates and one hash 2^20 times, counters driven past 15;
+both nibbles of a byte in one chunk, and the two nibbles of a byte on
+either side of an edge of kernel A's counter-range buckets; all 8 nibbles
+of 32-bit words in one chunk; the first and last words of P's word
+buckets (sketch_kernels.nibble_buckets); tiny odd primes (tables of two
+to four bytes); a crowded bucket; a bucket whose records and distinct
+nibbles exceed a block's shared memory many times over, which P takes in
+parts and dense passes; one table and twenty; zero-padded tails; and
+nibble tables of 0.1, 2, 4 and 20 GB, the 20 GB case also with a call of
+1,000 events (P's fewest buckets, so its widest bucket offsets) where the
+card has the memory. Each case commits its chunks through P and through
+the plain version from the same tables (tables, n_unique and each event's
+new flag compared after every chunk), then gathers its hashes and others
+through Q (unmasked, and under a random, an all-false and an all-true
+mask) and R. The row cases (ROW_CASES) hold both rows modes to their
+plain versions on tables of random bytes: k 1, 20 and 32, rows of L % 16
+!= 0 with reads shorter than k and empty rows, tables that share 32-bit
+words, a read over 4,096 bases among short ones, a row of 1,000,000 codes
+and a window of 16,384 reads in rows of 128 over 4 GB. chip_smoke.py
+phase 3 and tests/test_torch_gpu_kernels.py run them.
 
     python -m khmer_tpu_torch.scripts.nibble_cases
 """
@@ -211,13 +218,98 @@ def check_nibble_case(name, dev):
         flat_p = tables.flat.clone()
     q = np.concatenate(seen + [reduction_edges(primes, 20_000)])
     qt = torch.from_numpy(q.view(np.int64).copy()).to(dev)
-    errs["nibble_gather"] = _err(
-        K.nibble_gather_cuda(primes, tables.flat, qt),
-        K.nibble_gather_plain(primes, tables.flat, qt))
+    for mask in (None, torch.from_numpy(rng.random(q.shape[0]) < 0.3).to(
+            dev), torch.zeros(q.shape[0], dtype=torch.bool, device=dev),
+            torch.ones(q.shape[0], dtype=torch.bool, device=dev)):
+        errs["nibble_gather"] = max(errs["nibble_gather"], _err(
+            K.nibble_gather_cuda(primes, tables.flat, qt, mask),
+            K.nibble_gather_plain(primes, tables.flat, qt, mask)))
     errs["nibble_pertable"] = _err(
         K.nibble_pertable_cuda(primes, tables.flat, qt),
         K.nibble_pertable_plain(primes, tables.flat, qt))
     del flat_p, tables
+    return errs
+
+
+# name -> (tables, each prime near, k, rows): kernel R's and Q's rows modes
+ROW_CASES = {
+    "k1": (4, 1e5, 1, "short"),
+    "k20-odd-rows": (4, 1e5, 20, "odd"),
+    "k32": (4, 1e5, 32, "short"),
+    "tiny-odd-primes": (3, 8, 20, "odd"),
+    "straddling-words": (2, 2e5, 32, "odd"),
+    "long-read": (4, 1e6, 20, "long"),
+    "million-code-row": (4, 1e6, 32, "million"),
+    "4-GB-window": (4, 2e9, 32, "window"),
+}
+# rows -> (B, L) of its code matrix
+ROW_SHAPES = {"short": (64, 64), "odd": (67, 131), "long": (41, 5003),
+              "million": (2, 1_000_000), "window": (16384, 128)}
+
+
+def row_codes(rows, k, rng):
+    """(codes uint8 [B, L], lengths int32 [B]) of a row case: "short",
+    64 rows of 64 codes with lengths 0 to 64; "odd", 67 rows of 131 (L % 16
+    != 0) with lengths 0, k - 1, k, L and between; "long", 40 reads of 100
+    and one of 5,003 in rows of 5,003; "million", a row of 1,000,000 codes
+    and one of 517; "window", 16,384 reads of 100 in rows of 128 (phase
+    13b's normalize window)."""
+    B, L = ROW_SHAPES[rows]
+    codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    if rows == "short":
+        lengths = rng.integers(0, L + 1, B)
+    elif rows == "odd":
+        lengths = np.concatenate([[0, k - 1, k, L, L - 1, k + 1],
+                                  rng.integers(0, L + 1, B - 6)])
+    elif rows == "long":
+        lengths = np.full(B, 100)
+        lengths[17] = L
+    elif rows == "million":
+        lengths = np.array([L, 517])
+    else:
+        lengths = np.full(B, 100)
+    lengths = lengths.astype(np.int32)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    return codes, lengths
+
+
+def row_case(name, dev):
+    """(primes, flat: tables of random bytes, codes, lengths, k) of a row
+    case on `dev`."""
+    ntables, near, k, rows = ROW_CASES[name]
+    primes = tuple(K.get_n_primes_near_x(ntables, near))
+    rng = np.random.default_rng(len(name) * 104729)
+    codes, lengths = row_codes(rows, k, rng)
+    gen = torch.Generator(dev).manual_seed(len(name))
+    flat = torch.randint(0, 256, (K.nibble_flat_size(primes),),
+                         dtype=torch.uint8, device=dev, generator=gen)
+    return (primes, flat, torch.from_numpy(codes).to(dev),
+            torch.from_numpy(lengths).to(dev), k)
+
+
+def row_case_fits(name, dev):
+    """Whether the card has the memory for a row case: its tables, and 24
+    B a window a table for the outputs and the plain version."""
+    ntables, near, k, rows = ROW_CASES[name]
+    size = K.nibble_flat_size(tuple(K.get_n_primes_near_x(ntables, near)))
+    B, L = ROW_SHAPES[rows]
+    return torch.cuda.mem_get_info(dev)[0] >= size + 64 * ntables * B * L
+
+
+def check_row_case(name, dev):
+    """{"nibble_pertable_rows", "nibble_row_counts": the largest difference
+    between the rows mode and its plain version} on a row case (0 when they
+    agree: hashes, counters and flat nibble indices; counts)."""
+    primes, flat, codes, lengths, k = row_case(name, dev)
+    got = K.nibble_pertable_rows_cuda(primes, flat, codes, lengths, k)
+    want = K.nibble_pertable_rows_plain(primes, flat, codes, lengths, k)
+    errs = {"nibble_pertable_rows": max(
+        int(not torch.equal(got[0], want[0])), _err(got[1], want[1]),
+        int(not torch.equal(got[2], want[2]))),
+        "nibble_row_counts": _err(
+            K.nibble_row_counts_cuda(primes, flat, codes, lengths, k),
+            K.nibble_row_counts_plain(primes, flat, codes, lengths, k))}
+    del got, want, flat
     return errs
 
 
@@ -228,6 +320,12 @@ def main():
             print(name, "skipped: the card lacks the memory", flush=True)
             continue
         print(name, check_nibble_case(name, dev), flush=True)
+        torch.cuda.empty_cache()
+    for name in ROW_CASES:
+        if not row_case_fits(name, dev):
+            print(name, "skipped: the card lacks the memory", flush=True)
+            continue
+        print(name, check_row_case(name, dev), flush=True)
         torch.cuda.empty_cache()
 
 

@@ -767,12 +767,32 @@ def test_nibble_kernels_match_plain(cuda_device, name):
                     "nibble_pertable": 0}
 
 
+@pytest.mark.parametrize("name", list(nibble_cases.ROW_CASES))
+def test_nibble_rows_match_plain(cuda_device, name):
+    """Kernel R's and Q's rows modes against their plain versions on the
+    row cases (k 1, 20 and 32, rows of L % 16 != 0, reads shorter than k,
+    tables sharing 32-bit words, a read over 4,096 bases, a row of
+    1,000,000 codes, a window of 16,384 reads over 4 GB): hashes,
+    counters, flat nibble indices and the fill past each read; counts."""
+    if not nibble_cases.row_case_fits(name, cuda_device):
+        pytest.skip("the card lacks the memory for row case " + name)
+    before = (K.nibble_pertable_rows_cuda.launches,
+              K.nibble_row_counts_cuda.launches)
+    errs = nibble_cases.check_row_case(name, cuda_device)
+    torch.cuda.empty_cache()
+    assert errs == {"nibble_pertable_rows": 0, "nibble_row_counts": 0}
+    assert K.nibble_pertable_rows_cuda.launches == before[0] + 1
+    assert K.nibble_row_counts_cuda.launches == before[1] + 1
+
+
 def test_small_count_clis_on_cuda_launch_nibble_kernels(cuda_device,
                                                         tmp_path):
     """load-into-counting, abundance-dist-single, normalize-by-median,
     trim-low-abund and filter-abund-single with --small-count write on the
-    card what they write on the CPU, through kernels P, Q and R; the
-    repartition of make-initial-stoptags with a nibble counting table
+    card what they write on the CPU, through kernels P, Q and R (R's rows
+    mode in the windows of normalize-by-median and trim-low-abund, Q's
+    rows mode in filter-abund-single, Q under its mask in the histogram);
+    the repartition of make-initial-stoptags with a nibble counting table
     gives the CPU's stop tags."""
     import contextlib
     import io
@@ -812,7 +832,9 @@ def test_small_count_clis_on_cuda_launch_nibble_kernels(cuda_device,
         d.mkdir()
         before = (K.nibble_update_cuda.launches,
                   K.nibble_gather_cuda.launches,
-                  K.nibble_pertable_cuda.launches)
+                  K.nibble_pertable_cuda.launches,
+                  K.nibble_pertable_rows_cuda.launches,
+                  K.nibble_row_counts_cuda.launches)
         cwd = os.getcwd()
         os.chdir(d)
         try:
@@ -828,4 +850,6 @@ def test_small_count_clis_on_cuda_launch_nibble_kernels(cuda_device,
             assert K.nibble_update_cuda.launches > before[0]
             assert K.nibble_gather_cuda.launches > before[1]
             assert K.nibble_pertable_cuda.launches > before[2]
+            assert K.nibble_pertable_rows_cuda.launches > before[3]
+            assert K.nibble_row_counts_cuda.launches > before[4]
     assert got[str(cuda_device)] == got["cpu"]

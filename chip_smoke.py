@@ -260,6 +260,31 @@ Phases (each prints a line; any failure raises and exits non-zero):
      P, Q (masked), R's rows mode and Q's rows mode on 13b's largest calls
      and R on phase 13's against their bounds and sector floors, R and
      R's rows mode beside torch.take at precomputed byte indices.
+  14. the sketch family at 4 x 25 MB tables through the port's entry
+     points: Counttable, SmallCounttable, Nodetable, BlockedCounttable and
+     CyclicCounttable consume data/25k.fq.gz (n_unique, n_occupied, the
+     saved file's sha256, read back by its loader, and the count ops,
+     find_spectral_error_positions and trim_below_abundance of the first
+     100 reads); a Countgraph consumes the stamps reads under a Nodegraph
+     mask of their first half at threshold 0, both ways; a Counttable
+     consumes data/25k.fq.gz in four bands whose table is the full
+     consume's, and a band of the stamps reads under the mask; a
+     SmallCountgraph(20, 5e7, 4) tags the stamps reads, partitions them
+     with and without the band (2, 14) and sweeps its first 1,000 reads at
+     81; the JAX answers asserted (EXPECT_C14), every call of kernel S
+     (the consume filter) and every level of kernel N's nibble mode held
+     to its plain version, each kernel of the path launched; phase 3 also
+     holds S and N's nibble mode to plain on scripts/family_cases.py;
+  14b. at 4 GB of tables on phase 7b's reads: a Counttable(20, 1e9, 4) and
+     a SmallCounttable(20, 2e9, 4) consume them, a Countgraph(20, 1e9, 4)
+     consumes them under a Nodegraph(20, 8e9, 4) mask of their first
+     250,000, a SmallCountgraph(20, 2e9, 4) tags them and partitions every
+     tag in the band (2, 14); the JAX answers asserted, every call of S and
+     every 8th level of N's nibble mode held to plain; then S on its
+     largest call beside torch.masked_select and the read of its count,
+     and N's nibble mode in both its modes on phase 14's and 14b's largest
+     levels, beside their bounds and sector floors (its staged mode's time
+     in the per-kernel line is phase 14's, its small-level mode's 14b's).
 Kernel times in the per-kernel line are CUDA-event times of calls issued
 back to back (scripts.cuda_ms), what a caller sees (J's at 9b each call
 alone after its tables are zeroed or restored, scripts.reset_ms); the
@@ -648,6 +673,86 @@ EXPECT_C13 = {
 }
 
 
+# Phases 14 and 14b through the JAX package (khmer_tpu, CPU,
+# KHMER_TPU_ENGINE=auto; the CPU tests hold the port to both engines on
+# smaller inputs, tests/test_torch_sketch_family.py and
+# tests/test_torch_nibble_graph.py): the steps of family_steps and
+# family_scale_steps run over JAX's classes in place of PortFamily. The
+# "synth" answers are phase 14b's at its full 4 GB of tables (1,005 s and
+# 21.0 GB of host memory on the CPU, scripts/peak_rss.py).
+EXPECT_C14 = {
+    "Counttable": [[25000, 1248896], 1246181, 1215488,
+                   "8856afc5c9f7e121dfe793b4f1ac3d03"
+                   "dfc5080d7000b688e32af06b7848ead6",
+                   "d4a60ee186e8fc08394436cd54627a02"
+                   "8c8c351170ac9adbd905244f1e50034b"],
+    "SmallCounttable": [[25000, 1248896], 1246182, 1230733,
+                        "536f076ab2e94b042833d79a17b3894a"
+                        "c81c20e8c8865899c9450410d7527191",
+                        "d4a60ee186e8fc08394436cd54627a02"
+                        "8c8c351170ac9adbd905244f1e50034b"],
+    "Nodetable": [[25000, 1248896], 1246182, 1242365,
+                  "f5d44159930e034ca97dcb8d8f586bf1"
+                  "64801448ad9a50783acd2b22927f49ee",
+                  "602f41e16a91ef6c24ada65b7d72ce44"
+                  "ecdf9dd41d7d5076cf59c1623757965d"],
+    "BlockedCounttable": [[25000, 1248896], 1246161, 1215841,
+                          "fb100ad6f7a814b9e93d7c7baa762d04"
+                          "33e955fbc03363da6d9d50209626b633",
+                          "d4a60ee186e8fc08394436cd54627a02"
+                          "8c8c351170ac9adbd905244f1e50034b"],
+    "CyclicCounttable": [[25000, 1248896], 1246181, 1215541,
+                         "7f76a9029045661cbf0621af7c6439dd"
+                         "20618b8c7e8c844e93d0767853064b41",
+                         "d4a60ee186e8fc08394436cd54627a02"
+                         "8c8c351170ac9adbd905244f1e50034b"],
+    "mask unmasked": [[200000, 164212], 139642,
+                      "ec38f45d6d57c39a9ccafe7c728a2820"
+                      "a89b4355b90bf8fca68de778336fb940"],
+    "mask masked": [[200000, 16200000], 536430,
+                    "36b0658ccac3ae01a0d33814b3867993"
+                    "91d45c879a572aa4dd5e31cb119e1756"],
+    "bands": [[25000, 312961], [25000, 312153], [25000, 312078],
+              [25000, 311704],
+              "8856afc5c9f7e121dfe793b4f1ac3d03"
+              "dfc5080d7000b688e32af06b7848ead6"],
+    "band mask": [[200000, 4064957], 134006,
+                  "3134db101c28df9973aaf0e6837abc4b"
+                  "2605dd742de95974598dc528fa5ea631"],
+    "graph": [[200000, 536430], 536430, 16121,
+              "9a6c123f03eae3a72c29ed517aa0ec44"
+              "b85e9576a9e132d481fd1e2c9c869329",
+              "99e9fddbf9f89ecdf7b31d566f36363d"
+              "2e64e1e9e24235150f5b9f7caff78979"],
+    "partition": [[51, 16025],
+                  "c6c2d8a3174f40b7a8850b7b0a77fb54"
+                  "86857917099a3cb048b8e56104ed1d8e"],
+    "abundance": [[467, 11932],
+                  "55f1e3012b24da87d53774a9cd857335"
+                  "12005b84cbf2156fd3dcc1fa96d1e40a"],
+    "sweep 81": [714784,
+                 "7d52422ff380c554e58260f086addbaa"
+                 "5ed9c5b671520dc9732746883f4a62bc"],
+    "synth": {
+        "Counttable": [[1000000, 81000000], 16031415, 15904130,
+                       "512c70e79928229f547336b01abe79d4"
+                       "bb862271c5268d5eb6d105189fa670e6"],
+        "SmallCounttable": [[1000000, 81000000], 16031415, 15967574,
+                            "d060877741506d8b4a09bc1a342692a1"
+                            "43b94b04267555fd7346f519f0092a95"],
+        "mask": [[1000000, 10796973], 10385566,
+                 "3875f8cadd9c8269ce8cadb0137c2338"
+                 "5b9ae5bab31fcb5ba114dc3410aabcdb"],
+        "graph": [[1000000, 16031415], 16031415, 527780,
+                  "695b8abe450e3addea905d89588360df"
+                  "094e2f5c2a196f63d98c1c1688aae846"],
+        "abundance": [[736, 526289],
+                      "f406df79f13939e44dedf7a024f3af4e"
+                      "fdc91e5d2ed6e72b02cbf567ed87b68e"],
+    },
+}
+
+
 class SmokeFailure(AssertionError):
     pass
 
@@ -731,7 +836,9 @@ def main():
                                  "byte_neighbors", "byte_neighbors_small",
                                  "nibble_update", "nibble_gather",
                                  "nibble_pertable", "nibble_pertable_rows",
-                                 "nibble_row_counts")}
+                                 "nibble_row_counts", "consume_filter",
+                                 "nibble_neighbors",
+                                 "nibble_neighbors_small")}
     cases = adversarial_cases(np)
     for name, nb, chunks in cases:
         run_exact_case(torch, np, B, SK, dev, name, nb, chunks, errs)
@@ -749,15 +856,17 @@ def main():
     n_pert = run_pertable_cases(torch, dev, errs)
     n_cg = run_countgraph_cases(torch, dev, errs)
     n_nib = run_nibble_cases(torch, dev, errs)
+    n_fam = run_family_cases(torch, dev, errs)
     say("phase 3 exact: kernel == plain on %d blocked, %d byte, %d "
         "histogram, %d decoded-event, %d byte-gather-reduction, %d "
         "blocked-gather-reduction, %d diginorm, %d trim, %d bit-table, "
         "%d HLL, %d neighbour-probe, %d per-table-gather, %d Countgraph "
-        "graph and %d nibble-table cases (tables, flags, n_unique, bigcount "
-        "reports, counts, keep flags, branches, trim positions, registers, "
-        "neighbour bytes, counters)"
+        "graph, %d nibble-table and %d sketch-family cases (tables, flags, "
+        "n_unique, bigcount reports, counts, keep flags, branches, trim "
+        "positions, registers, neighbour bytes, counters, kept hashes)"
         % (len(cases), len(byte_cases), n_hist, n_proto, n_edges, n_edges2,
-           n_digi, n_trim, n_bit, n_hll, n_nbr, n_pert, n_cg, n_nib))
+           n_digi, n_trim, n_bit, n_hll, n_nbr, n_pert, n_cg, n_nib,
+           n_fam))
     lap("phase 3")
 
     # -- phase 4: config 1, blocked, through the port's entry points -------
@@ -921,6 +1030,36 @@ def main():
             launches[key] = n + scale_launches[key]
         lap("phase 13b")
 
+        # -- phase 14: the sketch family (kernel S, N's nibble mode) --------
+        fam_launches, fam_checks = run_family(torch, SK, B, dev, card, errs)
+        n_times = time_nibble_neighbors(torch, SK, card, errs,
+                                        fam_checks["nibble_neighbors"],
+                                        "phase 14")
+        del fam_checks
+        torch.cuda.empty_cache()
+        lap("phase 14")
+
+        # -- phase 14b: the sketch family at 4 GB of tables -----------------
+        scale_launches, fam_checks = run_family_scale(
+            torch, SK, B, dev, card, errs, reads, head)
+        timings.update(time_consume_filter(torch, SK, card, errs,
+                                           fam_checks))
+        scale_times = time_nibble_neighbors(torch, SK, card, errs,
+                                            fam_checks["nibble_neighbors"],
+                                            "phase 14b")
+        del fam_checks
+        torch.cuda.empty_cache()
+        # N's nibble mode in the kernels line: its staged mode on phase
+        # 14's largest level, its small-level mode on 14b's largest below
+        # the crossover
+        timings["nibble_neighbors"] = n_times["nibble_neighbors"]
+        timings["nibble_neighbors_small"] = scale_times.get(
+            "nibble_neighbors_small", n_times.get("nibble_neighbors_small"))
+        for key in ("consume_filter", "nibble_neighbors",
+                    "nibble_neighbors_small"):
+            launches[key] = fam_launches[key] + scale_launches[key]
+        lap("phase 14b")
+
     kernels = []
     for name, source, replaces in (
             ("blocked_update", "blocked_update.cu",
@@ -966,7 +1105,13 @@ def main():
             ("nibble_pertable_rows", "nibble_gather.cu",
              "khmer_tpu/core/diginorm.py:36"),
             ("nibble_row_counts", "nibble_gather.cu",
-             "khmer_tpu/core/pipeline.py:503")):
+             "khmer_tpu/core/pipeline.py:503"),
+            ("consume_filter", "consume_filter.cu",
+             "khmer_tpu/core/pipeline.py:163"),
+            ("nibble_neighbors", "neighbors.cu",
+             "khmer_tpu/core/graphmixin.py:30"),
+            ("nibble_neighbors_small", "neighbors.cu",
+             "khmer_tpu/core/graphmixin.py:30")):
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -4145,71 +4290,30 @@ def _keep_calls(owner, name, calls):
 
 def time_countgraph_kernels(torch, SK, card, errs, checks, label):
     """N, H's counts mode and A with and without its flags on the largest
-    calls of a phase's path, against their plain versions. N on the
-    phase's largest level and its largest below SK.NBR_SMALL_NODES, each
-    in both its modes (staged, small-level) with the walk's band, held to
-    plain and timed hot and cold (each call after a write of 100 MB that
-    flushes L2, pertable_bench.readings), beside its bound and sector
-    floors (countgraph_cases.byte_probe_floors); H and A as issued
+    calls of a phase's path, against their plain versions. N as
+    time_neighbor_probe times it, beside the sector floors of
+    countgraph_cases.byte_probe_floors; H and A as issued
     (scripts.cuda_ms) and on the device (scripts.device_ms). Returns the
     kernels-line times of N: {mode: its time cold, as issued, on the
     largest level the walk runs in that mode}."""
     from khmer_tpu_torch.scripts import cuda_ms, device_ms
-    from khmer_tpu_torch.scripts import pertable_bench as PB
     from khmer_tpu_torch.scripts.countgraph_cases import byte_probe_floors
 
-    out = {}
-    tap = checks["byte_neighbors"]
-    picks = [("largest", tap.largest)]
-    if tap.largest_below is not None \
-            and tap.largest_below[0].shape[0] != tap.largest[0].shape[0]:
-        picks.append(("largest below %d nodes" % SK.NBR_SMALL_NODES,
-                      tap.largest_below))
-    scratch = torch.empty(PB.FLUSH_BYTES, dtype=torch.uint8,
-                          device=tap.largest[0].device)
-    for which, (f, r, prober) in picks:
-        g = prober.graph
-        primes, flat, k = g._primes, g.tables.flat, g.ksize()
-        band, big = prober.band, prober.big
-        n = f.shape[0]
+    def floors(primes, flat, f, r, k):
         every, needed, loads = byte_probe_floors(primes, flat, f, r, k)
-        plain = lambda: SK.byte_neighbors_plain(primes, flat, f, r, k, band,
-                                                big)
-        want = plain()
-        plain_ms = cuda_ms(plain, 3)
-        for small in (False, True):
-            key = "byte_neighbors_small" if small else "byte_neighbors"
-            call = lambda: SK.byte_neighbors_cuda(primes, flat, f, r, k,
-                                                  band, big, small)
-            err = max(_max_abs(a, b) for a, b in _pairs(call(), want))
-            errs[key] = max(errs[key], err)
-            expect(err == 0, "%s: N (%s) != plain on its %s level"
-                   % (label, key, which))
-            m = PB.readings(call, scratch.zero_, 8 * n)
-            t = {"ms": m["cold_ms"], "plain_ms": plain_ms,
-                 "library_ms": None}
-            t["bound_ms"], t["bound_by"] = bound(
-                (16 + (1 if band is None else 2)) * n, 8 * len(primes) * n)
-            walks_mode = small == (n < SK.NBR_SMALL_NODES)
-            say("  %s N in its %s mode%s on the %s level (%d nodes, %s) "
-                "into %d byte tables of %.3f GB: hot %.4f ms as issued "
-                "(device %.4f ms), cold %.4f ms as issued (device %.4f ms, "
-                "%.3f ns a node), plain %.4f ms, bound %.4f ms (%s); sector "
-                "floors (32 B a distinct sector): every table of every "
-                "neighbour %.4f ms (%d sectors), the counters the staged "
-                "rule loads %.4f ms (%d sectors, %d loads); == plain; on %s"
-                % (label, "small-level" if small else "staged",
-                   " (the walk's)" if walks_mode else "", which, n,
-                   "band %s" % (band,) if band else "presence",
-                   len(primes), flat.shape[0] / 1e9, m["ms"],
-                   m["device_ms"], m["cold_ms"], m["cold_device_ms"],
-                   m["cold_device_ms"] * 1e6 / max(n, 1), plain_ms,
-                   t["bound_ms"], t["bound_by"],
-                   every * 32 / PEAK_BYTES_S * 1e3, every,
-                   needed * 32 / PEAK_BYTES_S * 1e3, needed, loads, card))
-            if walks_mode and key not in out:
-                out[key] = t
-    del scratch
+        return ("sector floors (32 B a distinct sector): every table of "
+                "every neighbour %.4f ms (%d sectors), the counters the "
+                "staged rule loads %.4f ms (%d sectors, %d loads)"
+                % (every * 32 / PEAK_BYTES_S * 1e3, every,
+                   needed * 32 / PEAK_BYTES_S * 1e3, needed, loads))
+
+    out = time_neighbor_probe(
+        torch, SK, card, errs, checks["byte_neighbors"], label, "byte", "N",
+        lambda p, fl, f, r, k, pr: SK.byte_neighbors_plain(
+            p, fl, f, r, k, pr.band, pr.big),
+        lambda p, fl, f, r, k, pr, small: SK.byte_neighbors_cuda(
+            p, fl, f, r, k, pr.band, pr.big, small),
+        floors)
     _, args, kwargs = checks["read_window_counts"].largest
     call = lambda: SK.read_window_counts_cuda(*args)
     plain = lambda: SK.read_window_counts_plain(*args)
@@ -4767,6 +4871,588 @@ def time_nibble_kernels(torch, SK, card, errs, checks, knot_checks):
     out["nibble_update"] = t
     return out
 
+
+# ---------------------------------------------------------------------------
+# phases 14 and 14b: the sketch family (kernel S, kernel N's nibble mode)
+# ---------------------------------------------------------------------------
+
+
+def run_family_cases(torch, dev, errs):
+    """Kernel S and N's nibble mode against their plain versions on the
+    cases of scripts/family_cases.py."""
+    from khmer_tpu_torch.scripts import family_cases as F
+
+    for name in F.FILTER_CASES:
+        err = F.check_filter_case(name, dev)
+        errs["consume_filter"] = max(errs["consume_filter"], err)
+        expect(err == 0, "consume_filter != plain on case %s" % name)
+    for name in F.NIBBLE_NBR_CASES:
+        err = F.check_nibble_nbr_case(name, dev)
+        for key in ("nibble_neighbors", "nibble_neighbors_small"):
+            errs[key] = max(errs[key], err)
+        expect(err == 0, "nibble_neighbors != plain on case %s" % name)
+    torch.cuda.empty_cache()
+    say("  family cases: consume_filter (kept hashes in order, their count) "
+        "on %d cases and nibble_neighbors in both modes (presence and band "
+        "bytes at %d bands) on %d == plain"
+        % (len(F.FILTER_CASES), len(F.NIBBLE_BANDS) + 1,
+           len(F.NIBBLE_NBR_CASES)))
+    return len(F.FILTER_CASES) + len(F.NIBBLE_NBR_CASES)
+
+
+# The tables of phases 14 and 14b, each class with the -x of its layout:
+# phase 14's four tables of 25 MB (phase 13's nibble size; the blocked
+# table holds the same 100 MB), phase 14b's of 1 GB.
+FAMILY_X = {"Counttable": 2.5e7, "SmallCounttable": 5e7, "Nodetable": 2e8,
+            "BlockedCounttable": 2.5e7, "CyclicCounttable": 2.5e7,
+            "Nodegraph": 2e8, "Countgraph": 2.5e7, "SmallCountgraph": 5e7}
+FAMILY_SCALE_X = {"Counttable": 1e9, "SmallCounttable": 2e9,
+                  "Nodegraph": 8e9, "Countgraph": 1e9,
+                  "SmallCountgraph": 2e9}
+FAMILY_READS = 100  # the reads whose count ops phase 14 asserts
+STAMPS_MASK_READS = 100_000  # phase 14's mask: the first half of the reads
+
+
+class PortFamily:
+    """The port's side of phases 14 and 14b: its classes made on the card,
+    its loaders, its batched sweep and its tables' bytes. Another object
+    with the same methods over the JAX package's classes (on the CPU)
+    gives EXPECT_C14 from the same steps (family_steps,
+    family_scale_steps)."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def make(self, name, k, x, n):
+        import khmer_tpu_torch as T
+
+        return getattr(T, name)(k, x, n, device=self.dev)
+
+    def load(self, name, path):
+        import khmer_tpu_torch as T
+
+        if name in ("Counttable", "SmallCounttable"):
+            return T.load_counttable(path, small=name.startswith("Small"),
+                                     device=self.dev)
+        if name == "Nodetable":
+            return T.load_nodetable(path, device=self.dev)
+        return getattr(T, name).load(path, device=self.dev)
+
+    def sweep(self, graph, seqs, sweep_range):
+        from khmer_tpu_torch.core import partition as P
+
+        return [set(int(t) for t in f) for f in P.sweep_for_tags_batch(
+            graph, seqs, sweep_range)[0]]
+
+    def tables(self, sketch):
+        """The tables' bytes, one buffer each."""
+        return [t.cpu().numpy() for t in sketch.tables]
+
+
+def _tables_sha256(tables):
+    h = hashlib.sha256()
+    for t in tables:
+        h.update(memoryview(t).cast("B"))
+    return h.hexdigest()
+
+
+def _json_sha256(value):
+    return hashlib.sha256(json.dumps(value).encode()).hexdigest()
+
+
+def _ints(pair):
+    return [int(v) for v in pair]
+
+
+def write_head(src, dst, n):
+    """The first n records of a FASTA file (two lines each) into dst."""
+    import gzip
+
+    opener = gzip.open if src.endswith(".gz") else open
+    with opener(src, "rt") as f, open(dst, "w") as out:
+        for _ in range(2 * n):
+            out.write(f.readline())
+    return dst
+
+
+def family_steps(fam, tmp, step=lambda name, fn: fn()):
+    """Phase 14's steps through `fam` (PortFamily, or the same over the JAX
+    package): the five tables consume data/25k.fq.gz (their reads and
+    k-mers, n_unique, n_occupied, the saved file's sha256, which the
+    loader reads back to the same tables, and the sha256 of the count ops
+    of the first FAMILY_READS reads); a Countgraph consumes the stamps
+    reads under a Nodegraph mask of their first half at threshold 0, both
+    ways; a Counttable consumes data/25k.fq.gz in four bands and a band of
+    the stamps reads under the mask; a SmallCountgraph tags the stamps
+    reads, partitions them with and without the band (2, 14) (the big
+    traversals cut) and sweeps its first 1,000 reads at 81. `step(name,
+    fn)` runs each step (the port's phase times them). Returns the
+    answers."""
+    from khmer_tpu_torch.io.fastx import FastxParser
+
+    got = {}
+    path = lambda name: os.path.join(tmp, name)
+    firsts = [r.cleaned_seq for _, r in zip(range(FAMILY_READS),
+                                            FastxParser(DATA))]
+    for name in ("Counttable", "SmallCounttable", "Nodetable",
+                 "BlockedCounttable", "CyclicCounttable"):
+        t = fam.make(name, K, FAMILY_X[name], 4)
+        n = step(name, lambda: t.consume_seqfile(DATA))
+        t.save(path(name))
+        back = fam.load(name, path(name))
+        expect(_tables_sha256(fam.tables(back))
+               == _tables_sha256(fam.tables(t)), "phase 14: %s loads back "
+               "other tables" % name)
+        ops = [[[int(c) for c in t.get_kmer_counts(s)],
+                [int(p) for p in t.find_spectral_error_positions(s, 2)],
+                int(t.trim_below_abundance(s, 2)[1])] for s in firsts]
+        got[name] = [_ints(n), int(t.n_unique_kmers()), int(t.n_occupied()),
+                     _file_sha256(path(name))[0], _json_sha256(ops)]
+        del t, back
+    head = write_head(STAMPS, path("stamps-head.fa"), STAMPS_MASK_READS)
+    mask = fam.make("Nodegraph", K, FAMILY_X["Nodegraph"], 4)
+    mask.consume_seqfile(head)
+    for masked in (False, True):
+        g = fam.make("Countgraph", K, FAMILY_X["Countgraph"], 4)
+        key = "masked" if masked else "unmasked"
+        n = step("Countgraph " + key, lambda: g.consume_seqfile_with_mask(
+            STAMPS, mask, 0, masked))
+        g.save(path("masked.ct"))
+        got["mask " + key] = [_ints(n), int(g.n_unique_kmers()),
+                              _file_sha256(path("masked.ct"))[0]]
+        del g
+    ct = fam.make("Counttable", K, FAMILY_X["Counttable"], 4)
+    got["bands"] = [step("band %d" % b, lambda: _ints(
+        ct.consume_seqfile_banding(DATA, 4, b))) for b in range(4)]
+    ct.save(path("bands.ct"))
+    got["bands"].append(_file_sha256(path("bands.ct"))[0])
+    ct = fam.make("Counttable", K, FAMILY_X["Counttable"], 4)
+    n = step("band and mask", lambda: ct.consume_seqfile_banding_with_mask(
+        STAMPS, 4, 1, mask, 0))
+    ct.save(path("band-mask.ct"))
+    got["band mask"] = [_ints(n), int(ct.n_unique_kmers()),
+                        _file_sha256(path("band-mask.ct"))[0]]
+    del ct, mask
+    g = fam.make("SmallCountgraph", K, FAMILY_X["SmallCountgraph"], 4)
+    n = step("tagged consume", lambda: g.consume_seqfile_and_tag(STAMPS))
+    g.save(path("g.ct"))
+    g.save_tagset(path("g.tagset"))
+    got["graph"] = [_ints(n), int(g.n_unique_kmers()), int(g.n_tags()),
+                    _file_sha256(path("g.tagset"))[0],
+                    _file_sha256(path("g.ct"))[0]]
+    for key, call in (
+            ("partition", lambda: g.do_subset_partition(
+                0, 0, stop_big_traversals=True)),
+            ("abundance", lambda: g.do_subset_partition_with_abundance(
+                2, 14, stop_big_traversals=True))):
+        subset = step(key, call)
+        subset.save_partitionmap(path(key + ".pmap"))
+        got[key] = [[int(v) for v in subset.count_partitions()],
+                    _file_sha256(path(key + ".pmap"))[0]]
+    seqs = [r.sequence for _, r in zip(range(1000), FastxParser(STAMPS))]
+    found = step("sweep 81", lambda: fam.sweep(g, seqs, 81))
+    got["sweep 81"] = [sum(map(len, found)), _tag_lists_sha256(found)]
+    return got
+
+
+def family_scale_steps(fam, reads, head, step=lambda name, fn: fn()):
+    """Phase 14b's steps through `fam` on phase 7b's reads, each table of
+    FAMILY_SCALE_X (4 x 1 GB): a Counttable and a SmallCounttable consume
+    them (reads and k-mers, n_unique, n_occupied, the tables' sha256); a
+    Countgraph consumes them under a Nodegraph mask of their first
+    250,000 (`head`) at threshold 0; a SmallCountgraph tags them and
+    partitions every tag in the band (2, 14), the big traversals cut.
+    Returns the answers."""
+    got = {}
+    for name in ("Counttable", "SmallCounttable"):
+        t = fam.make(name, K, FAMILY_SCALE_X[name], 4)
+        n = step(name, lambda: t.consume_seqfile(reads))
+        got[name] = [_ints(n), int(t.n_unique_kmers()), int(t.n_occupied()),
+                     _tables_sha256(fam.tables(t))]
+        del t
+    mask = fam.make("Nodegraph", K, FAMILY_SCALE_X["Nodegraph"], 4)
+    step("mask", lambda: mask.consume_seqfile(head))
+    g = fam.make("Countgraph", K, FAMILY_SCALE_X["Countgraph"], 4)
+    n = step("masked consume", lambda: g.consume_seqfile_with_mask(
+        reads, mask, 0))
+    got["mask"] = [_ints(n), int(g.n_unique_kmers()),
+                   _tables_sha256(fam.tables(g))]
+    del g, mask
+    g = fam.make("SmallCountgraph", K, FAMILY_SCALE_X["SmallCountgraph"], 4)
+    n = step("tagged consume", lambda: g.consume_seqfile_and_tag(reads))
+    got["graph"] = [_ints(n), int(g.n_unique_kmers()), int(g.n_tags()),
+                    _json_sha256(sorted(int(t) for t in g.all_tags))]
+    subset = step("abundance", lambda: g.do_subset_partition_with_abundance(
+        2, 14, stop_big_traversals=True))
+    got["abundance"] = [[int(v) for v in subset.count_partitions()],
+                        _json_sha256(sorted(
+                            [int(t), int(subset.get_partition_id(t))]
+                            for t in g.all_tags))]
+    return got
+
+
+def _check_filter(torch, SK):
+    """Kernel S held to consume_filter_plain on the same inputs: the
+    count's difference, else the kept hashes that differ. check.best
+    keeps the arguments of the call with the most events, and of those
+    the one that kept the most (S's timed call)."""
+    best = {}
+
+    def check(fn, args, kwargs):
+        got = fn(*args, **kwargs)
+        want = SK.consume_filter_plain(*args, **kwargs)
+        m = int(want[1][0])
+        err = abs(int(got[1][0]) - m)
+        if err == 0:
+            err = int((got[0][:m] != want[0][:m]).sum())
+        key = (int(args[1]), m)
+        if not best or key > best["key"]:
+            best.update(key=key, args=args, kwargs=kwargs)
+        return got, err, int(args[1])
+    check.best = best
+    return check
+
+
+def _check_bit_gather(SK):
+    def check(fn, args, kwargs):
+        got = fn(*args, **kwargs)
+        return got, _max_abs(got, SK.bit_gather_plain(*args)), got.numel()
+    return check
+
+
+def _family_checks(torch, SK, every_probe, max_check=1 << 21,
+                   mask_gather=False):
+    """S (SK.consume_filter, every call, by _CallCheck) and N's nibble mode
+    (a level tap on the walks' C++ loop, every `every_probe`-th level, the
+    largest level and the largest below SK.NBR_SMALL_NODES kept); with
+    `mask_gather`, L's gather mode too (SK.bit_gather: a Nodegraph mask's
+    counts), every call, its largest kept for timing."""
+    from khmer_tpu_torch.scripts.level_tap import LevelTap
+
+    checks = {"consume_filter": _CallCheck(torch, SK, "consume_filter",
+                                           _check_filter(torch, SK),
+                                           lambda a: int(a[1])),
+              "nibble_neighbors": LevelTap("nibble", every_probe, None,
+                                           max_check, SK.NBR_SMALL_NODES)}
+    if mask_gather:
+        checks["bit_gather"] = _CallCheck(torch, SK, "bit_gather",
+                                          _check_bit_gather(SK),
+                                          lambda a: a[2].numel())
+    return checks
+
+
+FAMILY_KERNELS = ("consume_filter", "nibble_neighbors",
+                  "nibble_neighbors_small", "nibble_update", "nibble_gather",
+                  "byte_update", "byte_gather", "bit_update", "bit_gather",
+                  "blocked_update", "blocked_gather")
+
+
+def _family_launches(SK, B, zero=False):
+    """The launch counts of the family's path (set to 0 with `zero`)."""
+    owners = {"consume_filter": (SK.consume_filter_cuda, "launches"),
+              "nibble_neighbors": (SK.nibble_neighbors_cuda, "launches"),
+              "nibble_neighbors_small": (SK.nibble_neighbors_cuda,
+                                         "small_launches"),
+              "nibble_update": (SK.nibble_update_cuda, "launches"),
+              "nibble_gather": (SK.nibble_gather_cuda, "launches"),
+              "byte_update": (SK.byte_update_cuda, "launches"),
+              "byte_gather": (SK.byte_gather_cuda, "launches"),
+              "bit_update": (SK.bit_update_cuda, "launches"),
+              "bit_gather": (SK.bit_gather_cuda, "launches"),
+              "blocked_update": (B.blocked_update_cuda, "launches"),
+              "blocked_gather": (B.blocked_gather_cuda, "launches")}
+    if zero:
+        for owner, attr in owners.values():
+            setattr(owner, attr, 0)
+    return {key: getattr(owner, attr) for key, (owner, attr) in
+            owners.items()}
+
+
+def _family_expect(label, checks, errs):
+    for name, c in checks.items():
+        keys = {"nibble_neighbors": ["nibble_neighbors",
+                                     "nibble_neighbors_small"],
+                "bit_gather": ["neighbors"]}.get(name, [name])
+        expect(c.err == 0, "%s: %s differs from plain by up to %d over its "
+               "%d values" % (label, name, c.err, c.checked))
+        expect(c.calls > 0 and c.checked > 0, "%s: %s was not held to its "
+               "plain version" % (label, name))
+        for key in keys:
+            errs[key] = max(errs[key], c.err)
+
+
+def run_family(torch, SK, B, dev, card, errs):
+    """Phase 14: the sketch family on the card through the port's entry
+    points (family_steps on PortFamily), the JAX answers (EXPECT_C14)
+    asserted; every call of S and every level of N's nibble mode held to
+    its plain version; the launch counts set to 0 before the first step
+    and read after the last, each kernel of the path launched (S, N's
+    nibble mode in both its modes, P, Q, A, B, J, L's gather, 1 and 2); N
+    launched once a level; each step's wall. Returns (launches,
+    checks)."""
+    E = EXPECT_C14
+    checks = _family_checks(torch, SK, 1, max_check=1 << 23)
+    tap = checks["nibble_neighbors"]
+    walls, checked = {}, {}
+    step = lambda name, fn: _timed_step(torch, fn, checks, walls, checked,
+                                        name)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as tmp:
+        restore = _install(checks)
+        try:
+            _family_launches(SK, B, zero=True)
+            got = family_steps(PortFamily(dev), tmp, step)
+            launches = _family_launches(SK, B)
+        finally:
+            restore()
+    want = {key: E[key] for key in got}
+    expect(got == want, "phase 14: %s, JAX gives %s" % (got, want))
+    expect(got["bands"][-1] == got["Counttable"][3], "phase 14: the four "
+           "bands' table differs from the full consume's")
+    expect(sum(b[1] for b in got["bands"][:4]) == got["Counttable"][0][1],
+           "phase 14: the bands' k-mers do not sum to the full consume's")
+    _family_expect("phase 14", checks, errs)
+    for name in FAMILY_KERNELS:
+        expect(launches[name] > 0, "phase 14: %s never launched" % name)
+    expect(launches["nibble_neighbors"] + launches["nibble_neighbors_small"]
+           == tap.calls, "phase 14: N's nibble mode launched %d times on %d "
+           "levels" % (launches["nibble_neighbors"]
+                       + launches["nibble_neighbors_small"], tap.calls))
+    say("phase 14 the sketch family at 4 x 25 MB tables: Counttable, "
+        "SmallCounttable, Nodetable, BlockedCounttable and CyclicCounttable "
+        "on data/25k.fq.gz (n_unique %s); a Countgraph under a Nodegraph "
+        "mask of the first %d stamps reads (k-mers %d and %d); four bands "
+        "(k-mers %s) whose table is the full consume's; a band under the "
+        "mask (%d); SmallCountgraph(20, 5e7, 4) on the stamps reads: %s, "
+        "partitions %s, with abundance (2, 14) %s, sweeps of 1,000 reads "
+        "at 81 found %d tags (the JAX answers); walls (s) %s, of which the "
+        "plain versions' checks took %s; S held to plain on %d calls, N's "
+        "nibble mode on %d levels (%d nodes); launches %s; on %s"
+        % ({k: got[k][1] for k in ("Counttable", "SmallCounttable",
+                                   "Nodetable", "BlockedCounttable",
+                                   "CyclicCounttable")},
+           STAMPS_MASK_READS, got["mask unmasked"][0][1],
+           got["mask masked"][0][1], [b[1] for b in got["bands"][:4]],
+           got["band mask"][0][1], got["graph"][:3], got["partition"][0],
+           got["abundance"][0], got["sweep 81"][0],
+           {k: round(v, 6) for k, v in walls.items()},
+           {k: round(v, 6) for k, v in checked.items() if v},
+           checks["consume_filter"].calls, tap.calls, tap.checked,
+           launches, card))
+    say(json.dumps({"phase": "14", "walls_s": walls, "checks_s": checked,
+                    "card": card}))
+    return launches, checks
+
+
+def run_family_scale(torch, SK, B, dev, card, errs, reads, head):
+    """Phase 14b: family_scale_steps on the card at 4 GB of tables a
+    step, the JAX answers (EXPECT_C14["synth"], from JAX's auto engine on
+    the CPU) asserted; every call of S held to its plain version and every
+    8th level of N's nibble mode; each step's wall and the device memory
+    it peaked at. Returns (launches, checks)."""
+    E = EXPECT_C14["synth"]
+    checks = _family_checks(torch, SK, 8, mask_gather=True)
+    tap = checks["nibble_neighbors"]
+    walls, checked, peaks = {}, {}, {}
+
+    def step(name, fn):
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = _timed_step(torch, fn, checks, walls, checked, name)
+        peaks[name] = torch.cuda.max_memory_allocated(dev)
+        return out
+    restore = _install(checks)
+    try:
+        _family_launches(SK, B, zero=True)
+        got = family_scale_steps(PortFamily(dev), reads, head, step)
+        launches = _family_launches(SK, B)
+    finally:
+        restore()
+    torch.cuda.empty_cache()
+    want = {key: E[key] for key in got}
+    expect(got == want, "phase 14b: %s, JAX gives %s" % (got, want))
+    _family_expect("phase 14b", checks, errs)
+    for name in ("consume_filter", "nibble_neighbors", "nibble_update",
+                 "byte_update", "bit_update", "bit_gather"):
+        expect(launches[name] > 0, "phase 14b: %s never launched" % name)
+    say("phase 14b the sketch family at 4 GB of tables on phase 7b's reads: "
+        "Counttable(20, 1e9, 4) n_unique %d, SmallCounttable(20, 2e9, 4) "
+        "%d; Countgraph(20, 1e9, 4) under a Nodegraph(20, 8e9, 4) mask of "
+        "the first %d reads: k-mers %d, n_unique %d; SmallCountgraph(20, "
+        "2e9, 4): %s, abundance (2, 14) partitions %s (the JAX answers); "
+        "walls (s) %s, of which the plain versions' checks took %s; peak "
+        "device memory (GB) %s; S held to plain on %d calls, N's nibble "
+        "mode on %d of %d levels (%d nodes); launches %s; on %s"
+        % (got["Counttable"][1], got["SmallCounttable"][1], TRACED_READS,
+           got["mask"][0][1], got["mask"][1], got["graph"][:3],
+           got["abundance"][0], {k: round(v, 6) for k, v in walls.items()},
+           {k: round(v, 6) for k, v in checked.items() if v},
+           {k: round(v / 1e9, 3) for k, v in peaks.items()},
+           checks["consume_filter"].calls,
+           -(-tap.calls // tap.every), tap.calls, tap.checked, launches,
+           card))
+    say(json.dumps({"phase": "14b", "walls_s": walls, "checks_s": checked,
+                    "peak_bytes": peaks, "card": card}))
+    return launches, checks
+
+
+def _nibble_sectors(torch, SK, primes, hashes):
+    """Distinct 32-byte sectors of the nibble tables of `primes` that the
+    counters of `hashes` (any shape) lie in, every table."""
+    from khmer_tpu_torch.ops.u64 import umod
+
+    h = hashes.reshape(-1)
+    byte = torch.cat([(umod(h, p) + 2 * off) >> 1 for p, off in zip(
+        primes, SK.nibble_offsets(primes))])
+    return int((byte >> 5).unique().numel())
+
+
+def time_consume_filter(torch, SK, card, errs, checks):
+    """S on 14b's largest call (the masked consume's chunk of 2^20 hashes
+    with its mask's counts that keeps the most) against its plain version,
+    beside its bound, torch.masked_select of the same keep mask (the
+    library yardstick) and the host's read of its count (the update takes
+    it as an int: one sync a chunk); the mask's gather on its largest call
+    beside its sector floor. Returns S's kernels-line times."""
+    from khmer_tpu_torch.scripts import cuda_ms, device_ms
+    from khmer_tpu_torch.ops.u64 import umod
+
+    out = {}
+    best = checks["consume_filter"].check.best
+    args, kwargs = best["args"], best["kwargs"]
+    hashes, nvalid, band, counts, threshold, at_least = args
+    n = hashes.shape[0]
+    call = lambda: SK.consume_filter_cuda(*args, **kwargs)
+    plain = lambda: SK.consume_filter_plain(*args, **kwargs)
+    got, want = call(), plain()
+    kept = int(want[1][0])
+    err = abs(int(got[1][0]) - kept) or int(
+        (got[0][:kept] != want[0][:kept]).sum())
+    errs["consume_filter"] = max(errs["consume_filter"], err)
+    expect(err == 0, "phase 14b: S != plain on its largest call")
+    keep = SK.consume_filter_keep(*args, **kwargs)
+    library = lambda: torch.masked_select(hashes, keep)
+    t = {"ms": cuda_ms(call, 50), "plain_ms": cuda_ms(plain, 5),
+         "library_ms": cuda_ms(library, 50)}
+    nbytes = 8 * n + (4 * n if counts is not None else 0) + 8 * kept
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 0)
+    dev_ms = device_ms(call, 50)
+
+    def with_sync():
+        _, c = call()
+        return int(c[0])
+    host_ms = cuda_ms(with_sync, 50)
+    # the mask's gather (L's gather mode on the Nodegraph mask) on its
+    # largest call, beside the sector floor of the mask's bits it reads
+    _, gargs, _ = checks["bit_gather"].largest
+    gprimes, gflat, ghashes = gargs
+    gather = lambda: SK.bit_gather_cuda(gprimes, gflat, ghashes)
+    expect(_max_abs(gather(), SK.bit_gather_plain(*gargs)) == 0,
+           "phase 14b: L's gather mode != plain on the mask's largest call")
+    gsectors = int(torch.cat([(umod(ghashes, p) + 8 * off) >> 8 for p, off
+                              in zip(gprimes, SK.bit_offsets(gprimes))])
+                   .unique().numel())
+    gfloor = gsectors * 32 / PEAK_BYTES_S * 1e3
+    gather_ms, gather_dev = cuda_ms(gather, 50), device_ms(gather, 50)
+    say("  phase 14b S on its largest call (%d hashes, %d kept, band %s, "
+        "mask counts %s): %.4f ms as issued (device %.4f ms), with the "
+        "host's read of its count (the update's int: a sync a chunk) %.4f "
+        "ms; plain %.4f ms; torch.masked_select of the same keep mask %.4f "
+        "ms; bound %.5f ms (%s: 8 B a hash in%s, 8 B a kept hash out); the "
+        "mask's counts, L's gather mode on its largest call (%d hashes "
+        "into %d bit tables of %.3f GB), %.4f ms as issued (device %.4f "
+        "ms), its sector floor %.4f ms (%d distinct 32-B sectors); the "
+        "filter's path (8 B a hash in, 8 B a kept hash out, and the mask's "
+        "sector floor) %.4f ms; == plain; on %s"
+        % (n, kept, band is not None, counts is not None, t["ms"], dev_ms,
+           host_ms, t["plain_ms"], t["library_ms"], t["bound_ms"],
+           t["bound_by"], ", 4 B a count in" if counts is not None else "",
+           ghashes.numel(), len(gprimes), gflat.shape[0] / 1e9, gather_ms,
+           gather_dev, gfloor, gsectors,
+           (8 * n + 8 * kept) / PEAK_BYTES_S * 1e3 + gfloor, card))
+    out["consume_filter"] = t
+    return out
+
+
+def time_neighbor_probe(torch, SK, card, errs, tap, label, layout, what,
+                        plain_fn, cuda_fn, floors_fn):
+    """One layout's mode of N (`what`, on `layout` tables: the wrappers
+    plain_fn(primes, flat, f, r, k, prober) and cuda_fn(..., small)) on the
+    largest level of a phase's walks (`tap`, its level tap) and on its
+    largest below SK.NBR_SMALL_NODES, each in both its modes (staged,
+    small-level) with the walk's band, held to plain and timed hot and cold
+    (each call after a write of 100 MB that flushes L2,
+    pertable_bench.readings), beside its bound and the sector floors that
+    floors_fn(primes, flat, f, r, k) describes. Returns the kernels-line
+    times {"<layout>_neighbors[_small]": its time cold, as issued, on the
+    largest level the walk runs in that mode}."""
+    from khmer_tpu_torch.scripts import cuda_ms
+    from khmer_tpu_torch.scripts import pertable_bench as PB
+
+    out = {}
+    picks = [("largest", tap.largest)]
+    if tap.largest_below is not None \
+            and tap.largest_below[0].shape[0] != tap.largest[0].shape[0]:
+        picks.append(("largest below %d nodes" % SK.NBR_SMALL_NODES,
+                      tap.largest_below))
+    scratch = torch.empty(PB.FLUSH_BYTES, dtype=torch.uint8,
+                          device=tap.largest[0].device)
+    for which, (f, r, prober) in picks:
+        g = prober.graph
+        primes, flat, k = g._primes, g.tables.flat, g.ksize()
+        band = prober.band
+        n = f.shape[0]
+        floors = floors_fn(primes, flat, f, r, k)
+        plain = lambda: plain_fn(primes, flat, f, r, k, prober)
+        want = plain()
+        plain_ms = cuda_ms(plain, 3)
+        for small in (False, True):
+            key = "%s_neighbors%s" % (layout, "_small" if small else "")
+            call = lambda: cuda_fn(primes, flat, f, r, k, prober, small)
+            err = max(_max_abs(a, b) for a, b in _pairs(call(), want))
+            errs[key] = max(errs[key], err)
+            expect(err == 0, "%s: %s (%s) != plain on its %s level"
+                   % (label, what, key, which))
+            m = PB.readings(call, scratch.zero_, 8 * n)
+            t = {"ms": m["cold_ms"], "plain_ms": plain_ms,
+                 "library_ms": None}
+            t["bound_ms"], t["bound_by"] = bound(
+                (16 + (1 if band is None else 2)) * n, 8 * len(primes) * n)
+            walks_mode = small == (n < SK.NBR_SMALL_NODES)
+            say("  %s %s in its %s mode%s on the %s level (%d nodes, %s) "
+                "into %d %s tables of %.3f GB: hot %.4f ms as issued "
+                "(device %.4f ms), cold %.4f ms as issued (device %.4f ms, "
+                "%.3f ns a node), plain %.4f ms, bound %.4f ms (%s); %s; "
+                "== plain; on %s"
+                % (label, what, "small-level" if small else "staged",
+                   " (the walk's)" if walks_mode else "", which, n,
+                   "band %s" % (band,) if band else "presence",
+                   len(primes), layout, flat.shape[0] / 1e9, m["ms"],
+                   m["device_ms"], m["cold_ms"], m["cold_device_ms"],
+                   m["cold_device_ms"] * 1e6 / max(n, 1), plain_ms,
+                   t["bound_ms"], t["bound_by"], floors, card))
+            if walks_mode and key not in out:
+                out[key] = t
+    del scratch
+    return out
+
+
+def time_nibble_neighbors(torch, SK, card, errs, tap, label):
+    """N's nibble mode, as time_neighbor_probe times it, beside the sector
+    floor of every table of every neighbour."""
+    def floors(primes, flat, f, r, k):
+        nf, nr = SK.neighbor_kmers(f, r, k)
+        sectors = _nibble_sectors(torch, SK, primes, SK.umin(nf, nr))
+        return ("sector floor (every table of every neighbour, 32 B a "
+                "distinct sector) %.4f ms (%d sectors)"
+                % (sectors * 32 / PEAK_BYTES_S * 1e3, sectors))
+
+    return time_neighbor_probe(
+        torch, SK, card, errs, tap, label, "nibble", "N's nibble mode",
+        lambda p, fl, f, r, k, pr: SK.nibble_neighbors_plain(
+            p, fl, f, r, k, pr.band),
+        lambda p, fl, f, r, k, pr, small: SK.nibble_neighbors_cuda(
+            p, fl, f, r, k, pr.band, small),
+        floors)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -15,8 +15,10 @@ partition-graph, merge-partitions, annotate-partitions, extract-partitions)
 and the knot pipeline (make-initial-stoptags, find-knots,
 filter-stoptags); the Countgraph's graph half (tagging, neighbours,
 partitioning with and without an abundance band, the perimeter sweep,
-consume_partitioned_fasta), its sequence API and count-median.
-Sketches are made on the card ("cuda") unless the caller names another
+consume_partitioned_fasta), its sequence API and count-median; the
+SmallCountgraph's graph half; the murmur and cyclic tables (Counttable,
+SmallCounttable, Nodetable, BlockedCounttable, CyclicCounttable), and the
+masked and banded consumes of every sketch. Sketches are made on the card ("cuda") unless the caller names another
 device.
 """
 
@@ -31,16 +33,25 @@ _buckets_per_byte = {
     "nodegraph": 8,
 }
 
-from khmer_tpu_torch.core.blocked import BlockedCountgraph  # noqa: E402
+from khmer_tpu_torch.core.blocked import (  # noqa: E402
+    BlockedCountgraph,
+    BlockedCounttable,
+)
 from khmer_tpu_torch.core.hll import HLLCounter  # noqa: E402
 from khmer_tpu_torch.core.oxli_io import (  # noqa: E402
     load_countgraph,
+    load_counttable,
     load_nodegraph,
+    load_nodetable,
 )
 from khmer_tpu_torch.core.sketch import (  # noqa: E402
     Countgraph,
+    Counttable,
+    CyclicCounttable,
     Nodegraph,
+    Nodetable,
     SmallCountgraph,
+    SmallCounttable,
 )
 
 
@@ -78,10 +89,18 @@ def calc_expected_collisions(graph, force=False, max_false_pos=0.2):
 
 __all__ = [
     "BlockedCountgraph",
+    "BlockedCounttable",
     "Countgraph",
+    "Counttable",
+    "CyclicCounttable",
     "HLLCounter",
     "Nodegraph",
+    "Nodetable",
+    "SmallCountgraph",
+    "SmallCounttable",
     "calc_expected_collisions",
     "load_countgraph",
+    "load_counttable",
     "load_nodegraph",
+    "load_nodetable",
 ]

@@ -23,7 +23,8 @@ import torch
 
 from khmer_tpu_torch.core import oxli_io
 from khmer_tpu_torch.core import sketch_kernels as K
-from khmer_tpu_torch.core.sketch import _Sketch, _resolve_device
+from khmer_tpu_torch.core.sketch import (_MurmurMixin, _Sketch,
+                                         _resolve_device)
 from khmer_tpu_torch.ops import cuda
 from khmer_tpu_torch.ops.u64 import mix64, srl, umod
 
@@ -333,12 +334,13 @@ def _blocked_occupied(table):
     return (table[:, :QUART] != 0).sum()
 
 
-class BlockedCountgraph(_Sketch):
-    """Blocked Count-Min with the 2-bit hash (khmer_tpu BlockedCountgraph).
+class _BlockedBase(_Sketch):
+    """Blocked Count-Min of either hash family (khmer_tpu _BlockedBase).
 
     Constructor signature matches Countgraph(k, starting_size, n_tables)
     plus the device: total memory = starting_size * n_tables bytes,
-    arranged as a prime count of 128-byte blocks.
+    arranged as a prime count of 128-byte blocks. Its counts (get and the
+    sequence count ops of _Sketch) come from kernel 2.
     """
 
     storage_kind = "blocked"
@@ -393,21 +395,32 @@ class BlockedCountgraph(_Sketch):
             if len(data) != nblocks * LANES:
                 raise OSError("Unexpected end of k-mer count file")
         table = np.frombuffer(data, np.uint8).reshape(nblocks, LANES)
-        obj = from_numpy_state(ksize, table, 0, 0, device)
+        obj = from_numpy_state(ksize, table, 0, 0, device, cls=cls)
         obj._occupied_offset = occupied - obj._count_nonzero_t0()
         return obj
 
 
+class BlockedCountgraph(_BlockedBase):
+    """Blocked Count-Min with the 2-bit hash (khmer_tpu BlockedCountgraph;
+    its graph half is not ported yet)."""
+
+
+class BlockedCounttable(_MurmurMixin, _BlockedBase):
+    """Blocked Count-Min with the murmur hash (khmer_tpu
+    BlockedCounttable, blocked.py:276)."""
+
+
 def from_numpy_state(ksize, table_u8, n_unique, occupied_offset,
-                     device="cuda"):
-    """A BlockedCountgraph holding the given state: the [nblocks, 128]
-    uint8 table (e.g. ``np.asarray(jax_cg.tables[0])``), the unique
-    count and the loaded-occupancy offset, on `device`."""
+                     device="cuda", cls=None):
+    """A BlockedCountgraph (or a sketch of class `cls`) holding the given
+    state: the [nblocks, 128] uint8 table (e.g.
+    ``np.asarray(jax_cg.tables[0])``), the unique count and the
+    loaded-occupancy offset, on `device`."""
     table = np.ascontiguousarray(table_u8, dtype=np.uint8)
     if table.ndim != 2 or table.shape[1] != LANES:
         raise ValueError("table must be [nblocks, %d] uint8" % LANES)
-    obj = BlockedCountgraph(ksize, 1, 1, primes=(table.shape[0],),
-                            device=_resolve_device(device))
+    obj = (cls or BlockedCountgraph)(ksize, 1, 1, primes=(table.shape[0],),
+                                     device=_resolve_device(device))
     obj.tables[0].copy_(torch.from_numpy(table.copy()))
     obj._n_unique.fill_(int(n_unique))
     obj._occupied_offset = int(occupied_offset)

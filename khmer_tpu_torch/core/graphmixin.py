@@ -11,8 +11,9 @@ Nodegraph or kernel A (sketch_kernels.byte_update, with the bigcount map)
 on a Countgraph, whose per-event new flags come back at one byte a k-mer;
 the spacing pass, sequential over the whole stream, runs on the host in
 C++ (csrc/tag_spacing.cc, ops/host.py). A node's neighbours are probed on
-the card by kernel L (sketch_kernels.neighbors) in bit tables and kernel
-N (sketch_kernels.byte_neighbors) in byte tables, which partitioning and
+the card by kernel L (sketch_kernels.neighbors) in bit tables, kernel N
+(sketch_kernels.byte_neighbors) in byte tables and its nibble mode
+(sketch_kernels.nibble_neighbors) in nibble tables, which partitioning and
 the perimeter sweep (core/partition.py) drive a breadth level at a time,
 as do the knot pipeline's excursions (core/traversal.py), whose
 repartition turns the highly connected k-mers into stop tags. The other
@@ -78,16 +79,17 @@ def dense_hashes(codes, offs, lens, k):
 
 def check_probe_kind(graph):
     """Raise unless the graph's tables have a neighbour probe: kernel L
-    (bit tables) or N (byte tables). A SmallCountgraph's nibble tables
-    have none yet."""
-    if graph.storage_kind not in ("bit", "byte"):
+    (bit tables), N (byte tables) or N's nibble mode (nibble tables). The
+    blocked layout has none yet."""
+    if graph.storage_kind not in ("bit", "byte", "nibble"):
         raise NotImplementedError(
             "the neighbour probe of %s tables (a %s's graph) is not yet "
             "ported" % (graph.storage_kind, type(graph).__name__))
 
 
 class HashgraphMixin:
-    """The graph API mixed into Countgraph and Nodegraph."""
+    """The graph API mixed into Countgraph, SmallCountgraph and
+    Nodegraph."""
 
     @classmethod
     def from_numpy_state(cls, ksize, primes, tables, n_unique,
@@ -386,15 +388,16 @@ class HashgraphMixin:
         """(nf, nr, ncanon, present) numpy arrays [N, 8] for arrays of
         (f, r) k-mers, as JAX's make_neighbors_fn gives them: the
         neighbours rebuilt on the host from (f, r), their presence from
-        kernel L's (N's on a Countgraph) byte a node."""
+        kernel L's byte a node (N's on a Countgraph, N's nibble mode's on
+        a SmallCountgraph)."""
         from khmer_tpu_torch.core import sketch_kernels as K
         from khmer_tpu_torch.core.sketch import _hashes_tensor
 
         check_probe_kind(self)
         f = _hashes_tensor(f_arr, self.device)
         r = _hashes_tensor(r_arr, self.device)
-        probe = (K.byte_neighbors if self.storage_kind == "byte"
-                 else K.neighbors)
+        probe = {"byte": K.byte_neighbors, "nibble": K.nibble_neighbors,
+                 "bit": K.neighbors}[self.storage_kind]
         masks = probe(self._primes, self.tables.flat, f, r,
                       self._ksize).cpu().numpy()
         nf, nr = K.neighbor_kmers(f.cpu(), r.cpu(), self._ksize)

@@ -5,7 +5,8 @@ Ported: the frame shared by every OXLI file (signature, format version,
 gzip-transparent open, header check) and the table files of the ported
 sketches (little-endian):
 
-  Countgraph (.ct):  "OXLI" ver=4 type=1 use_bigcount:u8 ksize:u32
+  Countgraph (.ct), Counttable:
+                     "OXLI" ver=4 type=1 use_bigcount:u8 ksize:u32
                      n_tables:u8 occupied:u64 {tablesize:u64 bins:u8[n]}*
                      n_bigcounts:u64 {hash:u64 count:u16}*
   Nodegraph (.pt):   "OXLI" ver=4 type=2 ksize:u32 n_tables:u8 occupied:u64
@@ -91,8 +92,9 @@ def _check_header(f, expect_type, path, what):
 
 
 def save_sketch(sketch, path):
-    """Save a Countgraph (type 1), Nodegraph (type 2) or SmallCountgraph
-    (type 7) in OXLI v4."""
+    """Save a sketch of the byte (type 1: Countgraph, Counttable,
+    CyclicCounttable), bit (type 2: Nodegraph, Nodetable) or nibble
+    layout (type 7: SmallCountgraph, SmallCounttable) in OXLI v4."""
     kind = sketch.storage_kind
     if kind not in _TYPE_OF_KIND:
         raise ValueError("cannot save storage kind %r" % kind)
@@ -169,6 +171,22 @@ def load_nodegraph(path, device="cuda"):
     from khmer_tpu_torch.core.sketch import Nodegraph
 
     return load_sketch(Nodegraph, path, device)
+
+
+def load_counttable(path, small=False, device="cuda"):
+    """Load a Counttable (type 1), or with `small` a SmallCounttable (type
+    7), onto `device` (JAX oxli_io.py:187)."""
+    from khmer_tpu_torch.core.sketch import Counttable, SmallCounttable
+
+    return load_sketch(SmallCounttable if small else Counttable, path,
+                       device)
+
+
+def load_nodetable(path, device="cuda"):
+    """Load a Nodetable (type 2) onto `device` (JAX oxli_io.py:193)."""
+    from khmer_tpu_torch.core.sketch import Nodetable
+
+    return load_sketch(Nodetable, path, device)
 
 
 CgInfo = collections.namedtuple(

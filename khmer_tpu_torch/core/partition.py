@@ -24,7 +24,8 @@ The walk follows the reference's queue rule, as JAX's native engine
 (KHMER_TPU_ENGINE=auto) does; find_all_tags_plain, the queue walk one node
 at a time in Python, is its plain reference, which only the tests run. On
 a Countgraph the probe is kernel N (csrc/neighbors.cu,
-sketch_kernels.byte_neighbors), which also gives the abundance-truncated
+sketch_kernels.byte_neighbors; on a SmallCountgraph its nibble mode,
+sketch_kernels.nibble_neighbors), which also gives the abundance-truncated
 walk (do_partition_with_abundance) each neighbour's verdict against the
 band; each start's count comes from kernel B with the bigcount map. The
 perimeter sweep (sweep_for_tags) runs a batch of sequences the same way,
@@ -114,7 +115,8 @@ def plain_count(graph):
     """A function of a canonical k-mer to its count in the graph's tables,
     read one table at a time in Python: on a Nodegraph 1 where every
     table's bit is set, else 0; on a Countgraph the least counter, a 255
-    read through the bigcount map where the graph uses one."""
+    read through the bigcount map where the graph uses one; on a
+    SmallCountgraph the least 4-bit counter."""
     from khmer_tpu_torch.core import sketch_kernels as K
 
     flat = graph.tables.flat.cpu().numpy()
@@ -125,6 +127,17 @@ def plain_count(graph):
         def count(c):
             return int(all(flat[(o + c % p) >> 3] >> ((o + c % p) & 7) & 1
                            for p, o in layout))
+        return count
+    if graph.storage_kind == "nibble":
+        layout = [(p, 2 * o) for p, o in zip(primes,
+                                             K.nibble_offsets(primes))]
+
+        def nibble(i):
+            v = int(flat[i >> 1])
+            return v & 0xF if i & 1 else v >> 4
+
+        def count(c):
+            return min(nibble(o + c % p) for p, o in layout)
         return count
     layout = list(zip(primes, K.byte_offsets(primes)))
     big = graph._bigcounts if graph._use_bigcount else {}
@@ -252,10 +265,12 @@ def sweep_for_tags_plain(graph, seq, sweep_range=0, break_on_stop_tags=False,
 
 class _Prober:
     """The neighbour probe of each level of a walk: kernel L on a
-    Nodegraph's bit tables, kernel N on a Countgraph's byte tables. With a
-    band (lo, hi), each level also gives each node's band byte (bit j set
-    iff neighbour j's count lies in [lo, hi]): from kernel N's band mode,
-    with the bigcount map where the graph uses one; on a Nodegraph, whose
+    Nodegraph's bit tables, kernel N on a Countgraph's byte tables, its
+    nibble mode on a SmallCountgraph's nibble tables. With a band (lo,
+    hi), each level also gives each node's band byte (bit j set iff
+    neighbour j's count lies in [lo, hi]): from kernel N's band mode, with
+    the bigcount map where the graph uses one (on 4-bit counts in the
+    nibble mode, which saturate at 15); on a Nodegraph, whose
     present k-mers count 1, the presence byte where the band holds 1, else
     0.
 
@@ -277,7 +292,8 @@ class _Prober:
         self.dev = graph.tables.flat.device
         self.cuda = self.dev.type == "cuda"
         self.band = band
-        self.byte = graph.storage_kind == "byte"
+        self.kind = graph.storage_kind
+        self.byte = self.kind == "byte"
         self.big = None
         if self.byte and band is not None and graph._use_bigcount \
                 and graph._bigcounts:
@@ -287,7 +303,7 @@ class _Prober:
         self._error = None
         if self.cuda:
             self.card = K.LevelProbe(graph._primes, graph.tables.flat,
-                                     graph.ksize(), not self.byte, band,
+                                     graph.ksize(), self.kind, band,
                                      self.big)
             self.probe = self.card.probe
             self.block = self.card.block
@@ -354,6 +370,9 @@ class _Prober:
 
         g = self.graph
         k = g.ksize()
+        if self.kind == "nibble":
+            return _pair(K.nibble_neighbors(g._primes, g.tables.flat, f, r,
+                                            k, self.band))
         if not self.byte:
             masks = K.neighbors(g._primes, g.tables.flat, f, r, k)
             if self.band is None:
@@ -381,6 +400,11 @@ class _Prober:
         if band is None:
             return out.numpy()
         return out.numpy(), down[n:2 * n].numpy()
+
+
+def _pair(out):
+    """A probe's (presence, band) bytes: (presence, None) without a band."""
+    return out if isinstance(out, tuple) else (out, None)
 
 
 class _Staging:

@@ -1,22 +1,27 @@
 """Host->device streaming pipeline — counterpart of
-khmer_tpu/core/pipeline.py for the dense counting path, the abundance
-histogram and the per-read counts (counts_for_records: kernel H's counts
-mode on byte tables, kernel Q on nibble ones).
+khmer_tpu/core/pipeline.py for the dense counting path (with its masked
+and banded variants), the abundance histogram and the per-read counts
+(counts_for_records: kernel H's counts mode on byte tables, kernel Q on
+nibble ones).
 
 Counting: the host packs reads (FlatPacker or the native parser) and
 hashes them into fixed-size chunks of canonical k-mer hashes
-(DenseHasher, native hg_hash_dense*), and each chunk is committed on
-the device by the sketch's update, in stream order. The update is exact
-in stream order, so chunk sizes and tail padding cannot change any
-result: every chunk, the tail included, has the one size DENSE_CHUNK,
-zero-padded and masked by its count of valid hashes. (JAX's tail-size
-ladder only bounded XLA recompiles; PyTorch runs eagerly.)
+(DenseHasher, native hg_hash_dense*, the 2-bit or the murmur family), and
+each chunk is committed on the device by the sketch's update, in stream
+order; a masked or banded consume first compacts each chunk to the
+k-mers that pass its tests (kernel S, sketch_kernels.consume_filter).
+The update is exact in stream order, so chunk sizes and tail padding
+cannot change any result: every chunk, the tail included, has the one
+size DENSE_CHUNK, zero-padded and masked by its count of valid hashes.
+(JAX's tail-size ladder only bounded XLA recompiles; PyTorch runs
+eagerly.)
 
 The unique-k-mer count stays on the device and is read once, at the
-end of the stream. With bigcount on, a Countgraph also reads one count
-per chunk, that of its update's saturation report
-(Countgraph._absorb_saturation), and the report itself when it is not
-empty.
+end of the stream. With bigcount on, a byte-layout sketch also reads one
+count per chunk, that of its update's saturation report
+(_ByteStorage._absorb_saturation), and the report itself when it is not
+empty; a masked or banded consume reads kernel S's count once a chunk
+(the update takes it as an int).
 """
 
 import numpy as np
@@ -117,8 +122,8 @@ class DenseHasher:
 
     def __init__(self, k, hash_family, chunk=DENSE_CHUNK,
                  pack_chunk=FLAT_CHUNK):
-        if hash_family != "twobit":
-            raise NotImplementedError("the %s hash is not yet ported"
+        if hash_family not in hostengine.FAMILIES:
+            raise NotImplementedError("the dense host hash has no %s family"
                                       % hash_family)
         self.k = k
         self.family = hash_family
@@ -189,14 +194,27 @@ def records_from(source):
     return source
 
 
-def consume_seqfile(sketch, source):
+def consume_seqfile(sketch, source, mask=None, threshold=0,
+                    consume_masked=False, num_bands=None, band=None):
     """Count every k-mer of every read; returns (n_reads, n_consumed).
 
-    Mirrors Hashtable::consume_seqfile (src/oxli/hashtable.cc:125-150).
-    A path goes through the native parser; a parser or record iterable
-    goes read by read.
+    Mirrors Hashtable::consume_seqfile and its _with_mask and _banding
+    variants (src/oxli/hashtable.cc:125-274; JAX pipeline.py:553-692). A
+    path goes through the native parser; a parser or record iterable goes
+    read by read. With a band (num_bands, band: compute_band_interval) or
+    a mask sketch, each chunk of host hashes goes through kernel S
+    (sketch_kernels.consume_filter) before the update: a k-mer is counted
+    only if its hash lies in the band and its count in the mask (the
+    mask's gather, the least counter without the bigcount map) is <=
+    threshold, or >= threshold with consume_masked. n_consumed counts the
+    k-mers that pass.
     """
     k = sketch.ksize()
+    band_interval = (H.compute_band_interval(num_bands, band)
+                     if num_bands else None)
+    if mask is not None and mask.device != sketch.device:
+        raise ValueError("the mask must be on %s" % sketch.device)
+    filtered = mask is not None or band_interval is not None
     hasher = DenseHasher(k, sketch.hash_family)
     n_reads = 0
     n_consumed = 0
@@ -204,7 +222,18 @@ def consume_seqfile(sketch, source):
     def commit(items):
         nonlocal n_consumed
         for harr, nvalid in items:
-            sketch._update(_hashes_tensor(harr, sketch.device), nvalid)
+            h = _hashes_tensor(harr, sketch.device)
+            if filtered:
+                h = h[:nvalid]
+                counts = None if mask is None else K._gather_counts(
+                    mask.storage_kind, mask._primes, mask.tables, h)
+                h, kept = K.consume_filter(h, nvalid, band_interval, counts,
+                                           threshold, consume_masked)
+                # the update takes its event count as an int: one read of
+                # the device a chunk
+                nvalid = int(kept[0])
+            if nvalid:
+                sketch._update(h, nvalid)
             n_consumed += nvalid
 
     if isinstance(source, str):
@@ -307,6 +336,9 @@ def counts_for_records(sketch, records, window=COUNTS_WINDOW):
     Q's rows mode hashes the windows from the codes and returns each valid
     window's least counter, a byte a k-mer (JAX's device path:
     make_hash_batch, then _get_fn)."""
+    if sketch.hash_family != "twobit":
+        raise ValueError("counts_for_records reads the 2-bit graphs' tables, "
+                         "not those of the %s hash" % sketch.hash_family)
     if sketch.storage_kind not in ("byte", "nibble"):
         raise ValueError("counts_for_records reads a Countgraph's byte "
                          "tables or a SmallCountgraph's nibble tables, not "
@@ -350,11 +382,12 @@ def _window_counts(sketch, records):
         yield record, counts[i]
 
 
-def hash_batch(codes, lengths, k):
-    """[B, L] codes + [B] lengths -> [B, W] canonical 2-bit hashes and
-    the valid-window mask (khmer_tpu make_hash_batch, twobit family)."""
+def hash_batch(codes, lengths, k, hash_family="twobit"):
+    """[B, L] codes + [B] lengths -> [B, W] canonical hashes of the 2-bit
+    or the murmur family and the valid-window mask (khmer_tpu
+    make_hash_batch)."""
     W = codes.shape[-1] - k + 1
-    canon = H.rolling_hash_windows(codes, k)[0]
+    canon = H.hash_windows(codes, k, hash_family)
     win = torch.arange(W, device=codes.device)[None, :]
     valid = win <= (lengths[:, None].to(torch.int64) - k)
     return canon, valid
@@ -394,7 +427,8 @@ def abundance_distribution(main, source, tracking):
             return
         codes, lengths = batch
         hashes, valid = hash_batch(torch.from_numpy(codes).to(dev),
-                                   torch.from_numpy(lengths).to(dev), k)
+                                   torch.from_numpy(lengths).to(dev), k,
+                                   main.hash_family)
         batch_sat, sat_hash = step(tracking.tables, dist, main.tables,
                                    hashes.reshape(-1), valid.reshape(-1))
         n_sat = n_sat + batch_sat

@@ -31,7 +31,7 @@ import torch
 
 from khmer_tpu_torch.ops import cuda
 from khmer_tpu_torch.ops.hashing import rolling_hash_windows
-from khmer_tpu_torch.ops.u64 import _SIGN, srl, to_signed, umin, umod
+from khmer_tpu_torch.ops.u64 import _SIGN, srl, to_signed, ult, umin, umod
 
 MAX_KCOUNT = 255      # reference: include/oxli/oxli.hh:81
 MAX_BIGCOUNT = 65535  # reference: include/oxli/oxli.hh:82
@@ -555,15 +555,9 @@ def byte_neighbors_plain(primes, flat, f, r, k, band=None, big=None):
 NBR_SMALL_NODES = 1024
 
 
-def byte_neighbors_cuda(primes, flat, f, r, k, band=None, big=None,
-                        small=None):
-    """Kernel N (csrc/neighbors.cu): byte_neighbors_plain on the card, for
-    the joined byte buffer `flat`, in its small-level mode where `small`
-    (None: below NBR_SMALL_NODES nodes), else its staged mode. Counts its
-    launches in ``byte_neighbors_cuda.launches`` (staged) and
-    ``byte_neighbors_cuda.small_launches``."""
-    _check_byte_layout(primes, flat)
-    dev = flat.device
+def _check_nodes(f, r, k, dev):
+    """Raise unless the nodes (f, r) of a probe are contiguous 1-D int64
+    tensors of one length on `dev` and k lies in [1, 32]."""
     for h in (f, r):
         if h.device != dev or h.dtype != torch.int64 or h.dim() != 1 \
                 or not h.is_contiguous():
@@ -573,6 +567,18 @@ def byte_neighbors_cuda(primes, flat, f, r, k, band=None, big=None,
         raise ValueError("f and r differ in length")
     if not 1 <= int(k) <= 32:
         raise ValueError("k %d outside [1, 32]" % k)
+
+
+def byte_neighbors_cuda(primes, flat, f, r, k, band=None, big=None,
+                        small=None):
+    """Kernel N (csrc/neighbors.cu): byte_neighbors_plain on the card, for
+    the joined byte buffer `flat`, in its small-level mode where `small`
+    (None: below NBR_SMALL_NODES nodes), else its staged mode. Counts its
+    launches in ``byte_neighbors_cuda.launches`` (staged) and
+    ``byte_neighbors_cuda.small_launches``."""
+    _check_byte_layout(primes, flat)
+    dev = flat.device
+    _check_nodes(f, r, k, dev)
     n = f.shape[0]
     present = torch.empty(n, dtype=torch.uint8, device=dev)
     if band is None:
@@ -624,38 +630,117 @@ def byte_neighbors(primes, flat, f, r, k, band=None, big=None):
     return byte_neighbors_plain(primes, flat, f, r, k, band, big)
 
 
+def nibble_neighbors_plain(primes, flat, f, r, k, band=None):
+    """Kernel N's nibble mode (plain PyTorch, any device): the presence
+    byte uint8 [N] of the nodes (f[i], r[i]), bit j set iff the least
+    4-bit counter m of neighbour j (neighbor_kmers) over the T nibble
+    tables joined in `flat` is at least 1 (JAX's make_neighbors_fn,
+    nibble kind). With a band (lo, hi), (presence, band byte): bit j of
+    the band byte is set iff max(lo, 1) <= m <= hi (no bigcount; m
+    saturates at 15)."""
+    nf, nr = neighbor_kmers(f, r, k)
+    counts = nibble_gather_plain(primes, flat, umin(nf, nr))
+    present = _pack_bits(counts >= 1)
+    if band is None:
+        return present
+    lo, hi = band
+    return present, _pack_bits((counts >= max(int(lo), 1))
+                               & (counts <= int(hi)))
+
+
+def nibble_neighbors_cuda(primes, flat, f, r, k, band=None, small=None):
+    """Kernel N's nibble mode (csrc/neighbors.cu khmer_nibble_neighbors):
+    nibble_neighbors_plain on the card, for the joined nibble buffer
+    `flat`, in its small-level mode where `small` (None: below
+    NBR_SMALL_NODES nodes), else its staged mode. Counts its launches in
+    ``nibble_neighbors_cuda.launches`` (staged) and
+    ``nibble_neighbors_cuda.small_launches``."""
+    _check_nibble_layout(primes, flat)
+    dev = flat.device
+    _check_nodes(f, r, k, dev)
+    n = f.shape[0]
+    present = torch.empty(n, dtype=torch.uint8, device=dev)
+    if band is None:
+        lo, hi, in_band = 1, MAX_KCOUNT, None
+    else:
+        lo, hi = band
+        in_band = torch.empty(n, dtype=torch.uint8, device=dev)
+    result = present if band is None else (present, in_band)
+    if n == 0:
+        return result
+    primes_arr, offsets_arr = _layout(primes, nibbles=True)
+    if small is None:
+        small = n < NBR_SMALL_NODES
+    err = cuda.library().khmer_nibble_neighbors(
+        flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
+        ctypes.addressof(offsets_arr), f.data_ptr(), r.data_ptr(), n,
+        int(k), *_band_args(lo, hi), present.data_ptr(), _ptr(in_band),
+        int(bool(small)), dev.index, _stream(dev))
+    cuda.check(err, "nibble_neighbors")
+    if small:
+        nibble_neighbors_cuda.small_launches += 1
+    else:
+        nibble_neighbors_cuda.launches += 1
+    return result
+
+
+nibble_neighbors_cuda.launches = 0
+nibble_neighbors_cuda.small_launches = 0
+
+
+def nibble_neighbors(primes, flat, f, r, k, band=None):
+    """Presence bytes of the nodes (f, r) (int64 [N] tensors on the
+    tables' device) in the nibble tables, with a band (presence, band
+    bytes): kernel N's nibble mode on a CUDA buffer, the plain version on
+    a CPU one (see nibble_neighbors_plain)."""
+    if flat.is_cuda:
+        return nibble_neighbors_cuda(primes, flat, f, r, k, band)
+    if flat.device.type != "cpu":
+        raise ValueError("unsupported device %s" % flat.device)
+    return nibble_neighbors_plain(primes, flat, f, r, k, band)
+
+
 class LevelProbe:
     """A walk's probe of its levels on the card (csrc/neighbors.cu
-    khmer_probe_ctx_new): kernel L on the joined bit buffer `flat`
-    (`bits`), else kernel N on the joined byte buffer, k-mers of size k,
-    with a band (lo, hi) and N's bigcount table `big` (bigcount_table)
-    where given; N's small-level mode below NBR_SMALL_NODES nodes. Hand
-    (probe, block, ctx) to ops/host.py _LevelWalk.run: each level then
-    costs one copy up from the context's pinned block, the kernel, one
-    copy back and a stream sync, all in C. count() adds the launches since
-    its last call to the wrappers' counts (neighbors_cuda.launches;
-    byte_neighbors_cuda.launches and .small_launches); stats() gives the
+    khmer_probe_ctx_new), by the tables' `kind`: kernel L on the joined
+    bit buffer `flat` ("bit"), kernel N on the joined byte buffer ("byte")
+    or N's nibble mode on the joined nibble buffer ("nibble"), k-mers of
+    size k, with a band (lo, hi) and N's bigcount table `big`
+    (bigcount_table; byte tables only) where given; N's small-level mode
+    below
+    NBR_SMALL_NODES nodes. Hand (probe, block, ctx) to ops/host.py
+    _LevelWalk.run: each level then costs one copy up from the context's
+    pinned block, the kernel, one copy back and a stream sync, all in C.
+    count() adds the launches since its last call to the wrappers' counts
+    (neighbors_cuda.launches; byte_neighbors_cuda.launches and
+    .small_launches; nibble_neighbors_cuda's likewise); stats() gives the
     context's clocks. close() frees the context."""
 
     STATS = ("launches", "small_launches", "upload_s", "launch_s",
              "copy_back_s", "sync_s")
 
-    def __init__(self, primes, flat, k, bits, band=None, big=None):
-        if bits:
-            _check_bit_args(primes, flat)
-        else:
-            _check_byte_layout(primes, flat)
+    # khmer_probe_ctx_new's layout kinds
+    KINDS = {"byte": 0, "bit": 1, "nibble": 2}
+
+    def __init__(self, primes, flat, k, kind, band=None, big=None):
+        if kind not in self.KINDS:
+            raise ValueError("no probe of %r tables" % (kind,))
+        self.kind = kind
+        {"bit": _check_bit_args, "byte": _check_byte_layout,
+         "nibble": _check_nibble_layout}[kind](primes, flat)
         if not 1 <= int(k) <= 32:
             raise ValueError("k %d outside [1, 32]" % k)
         dev = flat.device
-        big = None if bits or band is None else _big_arg(big, dev)
+        big = None if self.kind != "byte" or band is None \
+            else _big_arg(big, dev)
         keys, values = big or (None, None)
         lo, hi = _band_args(*band) if band is not None else (1, MAX_KCOUNT)
-        primes_arr, offsets_arr = _layout(primes, bits=bits)
+        primes_arr, offsets_arr = _layout(primes, bits=kind == "bit",
+                                          nibbles=kind == "nibble")
         self._lib = cuda.library()
         self.ctx = self._lib.khmer_probe_ctx_new(
             flat.data_ptr(), len(primes), ctypes.addressof(primes_arr),
-            ctypes.addressof(offsets_arr), int(bool(bits)), int(k),
+            ctypes.addressof(offsets_arr), self.KINDS[self.kind], int(k),
             int(band is not None), lo, hi, _ptr(keys), _ptr(values),
             0 if keys is None else keys.shape[0], NBR_SMALL_NODES,
             dev.index, _stream(dev))
@@ -663,10 +748,11 @@ class LevelProbe:
             raise ValueError("khmer_probe_ctx_new refused its arguments")
         # the tensors the context reads
         self._held = (flat, big)
-        self.bits = bool(bits)
         self.probe = ctypes.cast(
-            self._lib.khmer_bit_probe_level if bits
-            else self._lib.khmer_byte_probe_level, ctypes.c_void_p).value
+            {"bit": self._lib.khmer_bit_probe_level,
+             "byte": self._lib.khmer_byte_probe_level,
+             "nibble": self._lib.khmer_nibble_probe_level}[self.kind],
+            ctypes.c_void_p).value
         self.block = ctypes.cast(self._lib.khmer_probe_block,
                                  ctypes.c_void_p).value
         self._counted = (0, 0)
@@ -685,11 +771,13 @@ class LevelProbe:
         now = (int(s["launches"]), int(s["small_launches"]))
         staged, small = (a - b for a, b in zip(now, self._counted))
         self._counted = now
-        if self.bits:
+        if self.kind == "bit":
             neighbors_cuda.launches += staged
-        else:
-            byte_neighbors_cuda.launches += staged
-            byte_neighbors_cuda.small_launches += small
+            return
+        wrapper = (nibble_neighbors_cuda if self.kind == "nibble"
+                   else byte_neighbors_cuda)
+        wrapper.launches += staged
+        wrapper.small_launches += small
 
     def close(self):
         if getattr(self, "ctx", None):
@@ -2948,6 +3036,103 @@ def histogram_add(out, idx):
     if out.device.type != "cpu":
         raise ValueError("unsupported device %s" % out.device)
     return histogram_add_plain(out, idx)
+
+
+# --------------------------------------------------------------------------
+# the consume filter: a chunk's band and mask tests, and its compaction
+# (kernel S)
+# --------------------------------------------------------------------------
+
+# hashes a block of kernel S takes (csrc/consume_filter.cu kTile)
+FILTER_TILE = 2048
+
+
+def consume_filter_keep(hashes, nvalid, band=None, counts=None,
+                        threshold=0, at_least=False):
+    """Kernel S's test (plain PyTorch, any device): bool [n], true where
+    hash i < nvalid lies in the band [lo, hi) (u64 order; None: every
+    hash) and its mask count (int32 [n], from the mask's gather; None: no
+    mask) is <= threshold, or >= threshold where `at_least` (JAX
+    pipeline.py _band_filter and make_mask_filter)."""
+    n = hashes.shape[0]
+    keep = torch.arange(n, device=hashes.device) < int(nvalid)
+    if band is not None:
+        lo, hi = (to_signed(int(v)) for v in band)
+        lo = torch.tensor(lo, dtype=torch.int64, device=hashes.device)
+        hi = torch.tensor(hi, dtype=torch.int64, device=hashes.device)
+        keep &= ~ult(hashes, lo) & ult(hashes, hi)
+    if counts is not None:
+        counts = counts.to(torch.int64)
+        keep &= (counts >= int(threshold)) if at_least \
+            else (counts <= int(threshold))
+    return keep
+
+
+def consume_filter_plain(hashes, nvalid, band=None, counts=None,
+                         threshold=0, at_least=False):
+    """Kernel S (plain PyTorch, any device): (out int64 [n], count int64
+    [1]); out[:count] holds the hashes that consume_filter_keep keeps, in
+    stream order, and zeros follow."""
+    kept = hashes[consume_filter_keep(hashes, nvalid, band, counts,
+                                      threshold, at_least)]
+    out = torch.zeros_like(hashes)
+    out[:kept.shape[0]] = kept
+    return out, torch.tensor([kept.shape[0]], dtype=torch.int64,
+                             device=hashes.device)
+
+
+def consume_filter_cuda(hashes, nvalid, band=None, counts=None,
+                        threshold=0, at_least=False):
+    """Kernel S (csrc/consume_filter.cu): consume_filter_plain on the card
+    (out[count:] is not written). Counts its launches in
+    ``consume_filter_cuda.launches``."""
+    dev = hashes.device
+    if dev.type != "cuda":
+        raise ValueError("the CUDA kernels take CUDA tensors, not %s" % dev)
+    if hashes.dtype != torch.int64 or hashes.dim() != 1 \
+            or not hashes.is_contiguous():
+        raise ValueError("hashes must be a contiguous 1-D int64 tensor")
+    n = hashes.shape[0]
+    if not 0 <= int(nvalid) <= n:
+        raise ValueError("nvalid %d outside [0, %d]" % (nvalid, n))
+    if counts is not None and (counts.device != dev
+                               or counts.dtype != torch.int32
+                               or counts.shape != (n,)
+                               or not counts.is_contiguous()):
+        raise ValueError("counts must be a contiguous int32 [%d] tensor on "
+                         "%s" % (n, dev))
+    out = torch.empty_like(hashes)
+    count = torch.empty(1, dtype=torch.int64, device=dev)
+    totals = torch.empty(max(-(-n // FILTER_TILE), 1), dtype=torch.int64,
+                         device=dev)
+    lo, hi = band if band is not None else (0, 0)
+    err = cuda.library().khmer_consume_filter(
+        hashes.data_ptr(), n, int(nvalid), int(band is not None),
+        to_signed(int(lo)), to_signed(int(hi)), _ptr(counts),
+        _cutoff_arg(threshold, _I32_MAX - 1), int(bool(at_least)),
+        out.data_ptr(), count.data_ptr(), totals.data_ptr(), dev.index,
+        _stream(dev))
+    cuda.check(err, "consume_filter")
+    consume_filter_cuda.launches += 1
+    return out, count
+
+
+consume_filter_cuda.launches = 0
+
+
+def consume_filter(hashes, nvalid, band=None, counts=None, threshold=0,
+                   at_least=False):
+    """The hashes of a chunk that pass its band and mask tests, in stream
+    order: (out int64 [n], count int64 [1]), out[:count] kept (see
+    consume_filter_keep). Kernel S on a CUDA tensor, the plain version on
+    a CPU one."""
+    if hashes.is_cuda:
+        return consume_filter_cuda(hashes, nvalid, band, counts, threshold,
+                                   at_least)
+    if hashes.device.type != "cpu":
+        raise ValueError("unsupported device %s" % hashes.device)
+    return consume_filter_plain(hashes, nvalid, band, counts, threshold,
+                                at_least)
 
 
 def _gather_counts(kind, primes, tables, hashes):

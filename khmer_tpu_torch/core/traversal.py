@@ -13,11 +13,13 @@ queue would.
 
 walk_excursions runs a batch of traversals that way: the host's C++
 (csrc/excursion_walk.cc, ops/host.py ExcursionWalk) walks a level of
-every traversal a pass and kernel L (csrc/neighbors.cu) probes the
-neighbours of all the nodes it kept at once, as the partition walk does
+every traversal a pass and kernel L (csrc/neighbors.cu; N on a
+Countgraph, N's nibble mode on a SmallCountgraph) probes the neighbours
+of all the nodes it kept at once, as the partition walk does
 (core/partition.py). bfs, the queue one node at a time in Python with
-each neighbour's bits read from the tables one by one, is its plain
-reference, which only the tests run.
+each neighbour's count read from the tables one by one
+(partition.plain_count), is its plain reference, which only the tests
+run.
 """
 
 from collections import deque
@@ -42,21 +44,14 @@ def bfs(graph, start_f, start_r, radius, max_count=0):
     (start_f, start_r), one node at a time (JAX bfs, the native engine's
     traverse_from_kmer), skipping the graph's stop tags. Returns (count,
     keeper), keeper the set of kept canonical k-mers."""
-    from khmer_tpu_torch.core import sketch_kernels as K
+    from khmer_tpu_torch.core.partition import plain_count
 
     keeper = set()
     stop_tags = graph.stop_tags
     k = graph.ksize()
     mask = (1 << (2 * k)) - 1
     shift = 2 * k - 2
-    flat = graph.tables.flat.cpu().numpy()
-    layout = [(int(p), 8 * o) for p, o in zip(graph._primes,
-                                              K.bit_offsets(graph._primes))]
-
-    def present(c):
-        return all(flat[(o + c % p) >> 3] >> ((o + c % p) & 7) & 1
-                   for p, o in layout)
-
+    present = plain_count(graph)
     count = 0
     queue = deque([(int(start_f), int(start_r), 0)])
     while queue:
@@ -87,9 +82,9 @@ def bfs(graph, start_f, start_r, radius, max_count=0):
 def walk_excursions(graph, starts_f, starts_r, radius, max_count=0):
     """The traversals of radius `radius` from the k-mers (f, r), skipping
     the graph's stop tags, a breadth level of all of them a pass, each
-    level's nodes probed by kernel L in one launch: an ExcursionWalk that
-    has ended (its counts(), keepers(), evaluate()); the caller closes
-    it."""
+    level's nodes probed in one launch (partition._Prober): an
+    ExcursionWalk that has ended (its counts(), keepers(), evaluate());
+    the caller closes it."""
     from khmer_tpu_torch.core.partition import _Prober, _sorted_tags
     from khmer_tpu_torch.ops.host import ExcursionWalk
 

@@ -87,9 +87,23 @@
 // fails a band with hi < 255 without a lookup, and the bigcount table is
 // searched only by a lane whose least is 255.
 //
+// N's nibble mode replaces the nibble branch of the same XLA function
+// (make_neighbors_fn on a SmallCountgraph, its presence from
+// _gather_counts' nibble branch, sketch_kernels.py:660-668) and its count
+// filter; its plain PyTorch version is sketch_kernels.py
+// nibble_neighbors_plain. The tables are kernel P's 4-bit counters
+// (nibble_update.cu): table t's counter b is the high nibble of byte
+// offset_t + b / 2 for an even b, the low one for an odd b; the layout's
+// offsets are passed in nibbles, so one reduction gives byte and parity,
+// as kernel Q reads them. Presence is the least counter above 0; a band
+// [lo, hi] is tested on the 4-bit count, which saturates at 15 (no
+// bigcount). The mode is the byte mode's two shapes, staged and small,
+// with the counter read from its nibble.
+//
 // The walks' round trip. A level walk (csrc/level_walk.cc kt_level_run)
-// calls khmer_byte_probe_level (N) or khmer_bit_probe_level (L) on a
-// probe context made once a walk (khmer_probe_ctx_new): the layout with
+// calls khmer_byte_probe_level (N), khmer_nibble_probe_level (N's nibble
+// mode) or khmer_bit_probe_level (L) on a probe context made once a walk
+// (khmer_probe_ctx_new): the layout kind, the layout with
 // its reciprocals, the band and the bigcount table, grow-only pinned host
 // and device blocks and the stream. The walk writes each frontier into the
 // pinned block (khmer_probe_block); a level then costs one copy up, the
@@ -192,19 +206,32 @@ bit_gather_kernel(const uint64_t* __restrict__ hashes, int64_t n,
   out[i] = static_cast<int32_t>(present(layout, flat, h));
 }
 
-// Kernel N's counter rule: the least of h's counters over the byte
-// tables, table 0 first, then kGroup tables a stage while the least so far
-// is above 0.
+// h's counter in table t: a byte, or (kNibble) the nibble at the flat
+// nibble index, the high one of its byte for an even index.
+template <bool kNibble>
+__device__ __forceinline__ int counter(const ByteLayout& layout,
+                                       const uint8_t* flat, uint64_t h,
+                                       int t) {
+  const uint64_t b = counter_index(layout, h, t);
+  if (!kNibble) return flat[b];
+  const unsigned v = flat[b >> 1];
+  return static_cast<int>((b & 1) ? v & 0xFu : v >> 4);
+}
+
+// Kernel N's counter rule: the least of h's counters over the tables,
+// table 0 first, then kGroup tables a stage while the least so far is
+// above 0.
+template <bool kNibble>
 __device__ __forceinline__ int least_count(const ByteLayout& layout,
                                            const uint8_t* flat, uint64_t h) {
-  int m = flat[counter_index(layout, h, 0)];
+  int m = counter<kNibble>(layout, flat, h, 0);
   for (int t0 = kFirst; t0 < layout.ntables && m > 0; t0 += kGroup) {
     int v[kGroup];
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) {
       v[g] = kMaxCount;
       if (t0 + g < layout.ntables) {
-        v[g] = flat[counter_index(layout, h, t0 + g)];
+        v[g] = counter<kNibble>(layout, flat, h, t0 + g);
       }
     }
 #pragma unroll
@@ -215,6 +242,7 @@ __device__ __forceinline__ int least_count(const ByteLayout& layout,
 
 // Kernel N: thread 8 i + j tests neighbour j of node i; lane 8 q of each
 // warp writes node q's presence byte and, where asked, its band byte.
+template <bool kNibble>
 __global__ void __launch_bounds__(kThreads)
 byte_neighbors_kernel(const uint64_t* __restrict__ f,
                       const uint64_t* __restrict__ r, int64_t n,
@@ -231,7 +259,7 @@ byte_neighbors_kernel(const uint64_t* __restrict__ f,
   bool in_band = false;
   if (i < n) {
     const uint64_t c = neighbor_canon(f[i], r[i], j, mask, shift);
-    int m = least_count(layout, flat, c);
+    int m = least_count<kNibble>(layout, flat, c);
     present = m > 0;
     if (present && band_out != nullptr) {
       if (m == kMaxCount && nbig > 0) {
@@ -257,7 +285,7 @@ byte_neighbors_kernel(const uint64_t* __restrict__ f,
 // presence byte and, where asked, its band byte.
 constexpr int kSmallThreads = 128;
 
-template <int kLanes>
+template <int kLanes, bool kNibble>
 __global__ void __launch_bounds__(kSmallThreads)
 byte_neighbors_small_kernel(const uint64_t* __restrict__ f,
                             const uint64_t* __restrict__ r, int64_t n,
@@ -283,7 +311,7 @@ byte_neighbors_small_kernel(const uint64_t* __restrict__ f,
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
       const int t = s + q * kSlots;
-      v[q] = t < layout.ntables ? flat[counter_index(layout, c, t)]
+      v[q] = t < layout.ntables ? counter<kNibble>(layout, flat, c, t)
                                 : kMaxCount;
     }
     m = kMaxCount;
@@ -314,8 +342,10 @@ byte_neighbors_small_kernel(const uint64_t* __restrict__ f,
 inline int small_lanes(int ntables) { return ntables >= 3 ? 32 : 8 * ntables; }
 
 // Kernel N on n > 0 nodes in the small-level mode where `small`, else the
-// staged mode; returns the launch's error.
-cudaError_t launch_byte_neighbors(const uint64_t* f, const uint64_t* r,
+// staged mode, on byte tables or (kNibble) nibble tables; returns the
+// launch's error.
+template <bool kNibble>
+cudaError_t launch_neighbors_mode(const uint64_t* f, const uint64_t* r,
                                   int64_t n, int k, const ByteLayout& layout,
                                   const uint8_t* flat, int lo, int hi,
                                   const uint64_t* big_keys,
@@ -325,10 +355,10 @@ cudaError_t launch_byte_neighbors(const uint64_t* f, const uint64_t* r,
   const uint64_t mask = k == 32 ? ~0ULL : (1ULL << (2 * k)) - 1;
   const int shift = 2 * k - 2;
   if (!small) {
-    byte_neighbors_kernel<<<khmer_cuda::grid_for(8 * n), kThreads, 0,
-                            stream>>>(f, r, n, mask, shift, layout, flat, lo,
-                                      hi, big_keys, big_values, nbig, out,
-                                      band_out);
+    byte_neighbors_kernel<kNibble><<<khmer_cuda::grid_for(8 * n), kThreads,
+                                     0, stream>>>(
+        f, r, n, mask, shift, layout, flat, lo, hi, big_keys, big_values,
+        nbig, out, band_out);
     return cudaGetLastError();
   }
   const int lanes = small_lanes(layout.ntables);
@@ -336,28 +366,50 @@ cudaError_t launch_byte_neighbors(const uint64_t* f, const uint64_t* r,
       (n * lanes + kSmallThreads - 1) / kSmallThreads);
   switch (lanes) {
     case 8:
-      byte_neighbors_small_kernel<8><<<grid, kSmallThreads, 0, stream>>>(
-          f, r, n, mask, shift, layout, flat, lo, hi, big_keys, big_values,
-          nbig, out, band_out);
+      byte_neighbors_small_kernel<8, kNibble>
+          <<<grid, kSmallThreads, 0, stream>>>(
+              f, r, n, mask, shift, layout, flat, lo, hi, big_keys,
+              big_values, nbig, out, band_out);
       break;
     case 16:
-      byte_neighbors_small_kernel<16><<<grid, kSmallThreads, 0, stream>>>(
-          f, r, n, mask, shift, layout, flat, lo, hi, big_keys, big_values,
-          nbig, out, band_out);
+      byte_neighbors_small_kernel<16, kNibble>
+          <<<grid, kSmallThreads, 0, stream>>>(
+              f, r, n, mask, shift, layout, flat, lo, hi, big_keys,
+              big_values, nbig, out, band_out);
       break;
     default:
-      byte_neighbors_small_kernel<32><<<grid, kSmallThreads, 0, stream>>>(
-          f, r, n, mask, shift, layout, flat, lo, hi, big_keys, big_values,
-          nbig, out, band_out);
+      byte_neighbors_small_kernel<32, kNibble>
+          <<<grid, kSmallThreads, 0, stream>>>(
+              f, r, n, mask, shift, layout, flat, lo, hi, big_keys,
+              big_values, nbig, out, band_out);
   }
   return cudaGetLastError();
 }
+
+cudaError_t launch_byte_neighbors(const uint64_t* f, const uint64_t* r,
+                                  int64_t n, int k, const ByteLayout& layout,
+                                  const uint8_t* flat, int lo, int hi,
+                                  const uint64_t* big_keys,
+                                  const int32_t* big_values, int64_t nbig,
+                                  uint8_t* out, uint8_t* band_out, bool small,
+                                  bool nibble, cudaStream_t stream) {
+  return nibble
+             ? launch_neighbors_mode<true>(f, r, n, k, layout, flat, lo, hi,
+                                           big_keys, big_values, nbig, out,
+                                           band_out, small, stream)
+             : launch_neighbors_mode<false>(f, r, n, k, layout, flat, lo, hi,
+                                            big_keys, big_values, nbig, out,
+                                            band_out, small, stream);
+}
+
+// The probe context's layout kinds (khmer_probe_ctx_new's `kind`).
+enum LayoutKind { kByteKind = 0, kBitKind = 1, kNibbleKind = 2 };
 
 // A walk's probe context (khmer_probe_ctx_new).
 struct ProbeCtx {
   ByteLayout layout;
   const uint8_t* flat;
-  bool bits;  // L on bit tables, else N on byte tables
+  int kind;  // LayoutKind: L on bit tables, N on byte or nibble tables
   int k;
   bool band;  // a band [lo, hi] was given
   int lo, hi;
@@ -407,13 +459,14 @@ int probe_level(ProbeCtx* c, const uint64_t* fr, int64_t n, uint8_t* masks,
   }
   uint64_t* d_fr = reinterpret_cast<uint64_t*>(c->dev);
   uint8_t* d_out = c->dev + 16 * n;
-  uint8_t* d_band = c->bits || band == nullptr ? nullptr : d_out + n;
+  const bool bits = c->kind == kBitKind;
+  uint8_t* d_band = bits || band == nullptr ? nullptr : d_out + n;
   auto t = std::chrono::steady_clock::now();
   err = cudaMemcpyAsync(d_fr, fr, 16 * n, cudaMemcpyHostToDevice, c->stream);
   if (err != cudaSuccess) return err;
   c->seconds[0] += since(&t);
   int mode = 0;
-  if (c->bits) {
+  if (bits) {
     const uint64_t mask = c->k == 32 ? ~0ULL : (1ULL << (2 * c->k)) - 1;
     neighbors_kernel<<<khmer_cuda::grid_for(8 * n), kThreads, 0,
                        c->stream>>>(d_fr, d_fr + n, n, mask, 2 * c->k - 2,
@@ -423,7 +476,8 @@ int probe_level(ProbeCtx* c, const uint64_t* fr, int64_t n, uint8_t* masks,
     mode = n < c->small_below;
     err = launch_byte_neighbors(d_fr, d_fr + n, n, c->k, c->layout, c->flat,
                                 c->lo, c->hi, c->big_keys, c->big_values,
-                                c->nbig, d_out, d_band, mode, c->stream);
+                                c->nbig, d_out, d_band, mode,
+                                c->kind == kNibbleKind, c->stream);
   }
   if (err != cudaSuccess) return err;
   ++c->launches[mode];
@@ -444,7 +498,7 @@ int probe_level(ProbeCtx* c, const uint64_t* fr, int64_t n, uint8_t* masks,
   err = cudaStreamSynchronize(c->stream);
   c->seconds[3] += since(&t);
   if (err != cudaSuccess) return err;
-  if (c->bits && band != nullptr) {
+  if (bits && band != nullptr) {
     // a Nodegraph's present k-mers count 1
     if (c->lo <= 1 && 1 <= c->hi) {
       std::memcpy(band, masks, n);
@@ -534,19 +588,47 @@ extern "C" int khmer_byte_neighbors(const uint8_t* flat, int ntables,
       reinterpret_cast<const uint64_t*>(f),
       reinterpret_cast<const uint64_t*>(r), n, k, layout, flat, lo, hi,
       static_cast<const uint64_t*>(big_keys), big_values, nbig, out,
-      band_out, small != 0, static_cast<cudaStream_t>(stream));
+      band_out, small != 0, false, static_cast<cudaStream_t>(stream));
 }
 
-// A walk's probe context: kernel N on the byte tables (bits 0; primes and
-// offsets as khmer_byte_neighbors takes them, its small-level mode below
-// small_below nodes) or kernel L on the bit tables (bits 1; offsets in
-// bits), k-mers of size k; with band 1, [lo, hi] (clamped as for
-// khmer_byte_neighbors) and the bigcount table (device, may be null with
-// nbig 0; N only). Launches on `stream`. Null if an argument is out of
-// range. The context owns its pinned and device blocks.
+// Kernel N's nibble mode: khmer_byte_neighbors on the nibble tables
+// (offsets in nibbles, as kernel Q takes them), the band tested on the
+// 4-bit counts; no bigcount table.
+extern "C" int khmer_nibble_neighbors(const uint8_t* flat, int ntables,
+                                      const int64_t* primes,
+                                      const int64_t* offsets,
+                                      const int64_t* f, const int64_t* r,
+                                      int64_t n, int k, int lo, int hi,
+                                      uint8_t* out, uint8_t* band_out,
+                                      int small, int device, void* stream) {
+  using namespace khmer_nbr;
+  ByteLayout layout;
+  if (!khmer_byte::make_layout(ntables, primes, offsets, &layout) || n < 0
+      || k < 1 || k > 32) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n == 0) return cudaSuccess;
+  return launch_byte_neighbors(
+      reinterpret_cast<const uint64_t*>(f),
+      reinterpret_cast<const uint64_t*>(r), n, k, layout, flat, lo, hi,
+      nullptr, nullptr, 0, out, band_out, small != 0, true,
+      static_cast<cudaStream_t>(stream));
+}
+
+// A walk's probe context: by its layout kind, kernel N on the byte tables
+// (kind 0; primes and offsets as khmer_byte_neighbors takes them, its
+// small-level mode below small_below nodes), kernel L on the bit tables
+// (kind 1; offsets in bits) or N's nibble mode on the nibble tables (kind
+// 2; offsets in nibbles), k-mers of size k; with band 1, [lo, hi]
+// (clamped as for khmer_byte_neighbors) and the bigcount table (device,
+// may be null with nbig 0; byte tables only). Launches on `stream`. Null
+// if an argument is out of range. The context owns its pinned and device
+// blocks.
 extern "C" void* khmer_probe_ctx_new(const uint8_t* flat, int ntables,
                                      const int64_t* primes,
-                                     const int64_t* offsets, int bits, int k,
+                                     const int64_t* offsets, int kind, int k,
                                      int band, int lo, int hi,
                                      const void* big_keys,
                                      const int32_t* big_values, int64_t nbig,
@@ -555,13 +637,15 @@ extern "C" void* khmer_probe_ctx_new(const uint8_t* flat, int ntables,
   using namespace khmer_nbr;
   ProbeCtx* c = new ProbeCtx;
   if (!khmer_byte::make_layout(ntables, primes, offsets, &c->layout)
-      || k < 1 || k > 32 || nbig < 0
-      || (nbig > 0 && (big_keys == nullptr || big_values == nullptr))) {
+      || k < 1 || k > 32 || nbig < 0 || kind < kByteKind
+      || kind > kNibbleKind
+      || (nbig > 0 && (kind != kByteKind || big_keys == nullptr
+                       || big_values == nullptr))) {
     delete c;
     return nullptr;
   }
   c->flat = flat;
-  c->bits = bits != 0;
+  c->kind = kind;
   c->k = k;
   c->band = band != 0;
   c->lo = lo;
@@ -614,7 +698,16 @@ extern "C" int khmer_byte_probe_level(void* ctx, const uint64_t* fr,
                                       int64_t n, uint8_t* masks,
                                       uint8_t* band) {
   auto* c = static_cast<khmer_nbr::ProbeCtx*>(ctx);
-  if (c->bits) return cudaErrorInvalidValue;
+  if (c->kind != khmer_nbr::kByteKind) return cudaErrorInvalidValue;
+  return khmer_nbr::probe_level(c, fr, n, masks, band);
+}
+
+// N's nibble mode on a level, as khmer_byte_probe_level.
+extern "C" int khmer_nibble_probe_level(void* ctx, const uint64_t* fr,
+                                        int64_t n, uint8_t* masks,
+                                        uint8_t* band) {
+  auto* c = static_cast<khmer_nbr::ProbeCtx*>(ctx);
+  if (c->kind != khmer_nbr::kNibbleKind) return cudaErrorInvalidValue;
   return khmer_nbr::probe_level(c, fr, n, masks, band);
 }
 
@@ -624,13 +717,13 @@ extern "C" int khmer_bit_probe_level(void* ctx, const uint64_t* fr,
                                      int64_t n, uint8_t* masks,
                                      uint8_t* band) {
   auto* c = static_cast<khmer_nbr::ProbeCtx*>(ctx);
-  if (!c->bits) return cudaErrorInvalidValue;
+  if (c->kind != khmer_nbr::kBitKind) return cudaErrorInvalidValue;
   return khmer_nbr::probe_level(c, fr, n, masks, band);
 }
 
-// The context's counts and clocks: launches (L, or N's staged mode), N's
-// small-mode launches, and host seconds issuing the uploads, the launches
-// and the copies back, and waiting in the syncs.
+// The context's counts and clocks: launches (L, or N's staged mode, byte
+// or nibble), N's small-mode launches, and host seconds issuing the
+// uploads, the launches and the copies back, and waiting in the syncs.
 extern "C" void khmer_probe_ctx_stats(void* ctx, double* out) {
   const auto* c = static_cast<khmer_nbr::ProbeCtx*>(ctx);
   out[0] = static_cast<double>(c->launches[0]);

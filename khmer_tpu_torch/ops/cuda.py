@@ -126,15 +126,25 @@ _ENTRY_POINTS = {
     # big_keys, big_values, nbig, out, band_out, small, device, stream
     "khmer_byte_neighbors": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32,
                              _I32, _P, _P, _I64, _P, _P, _I32, _I32, _P],
+    # hashes, n, nvalid, band, lo, hi, counts, threshold, at_least, out,
+    # count, totals, device, stream
+    "khmer_consume_filter": [_P, _I64, _I64, _I32, _I64, _I64, _P, _I32,
+                             _I32, _P, _P, _P, _I32, _P],
+    # flat, ntables, primes (host), nibble offsets (host), f, r, n, k, lo,
+    # hi, out, band_out, small, device, stream
+    "khmer_nibble_neighbors": [_P, _I32, _P, _P, _P, _P, _I64, _I32, _I32,
+                               _I32, _P, _P, _I32, _I32, _P],
     # ctx, frontier (host), n, masks (host), band (host)
     "khmer_byte_probe_level": [_P, _P, _I64, _P, _P],
+    "khmer_nibble_probe_level": [_P, _P, _I64, _P, _P],
     "khmer_bit_probe_level": [_P, _P, _I64, _P, _P],
 }
 
 # name -> (argtypes, restype) of the entry points that return no error
 # code: a walk's probe context (csrc/neighbors.cu)
 _CONTEXT_POINTS = {
-    # flat, ntables, primes (host), offsets (host), bits, k, band, lo, hi,
+    # flat, ntables, primes (host), offsets (host), kind (0 byte, 1 bit,
+    # 2 nibble), k, band, lo, hi,
     # big_keys, big_values, nbig, small_below, device, stream
     "khmer_probe_ctx_new": ([_P, _I32, _P, _P, _I32, _I32, _I32, _I32, _I32,
                              _P, _P, _I64, _I64, _I32, _P], _P),

@@ -382,3 +382,19 @@ def hash_windows(codes, k: int, hash_family: str):
         return murmur_hash_windows(codes, k)[0]
     else:
         raise ValueError("unknown hash family %r" % hash_family)
+
+
+U64_MAX = 0xFFFFFFFFFFFFFFFF
+
+
+def compute_band_interval(num_bands: int, band: int):
+    """[lo, hi) of band `band` when the u64 hash space is split into
+    `num_bands` equal bands (Python ints; the top band stops below
+    U64_MAX, whose remainder no band holds). Mirrors
+    oxli::compute_band_interval (src/oxli/kmer_hash.cc:261-275)."""
+    if band >= num_bands:
+        raise ValueError(
+            "'band' must be in the interval [0, 'num_bands')"
+            ", %d not in [0, %d)" % (band, num_bands))
+    band_size = U64_MAX // num_bands
+    return band_size * band, band_size * (band + 1)

@@ -77,8 +77,9 @@ def library():
             ("kt_tag_spacing_end", [_P, _I32, _P], None),
             ("fastq_pack", [_P, _I64, _P, _P, _I64, _P, _P], _I64),
             ("fasta_pack", [_P, _I64, _P, _P, _I64, _P, _P], _I64),
-            ("kt_hash_dense", [_P, _I64, _P, _I64, _I32, _P], _I64),
-            ("kt_hash_dense_reads", [_P, _P, _P, _I64, _I32, _P], _I64),
+            ("kt_hash_dense", [_P, _I64, _P, _I64, _I32, _I32, _P], _I64),
+            ("kt_hash_dense_reads", [_P, _P, _P, _I64, _I32, _I32, _P],
+             _I64),
             ("kt_level_pass", [_P, _P], _I64),
             ("kt_level_frontier", [_P, _P], None),
             ("kt_level_run", [_P, _P, _P, _P], _I32),

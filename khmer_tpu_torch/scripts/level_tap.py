@@ -8,11 +8,12 @@ runs it on the card.
 While installed, every core/partition._Prober made on the card runs its
 walk's levels (csrc/level_walk.cc kt_level_run) through a PROBE_FN
 callback that first calls the card's own probe, the C function on the
-prober's context (khmer_byte_probe_level or khmer_bit_probe_level: the
-kernel launches and counts as on the main path), and then, outside the
-probe's time: holds every `every`-th level's bytes to the plain version
-on the same frontier on the card, writes each frontier to a spool file
-for a replay, and keeps the largest on the card. Around each run it adds
+prober's context (khmer_byte_probe_level, khmer_nibble_probe_level or
+khmer_bit_probe_level: the kernel launches and counts as on the main
+path), and then, outside the probe's time: holds every `every`-th
+level's bytes to the plain version on the same frontier on the card,
+writes each frontier to a spool file for a replay, and keeps the largest
+on the card. Around each run it adds
 up the walk's clocks (kt_level_stats) and the context's
 (LevelProbe.stats).
 """
@@ -57,7 +58,7 @@ def add_clocks(totals):
 
 class LevelTap:
     """Taps the probers of one table kind ("bit": kernel L, "byte": kernel
-    N) while installed (install() returns the function that removes it).
+    N, "nibble": N's nibble mode) while installed (install() returns the function that removes it).
     After the walks: sizes (each level's nodes, in order), calls, checked
     (nodes held to plain, at most max_check of a level), err (bytes that
     differ), seconds (host seconds of the checks and the spool), largest
@@ -84,8 +85,8 @@ class LevelTap:
             self._spool = open(self.spool_path, "wb")
 
         def tapped_run(prober, walk):
-            if prober.card is not None and prober.card.bits == (
-                    self.kind == "bit") and not hasattr(prober, "_tap_probe"):
+            if prober.card is not None and prober.card.kind == self.kind \
+                    and not hasattr(prober, "_tap_probe"):
                 prober._tap_probe = host.PROBE_FN(self._level(prober))
                 prober.probe = prober._tap_probe
             return run(prober, walk)
@@ -148,6 +149,10 @@ class LevelTap:
                                      g.ksize())
             lo, hi = prober.band or (1, 1)
             want = (want, want if lo <= 1 <= hi else torch.zeros_like(want))
+        elif self.kind == "nibble":
+            want = K.nibble_neighbors_plain(g._primes, g.tables.flat, f[:m],
+                                            r[:m], g.ksize(), prober.band or
+                                            (1, 15))
         else:
             want = K.byte_neighbors_plain(g._primes, g.tables.flat, f[:m],
                                           r[:m], g.ksize(), prober.band or

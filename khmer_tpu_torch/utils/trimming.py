@@ -33,20 +33,23 @@ def _apply_trim(ksize, record, trim_at):
     return Record(name=record.name, sequence=trim_seq), True
 
 
-def trim_pos_from_counts(counts, ksize, cutoff, seq_len):
-    """First trim position given the per-window count array.
+def trim_pos_from_counts(counts, ksize, cutoff, seq_len, below=False):
+    """First trim position given the per-window count array: at the first
+    window below `cutoff` (`below`: above it, trim_below_abundance).
 
     Mirrors Hashtable::trim_on_abundance (hashtable.cc:504-533):
     sequences with a single window always return 0.
     """
+    import numpy as np
+
     n = len(counts)
     if n == 0:
         return 0
-    if n == 1 or counts[0] < cutoff:
+    counts = np.asarray(counts)
+    bad = (counts > cutoff) if below else (counts < cutoff)
+    if n == 1 or bad[0]:
         return 0
-    import numpy as np
-
-    bad = np.nonzero(counts[1:] < cutoff)[0]
+    bad = np.nonzero(bad[1:])[0]
     if bad.size:
         return int(ksize + bad[0])
     return seq_len

@@ -16,7 +16,7 @@ from khmer_tpu_torch.core import blocked as B
 from khmer_tpu_torch.core import sketch_kernels as K
 from khmer_tpu_torch.core.sketch import Countgraph
 from khmer_tpu_torch.scripts import (countgraph_cases, diginorm_cases,
-                                     graph_cases, nibble_cases,
+                                     family_cases, graph_cases, nibble_cases,
                                      partition_cases, pertable_cases,
                                      trim_cases)
 
@@ -852,4 +852,75 @@ def test_small_count_clis_on_cuda_launch_nibble_kernels(cuda_device,
             assert K.nibble_pertable_cuda.launches > before[2]
             assert K.nibble_pertable_rows_cuda.launches > before[3]
             assert K.nibble_row_counts_cuda.launches > before[4]
+    assert got[str(cuda_device)] == got["cpu"]
+
+
+# -- the sketch family: kernel S and kernel N's nibble mode ------------------
+
+
+@pytest.mark.parametrize("name", list(family_cases.FILTER_CASES))
+def test_consume_filter_matches_plain(cuda_device, name):
+    """Kernel S against consume_filter_plain: the kept hashes in stream
+    order and their count."""
+    before = K.consume_filter_cuda.launches
+    assert family_cases.check_filter_case(name, cuda_device) == 0
+    assert K.consume_filter_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("name", list(family_cases.NIBBLE_NBR_CASES))
+def test_nibble_neighbors_match_plain(cuda_device, name):
+    """Kernel N's nibble mode against nibble_neighbors_plain, in both of
+    its modes, without a band and at every band."""
+    assert family_cases.check_nibble_nbr_case(name, cuda_device) == 0
+
+
+def test_sketch_family_on_cuda_launches_kernels(cuda_device, tmp_path):
+    """The murmur tables' consumes, the masked and banded consumes and a
+    SmallCountgraph's graph give on the card what they give on the CPU,
+    through kernel S and kernel N's nibble mode."""
+    import os
+
+    from khmer_tpu_torch.core.sketch import (Counttable, Nodegraph,
+                                             SmallCountgraph,
+                                             SmallCounttable)
+    from khmer_tpu_torch.io.fastx import FastxParser
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    reads = os.path.join(repo, "data", "stamps-reads.fa.gz")
+    head, first = str(tmp_path / "head.fa"), str(tmp_path / "first.fa")
+    with open(head, "w") as f, open(first, "w") as g:
+        for i, rec in enumerate(FastxParser(reads)):
+            if i == 3000:
+                break
+            f.write(">%s\n%s\n" % (rec.name, rec.sequence))
+            if i < 500:
+                g.write(">%s\n%s\n" % (rec.name, rec.sequence))
+    seqs = [rec.sequence for _, rec in zip(range(50), FastxParser(head))]
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        before = (K.consume_filter_cuda.launches,
+                  K.nibble_neighbors_cuda.launches
+                  + K.nibble_neighbors_cuda.small_launches)
+        out = []
+        mask = Nodegraph(20, 1e5, 4, device=dev)
+        mask.consume_seqfile(first)
+        for cls in (Counttable, SmallCounttable):
+            t = cls(20, 1e5, 4, device=dev)
+            out.append(t.consume_seqfile_with_mask(head, mask, 1, True))
+            out.append(t.consume_seqfile_banding(head, 4, 1))
+            out.append(t.consume_seqfile_banding_with_mask(head, 4, 2, mask))
+            out.append([x.tobytes() for x in t.get_raw_tables()])
+            out.append([t.find_spectral_error_positions(s, 1) for s in seqs])
+        g = SmallCountgraph(20, 1e5, 4, device=dev)
+        out.append(g.consume_seqfile_and_tag(head))
+        for band in (None, (1, 14), (1, 15), (2, 255)):
+            subset = (g.do_subset_partition(0, 0) if band is None
+                      else g.do_subset_partition_with_abundance(*band))
+            out.append({t: subset.get_partition_id(t) for t in g.all_tags})
+        out.append([sorted(g.sweep_tag_neighborhood(s, 40)) for s in seqs])
+        got[str(dev)] = out
+        if dev == cuda_device:
+            assert K.consume_filter_cuda.launches > before[0]
+            assert (K.nibble_neighbors_cuda.launches
+                    + K.nibble_neighbors_cuda.small_launches) > before[1]
     assert got[str(cuda_device)] == got["cpu"]

@@ -339,18 +339,22 @@ def test_small_countgraph_has_no_bigcount():
 
 
 def test_small_countgraph_probe_raises():
-    """The neighbour probe of nibble tables (kernel N's nibble mode) is
-    not ported: every probe raises rather than read the tables as bits."""
-    g = SmallCountgraph(KSIZE, 1e3, 2, device="cpu")
+    """The neighbour probe of nibble tables is kernel N's nibble mode
+    (its plain version here): no probe raises any more, and each reads the
+    4-bit counters as JAX's SmallCountgraph does."""
     seq = "ACGTACGTTGCAGGCTAGCTAGCATCGA"
-    g.consume(seq)
-    for probe in (lambda: g.neighbors(seq[:KSIZE]),
-                  lambda: g.kmer_degree(seq[:KSIZE]),
-                  lambda: g.find_high_degree_nodes(seq),
-                  lambda: g.do_subset_partition(0, 0),
-                  lambda: P._Prober(g)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            probe()
+    g = SmallCountgraph(KSIZE, 1e3, 2, device="cpu")
+    jg = JaxSmallCountgraph(KSIZE, 1e3, 2)
+    for sketch in (g, jg):
+        sketch.consume(seq)
+        sketch.consume(seq[3:])
+    assert sorted(g.neighbors(seq[:KSIZE])) == sorted(
+        jg.neighbors(seq[:KSIZE]))
+    assert g.kmer_degree(seq[:KSIZE]) == jg.kmer_degree(seq[:KSIZE])
+    assert g.find_high_degree_nodes(seq) == jg.find_high_degree_nodes(seq)
+    assert g.do_subset_partition(0, 0).count_partitions() == \
+        jg.do_subset_partition(0, 0).count_partitions()
+    P._Prober(g).close()
 
 
 def test_small_countgraph_tags_as_jax():

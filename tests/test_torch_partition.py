@@ -508,8 +508,9 @@ def test_stamps_partition_matches_reference_pmap(monkeypatch):
                                   "data/stamps-genomes.fa"])
 def test_packer_and_hasher_match_jax(path):
     """The copied parser's blocks and the copied dense hasher's hashes
-    (per block of reads, and per flat chunk with read starts) against the
-    JAX package's native library."""
+    (per block of reads, and per flat chunk with read starts; the murmur
+    family per block) against the JAX package's native library; it has no
+    cyclic family."""
     if not jax_native.available() or not jax_hostengine.available():
         pytest.skip("the JAX package's native library is not built")
     path = os.path.join(REPO, path)
@@ -531,9 +532,15 @@ def test_packer_and_hasher_match_jax(path):
         got = hostengine.hash_dense(codes, starts, fill, k, "twobit")
         want = jax_hostengine.hash_dense(codes, starts, fill, k, "twobit")
         assert (got == want).all()
+    for k in (1, 20, 32):  # the murmur family (the murmur tables)
+        got = hostengine.hash_dense_reads(codes, meta[:, 0], meta[:, 1], k,
+                                          "murmur")
+        want = jax_hostengine.hash_dense_reads(codes, meta[:, 0],
+                                               meta[:, 1], k, "murmur")
+        assert (got == want).all() and len(got) > 0
     with pytest.raises(NotImplementedError):
         hostengine.hash_dense_reads(codes, meta[:, 0], meta[:, 1], 20,
-                                    "murmur")
+                                    "cyclic")
 
 
 def test_port_names_no_jax_library_and_imports_no_jax():

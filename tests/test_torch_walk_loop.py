@@ -322,7 +322,7 @@ def test_level_probe_is_for_the_card():
     it and the plain callback is the tables' device."""
     flat = torch.zeros(K.byte_flat_size([7, 5]), dtype=torch.uint8)
     with pytest.raises(ValueError):
-        K.LevelProbe([7, 5], flat, K_SIZE, False)
+        K.LevelProbe([7, 5], flat, K_SIZE, "byte")
 
 
 def test_walk_loop_modules_import_no_jax():
